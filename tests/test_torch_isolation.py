@@ -1,0 +1,67 @@
+"""The PyTorch port stands alone: no module of trtllm_llama_tpu_torch, nor
+chip_smoke.py, imports JAX or the JAX package, and the port imports and
+generates on the CPU with both made unimportable."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "trtllm_llama_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    files = sorted((ROOT / "trtllm_llama_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    bad = [(f.relative_to(ROOT), m) for f in files
+           for m in _imported_modules(f) if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_port_generates_with_jax_unimportable():
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["trtllm_llama_tpu"] = None
+import torch
+torch.set_num_threads(1)
+from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+from trtllm_llama_tpu_torch.quantization.quantize import init_random_quantized_params
+from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+import chip_smoke
+cfg = ModelConfig.tiny(dtype="float32", quant_mode=QuantMode.use_weight_only())
+sess = GenerationSession(cfg, init_random_quantized_params(cfg, device="cpu"),
+                         EngineConfig(max_input_len=16, max_seq_len=32),
+                         device="cpu")
+out = sess.generate([[5, 6, 7], [8, 9]], sampling=SamplingConfig(end_id=-1),
+                    max_new_tokens=4)
+assert out.output_ids.shape == (2, 4), out.output_ids.shape
+assert not any(m == "jax" or m.startswith(("jax.", "trtllm_llama_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok", out.output_ids.tolist())
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")

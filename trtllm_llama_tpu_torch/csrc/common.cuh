@@ -1,0 +1,60 @@
+// Shared helpers of the port's hand-written Hopper kernels.
+//
+// Every kernel library exposes plain C entry points (loaded with ctypes):
+// each takes raw device pointers, the device index and the CUDA stream as
+// void*, launches on that stream and returns cudaGetLastError() so the
+// Python wrapper can raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tllm {
+
+// Activation dtype codes shared with the Python wrappers (_build.DTYPE_CODES).
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+// Mask value of the reference attention (ops/attention.py NEG_INF): finite,
+// so a fully masked row still softmaxes to finite numbers.
+constexpr float kNegInf = -1e9f;
+// Lowest finite float: the starting running max of an online softmax
+// (exp(kLowest - m) is 0 for any real m).
+constexpr float kLowest = -3.402823466e+38f;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as a dtype cast
+}
+
+// Round a float through T (identity for float).
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+}  // namespace tllm

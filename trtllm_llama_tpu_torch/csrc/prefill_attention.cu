@@ -1,0 +1,164 @@
+// Causal GQA prefill (context-phase) attention.
+//
+// Replaces: trtllm_llama_tpu/ops/pallas/attention.py::prefill_attention_kernel
+// (and, by design, the contract of streaming_prefill_attention_kernel: the
+// K/V loop below is already an online softmax over K/V tiles, so S is not
+// bounded by on-chip memory).
+//
+// Computes, per (b, h, row): scores = (q . k) * sm_scale in f32, masked to
+// cols <= row and cols < seq_lens[b] with the finite NEG_INF of the
+// reference, an f32 softmax, and (p @ v) / sum(p) cast to q's dtype. The
+// K/V head is h / (Hq / Hkv) (GQA).
+//
+// What bounds it on the H100: at the main path's S = 16 it is bytes and
+// launch latency (4 * B*S*H*D*2 bytes is ~0.5 MB at 7B widths); at long S
+// it becomes 4*S^2*H*D flops, which only the tensor cores (wgmma) serve
+// at rate. This first kernel is right rather than fast: one block per
+// (b, h, 16-row q tile), four warps of four rows each; K/V tiles of 32 rows
+// are staged in shared memory as f32 (K padded to D+1 columns so the
+// lane-per-key dot product is free of bank conflicts), tiles past the
+// block's last causal or valid column are skipped, and each row keeps its
+// running max, denominator and D/32 accumulators per lane in registers.
+#include "common.cuh"
+
+using namespace tllm;
+
+namespace {
+
+constexpr int kBQ = 16;      // query rows per block
+constexpr int kBK = 32;      // key rows per staged tile (one per lane)
+constexpr int kWarps = 4;
+constexpr int kRows = kBQ / kWarps;  // query rows per warp
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+    prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const int* __restrict__ seq_lens, T* __restrict__ out,
+                             int S, int Hq, int Hkv, float sm_scale) {
+  constexpr int DL = D / 32;  // head dims per lane
+  __shared__ float qs[kBQ][D];
+  __shared__ float ks[kBK][D + 1];
+  __shared__ float vs[kBK][D];
+
+  const int row0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int len = seq_lens[b];
+
+  for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
+    const int r = i / D, d = i - (i / D) * D, s = row0 + r;
+    qs[r][d] = s < S ? to_f(q[((static_cast<size_t>(b) * S + s) * Hq + h) * D + d])
+                     : 0.f;
+  }
+
+  float m[kRows], l[kRows], acc[kRows][DL];
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    m[rr] = kLowest;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DL; ++i) acc[rr][i] = 0.f;
+  }
+
+  // Columns that can be unmasked for some row of this block. A sequence of
+  // length 0 masks everything; the reference then averages over all S
+  // columns, so stream them all.
+  const int last_row = min(row0 + kBQ, S) - 1;
+  const int n_cols = (len > 0 ? min(last_row, len - 1) : S - 1) + 1;
+
+  for (int c0 = 0; c0 < n_cols; c0 += kBK) {
+    __syncthreads();  // previous tile consumed (first pass: qs written)
+    for (int i = threadIdx.x; i < kBK * D; i += blockDim.x) {
+      const int j = i / D, d = i - (i / D) * D, s = c0 + j;
+      float kv = 0.f, vv = 0.f;
+      if (s < S) {
+        const size_t off = ((static_cast<size_t>(b) * S + s) * Hkv + hk) * D + d;
+        kv = to_f(k[off]);
+        vv = to_f(v[off]);
+      }
+      ks[j][d] = kv;
+      vs[j][d] = vv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int r = warp * kRows + rr;
+      const int row = row0 + r;
+      const int col = c0 + lane;
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) s = fmaf(qs[r][d], ks[lane][d], s);
+      s *= sm_scale;
+      if (!(col <= row && col < len && col < S)) s = kNegInf;
+      const float m_new = fmaxf(m[rr], warp_max(s));
+      const float p = expf(s - m_new);
+      const float alpha = expf(m[rr] - m_new);
+      l[rr] = l[rr] * alpha + warp_sum(p);
+#pragma unroll
+      for (int i = 0; i < DL; ++i) acc[rr][i] *= alpha;
+#pragma unroll 4
+      for (int j = 0; j < kBK; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+#pragma unroll
+        for (int i = 0; i < DL; ++i) acc[rr][i] = fmaf(pj, vs[j][lane + 32 * i], acc[rr][i]);
+      }
+      m[rr] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kRows; ++rr) {
+    const int row = row0 + warp * kRows + rr;
+    if (row >= S) continue;
+    T* o = out + ((static_cast<size_t>(b) * S + row) * Hq + h) * D;
+#pragma unroll
+    for (int i = 0; i < DL; ++i) o[lane + 32 * i] = from_f<T>(acc[rr][i] / l[rr]);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* seq_lens, void* out, int B, int S, int Hq,
+                   int Hkv, float sm_scale, cudaStream_t stream) {
+  const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
+  prefill_attention_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(seq_lens),
+      static_cast<T*>(out), S, Hq, Hkv, sm_scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
+                     const void* seq_lens, void* out, int B, int S, int Hq,
+                     int Hkv, float sm_scale, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch<T, 32>(q, k, v, seq_lens, out, B, S, Hq, Hkv, sm_scale, stream);
+    case 64: return launch<T, 64>(q, k, v, seq_lens, out, B, S, Hq, Hkv, sm_scale, stream);
+    case 128: return launch<T, 128>(q, k, v, seq_lens, out, B, S, Hq, Hkv, sm_scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q [B, S, Hq, D], k/v [B, S, Hkv, D] (dtype), seq_lens [B] int32,
+// out [B, S, Hq, D] (dtype). D in {32, 64, 128}; Hq % Hkv == 0.
+extern "C" int tllm_prefill_attention(const void* q, const void* k,
+                                      const void* v, const void* seq_lens,
+                                      void* out, int dtype, int B, int S,
+                                      int Hq, int Hkv, int D, float sm_scale,
+                                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return launch_d<__nv_bfloat16>(D, q, k, v, seq_lens, out, B, S, Hq, Hkv, sm_scale, s);
+  if (dtype == kF32)
+    return launch_d<float>(D, q, k, v, seq_lens, out, B, S, Hq, Hkv, sm_scale, s);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,144 @@
+"""LLaMA model, PyTorch (the port's `models/llama.py`).
+
+Params are a plain dict mirroring the JAX package's pytree: `embed` [V, D],
+`layers` (each entry stacked [L, ...]: attn_norm, wq/wk/wv or the fused
+wqkv, wo, mlp_norm, w_gate, w_up, w_down; projections are tensors or int8
+`WOQWeight`s), `final_norm` [D], `lm_head` [D, V]. The layer loop is a
+Python loop over the stacked weights; kernels read the layer slice in
+place. The KV cache is the stacked [L, B, H_kv, S_max, D] `KVCache`,
+updated in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import ModelConfig
+from ..ops.attention import (KVCache, fused_decode_attention_at,
+                             prefill_attention, write_kv_prefill_at)
+from ..ops.linear import dense, dense_fused, embedding_lookup
+from ..ops.norm import rms_norm
+from ..ops.rope import apply_rope, rope_tables_for, take_rope
+from ..quantization.tensors import concat_columns
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device) -> KVCache:
+    """Zeroed stacked cache [L, B, H_kv, S_max, D] in the compute dtype,
+    with S_max rounded up to a multiple of 128 rows as in the JAX package
+    (int8 / fp8 caches and their scales are not ported yet)."""
+    if cfg.kv_dtype != cfg.dtype:
+        raise NotImplementedError("int8 / fp8 KV caches are not ported yet")
+    max_len = -(-max_len // 128) * 128
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+                   torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+                   torch.ones(cfg.num_layers, dtype=torch.float32,
+                              device=device))
+
+
+def fuse_qkv_params(params):
+    """Fuse wq/wk/wv into one stacked wqkv projection (exact rewrite).
+    Returns new params; no-op when already fused or not fusable."""
+    lw = params["layers"]
+    if "wqkv" in lw or not all(k in lw for k in ("wq", "wk", "wv")):
+        return params
+    fused = concat_columns([lw["wq"], lw["wk"], lw["wv"]])
+    if fused is None:
+        return params
+    new_lw = {k: v for k, v in lw.items() if k not in ("wq", "wk", "wv")}
+    new_lw["wqkv"] = fused
+    return {**params, "layers": new_lw}
+
+
+def _split_heads(x, n_heads, head_dim):
+    return x.reshape(*x.shape[:-1], n_heads, head_dim)
+
+
+def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin,
+                caches: KVCache, seq_lens, decode: bool):
+    """x: [B, S, D] (prefill) or [B, D] (decode)."""
+    nq_d = cfg.num_heads * cfg.head_dim
+    nkv_d = cfg.num_kv_heads * cfg.head_dim
+    if "wqkv" in lw:
+        # the norm runs inside kernel 1 at decode shapes (dense_fused)
+        qkv = dense_fused(x, lw["wqkv"], layer=layer, norm_w=lw["attn_norm"],
+                          eps=cfg.rms_norm_eps)
+        q = qkv[..., :nq_d]
+        k = qkv[..., nq_d:nq_d + nkv_d]
+        v = qkv[..., nq_d + nkv_d:]
+    else:
+        h = rms_norm(x, lw["attn_norm"][layer], cfg.rms_norm_eps)
+        q = dense(h, lw["wq"], layer=layer)
+        k = dense(h, lw["wk"], layer=layer)
+        v = dense(h, lw["wv"], layer=layer)
+    q = apply_rope(_split_heads(q, cfg.num_heads, cfg.head_dim), cos, sin)
+    k = apply_rope(_split_heads(k, cfg.num_kv_heads, cfg.head_dim), cos, sin)
+    v = _split_heads(v, cfg.num_kv_heads, cfg.head_dim).contiguous()
+    if decode:
+        attn, caches = fused_decode_attention_at(q, k, v, caches, layer,
+                                                 seq_lens)
+    else:
+        caches = write_kv_prefill_at(caches, layer, k, v)
+        attn = prefill_attention(q, k, v, seq_lens)
+    attn = attn.reshape(*attn.shape[:-2], nq_d)
+    out = dense_fused(attn, lw["wo"], layer=layer, resid=x, out_dtype=x.dtype)
+    return out, caches
+
+
+def _mlp_block(cfg: ModelConfig, lw, layer: int, x):
+    if "w_gate_up" in lw:
+        raise NotImplementedError("fused gate/up weights are not ported yet")
+    h = rms_norm(x, lw["mlp_norm"][layer], cfg.rms_norm_eps)
+    g = dense(h, lw["w_gate"], layer=layer)
+    u = dense(h, lw["w_up"], layer=layer)
+    act = torch.nn.functional.silu(g.float()).to(u.dtype) * u
+    return dense_fused(act, lw["w_down"], layer=layer, resid=x,
+                       out_dtype=x.dtype)
+
+
+def _run_layers(cfg: ModelConfig, params, x, cos, sin, caches, seq_lens,
+                decode: bool):
+    lw = params["layers"]
+    for layer in range(cfg.num_layers):
+        x, caches = _attn_block(cfg, lw, layer, x, cos, sin, caches,
+                                seq_lens, decode)
+        x = _mlp_block(cfg, lw, layer, x)
+    return x, caches
+
+
+def _rope(cfg, rope, device):
+    return rope if rope is not None else rope_tables_for(cfg, device=device)
+
+
+def forward_prefill(params, cfg: ModelConfig, input_ids, seq_lens,
+                    caches: KVCache, return_all_logits: bool = False,
+                    rope=None):
+    """Context phase. input_ids: [B, S] left-aligned (padded right),
+    seq_lens [B]. Returns (logits, caches): f32 logits [B, V] at each
+    sequence's last position, or [B, S, V] with return_all_logits.
+    `rope`: optional precomputed (cos, sin) tables (rope_tables_for)."""
+    b, s = input_ids.shape
+    x = embedding_lookup(params["embed"], input_ids, cfg.torch_dtype)
+    cos_t, sin_t = _rope(cfg, rope, x.device)
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    cos, sin = take_rope(cos_t, sin_t, positions)           # [B, S, 1, d]
+    x, caches = _run_layers(cfg, params, x, cos, sin, caches, seq_lens, False)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if return_all_logits:
+        return dense(x, params["lm_head"], torch.float32), caches
+    last = x[torch.arange(b, device=x.device), seq_lens.long() - 1]
+    return dense(last, params["lm_head"], torch.float32), caches
+
+
+def forward_decode(params, cfg: ModelConfig, tokens, positions,
+                   caches: KVCache, rope=None):
+    """Generation phase, one token per sequence. tokens: [B]; positions:
+    [B] write positions (== current lengths). Returns (f32 logits [B, V],
+    caches)."""
+    x = embedding_lookup(params["embed"], tokens, cfg.torch_dtype)   # [B, D]
+    cos_t, sin_t = _rope(cfg, rope, x.device)
+    cos, sin = take_rope(cos_t, sin_t, positions.long())             # [B,1,d]
+    x, caches = _run_layers(cfg, params, x, cos, sin, caches, positions, True)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return dense(x, params["lm_head"], torch.float32), caches

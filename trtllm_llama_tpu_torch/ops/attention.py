@@ -1,0 +1,100 @@
+"""Attention ops: prefill (context) and decode (generation) phases, and the
+stacked KV cache (the port's `ops/attention.py`).
+
+KV cache layout: [L, B, H_kv, S_max, D] per k and v, as in the JAX package.
+The port updates the cache IN PLACE (the JAX functions return a new cache;
+here the returned `KVCache` is the same tensors, written).
+
+Dispatch is by tensor device inside the kernel wrappers: `prefill_attention`
+goes to kernel 2, `fused_decode_attention_at` to kernel 3 at every cache
+length (the JAX package's switch to its DMA kernel at S_max >= 4096 is a
+TPU crossover the port does not copy). `decode_attention` is the plain
+read-only reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .kernels import decode_attention as _decode
+from .kernels import prefill_attention as _prefill
+
+NEG_INF = -1e9
+
+
+class KVCache(NamedTuple):
+    """Stacked cache: k, v [L, B, H_kv, S_max, D]; scale [L] f32 (the int8
+    dequant scale, 1.0 for float caches)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    scale: torch.Tensor
+
+
+def _check_float_cache(cache: KVCache) -> None:
+    if not cache.k.dtype.is_floating_point:
+        raise NotImplementedError("int8 / fp8 KV caches are not ported yet")
+
+
+def write_kv_prefill_at(cache: KVCache, layer: int, k, v) -> KVCache:
+    """Write [B, S, H_kv, D] k/v into layer `layer` at rows [0, S)."""
+    _check_float_cache(cache)
+    s = k.shape[1]
+    cache.k[layer, :, :, :s] = k.transpose(1, 2).to(cache.k.dtype)
+    cache.v[layer, :, :, :s] = v.transpose(1, 2).to(cache.v.dtype)
+    return cache
+
+
+def write_kv_decode_at(cache: KVCache, layer: int, k, v, positions) -> KVCache:
+    """Write one token per sequence: k/v [B, H_kv, D] at positions [B]."""
+    _check_float_cache(cache)
+    bidx = torch.arange(k.shape[0], device=k.device)
+    pos = positions.long()
+    cache.k[layer, bidx, :, pos] = k.to(cache.k.dtype)
+    cache.v[layer, bidx, :, pos] = v.to(cache.v.dtype)
+    return cache
+
+
+def prefill_attention(q, k, v, seq_lens=None, scale: Optional[float] = None,
+                      alibi=None):
+    """Causal self-attention over a prompt. q: [B, S, H_q, D]; k, v:
+    [B, S, H_kv, D]; seq_lens: optional [B] valid lengths (keys at
+    positions >= len are masked). Returns [B, S, H_q, D]."""
+    if alibi is not None:
+        raise NotImplementedError("ALiBi attention is not ported yet")
+    return _prefill.prefill_attention_kernel(q, k, v, seq_lens, scale)
+
+
+def fused_decode_attention_at(q, k_new, v_new, cache: KVCache, layer: int,
+                              positions, scale: Optional[float] = None,
+                              alibi=None):
+    """Decode step for layer `layer`: write k/v_new [B, H_kv, D] at
+    `positions` [B] and attend q [B, H_q, D] over rows <= positions.
+    Returns (attn_out [B, H_q, D], cache)."""
+    if alibi is not None:
+        raise NotImplementedError("ALiBi attention is not ported yet")
+    _check_float_cache(cache)
+    out = _decode.dma_decode_attention(q, k_new, v_new, cache.k, cache.v,
+                                       layer, positions, scale)
+    return out, cache
+
+
+def decode_attention(q, k_cache, v_cache, cache_lens,
+                     scale: Optional[float] = None):
+    """Single-token attention against ONE layer's cache [B, H_kv, S, D]
+    (already written): keys at positions < cache_lens[b]. The probabilities
+    are cast to q's dtype before p @ v, as in the JAX package's XLA path.
+    Returns [B, H_q, D]."""
+    b, hq, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    kt = k_cache.to(q.dtype).repeat_interleave(hq // hkv, dim=1)
+    vt = v_cache.to(q.dtype).repeat_interleave(hq // hkv, dim=1)
+    logits = torch.einsum("bhd,bhsd->bhs", q.float(), kt.float()) * scale
+    mask = torch.arange(s, device=q.device)[None, :] < cache_lens[:, None]
+    logits = torch.where(mask[:, None], logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhs,bhsd->bhd", probs.float(), vt.float())
+    return out.to(q.dtype)

@@ -1,0 +1,108 @@
+"""Kernel 3: decode attention with the in-place KV write
+(csrc/decode_attention.cu).
+
+Replaces `trtllm_llama_tpu/ops/pallas/dma_decode_attention.py::
+dma_decode_attention` (bf16/f32 KV; the int8-KV branch is not ported yet).
+Bound on the H100: the live K/V bytes, 2*B*Hkv*(pos+1)*D*2. Design:
+flash-decoding split-K over only the live 32-row chunks, one block per
+(chunk, kv head, b) covering the GQA group, then a combine launch; the
+block owning pos's chunk is the only writer of row pos and attends it from
+k_new/v_new, so the write never races a reader (see the source's note).
+
+`dma_decode_attention` takes the plain version for CPU tensors and
+launches the kernel for CUDA tensors; `.launches` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e9
+CHUNK = 32      # cache rows per block (kChunk in the source)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"tllm_decode_attention": [_P] * 10 + [_I] * 6 + [_F, _I, _P]}
+_HEAD_DIMS = (32, 64, 128)
+
+
+def dma_decode_attention_plain(q, k_new, v_new, k_cache, v_cache, layer: int,
+                               positions, sm_scale=None):
+    """Plain PyTorch version. Writes k_new/v_new [B, Hkv, D] at row
+    positions[b] of layer `layer` of the caches [L, B, Hkv, S, D] (in
+    place), then attends q [B, Hq, D] over rows <= positions[b] with an f32
+    softmax and f32 p @ v. Returns [B, Hq, D] in q's dtype."""
+    b, hq, d = q.shape
+    hkv, s = k_cache.shape[2], k_cache.shape[3]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    bidx = torch.arange(b, device=q.device)
+    pos = positions.long()
+    k_cache[layer, bidx, :, pos] = k_new.to(k_cache.dtype)
+    v_cache[layer, bidx, :, pos] = v_new.to(v_cache.dtype)
+    rep = hq // hkv
+    kf = k_cache[layer].float().repeat_interleave(rep, dim=1)    # [B,Hq,S,D]
+    vf = v_cache[layer].float().repeat_interleave(rep, dim=1)
+    scores = torch.einsum("bhd,bhsd->bhs", q.float(), kf) * scale
+    mask = torch.arange(s, device=q.device)[None, :] <= pos[:, None]
+    scores = torch.where(mask[:, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bhsd->bhd", probs, vf).to(q.dtype)
+
+
+def dma_decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int,
+                         positions, sm_scale=None):
+    """Decode step of layer `layer`: write the new token's K/V at
+    `positions` [B] (int32) into the stacked caches IN PLACE and attend.
+    q: [B, Hq, D]; k_new, v_new: [B, Hkv, D]; caches [L, B, Hkv, S, D].
+    Returns out [B, Hq, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return dma_decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
+                                          layer, positions, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"dma_decode_attention: unsupported device {q.device}")
+    b, hq, d = q.shape
+    n_layers, _, hkv, s, _ = k_cache.shape
+    dtypes = {t.dtype for t in (q, k_new, v_new, k_cache, v_cache)}
+    if len(dtypes) != 1 or q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"dma_decode_attention: unsupported dtypes {dtypes} "
+                        "(q, new K/V and caches share one of f32/bf16)")
+    if (d not in _HEAD_DIMS or hq % hkv or s % CHUNK
+            or k_cache.shape != (n_layers, b, hkv, s, d)
+            or v_cache.shape != k_cache.shape
+            or k_new.shape != (b, hkv, d) or v_new.shape != k_new.shape
+            or not 0 <= layer < n_layers):
+        raise ValueError(f"dma_decode_attention: shapes q {tuple(q.shape)} "
+                         f"new {tuple(k_new.shape)} cache {tuple(k_cache.shape)}"
+                         f" layer {layer}")
+    positions = positions.to(torch.int32)
+    if (any(t.device != q.device or not t.is_contiguous() for t in
+            (q, k_new, v_new, k_cache, v_cache, positions))
+            or positions.shape != (b,)):
+        raise ValueError("dma_decode_attention: tensors must be contiguous "
+                         "and on one device, positions [B]")
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    lib = _build.load("decode_attention", _SIGNATURES)
+    n_chunks = s // CHUNK
+    out = torch.empty_like(q)
+    part_ml = torch.empty((2, b, hq, n_chunks), device=q.device,
+                          dtype=torch.float32)
+    part_acc = torch.empty((b, hq, n_chunks, d), device=q.device,
+                           dtype=torch.float32)
+    layer_bytes = b * hkv * s * d * k_cache.element_size()
+    err = lib.tllm_decode_attention(
+        _build.ptr(q), _build.ptr(k_new), _build.ptr(v_new),
+        _P(k_cache.data_ptr() + layer * layer_bytes),
+        _P(v_cache.data_ptr() + layer * layer_bytes), _build.ptr(positions),
+        _build.ptr(out), _build.ptr(part_ml[0]), _build.ptr(part_ml[1]),
+        _build.ptr(part_acc), _build.DTYPE_CODES[q.dtype], b, hq, hkv, s, d,
+        float(scale), q.device.index or 0, _build.stream_of(q))
+    _build.check(err, "dma_decode_attention")
+    dma_decode_attention.launches += 1
+    return out
+
+
+dma_decode_attention.launches = 0

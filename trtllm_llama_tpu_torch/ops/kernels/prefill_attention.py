@@ -1,0 +1,85 @@
+"""Kernel 2: causal GQA prefill attention (csrc/prefill_attention.cu).
+
+Replaces `trtllm_llama_tpu/ops/pallas/attention.py::prefill_attention_kernel`.
+Bound on the H100: q/k/v/out bytes at the main path's short prompts, the
+causal 4*S^2*H*D flops at long ones. The first design is one block per
+(b, head, 16-row q tile) with an online softmax over 32-row K/V tiles in
+shared memory; masked tiles past the block's rows or the sequence length
+are skipped (see the source's header note).
+
+`prefill_attention_kernel` takes the plain version for CPU tensors and
+launches the kernel for CUDA tensors; `.launches` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e9
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"tllm_prefill_attention": [_P] * 5 + [_I] * 6 + [_F, _I, _P]}
+_HEAD_DIMS = (32, 64, 128)
+
+
+def prefill_attention_kernel_plain(q, k, v, seq_lens=None, sm_scale=None):
+    """Plain PyTorch version: f32 scores * sm_scale, mask cols <= rows and
+    cols < seq_lens[b], f32 softmax, f32 p @ v, cast to q's dtype."""
+    b, s, hq, d = q.shape
+    rep = hq // k.shape[2]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    qf = q.float().transpose(1, 2)                                # [B,Hq,S,D]
+    kf = k.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale      # [B,Hq,S,S]
+    cols = torch.arange(s, device=q.device)
+    mask = cols[None, :] <= cols[:, None]
+    if seq_lens is not None:
+        mask = mask & (cols[None, None, :] < seq_lens[:, None, None])
+        mask = mask[:, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs, vf).to(q.dtype).transpose(1, 2)
+
+
+def prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None):
+    """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D]; seq_lens: optional [B] int32
+    valid lengths. Returns [B, S, Hq, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return prefill_attention_kernel_plain(q, k, v, seq_lens, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"prefill_attention_kernel: unsupported device {q.device}")
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if (q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype
+            or v.dtype != q.dtype):
+        raise TypeError(f"prefill_attention_kernel: unsupported dtypes "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if (d not in _HEAD_DIMS or hq % hkv or k.shape != (b, s, hkv, d)
+            or v.shape != k.shape):
+        raise ValueError(f"prefill_attention_kernel: shapes q {tuple(q.shape)}"
+                         f" k {tuple(k.shape)} v {tuple(v.shape)}")
+    if seq_lens is None:
+        seq_lens = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    seq_lens = seq_lens.to(torch.int32)
+    if (any(t.device != q.device or not t.is_contiguous()
+            for t in (q, k, v, seq_lens)) or seq_lens.shape != (b,)):
+        raise ValueError("prefill_attention_kernel: tensors must be "
+                         "contiguous and on one device, seq_lens [B]")
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    lib = _build.load("prefill_attention", _SIGNATURES)
+    out = torch.empty_like(q)
+    err = lib.tllm_prefill_attention(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(seq_lens),
+        _build.ptr(out), _build.DTYPE_CODES[q.dtype], b, s, hq, hkv, d,
+        float(scale), q.device.index or 0, _build.stream_of(q))
+    _build.check(err, "prefill_attention_kernel")
+    prefill_attention_kernel.launches += 1
+    return out
+
+
+prefill_attention_kernel.launches = 0

@@ -1,0 +1,73 @@
+"""Linear ops with quantized-weight dispatch (the port's `ops/linear.py`).
+
+`dense` dispatches on the weight container: a plain tensor goes to
+`torch.matmul` (a stock product, as the JAX package leaves it to XLA), an
+int8 `WOQWeight` to kernel 1 (`ops/kernels/woq_matmul.py`), which itself
+takes its plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..quantization.tensors import WOQWeight
+from .kernels import woq_matmul as _woq
+from .norm import rms_norm
+
+# Row count up to which dense_fused runs the norm prologue / residual
+# epilogue inside kernel 1 (the JAX registry's fuse_decode_max_rows).
+FUSE_MAX_ROWS = 16
+
+
+def dense(x, w, out_dtype=None, layer=None):
+    """y = x @ w. x: [..., K]; w: [K, N] tensor or WOQWeight, or stacked
+    [L, ...] with `layer` selecting the slice (the kernel reads the stacked
+    weight in place). Returns [..., N] in out_dtype (default x's dtype)."""
+    out_dtype = out_dtype or x.dtype
+    if isinstance(w, WOQWeight):
+        return _dense_woq(x, w, out_dtype, layer)
+    if layer is not None:
+        w = w[layer]
+    # f32 products of the compute-dtype operands, f32 sum, one final cast:
+    # the JAX package's dot(..., preferred_element_type=f32).astype(out)
+    y = torch.matmul(x.float(), w.to(x.dtype).float())
+    return y.to(out_dtype)
+
+
+def _dense_woq(x, w: WOQWeight, out_dtype=None, layer=None):
+    out_dtype = out_dtype or x.dtype
+    if layer is None:
+        w = WOQWeight(w.qweight[None], w.scale[None], w.w_bits, w.group_size,
+                      w.pack_block)
+        layer = 0
+    return _woq.woq_matmul_stacked(x, w, layer).to(out_dtype)
+
+
+def dense_fused(x, w, layer=None, out_dtype=None, *, norm_w=None,
+                eps: float = 1e-6, resid=None):
+    """out = [resid +] dense(rms_norm(x, norm_w[layer]) | x, w).
+
+    At up to FUSE_MAX_ROWS rows with a stacked WOQ weight the norm prologue
+    and residual epilogue run inside kernel 1; otherwise the plain ops are
+    composed in the same rounding order (norm cast to x's dtype before the
+    matmul, matmul cast before the residual add)."""
+    rows = x.numel() // x.shape[-1]
+    fusible = (layer is not None and rows <= FUSE_MAX_ROWS
+               and (norm_w is not None or resid is not None))
+    if fusible and isinstance(w, WOQWeight):
+        y = _woq.woq_matmul_stacked(x, w, layer, norm_w=norm_w, eps=eps,
+                                    resid=resid)
+        return y.to(out_dtype or x.dtype)
+    if norm_w is not None:
+        nw = norm_w[layer] if layer is not None and norm_w.dim() > 1 else norm_w
+        h = rms_norm(x, nw, eps)
+    else:
+        h = x
+    y = dense(h, w, out_dtype, layer)
+    return (resid + y).to(y.dtype) if resid is not None else y
+
+
+def embedding_lookup(table, ids, out_dtype=None):
+    """Embedding gather."""
+    out = table[ids.long()]
+    return out.to(out_dtype) if out_dtype else out
