@@ -133,10 +133,10 @@ def test_cache_writes_match_jax():
 
 def test_unported_attention_options_raise():
     q, kn, vn, kc, vc, pos = _decode_inputs(4, 4, 64)
-    int8_cache = attention.KVCache(_t(kc).to(torch.int8), _t(vc).to(torch.int8),
-                                   torch.ones(2))
+    fp8_cache = attention.KVCache(_t(kc).to(torch.uint8), _t(vc).to(torch.uint8),
+                                  torch.ones(2))
     with pytest.raises(NotImplementedError):
-        attention.fused_decode_attention_at(_t(q), _t(kn), _t(vn), int8_cache,
+        attention.fused_decode_attention_at(_t(q), _t(kn), _t(vn), fp8_cache,
                                             0, _t(pos))
     with pytest.raises(NotImplementedError):
         attention.prefill_attention(_t(q)[:, None], _t(kn)[:, None],

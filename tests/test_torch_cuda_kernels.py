@@ -7,7 +7,11 @@ one (which need not have JAX), run:
 
 Tolerances: f32 outputs differ from the plain versions only in summation
 order (rtol/atol 1e-5); bf16 outputs by at most a rounding step at the
-final cast (2**-7 relative to the largest magnitude).
+final cast (2**-7 relative to the largest magnitude). The W8A8 kernel is
+exact against its plain version (int32 sums, the same f32 epilogue);
+rmsnorm_quant's scales agree to 1e-6 relative and its codes within one
+step (the row's sum of squares is taken in another order); int8 KV caches
+are bit-identical to the plain write.
 """
 
 import numpy as np
@@ -16,6 +20,8 @@ import torch
 
 from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
 from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+from trtllm_llama_tpu_torch.ops.kernels import rmsnorm_quant as rnq
+from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
 from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
 from trtllm_llama_tpu_torch.quantization.tensors import WOQWeight
 
@@ -95,6 +101,92 @@ def test_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
 
 
+@pytest.mark.parametrize("d", [128, 1000, 4096])
+@pytest.mark.parametrize("m", [1, 3, 64])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_quant_kernel_matches_plain(dev, dtype, m, d):
+    g = torch.Generator(device=dev).manual_seed(m + d)
+    x = (3 * torch.randn((m, d), generator=g, device=dev)).to(dtype)
+    w = (1 + 0.3 * torch.randn((d,), generator=g, device=dev)).to(dtype)
+    before = rnq.rmsnorm_quant.launches
+    q, s = rnq.rmsnorm_quant(x, w)
+    assert rnq.rmsnorm_quant.launches == before + 1
+    q_ref, s_ref = rnq.rmsnorm_quant_plain(x, w)
+    assert q.dtype == torch.int8 and s.shape == (m, 1)
+    torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
+    assert (q.int() - q_ref.int()).abs().max().item() <= 1
+
+
+@pytest.mark.parametrize("scales", ["token/channel", "token/tensor",
+                                    "static/channel"])
+@pytest.mark.parametrize("m", [1, 3, 16, 40])
+def test_w8a8_kernel_matches_plain(dev, m, scales):
+    g = torch.Generator(device=dev).manual_seed(m)
+    n_layers, k, n = 3, 1000, 784      # ragged K tile and column block
+    x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                        dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (n_layers, k, n), generator=g, device=dev,
+                        dtype=torch.int8)
+    s_x = (torch.rand((m, 1), generator=g, device=dev) * 0.05
+           if scales.startswith("token") else torch.tensor(0.02, device=dev))
+    s_w = torch.rand((n_layers, n if scales.endswith("channel") else 1),
+                     generator=g, device=dev) * 1e-3
+    before = w8a8.w8a8_matmul_stacked.launches
+    got = w8a8.w8a8_matmul_stacked(x_q, w_q, s_x, s_w, 2)
+    assert w8a8.w8a8_matmul_stacked.launches == before + 1
+    ref = w8a8.w8a8_matmul_stacked_plain(x_q, w_q, s_x, s_w, 2)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+    got2d = w8a8.w8a8_matmul(x_q, w_q[1], s_x, s_w[1])
+    ref2d = w8a8.w8a8_matmul_stacked_plain(x_q, w_q, s_x, s_w, 1)
+    torch.testing.assert_close(got2d, ref2d, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_int8_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
+    g = torch.Generator(device=dev).manual_seed(d + hq)
+    n_layers, b, s = 2, 4, 128
+    kc = torch.randint(-127, 128, (n_layers, b, hkv, s, d), generator=g,
+                       device=dev, dtype=torch.int8)
+    vc = torch.randint(-127, 128, kc.shape, generator=g, device=dev,
+                       dtype=torch.int8)
+    kv_scale = torch.tensor([0.05, 0.021], device=dev)
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
+    kn = (4 * torch.randn((b, hkv, d), generator=g, device=dev)).to(dtype)
+    vn = (4 * torch.randn((b, hkv, d), generator=g, device=dev)).to(dtype)
+    pos = torch.tensor([0, 31, 32, 127], dtype=torch.int32, device=dev)
+    kc2, vc2 = kc.clone(), vc.clone()
+    got = da.dma_decode_attention(q, kn, vn, kc, vc, 1, pos, kv_scale=kv_scale)
+    ref = da.dma_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos,
+                                        kv_scale=kv_scale)
+    _assert_close(got, ref, dtype)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+def test_tiny_sq_int8kv_generate_on_cuda_matches_cpu(dev):
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.quantization.quantize import (
+        init_random_quantized_params,
+    )
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    mode = (QuantMode.use_smooth_quant(per_token=True, per_channel=True)
+            | QuantMode.INT8_KV_CACHE)
+    cfg = ModelConfig.tiny(dtype="float32", quant_mode=mode)
+    params = init_random_quantized_params(cfg, seed=0, device="cpu")
+    prompts = [[5, 17, 99, 3, 250, 8], [200, 4, 66]]
+    outs = []
+    for device in ("cpu", "cuda"):
+        sess = GenerationSession(cfg, params, EngineConfig(
+            max_input_len=16, max_seq_len=48), kv_scales=[0.05, 0.05],
+            device=device)
+        outs.append(sess.generate(prompts, sampling=SamplingConfig(end_id=-1),
+                                  max_new_tokens=10).output_ids)
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
 def test_tiny_generate_on_cuda_matches_cpu(dev):
     from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
     from trtllm_llama_tpu_torch.quantization.quantize import (
@@ -124,3 +216,15 @@ def test_wrappers_reject_bad_inputs(dev):
     q = torch.ones((1, 8, 2, 48), device=dev)     # head dim 48
     with pytest.raises(ValueError):
         pa.prefill_attention_kernel(q, q, q)
+    x_q = torch.zeros((1, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):               # N % 16 != 0
+        w8a8.w8a8_matmul(x_q, w.qweight[0], torch.ones(1, device=dev),
+                         torch.ones(24, device=dev))
+    with pytest.raises(TypeError):                # weight dtype != x dtype
+        rnq.rmsnorm_quant(torch.ones((1, 64), device=dev),
+                          torch.ones(64, device=dev, dtype=torch.bfloat16))
+    cache = torch.zeros((1, 1, 2, 32, 32), dtype=torch.int8, device=dev)
+    new = torch.ones((1, 2, 32), device=dev)
+    with pytest.raises(ValueError):               # int8 cache, no kv_scale
+        da.dma_decode_attention(new, new, new, cache, cache.clone(), 0,
+                                torch.zeros(1, dtype=torch.int32, device=dev))

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of trtllm_llama_tpu_torch, nor
 chip_smoke.py, imports JAX or the JAX package, and the port imports and
-generates on the CPU with both made unimportable."""
+generates on the CPU (int8 weight-only, and SmoothQuant with an int8 KV
+cache) with both made unimportable."""
 
 import ast
 import subprocess
@@ -54,6 +55,14 @@ cfg = ModelConfig.tiny(dtype="float32", quant_mode=QuantMode.use_weight_only())
 sess = GenerationSession(cfg, init_random_quantized_params(cfg, device="cpu"),
                          EngineConfig(max_input_len=16, max_seq_len=32),
                          device="cpu")
+out = sess.generate([[5, 6, 7], [8, 9]], sampling=SamplingConfig(end_id=-1),
+                    max_new_tokens=4)
+assert out.output_ids.shape == (2, 4), out.output_ids.shape
+sq = ModelConfig.tiny(dtype="float32", quant_mode=QuantMode.use_smooth_quant(
+    per_token=True, per_channel=True) | QuantMode.INT8_KV_CACHE)
+sess = GenerationSession(sq, init_random_quantized_params(sq, device="cpu"),
+                         EngineConfig(max_input_len=16, max_seq_len=32),
+                         kv_scales=[0.05, 0.05], device="cpu")
 out = sess.generate([[5, 6, 7], [8, 9]], sampling=SamplingConfig(end_id=-1),
                     max_new_tokens=4)
 assert out.output_ids.shape == (2, 4), out.output_ids.shape

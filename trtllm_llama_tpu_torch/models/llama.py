@@ -2,39 +2,44 @@
 
 Params are a plain dict mirroring the JAX package's pytree: `embed` [V, D],
 `layers` (each entry stacked [L, ...]: attn_norm, wq/wk/wv or the fused
-wqkv, wo, mlp_norm, w_gate, w_up, w_down; projections are tensors or int8
-`WOQWeight`s), `final_norm` [D], `lm_head` [D, V]. The layer loop is a
-Python loop over the stacked weights; kernels read the layer slice in
-place. The KV cache is the stacked [L, B, H_kv, S_max, D] `KVCache`,
-updated in place.
+wqkv, wo, mlp_norm, w_gate, w_up, w_down; projections are tensors, int8
+`WOQWeight`s or SmoothQuant `SQWeight`s), `final_norm` [D], `lm_head`
+[D, V]. The layer loop is a Python loop over the stacked weights; kernels
+read the layer slice in place. The KV cache is the stacked
+[L, B, H_kv, S_max, D] `KVCache` (compute dtype, or int8 with per-layer
+scales), updated in place.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import ModelConfig
+from ..config import ModelConfig, str_dtype_to_torch
 from ..ops.attention import (KVCache, fused_decode_attention_at,
                              prefill_attention, write_kv_prefill_at)
-from ..ops.linear import dense, dense_fused, embedding_lookup
-from ..ops.norm import rms_norm
+from ..ops.linear import dense, dense_fused, dense_prequant, embedding_lookup
+from ..ops.norm import rms_norm, rms_norm_quant
 from ..ops.rope import apply_rope, rope_tables_for, take_rope
-from ..quantization.tensors import concat_columns
+from ..quantization.tensors import SQWeight, concat_columns
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device) -> KVCache:
-    """Zeroed stacked cache [L, B, H_kv, S_max, D] in the compute dtype,
-    with S_max rounded up to a multiple of 128 rows as in the JAX package
-    (int8 / fp8 caches and their scales are not ported yet)."""
-    if cfg.kv_dtype != cfg.dtype:
-        raise NotImplementedError("int8 / fp8 KV caches are not ported yet")
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
+                kv_scales=None) -> KVCache:
+    """Zeroed stacked cache [L, B, H_kv, S_max, D] in `cfg.kv_dtype` (the
+    compute dtype, or int8 with INT8_KV_CACHE; fp8 is not ported yet),
+    with S_max rounded up to a multiple of 128 rows as in the JAX package.
+    kv_scales: optional [L] int8-KV dequant scales (default 1.0)."""
+    if cfg.kv_dtype == "fp8":
+        raise NotImplementedError("fp8 KV caches are not ported yet")
+    kv_dtype = str_dtype_to_torch(cfg.kv_dtype)
     max_len = -(-max_len // 128) * 128
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    return KVCache(torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-                   torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-                   torch.ones(cfg.num_layers, dtype=torch.float32,
-                              device=device))
+    if kv_scales is None:
+        scale = torch.ones(cfg.num_layers, dtype=torch.float32, device=device)
+    else:
+        scale = torch.as_tensor(kv_scales, dtype=torch.float32, device=device)
+    return KVCache(torch.zeros(shape, dtype=kv_dtype, device=device),
+                   torch.zeros(shape, dtype=kv_dtype, device=device), scale)
 
 
 def fuse_qkv_params(params):
@@ -55,23 +60,40 @@ def _split_heads(x, n_heads, head_dim):
     return x.reshape(*x.shape[:-1], n_heads, head_dim)
 
 
+def _sq_per_token(w) -> bool:
+    return isinstance(w, SQWeight) and w.per_token
+
+
 def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin,
                 caches: KVCache, seq_lens, decode: bool):
     """x: [B, S, D] (prefill) or [B, D] (decode)."""
     nq_d = cfg.num_heads * cfg.head_dim
     nkv_d = cfg.num_kv_heads * cfg.head_dim
-    if "wqkv" in lw:
+    fused = "wqkv" in lw
+    if _sq_per_token(lw["wqkv"] if fused else lw["wq"]):
+        # RMSNorm -> int8 with per-token scales once (kernel 4), fanned out
+        # to the q/k/v projections (kernel 5)
+        h_q, h_s = rms_norm_quant(x, lw["attn_norm"][layer], cfg.rms_norm_eps)
+
+        def proj(w):
+            return dense_prequant(h_q, h_s, w, cfg.torch_dtype, layer)
+    elif fused:
         # the norm runs inside kernel 1 at decode shapes (dense_fused)
-        qkv = dense_fused(x, lw["wqkv"], layer=layer, norm_w=lw["attn_norm"],
-                          eps=cfg.rms_norm_eps)
+        def proj(w):
+            return dense_fused(x, w, layer=layer, norm_w=lw["attn_norm"],
+                               eps=cfg.rms_norm_eps)
+    else:
+        h = rms_norm(x, lw["attn_norm"][layer], cfg.rms_norm_eps)
+
+        def proj(w):
+            return dense(h, w, layer=layer)
+    if fused:
+        qkv = proj(lw["wqkv"])
         q = qkv[..., :nq_d]
         k = qkv[..., nq_d:nq_d + nkv_d]
         v = qkv[..., nq_d + nkv_d:]
     else:
-        h = rms_norm(x, lw["attn_norm"][layer], cfg.rms_norm_eps)
-        q = dense(h, lw["wq"], layer=layer)
-        k = dense(h, lw["wk"], layer=layer)
-        v = dense(h, lw["wv"], layer=layer)
+        q, k, v = proj(lw["wq"]), proj(lw["wk"]), proj(lw["wv"])
     q = apply_rope(_split_heads(q, cfg.num_heads, cfg.head_dim), cos, sin)
     k = apply_rope(_split_heads(k, cfg.num_kv_heads, cfg.head_dim), cos, sin)
     v = _split_heads(v, cfg.num_kv_heads, cfg.head_dim).contiguous()
@@ -89,9 +111,14 @@ def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin,
 def _mlp_block(cfg: ModelConfig, lw, layer: int, x):
     if "w_gate_up" in lw:
         raise NotImplementedError("fused gate/up weights are not ported yet")
-    h = rms_norm(x, lw["mlp_norm"][layer], cfg.rms_norm_eps)
-    g = dense(h, lw["w_gate"], layer=layer)
-    u = dense(h, lw["w_up"], layer=layer)
+    if _sq_per_token(lw["w_gate"]):
+        h_q, h_s = rms_norm_quant(x, lw["mlp_norm"][layer], cfg.rms_norm_eps)
+        g = dense_prequant(h_q, h_s, lw["w_gate"], cfg.torch_dtype, layer)
+        u = dense_prequant(h_q, h_s, lw["w_up"], cfg.torch_dtype, layer)
+    else:
+        h = rms_norm(x, lw["mlp_norm"][layer], cfg.rms_norm_eps)
+        g = dense(h, lw["w_gate"], layer=layer)
+        u = dense(h, lw["w_up"], layer=layer)
     act = torch.nn.functional.silu(g.float()).to(u.dtype) * u
     return dense_fused(act, lw["w_down"], layer=layer, resid=x,
                        out_dtype=x.dtype)

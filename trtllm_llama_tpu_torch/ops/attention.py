@@ -3,7 +3,9 @@ stacked KV cache (the port's `ops/attention.py`).
 
 KV cache layout: [L, B, H_kv, S_max, D] per k and v, as in the JAX package.
 The port updates the cache IN PLACE (the JAX functions return a new cache;
-here the returned `KVCache` is the same tensors, written).
+here the returned `KVCache` is the same tensors, written). An int8 cache
+stores clamp(round(x / scale[layer]), +-127) with one static scale per
+layer and reads code * scale; fp8 caches are not ported yet.
 
 Dispatch is by tensor device inside the kernel wrappers: `prefill_attention`
 goes to kernel 2, `fused_decode_attention_at` to kernel 3 at every cache
@@ -18,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..quantization.tensors import quantize_int8
 from .kernels import decode_attention as _decode
 from .kernels import prefill_attention as _prefill
 
@@ -33,27 +36,40 @@ class KVCache(NamedTuple):
     scale: torch.Tensor
 
 
-def _check_float_cache(cache: KVCache) -> None:
-    if not cache.k.dtype.is_floating_point:
-        raise NotImplementedError("int8 / fp8 KV caches are not ported yet")
+def _quant_kv(x, cache_dtype, scale):
+    """x as a cache of `cache_dtype` stores it; `scale` is the layer's
+    dequant scale (int8 only)."""
+    if cache_dtype == torch.int8:
+        return quantize_int8(x, scale)
+    if cache_dtype == torch.uint8:
+        raise NotImplementedError("fp8 KV caches are not ported yet")
+    return x.to(cache_dtype)
+
+
+def _dequant_kv(x, scale, dtype):
+    """Stored cache rows x back as `dtype` (int8: x * scale in f32)."""
+    if x.dtype == torch.int8:
+        return (x.float() * scale).to(dtype)
+    if x.dtype == torch.uint8:
+        raise NotImplementedError("fp8 KV caches are not ported yet")
+    return x.to(dtype)
 
 
 def write_kv_prefill_at(cache: KVCache, layer: int, k, v) -> KVCache:
     """Write [B, S, H_kv, D] k/v into layer `layer` at rows [0, S)."""
-    _check_float_cache(cache)
     s = k.shape[1]
-    cache.k[layer, :, :, :s] = k.transpose(1, 2).to(cache.k.dtype)
-    cache.v[layer, :, :, :s] = v.transpose(1, 2).to(cache.v.dtype)
+    for src, dst in ((k, cache.k), (v, cache.v)):
+        dst[layer, :, :, :s] = _quant_kv(src.transpose(1, 2), dst.dtype,
+                                         cache.scale[layer])
     return cache
 
 
 def write_kv_decode_at(cache: KVCache, layer: int, k, v, positions) -> KVCache:
     """Write one token per sequence: k/v [B, H_kv, D] at positions [B]."""
-    _check_float_cache(cache)
     bidx = torch.arange(k.shape[0], device=k.device)
     pos = positions.long()
-    cache.k[layer, bidx, :, pos] = k.to(cache.k.dtype)
-    cache.v[layer, bidx, :, pos] = v.to(cache.v.dtype)
+    for src, dst in ((k, cache.k), (v, cache.v)):
+        dst[layer, bidx, :, pos] = _quant_kv(src, dst.dtype, cache.scale[layer])
     return cache
 
 
@@ -72,26 +88,33 @@ def fused_decode_attention_at(q, k_new, v_new, cache: KVCache, layer: int,
                               alibi=None):
     """Decode step for layer `layer`: write k/v_new [B, H_kv, D] at
     `positions` [B] and attend q [B, H_q, D] over rows <= positions.
-    Returns (attn_out [B, H_q, D], cache)."""
+    Returns (attn_out [B, H_q, D], cache). With an int8 cache the kernel
+    keeps the dequantized K/V in f32 (the JAX package's DMA kernel); its
+    XLA path rounds them to q's dtype first, which is the same at f32."""
     if alibi is not None:
         raise NotImplementedError("ALiBi attention is not ported yet")
-    _check_float_cache(cache)
+    if cache.k.dtype == torch.uint8:
+        raise NotImplementedError("fp8 KV caches are not ported yet")
     out = _decode.dma_decode_attention(q, k_new, v_new, cache.k, cache.v,
-                                       layer, positions, scale)
+                                       layer, positions, scale,
+                                       kv_scale=cache.scale)
     return out, cache
 
 
 def decode_attention(q, k_cache, v_cache, cache_lens,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, kv_scale=None):
     """Single-token attention against ONE layer's cache [B, H_kv, S, D]
-    (already written): keys at positions < cache_lens[b]. The probabilities
-    are cast to q's dtype before p @ v, as in the JAX package's XLA path.
-    Returns [B, H_q, D]."""
+    (already written): keys at positions < cache_lens[b]; an int8 cache is
+    dequantized with that layer's `kv_scale` and rounded to q's dtype. The
+    probabilities are cast to q's dtype before p @ v, as in the JAX
+    package's XLA path. Returns [B, H_q, D]."""
     b, hq, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else d ** -0.5
-    kt = k_cache.to(q.dtype).repeat_interleave(hq // hkv, dim=1)
-    vt = v_cache.to(q.dtype).repeat_interleave(hq // hkv, dim=1)
+    kt = _dequant_kv(k_cache, kv_scale, q.dtype).repeat_interleave(hq // hkv,
+                                                                   dim=1)
+    vt = _dequant_kv(v_cache, kv_scale, q.dtype).repeat_interleave(hq // hkv,
+                                                                   dim=1)
     logits = torch.einsum("bhd,bhsd->bhs", q.float(), kt.float()) * scale
     mask = torch.arange(s, device=q.device)[None, :] < cache_lens[:, None]
     logits = torch.where(mask[:, None], logits, torch.full_like(logits, NEG_INF))

@@ -2,15 +2,21 @@
 
 `dense` dispatches on the weight container: a plain tensor goes to
 `torch.matmul` (a stock product, as the JAX package leaves it to XLA), an
-int8 `WOQWeight` to kernel 1 (`ops/kernels/woq_matmul.py`), which itself
-takes its plain version for CPU tensors.
+int8 `WOQWeight` to kernel 1 (`ops/kernels/woq_matmul.py`), an `SQWeight`
+to kernel 5 (`ops/kernels/w8a8_matmul.py`) after quantizing the input per
+token (plain torch ops, as the JAX package quantizes outside its kernel)
+or with the static scale. `dense_prequant` feeds kernel 5 an activation
+already quantized by `rms_norm_quant`. Each kernel wrapper takes its plain
+version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..quantization.tensors import WOQWeight
+from ..quantization.tensors import (SQWeight, WOQWeight, quantize_per_token,
+                                    quantize_static)
+from .kernels import w8a8_matmul as _w8a8
 from .kernels import woq_matmul as _woq
 from .norm import rms_norm
 
@@ -26,6 +32,8 @@ def dense(x, w, out_dtype=None, layer=None):
     out_dtype = out_dtype or x.dtype
     if isinstance(w, WOQWeight):
         return _dense_woq(x, w, out_dtype, layer)
+    if isinstance(w, SQWeight):
+        return _dense_sq(x, w, out_dtype, layer)
     if layer is not None:
         w = w[layer]
     # f32 products of the compute-dtype operands, f32 sum, one final cast:
@@ -43,14 +51,44 @@ def _dense_woq(x, w: WOQWeight, out_dtype=None, layer=None):
     return _woq.woq_matmul_stacked(x, w, layer).to(out_dtype)
 
 
+def _sq_matmul(x_q, s_x, w: SQWeight, out_dtype, layer):
+    if layer is None:
+        y = _w8a8.w8a8_matmul(x_q, w.qweight, s_x, w.scale_w)
+    else:
+        y = _w8a8.w8a8_matmul_stacked(x_q, w.qweight, s_x, w.scale_w, layer)
+    return y.to(out_dtype)
+
+
+def _dense_sq(x, w: SQWeight, out_dtype=None, layer=None):
+    """SmoothQuant dense: int8 x (dynamic per-token scales, or the static
+    per-tensor scale_x) times the int8 weight, dequantized in f32."""
+    if w.per_token:
+        x_q, s_x = quantize_per_token(x)
+    else:
+        s_x = w.scale_x if layer is None else w.scale_x[layer]
+        x_q = quantize_static(x, s_x)
+    return _sq_matmul(x_q, s_x, w, out_dtype or x.dtype, layer)
+
+
+def dense_prequant(x_q, s_x, w: SQWeight, out_dtype=torch.bfloat16,
+                   layer=None):
+    """y = dequant(x_q) @ w for an activation already quantized per token
+    (the rms_norm_quant -> W8A8 path: quantize once, fan out to the q/k/v
+    or gate/up projections). Only for per-token SQWeights."""
+    if not (isinstance(w, SQWeight) and w.per_token):
+        raise ValueError("dense_prequant needs a per-token SQWeight")
+    return _sq_matmul(x_q, s_x, w, out_dtype, layer)
+
+
 def dense_fused(x, w, layer=None, out_dtype=None, *, norm_w=None,
                 eps: float = 1e-6, resid=None):
     """out = [resid +] dense(rms_norm(x, norm_w[layer]) | x, w).
 
     At up to FUSE_MAX_ROWS rows with a stacked WOQ weight the norm prologue
-    and residual epilogue run inside kernel 1; otherwise the plain ops are
-    composed in the same rounding order (norm cast to x's dtype before the
-    matmul, matmul cast before the residual add)."""
+    and residual epilogue run inside kernel 1; otherwise (and for every
+    SQWeight, which never reaches kernel 1) the plain ops are composed in
+    the same rounding order (norm cast to x's dtype before the matmul,
+    matmul cast before the residual add)."""
     rows = x.numel() // x.shape[-1]
     fusible = (layer is not None and rows <= FUSE_MAX_ROWS
                and (norm_w is not None or resid is not None))

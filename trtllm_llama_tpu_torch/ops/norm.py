@@ -1,8 +1,10 @@
-"""RMSNorm (the port's `ops/norm.py`)."""
+"""RMSNorm and its fused int8-quantizing variant (the port's `ops/norm.py`)."""
 
 from __future__ import annotations
 
 import torch
+
+from .kernels import rmsnorm_quant as _rnq
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -12,3 +14,14 @@ def rms_norm(x, weight, eps: float = 1e-6):
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def rms_norm_quant(x, weight, eps: float = 1e-6):
+    """RMSNorm fused with dynamic per-token int8 quantization (kernel 4,
+    which takes its plain version for CPU tensors): returns (x_q int8
+    [..., K], scale f32 [..., 1]) for the W8A8 projections that follow.
+    It only forwards to the kernel wrapper; it stays so that the model
+    calls norms by the JAX package's names. The JAX package's optional
+    SmoothQuant `smoother` divisor is not ported (the converter folds it
+    into the norm weight)."""
+    return _rnq.rmsnorm_quant(x, weight, eps)

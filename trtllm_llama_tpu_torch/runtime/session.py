@@ -38,10 +38,14 @@ def _params_to(tree, device):
 
 class GenerationSession:
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig,
-                 device="cuda"):
+                 kv_scales=None, device="cuda"):
+        """kv_scales: optional [L] int8-KV dequant scales (calibrated by the
+        converter; 1.0 when omitted, as in the JAX package)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine_cfg = engine_cfg
+        self.kv_scales = (None if kv_scales is None else torch.as_tensor(
+            np.asarray(kv_scales, np.float32), device=self.device))
         # one device: fuse q/k/v into one matmul, as the JAX session does
         # (gate/up fusion is opt-in there and not ported)
         self.params = llama.fuse_qkv_params(_params_to(params, self.device))
@@ -78,7 +82,7 @@ class GenerationSession:
 
         dev, cfg = self.device, self.cfg
         with torch.inference_mode():
-            caches = llama.init_caches(cfg, b, max_len, dev)
+            caches = llama.init_caches(cfg, b, max_len, dev, self.kv_scales)
             ids = torch.as_tensor(padded, device=dev)
             lens = torch.as_tensor(np.asarray(seq_lens, np.int32), device=dev)
             logits, caches = llama.forward_prefill(self.params, cfg, ids, lens,
