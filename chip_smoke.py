@@ -4,25 +4,32 @@
     python3 chip_smoke.py [--layers N]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every kernel of the two paths from csrc/ (one nvcc per source,
+2. builds every kernel of the four paths from csrc/ (one nvcc per source,
    in parallel) and prints the build time and nvcc's register, shared
    memory and spill report;
 3. holds each kernel against its plain PyTorch version on the card at the
    paths' shapes and prints the max error against the stated tolerance,
    the kernel's time, its bound, the plain version's time and one PyTorch
    library call's time where one computes the same function (a yardstick
-   only: the port never calls it);
+   only: the port never calls it). The weight-only GEMVs are checked in
+   every format: int8, int4 with g128 and with per-channel scales, and fp8
+   (e4m3), stacked at the four projection shapes with the norm and
+   residual options, and the 2-D entries (woq_matmul, fp8_matmul) also at
+   the lm_head's shape;
 4. drives each path through GenerationSession.generate with random weights
    born quantized (seed 0), at LLaMA-7B's widths:
    path 1, int8 weight-only per-channel; path 2, SmoothQuant W8A8
    (per-token activation, per-channel weight scales) with an int8 KV cache
-   (scale 0.05 per layer). Each: bs1 with an 8-token prompt and 50 greedy
+   (scale 0.05 per layer); path 3, int4 weight-only with g128 scales and
+   an int4 per-channel lm_head; path 4, fp8 projections and an fp8
+   lm_head (both lm_heads made by quantize_params from the random bf16
+   one). Each: bs1 with an 8-token prompt and 50 greedy
    tokens, bs1 with another prompt, bs4 with ragged prompts; prints
    prefill ms, decode ms/token and tokens/s, checks that every kernel of
    the path was launched in the path's run (counts zeroed just before it),
    checks the 7B prefill logits against the plain-version path on the
    card, and profiles one bs1 request (device time by kernel, the device's
-   busy share). Path 1's session is freed before path 2 starts;
+   busy share). Each path's session is freed before the next starts;
 5. prints a `kernels` JSON line, then as the last line
    {"ok": true, "device": {...}}.
 Any failed phase exits non-zero without that line. The script imports
@@ -57,6 +64,9 @@ N_WEIGHT_LAYERS = 4   # stacked layers cycled when timing a matmul (> L2)
 NEW_TOKENS = 50       # each path: 8-token prompt, 50 new tokens
 KV_SCALE = 0.05       # path 2's int8-KV scale, every layer
 INT8_DECODE = "dma_decode_attention (int8 KV)"
+INT4_STACKED = "woq_matmul_stacked (int4 g128)"
+INT4_2D = "woq_matmul (int4 per-channel)"
+_WOQ_PY = "trtllm_llama_tpu/ops/pallas/woq_matmul.py"
 # Rows the paths give a matmul or norm: decode bs1 and bs4, prefill bs1 and
 # bs4 (prompts padded to the 16-token bucket). Each kernel is checked
 # against its plain version at all of them.
@@ -65,8 +75,20 @@ PATH_ROWS = (1, 4, 16, 64)
 # JSON name -> (wrapper attribute, TPU kernel it replaces, source)
 KERNELS = {
     "woq_matmul_stacked": (
-        "woq_matmul_stacked", "trtllm_llama_tpu/ops/pallas/woq_matmul.py:617",
+        "woq_matmul_stacked", f"{_WOQ_PY}:617",
         "trtllm_llama_tpu_torch/csrc/woq_matmul.cu"),
+    INT4_STACKED: (
+        "woq_matmul_stacked", f"{_WOQ_PY}:617",
+        "trtllm_llama_tpu_torch/csrc/woq_matmul.cu"),
+    INT4_2D: (
+        "woq_matmul", f"{_WOQ_PY}:416",
+        "trtllm_llama_tpu_torch/csrc/woq_matmul.cu"),
+    "fp8_matmul_stacked": (
+        "fp8_matmul_stacked", f"{_WOQ_PY}:654",
+        "trtllm_llama_tpu_torch/csrc/fp8_matmul.cu"),
+    "fp8_matmul": (
+        "fp8_matmul", f"{_WOQ_PY}:646",
+        "trtllm_llama_tpu_torch/csrc/fp8_matmul.cu"),
     "prefill_attention_kernel": (
         "prefill_attention_kernel",
         "trtllm_llama_tpu/ops/pallas/attention.py:504",
@@ -141,12 +163,18 @@ def compare(name, got, ref, errors, tol=BF16_TOL):
 
 
 def ptxas_summary(log):
-    """One line from nvcc -Xptxas -v: kernels, registers, smem, spills."""
+    """One line from nvcc -Xptxas -v: kernels, registers, smem, spills, and
+    the (mangled) names of the kernels that spill."""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     smem = [int(r) for r in re.findall(r"(\d+) bytes smem", log)] or [0]
     spills = sum(int(r) for r in re.findall(r"(\d+) bytes spill stores", log))
+    spilling = [chunk.split("'")[0]
+                for chunk in log.split("Compiling entry function '")[1:]
+                if any(int(s) for s in re.findall(r"(\d+) bytes spill stores",
+                                                  chunk))]
     return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-            f"up to {max(smem)} bytes static smem, {spills} bytes spilled")
+            f"up to {max(smem)} bytes static smem, {spills} bytes spilled"
+            + (f" (in {', '.join(spilling)})" if spilling else ""))
 
 
 @contextlib.contextmanager
@@ -160,31 +188,88 @@ def patched(module, name, value):
 
 
 # ---------------------------------------------------------------------------
-# kernel 1
+# kernels 1 (int8, int4) and 6 (fp8): the weight-only GEMVs
 # ---------------------------------------------------------------------------
 
-def check_woq(errors, results):
+# weight format -> (stacked JSON key or None, 2-D JSON key or None, seed)
+GEMV_FORMATS = {
+    "int8": ("woq_matmul_stacked", None, 1),
+    "int4 g128": (INT4_STACKED, None, 7),
+    "int4 per-channel": (None, INT4_2D, 8),
+    "fp8": ("fp8_matmul_stacked", "fp8_matmul", 9),
+}
+
+
+def make_gemv_weight(fmt, n_l, k, n, g):
+    """Random stacked weight [n_l, K, N] of `fmt` with random positive
+    scales (grouped scales vary along K)."""
+    import torch
+    from trtllm_llama_tpu_torch.quantization.quantize import random_fp8_codes
+    from trtllm_llama_tpu_torch.quantization.tensors import FP8Weight, WOQWeight
+
+    def scale(shape, qmax):
+        return (0.5 + torch.rand(shape, generator=g, device="cuda")) * (
+            k ** -0.5 / qmax)
+    if fmt == "fp8":
+        return FP8Weight(random_fp8_codes((n_l, k, n), g, "cuda"),
+                         scale((n_l, n), 448.0), 128)
+    w_bits = 8 if fmt == "int8" else 4
+    gs = 128 if fmt == "int4 g128" else 0
+    q = torch.randint(-127, 128, (n_l, k // 2 if w_bits == 4 else k, n),
+                      generator=g, device="cuda", dtype=torch.int8)
+    sshape = (n_l, k // gs, n) if gs else (n_l, n)
+    return WOQWeight(q, scale(sshape, 127.0), w_bits, gs,
+                     128 if w_bits == 4 else 0)
+
+
+def _one_layer(w, layer):
+    import dataclasses
+    return dataclasses.replace(w, qweight=w.qweight[layer],
+                               scale=w.scale[layer])
+
+
+def check_gemv(fmt, errors, results):
+    """The stacked kernel at the four projection shapes and every PATH_ROWS
+    row count with each option, and (for formats whose 2-D entry a path
+    launches) the 2-D entry at the same shapes and at the lm_head's."""
     import torch
     from trtllm_llama_tpu_torch.config import ModelConfig
+    from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
-    from trtllm_llama_tpu_torch.quantization.tensors import WOQWeight
 
-    print("kernel woq_matmul_stacked (int8 weight-only, bf16 x, f32 out):")
+    key_3d, key_2d, seed = GEMV_FORMATS[fmt]
+    if fmt == "fp8":
+        stacked, stacked_plain = f8k.fp8_matmul_stacked, f8k.fp8_matmul_stacked_plain
+        two_d, two_d_plain = f8k.fp8_matmul, f8k.fp8_matmul_plain
+    else:
+        stacked, stacked_plain = woq.woq_matmul_stacked, woq.woq_matmul_stacked_plain
+        two_d, two_d_plain = woq.woq_matmul, woq.woq_matmul_plain
+    print(f"kernel {stacked.__name__} / {two_d.__name__} ({fmt} weights, bf16 "
+          "x, f32 out):")
     cfg = ModelConfig.llama_7b()
-    d, f = cfg.hidden_size, cfg.intermediate_size
+    d, f, vocab = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     qkv = cfg.num_heads * cfg.head_dim + 2 * cfg.num_kv_heads * cfg.head_dim
     # (name, K, N, option the main path uses)
     shapes = [("qkv", d, qkv, "norm"), ("wo", d, d, "resid"),
               ("gate/up", d, f, "none"), ("down", f, d, "resid")]
-    g = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     n_l = N_WEIGHT_LAYERS
-    max_err = 0.0
+    err_3d = err_2d = 0.0
+
+    def record(key, t_k, t_p, t_l, n_bytes, m, k, n, what):
+        b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n)
+        print(f"  time {what}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"library(matmul bf16 dequantized) {t_l:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {n_bytes / t_k / 1e6:.1f} GB/s")
+        if key is not None:
+            results[key] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                bound_ms=b_ms, bound_by=b_by,
+                                shape=f"M={m} K={k} N={n} {fmt}, {what}")
+
     for pname, k, n, path_opt in shapes:
-        q = torch.randint(-127, 128, (n_l, k, n), generator=g, device="cuda",
-                          dtype=torch.int8)
-        scale = torch.full((n_l, n), k ** -0.5 / 127.0, device="cuda")
-        w = WOQWeight(q, scale)
-        deq = (q.float() * scale[:, None, :]).to(torch.bfloat16)  # yardstick
+        w = make_gemv_weight(fmt, n_l, k, n, g)
+        deq = w.dequantize(torch.bfloat16)             # yardstick only
+        w_bytes = w.qweight[0].numel() + w.scale[0].numel() * 4
         nw = (1 + 0.1 * torch.randn((n_l, k), generator=g, device="cuda")
               ).to(torch.bfloat16)
         for m in PATH_ROWS:
@@ -193,34 +278,54 @@ def check_woq(errors, results):
             for opt in ("none", "norm", "resid"):
                 kw = {"norm": {"norm_w": nw}, "resid": {"resid": resid},
                       "none": {}}[opt]
-                got = woq.woq_matmul_stacked(x, w, 1, **kw)
-                ref = woq.woq_matmul_stacked_plain(x, w, 1, **kw)
+                got = stacked(x, w, 1, **kw)
+                ref = stacked_plain(x, w, 1, **kw)
                 torch.cuda.synchronize()
-                max_err = max(max_err, compare(
+                err_3d = max(err_3d, compare(
                     f"{pname} K={k} N={n} M={m} {opt}", got, ref, errors))
+            if key_2d is not None:
+                w1 = _one_layer(w, 1)
+                got = two_d(x, w1)
+                ref = two_d_plain(x, w1)
+                torch.cuda.synchronize()
+                err_2d = max(err_2d, compare(
+                    f"2-D {pname} K={k} N={n} M={m}", got, ref, errors))
             if m not in (1, 16):
                 continue
             kw = {"norm": {"norm_w": nw}, "resid": {"resid": resid},
                   "none": {}}[path_opt]
-            t_k = time_ms(lambda i: woq.woq_matmul_stacked(x, w, i % n_l, **kw))
-            t_p = time_ms(lambda i: woq.woq_matmul_stacked_plain(
-                x, w, i % n_l, **kw), iters=8)
+            t_k = time_ms(lambda i: stacked(x, w, i % n_l, **kw))
+            t_p = time_ms(lambda i: stacked_plain(x, w, i % n_l, **kw), iters=8)
             t_l = time_ms(lambda i: torch.matmul(x, deq[i % n_l]))
-            n_bytes = (k * n + n * 4 + m * k * 2 + m * n * 4
+            n_bytes = (w_bytes + m * k * 2 + m * n * 4
                        + (k * 2 if path_opt == "norm" else 0)
                        + (m * n * 2 if path_opt == "resid" else 0))
-            b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n)
-            print(f"  time {pname} M={m} {path_opt}: kernel {t_k:.4f} ms, "
-                  f"plain {t_p:.4f} ms, library(matmul bf16 dequantized) "
-                  f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                  f"{n_bytes / t_k / 1e6:.1f} GB/s")
-            if pname == "qkv" and m == 1:
-                results["woq_matmul_stacked"] = dict(
-                    ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                    bound_by=b_by,
-                    shape=f"M=1 K={k} N={n} int8, norm prologue (decode qkv)")
-        del q, deq
-    results["woq_matmul_stacked"]["max_abs_err"] = max_err
+            record(key_3d if pname == "qkv" and m == 1 else None, t_k, t_p,
+                   t_l, n_bytes, m, k, n, f"{pname} M={m} {path_opt}")
+        del w, deq
+    if key_3d is not None:
+        results[key_3d]["max_abs_err"] = err_3d
+    if key_2d is None:
+        return
+    # the lm_head: one [4096, 32000] weight, per-channel (bigger than L2)
+    w = _one_layer(make_gemv_weight(fmt, 1, d, vocab, g), 0)
+    deq = w.dequantize(torch.bfloat16)
+    for m in (1, 4):                       # bs1 and bs4 decode / last rows
+        x = torch.randn((m, d), generator=g, device="cuda").to(torch.bfloat16)
+        got = two_d(x, w)
+        ref = two_d_plain(x, w)
+        torch.cuda.synchronize()
+        err_2d = max(err_2d, compare(f"2-D lm_head K={d} N={vocab} M={m}",
+                                     got, ref, errors))
+        if m == 1:
+            t_k = time_ms(lambda i: two_d(x, w))
+            t_p = time_ms(lambda i: two_d_plain(x, w), iters=8)
+            t_l = time_ms(lambda i: torch.matmul(x, deq))
+            n_bytes = (w.qweight.numel() + w.scale.numel() * 4 + d * 2
+                       + vocab * 4)
+            record(key_2d, t_k, t_p, t_l, n_bytes, m, d, vocab,
+                   "lm_head M=1 (decode)")
+    results[key_2d]["max_abs_err"] = err_2d
 
 
 # ---------------------------------------------------------------------------
@@ -491,17 +596,17 @@ def make_paths():
     versions for the prefill-logits check."""
     from trtllm_llama_tpu_torch import ModelConfig, QuantMode
     from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
     from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
     from trtllm_llama_tpu_torch.ops.kernels import rmsnorm_quant as rnq
     from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
 
+    attn = {"prefill_attention_kernel": pa, "dma_decode_attention": da}
     return [
         dict(tag="path 1", title="int8 weight-only per-channel, bf16 KV",
              mode=QuantMode.use_weight_only(), kv_scales=None,
-             kernels={"woq_matmul_stacked": woq,
-                      "prefill_attention_kernel": pa,
-                      "dma_decode_attention": da},
+             kernels={"woq_matmul_stacked": woq, **attn},
              plain=[(woq, "woq_matmul_stacked"),
                     (pa, "prefill_attention_kernel")]),
         dict(tag="path 2", title="SmoothQuant W8A8 (per-token activation, "
@@ -513,6 +618,19 @@ def make_paths():
                       "prefill_attention_kernel": pa, INT8_DECODE: da},
              plain=[(rnq, "rmsnorm_quant"), (w8a8, "w8a8_matmul_stacked"),
                     (pa, "prefill_attention_kernel")]),
+        dict(tag="path 3", title="int4 weight-only, g128 projections, int4 "
+             "per-channel lm_head (quantize_params), bf16 KV",
+             mode=QuantMode.use_weight_only(True, per_group=True),
+             group_size=128, lm_head=True, kv_scales=None,
+             kernels={INT4_STACKED: woq, INT4_2D: woq, **attn},
+             plain=[(woq, "woq_matmul_stacked"), (woq, "woq_matmul"),
+                    (pa, "prefill_attention_kernel")]),
+        dict(tag="path 4", title="fp8 (e4m3) per-channel projections, fp8 "
+             "lm_head (quantize_params), bf16 KV",
+             mode=QuantMode.FP8_QDQ, lm_head=True, kv_scales=None,
+             kernels={"fp8_matmul_stacked": f8k, "fp8_matmul": f8k, **attn},
+             plain=[(f8k, "fp8_matmul_stacked"), (f8k, "fp8_matmul"),
+                    (pa, "prefill_attention_kernel")]),
     ]
 
 
@@ -522,19 +640,25 @@ def run_path(path, args, errors, results):
     from trtllm_llama_tpu_torch import EngineConfig, ModelConfig
     from trtllm_llama_tpu_torch.models import llama
     from trtllm_llama_tpu_torch.quantization.quantize import (
-        init_random_quantized_params,
+        init_random_quantized_params, quantize_params,
     )
     from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
     from trtllm_llama_tpu_torch.runtime.session import GenerationSession
 
     tag = path["tag"]
-    cfg = ModelConfig.llama_7b(quant_mode=path["mode"], num_layers=args.layers)
+    cfg = ModelConfig.llama_7b(quant_mode=path["mode"], num_layers=args.layers,
+                               group_size=path.get("group_size", 0))
     kv_scales = (None if path["kv_scales"] is None
                  else path["kv_scales"][:cfg.num_layers])
     print(f"{tag}: LLaMA-7B widths, {cfg.num_layers} layers, "
           f"{path['title']}, random weights born quantized (seed 0)")
     t0 = time.perf_counter()
     params = init_random_quantized_params(cfg, seed=0, device="cuda")
+    if path.get("lm_head"):
+        params = quantize_params(params, cfg.quant_mode, quantize_lm_head=True)
+        head = params["lm_head"]
+        print(f"  lm_head quantized: {type(head).__name__} "
+              f"{tuple(head.qweight.shape)} {head.qweight.dtype}")
     torch.cuda.synchronize()
     print(f"  weights init: {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
@@ -650,7 +774,7 @@ def profile_generate(sess, ids, scfg, new, wall_ms):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="model depth of both paths (widths stay LLaMA-7B's)")
+                    help="model depth of every path (widths stay LLaMA-7B's)")
     args = ap.parse_args(argv)
 
     import torch
@@ -685,12 +809,14 @@ def main(argv=None) -> int:
         print(f"  {name}: {ptxas_summary(log)}")
 
     errors, results = [], {"_e2e": {}}
-    check_woq(errors, results)
+    check_gemv("int8", errors, results)
     check_prefill(errors, results)
     check_decode(errors, results)
     check_rmsnorm_quant(errors, results)
     check_w8a8(errors, results)
     check_decode(errors, results, kv_int8=True)
+    for fmt in ("int4 g128", "int4 per-channel", "fp8"):
+        check_gemv(fmt, errors, results)
     for path in make_paths():
         run_path(path, args, errors, results)
         gc.collect()                 # free this path's session and weights

@@ -7,7 +7,9 @@ one (which need not have JAX), run:
 
 Tolerances: f32 outputs differ from the plain versions only in summation
 order (rtol/atol 1e-5); bf16 outputs by at most a rounding step at the
-final cast (2**-7 relative to the largest magnitude). The W8A8 kernel is
+final cast (2**-7 relative to the largest magnitude); int4 (per-channel
+or grouped) and fp8 codes decode exactly, so those kernels are held to the
+same bounds. The W8A8 kernel is
 exact against its plain version (int32 sums, the same f32 epilogue);
 rmsnorm_quant's scales agree to 1e-6 relative and its codes within one
 step (the row's sum of squares is taken in another order); int8 KV caches
@@ -19,11 +21,13 @@ import pytest
 import torch
 
 from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
 from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
 from trtllm_llama_tpu_torch.ops.kernels import rmsnorm_quant as rnq
 from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
 from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
-from trtllm_llama_tpu_torch.quantization.tensors import WOQWeight
+from trtllm_llama_tpu_torch.quantization.quantize import random_fp8_codes
+from trtllm_llama_tpu_torch.quantization.tensors import FP8Weight, WOQWeight
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +71,69 @@ def test_woq_kernel_matches_plain(dev, dtype, m, opt):
     got = woq.woq_matmul_stacked(x, w, 2, **kw)
     assert woq.woq_matmul_stacked.launches == before + 1
     _assert_close(got, woq.woq_matmul_stacked_plain(x, w, 2, **kw), dtype)
+
+
+# (w_bits, group_size, pack_block, K): int4 per-channel and grouped (two
+# pack blocks), int8 grouped, with K ragged against the 512-row tile
+WOQ_FORMATS = [(4, 0, 128, 1152), (4, 128, 128, 1152), (4, 32, 32, 800),
+               (8, 64, 0, 1216)]
+
+
+@pytest.mark.parametrize("opt", ["none", "norm", "resid"])
+@pytest.mark.parametrize("m", [1, 3, 16, 40])
+@pytest.mark.parametrize("fmt", WOQ_FORMATS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_woq_int4_and_grouped_kernel_matches_plain(dev, dtype, fmt, m, opt):
+    w_bits, gs, pb, k = fmt
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    n_layers, n = 3, 784
+    q = torch.randint(-127, 128, (n_layers, k // 2 if w_bits == 4 else k, n),
+                      generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand((n_layers, k // gs, n) if gs else (n_layers, n),
+                   generator=g, device=dev) * 1e-2
+    w = WOQWeight(q, s, w_bits, gs, pb)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    kw = {"none": {},
+          "norm": {"norm_w": (1 + 0.1 * torch.randn(
+              (n_layers, k), generator=g, device=dev)).to(dtype)},
+          "resid": {"resid": torch.randn((m, n), generator=g,
+                                         device=dev).to(dtype)}}[opt]
+    before = woq.woq_matmul_stacked.launches
+    got = woq.woq_matmul_stacked(x, w, 2, **kw)
+    assert woq.woq_matmul_stacked.launches == before + 1
+    _assert_close(got, woq.woq_matmul_stacked_plain(x, w, 2, **kw), dtype)
+    w2 = WOQWeight(q[1], s[1], w_bits, gs, pb)
+    before = woq.woq_matmul.launches
+    got2 = woq.woq_matmul(x, w2)
+    assert woq.woq_matmul.launches == before + 1
+    _assert_close(got2, woq.woq_matmul_plain(x, w2), dtype)
+
+
+@pytest.mark.parametrize("opt", ["none", "norm", "resid"])
+@pytest.mark.parametrize("m", [1, 3, 16, 40])
+@pytest.mark.parametrize("k", [1152, 1000])    # interleaved / logical order
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fp8_kernel_matches_plain(dev, dtype, k, m, opt):
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    n_layers, n = 3, 784
+    w = FP8Weight(random_fp8_codes((n_layers, k, n), g, dev),
+                  torch.rand((n_layers, n), generator=g, device=dev) * 1e-2,
+                  128 if k % 128 == 0 else 0)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    kw = {"none": {},
+          "norm": {"norm_w": (1 + 0.1 * torch.randn(
+              (n_layers, k), generator=g, device=dev)).to(dtype)},
+          "resid": {"resid": torch.randn((m, n), generator=g,
+                                         device=dev).to(dtype)}}[opt]
+    before = f8k.fp8_matmul_stacked.launches
+    got = f8k.fp8_matmul_stacked(x, w, 2, **kw)
+    assert f8k.fp8_matmul_stacked.launches == before + 1
+    _assert_close(got, f8k.fp8_matmul_stacked_plain(x, w, 2, **kw), dtype)
+    w2 = FP8Weight(w.qweight[1], w.scale[1], w.interleave_block)
+    before = f8k.fp8_matmul.launches
+    got2 = f8k.fp8_matmul(x, w2)
+    assert f8k.fp8_matmul.launches == before + 1
+    _assert_close(got2, f8k.fp8_matmul_plain(x, w2), dtype)
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -208,11 +275,49 @@ def test_tiny_generate_on_cuda_matches_cpu(dev):
     np.testing.assert_array_equal(outs[0], outs[1])
 
 
+@pytest.mark.parametrize("kind", ["int4 g64", "fp8"])
+def test_tiny_int4_and_fp8_generate_on_cuda_match_cpu(dev, kind):
+    """Tiny models with a quantized lm_head (the 2-D entries) give the same
+    greedy tokens on the card as on the CPU."""
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.quantization.quantize import (
+        init_random_quantized_params, quantize_params,
+    )
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    mode = (QuantMode.FP8_QDQ if kind == "fp8"
+            else QuantMode.use_weight_only(True, per_group=True))
+    cfg = ModelConfig.tiny(dtype="float32", quant_mode=mode, group_size=64)
+    params = quantize_params(
+        init_random_quantized_params(cfg, seed=0, device="cpu"), mode,
+        quantize_lm_head=True)
+    prompts = [[5, 17, 99, 3, 250, 8], [200, 4, 66]]
+    outs = []
+    for device in ("cpu", "cuda"):
+        sess = GenerationSession(cfg, params, EngineConfig(
+            max_input_len=16, max_seq_len=48), device=device)
+        before = (f8k.fp8_matmul if kind == "fp8" else woq.woq_matmul).launches
+        outs.append(sess.generate(prompts, sampling=SamplingConfig(end_id=-1),
+                                  max_new_tokens=10).output_ids)
+        after = (f8k.fp8_matmul if kind == "fp8" else woq.woq_matmul).launches
+        assert (after > before) == (device == "cuda")
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
 def test_wrappers_reject_bad_inputs(dev):
     w = WOQWeight(torch.zeros((1, 64, 24), dtype=torch.int8, device=dev),
                   torch.ones((1, 24), device=dev))
     with pytest.raises(ValueError):               # N % 16 != 0
         woq.woq_matmul_stacked(torch.ones((1, 64), device=dev), w, 0)
+    w4 = WOQWeight(torch.zeros((1, 48, 32), dtype=torch.int8, device=dev),
+                   torch.ones((1, 32), device=dev), 4, 0, 96)
+    with pytest.raises(ValueError):               # pack block 96 !| 512
+        woq.woq_matmul_stacked(torch.ones((1, 96), device=dev), w4, 0)
+    f8 = FP8Weight(torch.zeros((1, 64, 32), dtype=torch.int8, device=dev),
+                   torch.ones((1, 32), device=dev))
+    with pytest.raises(ValueError):               # codes must be uint8
+        f8k.fp8_matmul_stacked(torch.ones((1, 64), device=dev), f8, 0)
     q = torch.ones((1, 8, 2, 48), device=dev)     # head dim 48
     with pytest.raises(ValueError):
         pa.prefill_attention_kernel(q, q, q)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of trtllm_llama_tpu_torch, nor
 chip_smoke.py, imports JAX or the JAX package, and the port imports and
-generates on the CPU (int8 weight-only, and SmoothQuant with an int8 KV
-cache) with both made unimportable."""
+generates on the CPU (int8 weight-only, SmoothQuant with an int8 KV cache,
+int4 g64 and fp8 with a quantized lm_head) with both made unimportable."""
 
 import ast
 import subprocess
@@ -66,6 +66,17 @@ sess = GenerationSession(sq, init_random_quantized_params(sq, device="cpu"),
 out = sess.generate([[5, 6, 7], [8, 9]], sampling=SamplingConfig(end_id=-1),
                     max_new_tokens=4)
 assert out.output_ids.shape == (2, 4), out.output_ids.shape
+from trtllm_llama_tpu_torch.quantization.quantize import quantize_params
+for mode in (QuantMode.use_weight_only(True, per_group=True),
+             QuantMode.FP8_QDQ):
+    cfg = ModelConfig.tiny(dtype="float32", quant_mode=mode, group_size=64)
+    params = quantize_params(init_random_quantized_params(cfg, device="cpu"),
+                             mode, quantize_lm_head=True)
+    sess = GenerationSession(cfg, params, EngineConfig(max_input_len=16,
+                             max_seq_len=32), device="cpu")
+    out = sess.generate([[5, 6, 7], [8, 9]],
+                        sampling=SamplingConfig(end_id=-1), max_new_tokens=4)
+    assert out.output_ids.shape == (2, 4), out.output_ids.shape
 assert not any(m == "jax" or m.startswith(("jax.", "trtllm_llama_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok", out.output_ids.tolist())

@@ -96,8 +96,13 @@ def test_quantize_weight_only_matches_jax():
                                rtol=1e-7, atol=0)
     np.testing.assert_allclose(got.dequantize().numpy(),
                                np.asarray(want.dequantize()), **F32)
-    with pytest.raises(NotImplementedError):
-        tensors.quantize_weight_only(torch.from_numpy(w), w_bits=4)
+    want4 = jax_tensors.quantize_weight_only(jnp.asarray(w), 4, 0)
+    got4 = tensors.quantize_weight_only(torch.from_numpy(w), w_bits=4)
+    assert got4.pack_block == want4.pack_block == 64
+    np.testing.assert_array_equal(got4.qweight.numpy(), np.asarray(want4.qweight))
+    np.testing.assert_array_equal(got4.scale.numpy(), np.asarray(want4.scale))
+    with pytest.raises(ValueError):
+        tensors.quantize_weight_only(torch.from_numpy(w), w_bits=3)
 
 
 def test_concat_columns_matches_jax():

@@ -214,7 +214,7 @@ def test_quantize_params_and_bridge_match_jax(per_token):
 
 def test_quantize_params_weight_only_and_kv_only():
     """KV-cache-only modes pass params through, as JAX's does; weight-only
-    modes are refused (that path is born quantized or bridged)."""
+    modes (int8, int4, grouped) give JAX's containers."""
     rng = np.random.default_rng(9)
     w = (rng.standard_normal((2, 64, 32)) * 0.1).astype(np.float32)
     kv_only = {"layers": {"wq": _t(w)}}
@@ -222,9 +222,19 @@ def test_quantize_params_weight_only_and_kv_only():
     jkv = jax_quantize_params({"layers": {"wq": jnp.asarray(w)}},
                               JaxQuantMode.INT8_KV_CACHE)
     np.testing.assert_array_equal(np.asarray(jkv["layers"]["wq"]), w)
-    for mode in (QuantMode.use_weight_only(), QuantMode.use_weight_only(True)):
-        with pytest.raises(NotImplementedError):
-            quantize_params(kv_only, mode)
+    for int4, group in ((False, False), (True, False), (True, True)):
+        want = jax_quantize_params(
+            {"layers": {"wq": jnp.asarray(w)}},
+            JaxQuantMode.use_weight_only(int4, per_group=group),
+            group_size=32)["layers"]["wq"]
+        got = quantize_params(kv_only, QuantMode.use_weight_only(
+            int4, per_group=group), group_size=32)["layers"]["wq"]
+        assert isinstance(got, tensors.WOQWeight)
+        assert (got.w_bits, got.group_size, got.pack_block) == (
+            want.w_bits, want.group_size, want.pack_block)
+        np.testing.assert_array_equal(got.qweight.numpy(),
+                                      np.asarray(want.qweight))
+        np.testing.assert_array_equal(got.scale.numpy(), np.asarray(want.scale))
 
 
 @pytest.mark.parametrize("per_token", [True, False])

@@ -82,7 +82,16 @@ def test_dense_unstacked_and_batched():
 
 
 def test_wrapper_rejects_unported_weights():
+    """int4 now runs (packed K/2 rows, pack block 32); a grouped int4 layout
+    whose group is not its pack block, which the JAX kernel refuses too,
+    and an unknown bit width still raise."""
     x, _, _, _, tw = _inputs(1)
-    w4 = WOQWeight(tw.qweight, tw.scale, w_bits=4, pack_block=32)
-    with pytest.raises(NotImplementedError):
-        woq_matmul_stacked(torch.from_numpy(x), w4, 0)
+    w4 = WOQWeight(tw.qweight[:, :K // 2], tw.scale, w_bits=4, pack_block=32)
+    got = woq_matmul_stacked(torch.from_numpy(x), w4, 0)
+    want = torch.from_numpy(x) @ w4.dequantize()[0]
+    torch.testing.assert_close(got, want, **TOL)
+    scale_g = tw.scale[:, None, :].expand(L, K // 64, N).contiguous()
+    for bad in (WOQWeight(w4.qweight, scale_g, 4, 64, 32),
+                WOQWeight(tw.qweight, tw.scale, w_bits=3)):
+        with pytest.raises(NotImplementedError):
+            woq_matmul_stacked(torch.from_numpy(x), bad, 0)

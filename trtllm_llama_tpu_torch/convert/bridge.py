@@ -5,9 +5,11 @@ every leaf already a numpy array (for example
 `jax.tree_util.tree_map(np.asarray, params)`, or arrays read from an engine
 dir) and returns the port's parameter dict on `device`. Quantized weight
 containers are recognised by their fields -- `WOQWeight` by `w_bits`
-(with `qweight`, `scale`, `group_size`, `pack_block`), `SQWeight` by
-`scale_w` (with `qweight`, `scale_x`, `scale_y`, `per_channel`,
-`per_token`) -- so the JAX classes are never imported.
+(with `qweight`, `scale`, `group_size`, `pack_block`; int8 or packed
+int4, per-channel or grouped), `SQWeight` by `scale_w` (with `qweight`,
+`scale_x`, `scale_y`, `per_channel`, `per_token`), `FP8Weight` by
+`interleave_block` (with uint8 `qweight` codes and `scale`) -- so the JAX
+classes are never imported.
 bfloat16 arrives either as an `ml_dtypes.bfloat16` array or as its uint16
 bit pattern (the engine dir's storage form).
 """
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..quantization.tensors import SQWeight, WOQWeight
+from ..quantization.tensors import FP8Weight, SQWeight, WOQWeight
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -52,6 +54,10 @@ def _convert(tree, device):
         return SQWeight(tensor_from_numpy(tree.qweight, device),
                         f32(tree.scale_w), f32(tree.scale_x), f32(tree.scale_y),
                         bool(tree.per_channel), bool(tree.per_token))
+    if hasattr(tree, "qweight") and hasattr(tree, "interleave_block"):
+        return FP8Weight(tensor_from_numpy(tree.qweight, device),
+                         tensor_from_numpy(tree.scale, device).float(),
+                         int(tree.interleave_block))
     if hasattr(tree, "qweight"):
         raise NotImplementedError(
             f"{type(tree).__name__} weights are not ported yet")

@@ -2,10 +2,12 @@
 
 Params are a plain dict mirroring the JAX package's pytree: `embed` [V, D],
 `layers` (each entry stacked [L, ...]: attn_norm, wq/wk/wv or the fused
-wqkv, wo, mlp_norm, w_gate, w_up, w_down; projections are tensors, int8
-`WOQWeight`s or SmoothQuant `SQWeight`s), `final_norm` [D], `lm_head`
-[D, V]. The layer loop is a Python loop over the stacked weights; kernels
-read the layer slice in place. The KV cache is the stacked
+wqkv, wo, mlp_norm, w_gate, w_up, w_down; projections are tensors,
+weight-only `WOQWeight`s (int8 or int4, per-channel or grouped scales),
+`FP8Weight`s or SmoothQuant `SQWeight`s), `final_norm` [D], `lm_head`
+[D, V] (a tensor, or a 2-D `WOQWeight` / `FP8Weight` when quantized). The
+layer loop is a Python loop over the stacked weights; kernels read the
+layer slice in place; `ops.linear.dense` dispatches on the container. The KV cache is the stacked
 [L, B, H_kv, S_max, D] `KVCache` (compute dtype, or int8 with per-layer
 scales), updated in place.
 """

@@ -1,37 +1,48 @@
 """Linear ops with quantized-weight dispatch (the port's `ops/linear.py`).
 
 `dense` dispatches on the weight container: a plain tensor goes to
-`torch.matmul` (a stock product, as the JAX package leaves it to XLA), an
-int8 `WOQWeight` to kernel 1 (`ops/kernels/woq_matmul.py`), an `SQWeight`
-to kernel 5 (`ops/kernels/w8a8_matmul.py`) after quantizing the input per
-token (plain torch ops, as the JAX package quantizes outside its kernel)
-or with the static scale. `dense_prequant` feeds kernel 5 an activation
-already quantized by `rms_norm_quant`. Each kernel wrapper takes its plain
-version for CPU tensors.
+`torch.matmul` (a stock product, as the JAX package leaves it to XLA), a
+`WOQWeight` (int8 or int4, per-channel or grouped) to kernel 1
+(`ops/kernels/woq_matmul.py`), an `FP8Weight` to kernel 6
+(`ops/kernels/fp8_matmul.py`), an `SQWeight` to kernel 5
+(`ops/kernels/w8a8_matmul.py`) after quantizing the input per token (plain
+torch ops, as the JAX package quantizes outside its kernel) or with the
+static scale. A stacked weight with `layer` goes to a kernel's stacked
+entry, a 2-D one (the lm_head) to its 2-D entry. `dense_prequant` feeds
+kernel 5 an activation already quantized by `rms_norm_quant`. Each kernel
+wrapper takes its plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..quantization.tensors import (SQWeight, WOQWeight, quantize_per_token,
-                                    quantize_static)
+from ..quantization.tensors import (FP8Weight, SQWeight, WOQWeight,
+                                    quantize_per_token, quantize_static)
+from .kernels import fp8_matmul as _fp8
 from .kernels import w8a8_matmul as _w8a8
 from .kernels import woq_matmul as _woq
 from .norm import rms_norm
 
 # Row count up to which dense_fused runs the norm prologue / residual
-# epilogue inside kernel 1 (the JAX registry's fuse_decode_max_rows).
+# epilogue inside kernel 1 or 6 (the JAX registry's fuse_decode_max_rows).
 FUSE_MAX_ROWS = 16
 
 
 def dense(x, w, out_dtype=None, layer=None):
-    """y = x @ w. x: [..., K]; w: [K, N] tensor or WOQWeight, or stacked
-    [L, ...] with `layer` selecting the slice (the kernel reads the stacked
-    weight in place). Returns [..., N] in out_dtype (default x's dtype)."""
+    """y = x @ w. x: [..., K]; w: [K, N] tensor, WOQWeight or FP8Weight, or
+    stacked [L, ...] with `layer` selecting the slice (the kernel reads the
+    stacked weight in place). Returns [..., N] in out_dtype (default x's
+    dtype)."""
     out_dtype = out_dtype or x.dtype
     if isinstance(w, WOQWeight):
-        return _dense_woq(x, w, out_dtype, layer)
+        y = (_woq.woq_matmul(x, w) if layer is None
+             else _woq.woq_matmul_stacked(x, w, layer))
+        return y.to(out_dtype)
+    if isinstance(w, FP8Weight):
+        y = (_fp8.fp8_matmul(x, w) if layer is None
+             else _fp8.fp8_matmul_stacked(x, w, layer))
+        return y.to(out_dtype)
     if isinstance(w, SQWeight):
         return _dense_sq(x, w, out_dtype, layer)
     if layer is not None:
@@ -40,15 +51,6 @@ def dense(x, w, out_dtype=None, layer=None):
     # the JAX package's dot(..., preferred_element_type=f32).astype(out)
     y = torch.matmul(x.float(), w.to(x.dtype).float())
     return y.to(out_dtype)
-
-
-def _dense_woq(x, w: WOQWeight, out_dtype=None, layer=None):
-    out_dtype = out_dtype or x.dtype
-    if layer is None:
-        w = WOQWeight(w.qweight[None], w.scale[None], w.w_bits, w.group_size,
-                      w.pack_block)
-        layer = 0
-    return _woq.woq_matmul_stacked(x, w, layer).to(out_dtype)
 
 
 def _sq_matmul(x_q, s_x, w: SQWeight, out_dtype, layer):
@@ -84,17 +86,19 @@ def dense_fused(x, w, layer=None, out_dtype=None, *, norm_w=None,
                 eps: float = 1e-6, resid=None):
     """out = [resid +] dense(rms_norm(x, norm_w[layer]) | x, w).
 
-    At up to FUSE_MAX_ROWS rows with a stacked WOQ weight the norm prologue
-    and residual epilogue run inside kernel 1; otherwise (and for every
-    SQWeight, which never reaches kernel 1) the plain ops are composed in
-    the same rounding order (norm cast to x's dtype before the matmul,
-    matmul cast before the residual add)."""
+    At up to FUSE_MAX_ROWS rows with a stacked WOQ or FP8 weight the norm
+    prologue and residual epilogue run inside kernel 1 or 6; otherwise (and
+    for every SQWeight) the plain ops are composed in the same rounding
+    order (norm cast to x's dtype before the matmul, matmul cast before the
+    residual add)."""
     rows = x.numel() // x.shape[-1]
     fusible = (layer is not None and rows <= FUSE_MAX_ROWS
                and (norm_w is not None or resid is not None))
-    if fusible and isinstance(w, WOQWeight):
-        y = _woq.woq_matmul_stacked(x, w, layer, norm_w=norm_w, eps=eps,
-                                    resid=resid)
+    kernel = (_woq.woq_matmul_stacked if isinstance(w, WOQWeight)
+              else _fp8.fp8_matmul_stacked if isinstance(w, FP8Weight)
+              else None)
+    if fusible and kernel is not None:
+        y = kernel(x, w, layer, norm_w=norm_w, eps=eps, resid=resid)
         return y.to(out_dtype or x.dtype)
     if norm_w is not None:
         nw = norm_w[layer] if layer is not None and norm_w.dim() > 1 else norm_w

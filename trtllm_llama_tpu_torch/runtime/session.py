@@ -4,7 +4,9 @@ The JAX session jit-compiles prefill plus an on-device `lax.while_loop`;
 here the same steps run eagerly as a Python loop over device tensors:
 bucket the prompt, prefill, then decode one token per step with the
 `done` / `lengths` / `positions` bookkeeping of the reference, until
-`max_new_tokens` or every sequence hit `end_id`.
+`max_new_tokens` or every sequence hit `end_id`. The parameters may hold
+any container the port runs (int8 / int4 weight-only, fp8, SmoothQuant,
+a quantized lm_head): the model code dispatches on them.
 """
 
 from __future__ import annotations
