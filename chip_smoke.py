@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--layers N]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every kernel of the four paths from csrc/ (one nvcc per source,
+2. builds every kernel of the paths from csrc/ (one nvcc per source,
    in parallel) and prints the build time and nvcc's register, shared
    memory and spill report;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -30,7 +30,27 @@
    checks the 7B prefill logits against the plain-version path on the
    card, and profiles one bs1 request (device time by kernel, the device's
    busy share). Each path's session is freed before the next starts;
-5. prints a `kernels` JSON line, then as the last line
+5. serves with ServingEngine (int8 weight-only LLaMA-7B, bench.py's
+   serving settings: 8 slots, decode_chunk 16, block 64, max_seq_len 200,
+   bucket 128) 24 requests of 64 new tokens with prompts of 8-128 tokens
+   (seed 0), in four configurations, each engine freed before the next:
+   dense, paged, packed prefill, paged with an int8 KV cache; prints
+   tokens/s, latency_stats, phase_stats, the device busy share of one
+   decode step (torch.profiler) and the launch counts, which must equal
+   the layers times the engine's own count of decode steps and prefill
+   calls; checks that every request returns its 64 tokens and that dense
+   and paged agree on every first token, and prints how many requests
+   match the dense run token for token. With the packed engine's weights
+   it prefills each admission wave both batched and packed and holds the
+   logits and the K/V rows written within LOGITS_TOL, printing the top-2
+   logit gap where a first token differs. Before the paths run, every
+   kernel the serving phase launches is held against its plain version at
+   the shapes it gives it (serve_waves: the int8 GEMV at 9, 256, 512 and
+   1024 rows, prefill at each 8 x 128 admission, decode over 9 rows of the
+   256-row dense cache, packed prefill at each wave's stream, and kernel
+   14 with bf16 and int8 pools, block sizes 8/16/64, a position past the
+   table, rows outside the write rows untouched);
+6. prints a `kernels` JSON line, then as the last line
    {"ok": true, "device": {...}}.
 Any failed phase exits non-zero without that line. The script imports
 nothing of JAX or of the JAX package.
@@ -64,6 +84,7 @@ N_WEIGHT_LAYERS = 4   # stacked layers cycled when timing a matmul (> L2)
 NEW_TOKENS = 50       # each path: 8-token prompt, 50 new tokens
 KV_SCALE = 0.05       # path 2's int8-KV scale, every layer
 INT8_DECODE = "dma_decode_attention (int8 KV)"
+INT8_PAGED = "paged_decode_attention (int8 KV)"
 INT4_STACKED = "woq_matmul_stacked (int4 g128)"
 INT4_2D = "woq_matmul (int4 per-channel)"
 _WOQ_PY = "trtllm_llama_tpu/ops/pallas/woq_matmul.py"
@@ -71,6 +92,53 @@ _WOQ_PY = "trtllm_llama_tpu/ops/pallas/woq_matmul.py"
 # bs4 (prompts padded to the 16-token bucket). Each kernel is checked
 # against its plain version at all of them.
 PATH_ROWS = (1, 4, 16, 64)
+# The serving phase: bench.py's serving settings (bench.py:166-272), with
+# prompt lengths drawn from 8-128 (seed 0) instead of a fixed 128.
+SERVE_ENGINE = dict(max_batch_size=8, max_input_len=128, max_seq_len=200,
+                    prefill_buckets=(128,))
+SERVE_REQUESTS = 24
+SERVE_NEW = 64
+SERVE_CHUNK = 16
+SERVE_BLOCK = 64
+SERVE_WARMUP = 2      # prompts of the warm-up run before the counted one
+
+
+def serve_prompt_lens():
+    """The serving phase's prompt lengths: 8-128 tokens, seed 0."""
+    import numpy as np
+    return np.random.default_rng(0).integers(8, 129, SERVE_REQUESTS).tolist()
+
+
+def serve_waves():
+    """Prompt lengths of each prefill call of the serving phase: the
+    warm-up's prompts, then the counted run's admission waves (all requests
+    arrive at once with one budget, so the slots fill with prompts 0-7,
+    then 8-15, then 16-23). run_serving checks the engine's own count of
+    prefill calls against it."""
+    lens = serve_prompt_lens()
+    slots = SERVE_ENGINE["max_batch_size"]
+    return [lens[:SERVE_WARMUP]] + [lens[i:i + slots]
+                                    for i in range(0, len(lens), slots)]
+
+
+def packed_len(total):
+    """The engine's packed stream length for `total` prompt tokens: powers
+    of two from 16 (ServingEngine._t_bucket, below its cap of 8 x 128)."""
+    t = 16
+    while t < total:
+        t *= 2
+    return t
+
+
+def serve_rows():
+    """Rows the serving phase gives a projection: a decode step (the slots
+    and the trash row), each batched prefill (its prompts at the 128-token
+    bucket) and each packed stream."""
+    bucket = max(SERVE_ENGINE["prefill_buckets"])
+    rows = {SERVE_ENGINE["max_batch_size"] + 1}
+    for lens in serve_waves():
+        rows |= {len(lens) * bucket, packed_len(sum(lens))}
+    return tuple(sorted(rows))
 
 # JSON name -> (wrapper attribute, TPU kernel it replaces, source)
 KERNELS = {
@@ -107,6 +175,18 @@ KERNELS = {
         "dma_decode_attention",
         "trtllm_llama_tpu/ops/pallas/dma_decode_attention.py:156",
         "trtllm_llama_tpu_torch/csrc/decode_attention.cu"),
+    "packed_prefill_attention_kernel": (
+        "packed_prefill_attention_kernel",
+        "trtllm_llama_tpu/ops/pallas/attention.py:315",
+        "trtllm_llama_tpu_torch/csrc/packed_prefill_attention.cu"),
+    "paged_decode_attention": (
+        "paged_decode_attention",
+        "trtllm_llama_tpu/ops/pallas/paged_decode_attention.py:157",
+        "trtllm_llama_tpu_torch/csrc/paged_decode_attention.cu"),
+    INT8_PAGED: (
+        "paged_decode_attention",
+        "trtllm_llama_tpu/ops/pallas/paged_decode_attention.py:157",
+        "trtllm_llama_tpu_torch/csrc/paged_decode_attention.cu"),
 }
 
 
@@ -255,6 +335,10 @@ def check_gemv(fmt, errors, results):
     g = torch.Generator(device="cuda").manual_seed(seed)
     n_l = N_WEIGHT_LAYERS
     err_3d = err_2d = 0.0
+    # the serving phase runs int8 weights at its own row counts too
+    rows = PATH_ROWS + (serve_rows() if fmt == "int8" else ())
+    timed = (1, 16) + ((SERVE_ENGINE["max_batch_size"] + 1, max(rows))
+                       if fmt == "int8" else ())
 
     def record(key, t_k, t_p, t_l, n_bytes, m, k, n, what):
         b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n)
@@ -272,7 +356,7 @@ def check_gemv(fmt, errors, results):
         w_bytes = w.qweight[0].numel() + w.scale[0].numel() * 4
         nw = (1 + 0.1 * torch.randn((n_l, k), generator=g, device="cuda")
               ).to(torch.bfloat16)
-        for m in PATH_ROWS:
+        for m in rows:
             x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
             resid = torch.randn((m, n), generator=g, device="cuda").to(torch.bfloat16)
             for opt in ("none", "norm", "resid"):
@@ -290,7 +374,7 @@ def check_gemv(fmt, errors, results):
                 torch.cuda.synchronize()
                 err_2d = max(err_2d, compare(
                     f"2-D {pname} K={k} N={n} M={m}", got, ref, errors))
-            if m not in (1, 16):
+            if m not in timed:
                 continue
             kw = {"norm": {"norm_w": nw}, "resid": {"resid": resid},
                   "none": {}}[path_opt]
@@ -345,7 +429,9 @@ def check_prefill(errors, results):
         (4, 16, 32, 32, [8, 5, 12, 3]),  # main path bs4 ragged
         (2, 512, 32, 32, [512, 300]),    # long ragged
         (2, 64, 32, 8, [64, 17]),        # GQA group of 4
-    ]
+    ] + [  # serving: each batched admission at the 128-token bucket
+        (len(lens), max(SERVE_ENGINE["prefill_buckets"]), 32, 32, lens)
+        for lens in serve_waves()]
     max_err = 0.0
     for b, s, hq, hkv, lens in cases:
         q = torch.randn((b, s, hq, d), generator=g, device="cuda").to(torch.bfloat16)
@@ -403,6 +489,13 @@ def check_decode(errors, results, kv_int8=False):
     if not kv_int8:
         cases += [(1, 32, 32, 128, [0]), (1, 32, 32, 128, [127]),
                   (1, 32, 32, 2048, [0])]
+        # serving (dense cache, bf16): the slots mid-generation and at their
+        # last step of waves 1 and 3, the trash row at 0
+        waves = serve_waves()
+        s_serve = -(-SERVE_ENGINE["max_seq_len"] // 128) * 128
+        cases += [(len(w) + 1, 32, 32, s_serve, [n + t for n in w] + [0])
+                  for w, t in ((waves[1], SERVE_NEW // 2),
+                               (waves[3], SERVE_NEW - 2))]
     kv_scale = (torch.full((n_l,), KV_SCALE, device="cuda") if kv_int8
                 else None)
     elem = 1 if kv_int8 else 2
@@ -584,6 +677,176 @@ def check_w8a8(errors, results):
           f"L2-warm), plain {t_p:.4f} ms, library(matmul bf16, dequantized) "
           f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     results["w8a8_matmul_stacked"]["max_abs_err"] = max_err
+
+
+# ---------------------------------------------------------------------------
+# kernels 13 and 14, at the serving phase's shapes
+# ---------------------------------------------------------------------------
+
+def check_packed_prefill(errors, results):
+    import torch
+    import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.kernels import packed_prefill_attention as ppa
+
+    print("kernel packed_prefill_attention_kernel (packed causal GQA, bf16):")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    d = 128
+    waves = serve_waves()
+    first = waves[1]                 # the counted run's first admission
+    cases = [  # (T, Hq, Hkv, segment lengths; pad rows follow them)
+        (64, 32, 32, [20, 30, 1]),   # a 1-row segment, segments crossing tiles
+        (256, 32, 8, [100, 1, 77]),  # GQA group of 4
+    ] + [(packed_len(sum(w)), 32, 32, w) for w in waves]   # serving
+    max_err = 0.0
+    for t, hq, hkv, lens in cases:
+        q, k, v = (torch.randn((t, h, d), generator=g, device="cuda"
+                               ).to(torch.bfloat16) for h in (hq, hkv, hkv))
+        seg = torch.full((t,), -1, dtype=torch.int32, device="cuda")
+        off = 0
+        for i, n in enumerate(lens):
+            seg[off:off + n] = i
+            off += n
+        got = ppa.packed_prefill_attention_kernel(q, k, v, seg)
+        ref = ppa.packed_prefill_attention_kernel_plain(q, k, v, seg)
+        torch.cuda.synchronize()
+        name = f"T={t} Hq={hq} Hkv={hkv} segments={lens}"
+        if not bool(torch.isfinite(got.float()).all()):
+            errors.append(f"packed prefill {name}: non-finite rows")
+        real = seg >= 0
+        max_err = max(max_err, compare(name, got[real], ref[real], errors))
+        if lens not in waves:
+            continue
+        qt, kt, vt = (x.transpose(0, 1)[None] for x in (q, k, v))
+        rows = torch.arange(t, device="cuda")
+        mask = ((rows[None, :] <= rows[:, None])
+                & (seg[:, None] == seg[None, :]))
+        t_k = time_ms(lambda i: ppa.packed_prefill_attention_kernel(q, k, v, seg))
+        t_p = time_ms(lambda i: ppa.packed_prefill_attention_kernel_plain(
+            q, k, v, seg), iters=8)
+        t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        pairs = sum(n * (n + 1) // 2 for n in lens)
+        n_bytes = t * d * 2 * (2 * hq + 2 * hkv) + t * 4
+        b_ms, b_by = bound_ms(n_bytes, 4 * hq * d * pairs)
+        print(f"  time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"library(sdpa, block-diagonal causal mask) {t_l:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by})")
+        if lens is not first:
+            continue
+        results["packed_prefill_attention_kernel"] = dict(
+            ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+            bound_by=b_by, shape=f"T={t} ({sum(lens)} prompt rows in "
+            f"{len(lens)} segments) Hq=Hkv=32 D=128 bf16")
+    results["packed_prefill_attention_kernel"]["max_abs_err"] = max_err
+
+
+def check_paged_decode(errors, results, kv_int8=False):
+    import torch
+    import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.kernels import paged_decode_attention as pda
+
+    kind = (f"int8 pools, scale {KV_SCALE} per layer" if kv_int8
+            else "bf16 pools")
+    print(f"kernel paged_decode_attention (KV write through the block table "
+          f"+ attention, {kind}):")
+    g = torch.Generator(device="cuda").manual_seed(15 if kv_int8 else 14)
+    d, n_l, layer, hq, hkv = 128, 2, 1, 32, 32
+    smax = SERVE_ENGINE["max_seq_len"]
+    slots = SERVE_ENGINE["max_batch_size"]
+    waves = serve_waves()
+    serve_pos = [n + SERVE_NEW // 2 for n in waves[1]]   # mid-generation
+    last_pos = [n + SERVE_NEW - 2 for n in waves[3]]     # last decode step
+    cases = [  # (block size, positions, the trash row at pos 0 last)
+        (SERVE_BLOCK, serve_pos + [0], True),         # the serving shapes
+        (SERVE_BLOCK, last_pos + [0], True),
+        (8, serve_pos, False), (16, serve_pos, False),
+        # a position at MB * BS: writes the trash block, attends MB blocks
+        (SERVE_BLOCK, serve_pos[:7] + [-(-smax // SERVE_BLOCK) * SERVE_BLOCK],
+         False),
+    ]
+    kv_scale = (torch.full((n_l,), KV_SCALE, device="cuda") if kv_int8
+                else None)
+    elem = 1 if kv_int8 else 2
+    key = INT8_PAGED if kv_int8 else "paged_decode_attention"
+    max_err = 0.0
+    for bs, pos, trash_row in cases:
+        mb = -(-smax // bs)
+        nb = slots * mb + 1
+        tables = torch.randperm(nb - 1, generator=g, device="cuda")[
+            :slots * mb].reshape(slots, mb)
+        if trash_row:
+            tables = torch.cat([tables, torch.full((1, mb), nb - 1,
+                                                   device="cuda")])
+        b = len(pos)
+        tables = tables[:b].to(torch.int32).contiguous()
+        shape = (n_l, nb, hkv, bs, d)
+        if kv_int8:
+            pk = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                               dtype=torch.int8)
+            pv = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                               dtype=torch.int8)
+        else:
+            pk = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+            pv = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        q = torch.randn((b, hq, d), generator=g, device="cuda").to(torch.bfloat16)
+        amp = 2.0 if kv_int8 else 1.0
+        kn = (amp * torch.randn((b, hkv, d), generator=g, device="cuda")
+              ).to(torch.bfloat16)
+        vn = (amp * torch.randn((b, hkv, d), generator=g, device="cuda")
+              ).to(torch.bfloat16)
+        pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        pk2, pv2, before = pk.clone(), pv.clone(), pk.clone()
+        got = pda.paged_decode_attention(q, kn, vn, pk, pv, layer, tables, pt,
+                                         kv_scale=kv_scale)
+        ref = pda.paged_decode_attention_plain(q, kn, vn, pk2, pv2, layer,
+                                               tables, pt, kv_scale=kv_scale)
+        torch.cuda.synchronize()
+        name = f"B={b} BS={bs} MB={mb} pos={pos}"
+        max_err = max(max_err, compare(name, got, ref, errors))
+        same = torch.equal(pk, pk2) and torch.equal(pv, pv2)
+        _, w_blk, w_row = pda._write_blocks(tables, pt, nb, bs)
+        allowed = torch.zeros(before.shape[:2] + (bs,), dtype=torch.bool,
+                              device="cuda")
+        allowed[layer, w_blk, w_row] = True
+        moved = (pk != before).any(-1).any(2)
+        only = not bool((moved & ~allowed).any())
+        print(f"  {name}: pools equal the plain write bit for bit: {same}; "
+              f"every row outside the write rows untouched: {only}")
+        if not (same and only):
+            errors.append(f"paged decode {kind} {name}: pools differ from "
+                          "the plain write")
+        if pos is not cases[0][1]:
+            continue
+        t_k = time_ms(lambda i: pda.paged_decode_attention(
+            q, kn, vn, pk, pv, layer, tables, pt, kv_scale=kv_scale))
+        t_p = time_ms(lambda i: pda.paged_decode_attention_plain(
+            q, kn, vn, pk2, pv2, layer, tables, pt, kv_scale=kv_scale))
+        # the yardstick reads K/V gathered (and dequantized) beforehand
+
+        def gathered(pool):
+            x = pool[layer][tables.long()].permute(0, 2, 1, 3, 4)
+            x = x.reshape(b, hkv, mb * bs, d)
+            return ((x.float() * KV_SCALE).to(torch.bfloat16) if kv_int8
+                    else x.contiguous())
+        kg, vg = gathered(pk), gathered(pv)
+        mask = (torch.arange(mb * bs, device="cuda")[None, :]
+                <= pt[:, None])[:, None, None]
+        t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, attn_mask=mask))
+        live = sum(min(p + 1, mb * bs) for p in pos)
+        n_bytes = (2 * hkv * live * d * elem + 2 * b * hq * d * 2
+                   + 2 * b * hkv * d * 2 + b * mb * 4 + b * 4
+                   + (4 if kv_int8 else 0))
+        b_ms, b_by = bound_ms(n_bytes, 4 * hq * d * live)
+        print(f"  time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"library(sdpa over pre-gathered K/V, no write) {t_l:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by})")
+        results[key] = dict(
+            ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+            bound_by=b_by, shape=f"B=9 (8 slots + trash) BS={bs} MB={mb} "
+            f"Hq=Hkv=32 D=128, {live} live rows, bf16 q, "
+            f"{'int8' if kv_int8 else 'bf16'} pools")
+    results[key]["max_abs_err"] = max_err
 
 
 # ---------------------------------------------------------------------------
@@ -771,6 +1034,250 @@ def profile_generate(sess, ids, scfg, new, wall_ms):
                        max_name_column_width=60))
 
 
+# ---------------------------------------------------------------------------
+# the serving phase: ServingEngine dense / paged / packed / paged int8 KV
+# ---------------------------------------------------------------------------
+
+# (name, engine options, int8 KV cache)
+SERVE_CONFIGS = [
+    ("dense", {}, False),
+    ("paged", dict(paged=True, block_size=SERVE_BLOCK), False),
+    ("packed", dict(packed_prefill=True), False),
+    ("paged int8 KV", dict(paged=True, block_size=SERVE_BLOCK), True),
+]
+
+
+def run_serving(args, errors, results):
+    """Each configuration serves the same 24 requests (64 new tokens each,
+    greedy, no end token) on int8 weight-only LLaMA-7B; prints tokens/s,
+    latency percentiles, phase times, the device busy share of one decode
+    step, and checks the launch counts against the engine's own count of
+    device calls."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.kernels import packed_prefill_attention as ppa
+    from trtllm_llama_tpu_torch.ops.kernels import paged_decode_attention as pda
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    from trtllm_llama_tpu_torch.quantization.quantize import (
+        init_random_quantized_params,
+    )
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.serving import ServingEngine
+
+    mode = QuantMode.use_weight_only()
+    cfg = ModelConfig.llama_7b(quant_mode=mode, num_layers=args.layers)
+    n_l = cfg.num_layers
+    params = init_random_quantized_params(cfg, seed=0, device="cuda")
+    lens = serve_prompt_lens()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in lens]
+    n_tokens = SERVE_REQUESTS * SERVE_NEW
+    print(f"serving: LLaMA-7B widths, {n_l} layers, int8 weight-only, random "
+          f"weights (seed 0); {SERVE_REQUESTS} requests x {SERVE_NEW} new "
+          f"tokens, prompts of {min(lens)}-{max(lens)} tokens (seed 0, "
+          f"{sum(lens)} in all), greedy, end_id -1, decode_chunk "
+          f"{SERVE_CHUNK}, {SERVE_ENGINE}")
+    outs, gaps = {}, {}
+    for name, opts, int8_kv in SERVE_CONFIGS:
+        c = (dataclasses.replace(cfg, quant_mode=mode | QuantMode.INT8_KV_CACHE)
+             if int8_kv else cfg)
+        eng = ServingEngine(
+            c, params, EngineConfig(**SERVE_ENGINE),
+            sampling=SamplingConfig(end_id=-1),
+            kv_scales=[KV_SCALE] * n_l if int8_kv else None,
+            decode_chunk=SERVE_CHUNK, device="cuda", **opts)
+        for p in prompts[:SERVE_WARMUP]:  # warm-up (cuBLAS, allocator)
+            eng.submit(p, 4)
+        eng.run_to_completion()
+        decode = ((INT8_PAGED if int8_kv else "paged_decode_attention")
+                  if eng.paged else "dma_decode_attention")
+        prefill = ("packed_prefill_attention_kernel" if eng.packed
+                   else "prefill_attention_kernel")
+        wrappers = {"woq_matmul_stacked": woq.woq_matmul_stacked,
+                    decode: (pda.paged_decode_attention if eng.paged
+                             else da.dma_decode_attention),
+                    prefill: (ppa.packed_prefill_attention_kernel
+                              if eng.packed else pa.prefill_attention_kernel)}
+        eng.phase_times = dict.fromkeys(eng.phase_times, 0.0)
+        eng.phase_times["steps"] = 0
+        eng.calls = dict.fromkeys(eng.calls, 0)
+        eng._req_times.clear()
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, SERVE_NEW) for p in prompts]
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        calls = dict(eng.calls)
+        prefills = calls["packed_prefills" if eng.packed else "prefills"]
+        expect = {"woq_matmul_stacked": 5 * n_l * (calls["decode_steps"]
+                                                   + prefills),
+                  decode: n_l * calls["decode_steps"],
+                  prefill: n_l * prefills}
+        print(f"  serving {name}: {n_tokens / wall:.1f} generated tokens/s "
+              f"({n_tokens} tokens in {wall:.2f} s); device calls {calls}")
+        print(f"  launches {launches}, expected {expect}: "
+              f"{'ok' if launches == expect else 'FAIL'}")
+        if launches != expect:
+            errors.append(f"serving {name}: launches {launches} != {expect}")
+        if prefills != len(serve_waves()) - 1:
+            errors.append(f"serving {name}: {prefills} prefill calls, not the "
+                          "admission waves whose shapes the kernels were "
+                          "checked at")
+        for k, n in launches.items():
+            results[k]["launches"] = results[k].get("launches", 0) + n
+        stats, phases = eng.latency_stats(), eng.phase_stats()
+        print(f"  latency_stats {json.dumps(stats)}")
+        print(f"  phase_stats (ms per engine step) {json.dumps(phases)}")
+        bad = [r for r in rids if r not in done
+               or len(done[r].output_ids) != SERVE_NEW
+               or done[r].finished_reason != "length"]
+        if bad:
+            errors.append(f"serving {name}: requests {bad} did not return "
+                          f"{SERVE_NEW} tokens")
+        outs[name] = [list(done[r].output_ids) if r in done else []
+                      for r in rids]
+        if eng.packed:
+            gaps = check_packed_vs_batched(eng, prompts, errors)
+        busy = profile_serving_step(eng, prompts)
+        results["_e2e"][f"serving {name}"] = dict(
+            layers=n_l, tokens_per_s=n_tokens / wall, wall_s=wall,
+            latency=stats, phases=phases, calls=calls, **busy)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    firsts = {name: [o[0] if o else None for o in out]
+              for name, out in outs.items()}
+    same_first = firsts["dense"] == firsts["paged"]
+    print(f"  first tokens identical, dense vs paged: {same_first}")
+    if not same_first:
+        errors.append("serving: dense and paged first tokens differ")
+    for name in ("paged", "packed", "paged int8 KV"):
+        diffs = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                      None) for x, y in zip(outs["dense"], outs[name])]
+        n_same = sum(d is None for d in diffs)
+        print(f"  {name} vs dense: {n_same} of {SERVE_REQUESTS} requests "
+              f"token for token; first differing positions of the others: "
+              f"{[d for d in diffs if d is not None]}")
+        if name == "packed":
+            print("  packed vs dense, requests whose first token differs: "
+                  "top-2 gap of the batched prefill's logits: "
+                  + json.dumps({r: gaps[r] for r, d in enumerate(diffs)
+                                if d == 0}))
+
+
+def check_packed_vs_batched(eng, prompts, errors):
+    """The counted run's admission waves prefilled on the card both ways,
+    with the engine's weights: batched at the 128-token bucket
+    (forward_prefill, as dense admission does) and packed (the engine's own
+    pack_prompts and forward_prefill_packed, as packed admission does).
+    Holds the logits and every prompt row of the K/V written within
+    LOGITS_TOL of the largest value. Returns each request's top-2 gap of
+    the batched logits and prints it where the two argmaxes differ."""
+    import torch
+    from trtllm_llama_tpu_torch.models import llama
+    from trtllm_llama_tpu_torch.ops.attention import PackedMeta
+    from trtllm_llama_tpu_torch.runtime.serving import pack_prompts
+
+    cfg, dev, scales = eng.cfg, eng.device, eng.kv_scales
+    bucket = max(SERVE_ENGINE["prefill_buckets"])
+    slots = SERVE_ENGINE["max_batch_size"]
+    print(f"  packed vs batched prefill of each wave ({cfg.num_layers} "
+          "layers, the engine's weights, on the card):")
+    gaps, off = {}, 0
+    for w, lens in enumerate(serve_waves()[1:], 1):
+        wave, b = prompts[off:off + len(lens)], len(lens)
+        tb = packed_len(sum(lens))
+        with torch.inference_mode():
+            ids = torch.full((b, bucket), eng.scfg.pad_id, dtype=torch.int32,
+                             device=dev)
+            for i, p in enumerate(wave):
+                ids[i, :len(p)] = torch.as_tensor(p, device=dev)
+            batched = llama.init_caches(cfg, b, bucket, dev, scales)
+            ref, _ = llama.forward_prefill(
+                eng.params, cfg, ids, torch.as_tensor(lens, dtype=torch.int32,
+                                                      device=dev),
+                batched, rope=eng.rope)
+            tok, meta, last = pack_prompts(wave, range(b), tb, slots, slots)
+            packed = llama.init_caches(cfg, slots + 1, bucket, dev, scales)
+            got, _ = llama.forward_prefill_packed(
+                eng.params, cfg, torch.as_tensor(tok, device=dev),
+                PackedMeta(*torch.as_tensor(meta, device=dev)),
+                torch.as_tensor(last, device=dev), packed, rope=eng.rope)
+            got = got[:b]
+            compare(f"wave {w} (T={tb}, {sum(lens)} prompt rows) logits",
+                    got, ref, errors, tol=LOGITS_TOL)
+            for kv in ("k", "v"):
+                a, r = getattr(packed, kv), getattr(batched, kv)
+                compare(f"wave {w} {kv.upper()} rows written", torch.cat(
+                    [a[:, i, :, :n] for i, n in enumerate(lens)], 2),
+                    torch.cat([r[:, i, :, :n] for i, n in enumerate(lens)],
+                              2), errors, tol=LOGITS_TOL)
+            top2 = ref.topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).tolist()
+            flips = (got.argmax(-1) != ref.argmax(-1)).tolist()
+        for i in range(b):
+            gaps[off + i] = round(gap[i], 5)
+        print(f"  wave {w}: argmax differs for {sum(flips)} of {b} prompts; "
+              f"their batched top-2 gaps "
+              f"{[gaps[off + i] for i in range(b) if flips[i]]}, the "
+              f"smallest gap of the wave {min(gap):.5f}")
+        off += b
+        del batched, packed
+    return gaps
+
+
+def profile_serving_step(eng, prompts):
+    """Admits 8 requests under the profiler (the admission step: one batched
+    or packed prefill of the 8 prompts, then a decode chunk), times the next,
+    decode-only step (one chunk of decode_chunk steps) on the host clock and
+    profiles the one after it: device time by kernel and the device's busy
+    share of the unprofiled decode step. Drains the engine afterwards."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled_step():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        dev_ms = sum(e.self_device_time_total for e in events
+                     if e.device_type == DeviceType.CUDA) / 1e3
+        return dev_ms, events
+
+    for p in prompts[:SERVE_ENGINE["max_batch_size"]]:
+        eng.submit(p, SERVE_NEW)
+    torch.cuda.synchronize()
+    admit_ms, events = profiled_step()
+    print(f"  profile of the admission step (prefill of 8 prompts + one "
+          f"decode chunk): device busy {admit_ms:.2f} ms")
+    print(events.table(sort_by="self_device_time_total", row_limit=6,
+                       max_name_column_width=60))
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, events = profiled_step()
+    eng.run_to_completion()
+    print(f"  profile of one decode step ({SERVE_CHUNK} tokens x 9 rows): "
+          f"device busy {dev_ms:.2f} ms of the {step_ms:.2f} ms unprofiled "
+          f"step: {100 * dev_ms / step_ms:.1f}% busy, "
+          f"{100 - 100 * dev_ms / step_ms:.1f}% idle")
+    print(events.table(sort_by="self_device_time_total", row_limit=12,
+                       max_name_column_width=60))
+    return dict(admit_step_device_ms=admit_ms, step_ms=step_ms,
+                step_device_ms=dev_ms, step_busy_share=dev_ms / step_ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -817,10 +1324,14 @@ def main(argv=None) -> int:
     check_decode(errors, results, kv_int8=True)
     for fmt in ("int4 g128", "int4 per-channel", "fp8"):
         check_gemv(fmt, errors, results)
+    check_packed_prefill(errors, results)
+    check_paged_decode(errors, results)
+    check_paged_decode(errors, results, kv_int8=True)
     for path in make_paths():
         run_path(path, args, errors, results)
         gc.collect()                 # free this path's session and weights
         torch.cuda.empty_cache()
+    run_serving(args, errors, results)
     if errors:
         print("chip_smoke FAILED:\n  " + "\n  ".join(errors), file=sys.stderr)
         return 1

@@ -13,7 +13,7 @@ same bounds. The W8A8 kernel is
 exact against its plain version (int32 sums, the same f32 epilogue);
 rmsnorm_quant's scales agree to 1e-6 relative and its codes within one
 step (the row's sum of squares is taken in another order); int8 KV caches
-are bit-identical to the plain write.
+and paged pools are bit-identical to the plain write.
 """
 
 import numpy as np
@@ -22,6 +22,8 @@ import torch
 
 from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
 from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
+from trtllm_llama_tpu_torch.ops.kernels import packed_prefill_attention as ppa
+from trtllm_llama_tpu_torch.ops.kernels import paged_decode_attention as pda
 from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
 from trtllm_llama_tpu_torch.ops.kernels import rmsnorm_quant as rnq
 from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
@@ -231,6 +233,120 @@ def test_int8_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
 
 
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_decode_kernel_drops_a_write_past_the_cache(dev, kv_int8):
+    """pos == S_max (and past it) writes nothing and attends all S_max rows,
+    as the plain version (and the JAX scatter) does."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    n_layers, b, hq, hkv, s, d = 2, 3, 8, 2, 64, 128
+    if kv_int8:
+        kc = torch.randint(-127, 128, (n_layers, b, hkv, s, d), generator=g,
+                           device=dev, dtype=torch.int8)
+        kv_scale = torch.tensor([0.05, 0.021], device=dev)
+    else:
+        kc = torch.randn((n_layers, b, hkv, s, d), generator=g, device=dev)
+        kv_scale = None
+    vc = kc.flip(-1).contiguous()
+    q = torch.randn((b, hq, d), generator=g, device=dev)
+    kn, vn = (torch.randn((b, hkv, d), generator=g, device=dev)
+              for _ in range(2))
+    pos = torch.tensor([s, 9, s + 3], dtype=torch.int32, device=dev)
+    kc2, vc2, before = kc.clone(), vc.clone(), kc.clone()
+    got = da.dma_decode_attention(q, kn, vn, kc, vc, 1, pos, kv_scale=kv_scale)
+    ref = da.dma_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos,
+                                        kv_scale=kv_scale)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, torch.float32)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    moved = (kc != before).any(-1).any(2)                  # [L, B, S]
+    assert moved.sum().item() <= 1 and not moved[:, [0, 2]].any()
+
+
+# tables of five sequences over a pool of 14 blocks (13 is the trash
+# block): a mid-block write; a -1 entry past the attended blocks; a position
+# past the table (writes trash row 5, attends all MB * BS rows); the table's
+# last row; a -1 write block (writes trash row 2, reads trash rows 0-1).
+# No two sequences touch one trash row, so the result is defined.
+PAGED_TABLES = [[3, 0, 5], [7, 1, -1], [2, 4, 6], [8, 9, 10], [12, -1, -1]]
+
+
+def _paged_case(dev, dtype, kv_int8, hq, hkv, bs, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_layers, nb, mb, d = 2, 14, 3, 128
+    shape = (n_layers, nb, hkv, bs, d)
+    if kv_int8:
+        pk = torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        pv = torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        kv_scale = torch.tensor([0.05, 0.021], device=dev)
+    else:
+        pk = torch.randn(shape, generator=g, device=dev).to(dtype)
+        pv = torch.randn(shape, generator=g, device=dev).to(dtype)
+        kv_scale = None
+    b = len(PAGED_TABLES)
+    tables = torch.tensor(PAGED_TABLES, dtype=torch.int32, device=dev)
+    pos = torch.tensor([bs + 3, 5, mb * bs + 5, mb * bs - 1, bs + 2],
+                       dtype=torch.int32, device=dev)
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
+    kn = (4 * torch.randn((b, hkv, d), generator=g, device=dev)).to(dtype)
+    vn = (4 * torch.randn((b, hkv, d), generator=g, device=dev)).to(dtype)
+    return q, kn, vn, pk, pv, tables, pos, kv_scale
+
+
+@pytest.mark.parametrize("bs", [8, 16, 64])
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8)])
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_kernel_matches_plain(dev, dtype, kv_int8, hq, hkv, bs):
+    q, kn, vn, pk, pv, tables, pos, kv_scale = _paged_case(
+        dev, dtype, kv_int8, hq, hkv, bs, bs + hkv)
+    pk2, pv2, before = pk.clone(), pv.clone(), pk.clone()
+    launches = pda.paged_decode_attention.launches
+    got = pda.paged_decode_attention(q, kn, vn, pk, pv, 1, tables, pos,
+                                     kv_scale=kv_scale)
+    assert pda.paged_decode_attention.launches == launches + 1
+    ref = pda.paged_decode_attention_plain(q, kn, vn, pk2, pv2, 1, tables,
+                                           pos, kv_scale=kv_scale)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, dtype)
+    assert torch.equal(pk, pk2) and torch.equal(pv, pv2)
+    # only the five write rows of layer 1 moved: blocks 0 (row 3), 7
+    # (row 5), 10 (its last row) and the trash block (rows 5 and 2)
+    moved = (pk != before).any(-1).any(2)                  # [L, NB, BS]
+    allowed = torch.zeros_like(moved)
+    for blk, row in ((0, 3), (7, 5), (10, bs - 1), (13, 5 % bs), (13, 2)):
+        allowed[1, blk, row] = True
+    assert not (moved & ~allowed).any()
+
+
+@pytest.mark.parametrize("t,lens", [(24, [5, 1, 9]), (64, [20, 30, 1]),
+                                    (100, [37, 1, 50]), (48, [48]),
+                                    (1024, [128, 77, 3, 128, 100, 1, 128])])
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_packed_prefill_kernel_matches_plain(dev, dtype, hq, hkv, t, lens):
+    """Segment layouts with pad rows, a length-1 segment and segments that
+    cross 32-row tiles; pad rows must come out finite."""
+    g = torch.Generator(device=dev).manual_seed(t + hkv)
+    d = 128
+    q, k, v = (torch.randn((t, h, d), generator=g, device=dev).to(dtype)
+               for h in (hq, hkv, hkv))
+    seg = torch.full((t,), -1, dtype=torch.int32, device=dev)
+    off = 0
+    for i, n in enumerate(lens):
+        seg[off:off + n] = i
+        off += n
+    launches = ppa.packed_prefill_attention_kernel.launches
+    got = ppa.packed_prefill_attention_kernel(q, k, v, seg)
+    assert ppa.packed_prefill_attention_kernel.launches == launches + 1
+    ref = ppa.packed_prefill_attention_kernel_plain(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    real = seg >= 0
+    _assert_close(got[real], ref[real], dtype)
+
+
 def test_tiny_sq_int8kv_generate_on_cuda_matches_cpu(dev):
     from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
     from trtllm_llama_tpu_torch.quantization.quantize import (
@@ -333,3 +449,13 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):               # int8 cache, no kv_scale
         da.dma_decode_attention(new, new, new, cache, cache.clone(), 0,
                                 torch.zeros(1, dtype=torch.int32, device=dev))
+    pool = torch.zeros((1, 3, 2, 12, 32), device=dev)
+    with pytest.raises(ValueError):               # block size 12
+        pda.paged_decode_attention(new, new, new, pool, pool.clone(), 0,
+                                   torch.zeros((1, 1), dtype=torch.int32,
+                                               device=dev),
+                                   torch.zeros(1, dtype=torch.int32,
+                                               device=dev))
+    with pytest.raises(ValueError):               # head dim 48
+        ppa.packed_prefill_attention_kernel(
+            q[0], q[0], q[0], torch.zeros(8, dtype=torch.int32, device=dev))

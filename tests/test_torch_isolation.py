@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of trtllm_llama_tpu_torch, nor
 chip_smoke.py, imports JAX or the JAX package, and the port imports and
 generates on the CPU (int8 weight-only, SmoothQuant with an int8 KV cache,
-int4 g64 and fp8 with a quantized lm_head) with both made unimportable."""
+int4 g64 and fp8 with a quantized lm_head) and serves (a paged and a
+packed ServingEngine) with both made unimportable."""
 
 import ast
 import subprocess
@@ -77,6 +78,18 @@ for mode in (QuantMode.use_weight_only(True, per_group=True),
     out = sess.generate([[5, 6, 7], [8, 9]],
                         sampling=SamplingConfig(end_id=-1), max_new_tokens=4)
     assert out.output_ids.shape == (2, 4), out.output_ids.shape
+from trtllm_llama_tpu_torch.runtime.serving import ServingEngine
+cfg = ModelConfig.tiny(dtype="float32", quant_mode=QuantMode.use_weight_only())
+params = init_random_quantized_params(cfg, device="cpu")
+for opts in (dict(paged=True, block_size=8), dict(packed_prefill=True)):
+    eng = ServingEngine(cfg, params, EngineConfig(max_batch_size=2,
+                        max_input_len=16, max_seq_len=32),
+                        sampling=SamplingConfig(end_id=-1), decode_chunk=4,
+                        device="cpu", **opts)
+    rids = [eng.submit(p, 5) for p in ([5, 6, 7], [8, 9], [10, 11, 12, 13])]
+    done = eng.run_to_completion()
+    assert sorted(done) == rids and all(
+        len(done[r].output_ids) == 5 for r in rids), done
 assert not any(m == "jax" or m.startswith(("jax.", "trtllm_llama_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok", out.output_ids.tolist())

@@ -9,7 +9,10 @@ weight-only `WOQWeight`s (int8 or int4, per-channel or grouped scales),
 layer loop is a Python loop over the stacked weights; kernels read the
 layer slice in place; `ops.linear.dense` dispatches on the container. The KV cache is the stacked
 [L, B, H_kv, S_max, D] `KVCache` (compute dtype, or int8 with per-layer
-scales), updated in place.
+scales) or the paged `PagedKVCache` (block pools [L, NB, H_kv, BS, D] with
+a block table), updated in place; `forward_prefill` and `forward_decode`
+dispatch on its type, and `forward_prefill_packed` prefills one packed
+token stream into the dense cache.
 """
 
 from __future__ import annotations
@@ -17,10 +20,14 @@ from __future__ import annotations
 import torch
 
 from ..config import ModelConfig, str_dtype_to_torch
-from ..ops.attention import (KVCache, fused_decode_attention_at,
-                             prefill_attention, write_kv_prefill_at)
+from ..ops.attention import (KVCache, PackedMeta, fused_decode_attention_at,
+                             packed_prefill_attention, prefill_attention,
+                             write_kv_packed_at, write_kv_prefill_at)
 from ..ops.linear import dense, dense_fused, dense_prequant, embedding_lookup
 from ..ops.norm import rms_norm, rms_norm_quant
+from ..ops.paged_attention import (PagedKVCache,
+                                   paged_fused_decode_attention_at,
+                                   paged_write_prefill_at)
 from ..ops.rope import apply_rope, rope_tables_for, take_rope
 from ..quantization.tensors import SQWeight, concat_columns
 
@@ -66,9 +73,12 @@ def _sq_per_token(w) -> bool:
     return isinstance(w, SQWeight) and w.per_token
 
 
-def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin,
-                caches: KVCache, seq_lens, decode: bool):
-    """x: [B, S, D] (prefill) or [B, D] (decode)."""
+def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin, caches,
+                seq_lens, decode: bool, packed: PackedMeta = None,
+                slots=None):
+    """x: [B, S, D] (prefill), [B, D] (decode) or [T, D] (packed prefill).
+    `caches` is the dense `KVCache` or a `PagedKVCache`; `slots` [B] are
+    the dense cache rows a prefill writes (default 0..B-1)."""
     nq_d = cfg.num_heads * cfg.head_dim
     nkv_d = cfg.num_kv_heads * cfg.head_dim
     fused = "wqkv" in lw
@@ -99,11 +109,19 @@ def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin,
     q = apply_rope(_split_heads(q, cfg.num_heads, cfg.head_dim), cos, sin)
     k = apply_rope(_split_heads(k, cfg.num_kv_heads, cfg.head_dim), cos, sin)
     v = _split_heads(v, cfg.num_kv_heads, cfg.head_dim).contiguous()
-    if decode:
-        attn, caches = fused_decode_attention_at(q, k, v, caches, layer,
-                                                 seq_lens)
+    paged = isinstance(caches, PagedKVCache)
+    if packed is not None:
+        # packed prefill: q/k/v [T, H, D], one row per stream token
+        caches = write_kv_packed_at(caches, layer, k, v, packed.slot_tok,
+                                    packed.pos_tok)
+        attn = packed_prefill_attention(q, k, v, packed.seg_ids)
+    elif decode:
+        decode_at = (paged_fused_decode_attention_at if paged
+                     else fused_decode_attention_at)
+        attn, caches = decode_at(q, k, v, caches, layer, seq_lens)
     else:
-        caches = write_kv_prefill_at(caches, layer, k, v)
+        caches = (paged_write_prefill_at(caches, layer, k, v) if paged
+                  else write_kv_prefill_at(caches, layer, k, v, slots))
         attn = prefill_attention(q, k, v, seq_lens)
     attn = attn.reshape(*attn.shape[:-2], nq_d)
     out = dense_fused(attn, lw["wo"], layer=layer, resid=x, out_dtype=x.dtype)
@@ -127,11 +145,11 @@ def _mlp_block(cfg: ModelConfig, lw, layer: int, x):
 
 
 def _run_layers(cfg: ModelConfig, params, x, cos, sin, caches, seq_lens,
-                decode: bool):
+                decode: bool, packed: PackedMeta = None, slots=None):
     lw = params["layers"]
     for layer in range(cfg.num_layers):
         x, caches = _attn_block(cfg, lw, layer, x, cos, sin, caches,
-                                seq_lens, decode)
+                                seq_lens, decode, packed, slots)
         x = _mlp_block(cfg, lw, layer, x)
     return x, caches
 
@@ -142,22 +160,42 @@ def _rope(cfg, rope, device):
 
 def forward_prefill(params, cfg: ModelConfig, input_ids, seq_lens,
                     caches: KVCache, return_all_logits: bool = False,
-                    rope=None):
+                    rope=None, slots=None):
     """Context phase. input_ids: [B, S] left-aligned (padded right),
     seq_lens [B]. Returns (logits, caches): f32 logits [B, V] at each
     sequence's last position, or [B, S, V] with return_all_logits.
-    `rope`: optional precomputed (cos, sin) tables (rope_tables_for)."""
+    `rope`: optional precomputed (cos, sin) tables (rope_tables_for).
+    `slots`: optional [B] rows of a dense cache that take the K/V (the
+    serving engine's slots); default rows 0..B-1."""
     b, s = input_ids.shape
     x = embedding_lookup(params["embed"], input_ids, cfg.torch_dtype)
     cos_t, sin_t = _rope(cfg, rope, x.device)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     cos, sin = take_rope(cos_t, sin_t, positions)           # [B, S, 1, d]
-    x, caches = _run_layers(cfg, params, x, cos, sin, caches, seq_lens, False)
+    x, caches = _run_layers(cfg, params, x, cos, sin, caches, seq_lens, False,
+                            slots=slots)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if return_all_logits:
         return dense(x, params["lm_head"], torch.float32), caches
     last = x[torch.arange(b, device=x.device), seq_lens.long() - 1]
     return dense(last, params["lm_head"], torch.float32), caches
+
+
+def forward_prefill_packed(params, cfg: ModelConfig, token_ids,
+                           packed: PackedMeta, last_idx, caches: KVCache,
+                           rope=None):
+    """Packed (remove-padding) context phase. token_ids: [T] flattened
+    mixed-length prompts (pads where seg_ids is -1); packed: PackedMeta;
+    last_idx: [nb] index of each sequence's last token in the stream.
+    Returns (f32 logits [nb, V], caches): each token's K/V lands at cache
+    row slot_tok, position pos_tok."""
+    x = embedding_lookup(params["embed"], token_ids, cfg.torch_dtype)  # [T, D]
+    cos_t, sin_t = _rope(cfg, rope, x.device)
+    cos, sin = take_rope(cos_t, sin_t, packed.pos_tok.long())          # [T,1,d]
+    x, caches = _run_layers(cfg, params, x, cos, sin, caches, None, False,
+                            packed)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return dense(x[last_idx.long()], params["lm_head"], torch.float32), caches
 
 
 def forward_decode(params, cfg: ModelConfig, tokens, positions,

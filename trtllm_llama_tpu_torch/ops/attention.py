@@ -8,10 +8,11 @@ stores clamp(round(x / scale[layer]), +-127) with one static scale per
 layer and reads code * scale; fp8 caches are not ported yet.
 
 Dispatch is by tensor device inside the kernel wrappers: `prefill_attention`
-goes to kernel 2, `fused_decode_attention_at` to kernel 3 at every cache
-length (the JAX package's switch to its DMA kernel at S_max >= 4096 is a
-TPU crossover the port does not copy). `decode_attention` is the plain
-read-only reference.
+goes to kernel 2, `packed_prefill_attention` to kernel 13,
+`fused_decode_attention_at` to kernel 3 at every cache length (the JAX
+package's switch to its DMA kernel at S_max >= 4096 is a TPU crossover the
+port does not copy). `decode_attention` is the plain read-only reference.
+The paged cache is in `ops/paged_attention.py`.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from ..quantization.tensors import quantize_int8
 from .kernels import decode_attention as _decode
+from .kernels import packed_prefill_attention as _packed
 from .kernels import prefill_attention as _prefill
 
 NEG_INF = -1e9
@@ -55,21 +57,45 @@ def _dequant_kv(x, scale, dtype):
     return x.to(dtype)
 
 
-def write_kv_prefill_at(cache: KVCache, layer: int, k, v) -> KVCache:
-    """Write [B, S, H_kv, D] k/v into layer `layer` at rows [0, S)."""
+def write_kv_prefill_at(cache: KVCache, layer: int, k, v,
+                        slots=None) -> KVCache:
+    """Write [B, S, H_kv, D] k/v into layer `layer` at rows [0, S) of
+    cache rows 0..B-1, or of cache rows `slots` [B] when given."""
     s = k.shape[1]
+    rows = slice(None) if slots is None else slots.long()
     for src, dst in ((k, cache.k), (v, cache.v)):
-        dst[layer, :, :, :s] = _quant_kv(src.transpose(1, 2), dst.dtype,
-                                         cache.scale[layer])
+        dst[layer, rows, :, :s] = _quant_kv(src.transpose(1, 2), dst.dtype,
+                                            cache.scale[layer])
     return cache
 
 
 def write_kv_decode_at(cache: KVCache, layer: int, k, v, positions) -> KVCache:
-    """Write one token per sequence: k/v [B, H_kv, D] at positions [B]."""
-    bidx = torch.arange(k.shape[0], device=k.device)
-    pos = positions.long()
+    """Write one token per sequence: k/v [B, H_kv, D] at positions [B]; a
+    position >= S_max writes nothing (the JAX package's scatter drops it)."""
     for src, dst in ((k, cache.k), (v, cache.v)):
-        dst[layer, bidx, :, pos] = _quant_kv(src, dst.dtype, cache.scale[layer])
+        _decode.write_rows(dst[layer], positions.long(),
+                           _quant_kv(src, dst.dtype, cache.scale[layer]))
+    return cache
+
+
+class PackedMeta(NamedTuple):
+    """Remove-padding prefill metadata. All [T]: seg_ids (-1 pad), slot_tok
+    (cache row per token; pads -> the trash slot), pos_tok (position within
+    its own sequence)."""
+
+    seg_ids: torch.Tensor
+    slot_tok: torch.Tensor
+    pos_tok: torch.Tensor
+
+
+def write_kv_packed_at(cache: KVCache, layer: int, k, v, slot_tok,
+                       pos_tok) -> KVCache:
+    """Scatter packed rows: k/v [T, H_kv, D]; token t goes to
+    (layer, slot_tok[t], :, pos_tok[t]). Pad tokens must point at a trash
+    slot row."""
+    slot, pos = slot_tok.long(), pos_tok.long()
+    for src, dst in ((k, cache.k), (v, cache.v)):
+        dst[layer, slot, :, pos] = _quant_kv(src, dst.dtype, cache.scale[layer])
     return cache
 
 
@@ -81,6 +107,14 @@ def prefill_attention(q, k, v, seq_lens=None, scale: Optional[float] = None,
     if alibi is not None:
         raise NotImplementedError("ALiBi attention is not ported yet")
     return _prefill.prefill_attention_kernel(q, k, v, seq_lens, scale)
+
+
+def packed_prefill_attention(q, k, v, seg_ids, scale: Optional[float] = None):
+    """Packed (remove-padding) causal attention over concatenated sequences
+    (kernel 13): position i attends j iff both share a segment id and
+    j <= i. q: [T, H_q, D]; k, v: [T, H_kv, D]; seg_ids: [T] int32 (pad rows
+    -1). Returns [T, H_q, D] (pad rows undefined)."""
+    return _packed.packed_prefill_attention_kernel(q, k, v, seg_ids, scale)
 
 
 def fused_decode_attention_at(q, k_new, v_new, cache: KVCache, layer: int,

@@ -1,5 +1,6 @@
 """Kernel 3: decode attention with the in-place KV write
-(csrc/decode_attention.cu).
+(csrc/decode_attention.cu, its body in csrc/decode_attention.cuh, shared
+with kernel 14).
 
 Replaces `trtllm_llama_tpu/ops/pallas/dma_decode_attention.py::
 dma_decode_attention`, for bf16/f32 caches and int8 caches with one static
@@ -8,7 +9,9 @@ dequant scale per layer. Bound on the H100: the live K/V bytes,
 over only the live 32-row chunks, one block per (chunk, kv head, b)
 covering the GQA group, then a combine launch; the block owning pos's chunk
 is the only writer of row pos and attends it as stored (int8: encoded then
-decoded), so the write never races a reader (see the source's note).
+decoded), so the write never races a reader (see the source's note). A
+position >= S_max writes nothing (the JAX scatter drops it) and attends
+all S_max rows.
 
 `dma_decode_attention` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors; `.launches` counts launches.
@@ -31,24 +34,36 @@ _SIGNATURES = {"tllm_decode_attention": [_P] * 11 + [_I] * 7 + [_F, _I, _P]}
 _HEAD_DIMS = (32, 64, 128)
 
 
+def write_rows(cache, positions, rows):
+    """cache[b, :, positions[b]] = rows[b] for cache [B, H, S, D], rows
+    [B, H, D] of its dtype, in place; a position >= S writes nothing (the
+    JAX package's scatter drops it). No host sync: a dropped row rewrites
+    the cache's own last row."""
+    s = cache.shape[2]
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    at = positions.clamp(max=s - 1)
+    keep = (positions < s)[:, None, None]
+    cache[bidx, :, at] = torch.where(keep, rows, cache[bidx, :, at])
+
+
 def dma_decode_attention_plain(q, k_new, v_new, k_cache, v_cache, layer: int,
                                positions, sm_scale=None, kv_scale=None):
     """Plain PyTorch version. Writes k_new/v_new [B, Hkv, D] at row
     positions[b] of layer `layer` of the caches [L, B, Hkv, S, D] (in
-    place; an int8 cache stores clamp(round(x / kv_scale[layer]), +-127)),
+    place; an int8 cache stores clamp(round(x / kv_scale[layer]), +-127);
+    a position >= S writes nothing, as the JAX package's scatter drops it),
     then attends q [B, Hq, D] over rows <= positions[b] with an f32 softmax
     and f32 p @ v (int8 rows read as code * kv_scale[layer] in f32).
     Returns [B, Hq, D] in q's dtype."""
     b, hq, d = q.shape
     hkv, s = k_cache.shape[2], k_cache.shape[3]
     scale = sm_scale if sm_scale is not None else d ** -0.5
-    bidx = torch.arange(b, device=q.device)
     pos = positions.long()
     int8 = k_cache.dtype == torch.int8
     enc = ((lambda x: quantize_int8(x, kv_scale[layer])) if int8
            else (lambda x: x.to(k_cache.dtype)))
-    k_cache[layer, bidx, :, pos] = enc(k_new)
-    v_cache[layer, bidx, :, pos] = enc(v_new)
+    write_rows(k_cache[layer], pos, enc(k_new))
+    write_rows(v_cache[layer], pos, enc(v_new))
     rep = hq // hkv
     kf, vf = k_cache[layer].float(), v_cache[layer].float()
     if int8:

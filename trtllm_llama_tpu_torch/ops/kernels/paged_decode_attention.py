@@ -1,0 +1,173 @@
+"""Kernel 14: paged decode attention with the in-place KV write
+(csrc/paged_decode_attention.cu, its body in csrc/decode_attention.cuh,
+shared with kernel 3).
+
+Replaces `trtllm_llama_tpu/ops/pallas/paged_decode_attention.py::
+paged_decode_attention`, for bf16/f32 pools and int8 pools with one static
+dequant scale per layer. Bound on the H100: the live K/V bytes,
+2*B*Hkv*(pos+1)*D*(2 for bf16, 1 for int8). Design: kernel 3's
+flash-decoding over the live 32-row chunks, a chunk's rows found through
+the block table (`tables[b, row // BS]`, row `row % BS`) instead of
+contiguously; the block owning pos's chunk is the only writer of row pos.
+
+Rules (both versions): table entries -1 stand for the trash block (the
+pool's last); a position with pos // BS >= MB writes to the trash block and
+attends the MB * BS table rows; every other row of the pool stays as it
+was. BS must be a multiple of 8.
+
+`paged_decode_attention` takes the plain version for CPU tensors and
+launches the kernel for CUDA tensors; `.launches` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...quantization.tensors import quantize_int8
+from . import _build
+
+NEG_INF = -1e9
+CHUNK = 32      # cache rows per block (kChunk in the source)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"tllm_paged_decode_attention":
+               [_P] * 12 + [_I] * 9 + [_F, _I, _P]}
+_HEAD_DIMS = (32, 64, 128)
+
+
+def _write_blocks(tables, positions, n_blocks: int, bs: int):
+    """(block tables with -1 as the trash block, the block each position
+    writes to, the row in it)."""
+    trash = n_blocks - 1
+    tbl = torch.where(tables < 0, trash, tables).long()
+    pos = positions.long()
+    blk_i = pos // bs
+    mb = tbl.shape[1]
+    w_blk = tbl.gather(1, blk_i.clamp(max=mb - 1)[:, None])[:, 0]
+    w_blk = torch.where(blk_i < mb, w_blk, trash)
+    return tbl, w_blk, pos % bs
+
+
+def write_rows(pool, layer: int, tables, positions, rows):
+    """The one paged decode write rule: rows [B, Hkv, D] (in the pool's
+    dtype) go to row pos % BS of block tables[b, pos // BS] of layer `layer`
+    of pool [L, NB, Hkv, BS, D], in place; -1 entries and positions past the
+    table write the trash block (the pool's last)."""
+    _, blk, off = _write_blocks(tables, positions, pool.shape[1],
+                                pool.shape[3])
+    pool[layer, blk, :, off] = rows
+
+
+def paged_decode_attention_plain(q, k_new, v_new, pool_k, pool_v, layer: int,
+                                 tables, positions, sm_scale=None,
+                                 kv_scale=None):
+    """Plain PyTorch version. Writes k_new/v_new [B, Hkv, D] at row
+    pos % BS of block tables[b, pos // BS] of layer `layer` of the pools
+    [L, NB, Hkv, BS, D] (in place; an int8 pool stores
+    clamp(round(x / kv_scale[layer]), +-127)), then attends q [B, Hq, D]
+    over the rows < min(pos + 1, MB * BS) of the table's blocks with an f32
+    softmax and f32 p @ v (int8 rows read as code * kv_scale[layer] in f32).
+    Returns [B, Hq, D] in q's dtype."""
+    b, hq, d = q.shape
+    nb, hkv, bs = pool_k.shape[1], pool_k.shape[2], pool_k.shape[3]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    int8 = pool_k.dtype == torch.int8
+    enc = ((lambda x: quantize_int8(x, kv_scale[layer])) if int8
+           else (lambda x: x.to(pool_k.dtype)))
+    write_rows(pool_k, layer, tables, positions, enc(k_new))
+    write_rows(pool_v, layer, tables, positions, enc(v_new))
+    tbl = torch.where(tables < 0, nb - 1, tables).long()
+    mb = tbl.shape[1]
+    rep = hq // hkv
+
+    def gather(pool):              # [B, Hq, MB*BS, D] f32
+        x = pool[layer][tbl].float().permute(0, 2, 1, 3, 4)
+        x = x.reshape(b, hkv, mb * bs, d)
+        if int8:
+            x = x * kv_scale[layer]
+        return x.repeat_interleave(rep, dim=1)
+    scores = torch.einsum("bhd,bhsd->bhs", q.float(), gather(pool_k)) * scale
+    mask = (torch.arange(mb * bs, device=q.device)[None, :]
+            <= positions.long()[:, None])
+    scores = torch.where(mask[:, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bhsd->bhd", probs, gather(pool_v)).to(q.dtype)
+
+
+def paged_decode_attention(q, k_new, v_new, pool_k, pool_v, layer: int,
+                           tables, positions, sm_scale=None, kv_scale=None):
+    """Decode step of layer `layer` over the paged pools: write the new
+    token's K/V at `positions` [B] (int32) through `tables` [B, MB] (int32)
+    into the pools IN PLACE and attend. q: [B, Hq, D]; k_new, v_new:
+    [B, Hkv, D] in q's dtype; pools [L, NB, Hkv, BS, D] in q's dtype or
+    int8, the last block the trash block; kv_scale: f32 [L] dequant scales
+    (int8 pools; ignored for float ones). Returns out [B, Hq, D] in q's
+    dtype."""
+    bs = pool_k.shape[3]
+    if bs % 8:
+        raise ValueError(f"paged_decode_attention: block size {bs} is not "
+                         "a multiple of 8")
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_new, v_new, pool_k, pool_v,
+                                            layer, tables, positions,
+                                            sm_scale, kv_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: unsupported device "
+                         f"{q.device}")
+    b, hq, d = q.shape
+    n_layers, nb, hkv, _, _ = pool_k.shape
+    mb = tables.shape[1]
+    kv_int8 = pool_k.dtype == torch.int8
+    if (q.dtype not in _build.DTYPE_CODES
+            or {k_new.dtype, v_new.dtype} != {q.dtype}
+            or {pool_k.dtype, pool_v.dtype} not in ({q.dtype}, {torch.int8})):
+        raise TypeError("paged_decode_attention: unsupported dtypes (q, new "
+                        "K/V share one of f32/bf16; the pools that one or "
+                        "int8)")
+    if (d not in _HEAD_DIMS or hq % hkv or pool_k.shape[4] != d
+            or v_new.shape != k_new.shape or k_new.shape != (b, hkv, d)
+            or pool_v.shape != pool_k.shape or tables.shape != (b, mb)
+            or mb < 1 or not 0 <= layer < n_layers):
+        raise ValueError(f"paged_decode_attention: shapes q {tuple(q.shape)} "
+                         f"new {tuple(k_new.shape)} pool {tuple(pool_k.shape)}"
+                         f" tables {tuple(tables.shape)} layer {layer}")
+    positions = positions.to(torch.int32)
+    tables = tables.to(torch.int32)
+    tensors = [q, k_new, v_new, pool_k, pool_v, tables, positions]
+    if kv_int8:
+        if (kv_scale is None or kv_scale.dtype != torch.float32
+                or kv_scale.shape != (n_layers,)):
+            raise ValueError("paged_decode_attention: an int8 pool needs "
+                             "kv_scale, f32 [L]")
+        tensors.append(kv_scale)
+    if (any(t.device != q.device or not t.is_contiguous() for t in tensors)
+            or positions.shape != (b,)):
+        raise ValueError("paged_decode_attention: tensors must be contiguous "
+                         "and on one device, positions [B]")
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    lib = _build.load("paged_decode_attention", _SIGNATURES)
+    n_chunks = -(-mb * bs // CHUNK)
+    out = torch.empty_like(q)
+    part_ml = torch.empty((2, b, hq, n_chunks), device=q.device,
+                          dtype=torch.float32)
+    part_acc = torch.empty((b, hq, n_chunks, d), device=q.device,
+                           dtype=torch.float32)
+    layer_bytes = nb * hkv * bs * d * pool_k.element_size()
+    kvs_ptr = (_P(kv_scale.data_ptr() + layer * 4) if kv_int8 else _P(None))
+    err = lib.tllm_paged_decode_attention(
+        _build.ptr(q), _build.ptr(k_new), _build.ptr(v_new),
+        _P(pool_k.data_ptr() + layer * layer_bytes),
+        _P(pool_v.data_ptr() + layer * layer_bytes), kvs_ptr,
+        _build.ptr(tables), _build.ptr(positions), _build.ptr(out),
+        _build.ptr(part_ml[0]), _build.ptr(part_ml[1]), _build.ptr(part_acc),
+        _build.DTYPE_CODES[q.dtype], int(kv_int8), b, hq, hkv, nb, bs, mb, d,
+        float(scale), q.device.index or 0, _build.stream_of(q))
+    _build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

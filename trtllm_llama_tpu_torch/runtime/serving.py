@@ -1,0 +1,560 @@
+"""ServingEngine: continuous batching over a fixed slot pool (the port's
+`runtime/serving.py`).
+
+Requests stream in; each is prefilled into a free slot of a shared KV cache,
+and every engine step advances ALL active slots by up to `decode_chunk`
+tokens. The JAX engine runs the chunk as one jitted `fori_loop`; here it is
+a Python loop of `forward_decode` steps over all `max_slots + 1` rows whose
+per-slot state (tokens, lengths, active mask, generated counts, budgets)
+stays on the device: a slot that hits EOS or its own budget freezes by
+masking, the host does not sync inside the chunk, and it reads the chunk's
+tokens back once at its end.
+
+Three cache configurations, as in the JAX engine:
+- dense (default): one cache [L, max_slots + 1, H_kv, S_max, D]; slot i owns
+  row i and row max_slots is the trash slot (never decoded as a request,
+  always inactive). A step's admissions are grouped by prompt bucket
+  (`EngineConfig.prefill_buckets`, which bounds each prompt's padding) and
+  each group prefills in one batched call that writes its K/V straight into
+  its slots' rows. The JAX engine also splits a group into powers of two
+  and prefills into a scratch cache before copying the rows into their
+  slots, to bound its compiles and because its caches are functional; the
+  port needs neither, and the tokens are the same.
+- `paged=True`: block pools [L, num_blocks + 1, H_kv, block_size, D] whose
+  last block is the trash block, host-side block allocation
+  (`KVCacheManager`) and a host mirror of the block tables that is uploaded
+  before every decode chunk (the device never writes tables, so nothing is
+  read back). Decode goes to kernel 14.
+- `packed_prefill=True` (dense cache): all admits of a step prefill as ONE
+  packed token stream (kernel 13), pad tokens writing to the trash slot.
+
+Greedy engine-default sampling only, without `min_length` (the JAX engine
+passes no generated lengths to its sampler). Per-request sampling, bad and
+stop words, logprobs, chunked prefill, the mixed and pipelined steps,
+sharded or multi-host serving and the speculative engines are not ported
+yet and raise NotImplementedError.
+
+The port updates every cache in place (JAX returns new ones), so an
+admission writes into its slots or blocks while other slots hold live K/V:
+a dense group writes only its own slots' rows, a paged prefill writes whole
+bucket-padded blocks through the group's own table rows (pad rows land in
+the request's tail block or the trash block), and inactive rows decode into
+their own frozen row (dense) or the trash block (paged).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import EngineConfig, ModelConfig, str_dtype_to_torch
+from ..device import resolve_device
+from ..models import llama
+from ..ops.attention import PackedMeta
+from ..ops.paged_attention import init_paged_caches
+from ..ops.rope import rope_tables_for
+from .kv_cache_manager import KVCacheManager
+from .sampling import SamplingConfig, sample_step
+from .scheduler import Request, Scheduler
+from .session import _params_to
+
+
+@dataclasses.dataclass
+class FinishedRequest:
+    request_id: int
+    output_ids: List[int]
+    finished_reason: str
+
+
+def pack_prompts(prompts, slots, t_bucket: int, trash_slot: int,
+                 n_last: int):
+    """One packed stream of `prompts` (token id lists) for cache rows
+    `slots`, padded to t_bucket tokens. Returns int32 numpy arrays:
+    token_ids [T]; meta [3, T] (PackedMeta's seg_ids, -1 on pads; slot_tok,
+    pads on trash_slot; pos_tok); last_idx [n_last], each prompt's last
+    token in the stream (unused entries on the stream's last row)."""
+    token_ids = np.zeros((t_bucket,), np.int32)
+    seg_ids = np.full((t_bucket,), -1, np.int32)
+    slot_tok = np.full((t_bucket,), trash_slot, np.int32)
+    pos_tok = np.zeros((t_bucket,), np.int32)
+    last_idx = np.full((n_last,), t_bucket - 1, np.int32)
+    off = 0
+    for i, (ids, slot) in enumerate(zip(prompts, slots)):
+        n = len(ids)
+        token_ids[off:off + n] = ids
+        seg_ids[off:off + n] = i
+        slot_tok[off:off + n] = slot
+        pos_tok[off:off + n] = np.arange(n)
+        last_idx[i] = off + n - 1
+        off += n
+    return token_ids, np.stack([seg_ids, slot_tok, pos_tok]), last_idx
+
+
+def _tree_bytes(tree, device_type=None) -> int:
+    """Bytes of the tensors in a params tree (dicts and the quantized
+    weight dataclasses), only those on `device_type` when it is given."""
+    if isinstance(tree, torch.Tensor):
+        if device_type is not None and tree.device.type != device_type:
+            return 0
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v, device_type) for v in tree.values())
+    if dataclasses.is_dataclass(tree):
+        return sum(_tree_bytes(getattr(tree, f.name), device_type)
+                   for f in dataclasses.fields(tree))
+    return 0
+
+
+def __getattr__(name):
+    if name in ("SpeculativeServingEngine", "PromptLookupServingEngine"):
+        raise NotImplementedError(f"{name}: speculative serving is not "
+                                  "ported yet")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+class ServingEngine:
+    @torch.inference_mode()
+    def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig,
+                 sampling: Optional[SamplingConfig] = None,
+                 kv_scales=None, decode_chunk: int = 8, model=None,
+                 paged: bool = False, block_size: int = 64,
+                 num_blocks: Optional[int] = None,
+                 per_request_sampling: bool = False,
+                 packed_prefill: bool = False,
+                 prefill_chunk: Optional[int] = None,
+                 return_logprobs: bool = False,
+                 max_bad_words: int = 0,
+                 mixed_step: bool = False,
+                 pipelined: bool = False,
+                 mapping=None, mesh=None, device="cuda"):
+        unported = {"model": model,
+                    "per_request_sampling": per_request_sampling,
+                    "prefill_chunk": prefill_chunk,
+                    "return_logprobs": return_logprobs,
+                    "max_bad_words": max_bad_words, "mixed_step": mixed_step,
+                    "pipelined": pipelined, "mapping": mapping, "mesh": mesh}
+        named = [k for k, v in unported.items() if v]
+        if named:
+            raise NotImplementedError(
+                f"ServingEngine: not ported yet: {', '.join(named)}")
+        self.scfg = sampling or SamplingConfig()
+        self.scfg.check_supported()        # greedy; no bad / stop words
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.engine_cfg = engine_cfg
+        self.decode_chunk = decode_chunk
+        self.max_slots = engine_cfg.max_batch_size
+        self.n_rows = self.max_slots + 1      # +1 = prefill-padding trash slot
+        self.trash_slot = self.max_slots
+        self.paged = paged
+        self.packed = packed_prefill and not paged
+        dev = self.device
+        self.kv_scales = (None if kv_scales is None else torch.as_tensor(
+            np.asarray(kv_scales, np.float32), device=dev))
+
+        self._capacity_precheck(params, block_size, num_blocks)
+        # one device: q/k/v fused into one matmul, as the JAX engine does
+        self.params = llama.fuse_qkv_params(_params_to(params, dev))
+        self.rope = rope_tables_for(cfg, device=dev)
+
+        if paged:
+            self.block_size = block_size
+            self.max_blocks = -(-engine_cfg.max_seq_len // block_size)
+            self.num_blocks = (num_blocks if num_blocks is not None
+                               else self.max_slots * self.max_blocks)
+            self.kv_mgr = KVCacheManager(self.num_blocks, block_size,
+                                         self.max_blocks)
+            self.scheduler = Scheduler(
+                self.max_slots, engine_cfg.max_seq_len,
+                kv_token_capacity=self.num_blocks * block_size)
+            # the pool's extra last block is the trash block: inactive rows'
+            # writes land there instead of in live blocks
+            self.trash_block = self.num_blocks
+            self.caches = init_paged_caches(
+                cfg, self.num_blocks + 1, block_size, self.n_rows,
+                self.max_blocks, dev, self.kv_scales)
+            # host mirror of the block tables, uploaded before every decode
+            # chunk (allocation is host-side; the device only reads tables)
+            self._tables_np = np.full((self.n_rows, self.max_blocks),
+                                      self.trash_block, np.int32)
+        else:
+            self.scheduler = Scheduler(self.max_slots, engine_cfg.max_seq_len)
+            self.caches = llama.init_caches(
+                cfg, self.n_rows, engine_cfg.max_seq_len, dev, self.kv_scales)
+        # per-slot device state ([n_rows]; the trash row is never active)
+        self.slot_lens = self._dev(np.zeros((self.n_rows,), np.int32))
+        self.slot_tokens = self._dev(np.zeros((self.n_rows,), np.int32))
+        self.slot_active = self._dev(np.zeros((self.n_rows,), bool))
+        self.slot_budget = self._dev(np.zeros((self.n_rows,), np.int32))
+        self.slot_gen = self._dev(np.zeros((self.n_rows,), np.int32))
+        # wall time per phase: admission (prefill + its token readback),
+        # decode dispatch (the host enqueueing the chunk's steps), readback
+        # (waits for the device to finish the chunk, then copies its tokens)
+        # and host bookkeeping
+        self.phase_times = {"admit": 0.0, "dispatch": 0.0,
+                            "readback": 0.0, "host": 0.0, "steps": 0}
+        # device calls made: forward_decode steps, batched prefills
+        # (forward_prefill) and packed prefills (forward_prefill_packed)
+        self.calls = {"decode_steps": 0, "prefills": 0, "packed_prefills": 0}
+        # rid -> [t_submit, t_first_token, t_done, n_tokens_recorded]
+        self._req_times: Dict[int, list] = {}
+
+    # ------------------------------------------------------------------
+    def _capacity_precheck(self, params, block_size, num_blocks):
+        """Fail fast, with remedies, when the serving configuration cannot
+        fit on the card. Needs: weights + ONE KV pool (the port updates the
+        cache in place; the JAX engine counts two for XLA's loop-carry copy)
+        + the admission transients. Budget: the card's free memory
+        (`torch.cuda.mem_get_info`) plus the weights already on it, or the
+        `TLLM_HBM_BYTES` environment variable when set; CPU engines are
+        unchecked unless that is set. `TLLM_SKIP_CAPACITY_CHECK=1` skips."""
+        if os.environ.get("TLLM_SKIP_CAPACITY_CHECK"):
+            return
+        budget = os.environ.get("TLLM_HBM_BYTES")
+        if budget is None:
+            if self.device.type != "cuda":
+                return
+            free, _ = torch.cuda.mem_get_info(self.device)
+            budget = free + _tree_bytes(params, "cuda")
+        budget = int(budget)
+        est = self._capacity_estimate(params, block_size, num_blocks)
+        if est["need"] > budget:
+            gib = 1024 ** 3
+            raise ValueError(
+                f"serving configuration needs ~{est['need'] / gib:.1f} GiB "
+                f"(weights {est['weights'] / gib:.1f} + KV pool "
+                f"{est['kv'] / gib:.1f} + transients "
+                f"{(est['act'] + est['logits']) / gib:.1f})"
+                f" but the device budget is {budget / gib:.1f} GiB. "
+                "Remedies: int8 KV (QuantMode.INT8_KV_CACHE) halves the KV "
+                "pool; paged=True sizes the pool by blocks instead of "
+                "max_batch_size*max_seq_len; or lower max_batch_size/"
+                "max_seq_len. Override: TLLM_HBM_BYTES / "
+                "TLLM_SKIP_CAPACITY_CHECK=1.")
+
+    def _capacity_estimate(self, params, block_size, num_blocks) -> dict:
+        """Byte estimate behind _capacity_precheck: weights + one KV pool +
+        admission transients (the JAX engine's model with its KV pool once
+        and without its scratch cache: a prefill writes into the slots)."""
+        cfg, engine_cfg = self.cfg, self.engine_cfg
+        smax = engine_cfg.max_seq_len
+        if self.paged:
+            nb = (num_blocks if num_blocks is not None
+                  else self.max_slots * (-(-engine_cfg.max_seq_len
+                                           // block_size)))
+            kv_rows = (nb + 1) * block_size
+        else:
+            kv_rows = self.n_rows * (-(-smax // 128) * 128)
+        kv_item = torch.empty((), dtype=str_dtype_to_torch(
+            cfg.kv_dtype)).element_size()
+        kv = (2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim
+              * kv_rows * kv_item)
+        # admission transient: the largest prefill call's activations
+        # (~6 residual-width + 4 intermediate-width live tensors per token,
+        # every slot at the largest bucket), plus decode logits
+        bucket = max(engine_cfg.prefill_buckets or (engine_cfg.max_input_len,))
+        act = self.max_slots * bucket * (6 * cfg.hidden_size
+                                         + 4 * cfg.intermediate_size) * 2
+        logits = self.n_rows * cfg.vocab_size * 4 * 2
+        weights = _tree_bytes(params)
+        return {"weights": weights, "kv": kv, "act": act, "logits": logits,
+                "need": weights + kv + act + logits}
+
+    # ------------------------------------------------------------------
+    def _dev(self, x):
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _register_prefilled(self, reqs: List[Request],
+                            tokens: np.ndarray) -> List[FinishedRequest]:
+        """Activate freshly prefilled slots (one upload for the group), then
+        record each request's first token."""
+        slots = self._dev(np.array([r.slot for r in reqs], np.int64))
+        vals = self._dev(np.stack([
+            np.array([len(r.input_ids) for r in reqs], np.int32),
+            tokens[:len(reqs)].astype(np.int32),
+            np.array([r.max_new_tokens for r in reqs], np.int32)]))
+        self.slot_lens[slots] = vals[0]
+        self.slot_tokens[slots] = vals[1]
+        self.slot_budget[slots] = vals[2]
+        self.slot_active[slots] = True
+        self.slot_gen[slots] = 1
+        finished = []
+        for i, req in enumerate(reqs):
+            if self._record_token(req, int(tokens[i])):
+                self._release_slot(req.slot)
+                finished.append(self._finished(req))
+        return finished
+
+    def _record_token(self, req: Request, token: int) -> bool:
+        """scheduler.record_token + latency stamps (TTFT on the first
+        recorded token, completion time when the request closes)."""
+        done = self.scheduler.record_token(req.request_id, token,
+                                           self.scfg.end_id)
+        t = self._req_times.get(req.request_id)
+        if t is not None:
+            now = time.perf_counter()
+            if t[1] is None:
+                t[1] = now
+            t[3] += 1
+            if done:
+                t[2] = now
+        return done
+
+    def latency_stats(self) -> dict:
+        """TTFT / TPOT / end-to-end percentiles (seconds) over completed
+        requests. TTFT includes queue wait. Times are chunk-granular: tokens
+        become visible at chunk readback."""
+        done = [t for t in self._req_times.values()
+                if t[1] is not None and t[2] is not None]
+        if not done:
+            return {}
+
+        def pct(a):
+            a = np.asarray(a, np.float64)
+            return {"p50": round(float(np.percentile(a, 50)), 4),
+                    "p90": round(float(np.percentile(a, 90)), 4),
+                    "p99": round(float(np.percentile(a, 99)), 4),
+                    "mean": round(float(a.mean()), 4)}
+
+        tpot = [(t[2] - t[1]) / (t[3] - 1) for t in done if t[3] > 1]
+        return {"n_done": len(done),
+                "ttft_s": pct([t[1] - t[0] for t in done]),
+                "e2e_s": pct([t[2] - t[0] for t in done]),
+                "tpot_s": pct(tpot) if tpot else None}
+
+    def phase_stats(self) -> dict:
+        """Mean milliseconds per engine step of each phase (admission /
+        decode dispatch / chunk readback / host bookkeeping); the phases are
+        disjoint in wall time within step()."""
+        n = max(self.phase_times["steps"], 1)
+        out = {k: round(1e3 * v / n, 3)
+               for k, v in self.phase_times.items() if k != "steps"}
+        out["steps"] = self.phase_times["steps"]
+        return out
+
+    def _finished(self, req: Request) -> FinishedRequest:
+        return FinishedRequest(req.request_id, req.output_ids,
+                               req.finished_reason)
+
+    def _release_slot(self, slot: int):
+        self.slot_active[slot] = False
+        if self.paged:
+            self.kv_mgr.remove_sequence(slot)
+            self._tables_np[slot] = self.trash_block
+
+    def _host_table_row(self, slot: int) -> np.ndarray:
+        """Block table row for a slot, -1 pads remapped to the trash block."""
+        row = self.kv_mgr.block_table([slot])[0]
+        return np.where(row < 0, self.trash_block, row).astype(np.int32)
+
+    # ------------------------------------------------------------------
+    def submit(self, input_ids: List[int], max_new_tokens: int,
+               sampling: Optional[SamplingConfig] = None) -> int:
+        """Queue a request."""
+        if sampling is not None:
+            raise NotImplementedError(
+                "per-request sampling configs (per_request_sampling) are "
+                "not ported yet")
+        rid = self.scheduler.submit(input_ids, max_new_tokens)
+        self._req_times[rid] = [time.perf_counter(), None, None, 0]
+        return rid
+
+    def poll(self, request_id: int) -> List[int]:
+        """Tokens generated so far (streaming consumers read between
+        steps)."""
+        req = self.scheduler.get(request_id)
+        if req is None:
+            raise KeyError(request_id)
+        return list(req.output_ids)
+
+    @torch.inference_mode()
+    def cancel(self, request_id: int):
+        """Cancel a queued or in-flight request, releasing its slot and
+        blocks."""
+        req = self.scheduler.get(request_id)
+        slot = getattr(req, "slot", None) if req is not None else None
+        in_flight = req is not None and req.state.name in ("PREFILL", "DECODE")
+        self.scheduler.cancel(request_id)
+        if in_flight and slot is not None:
+            self._release_slot(slot)
+
+    # ------------------------------------------------------------------
+    def _admit_group(self, group: List[Request], bucket: int
+                     ) -> List[FinishedRequest]:
+        """Prefill a same-bucket group in one batched call, each request's
+        K/V written straight into its slot's rows (dense) or its blocks
+        (paged)."""
+        ids = np.full((len(group), bucket), self.scfg.pad_id, np.int32)
+        for i, req in enumerate(group):
+            ids[i, :len(req.input_ids)] = req.input_ids
+        lengths = np.array([len(r.input_ids) for r in group], np.int32)
+        slot_ids = [r.slot for r in group]
+        caches, slots = self.caches, None
+        if self.paged:
+            for req in group:
+                self.kv_mgr.add_sequence(req.slot, len(req.input_ids))
+                self._tables_np[req.slot] = self._host_table_row(req.slot)
+            # a view sharing the pools with the group's table rows: whole
+            # bucket-padded blocks go to these requests' blocks or, past
+            # them, the trash block
+            caches = caches._replace(tables=self._dev(
+                self._tables_np[slot_ids]))
+        else:
+            slots = self._dev(np.array(slot_ids, np.int64))
+        logits, _ = llama.forward_prefill(
+            self.params, self.cfg, self._dev(ids), self._dev(lengths), caches,
+            rope=self.rope, slots=slots)
+        self.calls["prefills"] += 1
+        tokens = sample_step(logits, self.scfg).cpu().numpy()
+        return self._register_prefilled(group, tokens)
+
+    def _t_bucket(self, t: int) -> int:
+        """Power-of-two ladder for the packed stream length."""
+        b = 16
+        cap = self.max_slots * self.engine_cfg.max_input_len
+        while b < t and b < cap:
+            b *= 2
+        return min(b, max(cap, 16))
+
+    def _admit_packed(self, reqs: List[Request]) -> List[FinishedRequest]:
+        """Prefill every admitted request in one packed call (split when
+        the stream exceeds the largest bucket)."""
+        total = sum(len(r.input_ids) for r in reqs)
+        tb = self._t_bucket(total)
+        if total > tb:
+            cut, acc = 0, 0
+            for i, r in enumerate(reqs):
+                if acc + len(r.input_ids) > tb:
+                    cut = i
+                    break
+                acc += len(r.input_ids)
+            return (self._admit_packed(reqs[:max(cut, 1)])
+                    + self._admit_packed(reqs[max(cut, 1):]))
+        token_ids, meta, last_idx = pack_prompts(
+            [r.input_ids for r in reqs], [r.slot for r in reqs], tb,
+            self.trash_slot, self.max_slots)
+        meta = self._dev(meta)
+        logits, _ = llama.forward_prefill_packed(
+            self.params, self.cfg, self._dev(token_ids), PackedMeta(*meta),
+            self._dev(last_idx), self.caches, rope=self.rope)
+        self.calls["packed_prefills"] += 1
+        tokens = sample_step(logits, self.scfg).cpu().numpy()
+        return self._register_prefilled(reqs, tokens)
+
+    def _decode_chunk(self, n_steps: int):
+        """n_steps decode steps over every row, state kept on the device;
+        returns the chunk's tokens [n_rows, n_steps] (pad_id where a row
+        was inactive), not yet read back."""
+        pad, end = self.scfg.pad_id, self.scfg.end_id
+        tokens, lens = self.slot_tokens, self.slot_lens
+        active, gen, budget = self.slot_active, self.slot_gen, self.slot_budget
+        out = torch.empty((self.n_rows, n_steps), dtype=torch.int32,
+                          device=self.device)
+        for i in range(n_steps):
+            logits, self.caches = llama.forward_decode(
+                self.params, self.cfg, tokens, lens, self.caches,
+                rope=self.rope)
+            nxt = sample_step(logits, self.scfg).masked_fill(~active, pad)
+            out[:, i] = nxt
+            live = active.to(torch.int32)
+            gen = gen + live
+            lens = lens + live
+            # freeze on EOS or when the slot's own budget is spent; the
+            # other slots keep decoding full chunks
+            active = active & (nxt != end) & (gen < budget)
+            tokens = nxt.masked_fill(~active, pad)
+        self.calls["decode_steps"] += n_steps
+        self.slot_tokens, self.slot_lens = tokens, lens
+        self.slot_active, self.slot_gen = active, gen
+        return out
+
+    @torch.inference_mode()
+    def step(self) -> List[FinishedRequest]:
+        """One engine step: admit and prefill new requests (batched per
+        bucket, or one packed stream), then decode up to decode_chunk
+        tokens for every active slot."""
+        finished: List[FinishedRequest] = []
+        t0 = time.perf_counter()
+        admitted = self.scheduler.admit()
+        if self.packed:
+            if admitted:
+                finished.extend(self._admit_packed(admitted))
+        else:
+            by_bucket: Dict[int, List[Request]] = {}
+            for req in admitted:
+                b = self.engine_cfg.bucket_for(len(req.input_ids))
+                by_bucket.setdefault(b, []).append(req)
+            for bucket, group in sorted(by_bucket.items()):
+                finished.extend(self._admit_group(group, bucket))
+        self.phase_times["admit"] += time.perf_counter() - t0
+        self.phase_times["steps"] += 1
+        if not self.scheduler.active_requests():
+            return finished
+        finished.extend(self._decode_phase())
+        return finished
+
+    def _decode_phase(self) -> List[FinishedRequest]:
+        """Advance all decoding slots by one chunk and record the tokens."""
+        t0 = time.perf_counter()
+        pending = self._decode_dispatch()
+        self.phase_times["dispatch"] += time.perf_counter() - t0
+        if pending is None:
+            return []
+        return self._decode_process(pending)
+
+    def _decode_dispatch(self):
+        """Enqueue one decode chunk; returns (slot -> request, device
+        tokens) or None when there is nothing to decode. The chunk is long
+        enough for the request with the largest remaining budget (each slot
+        freezes at its own budget on the device)."""
+        decoding = self.scheduler.active_requests()
+        budgets = [r.max_new_tokens - len(r.output_ids) for r in decoding]
+        chunk = min(self.decode_chunk, max(budgets)) if budgets else 0
+        if chunk <= 0:
+            return None
+        slot_of = {r.slot: r for r in decoding}
+        if self.paged:
+            # blocks for this chunk's writes, then the device tables from
+            # the host mirror
+            for slot, req in slot_of.items():
+                n_new = min(chunk, req.max_new_tokens - len(req.output_ids))
+                for _ in range(n_new):
+                    self.kv_mgr.append_token(slot)
+                self._tables_np[slot] = self._host_table_row(slot)
+            self.caches = self.caches._replace(
+                tables=self._dev(self._tables_np))
+        return slot_of, self._decode_chunk(chunk)
+
+    def _decode_process(self, pending) -> List[FinishedRequest]:
+        """Read back one chunk (the only host sync of the chunk) and record
+        its tokens."""
+        slot_of, out = pending
+        finished: List[FinishedRequest] = []
+        t0 = time.perf_counter()
+        out = out.cpu().numpy()
+        t1 = time.perf_counter()
+        self.phase_times["readback"] += t1 - t0
+        for slot, req in slot_of.items():
+            for t in out[slot]:
+                if self._record_token(req, int(t)):
+                    self._release_slot(slot)
+                    finished.append(self._finished(req))
+                    break
+        self.phase_times["host"] += time.perf_counter() - t1
+        return finished
+
+    def run_to_completion(self, max_steps: int = 10_000
+                          ) -> Dict[int, FinishedRequest]:
+        """Drive until the queue drains (batch-mode convenience)."""
+        done: Dict[int, FinishedRequest] = {}
+        steps = 0
+        while self.scheduler.has_work and steps < max_steps:
+            for fr in self.step():
+                done[fr.request_id] = fr
+            steps += 1
+        return done
