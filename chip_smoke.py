@@ -15,7 +15,12 @@
    every format: int8, int4 with g128 and with per-channel scales, and fp8
    (e4m3), stacked at the four projection shapes with the norm and
    residual options, and the 2-D entries (woq_matmul, fp8_matmul) also at
-   the lm_head's shape;
+   the lm_head's shape. The attention kernels of the long-context path and
+   of the decode modes are checked at its shapes: the streaming prefill
+   (row 12) at 8192 rows, a GQA case and an f32 case with a length of 0;
+   the read-only (row 8) and one-launch (row 9) decodes with bf16 and
+   int8 caches at S_max 128 and 8320 and at the edges (lengths 0 and S,
+   positions 0, S - 1 and past S), beside kernel 3 on the same inputs;
 4. drives each path through GenerationSession.generate with random weights
    born quantized (seed 0), at LLaMA-7B's widths:
    path 1, int8 weight-only per-channel; path 2, SmoothQuant W8A8
@@ -29,8 +34,19 @@
    the path was launched in the path's run (counts zeroed just before it),
    checks the 7B prefill logits against the plain-version path on the
    card, and profiles one bs1 request (device time by kernel, the device's
-   busy share). Each path's session is freed before the next starts;
-5. serves with ServingEngine (int8 weight-only LLaMA-7B, bench.py's
+   busy share). Paths 1 and 2 then run the bs1 request again with
+   decode_attn_mode 'split' (row 8) and 'fused' (row 9): decode and device
+   ms/token, launches (the mode's kernel only), first-decode-step logits
+   against the default mode's, and whether the tokens match. Each path's
+   session is freed before the next starts;
+5. path 5, long context (bench.py's int8_int8kv long rows): int8
+   weight-only LLaMA-7B with an int8 KV cache, one 8192-token prompt and
+   64 greedy tokens; prints prefill ms, decode ms/token, the launches (the
+   streaming prefill once per layer, kernel 3 at every decode step), kernel
+   1's time per call at 8192 rows from a profile of the prefill, the 7B
+   prefill logits against the plain path, and decode steps over the 8k
+   cache (host wall, device time, idle share);
+6. serves with ServingEngine (int8 weight-only LLaMA-7B, bench.py's
    serving settings: 8 slots, decode_chunk 16, block 64, max_seq_len 200,
    bucket 128) 24 requests of 64 new tokens with prompts of 8-128 tokens
    (seed 0), in four configurations, each engine freed before the next:
@@ -50,7 +66,7 @@
    256-row dense cache, packed prefill at each wave's stream, and kernel
    14 with bf16 and int8 pools, block sizes 8/16/64, a position past the
    table, rows outside the write rows untouched);
-6. prints a `kernels` JSON line, then as the last line
+7. prints a `kernels` JSON line, then as the last line
    {"ok": true, "device": {...}}.
 Any failed phase exits non-zero without that line. The script imports
 nothing of JAX or of the JAX package.
@@ -87,7 +103,13 @@ INT8_DECODE = "dma_decode_attention (int8 KV)"
 INT8_PAGED = "paged_decode_attention (int8 KV)"
 INT4_STACKED = "woq_matmul_stacked (int4 g128)"
 INT4_2D = "woq_matmul (int4 per-channel)"
+STREAMING = "streaming_prefill_attention_kernel"
+READ_ONLY = "decode_attention_kernel"
+READ_ONLY_INT8 = "decode_attention_kernel (int8 KV)"
+FUSED = "fused_decode_attention"
+FUSED_INT8 = "fused_decode_attention (int8 KV)"
 _WOQ_PY = "trtllm_llama_tpu/ops/pallas/woq_matmul.py"
+_ATTN_PY = "trtllm_llama_tpu/ops/pallas/attention.py"
 # Rows the paths give a matmul or norm: decode bs1 and bs4, prefill bs1 and
 # bs4 (prompts padded to the 16-token bucket). Each kernel is checked
 # against its plain version at all of them.
@@ -101,6 +123,15 @@ SERVE_NEW = 64
 SERVE_CHUNK = 16
 SERVE_BLOCK = 64
 SERVE_WARMUP = 2      # prompts of the warm-up run before the counted one
+# Path 5: bench.py's long-context int8_int8kv rows (bench.py:128-150): one
+# 8192-token prompt, 64 new tokens, RoPE table past LLaMA-1's 2048.
+LONG_PROMPT = 8192
+LONG_NEW = 64
+LONG_ENGINE = dict(max_batch_size=1, max_input_len=8271, max_seq_len=8272)
+LONG_ROPE = 16384     # bench.py:134: max(2048, next_pow2(in + out + 16))
+LONG_S_MAX = 8320     # the session's cache rows: 8192 + 64, rounded to 128
+DECODE_MODES = ("split", "fused")   # run again on paths 1 and 2
+F32_TOL = 1e-5        # f32 kernels against their plain versions
 
 
 def serve_prompt_lens():
@@ -187,6 +218,21 @@ KERNELS = {
         "paged_decode_attention",
         "trtllm_llama_tpu/ops/pallas/paged_decode_attention.py:157",
         "trtllm_llama_tpu_torch/csrc/paged_decode_attention.cu"),
+    STREAMING: (
+        "streaming_prefill_attention_kernel", f"{_ATTN_PY}:433",
+        "trtllm_llama_tpu_torch/csrc/streaming_prefill_attention.cu"),
+    READ_ONLY: (
+        "decode_attention_kernel", f"{_ATTN_PY}:72",
+        "trtllm_llama_tpu_torch/csrc/decode_attention.cu"),
+    READ_ONLY_INT8: (
+        "decode_attention_kernel", f"{_ATTN_PY}:72",
+        "trtllm_llama_tpu_torch/csrc/decode_attention.cu"),
+    FUSED: (
+        "fused_decode_attention", f"{_ATTN_PY}:185",
+        "trtllm_llama_tpu_torch/csrc/fused_decode_attention.cu"),
+    FUSED_INT8: (
+        "fused_decode_attention", f"{_ATTN_PY}:185",
+        "trtllm_llama_tpu_torch/csrc/fused_decode_attention.cu"),
 }
 
 
@@ -265,6 +311,7 @@ def patched(module, name, value):
         yield
     finally:
         setattr(module, name, old)
+
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +530,10 @@ def check_decode(errors, results, kv_int8=False):
     cases = [  # (B, Hq, Hkv, S_max, positions)
         (1, 32, 32, 128, [45]), (1, 32, 32, 2048, [1037]),
         (1, 32, 32, 2048, [2047]),
+        # path 5: the 8k cache mid-generation and at its last decode step
+        # (63 steps write rows 8192-8254)
+        (1, 32, 32, LONG_S_MAX, [8200]),
+        (1, 32, 32, LONG_S_MAX, [LONG_PROMPT + LONG_NEW - 2]),
         (4, 32, 32, 128, [8, 5, 12, 3]),    # bs4 ragged
         (2, 32, 8, 128, [31, 100]),         # GQA group of 4
     ]
@@ -558,6 +609,184 @@ def check_decode(errors, results, kv_int8=False):
                 bound_by=b_by, shape=f"B=1 Hq=Hkv=32 S_max=128 pos=45 D=128 "
                 f"bf16 q, {'int8' if kv_int8 else 'bf16'} cache")
     results[key]["max_abs_err"] = max_err
+
+
+# ---------------------------------------------------------------------------
+# row 12: the streaming prefill (path 5)
+# ---------------------------------------------------------------------------
+
+def check_streaming_prefill(errors, results):
+    import torch
+    import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+
+    print("kernel streaming_prefill_attention_kernel (causal GQA, long "
+          "prompts; mma.sync bf16, CUDA-core f32):")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    d = 128
+    cases = [  # (B, S, Hq, Hkv, lens, dtype)
+        (1, LONG_PROMPT, 32, 32, [LONG_PROMPT], torch.bfloat16),  # path 5
+        (2, 2100, 32, 8, [2100, 64], torch.bfloat16),    # GQA, ragged, S % 64
+        (2, 2100, 8, 2, [2100, 0], torch.float32),       # f32, a length of 0
+    ]
+    max_err = 0.0
+    for b, s, hq, hkv, lens, dtype in cases:
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda"
+                               ).to(dtype) for h in (hq, hkv, hkv))
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = spa.streaming_prefill_attention_kernel(q, k, v, sl)
+        ref = spa.streaming_prefill_attention_kernel_plain(q, k, v, sl)
+        torch.cuda.synchronize()
+        f32 = dtype == torch.float32
+        name = (f"B={b} S={s} Hq={hq} Hkv={hkv} lens={lens} "
+                f"{'f32' if f32 else 'bf16'}")
+        max_err = max(max_err, compare(name, got, ref, errors,
+                                       tol=F32_TOL if f32 else BF16_TOL))
+        if s != LONG_PROMPT:
+            continue
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        t_k = time_ms(lambda i: spa.streaming_prefill_attention_kernel(
+            q, k, v, sl))
+        t_p = time_ms(lambda i: spa.streaming_prefill_attention_kernel_plain(
+            q, k, v, sl), iters=2, warmup=1, reps=1)
+        t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        pairs = sum(sum(min(r + 1, n) if n > 0 else s for r in range(s))
+                    for n in lens)
+        n_bytes = b * s * d * q.element_size() * (2 * hq + 2 * hkv) + b * 4
+        b_ms, b_by = bound_ms(n_bytes, 4 * hq * d * pairs)
+        print(f"  time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"library(sdpa, is_causal) {t_l:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), {4 * hq * d * pairs / t_k / 1e9:.1f} TFLOP/s")
+        results[STREAMING] = dict(
+            ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+            bound_by=b_by, shape=f"B=1 S={s} Hq=Hkv=32 D=128 bf16 "
+            "(path 5's prefill)")
+        del qt, kt, vt
+    results[STREAMING]["max_abs_err"] = max_err
+
+
+# ---------------------------------------------------------------------------
+# rows 8 and 9: the read-only and the one-launch decode ('split' / 'fused')
+# ---------------------------------------------------------------------------
+
+def check_decode_modes(errors, results, kv_int8=False):
+    """Row 8 over rows < lens and row 9 (write + attend) against their
+    plain versions at path 1's shape (S_max 128, pos 45), path 5's (S_max
+    8320, pos 8200), a GQA group and the edges (lengths 0 and S; positions 0,
+    the last row and past S). Row 9's caches must equal the plain write and
+    row 8's stay untouched. Times both, kernel 3 on the same inputs, their
+    plain versions and SDPA over the live rows (no write)."""
+    import torch
+    import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+
+    kind = f"int8 cache, scale {KV_SCALE}" if kv_int8 else "bf16 cache"
+    print(f"kernels decode_attention_kernel (read-only) and "
+          f"fused_decode_attention (one launch), {kind}:")
+    g = torch.Generator(device="cuda").manual_seed(9 if kv_int8 else 8)
+    d, n_l, layer = 128, 2, 1
+    cases = [  # (B, Hq, Hkv, S_max, write positions; row 8 reads pos + 1)
+        (1, 32, 32, 128, [45]), (1, 32, 32, LONG_S_MAX, [8200]),
+        (2, 32, 8, 128, [31, 100]),
+        (4, 32, 32, 128, [0, 127, 128, 300]),   # edges: first, last, past S
+    ]
+    kv_scale = (torch.full((n_l,), KV_SCALE, device="cuda") if kv_int8
+                else None)
+    elem = 1 if kv_int8 else 2
+    keys = (READ_ONLY_INT8, FUSED_INT8) if kv_int8 else (READ_ONLY, FUSED)
+    err = {key: 0.0 for key in keys}
+    for b, hq, hkv, s, pos in cases:
+        shape = (n_l, b, hkv, s, d)
+        if kv_int8:
+            kc, vc = (torch.randint(-127, 128, shape, generator=g,
+                                    device="cuda", dtype=torch.int8)
+                      for _ in range(2))
+        else:
+            kc, vc = (torch.randn(shape, generator=g, device="cuda"
+                                  ).to(torch.bfloat16) for _ in range(2))
+        q = torch.randn((b, hq, d), generator=g, device="cuda").to(torch.bfloat16)
+        amp = 2.0 if kv_int8 else 1.0
+        kn, vn = ((amp * torch.randn((b, hkv, d), generator=g, device="cuda")
+                   ).to(torch.bfloat16) for _ in range(2))
+        pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        lens = pt + 1
+        if b == 4:          # row 8's edges: 0, S, past S and one mid length
+            lens = torch.tensor([0, s, s + 72, 45], dtype=torch.int32,
+                                device="cuda")
+        name = f"B={b} Hq={hq} Hkv={hkv} S_max={s}"
+        before = kc.clone(), vc.clone()
+        got = da.decode_attention_kernel(q, kc, vc, layer, lens,
+                                         kv_scale=kv_scale)
+        ref = da.decode_attention_kernel_plain(q, kc, vc, layer, lens,
+                                               kv_scale=kv_scale)
+        torch.cuda.synchronize()
+        err[keys[0]] = max(err[keys[0]], compare(
+            f"read-only {name} lens={lens.tolist()}", got, ref, errors))
+        if not (torch.equal(kc, before[0]) and torch.equal(vc, before[1])):
+            errors.append(f"read-only decode {kind} {name}: cache written")
+        kc2, vc2 = kc.clone(), vc.clone()
+        got = da.fused_decode_attention(q, kn, vn, kc, vc, layer, pt,
+                                        kv_scale=kv_scale)
+        ref = da.fused_decode_attention_plain(q, kn, vn, kc2, vc2, layer, pt,
+                                              kv_scale=kv_scale)
+        torch.cuda.synchronize()
+        err[keys[1]] = max(err[keys[1]], compare(
+            f"fused {name} pos={pos}", got, ref, errors))
+        same = torch.equal(kc, kc2) and torch.equal(vc, vc2)
+        moved = (kc != before[0]).any(-1).any(2) | (vc != before[1]).any(-1).any(2)
+        allowed = torch.zeros_like(moved)
+        for i, p_ in enumerate(pos):
+            if p_ < s:
+                allowed[layer, i, p_] = True
+        only = not bool((moved & ~allowed).any())
+        print(f"  fused {name}: caches equal the plain write bit for bit: "
+              f"{same}; no row but pos moved: {only}")
+        if not (same and only):
+            errors.append(f"fused decode {kind} {name}: caches differ from "
+                          "the plain write")
+        if b != 1:
+            continue
+        p_ = pos[0]
+        t_r = time_ms(lambda i: da.decode_attention_kernel(
+            q, kc, vc, layer, lens, kv_scale=kv_scale))
+        t_rp = time_ms(lambda i: da.decode_attention_kernel_plain(
+            q, kc, vc, layer, lens, kv_scale=kv_scale))
+        t_f = time_ms(lambda i: da.fused_decode_attention(
+            q, kn, vn, kc, vc, layer, pt, kv_scale=kv_scale))
+        t_fp = time_ms(lambda i: da.fused_decode_attention_plain(
+            q, kn, vn, kc2, vc2, layer, pt, kv_scale=kv_scale))
+        t_3 = time_ms(lambda i: da.dma_decode_attention(
+            q, kn, vn, kc, vc, layer, pt, kv_scale=kv_scale))
+        kl, vl = kc[layer, :, :, :p_ + 1], vc[layer, :, :, :p_ + 1]
+        if kv_int8:     # the yardstick reads bf16 K/V dequantized beforehand
+            kl = (kl.float() * KV_SCALE).to(torch.bfloat16)
+            vl = (vl.float() * KV_SCALE).to(torch.bfloat16)
+        t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+            q[:, :, None], kl, vl))
+        live = 2 * b * hkv * (p_ + 1) * d * elem + (4 if kv_int8 else 0)
+        io = 2 * b * hq * d * 2 + b * 4
+        flops = 4 * b * hq * (p_ + 1) * d
+        # row 9 also reads the new K/V and writes row pos
+        for key, t_k, t_p, extra, what in (
+                (keys[0], t_r, t_rp, 0, "read-only"),
+                (keys[1], t_f, t_fp, 2 * b * hkv * d * (2 + elem), "fused")):
+            b_ms, b_by = bound_ms(live + io + extra, flops)
+            print(f"  time {what} {name} pos={p_}: kernel {t_k:.4f} ms, "
+                  f"plain {t_p:.4f} ms, library(sdpa, no write) {t_l:.4f} "
+                  f"ms, bound {b_ms:.5f} ms ({b_by})")
+            if s == 128:
+                results[key] = dict(
+                    ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                    bound_by=b_by, shape=f"B=1 Hq=Hkv=32 S_max=128 pos=45 "
+                    f"D=128 bf16 q, {'int8' if kv_int8 else 'bf16'} cache")
+        print(f"  time kernel 3 (dma_decode_attention, two launches) on the "
+              f"same inputs: {t_3:.4f} ms; fused / kernel 3 = "
+              f"{t_f / t_3:.2f}")
+    for key in keys:
+        results[key]["max_abs_err"] = err[key]
 
 
 # ---------------------------------------------------------------------------
@@ -871,7 +1100,9 @@ def make_paths():
              mode=QuantMode.use_weight_only(), kv_scales=None,
              kernels={"woq_matmul_stacked": woq, **attn},
              plain=[(woq, "woq_matmul_stacked"),
-                    (pa, "prefill_attention_kernel")]),
+                    (pa, "prefill_attention_kernel")],
+             modes={"split": READ_ONLY, "fused": FUSED},
+             decode="dma_decode_attention"),
         dict(tag="path 2", title="SmoothQuant W8A8 (per-token activation, "
              f"per-channel weight scales), int8 KV (scale {KV_SCALE})",
              mode=(QuantMode.use_smooth_quant(per_token=True, per_channel=True)
@@ -880,7 +1111,9 @@ def make_paths():
              kernels={"rmsnorm_quant": rnq, "w8a8_matmul_stacked": w8a8,
                       "prefill_attention_kernel": pa, INT8_DECODE: da},
              plain=[(rnq, "rmsnorm_quant"), (w8a8, "w8a8_matmul_stacked"),
-                    (pa, "prefill_attention_kernel")]),
+                    (pa, "prefill_attention_kernel")],
+             modes={"split": READ_ONLY_INT8, "fused": FUSED_INT8},
+             decode=INT8_DECODE),
         dict(tag="path 3", title="int4 weight-only, g128 projections, int4 "
              "per-channel lm_head (quantize_params), bf16 KV",
              mode=QuantMode.use_weight_only(True, per_group=True),
@@ -1010,11 +1243,126 @@ def run_path(path, args, errors, results):
         print(f"  {what} argmax kernels {got.argmax(-1).tolist()} plain "
               f"{ref.argmax(-1).tolist()}")
     profile_generate(sess, p1, scfg, new, ms1)
+    if path.get("modes"):
+        run_decode_modes(path, sess, cfg, p1, out1, errors, results)
 
 
-def profile_generate(sess, ids, scfg, new, wall_ms):
+def replay_logits(sess, prompt, tokens, scfg, new):
+    """f32 logits [1, V] that pick token k of a bs1 `sess.generate(prompt,
+    max_new_tokens=new)` in the current decode_attn_mode, with `tokens`
+    ([1, k] ids) fed as the tokens before it. It makes the session's own
+    calls (bucket, cache rows, prefill, one decode step per token), so it
+    reproduces a run whose first k tokens were `tokens`."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch.models import llama
+
+    cfg, ecfg = sess.cfg, sess.engine_cfg
+    n = prompt.shape[1]
+    bucket = ecfg.bucket_for(n)
+    padded = np.full((1, bucket), scfg.pad_id, np.int32)
+    padded[:, :n] = prompt
+    with torch.inference_mode():
+        caches = llama.init_caches(cfg, 1, min(ecfg.max_seq_len, bucket + new),
+                                   "cuda", sess.kv_scales)
+        ids = torch.as_tensor(padded, device="cuda")
+        lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+        logits, caches = llama.forward_prefill(sess.params, cfg, ids, lens,
+                                               caches, rope=sess.rope)
+        pos = lens.clone()
+        for t in np.asarray(tokens)[0]:
+            tok = torch.tensor([t], dtype=torch.int32, device="cuda")
+            logits, caches = llama.forward_decode(sess.params, cfg, tok, pos,
+                                                  caches, rope=sess.rope)
+            pos += 1
+    return logits
+
+
+def run_decode_modes(path, sess, cfg, prompt, out_auto, errors, results):
+    """The path's bs1 request again under decode_attn_mode 'split' (row 8
+    after the plain write) and 'fused' (row 9): decode ms/token, device
+    ms/token, launches (the mode's kernel once per layer and decode step,
+    kernel 3 never), first-decode-step logits against the 'auto' run's,
+    and whether the tokens equal the 'auto' run's. Where they first differ,
+    at token k, both runs' step k is replayed on their common first k
+    tokens: the mode's logits against the 'auto' ones, beside the top-2 gap
+    of the 'auto' logits. The knob is restored."""
+    from unittest import mock
+
+    import numpy as np
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.registry import KERNELS as knobs
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+
+    tag, new, n_l = path["tag"], NEW_TOKENS, cfg.num_layers
+    scfg = SamplingConfig(end_id=-1)
+    prompt = np.asarray(prompt)
+    auto_ids = np.asarray(out_auto.output_ids)
+
+    def replay(k):      # the logits of step k on the 'auto' run's tokens
+        return replay_logits(sess, prompt, auto_ids[:, :k], scfg, new)
+
+    ref = replay(1)
+    for mode, key in path["modes"].items():
+        first = None
+        wrappers = {key: getattr(da, KERNELS[key][0]),
+                    path["decode"]: da.dma_decode_attention}
+        with mock.patch.dict(knobs, decode_attn_mode=mode):
+            sess.generate(prompt, sampling=scfg, max_new_tokens=4)  # warm-up
+            t = time.perf_counter()
+            sess.generate(prompt, sampling=scfg, max_new_tokens=1)
+            pre_ms = (time.perf_counter() - t) * 1e3
+            for fn in wrappers.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            out = sess.generate(prompt, sampling=scfg, max_new_tokens=new)
+            ms = (time.perf_counter() - t) * 1e3
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+            got = replay(1)
+            dec_ms = (ms - pre_ms) / (new - 1)
+            print(f"  {tag} decode_attn_mode {mode!r}: decode {dec_ms:.3f} "
+                  f"ms/token ({1e3 / dec_ms:.1f} tokens/s), prefill "
+                  f"{pre_ms:.2f} ms")
+            expect = {key: n_l * (new - 1), path["decode"]: 0}
+            print(f"  launches {launches}, expected {expect}: "
+                  f"{'ok' if launches == expect else 'FAIL'}")
+            if launches != expect:
+                errors.append(f"{tag} {mode}: launches {launches} != {expect}")
+            results[key]["launches"] = (results[key].get("launches", 0)
+                                        + launches[key])
+            compare(f"{mode} first decode step logits vs 'auto'", got, ref,
+                    errors, tol=LOGITS_TOL)
+            same = np.array_equal(out.output_ids, auto_ids)
+            print(f"  {mode} tokens identical to 'auto': {same} "
+                  f"({out.output_ids[0, :12].tolist()}...)")
+            if not same:
+                first = int(np.flatnonzero(out.output_ids[0] != auto_ids[0])[0])
+                got_i = replay(first)
+                picks = [int(got_i.argmax()), int(out.output_ids[0, first])]
+            dev_ms = profile_generate(sess, prompt, scfg, new, ms,
+                                      row_limit=6)
+        if first is not None:         # the 'auto' logits of the same step
+            ref_i = replay(first)
+            picks += [int(ref_i.argmax()), int(auto_ids[0, first])]
+            top2 = ref_i.float().topk(2, dim=-1).values[0]
+            gap = float(top2[0] - top2[1])
+            err = compare(f"{mode} logits vs 'auto' at token {first}, the "
+                          "first that differs (same tokens before it)",
+                          got_i, ref_i, errors, tol=LOGITS_TOL)
+            print(f"  token {first}: the replays pick {picks[0]} ({mode}) and "
+                  f"{picks[2]} ('auto'), the runs picked {picks[1]} and "
+                  f"{picks[3]}; 'auto' top-2 gap {gap:.5f} against a max abs "
+                  f"logit difference of {err:.5f} "
+                  f"({'a near tie' if gap <= 2 * err else 'not a near tie'})")
+        results["_e2e"][f"{tag} {mode}"] = dict(
+            layers=n_l, prefill_ms=pre_ms, decode_ms_per_token=dec_ms,
+            device_ms_per_token=dev_ms / new, tokens_identical_to_auto=same)
+
+
+def profile_generate(sess, ids, scfg, new, wall_ms, row_limit=24):
     """torch.profiler over one bs1 generate: device time by kernel, and the
-    device's busy share of the same request's unprofiled wall time."""
+    device's busy share of the same request's unprofiled wall time. Returns
+    the device ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1030,8 +1378,211 @@ def profile_generate(sess, ids, scfg, new, wall_ms):
           f"({dev_ms / new:.3f} ms/token) of {wall_ms:.1f} ms unprofiled "
           f"wall: {100 * dev_ms / wall_ms:.1f}% busy, "
           f"{100 - 100 * dev_ms / wall_ms:.1f}% idle")
-    print(events.table(sort_by="self_device_time_total", row_limit=24,
+    print(events.table(sort_by="self_device_time_total", row_limit=row_limit,
                        max_name_column_width=60))
+    return dev_ms
+
+
+# ---------------------------------------------------------------------------
+# path 5: long-context generation (8192-token prompt, int8 weights + KV)
+# ---------------------------------------------------------------------------
+
+def gemv_calls(events):
+    """Device ms of each kernel-1 call in a profile, in launch order (a
+    call is its partial kernel plus the split-K reduce that follows it)."""
+    from torch.autograd import DeviceType
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    calls = []
+    for e in kernels:
+        if "gemv::partial_kernel" in e.name:
+            calls.append(e.time_range.elapsed_us() / 1e3)
+        elif "gemv::reduce_kernel" in e.name and calls:
+            calls[-1] += e.time_range.elapsed_us() / 1e3
+    return calls
+
+
+def run_long_context(args, errors, results):
+    """Path 5: bench.py's long-context int8_int8kv configuration through
+    GenerationSession: one 8192-token prompt (seed 0), 64 greedy tokens
+    (the counted run: row 12 once per layer, kernel 3 once per layer and
+    decode step, kernel 2 and rows 8 and 9 never). Then one prefill under
+    the profiler (prefill ms, kernel 1's time per call at M=8192), its
+    logits against the plain path's, the first decode step's logits
+    against the plain path's on a copy of the 8k cache, and decode steps
+    over that cache (host wall, device ms, idle share). Decode ms/token is the generate's
+    wall less the prefill's, over 63 steps."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.models import llama
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    from trtllm_llama_tpu_torch.quantization.quantize import (
+        init_random_quantized_params,
+    )
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    cfg = ModelConfig.llama_7b(
+        quant_mode=QuantMode.use_weight_only(False) | QuantMode.INT8_KV_CACHE,
+        max_position_embeddings=LONG_ROPE, num_layers=args.layers)
+    n_l = cfg.num_layers
+    print(f"path 5: LLaMA-7B widths, {n_l} layers, int8 weight-only "
+          f"per-channel, int8 KV (scale {KV_SCALE}), RoPE table of "
+          f"{LONG_ROPE}, {LONG_ENGINE}; one {LONG_PROMPT}-token prompt "
+          f"(seed 0), {LONG_NEW} greedy tokens, random weights born quantized")
+    params = init_random_quantized_params(cfg, seed=0, device="cuda")
+    sess = GenerationSession(cfg, params, EngineConfig(**LONG_ENGINE),
+                             kv_scales=[KV_SCALE] * n_l, device="cuda")
+    del params
+    scfg = SamplingConfig(end_id=-1)
+    prompt = np.random.default_rng(0).integers(3, cfg.vocab_size,
+                                               (1, LONG_PROMPT))
+
+    wrappers = {"woq_matmul_stacked": woq.woq_matmul_stacked,
+                STREAMING: spa.streaming_prefill_attention_kernel,
+                INT8_DECODE: da.dma_decode_attention,
+                "prefill_attention_kernel": pa.prefill_attention_kernel,
+                READ_ONLY_INT8: da.decode_attention_kernel,
+                FUSED_INT8: da.fused_decode_attention}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = sess.generate(prompt, sampling=scfg, max_new_tokens=LONG_NEW)
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"  bs1 in{LONG_PROMPT} out{LONG_NEW}: {ms:.1f} ms, "
+          f"{LONG_NEW / ms * 1e3:.2f} tokens/s end to end")
+    expect = {"woq_matmul_stacked": 5 * n_l * LONG_NEW, STREAMING: n_l,
+              INT8_DECODE: n_l * (LONG_NEW - 1),
+              "prefill_attention_kernel": 0, READ_ONLY_INT8: 0,
+              FUSED_INT8: 0}
+    print(f"  launches {launches}, expected {expect}: "
+          f"{'ok' if launches == expect else 'FAIL'}")
+    if launches != expect:
+        errors.append(f"path 5: launches {launches} != {expect}")
+    for k in ("woq_matmul_stacked", STREAMING, INT8_DECODE):
+        results[k]["launches"] = results[k].get("launches", 0) + launches[k]
+    ids = out.output_ids
+    ok = (ids.shape == (1, LONG_NEW) and (ids >= 0).all()
+          and (ids < cfg.vocab_size).all() and (out.lengths == LONG_NEW).all())
+    print(f"  tokens {ids.shape}: {ids[0, :12].tolist()}... "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        errors.append(f"path 5: bad output {ids.shape}")
+
+    # the prefill under the profiler (its host wall is the prefill time:
+    # the profiler adds ~1 us per launch to ~45 s), then the plain path
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    s_max = LONG_PROMPT + LONG_NEW
+    with torch.inference_mode():
+        ids_t = torch.as_tensor(prompt, dtype=torch.int32, device="cuda")
+        lens = torch.tensor([LONG_PROMPT], dtype=torch.int32, device="cuda")
+
+        def prefill():
+            caches = llama.init_caches(cfg, 1, s_max, "cuda", sess.kv_scales)
+            return llama.forward_prefill(sess.params, cfg, ids_t, lens,
+                                         caches, rope=sess.rope)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t = time.perf_counter()
+            got, caches = prefill()
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t) * 1e3
+        events = prof.events()
+        dev_ms = sum(e.time_range.elapsed_us() for e in events
+                     if e.device_type == DeviceType.CUDA) / 1e3
+        calls = gemv_calls(events)
+        k1_ms = sum(calls)
+        dec_ms = (ms - pre_ms) / (LONG_NEW - 1)
+        print(f"  prefill {pre_ms:.1f} ms (host wall); decode {dec_ms:.3f} "
+              f"ms/token (the generate's wall less it, over {LONG_NEW - 1} "
+              f"steps), {1e3 / dec_ms:.1f} decode tokens/s")
+        print(f"  profile of the {LONG_PROMPT}-row prefill: device busy "
+              f"{dev_ms:.1f} ms; kernel 1 (int8 GEMV, M={LONG_PROMPT}) "
+              f"{len(calls)} calls, {k1_ms:.1f} ms ({100 * k1_ms / dev_ms:.1f}"
+              f"% of the device time)")
+        if len(calls) == 5 * n_l:
+            per = {name: sum(calls[i::5]) / n_l for i, name in enumerate(
+                ("qkv", "wo", "gate", "up", "down"))}
+            print("  kernel 1 ms per call at M=8192 (profile): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in per.items()))
+            results["_e2e"]["path 5 kernel 1 ms per call"] = per
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=8, max_name_column_width=60))
+        with contextlib.ExitStack() as stack:
+            for mod, attr in ((woq, "woq_matmul_stacked"),
+                              (spa, "streaming_prefill_attention_kernel")):
+                stack.enter_context(patched(mod, attr,
+                                            getattr(mod, attr + "_plain")))
+            ref, _ = prefill()
+        compare(f"7B {LONG_PROMPT}-token prefill logits, kernels vs plain",
+                got, ref, errors, tol=LOGITS_TOL)
+        print(f"  argmax kernels {got.argmax(-1).tolist()} plain "
+              f"{ref.argmax(-1).tolist()}")
+
+        # the first decode step over the 8k cache (kernel 3 writes row 8192
+        # and attends 8193 int8 rows), kernels vs plain on copies of the
+        # same caches
+        tok = got.argmax(-1).to(torch.int32)
+        pos = lens.clone()
+        plain_caches = caches._replace(k=caches.k.clone(), v=caches.v.clone())
+        step, caches = llama.forward_decode(sess.params, cfg, tok, pos,
+                                            caches, rope=sess.rope)
+        with contextlib.ExitStack() as stack:
+            for mod, attr in ((woq, "woq_matmul_stacked"),
+                              (da, "dma_decode_attention")):
+                stack.enter_context(patched(mod, attr,
+                                            getattr(mod, attr + "_plain")))
+            step_ref, plain_caches = llama.forward_decode(
+                sess.params, cfg, tok, pos, plain_caches, rope=sess.rope)
+        compare(f"7B decode step at row {LONG_PROMPT} of the {LONG_S_MAX}-row"
+                " int8 cache, logits kernels vs plain", step, step_ref, errors,
+                tol=LOGITS_TOL)
+        del plain_caches, step_ref
+        tok = step.argmax(-1).to(torch.int32)
+        pos.add_(1)
+
+        # decode steps over the 8k cache: host wall, then device time
+
+        def steps(n):
+            nonlocal tok
+            for _ in range(n):
+                logits, _ = llama.forward_decode(sess.params, cfg, tok, pos,
+                                                 caches, rope=sess.rope)
+                tok = logits.argmax(-1).to(torch.int32)
+                pos.add_(1)
+        n_steps = 16
+        steps(1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        steps(n_steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / n_steps
+        with profile(activities=acts) as prof:
+            steps(n_steps)
+            torch.cuda.synchronize()
+        step_dev = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e3 / n_steps
+    print(f"  decode steps at positions {LONG_PROMPT + 2}-"
+          f"{LONG_PROMPT + 1 + 2 * n_steps}: {wall:.3f} ms/token wall, "
+          f"device {step_dev:.3f} ms/token: {100 * step_dev / wall:.1f}% "
+          f"busy, {100 - 100 * step_dev / wall:.1f}% idle")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=8, max_name_column_width=60))
+    results["_e2e"]["path 5"] = dict(
+        layers=n_l, prefill_ms=pre_ms, decode_ms_per_token=dec_ms,
+        decode_tokens_per_s=1e3 / dec_ms, e2e_tokens_per_s=LONG_NEW / ms * 1e3,
+        prefill_device_ms=dev_ms, prefill_kernel1_ms=k1_ms,
+        decode_step_wall_ms=wall, decode_step_device_ms=step_dev)
 
 
 # ---------------------------------------------------------------------------
@@ -1278,6 +1829,25 @@ def profile_serving_step(eng, prompts):
                 step_device_ms=dev_ms, step_busy_share=dev_ms / step_ms)
 
 
+def check_kernels(errors, results):
+    """Every kernel against its plain version at the shapes the paths and
+    the serving phase give it."""
+    check_gemv("int8", errors, results)
+    check_prefill(errors, results)
+    check_streaming_prefill(errors, results)
+    check_decode(errors, results)
+    check_decode_modes(errors, results)
+    check_decode_modes(errors, results, kv_int8=True)
+    check_rmsnorm_quant(errors, results)
+    check_w8a8(errors, results)
+    check_decode(errors, results, kv_int8=True)
+    for fmt in ("int4 g128", "int4 per-channel", "fp8"):
+        check_gemv(fmt, errors, results)
+    check_packed_prefill(errors, results)
+    check_paged_decode(errors, results)
+    check_paged_decode(errors, results, kv_int8=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -1316,22 +1886,18 @@ def main(argv=None) -> int:
         print(f"  {name}: {ptxas_summary(log)}")
 
     errors, results = [], {"_e2e": {}}
-    check_gemv("int8", errors, results)
-    check_prefill(errors, results)
-    check_decode(errors, results)
-    check_rmsnorm_quant(errors, results)
-    check_w8a8(errors, results)
-    check_decode(errors, results, kv_int8=True)
-    for fmt in ("int4 g128", "int4 per-channel", "fp8"):
-        check_gemv(fmt, errors, results)
-    check_packed_prefill(errors, results)
-    check_paged_decode(errors, results)
-    check_paged_decode(errors, results, kv_int8=True)
-    for path in make_paths():
-        run_path(path, args, errors, results)
-        gc.collect()                 # free this path's session and weights
+    phases = [("kernels", lambda: check_kernels(errors, results))]
+    phases += [(path["tag"], lambda path=path: run_path(path, args, errors,
+                                                        results))
+               for path in make_paths()]
+    phases += [("path 5", lambda: run_long_context(args, errors, results)),
+               ("serving", lambda: run_serving(args, errors, results))]
+    for name, phase in phases:
+        t = time.perf_counter()
+        phase()
+        gc.collect()                 # free the phase's sessions and weights
         torch.cuda.empty_cache()
-    run_serving(args, errors, results)
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s")
     if errors:
         print("chip_smoke FAILED:\n  " + "\n  ".join(errors), file=sys.stderr)
         return 1

@@ -13,7 +13,10 @@ same bounds. The W8A8 kernel is
 exact against its plain version (int32 sums, the same f32 epilogue);
 rmsnorm_quant's scales agree to 1e-6 relative and its codes within one
 step (the row's sum of squares is taken in another order); int8 KV caches
-and paged pools are bit-identical to the plain write.
+and paged pools are bit-identical to the plain write. The streaming
+prefill kernel rounds its probabilities to bf16 before P V in bf16 (the
+2**-7 bound holds); its f32 instantiation and the read-only and fused
+decode kernels differ from their plain versions in summation order only.
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ from trtllm_llama_tpu_torch.ops.kernels import packed_prefill_attention as ppa
 from trtllm_llama_tpu_torch.ops.kernels import paged_decode_attention as pda
 from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
 from trtllm_llama_tpu_torch.ops.kernels import rmsnorm_quant as rnq
+from trtllm_llama_tpu_torch.ops.kernels import streaming_prefill_attention as spa
 from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
 from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
 from trtllm_llama_tpu_torch.quantization.quantize import random_fp8_codes
@@ -262,6 +266,125 @@ def test_decode_kernel_drops_a_write_past_the_cache(dev, kv_int8):
     assert moved.sum().item() <= 1 and not moved[:, [0, 2]].any()
 
 
+@pytest.mark.parametrize("s,lens", [(40, [40, 17, 1]), (200, [200, 130, 0]),
+                                    (64, [64, 63, 64])])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_streaming_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d, s,
+                                                lens):
+    """Ragged lengths, a length of 0 (the row averages V over all S
+    columns), S off the 64-row tile and exactly on it."""
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = (torch.randn((3, s, h, d), generator=g, device=dev).to(dtype)
+               for h in (hq, hkv, hkv))
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    launches = spa.streaming_prefill_attention_kernel.launches
+    got = spa.streaming_prefill_attention_kernel(q, k, v, sl)
+    assert spa.streaming_prefill_attention_kernel.launches == launches + 1
+    ref = spa.streaming_prefill_attention_kernel_plain(q, k, v, sl)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, dtype)
+
+
+def _decode_cache(dev, dtype, kv_int8, hq, hkv, b, s, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (2, b, hkv, s, d)
+    if kv_int8:
+        kc = torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        vc = torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        kv_scale = torch.tensor([0.05, 0.021], device=dev)
+    else:
+        kc = torch.randn(shape, generator=g, device=dev).to(dtype)
+        vc = torch.randn(shape, generator=g, device=dev).to(dtype)
+        kv_scale = None
+    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
+    kn = (4 * torch.randn((b, hkv, d), generator=g, device=dev)).to(dtype)
+    vn = (4 * torch.randn((b, hkv, d), generator=g, device=dev)).to(dtype)
+    return q, kn, vn, kc, vc, kv_scale
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_read_only_decode_kernel_matches_plain(dev, dtype, hq, hkv, d,
+                                               kv_int8):
+    """Lengths 0 (the mean of V over all S rows), 1, a chunk edge, S and
+    past S; the caches are not written."""
+    q, _, _, kc, vc, kv_scale = _decode_cache(dev, dtype, kv_int8, hq, hkv,
+                                              5, 128, d, d + hq)
+    lens = torch.tensor([0, 1, 33, 128, 200], dtype=torch.int32, device=dev)
+    before = kc.clone(), vc.clone()
+    launches = da.decode_attention_kernel.launches
+    got = da.decode_attention_kernel(q, kc, vc, 1, lens, kv_scale=kv_scale)
+    assert da.decode_attention_kernel.launches == launches + 1
+    ref = da.decode_attention_kernel_plain(q, kc, vc, 1, lens,
+                                           kv_scale=kv_scale)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, dtype)
+    assert torch.equal(kc, before[0]) and torch.equal(vc, before[1])
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 4)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_decode_kernel_matches_plain(dev, dtype, hq, hkv, d, kv_int8):
+    """Write positions 0, a tile edge, the last row and past S (no write,
+    all S rows); the caches equal the plain write bit for bit."""
+    q, kn, vn, kc, vc, kv_scale = _decode_cache(dev, dtype, kv_int8, hq, hkv,
+                                                6, 128, d, d + hkv)
+    pos = torch.tensor([0, 31, 32, 100, 127, 300], dtype=torch.int32,
+                       device=dev)
+    kc2, vc2 = kc.clone(), vc.clone()
+    launches = da.fused_decode_attention.launches
+    got = da.fused_decode_attention(q, kn, vn, kc, vc, 1, pos,
+                                    kv_scale=kv_scale)
+    assert da.fused_decode_attention.launches == launches + 1
+    ref = da.fused_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos,
+                                          kv_scale=kv_scale)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, dtype)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+def test_decode_modes_generate_on_cuda_match_cpu(dev):
+    """A tiny int8 weight-only model with an int8 KV cache gives the CPU's
+    greedy tokens on the card in the 'split' and 'fused' decode modes, and
+    with every prompt through the streaming prefill kernel."""
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.ops.registry import KERNELS
+    from trtllm_llama_tpu_torch.quantization.quantize import (
+        init_random_quantized_params,
+    )
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    cfg = ModelConfig.tiny(dtype="float32", quant_mode=(
+        QuantMode.use_weight_only() | QuantMode.INT8_KV_CACHE))
+    params = init_random_quantized_params(cfg, seed=0, device="cpu")
+    prompts = [[5, 17, 99, 3, 250, 8], [200, 4, 66]]
+    old = dict(KERNELS)
+    KERNELS["prefill_streaming_min_s"] = 0
+    try:
+        for mode in ("split", "fused"):
+            KERNELS["decode_attn_mode"] = mode
+            outs = []
+            for device in ("cpu", "cuda"):
+                sess = GenerationSession(cfg, params, EngineConfig(
+                    max_input_len=16, max_seq_len=48), kv_scales=[0.05, 0.05],
+                    device=device)
+                outs.append(sess.generate(
+                    prompts, sampling=SamplingConfig(end_id=-1),
+                    max_new_tokens=10).output_ids)
+            np.testing.assert_array_equal(outs[0], outs[1])
+    finally:
+        KERNELS.update(old)
+
+
 # tables of five sequences over a pool of 14 blocks (13 is the trash
 # block): a mid-block write; a -1 entry past the attended blocks; a position
 # past the table (writes trash row 5, attends all MB * BS rows); the table's
@@ -459,3 +582,23 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):               # head dim 48
         ppa.packed_prefill_attention_kernel(
             q[0], q[0], q[0], torch.zeros(8, dtype=torch.int32, device=dev))
+
+
+def test_decode_and_streaming_wrappers_reject_bad_inputs(dev):
+    q = torch.ones((1, 8, 2, 48), device=dev)     # head dim 48
+    with pytest.raises(ValueError):
+        spa.streaming_prefill_attention_kernel(q, q, q)
+    with pytest.raises(NotImplementedError):
+        spa.streaming_prefill_attention_kernel(q, q, q, alibi=torch.ones(2))
+    cache = torch.zeros((1, 1, 2, 32, 32), dtype=torch.int8, device=dev)
+    new = torch.ones((1, 2, 32), device=dev)
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):               # int8 cache, no kv_scale
+        da.decode_attention_kernel(new, cache, cache.clone(), 0, lens)
+    with pytest.raises(ValueError):               # int8 cache, no kv_scale
+        da.fused_decode_attention(new, new, new, cache, cache.clone(), 0, lens)
+    big = torch.zeros((1, 1, 1, 32, 128), device=dev)
+    with pytest.raises(ValueError):               # a GQA group of 512 heads
+        da.fused_decode_attention(torch.ones((1, 512, 128), device=dev),
+                                  big[0, :, :, 0], big[0, :, :, 0], big,
+                                  big.clone(), 0, lens)

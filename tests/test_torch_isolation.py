@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of trtllm_llama_tpu_torch, nor
 chip_smoke.py, imports JAX or the JAX package, and the port imports and
 generates on the CPU (int8 weight-only, SmoothQuant with an int8 KV cache,
-int4 g64 and fp8 with a quantized lm_head) and serves (a paged and a
-packed ServingEngine) with both made unimportable."""
+int4 g64 and fp8 with a quantized lm_head; every prompt through the
+streaming prefill and the 'split' and 'fused' decode modes) and serves (a
+paged and a packed ServingEngine) with both made unimportable."""
 
 import ast
 import subprocess
@@ -67,6 +68,13 @@ sess = GenerationSession(sq, init_random_quantized_params(sq, device="cpu"),
 out = sess.generate([[5, 6, 7], [8, 9]], sampling=SamplingConfig(end_id=-1),
                     max_new_tokens=4)
 assert out.output_ids.shape == (2, 4), out.output_ids.shape
+from trtllm_llama_tpu_torch.ops.registry import KERNELS
+KERNELS["prefill_streaming_min_s"] = 0
+for mode in ("split", "fused"):
+    KERNELS["decode_attn_mode"] = mode
+    assert (sess.generate([[5, 6, 7], [8, 9]], sampling=SamplingConfig(
+        end_id=-1), max_new_tokens=4).output_ids == out.output_ids).all()
+KERNELS.update(prefill_streaming_min_s=2048, decode_attn_mode="auto")
 from trtllm_llama_tpu_torch.quantization.quantize import quantize_params
 for mode in (QuantMode.use_weight_only(True, per_group=True),
              QuantMode.FP8_QDQ):

@@ -1,17 +1,21 @@
 // Kernel 3: one-token decode attention fused with the in-place KV-cache
-// write, over one layer of the stacked cache [B, Hkv, S, D].
+// write, over one layer of the stacked cache [B, Hkv, S, D]; and row 8, the
+// same attention read-only, over rows < cache_lens[b].
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/dma_decode_attention.py::
 // dma_decode_attention (bf16 / f32 KV, and the int8-KV branch with one
 // static dequant scale per layer). Unlike the reference, which switches to
 // this kernel only at S_max >= 4096 (a crossover measured on a TPU), the
-// port uses it at every cache length.
+// port uses it at every cache length. Row 8 replaces
+// trtllm_llama_tpu/ops/pallas/attention.py::decode_attention_kernel (the
+// 'split' decode mode and decode_attention_at).
 //
 // The body, its bound (the live K/V bytes) and its design are in
 // decode_attention.cuh; here a sequence's rows are contiguous, so row r of
 // (b, hk) is at ((b * Hkv + hk) * S + r) * D. A write position pos >= S is
 // dropped, as the JAX package's scatter drops it, and the attention then
-// covers all S rows.
+// covers all S rows. Read-only, a length past S attends all S rows and a
+// length <= 0 averages V over them (the reference's all-masked softmax).
 #include "decode_attention.cuh"
 
 using namespace tllm;
@@ -19,6 +23,7 @@ using namespace tllm;
 namespace {
 
 struct DenseRows {
+  static constexpr bool kWrite = true;
   int cap;  // S
   int hkv;
   int d;
@@ -29,6 +34,13 @@ struct DenseRows {
   __device__ long long write_offset(int b, int hk, int pos) const {
     return pos < cap ? offset(b, hk, pos) : -1;
   }
+};
+
+// Row 8: the same rows, no write; positions[] are the cache lengths.
+struct ReadRows : DenseRows {
+  static constexpr bool kWrite = false;
+
+  __device__ long long write_offset(int, int, int) const { return -1; }
 };
 
 }  // namespace
@@ -53,4 +65,30 @@ extern "C" int tllm_decode_attention(const void* q, const void* k_new,
                        part_m, part_l, part_acc, B, Hq, Hkv, sm_scale,
                        static_cast<cudaStream_t>(stream)};
   return decode::dispatch(dtype, kv_int8 != 0, D, a, DenseRows{S, Hkv, D});
+}
+
+// Row 8. q [B, Hq, D] (dtype), kc/vc: layer `layer` of the stacked cache
+// [B, Hkv, S, D] in dtype or, with kv_int8, int8 (read only), kv_scale: that
+// layer's f32 dequant scale (int8 only, else null), cache_lens [B] int32,
+// out [B, Hq, D]; part_m/part_l/part_acc as above. S % 32 == 0,
+// D in {32, 64, 128}.
+extern "C" int tllm_decode_attention_read(const void* q, const void* kc,
+                                          const void* vc, const void* kv_scale,
+                                          const void* cache_lens, void* out,
+                                          void* part_m, void* part_l,
+                                          void* part_acc, int dtype,
+                                          int kv_int8, int B, int Hq, int Hkv,
+                                          int S, int D, float sm_scale,
+                                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const decode::Args a{q, nullptr, nullptr, const_cast<void*>(kc),
+                       const_cast<void*>(vc), kv_scale, cache_lens, out,
+                       part_m, part_l, part_acc, B, Hq, Hkv, sm_scale,
+                       static_cast<cudaStream_t>(stream)};
+  ReadRows rows;
+  rows.cap = S;
+  rows.hkv = Hkv;
+  rows.d = D;
+  return decode::dispatch(dtype, kv_int8 != 0, D, a, rows);
 }

@@ -1,9 +1,12 @@
-// One-token decode attention fused with the in-place KV-cache write: the
-// body shared by kernel 3 (decode_attention.cu, a layer of the stacked cache
-// [B, Hkv, S, D], rows contiguous) and kernel 14 (paged_decode_attention.cu,
-// a layer of the block pool [NB, Hkv, BS, D], rows found through a block
-// table). The two differ only in the addressing policy `Rows`:
+// One-token decode attention, with or without the in-place KV-cache write:
+// the body shared by kernel 3 (decode_attention.cu, a layer of the stacked
+// cache [B, Hkv, S, D], rows contiguous), row 8 (decode_attention.cu, the
+// same cache read-only) and kernel 14 (paged_decode_attention.cu, a layer of
+// the block pool [NB, Hkv, BS, D], rows found through a block table). They
+// differ only in the addressing policy `Rows`:
 //
+//   Rows::kWrite                 true: positions[b] is the write position;
+//                                false: it is the cache length (no write)
 //   Rows::cap                    rows a sequence can attend (S, or MB * BS)
 //   Rows::offset(b, hk, row)     element offset of a cache row, row < cap
 //   Rows::write_offset(b, hk, pos)
@@ -14,6 +17,9 @@
 // n_live = min(pos + 1, cap) attended rows:
 //   row pos (at write_offset) = enc(k_new[b]); likewise v
 //   out[b, h] = softmax_f32((q[b, h] . dec(K[j])) * sm_scale, j < n_live) @ dec(V)
+// or, read-only, with len = positions[b]: the rows j < clamp(len, 0, cap),
+// and for len <= 0 all cap rows with every score at the reference's finite
+// NEG_INF, so the softmax averages V over them (live_rows below).
 // where a float cache stores the value as is (enc/dec are the dtype cast),
 // and an int8 cache stores enc(x) = clamp(rint(x / scale), +-127) (a true
 // division, as the JAX package's _quant_kv; its Pallas kernels multiply by
@@ -70,6 +76,22 @@ struct KVCodec<int8_t> {
   }
 };
 
+// The rows sequence b attends, from v = positions[b] (see the note above).
+struct Live {
+  int n;        // rows attended, [0, n)
+  int pos;      // the write row, -1 when read-only
+  bool masked;  // every attended row scores NEG_INF (read-only, len <= 0)
+};
+
+template <typename Rows>
+__device__ __forceinline__ Live live_rows(const Rows& rows, int v) {
+  if constexpr (Rows::kWrite) {
+    return {min(v + 1, rows.cap), v, false};
+  } else {
+    return v > 0 ? Live{min(v, rows.cap), -1, false} : Live{rows.cap, -1, true};
+  }
+}
+
 template <typename T, typename TC, int D, typename Rows>
 __global__ void __launch_bounds__(kWarps * 32)
     decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
@@ -88,8 +110,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int c = blockIdx.x;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int pos = positions[b];
-  const int n_live = min(pos + 1, rows.cap);
+  const Live live = live_rows(rows, positions[b]);
+  const int pos = live.pos;
+  const int n_live = live.n;
   const int row0 = c * kChunk;
   if (row0 >= n_live) return;  // chunk not live (whole block exits)
 
@@ -141,7 +164,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     float s = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) s = fmaf(to_f(qh[d]), ks[lane][d], s);
-    s = (row0 + lane < n_live) ? s * sm_scale : kNegInf;
+    s = (row0 + lane < n_live && !live.masked) ? s * sm_scale : kNegInf;
     const float mx = warp_max(s);
     const float p = expf(s - mx);
     const float l = warp_sum(p);
@@ -165,17 +188,17 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // One block of D threads per (h, b).
-template <typename T, int D>
+template <typename T, int D, typename Rows>
 __global__ void decode_combine_kernel(const float* __restrict__ part_m,
                                       const float* __restrict__ part_l,
                                       const float* __restrict__ part_acc,
                                       const int* __restrict__ positions,
                                       T* __restrict__ out, int Hq, int n_chunks,
-                                      int cap) {
+                                      Rows rows) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int d = threadIdx.x;
-  const int live = (min(positions[b] + 1, cap) - 1) / kChunk + 1;
+  const int live = (live_rows(rows, positions[b]).n - 1) / kChunk + 1;
   const size_t base = (static_cast<size_t>(b) * Hq + h) * n_chunks;
   float mx = kLowest;
   for (int c = 0; c < live; ++c) mx = fmaxf(mx, part_m[base + c]);
@@ -219,11 +242,11 @@ cudaError_t launch(const Args& a, const Rows& rows) {
           a.Hkv, n_chunks, a.sm_scale, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T, D><<<dim3(a.Hq, a.B), D, 0, a.stream>>>(
+  decode_combine_kernel<T, D, Rows><<<dim3(a.Hq, a.B), D, 0, a.stream>>>(
       static_cast<const float*>(a.part_m), static_cast<const float*>(a.part_l),
       static_cast<const float*>(a.part_acc),
       static_cast<const int*>(a.positions), static_cast<T*>(a.out), a.Hq,
-      n_chunks, rows.cap);
+      n_chunks, rows);
   return cudaGetLastError();
 }
 

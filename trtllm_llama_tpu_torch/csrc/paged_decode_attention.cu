@@ -29,6 +29,7 @@ using namespace tllm;
 namespace {
 
 struct PagedRows {
+  static constexpr bool kWrite = true;
   int cap;  // MB * BS
   const int* tables;  // [B, MB]
   int mb, bs, hkv, d, trash;

@@ -7,12 +7,19 @@ here the returned `KVCache` is the same tensors, written). An int8 cache
 stores clamp(round(x / scale[layer]), +-127) with one static scale per
 layer and reads code * scale; fp8 caches are not ported yet.
 
-Dispatch is by tensor device inside the kernel wrappers: `prefill_attention`
-goes to kernel 2, `packed_prefill_attention` to kernel 13,
-`fused_decode_attention_at` to kernel 3 at every cache length (the JAX
-package's switch to its DMA kernel at S_max >= 4096 is a TPU crossover the
-port does not copy). `decode_attention` is the plain read-only reference.
-The paged cache is in `ops/paged_attention.py`.
+Which kernel runs is chosen by the knobs of `ops/registry.KERNELS`, as in
+the JAX package; whether it is the CUDA kernel or its plain version, by the
+tensor's device inside the kernel wrapper. `prefill_attention` goes to the
+streaming kernel (row 12) for prompts longer than
+`prefill_streaming_min_s`, else to kernel 2; `packed_prefill_attention` to
+kernel 13; `fused_decode_attention_at` by `decode_attn_mode`: kernel 3 for
+'auto', 'dma' and 'xla' at every cache length (the JAX package's switch
+to its DMA kernel at S_max >= 4096 is a TPU crossover the port does not
+copy, and its XLA path is not ported), the plain write and the read-only
+kernel (row 8) for 'split', the one-launch kernel (row 9) for 'fused';
+`decode_attention_at` to row 8 in every mode. `decode_attention` is the
+plain read-only reference of one layer. The paged cache is in
+`ops/paged_attention.py`.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from ..quantization.tensors import quantize_int8
 from .kernels import decode_attention as _decode
 from .kernels import packed_prefill_attention as _packed
 from .kernels import prefill_attention as _prefill
+from .kernels import streaming_prefill_attention as _streaming
+from .registry import KERNELS
 
 NEG_INF = -1e9
 
@@ -103,9 +112,16 @@ def prefill_attention(q, k, v, seq_lens=None, scale: Optional[float] = None,
                       alibi=None):
     """Causal self-attention over a prompt. q: [B, S, H_q, D]; k, v:
     [B, S, H_kv, D]; seq_lens: optional [B] valid lengths (keys at
-    positions >= len are masked). Returns [B, S, H_q, D]."""
+    positions >= len are masked). Prompts of more rows than
+    KERNELS['prefill_streaming_min_s'] (None: 2048; 0 sends every prompt)
+    go to the streaming kernel, shorter ones to kernel 2. Returns
+    [B, S, H_q, D]."""
     if alibi is not None:
         raise NotImplementedError("ALiBi attention is not ported yet")
+    min_s = KERNELS["prefill_streaming_min_s"]
+    if q.shape[1] > (2048 if min_s is None else min_s):
+        return _streaming.streaming_prefill_attention_kernel(q, k, v,
+                                                             seq_lens, scale)
     return _prefill.prefill_attention_kernel(q, k, v, seq_lens, scale)
 
 
@@ -122,17 +138,44 @@ def fused_decode_attention_at(q, k_new, v_new, cache: KVCache, layer: int,
                               alibi=None):
     """Decode step for layer `layer`: write k/v_new [B, H_kv, D] at
     `positions` [B] and attend q [B, H_q, D] over rows <= positions.
-    Returns (attn_out [B, H_q, D], cache). With an int8 cache the kernel
-    keeps the dequantized K/V in f32 (the JAX package's DMA kernel); its
-    XLA path rounds them to q's dtype first, which is the same at f32."""
+    Returns (attn_out [B, H_q, D], cache). The kernel follows
+    KERNELS['decode_attn_mode'] (see the module note; an unknown mode
+    raises ValueError). With an int8 cache every mode keeps the dequantized
+    K/V in f32 (the JAX package's Pallas kernels); its XLA path rounds them
+    to q's dtype first, which is the same at f32."""
     if alibi is not None:
         raise NotImplementedError("ALiBi attention is not ported yet")
     if cache.k.dtype == torch.uint8:
         raise NotImplementedError("fp8 KV caches are not ported yet")
-    out = _decode.dma_decode_attention(q, k_new, v_new, cache.k, cache.v,
-                                       layer, positions, scale,
-                                       kv_scale=cache.scale)
+    mode = KERNELS["decode_attn_mode"]
+    if mode in ("auto", "dma", "xla"):
+        out = _decode.dma_decode_attention(q, k_new, v_new, cache.k, cache.v,
+                                           layer, positions, scale,
+                                           kv_scale=cache.scale)
+    elif mode == "fused":
+        out = _decode.fused_decode_attention(q, k_new, v_new, cache.k,
+                                             cache.v, layer, positions, scale,
+                                             kv_scale=cache.scale)
+    elif mode == "split":
+        cache = write_kv_decode_at(cache, layer, k_new, v_new, positions)
+        out = decode_attention_at(q, cache, layer, positions + 1, scale)
+    else:
+        raise ValueError(f"unknown decode_attn_mode {mode!r}: expected "
+                         "'auto', 'dma', 'xla', 'split' or 'fused'")
     return out, cache
+
+
+def decode_attention_at(q, cache: KVCache, layer: int, cache_lens,
+                        scale: Optional[float] = None):
+    """Read-only decode attention of q [B, H_q, D] against layer `layer` of
+    the stacked cache, rows < cache_lens [B] (row 8, in every
+    decode_attn_mode; the JAX package runs its kernel only in the Pallas
+    modes and XLA otherwise). Returns [B, H_q, D]."""
+    if cache.k.dtype == torch.uint8:
+        raise NotImplementedError("fp8 KV caches are not ported yet")
+    return _decode.decode_attention_kernel(q, cache.k, cache.v, layer,
+                                           cache_lens, scale,
+                                           kv_scale=cache.scale)
 
 
 def decode_attention(q, k_cache, v_cache, cache_lens,

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
 SOURCES = ("woq_matmul", "fp8_matmul", "prefill_attention",
            "decode_attention", "rmsnorm_quant", "w8a8_matmul",
-           "paged_decode_attention", "packed_prefill_attention")
+           "paged_decode_attention", "packed_prefill_attention",
+           "streaming_prefill_attention", "fused_decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
