@@ -21,6 +21,14 @@
    the read-only (row 8) and one-launch (row 9) decodes with bf16 and
    int8 caches at S_max 128 and 8320 and at the edges (lengths 0 and S,
    positions 0, S - 1 and past S), beside kernel 3 on the same inputs;
+   rows 10 and 12 with Bloom's ALiBi slopes (row 10 at B=1 S=16 and at
+   the first serving wave, row 12 at one 3072-row prompt), timed with and
+   without slopes beside SDPA with a float mask holding the bias; rows 9
+   and 3 at GQA groups of 71 (D=64, Falcon-7B) and 32 (D=128) with one KV
+   head; kernels 2 and 3 at each decoder family's head shape (GPT-J 16 x
+   256, GPT-NeoX 64 x 96, OPT 32 x 128, Falcon 71:1 x 64) and row 12 at
+   head dims 96 and 256; and each kernel's float16 instantiation at one
+   shape;
 4. drives each path through GenerationSession.generate with random weights
    born quantized (seed 0), at LLaMA-7B's widths:
    path 1, int8 weight-only per-channel; path 2, SmoothQuant W8A8
@@ -34,7 +42,8 @@
    the path was launched in the path's run (counts zeroed just before it),
    checks the 7B prefill logits against the plain-version path on the
    card, and profiles one bs1 request (device time by kernel, the device's
-   busy share). Paths 1 and 2 then run the bs1 request again with
+   busy share; device ms per decode token with a profile of the prefill
+   alone subtracted). Paths 1 and 2 then run the bs1 request again with
    decode_attn_mode 'split' (row 8) and 'fused' (row 9): decode and device
    ms/token, launches (the mode's kernel only), first-decode-step logits
    against the default mode's, and whether the tokens match. Each path's
@@ -48,7 +57,7 @@
    cache (host wall, device time, idle share);
 6. serves with ServingEngine (int8 weight-only LLaMA-7B, bench.py's
    serving settings: 8 slots, decode_chunk 16, block 64, max_seq_len 200,
-   bucket 128) 24 requests of 64 new tokens with prompts of 8-128 tokens
+   bucket 128) 16 requests of 64 new tokens with prompts of 8-128 tokens
    (seed 0), in four configurations, each engine freed before the next:
    dense, paged, packed prefill, paged with an int8 KV cache; prints
    tokens/s, latency_stats, phase_stats, the device busy share of one
@@ -66,7 +75,24 @@
    256-row dense cache, packed prefill at each wave's stream, and kernel
    14 with bf16 and int8 pools, block sizes 8/16/64, a position past the
    table, rows outside the write rows untouched);
-7. prints a `kernels` JSON line, then as the last line
+7. path 6, Bloom-7b1 at full width and depth (ALiBi, random weights drawn
+   on the card, seed 0) through GenerationSession(model=decoder.BLOOM):
+   bf16 weights with an 8-token prompt and 50 tokens (row 10 with slopes,
+   once per layer) and a 3072-token prompt with 32 tokens (row 12 with
+   slopes), then the same tree int8 weight-only (quantize_params; kernel
+   1 at Bloom's six projection shapes, held against its plain version
+   first) with the 8-token prompt. Decode attention takes the JAX
+   package's plain ALiBi branch, counted on its own. Prints prefill ms,
+   decode ms/token, device ms per decode token and busy share beside the
+   per-token weight-byte floor, the launch counts, and holds the first-step logits
+   against the plain path on the card;
+8. GPT-J-6B, GPT-NeoX-20B, OPT-6.7b and Falcon-7B at their published
+   widths, 2 layers, bf16: 16 greedy tokens each (Falcon also in the
+   'fused' decode mode), launches (kernel 2 once per layer, kernel 3 or
+   row 9 at every decode step, at every family's head dim), first-step
+   logits against the plain path;
+9. prints each phase's wall time;
+10. prints a `kernels` JSON line, then as the last line
    {"ok": true, "device": {...}}.
 Any failed phase exits non-zero without that line. The script imports
 nothing of JAX or of the JAX package.
@@ -118,7 +144,7 @@ PATH_ROWS = (1, 4, 16, 64)
 # prompt lengths drawn from 8-128 (seed 0) instead of a fixed 128.
 SERVE_ENGINE = dict(max_batch_size=8, max_input_len=128, max_seq_len=200,
                     prefill_buckets=(128,))
-SERVE_REQUESTS = 24
+SERVE_REQUESTS = 16   # 24 before the decoder families' path 6 (budget)
 SERVE_NEW = 64
 SERVE_CHUNK = 16
 SERVE_BLOCK = 64
@@ -131,7 +157,57 @@ LONG_ENGINE = dict(max_batch_size=1, max_input_len=8271, max_seq_len=8272)
 LONG_ROPE = 16384     # bench.py:134: max(2048, next_pow2(in + out + 16))
 LONG_S_MAX = 8320     # the session's cache rows: 8192 + 64, rounded to 128
 DECODE_MODES = ("split", "fused")   # run again on paths 1 and 2
+PROFILE_NEW = 16      # tokens of each profiled request (profile_generate)
 F32_TOL = 1e-5        # f32 kernels against their plain versions
+# Path 6: Bloom-7b1, from bigscience/bloom-7b1's config.json (vocab_size
+# 250880, hidden_size 4096, n_layer 30, n_head 32, layer_norm_epsilon 1e-5,
+# ALiBi, an embedding LayerNorm; MLP 4 x hidden). Bloom has no position
+# table: max_position_embeddings only bounds the buckets.
+BLOOM_7B1 = dict(vocab_size=250880, hidden_size=4096, intermediate_size=16384,
+                 num_layers=30, num_heads=32, num_kv_heads=32, head_dim=128,
+                 rms_norm_eps=1e-5, architecture="bloom", dtype="bfloat16",
+                 max_position_embeddings=4096)
+BLOOM_LONG = 3072     # a long document summarized: row 12 runs past 2048 rows
+BLOOM_LONG_NEW = 32
+BLOOM_ENGINE = dict(max_batch_size=1, max_input_len=BLOOM_LONG,
+                    max_seq_len=BLOOM_LONG + BLOOM_LONG_NEW)
+# The other decoder families at their published widths, FAMILY_LAYERS deep:
+# (tag, ModelConfig fields, decode modes run).
+FAMILY_LAYERS = 2
+FAMILY_NEW = 16
+FAMILY_CONFIGS = [
+    # EleutherAI/gpt-j-6b config.json: n_embd 4096, n_head 16, rotary_dim 64,
+    # n_inner null (4 x n_embd), vocab_size 50400, layer_norm_epsilon 1e-5
+    ("GPT-J-6B", dict(architecture="gptj", vocab_size=50400, hidden_size=4096,
+                      intermediate_size=16384, num_heads=16, num_kv_heads=16,
+                      head_dim=256, rotary_dim=64, rms_norm_eps=1e-5,
+                      max_position_embeddings=2048), ("auto",)),
+    # EleutherAI/gpt-neox-20b config.json: hidden_size 6144, 64 heads,
+    # intermediate_size 24576, rotary_pct 0.25 (24 of 96 dims), vocab 50432,
+    # layer_norm_eps 1e-5
+    ("GPT-NeoX-20B", dict(architecture="gptneox", vocab_size=50432,
+                          hidden_size=6144, intermediate_size=24576,
+                          num_heads=64, num_kv_heads=64, head_dim=96,
+                          rotary_dim=24, rms_norm_eps=1e-5,
+                          max_position_embeddings=2048), ("auto",)),
+    # facebook/opt-6.7b config.json: hidden_size 4096, 32 heads, ffn_dim
+    # 16384, relu, vocab_size 50272, max_position_embeddings 2048 (+2 offset)
+    ("OPT-6.7b", dict(architecture="opt", vocab_size=50272, hidden_size=4096,
+                      intermediate_size=16384, num_heads=32, num_kv_heads=32,
+                      head_dim=128, rms_norm_eps=1e-5,
+                      max_position_embeddings=2048), ("auto",)),
+    # tiiuae/falcon-7b config.json: hidden_size 4544, 71 heads of 64,
+    # multi_query (one KV head), MLP 4 x 4544, parallel_attn, vocab 65024,
+    # layer_norm_epsilon 1e-5
+    ("Falcon-7B", dict(architecture="falcon", vocab_size=65024,
+                       hidden_size=4544, intermediate_size=18176,
+                       num_heads=71, num_kv_heads=1, head_dim=64,
+                       rms_norm_eps=1e-5, max_position_embeddings=2048),
+     ("auto", "fused")),
+]
+ALIBI_PREFILL = "prefill_attention_kernel (ALiBi)"
+ALIBI_STREAMING = "streaming_prefill_attention_kernel (ALiBi)"
+FUSED_G71 = "fused_decode_attention (group 71)"
 
 
 def serve_prompt_lens():
@@ -144,7 +220,7 @@ def serve_waves():
     """Prompt lengths of each prefill call of the serving phase: the
     warm-up's prompts, then the counted run's admission waves (all requests
     arrive at once with one budget, so the slots fill with prompts 0-7,
-    then 8-15, then 16-23). run_serving checks the engine's own count of
+    then 8-15). run_serving checks the engine's own count of
     prefill calls against it."""
     lens = serve_prompt_lens()
     slots = SERVE_ENGINE["max_batch_size"]
@@ -231,6 +307,15 @@ KERNELS = {
         "fused_decode_attention", f"{_ATTN_PY}:185",
         "trtllm_llama_tpu_torch/csrc/fused_decode_attention.cu"),
     FUSED_INT8: (
+        "fused_decode_attention", f"{_ATTN_PY}:185",
+        "trtllm_llama_tpu_torch/csrc/fused_decode_attention.cu"),
+    ALIBI_PREFILL: (
+        "prefill_attention_kernel", f"{_ATTN_PY}:504",
+        "trtllm_llama_tpu_torch/csrc/prefill_attention.cu"),
+    ALIBI_STREAMING: (
+        "streaming_prefill_attention_kernel", f"{_ATTN_PY}:433",
+        "trtllm_llama_tpu_torch/csrc/streaming_prefill_attention.cu"),
+    FUSED_G71: (
         "fused_decode_attention", f"{_ATTN_PY}:185",
         "trtllm_llama_tpu_torch/csrc/fused_decode_attention.cu"),
 }
@@ -546,7 +631,7 @@ def check_decode(errors, results, kv_int8=False):
         s_serve = -(-SERVE_ENGINE["max_seq_len"] // 128) * 128
         cases += [(len(w) + 1, 32, 32, s_serve, [n + t for n in w] + [0])
                   for w, t in ((waves[1], SERVE_NEW // 2),
-                               (waves[3], SERVE_NEW - 2))]
+                               (waves[-1], SERVE_NEW - 2))]
     kv_scale = (torch.full((n_l,), KV_SCALE, device="cuda") if kv_int8
                 else None)
     elem = 1 if kv_int8 else 2
@@ -625,14 +710,17 @@ def check_streaming_prefill(errors, results):
     print("kernel streaming_prefill_attention_kernel (causal GQA, long "
           "prompts; mma.sync bf16, CUDA-core f32):")
     g = torch.Generator(device="cuda").manual_seed(12)
-    d = 128
-    cases = [  # (B, S, Hq, Hkv, lens, dtype)
-        (1, LONG_PROMPT, 32, 32, [LONG_PROMPT], torch.bfloat16),  # path 5
-        (2, 2100, 32, 8, [2100, 64], torch.bfloat16),    # GQA, ragged, S % 64
-        (2, 2100, 8, 2, [2100, 0], torch.float32),       # f32, a length of 0
+    cases = [  # (B, S, Hq, Hkv, D, lens, dtype)
+        (1, LONG_PROMPT, 32, 32, 128, [LONG_PROMPT], torch.bfloat16),  # path 5
+        (2, 2100, 32, 8, 128, [2100, 64], torch.bfloat16),  # GQA, ragged
+        (2, 2100, 8, 2, 128, [2100, 0], torch.float32),     # a length of 0
+        # GPT-J's and GPT-NeoX's head dims (prompts past 2048 rows)
+        (1, 2100, 16, 16, 256, [2100], torch.bfloat16),
+        (1, 2100, 16, 16, 96, [2100], torch.bfloat16),
+        (1, 2100, 4, 4, 256, [1500], torch.float32),
     ]
     max_err = 0.0
-    for b, s, hq, hkv, lens, dtype in cases:
+    for b, s, hq, hkv, d, lens, dtype in cases:
         q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda"
                                ).to(dtype) for h in (hq, hkv, hkv))
         sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -640,7 +728,7 @@ def check_streaming_prefill(errors, results):
         ref = spa.streaming_prefill_attention_kernel_plain(q, k, v, sl)
         torch.cuda.synchronize()
         f32 = dtype == torch.float32
-        name = (f"B={b} S={s} Hq={hq} Hkv={hkv} lens={lens} "
+        name = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} lens={lens} "
                 f"{'f32' if f32 else 'bf16'}")
         max_err = max(max_err, compare(name, got, ref, errors,
                                        tol=F32_TOL if f32 else BF16_TOL))
@@ -984,7 +1072,7 @@ def check_paged_decode(errors, results, kv_int8=False):
     slots = SERVE_ENGINE["max_batch_size"]
     waves = serve_waves()
     serve_pos = [n + SERVE_NEW // 2 for n in waves[1]]   # mid-generation
-    last_pos = [n + SERVE_NEW - 2 for n in waves[3]]     # last decode step
+    last_pos = [n + SERVE_NEW - 2 for n in waves[-1]]    # last decode step
     cases = [  # (block size, positions, the trash row at pos 0 last)
         (SERVE_BLOCK, serve_pos + [0], True),         # the serving shapes
         (SERVE_BLOCK, last_pos + [0], True),
@@ -1242,7 +1330,7 @@ def run_path(path, args, errors, results):
         compare(f"{what} logits", got, ref, errors, tol=LOGITS_TOL)
         print(f"  {what} argmax kernels {got.argmax(-1).tolist()} plain "
               f"{ref.argmax(-1).tolist()}")
-    profile_generate(sess, p1, scfg, new, ms1)
+    profile_generate(sess, p1, scfg)
     if path.get("modes"):
         run_decode_modes(path, sess, cfg, p1, out1, errors, results)
 
@@ -1339,8 +1427,7 @@ def run_decode_modes(path, sess, cfg, prompt, out_auto, errors, results):
                 first = int(np.flatnonzero(out.output_ids[0] != auto_ids[0])[0])
                 got_i = replay(first)
                 picks = [int(got_i.argmax()), int(out.output_ids[0, first])]
-            dev_ms = profile_generate(sess, prompt, scfg, new, ms,
-                                      row_limit=6)
+            dev_tok, _ = profile_generate(sess, prompt, scfg, row_limit=6)
         if first is not None:         # the 'auto' logits of the same step
             ref_i = replay(first)
             picks += [int(ref_i.argmax()), int(auto_ids[0, first])]
@@ -1356,31 +1443,51 @@ def run_decode_modes(path, sess, cfg, prompt, out_auto, errors, results):
                   f"({'a near tie' if gap <= 2 * err else 'not a near tie'})")
         results["_e2e"][f"{tag} {mode}"] = dict(
             layers=n_l, prefill_ms=pre_ms, decode_ms_per_token=dec_ms,
-            device_ms_per_token=dev_ms / new, tokens_identical_to_auto=same)
+            device_ms_per_decode_token=dev_tok,
+            tokens_identical_to_auto=same)
 
 
-def profile_generate(sess, ids, scfg, new, wall_ms, row_limit=24):
-    """torch.profiler over one bs1 generate: device time by kernel, and the
-    device's busy share of the same request's unprofiled wall time. Returns
-    the device ms."""
+def profile_generate(sess, ids, scfg, row_limit=24, new=None):
+    """One bs1 request of `new` tokens (default PROFILE_NEW), timed on the
+    host clock and then under torch.profiler: device time by kernel, and
+    the device's busy share of the unprofiled wall; then the prefill alone
+    (one token) under the profiler. Returns (device ms per decode token:
+    the request's device time less the prefill's, over new - 1 steps; busy
+    share). The profiler's cost grows with its events, so it sees a
+    shorter request than the timed runs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    new = new or PROFILE_NEW
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    sess.generate(ids, sampling=scfg, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    t_prof = time.perf_counter()
     with profile(activities=acts) as prof:
         sess.generate(ids, sampling=scfg, max_new_tokens=new)
     events = prof.key_averages()
-    dev_ms = sum(e.self_device_time_total for e in events
-                 if e.device_type == DeviceType.CUDA) / 1e3
-    print(f"  profile bs1 out{new}: device busy {dev_ms:.1f} ms "
-          f"({dev_ms / new:.3f} ms/token) of {wall_ms:.1f} ms unprofiled "
-          f"wall: {100 * dev_ms / wall_ms:.1f}% busy, "
-          f"{100 - 100 * dev_ms / wall_ms:.1f}% idle")
+
+    def device_ms(evs):
+        return sum(e.self_device_time_total for e in evs
+                   if e.device_type == DeviceType.CUDA) / 1e3
+    dev_ms = device_ms(events)
+    with profile(activities=acts) as prof1:
+        sess.generate(ids, sampling=scfg, max_new_tokens=1)
+    pre_ms = device_ms(prof1.key_averages())
+    dec_ms = (dev_ms - pre_ms) / (new - 1)
+    print(f"  profile bs1 out{new}: device busy {dev_ms:.1f} ms, prefill "
+          f"alone {pre_ms:.2f} ms, so {dec_ms:.3f} ms per decode token; of "
+          f"{wall_ms:.1f} ms unprofiled wall: {100 * dev_ms / wall_ms:.1f}% "
+          f"busy, {100 - 100 * dev_ms / wall_ms:.1f}% idle")
     print(events.table(sort_by="self_device_time_total", row_limit=row_limit,
                        max_name_column_width=60))
-    return dev_ms
+    print(f"  (the profiled request and its table took "
+          f"{time.perf_counter() - t_prof:.1f} s)")
+    return dec_ms, dev_ms / wall_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1516,6 +1623,7 @@ def run_long_context(args, errors, results):
             print("  kernel 1 ms per call at M=8192 (profile): "
                   + ", ".join(f"{k} {v:.2f}" for k, v in per.items()))
             results["_e2e"]["path 5 kernel 1 ms per call"] = per
+        gemv_8192_yardsticks(sess, results)
         print(prof.key_averages().table(sort_by="self_device_time_total",
                                         row_limit=8, max_name_column_width=60))
         with contextlib.ExitStack() as stack:
@@ -1585,6 +1693,33 @@ def run_long_context(args, errors, results):
         decode_step_wall_ms=wall, decode_step_device_ms=step_dev)
 
 
+def gemv_8192_yardsticks(sess, results):
+    """Kernel 1's plain version and the library call (torch.matmul of the
+    bf16-dequantized weight) at path 5's M=8192, on layer 0 of the session's
+    int8 weights: the qkv / wo / gate,up / down shapes (the kernel's own
+    times come from the path's profile)."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    lw, out = sess.params["layers"], {}
+    for name in ("wqkv", "wo", "w_up", "w_down"):
+        w = lw[name]
+        x = torch.randn((LONG_PROMPT, w.k_dim), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        dq = (w.qweight[0].float() * w.scale[0]).to(torch.bfloat16)
+        t_p = time_ms(lambda i: woq.woq_matmul_stacked_plain(x, w, 0),
+                      iters=2, warmup=1, reps=1)
+        t_l = time_ms(lambda i: torch.matmul(x, dq), iters=4)
+        out[name] = dict(plain_ms=t_p, library_ms=t_l)
+        del x, dq
+    print("  kernel 1 at M=8192, plain / library (torch.matmul of the "
+          "bf16-dequantized weight) ms: " + ", ".join(
+              f"{k} {v['plain_ms']:.3f} / {v['library_ms']:.3f}"
+              for k, v in out.items()))
+    results["_e2e"]["path 5 kernel 1 M=8192 plain and library ms"] = out
+
+
 # ---------------------------------------------------------------------------
 # the serving phase: ServingEngine dense / paged / packed / paged int8 KV
 # ---------------------------------------------------------------------------
@@ -1599,7 +1734,7 @@ SERVE_CONFIGS = [
 
 
 def run_serving(args, errors, results):
-    """Each configuration serves the same 24 requests (64 new tokens each,
+    """Each configuration serves the same 16 requests (64 new tokens each,
     greedy, no end token) on int8 weight-only LLaMA-7B; prints tokens/s,
     latency percentiles, phase times, the device busy share of one decode
     step, and checks the launch counts against the engine's own count of
@@ -1829,6 +1964,644 @@ def profile_serving_step(eng, prompts):
                 step_device_ms=dev_ms, step_busy_share=dev_ms / step_ms)
 
 
+# ---------------------------------------------------------------------------
+# rows 10 and 12 with ALiBi slopes, row 9 at large GQA groups, float16
+# ---------------------------------------------------------------------------
+
+def _alibi_mask(slopes, s, lens, dtype):
+    """The float attn_mask of the SDPA yardstick: slope * key column where
+    the reference keeps a score, NEG_INF where it masks (causal, length)."""
+    import torch
+    cols = torch.arange(s, device="cuda")
+    keep = ((cols[None, :] <= cols[:, None])[None]
+            & (cols[None, None, :] < lens[:, None, None]))[:, None]
+    bias = slopes.reshape(1, -1, 1, 1) * cols.float()
+    return torch.where(keep, bias, torch.full_like(bias, -1e9)).to(dtype)
+
+
+def check_alibi_prefill(errors, results):
+    """Rows 10 and 12 with Bloom's slopes (32 heads of 128, bf16) at the
+    shapes path 6 and serving give them: row 10 at B=1 S=16 len 8 and at
+    the first serving wave (8 x 128), row 12 at one 3072-row prompt; each
+    against its plain version with the same slopes, timed with and without
+    slopes beside the bound (operations) and SDPA with a float attn_mask
+    holding the bias and the causal and length mask."""
+    import torch
+    import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.attention import alibi_slopes
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+
+    print("kernels prefill_attention_kernel and "
+          "streaming_prefill_attention_kernel with ALiBi slopes (bf16):")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    d, hq = 128, 32
+    slopes = alibi_slopes(hq, device="cuda")
+    wave = serve_waves()[1]
+    cases = [  # (JSON name, kernel module, attribute, B, S, lens)
+        (ALIBI_PREFILL, pa, "prefill_attention_kernel", 1, 16, [8]),
+        (ALIBI_PREFILL, pa, "prefill_attention_kernel", len(wave),
+         max(SERVE_ENGINE["prefill_buckets"]), wave),
+        (ALIBI_STREAMING, spa, "streaming_prefill_attention_kernel", 1,
+         BLOOM_LONG, [BLOOM_LONG]),
+    ]
+    errs = {}
+    for key, mod, attr, b, s, lens in cases:
+        fn, plain = getattr(mod, attr), getattr(mod, attr + "_plain")
+        q, k, v = (torch.randn((b, s, hq, d), generator=g, device="cuda"
+                               ).to(torch.bfloat16) for _ in range(3))
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = fn(q, k, v, sl, alibi=slopes)
+        ref = plain(q, k, v, sl, alibi=slopes)
+        torch.cuda.synchronize()
+        name = f"{attr} B={b} S={s} Hq=Hkv={hq} lens={lens}"
+        errs[key] = max(errs.get(key, 0.0), compare(name, got, ref, errors))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = _alibi_mask(slopes, s, sl, torch.bfloat16)
+        long = s == BLOOM_LONG
+        t_k = time_ms(lambda i: fn(q, k, v, sl, alibi=slopes))
+        t_n = time_ms(lambda i: fn(q, k, v, sl))
+        t_p = time_ms(lambda i: plain(q, k, v, sl, alibi=slopes),
+                      **(dict(iters=2, warmup=1, reps=1) if long else {}))
+        t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        pairs = sum(sum(min(r + 1, n) for r in range(s)) for n in lens)
+        n_bytes = b * s * d * 2 * 4 * hq + b * 4 + hq * 4
+        b_ms, b_by = bound_ms(n_bytes, 4 * hq * d * pairs)
+        print(f"  time {name}: kernel {t_k:.4f} ms with slopes, {t_n:.4f} "
+              f"ms without; plain {t_p:.4f} ms, library(sdpa, float mask: "
+              f"bias + causal + length) {t_l:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by})")
+        entry = dict(ms=t_k, ms_without_slopes=t_n, plain_ms=t_p,
+                     library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                     shape=f"B={b} S={s} lens={lens} Hq=Hkv=32 D=128 bf16, "
+                     "Bloom's slopes")
+        if key not in results:
+            results[key] = entry
+        else:
+            results[key].setdefault("more", []).append(entry)
+        del qt, kt, vt, mask
+    for key, err in errs.items():
+        results[key]["max_abs_err"] = err
+
+
+def fold_err(results, key, err):
+    """Fold a further check's error into the JSON entry `key`."""
+    results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+
+
+def check_fused_groups(errors, results):
+    """Rows 9 and 3 with one KV head for a whole group: Falcon-7B's 71
+    heads of 64 (the families' 'fused' and 'auto' runs) and a group of 32
+    heads of 128, bf16 cache, each against the plain version (the caches
+    must equal the plain write); row 9 timed beside kernel 3, the bound
+    (the live K/V bytes) and SDPA on the expanded K/V."""
+    import torch
+    import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+
+    print("kernels fused_decode_attention and dma_decode_attention at large "
+          "GQA groups (one KV head, bf16 cache):")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    n_l, layer = 2, 1
+    max_err = err_3 = 0.0
+    for hq, d, s, p in ((71, 64, 128, 45), (71, 64, 2048, 1037),
+                        (32, 128, 128, 45), (32, 128, 2048, 1037)):
+        shape = (n_l, 1, 1, s, d)
+        kc, vc = (torch.randn(shape, generator=g, device="cuda"
+                              ).to(torch.bfloat16) for _ in range(2))
+        q = torch.randn((1, hq, d), generator=g, device="cuda").to(
+            torch.bfloat16)
+        kn, vn = (torch.randn((1, 1, d), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        pt = torch.tensor([p], dtype=torch.int32, device="cuda")
+        kc2, vc2 = kc.clone(), vc.clone()
+        kc3, vc3 = kc.clone(), vc.clone()
+        ref = da.fused_decode_attention_plain(q, kn, vn, kc2, vc2, layer, pt)
+        got = da.fused_decode_attention(q, kn, vn, kc, vc, layer, pt)
+        got_3 = da.dma_decode_attention(q, kn, vn, kc3, vc3, layer, pt)
+        torch.cuda.synchronize()
+        name = f"group {hq} D={d} S_max={s} pos={p}"
+        max_err = max(max_err, compare(f"row 9 {name}", got, ref, errors))
+        err_3 = max(err_3, compare(f"kernel 3 {name}", got_3, ref, errors))
+        for which, k_, v_ in (("row 9", kc, vc), ("kernel 3", kc3, vc3)):
+            if not (torch.equal(k_, kc2) and torch.equal(v_, vc2)):
+                errors.append(f"{which} {name}: cache differs from the "
+                              "plain write")
+        del kc3, vc3
+        t_k = time_ms(lambda i: da.fused_decode_attention(
+            q, kn, vn, kc, vc, layer, pt))
+        t_3 = time_ms(lambda i: da.dma_decode_attention(
+            q, kn, vn, kc, vc, layer, pt))
+        t_p = time_ms(lambda i: da.fused_decode_attention_plain(
+            q, kn, vn, kc2, vc2, layer, pt))
+        kl = kc[layer, :, :, :p + 1].expand(1, hq, p + 1, d)
+        vl = vc[layer, :, :, :p + 1].expand(1, hq, p + 1, d)
+        t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+            q[:, :, None], kl, vl))
+        n_bytes = 2 * (p + 1) * d * 2 + 2 * hq * d * 2 + 2 * d * 2 + 4
+        b_ms, b_by = bound_ms(n_bytes, 4 * hq * (p + 1) * d)
+        print(f"  time {name}: kernel {t_k:.4f} ms (kernel 3 {t_3:.4f} ms), "
+              f"plain {t_p:.4f} ms, library(sdpa on expanded K/V, no write)"
+              f" {t_l:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        entry = dict(ms=t_k, kernel3_ms=t_3, plain_ms=t_p, library_ms=t_l,
+                     bound_ms=b_ms, bound_by=b_by,
+                     shape=f"B=1 Hq={hq} Hkv=1 D={d} S_max={s} pos={p} bf16")
+        if FUSED_G71 not in results:
+            results[FUSED_G71] = entry
+        else:
+            results[FUSED_G71].setdefault("more", []).append(entry)
+    results[FUSED_G71]["max_abs_err"] = max_err
+    fold_err(results, "dma_decode_attention", err_3)
+
+
+def check_family_attention(errors, results):
+    """Kernel 2 (B=1 S=16 len 8, the families' prefill) and kernel 3
+    (S_max 128, positions 8 and 22, the first and last decode step of their
+    16-token runs) at each decoder family's head shape, bf16, against the
+    plain versions (kernel 3's caches must equal the plain write); timed
+    at GPT-J's and GPT-NeoX's head dims (256, 96), which no LLaMA path
+    reaches, beside the bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+
+    print("kernels prefill_attention_kernel and dma_decode_attention at the "
+          "decoder families' head shapes (bf16):")
+    g = torch.Generator(device="cuda").manual_seed(20)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    err_2 = err_3 = 0.0
+    for tag, over, _ in FAMILY_CONFIGS:
+        hq, hkv, d = over["num_heads"], over["num_kv_heads"], over["head_dim"]
+        timed = d not in (64, 128)
+        q, k, v = rnd(1, 16, hq, d), rnd(1, 16, hkv, d), rnd(1, 16, hkv, d)
+        sl = torch.tensor([8], dtype=torch.int32, device="cuda")
+        name = f"{tag} Hq={hq} Hkv={hkv} D={d}"
+        err_2 = max(err_2, compare(
+            f"prefill B=1 S=16 len 8 {name}",
+            pa.prefill_attention_kernel(q, k, v, sl),
+            pa.prefill_attention_kernel_plain(q, k, v, sl), errors))
+        if timed:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            cols = torch.arange(16, device="cuda")
+            mask = (cols[None, :] <= cols[:, None]) & (cols < 8)[None, :]
+            t_k = time_ms(lambda i: pa.prefill_attention_kernel(q, k, v, sl))
+            t_p = time_ms(lambda i: pa.prefill_attention_kernel_plain(
+                q, k, v, sl))
+            t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+            pairs = sum(min(r + 1, 8) for r in range(16))
+            b_ms, b_by = bound_ms(16 * d * 2 * (2 * hq + 2 * hkv) + 4,
+                                  4 * hq * d * pairs)
+            print(f"  time prefill {name}: kernel {t_k:.4f} ms, plain "
+                  f"{t_p:.4f} ms, library(sdpa, mask) {t_l:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by})")
+            results["prefill_attention_kernel"].setdefault("more", []).append(
+                dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                     bound_by=b_by, shape=f"B=1 S=16 len=8 Hq=Hkv={hq} "
+                     f"D={d} bf16 ({tag})"))
+        kc, vc = rnd(2, 1, hkv, 128, d), rnd(2, 1, hkv, 128, d)
+        qd, kn, vn = rnd(1, hq, d), rnd(1, hkv, d), rnd(1, hkv, d)
+        for p in (8, 8 + FAMILY_NEW - 2):
+            pt = torch.tensor([p], dtype=torch.int32, device="cuda")
+            kc2, vc2 = kc.clone(), vc.clone()
+            got = da.dma_decode_attention(qd, kn, vn, kc, vc, 1, pt)
+            ref = da.dma_decode_attention_plain(qd, kn, vn, kc2, vc2, 1, pt)
+            torch.cuda.synchronize()
+            err_3 = max(err_3, compare(f"decode S_max=128 pos={p} {name}",
+                                       got, ref, errors))
+            if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+                errors.append(f"kernel 3 {name} pos={p}: cache differs from "
+                              "the plain write")
+        if timed:
+            t_k = time_ms(lambda i: da.dma_decode_attention(
+                qd, kn, vn, kc, vc, 1, pt))
+            t_p = time_ms(lambda i: da.dma_decode_attention_plain(
+                qd, kn, vn, kc2, vc2, 1, pt))
+            kl, vl = kc[1, :, :, :p + 1], vc[1, :, :, :p + 1]
+            t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+                qd[:, :, None], kl, vl))
+            b_ms, b_by = bound_ms(
+                2 * hkv * (p + 1) * d * 2 + 2 * hq * d * 2 + 2 * hkv * d * 2
+                + 4, 4 * hq * (p + 1) * d)
+            print(f"  time decode {name} pos={p}: kernel {t_k:.4f} ms, plain "
+                  f"{t_p:.4f} ms, library(sdpa, no write) {t_l:.4f} ms, "
+                  f"bound {b_ms:.5f} ms ({b_by})")
+            results["dma_decode_attention"].setdefault("more", []).append(
+                dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                     bound_by=b_by, shape=f"B=1 Hq=Hkv={hq} D={d} S_max=128 "
+                     f"pos={p} bf16 ({tag})"))
+    fold_err(results, "prefill_attention_kernel", err_2)
+    fold_err(results, "dma_decode_attention", err_3)
+
+
+def check_float16(errors, results):
+    """Each kernel's float16 instantiation at one shape against its plain
+    version (the same tolerance as bf16: a rounding step at the final
+    cast)."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.attention import alibi_slopes
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
+    from trtllm_llama_tpu_torch.ops.kernels import packed_prefill_attention as ppa
+    from trtllm_llama_tpu_torch.ops.kernels import paged_decode_attention as pda
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import rmsnorm_quant as rnq
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+
+    print("float16 instantiations (one shape each):")
+    g = torch.Generator(device="cuda").manual_seed(18)
+    h = torch.float16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(h)
+
+    x = rnd(4, 4096)
+    for fmt in ("int8", "int4 g128"):
+        w = make_gemv_weight(fmt, 2, 4096, 4096, g)
+        compare(f"woq_matmul_stacked {fmt} M=4 4096->4096",
+                woq.woq_matmul_stacked(x, w, 1),
+                woq.woq_matmul_stacked_plain(x, w, 1), errors)
+    w = make_gemv_weight("fp8", 2, 4096, 4096, g)
+    compare("fp8_matmul_stacked M=4 4096->4096",
+            f8k.fp8_matmul_stacked(x, w, 1),
+            f8k.fp8_matmul_stacked_plain(x, w, 1), errors)
+    nw = (1 + 0.1 * torch.randn(4096, generator=g, device="cuda")).to(h)
+    got, ref = rnq.rmsnorm_quant(x, nw), rnq.rmsnorm_quant_plain(x, nw)
+    codes_off = (got[0].int() - ref[0].int()).abs().max().item()
+    print(f"  rmsnorm_quant M=4 D=4096: codes within {codes_off} step(s)")
+    compare("rmsnorm_quant scales", got[1], ref[1], errors, tol=1e-6)
+    if codes_off > 1:
+        errors.append(f"rmsnorm_quant f16: codes {codes_off} steps apart")
+    q, k, v = rnd(1, 16, 32, 128), rnd(1, 16, 32, 128), rnd(1, 16, 32, 128)
+    sl = torch.tensor([8], dtype=torch.int32, device="cuda")
+    slopes = alibi_slopes(32, device="cuda")
+    compare("prefill_attention_kernel B=1 S=16 len 8, slopes",
+            pa.prefill_attention_kernel(q, k, v, sl, alibi=slopes),
+            pa.prefill_attention_kernel_plain(q, k, v, sl, alibi=slopes),
+            errors)
+    q, k, v = rnd(2, 2100, 32, 128), rnd(2, 2100, 8, 128), rnd(2, 2100, 8, 128)
+    sl = torch.tensor([2100, 64], dtype=torch.int32, device="cuda")
+    compare("streaming_prefill_attention_kernel B=2 S=2100 GQA, slopes",
+            spa.streaming_prefill_attention_kernel(q, k, v, sl, alibi=slopes),
+            spa.streaming_prefill_attention_kernel_plain(q, k, v, sl,
+                                                         alibi=slopes),
+            errors)
+    t = 64
+    q, k, v = rnd(t, 32, 128), rnd(t, 32, 128), rnd(t, 32, 128)
+    seg = torch.tensor([0] * 20 + [1] * 30 + [2] + [-1] * 13,
+                       dtype=torch.int32, device="cuda")
+    real = seg >= 0
+    compare("packed_prefill_attention_kernel T=64",
+            ppa.packed_prefill_attention_kernel(q, k, v, seg)[real],
+            ppa.packed_prefill_attention_kernel_plain(q, k, v, seg)[real],
+            errors)
+    kc, vc = rnd(2, 1, 32, 128, 128), rnd(2, 1, 32, 128, 128)
+    q, kn, vn = rnd(1, 32, 128), rnd(1, 32, 128), rnd(1, 32, 128)
+    pt = torch.tensor([45], dtype=torch.int32, device="cuda")
+    for fn, plain in ((da.dma_decode_attention, da.dma_decode_attention_plain),
+                      (da.fused_decode_attention,
+                       da.fused_decode_attention_plain)):
+        a, b = kc.clone(), vc.clone()
+        got = fn(q, kn, vn, kc.clone(), vc.clone(), 1, pt)
+        compare(f"{fn.__name__} S_max=128 pos=45", got,
+                plain(q, kn, vn, a, b, 1, pt), errors)
+    compare("decode_attention_kernel S_max=128 len 46",
+            da.decode_attention_kernel(q, kc, vc, 1, pt + 1),
+            da.decode_attention_kernel_plain(q, kc, vc, 1, pt + 1), errors)
+    pk, pv = rnd(2, 9, 32, 16, 128), rnd(2, 9, 32, 16, 128)
+    tables = torch.tensor([[3, 0, 5, 1]], dtype=torch.int32, device="cuda")
+    a, b = pk.clone(), pv.clone()
+    compare("paged_decode_attention BS=16 pos=45",
+            pda.paged_decode_attention(q, kn, vn, pk, pv, 1, tables, pt),
+            pda.paged_decode_attention_plain(q, kn, vn, a, b, 1, tables, pt),
+            errors)
+
+
+# ---------------------------------------------------------------------------
+# path 6: Bloom-7b1 (ALiBi; bf16 and int8 weight-only), and the other decoder
+# families at their published widths, depth 2
+# ---------------------------------------------------------------------------
+
+def _wrappers():
+    """Every kernel wrapper of the port: name -> wrapper."""
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
+    from trtllm_llama_tpu_torch.ops.kernels import packed_prefill_attention as ppa
+    from trtllm_llama_tpu_torch.ops.kernels import paged_decode_attention as pda
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import rmsnorm_quant as rnq
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+    from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    return {fn.__name__: fn for fn in (
+        woq.woq_matmul_stacked, woq.woq_matmul, f8k.fp8_matmul_stacked,
+        f8k.fp8_matmul, w8a8.w8a8_matmul_stacked, rnq.rmsnorm_quant,
+        pa.prefill_attention_kernel, spa.streaming_prefill_attention_kernel,
+        ppa.packed_prefill_attention_kernel, da.dma_decode_attention,
+        da.decode_attention_kernel, da.fused_decode_attention,
+        pda.paged_decode_attention)}
+
+
+def zero_counts():
+    """Every wrapper's launches and the ALiBi decode branch's count set
+    to 0."""
+    from trtllm_llama_tpu_torch.ops import attention
+    for fn in _wrappers().values():
+        fn.launches = 0
+    attention.fused_decode_attention_at.alibi_calls = 0
+
+
+def read_counts():
+    """(launches, ALiBi decode calls) since zero_counts; only the non-zero
+    launch counts."""
+    from trtllm_llama_tpu_torch.ops import attention
+    return ({k: f.launches for k, f in _wrappers().items() if f.launches},
+            attention.fused_decode_attention_at.alibi_calls)
+
+
+@contextlib.contextmanager
+def plain_path(pairs):
+    """Each (module, wrapper name) replaced by its plain version, behind a
+    stand-in with the wrapper's launch counter."""
+    with contextlib.ExitStack() as stack:
+        for mod, attr in pairs:
+            def stand_in(*a, _plain=getattr(mod, attr + "_plain"), **kw):
+                return _plain(*a, **kw)
+            stand_in.launches = 0
+            stack.enter_context(patched(mod, attr, stand_in))
+        yield
+
+
+def attention_pairs():
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+    return [(pa, "prefill_attention_kernel"),
+            (spa, "streaming_prefill_attention_kernel"),
+            (da, "dma_decode_attention"), (da, "fused_decode_attention"),
+            (da, "decode_attention_kernel")]
+
+
+def first_logits(model, sess, ids, pairs):
+    """The prefill logits of one prompt (ids [1, n]) at the session's
+    bucket, with the kernels and with `pairs` on their plain versions."""
+    import torch
+    cfg, n = sess.cfg, ids.shape[1]
+    bucket = sess.engine_cfg.bucket_for(n)
+    with torch.inference_mode():
+        t = torch.zeros((1, bucket), dtype=torch.int32, device="cuda")
+        t[0, :n] = torch.as_tensor(ids[0], device="cuda")
+        lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+
+        def prefill():
+            caches = model.init_caches(cfg, 1, bucket, "cuda")
+            return model.forward_prefill(sess.params, cfg, t, lens, caches,
+                                         rope=sess.rope)[0]
+        got = prefill()
+        with plain_path(pairs):
+            ref = prefill()
+    return got, ref
+
+
+def timed_generate(sess, ids, new):
+    import torch
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = sess.generate(ids, sampling=SamplingConfig(end_id=-1),
+                        max_new_tokens=new)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def check_tokens(tag, out, new, vocab, errors):
+    ids = out.output_ids
+    ok = (ids.shape == (1, new) and (ids >= 0).all() and (ids < vocab).all()
+          and (out.lengths == new).all())
+    print(f"  {tag} tokens {ids.shape}: {ids[0, :16].tolist()} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        errors.append(f"{tag}: bad output {ids.shape}")
+
+
+def check_counts(tag, counts, expect, errors):
+    launches, alibi = counts
+    got = dict(launches=launches, alibi_decode=alibi)
+    ok = got == expect
+    print(f"  {tag} counts {got}, expected {expect}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        errors.append(f"{tag}: counts {got} != {expect}")
+
+
+def bloom_request(tag, sess, ids, new, expect, errors, results, floor):
+    """Warm-up, the prefill alone, then the counted request: prefill ms,
+    decode ms/token, the launches; a profile of the same request gives the
+    device ms/token and the idle share beside the byte floor."""
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    timed_generate(sess, ids, 2)
+    _, pre_ms = timed_generate(sess, ids, 1)
+    zero_counts()
+    out, ms = timed_generate(sess, ids, new)
+    check_counts(tag, read_counts(), expect, errors)
+    check_tokens(tag, out, new, sess.cfg.vocab_size, errors)
+    dec_ms = (ms - pre_ms) / (new - 1)
+    dev_dec, busy = profile_generate(sess, ids, SamplingConfig(end_id=-1),
+                                     row_limit=10)
+    print(f"  {tag}: prefill {pre_ms:.2f} ms, decode {dec_ms:.3f} ms/token "
+          f"(wall), device {dev_dec:.3f} ms per decode token, byte floor "
+          f"{floor:.3f} ms/token; {ms:.1f} ms end to end")
+    results["_e2e"][tag] = dict(
+        layers=sess.cfg.num_layers, prefill_ms=pre_ms,
+        decode_ms_per_token=dec_ms, device_ms_per_decode_token=dev_dec,
+        device_busy_share=busy, byte_floor_ms_per_token=floor,
+        e2e_ms=ms)
+    return out
+
+
+def run_bloom(args, errors, results):
+    """Path 6: Bloom-7b1 at full width and depth through
+    GenerationSession(model=decoder.BLOOM). 6a, bf16 weights: the 8-token
+    prompt with 50 tokens (row 10 with slopes, once per layer), the
+    3072-token prompt with 32 tokens (row 12 with slopes); 6b, the same
+    tree through quantize_params (int8 weight-only per channel): the
+    8-token prompt (kernel 1 at Bloom's six projection shapes). Decode
+    attention takes the JAX package's plain ALiBi branch (counted apart).
+    First-step logits of each against the plain path on the card."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.models.decoder import BLOOM
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    from trtllm_llama_tpu_torch.quantization.quantize import quantize_params
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    cfg = ModelConfig(**{**BLOOM_7B1, "num_layers": min(
+        args.layers, BLOOM_7B1["num_layers"])})
+    n_l = cfg.num_layers
+    print(f"path 6: Bloom-7b1 (bigscience/bloom-7b1 config.json), "
+          f"{n_l} layers, ALiBi, bf16, random weights (seed 0), "
+          f"{BLOOM_ENGINE}")
+    t0 = time.perf_counter()
+    params = BLOOM.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  weights init: {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    rng = np.random.default_rng(0)
+    short = rng.integers(3, cfg.vocab_size, (1, 8))
+    long = rng.integers(3, cfg.vocab_size, (1, BLOOM_LONG))
+    ecfg = EngineConfig(**BLOOM_ENGINE)
+    proj = n_l * (4 * 4096 * 4096 + 2 * 4096 * 16384)
+    head = cfg.vocab_size * cfg.hidden_size
+    floors = {"bf16": (proj + head) * 2 / HBM_BYTES_PER_S * 1e3,
+              "int8": (proj + 2 * head) / HBM_BYTES_PER_S * 1e3}
+    print(f"  per-token weight bytes: bf16 {(proj + head) * 2 / 1e9:.2f} GB "
+          f"({floors['bf16']:.2f} ms at 3.35 TB/s), int8 projections + bf16 "
+          f"lm_head {(proj + 2 * head) / 1e9:.2f} GB ({floors['int8']:.2f} ms)")
+
+    sess = GenerationSession(cfg, params, ecfg, device="cuda", model=BLOOM)
+    attn_pairs = [(pa, "prefill_attention_kernel"),
+                  (spa, "streaming_prefill_attention_kernel")]
+    bloom_request("path 6a bf16 in8 out50", sess, short, NEW_TOKENS, dict(
+        launches={"prefill_attention_kernel": n_l},
+        alibi_decode=n_l * (NEW_TOKENS - 1)), errors, results, floors["bf16"])
+    results[ALIBI_PREFILL]["launches"] = n_l
+    zero_counts()
+    out, ms = timed_generate(sess, long, BLOOM_LONG_NEW)
+    check_counts(f"path 6a bf16 in{BLOOM_LONG} out{BLOOM_LONG_NEW}",
+                 read_counts(), dict(
+                     launches={"streaming_prefill_attention_kernel": n_l},
+                     alibi_decode=n_l * (BLOOM_LONG_NEW - 1)),
+                 errors)
+    results[ALIBI_STREAMING]["launches"] = n_l
+    check_tokens(f"path 6a in{BLOOM_LONG}", out, BLOOM_LONG_NEW,
+                 cfg.vocab_size, errors)
+    zero_counts()
+    _, pre_ms = timed_generate(sess, long, 1)
+    print(f"  bs1 in{BLOOM_LONG} out{BLOOM_LONG_NEW}: {ms:.1f} ms end to end; "
+          f"prefill {pre_ms:.1f} ms; decode {(ms - pre_ms) / (BLOOM_LONG_NEW - 1):.3f}"
+          " ms/token over the 3k cache")
+    results["_e2e"][f"path 6a bf16 in{BLOOM_LONG}"] = dict(
+        layers=n_l, prefill_ms=pre_ms, e2e_ms=ms,
+        decode_ms_per_token=(ms - pre_ms) / (BLOOM_LONG_NEW - 1))
+    for what, ids in (("in8", short), (f"in{BLOOM_LONG}", long)):
+        got, ref = first_logits(BLOOM, sess, ids, attn_pairs)
+        compare(f"path 6a {what} first-step logits, kernels vs plain", got,
+                ref, errors, tol=LOGITS_TOL)
+    del sess
+    gc.collect()
+
+    q = quantize_params(params, QuantMode.use_weight_only())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  path 6b: int8 weight-only per-channel (quantize_params), "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    g = torch.Generator(device="cuda").manual_seed(19)
+    lw = q["layers"]
+    for name in ("wq", "wk", "wv", "wo", "w_fc", "w_proj"):
+        w = lw[name]
+        for m in (1, 16):
+            x = torch.randn((m, w.k_dim), generator=g, device="cuda").to(
+                torch.bfloat16)
+            compare(f"woq_matmul_stacked {name} M={m} {w.k_dim}->"
+                    f"{w.qweight.shape[-1]}", woq.woq_matmul_stacked(x, w, 0),
+                    woq.woq_matmul_stacked_plain(x, w, 0), errors)
+    sess = GenerationSession(cfg, q, ecfg, device="cuda", model=BLOOM)
+    del q
+    bloom_request("path 6b int8 in8 out50", sess, short, NEW_TOKENS, dict(
+        launches={"woq_matmul_stacked": 6 * n_l * NEW_TOKENS,
+                  "prefill_attention_kernel": n_l},
+        alibi_decode=n_l * (NEW_TOKENS - 1)), errors, results, floors["int8"])
+    results[ALIBI_PREFILL]["launches"] += n_l
+    results["woq_matmul_stacked"]["launches"] = (
+        results["woq_matmul_stacked"].get("launches", 0)
+        + 6 * n_l * NEW_TOKENS)
+    got, ref = first_logits(BLOOM, sess, short, attn_pairs
+                            + [(woq, "woq_matmul_stacked")])
+    compare("path 6b in8 first-step logits, kernels vs plain", got, ref,
+            errors, tol=LOGITS_TOL)
+    del sess
+
+
+def run_families(args, errors, results):
+    """GPT-J-6B, GPT-NeoX-20B, OPT-6.7b and Falcon-7B at their published
+    widths, FAMILY_LAYERS layers, bf16 random weights (seed 0): one 8-token
+    prompt, FAMILY_NEW greedy tokens per decode mode (Falcon also 'fused',
+    row 9 at its group of 71); the launches (kernel 2 once per layer,
+    kernel 3 or row 9 once per layer and decode step, at every family's
+    head dim), the first-step logits against the plain path."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig
+    from trtllm_llama_tpu_torch.models import by_architecture
+    from trtllm_llama_tpu_torch.ops.registry import KERNELS as knobs
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    for tag, over, modes in FAMILY_CONFIGS:
+        cfg = ModelConfig(**over, num_layers=min(args.layers, FAMILY_LAYERS),
+                          dtype="bfloat16")
+        n_l, model = cfg.num_layers, by_architecture(cfg.architecture)
+        params = model.init_params(cfg, seed=0, device="cuda")
+        ids = np.random.default_rng(0).integers(3, cfg.vocab_size, (1, 8))
+        for mode in modes:
+            with mock.patch.dict(knobs, decode_attn_mode=mode):
+                sess = GenerationSession(cfg, params, EngineConfig(
+                    max_batch_size=1, max_input_len=16, max_seq_len=64),
+                    device="cuda", model=model)
+                timed_generate(sess, ids, 2)
+                zero_counts()
+                out, ms = timed_generate(sess, ids, FAMILY_NEW)
+                launches, _ = read_counts()
+                decode = {"auto": "dma_decode_attention",
+                          "fused": "fused_decode_attention"}[mode]
+                want = {"prefill_attention_kernel": n_l,
+                        decode: n_l * (FAMILY_NEW - 1)}
+                name = f"{tag} ({n_l} layers, '{mode}')"
+                print(f"  {name}: head_dim {cfg.head_dim}, {ms:.1f} ms for "
+                      f"{FAMILY_NEW} tokens; launches {launches} (expected "
+                      f"{want})")
+                if launches != want:
+                    errors.append(f"{name}: launches {launches}, expected "
+                                  f"{want}")
+                if tag == "Falcon-7B" and mode == "fused":
+                    results[FUSED_G71]["launches"] = launches.get(decode, 0)
+                check_tokens(name, out, FAMILY_NEW, cfg.vocab_size, errors)
+                got, ref = first_logits(model, sess, ids, attention_pairs())
+                compare(f"{name} first-step logits, kernels vs plain", got,
+                        ref, errors, tol=LOGITS_TOL)
+                ref_first = int(ref.argmax(-1)[0])
+                print(f"  {name}: first token {int(out.output_ids[0, 0])}, "
+                      f"plain path's argmax {ref_first}")
+                results["_e2e"][name] = dict(
+                    layers=n_l, head_dim=cfg.head_dim, wall_ms=ms,
+                    launches=launches)
+                del sess
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def check_kernels(errors, results):
     """Every kernel against its plain version at the shapes the paths and
     the serving phase give it."""
@@ -1846,6 +2619,10 @@ def check_kernels(errors, results):
     check_packed_prefill(errors, results)
     check_paged_decode(errors, results)
     check_paged_decode(errors, results, kv_int8=True)
+    check_alibi_prefill(errors, results)
+    check_fused_groups(errors, results)
+    check_family_attention(errors, results)
+    check_float16(errors, results)
 
 
 def main(argv=None) -> int:
@@ -1891,9 +2668,12 @@ def main(argv=None) -> int:
                                                         results))
                for path in make_paths()]
     phases += [("path 5", lambda: run_long_context(args, errors, results)),
-               ("serving", lambda: run_serving(args, errors, results))]
+               ("serving", lambda: run_serving(args, errors, results)),
+               ("path 6", lambda: run_bloom(args, errors, results)),
+               ("families", lambda: run_families(args, errors, results))]
     for name, phase in phases:
         t = time.perf_counter()
+        zero_counts()
         phase()
         gc.collect()                 # free the phase's sessions and weights
         torch.cuda.empty_cache()

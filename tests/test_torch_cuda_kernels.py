@@ -6,8 +6,8 @@ one (which need not have JAX), run:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: f32 outputs differ from the plain versions only in summation
-order (rtol/atol 1e-5); bf16 outputs by at most a rounding step at the
-final cast (2**-7 relative to the largest magnitude); int4 (per-channel
+order (rtol/atol 1e-5); bf16 and fp16 outputs by at most a rounding step
+at the final cast (2**-7 relative to the largest magnitude); int4 (per-channel
 or grouped) and fp8 codes decode exactly, so those kernels are held to the
 same bounds. The W8A8 kernel is
 exact against its plain version (int32 sums, the same f32 epilogue);
@@ -37,7 +37,8 @@ from trtllm_llama_tpu_torch.quantization.tensors import FP8Weight, WOQWeight
 
 pytestmark = pytest.mark.cuda
 
-DTYPES = [torch.float32, torch.bfloat16]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+HEAD_DIMS = [32, 64, 96, 128, 256]     # every attention kernel's
 
 
 @pytest.fixture
@@ -142,7 +143,7 @@ def test_fp8_kernel_matches_plain(dev, dtype, k, m, opt):
     _assert_close(got2, f8k.fp8_matmul_plain(x, w2), dtype)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d):
@@ -155,7 +156,7 @@ def test_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d):
     _assert_close(got, pa.prefill_attention_kernel_plain(q, k, v, lens), dtype)
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 96, 128, 256])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
@@ -214,7 +215,7 @@ def test_w8a8_kernel_matches_plain(dev, m, scales):
     torch.testing.assert_close(got2d, ref2d, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 96, 128, 256])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_int8_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
@@ -268,7 +269,7 @@ def test_decode_kernel_drops_a_write_past_the_cache(dev, kv_int8):
 
 @pytest.mark.parametrize("s,lens", [(40, [40, 17, 1]), (200, [200, 130, 0]),
                                     (64, [64, 63, 64])])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_streaming_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d, s,
@@ -307,7 +308,7 @@ def _decode_cache(dev, dtype, kv_int8, hq, hkv, b, s, d, seed):
 
 
 @pytest.mark.parametrize("kv_int8", [False, True])
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 96, 128, 256])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_read_only_decode_kernel_matches_plain(dev, dtype, hq, hkv, d,
@@ -329,7 +330,7 @@ def test_read_only_decode_kernel_matches_plain(dev, dtype, hq, hkv, d,
 
 
 @pytest.mark.parametrize("kv_int8", [False, True])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 4)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_decode_kernel_matches_plain(dev, dtype, hq, hkv, d, kv_int8):
@@ -393,9 +394,9 @@ def test_decode_modes_generate_on_cuda_match_cpu(dev):
 PAGED_TABLES = [[3, 0, 5], [7, 1, -1], [2, 4, 6], [8, 9, 10], [12, -1, -1]]
 
 
-def _paged_case(dev, dtype, kv_int8, hq, hkv, bs, seed):
+def _paged_case(dev, dtype, kv_int8, hq, hkv, bs, seed, d=128):
     g = torch.Generator(device=dev).manual_seed(seed)
-    n_layers, nb, mb, d = 2, 14, 3, 128
+    n_layers, nb, mb = 2, 14, 3
     shape = (n_layers, nb, hkv, bs, d)
     if kv_int8:
         pk = torch.randint(-127, 128, shape, generator=g, device=dev,
@@ -417,13 +418,15 @@ def _paged_case(dev, dtype, kv_int8, hq, hkv, bs, seed):
     return q, kn, vn, pk, pv, tables, pos, kv_scale
 
 
+@pytest.mark.parametrize("d", [96, 128, 256])
 @pytest.mark.parametrize("bs", [8, 16, 64])
 @pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8)])
 @pytest.mark.parametrize("kv_int8", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_paged_decode_kernel_matches_plain(dev, dtype, kv_int8, hq, hkv, bs):
+def test_paged_decode_kernel_matches_plain(dev, dtype, kv_int8, hq, hkv, bs,
+                                           d):
     q, kn, vn, pk, pv, tables, pos, kv_scale = _paged_case(
-        dev, dtype, kv_int8, hq, hkv, bs, bs + hkv)
+        dev, dtype, kv_int8, hq, hkv, bs, bs + hkv, d)
     pk2, pv2, before = pk.clone(), pv.clone(), pk.clone()
     launches = pda.paged_decode_attention.launches
     got = pda.paged_decode_attention(q, kn, vn, pk, pv, 1, tables, pos,
@@ -446,13 +449,13 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, kv_int8, hq, hkv, bs):
 @pytest.mark.parametrize("t,lens", [(24, [5, 1, 9]), (64, [20, 30, 1]),
                                     (100, [37, 1, 50]), (48, [48]),
                                     (1024, [128, 77, 3, 128, 100, 1, 128])])
+@pytest.mark.parametrize("d", [96, 128, 256])
 @pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8)])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_packed_prefill_kernel_matches_plain(dev, dtype, hq, hkv, t, lens):
+def test_packed_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d, t, lens):
     """Segment layouts with pad rows, a length-1 segment and segments that
     cross 32-row tiles; pad rows must come out finite."""
     g = torch.Generator(device=dev).manual_seed(t + hkv)
-    d = 128
     q, k, v = (torch.randn((t, h, d), generator=g, device=dev).to(dtype)
                for h in (hq, hkv, hkv))
     seg = torch.full((t,), -1, dtype=torch.int32, device=dev)
@@ -588,8 +591,11 @@ def test_decode_and_streaming_wrappers_reject_bad_inputs(dev):
     q = torch.ones((1, 8, 2, 48), device=dev)     # head dim 48
     with pytest.raises(ValueError):
         spa.streaming_prefill_attention_kernel(q, q, q)
-    with pytest.raises(NotImplementedError):
-        spa.streaming_prefill_attention_kernel(q, q, q, alibi=torch.ones(2))
+    with pytest.raises(ValueError):               # ALiBi slopes not [Hq]
+        spa.streaming_prefill_attention_kernel(q[..., :32].contiguous(),
+                                               q[..., :32].contiguous(),
+                                               q[..., :32].contiguous(),
+                                               alibi=torch.ones(3))
     cache = torch.zeros((1, 1, 2, 32, 32), dtype=torch.int8, device=dev)
     new = torch.ones((1, 2, 32), device=dev)
     lens = torch.ones(1, dtype=torch.int32, device=dev)
@@ -597,8 +603,126 @@ def test_decode_and_streaming_wrappers_reject_bad_inputs(dev):
         da.decode_attention_kernel(new, cache, cache.clone(), 0, lens)
     with pytest.raises(ValueError):               # int8 cache, no kv_scale
         da.fused_decode_attention(new, new, new, cache, cache.clone(), 0, lens)
-    big = torch.zeros((1, 1, 1, 32, 128), device=dev)
-    with pytest.raises(ValueError):               # a GQA group of 512 heads
-        da.fused_decode_attention(torch.ones((1, 512, 128), device=dev),
-                                  big[0, :, :, 0], big[0, :, :, 0], big,
-                                  big.clone(), 0, lens)
+    # a GQA group of 512 heads is no longer refused: row 9 takes the group
+    # in blocks of up to 8 query heads per KV head
+    big = torch.randn((1, 1, 1, 32, 128), device=dev)
+    q = torch.randn((1, 512, 128), device=dev)
+    got = da.fused_decode_attention(q, big[0, :, :, 0], big[0, :, :, 0], big,
+                                    big.clone(), 0, lens)
+    ref = da.fused_decode_attention_plain(q, big[0, :, :, 0], big[0, :, :, 0],
+                                          big.clone(), big.clone(), 0, lens)
+    _assert_close(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("kernel", ["prefill", "streaming"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_alibi_prefill_kernels_match_plain(dev, dtype, kernel):
+    """ALiBi: distinct slopes per head (interpolated for 12 heads), a length
+    mask with a length of 0, S off the 64-row tile, GQA."""
+    from trtllm_llama_tpu_torch.ops.attention import alibi_slopes
+    fn, plain = ((pa.prefill_attention_kernel,
+                  pa.prefill_attention_kernel_plain) if kernel == "prefill"
+                 else (spa.streaming_prefill_attention_kernel,
+                       spa.streaming_prefill_attention_kernel_plain))
+    g = torch.Generator(device=dev).manual_seed(70)
+    b, s, hq, hkv = 3, 150, 12, 4
+    for d in (64, 128):
+        q, k, v = (torch.randn((b, s, h, d), generator=g,
+                               device=dev).to(dtype) for h in (hq, hkv, hkv))
+        lens = torch.tensor([150, 77, 0], dtype=torch.int32, device=dev)
+        slopes = alibi_slopes(hq, device=dev)
+        launches = fn.launches
+        got = fn(q, k, v, lens, alibi=slopes)
+        assert fn.launches == launches + 1
+        ref = plain(q, k, v, lens, alibi=slopes)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, dtype)
+        assert not torch.allclose(got.float(), plain(q, k, v, lens).float(),
+                                  atol=1e-2)
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("hq,d", [(26, 128), (32, 128), (71, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_decode_kernel_large_groups(dev, dtype, hq, d, kv_int8):
+    """Row 9 with one KV head for the whole group (Falcon-7B: 71 heads of
+    64); the group's heads are split over blocks of up to 8."""
+    q, kn, vn, kc, vc, kv_scale = _decode_cache(dev, dtype, kv_int8, hq, 1,
+                                                2, 256, d, hq)
+    pos = torch.tensor([5, 200], dtype=torch.int32, device=dev)
+    kc2, vc2 = kc.clone(), vc.clone()
+    got = da.fused_decode_attention(q, kn, vn, kc, vc, 1, pos,
+                                    kv_scale=kv_scale)
+    ref = da.fused_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos,
+                                          kv_scale=kv_scale)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, dtype)
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+
+
+def test_head_dim_without_a_kernel_raises_on_card(dev):
+    """Head dim 80 has no instantiation: every attention op raises on the
+    card before any launch (the plain versions run on the CPU only)."""
+    from unittest import mock
+
+    from trtllm_llama_tpu_torch import ModelConfig
+    from trtllm_llama_tpu_torch.ops import attention, paged_attention
+    from trtllm_llama_tpu_torch.ops.registry import KERNELS
+    d = 80
+    q, k, v = (torch.ones((2, 20, h, d), device=dev, dtype=torch.bfloat16)
+               for h in (4, 2, 2))
+    lens = torch.tensor([20, 9], dtype=torch.int32, device=dev)
+    wrappers = (pa.prefill_attention_kernel,
+                spa.streaming_prefill_attention_kernel,
+                ppa.packed_prefill_attention_kernel, da.dma_decode_attention,
+                da.fused_decode_attention, da.decode_attention_kernel,
+                pda.paged_decode_attention)
+    launches = [w.launches for w in wrappers]
+    with pytest.raises(ValueError):
+        attention.prefill_attention(q, k, v, lens)
+    with pytest.raises(ValueError):
+        spa.streaming_prefill_attention_kernel(q, k, v, lens)
+    seg = torch.zeros(20, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        attention.packed_prefill_attention(q[0], k[0], v[0], seg)
+    cache = attention.KVCache(
+        torch.zeros((1, 2, 2, 128, d), device=dev, dtype=torch.bfloat16),
+        torch.zeros((1, 2, 2, 128, d), device=dev, dtype=torch.bfloat16),
+        torch.ones(1, device=dev))
+    for mode in ("auto", "fused", "split"):
+        with mock.patch.dict(KERNELS, decode_attn_mode=mode):
+            with pytest.raises(ValueError):
+                attention.fused_decode_attention_at(q[:, 0], k[:, 0],
+                                                    v[:, 0], cache, 0, lens)
+    pools = paged_attention.init_paged_caches(
+        ModelConfig.tiny(dtype="bfloat16", num_layers=1, head_dim=d,
+                         num_heads=4, num_kv_heads=2), 4, 8, 2, 2, dev)
+    with pytest.raises(ValueError):
+        paged_attention.paged_fused_decode_attention_at(
+            q[:, 0], k[:, 0], v[:, 0], pools, 0, lens)
+    assert [w.launches for w in wrappers] == launches
+
+
+def test_dense_unquantized_makes_no_f32_weight_copy(dev, monkeypatch):
+    """The bf16 GEMM with an f32 output (torch.mm's out_dtype) allocates
+    far less than an f32 copy of the weight and agrees with the f32
+    product, under torch's default reduced-precision reduction flag."""
+    from trtllm_llama_tpu_torch.ops.linear import dense
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", True)
+    g = torch.Generator(device=dev).manual_seed(80)
+    k, n = 4096, 16384
+    w = (torch.randn((2, k, n), generator=g, device=dev) * k ** -0.5).to(
+        torch.bfloat16)
+    x = torch.randn((3, k), generator=g, device=dev).to(torch.bfloat16)
+    ref = x.float() @ w[1].float()
+    for out_dtype in (None, torch.float32):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        y = dense(x, w, out_dtype, layer=1)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(dev) - base
+        assert extra < k * n, extra              # an f32 copy is 4 * k * n
+        assert y.dtype == (out_dtype or torch.bfloat16)
+        _assert_close(y, ref, y.dtype)

@@ -2,8 +2,10 @@
 chip_smoke.py, imports JAX or the JAX package, and the port imports and
 generates on the CPU (int8 weight-only, SmoothQuant with an int8 KV cache,
 int4 g64 and fp8 with a quantized lm_head; every prompt through the
-streaming prefill and the 'split' and 'fused' decode modes) and serves (a
-paged and a packed ServingEngine) with both made unimportable."""
+streaming prefill and the 'split' and 'fused' decode modes; the five
+decoder families of models/decoder.py, picked by models.by_architecture,
+Bloom's ALiBi included) and serves (a paged and a packed ServingEngine)
+with both made unimportable."""
 
 import ast
 import subprocess
@@ -36,6 +38,9 @@ def test_no_module_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "trtllm_llama_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"trtllm_llama_tpu_torch/models/decoder.py",
+            "trtllm_llama_tpu_torch/models/__init__.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert not bad, bad
@@ -86,6 +91,16 @@ for mode in (QuantMode.use_weight_only(True, per_group=True),
     out = sess.generate([[5, 6, 7], [8, 9]],
                         sampling=SamplingConfig(end_id=-1), max_new_tokens=4)
     assert out.output_ids.shape == (2, 4), out.output_ids.shape
+from trtllm_llama_tpu_torch.models import by_architecture
+for arch, over in (("gptj", dict(rotary_dim=16)), ("gptneox", {}),
+                   ("bloom", {}), ("opt", {}), ("falcon", dict(num_kv_heads=1))):
+    cfg = ModelConfig.tiny(dtype="float32", architecture=arch, **over)
+    params = by_architecture(arch).init_params(cfg, device="cpu")
+    sess = GenerationSession(cfg, params, EngineConfig(max_input_len=16,
+                             max_seq_len=32), device="cpu")
+    out = sess.generate([[5, 6, 7], [8, 9]],
+                        sampling=SamplingConfig(end_id=-1), max_new_tokens=4)
+    assert out.output_ids.shape == (2, 4), (arch, out.output_ids.shape)
 from trtllm_llama_tpu_torch.runtime.serving import ServingEngine
 cfg = ModelConfig.tiny(dtype="float32", quant_mode=QuantMode.use_weight_only())
 params = init_random_quantized_params(cfg, device="cpu")

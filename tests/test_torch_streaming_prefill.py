@@ -127,10 +127,19 @@ def test_prefill_dispatch_by_length(monkeypatch, min_s, s, want):
 
 
 def test_streaming_rejects_alibi():
-    x = torch.zeros((1, 8, 2, 32))
-    with pytest.raises(NotImplementedError):
-        _streaming.streaming_prefill_attention_kernel(x, x, x,
-                                                      alibi=torch.ones(2))
+    """ALiBi is ported: the streaming plain version takes slopes, and gives
+    kernel 2's plain version's output with the same slopes; slopes of the
+    wrong length are refused."""
+    q, k, v = _qkv(2, 70, 4, 2, 32, seed=10)
+    sl, slopes = _t(np.asarray([70, 33], np.int32)), attention.alibi_slopes(4)
+    got = _streaming.streaming_prefill_attention_kernel(_t(q), _t(k), _t(v),
+                                                        sl, alibi=slopes)
+    want = _prefill.prefill_attention_kernel_plain(_t(q), _t(k), _t(v), sl,
+                                                   alibi=slopes)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **XLA_TOL)
+    with pytest.raises(RuntimeError):
+        _streaming.streaming_prefill_attention_kernel(_t(q), _t(k), _t(v),
+                                                      alibi=torch.ones(3))
 
 
 def test_tiny_model_long_prompt_uses_streaming_prefill(monkeypatch):

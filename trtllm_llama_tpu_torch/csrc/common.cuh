@@ -7,13 +7,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tllm {
 
 // Activation dtype codes shared with the Python wrappers (_build.DTYPE_CODES).
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 // Mask value of the reference attention (ops/attention.py NEG_INF): finite,
 // so a fully masked row still softmaxes to finite numbers.
@@ -22,10 +23,17 @@ constexpr float kNegInf = -1e9f;
 // (exp(kLowest - m) is 0 for any real m).
 constexpr float kLowest = -3.402823466e+38f;
 
+// -inf: the score of a padding column past S, which no softmax counts
+// (unlike NEG_INF, which an all-masked row averages over).
+__device__ __forceinline__ float neg_infinity() {
+  return __int_as_float(0xff800000);
+}
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -37,11 +45,25 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as a dtype cast
 }
+template <>
+__device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
 
 // Round a float through T (identity for float).
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory (above the default
+// 48 KB a launch needs the opt-in).
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+             : cudaSuccess;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

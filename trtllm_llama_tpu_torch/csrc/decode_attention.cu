@@ -50,7 +50,7 @@ struct ReadRows : DenseRows {
 // wrapper offsets the pointers), kv_scale: that layer's f32 dequant scale
 // (int8 only, else null), positions [B] int32, out [B, Hq, D]; part_m/part_l
 // [B, Hq, S/32] and part_acc [B, Hq, S/32, D] f32 scratch. S % 32 == 0,
-// D in {32, 64, 128}.
+// D in {32, 64, 96, 128, 256}.
 extern "C" int tllm_decode_attention(const void* q, const void* k_new,
                                      const void* v_new, void* kc, void* vc,
                                      const void* kv_scale,
@@ -71,7 +71,7 @@ extern "C" int tllm_decode_attention(const void* q, const void* k_new,
 // [B, Hkv, S, D] in dtype or, with kv_int8, int8 (read only), kv_scale: that
 // layer's f32 dequant scale (int8 only, else null), cache_lens [B] int32,
 // out [B, Hq, D]; part_m/part_l/part_acc as above. S % 32 == 0,
-// D in {32, 64, 128}.
+// D in {32, 64, 96, 128, 256}.
 extern "C" int tllm_decode_attention_read(const void* q, const void* kc,
                                           const void* vc, const void* kv_scale,
                                           const void* cache_lens, void* out,

@@ -34,10 +34,10 @@
 //   - launch 1: one block per (32-row chunk, kv head, b); blocks whose chunk
 //     starts at or past n_live exit at once, so the work is O(pos), not
 //     O(cap). The block looks up its 32 rows' offsets once, stages its chunk
-//     of K/V in shared memory as f32 (K padded to D+1 columns), then one warp
-//     per query head of the GQA group computes the chunk's scores (one key
-//     per lane), max, exp-sum and p @ V, and writes (max, sum, acc[D]) as a
-//     partial.
+//     of K/V in dynamic shared memory as f32 (K padded to D+1 columns; 66 KB
+//     at D = 256), then one warp per query head of the GQA group computes
+//     the chunk's scores (one key per lane), max, exp-sum and p @ V, and
+//     writes (max, sum, acc[D]) as a partial.
 //   - the write race: the row-pos write would race with blocks reading its
 //     chunk. Only the block that owns pos's chunk touches row pos: it
 //     encodes that row from k_new / v_new, stores it, and attends dec(stored)
@@ -92,6 +92,12 @@ __device__ __forceinline__ Live live_rows(const Rows& rows, int v) {
   }
 }
 
+// The staged K (padded) and V of one chunk, f32: 66 KB at D = 256.
+template <int D>
+constexpr int partial_smem_bytes() {
+  return kChunk * (2 * D + 1) * 4;
+}
+
 template <typename T, typename TC, int D, typename Rows>
 __global__ void __launch_bounds__(kWarps * 32)
     decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
@@ -103,8 +109,9 @@ __global__ void __launch_bounds__(kWarps * 32)
                           int n_chunks, float sm_scale, Rows rows) {
   using Codec = KVCodec<TC>;
   constexpr int DL = D / 32;
-  __shared__ float ks[kChunk][D + 1];
-  __shared__ float vs[kChunk][D];
+  extern __shared__ float decode_smem[];  // partial_smem_bytes<D>()
+  auto ks = reinterpret_cast<float (*)[D + 1]>(decode_smem);
+  auto vs = reinterpret_cast<float (*)[D]>(decode_smem + kChunk * (D + 1));
   __shared__ long long row_off[kChunk];
 
   const int c = blockIdx.x;
@@ -232,15 +239,18 @@ struct Args {
 template <typename T, typename TC, int D, typename Rows>
 cudaError_t launch(const Args& a, const Rows& rows) {
   const int n_chunks = (rows.cap + kChunk - 1) / kChunk;
+  constexpr int smem = partial_smem_bytes<D>();
+  cudaError_t err = allow_smem(decode_partial_kernel<T, TC, D, Rows>, smem);
+  if (err != cudaSuccess) return err;
   decode_partial_kernel<T, TC, D, Rows>
-      <<<dim3(n_chunks, a.Hkv, a.B), kWarps * 32, 0, a.stream>>>(
+      <<<dim3(n_chunks, a.Hkv, a.B), kWarps * 32, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k_new),
           static_cast<const T*>(a.v_new), static_cast<TC*>(a.kc),
           static_cast<TC*>(a.vc), static_cast<const float*>(a.kv_scale),
           static_cast<const int*>(a.positions), static_cast<float*>(a.part_m),
           static_cast<float*>(a.part_l), static_cast<float*>(a.part_acc), a.Hq,
           a.Hkv, n_chunks, a.sm_scale, rows);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine_kernel<T, D, Rows><<<dim3(a.Hq, a.B), D, 0, a.stream>>>(
       static_cast<const float*>(a.part_m), static_cast<const float*>(a.part_l),
@@ -257,14 +267,18 @@ cudaError_t launch_d(int D, const Args& a, const Rows& rows) {
       return launch<T, TC, 32>(a, rows);
     case 64:
       return launch<T, TC, 64>(a, rows);
+    case 96:
+      return launch<T, TC, 96>(a, rows);
     case 128:
       return launch<T, TC, 128>(a, rows);
+    case 256:
+      return launch<T, TC, 256>(a, rows);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// dtype: the activation code (kF32 / kBF16); the cache holds that type or,
+// dtype: the activation code (kF32 / kBF16 / kF16); the cache holds that type or,
 // with kv_int8, int8.
 template <typename Rows>
 cudaError_t dispatch(int dtype, bool kv_int8, int D, const Args& a,
@@ -272,6 +286,9 @@ cudaError_t dispatch(int dtype, bool kv_int8, int D, const Args& a,
   if (dtype == kBF16)
     return kv_int8 ? launch_d<__nv_bfloat16, int8_t>(D, a, rows)
                    : launch_d<__nv_bfloat16, __nv_bfloat16>(D, a, rows);
+  if (dtype == kF16)
+    return kv_int8 ? launch_d<__half, int8_t>(D, a, rows)
+                   : launch_d<__half, __half>(D, a, rows);
   if (dtype == kF32)
     return kv_int8 ? launch_d<float, int8_t>(D, a, rows)
                    : launch_d<float, float>(D, a, rows);

@@ -14,18 +14,23 @@
 // one), and reads c * scale in f32.
 //
 // What bounds it on the H100: the live K/V bytes, 2 * B * Hkv * (pos + 1) *
-// D * sizeof(cache element). Design: one block of 16 warps per (kv head,
-// b), covering the GQA group; no partials in device memory and no combine
-// launch.
-//   1. The block stores row pos and synchronises. It is the only reader and
-//      writer of its (b, hk) panel, so nothing races the write, and
-//      __syncthreads makes the stored row visible to all its warps.
-//   2. Warp w walks the live 32-row tiles w, w + 16, ... For each tile and each
-//      query head of the group, a lane holds D/32 adjacent head dims: it
-//      forms its partial dot product with every row of the tile (one vector
-//      load per row, a warp reads a whole row), and a transposing butterfly
-//      (31 shuffles) leaves row j's score in lane j. The head's running max,
-//      sum and D accumulators of this warp live in shared memory.
+// D * sizeof(cache element). Design: blocks of 16 warps per (kv head, b),
+// each covering up to kHeadsPerBlock query heads of the GQA group (one
+// block for LLaMA-7B's group of 1; Falcon-7B's 71 heads in 9 blocks of 8,
+// a group of 32 in 4); no partials in device memory and no combine launch.
+//   1. Block 0 of each (b, kv head) stores row pos. No block reads row pos
+//      from the cache: each decodes its own copy of the stored row,
+//      dec(enc(k_new)), into shared memory, so the one write races no
+//      reader and the blocks need no barrier between them.
+//   2. Warp w walks the 32-row tiles w, w + 16, ... of the rows before pos
+//      (all S rows when pos >= S); the warp after the last tile's then
+//      adds row pos from shared memory to its states. For each tile and
+//      each query head of the block, a lane holds D/32 adjacent head dims:
+//      it forms its partial dot product with every row of the tile (one
+//      vector load per row, a warp reads a whole row), and a transposing
+//      butterfly (31 shuffles) leaves row j's score in lane j. The head's
+//      running max, sum and D accumulators of this warp live in shared
+//      memory.
 //   3. The block merges its warps' states and divides.
 // At LLaMA-7B's 32 kv heads and batch 1 a launch has 32 blocks for 132 SMs:
 // one launch instead of kernel 3's two, at the price of a fill of the card
@@ -37,10 +42,18 @@ using namespace tllm;
 namespace {
 
 constexpr int kWarps = 16;
+constexpr int kHeadsPerBlock = 8;  // query heads of the group a block covers
 constexpr int kTile = 32;  // cache rows a warp scores at a time (one per lane)
 
+// The alignment of n bytes read as one vector: their lowest set bit (a power
+// of two; 12 bytes at D = 96, f32, read as three words), at most 16 (the
+// widest load; 32 bytes at D = 256, f32, read as two).
+constexpr size_t pack_align(size_t n) {
+  return (n & (~n + 1)) < 16 ? (n & (~n + 1)) : 16;
+}
+
 template <typename E, int N>
-struct alignas(sizeof(E) * N) Pack {
+struct alignas(pack_align(sizeof(E) * N)) Pack {
   E v[N];
 };
 
@@ -83,46 +96,56 @@ __global__ void __launch_bounds__(kWarps * 32)
                         const T* __restrict__ v_new, TC* kc, TC* vc,
                         const float* __restrict__ kv_scale,
                         const int* __restrict__ positions, T* __restrict__ out,
-                        int Hq, int Hkv, int S, float sm_scale) {
+                        int Hq, int Hkv, int S, float sm_scale, int heads) {
   using Codec = decode::KVCodec<TC>;
   constexpr int DL = D / 32;  // head dims per lane
   constexpr int ST = D + 2;   // a (warp, head) state: max, sum, acc[D]
   extern __shared__ float smem[];
   const int group = Hq / Hkv;
-  float* qs = smem;                  // [group][D]
-  float* state = smem + group * D;   // [kWarps][group][ST]
+  const int g0 = blockIdx.z * heads;          // this block's first head
+  const int gn = min(heads, group - g0);      // and its number of heads
+  float* kpos = smem;                 // [D] row pos as stored, decoded
+  float* vpos = kpos + D;             // [D]
+  float* qs = vpos + D;               // [gn][D]
+  float* state = qs + gn * D;         // [kWarps][gn][ST]
 
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int pos = positions[b];
-  const int n_live = min(pos + 1, S);
   const float kvs = kv_scale != nullptr ? *kv_scale : 1.f;
   const size_t panel = (static_cast<size_t>(b) * Hkv + hk) * S * D;
-  const size_t head0 = (static_cast<size_t>(b) * Hq + hk * group) * D;
+  const size_t head0 = (static_cast<size_t>(b) * Hq + hk * group + g0) * D;
 
   if (pos < S) {
     const size_t new_base = (static_cast<size_t>(b) * Hkv + hk) * D;
     const size_t row = panel + static_cast<size_t>(pos) * D;
     for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      kc[row + d] = Codec::enc(to_f(k_new[new_base + d]), kvs);
-      vc[row + d] = Codec::enc(to_f(v_new[new_base + d]), kvs);
+      const TC kt = Codec::enc(to_f(k_new[new_base + d]), kvs);
+      const TC vt = Codec::enc(to_f(v_new[new_base + d]), kvs);
+      if (blockIdx.z == 0) {
+        kc[row + d] = kt;
+        vc[row + d] = vt;
+      }
+      kpos[d] = Codec::dec(kt, kvs);
+      vpos[d] = Codec::dec(vt, kvs);
     }
   }
-  for (int i = threadIdx.x; i < group * D; i += blockDim.x)
+  for (int i = threadIdx.x; i < gn * D; i += blockDim.x)
     qs[i] = to_f(q[head0 + i]);
-  for (int i = threadIdx.x; i < kWarps * group * ST; i += blockDim.x)
+  for (int i = threadIdx.x; i < kWarps * gn * ST; i += blockDim.x)
     state[i] = i % ST == 0 ? kLowest : 0.f;
   __syncthreads();
 
-  const int n_tiles = (n_live + kTile - 1) / kTile;
+  const int n_cache = pos < S ? pos : S;  // rows read from the cache
+  const int n_tiles = (n_cache + kTile - 1) / kTile;
   for (int t = warp; t < n_tiles; t += kWarps) {
     const int row0 = t * kTile;
-    const int rows = min(kTile, n_live - row0);
+    const int rows = min(kTile, n_cache - row0);
     const TC* kt = kc + panel + static_cast<size_t>(row0) * D + lane * DL;
     const TC* vt = vc + panel + static_cast<size_t>(row0) * D + lane * DL;
-    for (int g = 0; g < group; ++g) {
+    for (int g = 0; g < gn; ++g) {
       float qv[DL];
 #pragma unroll
       for (int i = 0; i < DL; ++i) qv[i] = qs[g * D + lane * DL + i];
@@ -140,7 +163,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       float s = transpose_sum(part, lane);
       s = lane < rows ? s * sm_scale : kNegInf;
 
-      float* st = state + (warp * group + g) * ST;
+      float* st = state + (warp * gn + g) * ST;
       const float m_old = st[0];
       const float m_new = fmaxf(m_old, warp_max(s));
       const float p = expf(s - m_new);
@@ -169,15 +192,40 @@ __global__ void __launch_bounds__(kWarps * 32)
       __syncwarp();
     }
   }
+  if (pos < S && warp == n_tiles % kWarps) {  // row pos, one row per head
+    for (int g = 0; g < gn; ++g) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < DL; ++i)
+        dot = fmaf(qs[g * D + lane * DL + i], kpos[lane * DL + i], dot);
+      const float s = warp_sum(dot) * sm_scale;
+      float* st = state + (warp * gn + g) * ST;
+      const float m_old = st[0];
+      const float m_new = fmaxf(m_old, s);
+      const float p = expf(s - m_new);
+      const float alpha = expf(m_old - m_new);
+#pragma unroll
+      for (int i = 0; i < DL; ++i) {
+        float& a = st[2 + lane * DL + i];
+        a = fmaf(p, vpos[lane * DL + i], a * alpha);
+      }
+      __syncwarp();  // every lane has read st[0]
+      if (lane == 0) {
+        st[0] = m_new;
+        st[1] = st[1] * alpha + p;
+      }
+      __syncwarp();
+    }
+  }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < group * D; i += blockDim.x) {
+  for (int i = threadIdx.x; i < gn * D; i += blockDim.x) {
     const int g = i / D, d = i - g * D;
     float mx = kLowest;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, state[(w * group + g) * ST]);
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, state[(w * gn + g) * ST]);
     float l = 0.f, acc = 0.f;
     for (int w = 0; w < kWarps; ++w) {  // warps with no tile weigh exp(-huge)
-      const float* st = state + (w * group + g) * ST;
+      const float* st = state + (w * gn + g) * ST;
       const float e = expf(st[0] - mx);
       l = fmaf(e, st[1], l);
       acc = fmaf(e, st[2 + d], acc);
@@ -190,18 +238,17 @@ template <typename T, typename TC, int D>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* kc, void* vc, const void* kv_scale,
                    const void* positions, void* out, int B, int Hq, int Hkv,
-                   int S, float sm_scale, int smem, cudaStream_t stream) {
+                   int S, float sm_scale, int heads, int smem,
+                   cudaStream_t stream) {
   auto kernel = fused_decode_kernel<T, TC, D>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<dim3(Hkv, B), kWarps * 32, smem, stream>>>(
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int splits = (Hq / Hkv + heads - 1) / heads;
+  kernel<<<dim3(Hkv, B, splits), kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<TC*>(kc), static_cast<TC*>(vc),
       static_cast<const float*>(kv_scale), static_cast<const int*>(positions),
-      static_cast<T*>(out), Hq, Hkv, S, sm_scale);
+      static_cast<T*>(out), Hq, Hkv, S, sm_scale, heads);
   return cudaGetLastError();
 }
 
@@ -209,17 +256,29 @@ template <typename T, typename TC>
 cudaError_t launch_d(int D, const void* q, const void* k_new, const void* v_new,
                      void* kc, void* vc, const void* kv_scale,
                      const void* positions, void* out, int B, int Hq, int Hkv,
-                     int S, float sm_scale, int smem, cudaStream_t stream) {
+                     int S, float sm_scale, int heads, int smem,
+                     cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch<T, TC, 32>(q, k_new, v_new, kc, vc, kv_scale, positions,
-                               out, B, Hq, Hkv, S, sm_scale, smem, stream);
+                               out, B, Hq, Hkv, S, sm_scale, heads, smem,
+                               stream);
     case 64:
       return launch<T, TC, 64>(q, k_new, v_new, kc, vc, kv_scale, positions,
-                               out, B, Hq, Hkv, S, sm_scale, smem, stream);
+                               out, B, Hq, Hkv, S, sm_scale, heads, smem,
+                               stream);
+    case 96:
+      return launch<T, TC, 96>(q, k_new, v_new, kc, vc, kv_scale, positions,
+                               out, B, Hq, Hkv, S, sm_scale, heads, smem,
+                               stream);
     case 128:
       return launch<T, TC, 128>(q, k_new, v_new, kc, vc, kv_scale, positions,
-                                out, B, Hq, Hkv, S, sm_scale, smem, stream);
+                                out, B, Hq, Hkv, S, sm_scale, heads, smem,
+                                stream);
+    case 256:
+      return launch<T, TC, 256>(q, k_new, v_new, kc, vc, kv_scale, positions,
+                                out, B, Hq, Hkv, S, sm_scale, heads, smem,
+                                stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -231,8 +290,9 @@ cudaError_t launch_d(int D, const void* q, const void* k_new, const void* v_new,
 // stacked cache, i.e. [B, Hkv, S, D] in dtype or, with kv_int8, int8 (the
 // wrapper offsets the pointers; 16-byte aligned), kv_scale: that layer's f32
 // dequant scale (int8 only, else null), positions [B] int32, out [B, Hq, D].
-// D in {32, 64, 128}; smem = (Hq / Hkv) * (D + 16 * (D + 2)) * 4 bytes of
-// dynamic shared memory (at most 227 KB).
+// D in {32, 64, 96, 128, 256}; any GQA group (kHeadsPerBlock heads per
+// block, with (2 * D + heads * (D + 16 * (D + 2))) * 4 bytes of dynamic
+// shared memory).
 extern "C" int tllm_fused_decode_attention(
     const void* q, const void* k_new, const void* v_new, void* kc, void* vc,
     const void* kv_scale, const void* positions, void* out, int dtype,
@@ -240,21 +300,23 @@ extern "C" int tllm_fused_decode_attention(
     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int smem = (Hq / Hkv) * (D + kWarps * (D + 2)) * 4;
+  const int group = Hq / Hkv;
+  const int splits = (group + kHeadsPerBlock - 1) / kHeadsPerBlock;
+  const int heads = (group + splits - 1) / splits;  // balanced blocks
+  const int smem = (2 * D + heads * (D + kWarps * (D + 2))) * 4;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TLLM_FUSED_ARGS                                                    \
+  D, q, k_new, v_new, kc, vc, kv_scale, positions, out, B, Hq, Hkv, S,   \
+      sm_scale, heads, smem, s
   if (dtype == kBF16)
-    return kv_int8 ? launch_d<__nv_bfloat16, int8_t>(
-                         D, q, k_new, v_new, kc, vc, kv_scale, positions, out,
-                         B, Hq, Hkv, S, sm_scale, smem, s)
-                   : launch_d<__nv_bfloat16, __nv_bfloat16>(
-                         D, q, k_new, v_new, kc, vc, kv_scale, positions, out,
-                         B, Hq, Hkv, S, sm_scale, smem, s);
+    return kv_int8 ? launch_d<__nv_bfloat16, int8_t>(TLLM_FUSED_ARGS)
+                   : launch_d<__nv_bfloat16, __nv_bfloat16>(TLLM_FUSED_ARGS);
+  if (dtype == kF16)
+    return kv_int8 ? launch_d<__half, int8_t>(TLLM_FUSED_ARGS)
+                   : launch_d<__half, __half>(TLLM_FUSED_ARGS);
   if (dtype == kF32)
-    return kv_int8 ? launch_d<float, int8_t>(D, q, k_new, v_new, kc, vc,
-                                             kv_scale, positions, out, B, Hq,
-                                             Hkv, S, sm_scale, smem, s)
-                   : launch_d<float, float>(D, q, k_new, v_new, kc, vc,
-                                            kv_scale, positions, out, B, Hq,
-                                            Hkv, S, sm_scale, smem, s);
+    return kv_int8 ? launch_d<float, int8_t>(TLLM_FUSED_ARGS)
+                   : launch_d<float, float>(TLLM_FUSED_ARGS);
+#undef TLLM_FUSED_ARGS
   return cudaErrorInvalidValue;
 }

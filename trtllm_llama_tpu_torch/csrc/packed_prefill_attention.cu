@@ -18,8 +18,8 @@
 // the tensor cores (wgmma) serve at rate. This first kernel is kernel 2's
 // (prefill_attention.cu) design with the length mask replaced by the
 // segment mask: one block per (16-row q tile, head), four warps of four
-// rows; K/V tiles of 32 rows staged in shared memory as f32 (K padded to
-// D+1 columns), an online softmax with each row's max, denominator and
+// rows; K/V tiles of 32 rows staged in dynamic shared memory as f32 (K
+// padded to D+1 columns), an online softmax with each row's max, denominator and
 // D/32 accumulators per lane in registers. The block's K/V loop starts at
 // the tile holding start(row0) -- found by one warp scanning the ids back
 // 32 at a time -- and ends at its last row, so the work is O(sum len^2)
@@ -42,9 +42,11 @@ __global__ void __launch_bounds__(kWarps * 32)
                           T* __restrict__ out, int Tn, int Hq, int Hkv,
                           float sm_scale) {
   constexpr int DL = D / 32;  // head dims per lane
-  __shared__ float qs[kBQ][D];
-  __shared__ float ks[kBK][D + 1];
-  __shared__ float vs[kBK][D];
+  extern __shared__ float packed_smem[];
+  auto qs = reinterpret_cast<float (*)[D]>(packed_smem);
+  auto ks = reinterpret_cast<float (*)[D + 1]>(packed_smem + kBQ * D);
+  auto vs = reinterpret_cast<float (*)[D]>(packed_smem + kBQ * D +
+                                           kBK * (D + 1));
   __shared__ int run_start;
 
   const int row0 = blockIdx.x * kBQ;
@@ -141,7 +143,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* seg, void* out, int Tn, int Hq, int Hkv,
                    float sm_scale, cudaStream_t stream) {
   const dim3 grid((Tn + kBQ - 1) / kBQ, Hq);
-  packed_prefill_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
+  constexpr int smem = (kBQ * D + kBK * (D + 1) + kBK * D) * 4;
+  const cudaError_t err = allow_smem(packed_prefill_kernel<T, D>, smem);
+  if (err != cudaSuccess) return err;
+  packed_prefill_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(seg),
       static_cast<T*>(out), Tn, Hq, Hkv, sm_scale);
@@ -155,7 +160,9 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, seg, out, Tn, Hq, Hkv, sm_scale, stream);
     case 64: return launch<T, 64>(q, k, v, seg, out, Tn, Hq, Hkv, sm_scale, stream);
+    case 96: return launch<T, 96>(q, k, v, seg, out, Tn, Hq, Hkv, sm_scale, stream);
     case 128: return launch<T, 128>(q, k, v, seg, out, Tn, Hq, Hkv, sm_scale, stream);
+    case 256: return launch<T, 256>(q, k, v, seg, out, Tn, Hq, Hkv, sm_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -163,7 +170,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [T, Hq, D], k/v [T, Hkv, D] (dtype), seg [T] int32, out [T, Hq, D]
-// (dtype). D in {32, 64, 128}; Hq % Hkv == 0; T >= 1.
+// (dtype). D in {32, 64, 96, 128, 256}; Hq % Hkv == 0; T >= 1.
 extern "C" int tllm_packed_prefill_attention(const void* q, const void* k,
                                              const void* v, const void* seg,
                                              void* out, int dtype, int Tn,
@@ -175,6 +182,8 @@ extern "C" int tllm_packed_prefill_attention(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
     return launch_d<__nv_bfloat16>(D, q, k, v, seg, out, Tn, Hq, Hkv, sm_scale, s);
+  if (dtype == kF16)
+    return launch_d<__half>(D, q, k, v, seg, out, Tn, Hq, Hkv, sm_scale, s);
   if (dtype == kF32)
     return launch_d<float>(D, q, k, v, seg, out, Tn, Hq, Hkv, sm_scale, s);
   return cudaErrorInvalidValue;

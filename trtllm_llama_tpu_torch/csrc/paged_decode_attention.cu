@@ -56,7 +56,8 @@ struct PagedRows {
 // offsets the pointers), kv_scale: that layer's f32 dequant scale (int8
 // only, else null), tables [B, MB] int32, positions [B] int32, out
 // [B, Hq, D]; part_m/part_l [B, Hq, C] and part_acc [B, Hq, C, D] f32
-// scratch with C = ceil(MB * BS / 32). BS % 8 == 0, D in {32, 64, 128}.
+// scratch with C = ceil(MB * BS / 32). BS % 8 == 0,
+// D in {32, 64, 96, 128, 256}.
 extern "C" int tllm_paged_decode_attention(
     const void* q, const void* k_new, const void* v_new, void* pk, void* pv,
     const void* kv_scale, const void* tables, const void* positions,

@@ -1,13 +1,17 @@
 // Causal GQA prefill (context-phase) attention.
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/attention.py::prefill_attention_kernel
+// (its ALiBi branch included)
 // (and, by design, the contract of streaming_prefill_attention_kernel: the
 // K/V loop below is already an online softmax over K/V tiles, so S is not
 // bounded by on-chip memory).
 //
-// Computes, per (b, h, row): scores = (q . k) * sm_scale in f32, masked to
-// cols <= row and cols < seq_lens[b] with the finite NEG_INF of the
-// reference, an f32 softmax, and (p @ v) / sum(p) cast to q's dtype. The
+// Computes, per (b, h, row): scores = (q . k) * sm_scale + slopes[h] * col in
+// f32 (ALiBi's key-position form, as the JAX package adds it; no bias when
+// slopes is null), masked to cols <= row and cols < seq_lens[b] with the
+// finite NEG_INF of the reference (never NEG_INF + bias; a length of 0 masks
+// every column, and the row averages V over exactly the S columns: the
+// padding of the last 32-column tile scores -inf), an f32 softmax, and (p @ v) / sum(p) cast to q's dtype. The
 // K/V head is h / (Hq / Hkv) (GQA).
 //
 // What bounds it on the H100: at the main path's S = 16 it is bytes and
@@ -15,10 +19,11 @@
 // it becomes 4*S^2*H*D flops, which only the tensor cores (wgmma) serve
 // at rate. This first kernel is right rather than fast: one block per
 // (b, h, 16-row q tile), four warps of four rows each; K/V tiles of 32 rows
-// are staged in shared memory as f32 (K padded to D+1 columns so the
-// lane-per-key dot product is free of bank conflicts), tiles past the
-// block's last causal or valid column are skipped, and each row keeps its
-// running max, denominator and D/32 accumulators per lane in registers.
+// are staged in dynamic shared memory as f32 (82 KB at D = 256; K padded
+// to D+1 columns so the lane-per-key dot product is free of bank
+// conflicts), tiles past the block's last causal or valid column are
+// skipped, and each row keeps its running max, denominator and D/32
+// accumulators per lane in registers.
 #include "common.cuh"
 
 using namespace tllm;
@@ -34,12 +39,15 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
     prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v,
-                             const int* __restrict__ seq_lens, T* __restrict__ out,
+                             const int* __restrict__ seq_lens,
+                             const float* __restrict__ slopes, T* __restrict__ out,
                              int S, int Hq, int Hkv, float sm_scale) {
   constexpr int DL = D / 32;  // head dims per lane
-  __shared__ float qs[kBQ][D];
-  __shared__ float ks[kBK][D + 1];
-  __shared__ float vs[kBK][D];
+  extern __shared__ float prefill_smem[];
+  auto qs = reinterpret_cast<float (*)[D]>(prefill_smem);
+  auto ks = reinterpret_cast<float (*)[D + 1]>(prefill_smem + kBQ * D);
+  auto vs = reinterpret_cast<float (*)[D]>(prefill_smem + kBQ * D +
+                                           kBK * (D + 1));
 
   const int row0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -48,6 +56,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int len = seq_lens[b];
+  const float slope = slopes != nullptr ? slopes[h] : 0.f;
 
   for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
     const int r = i / D, d = i - (i / D) * D, s = row0 + r;
@@ -92,8 +101,13 @@ __global__ void __launch_bounds__(kWarps * 32)
       float s = 0.f;
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s = fmaf(qs[r][d], ks[lane][d], s);
-      s *= sm_scale;
-      if (!(col <= row && col < len && col < S)) s = kNegInf;
+      // no contraction into an fma: the JAX package rounds the product first
+      s = __fadd_rn(__fmul_rn(s, sm_scale), __fmul_rn(slope, static_cast<float>(col)));
+      if (col >= S) {
+        s = neg_infinity();  // padding of the last tile: never counted
+      } else if (!(col <= row && col < len)) {
+        s = kNegInf;
+      }
       const float m_new = fmaxf(m[rr], warp_max(s));
       const float p = expf(s - m_new);
       const float alpha = expf(m[rr] - m_new);
@@ -122,43 +136,54 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* seq_lens, void* out, int B, int S, int Hq,
-                   int Hkv, float sm_scale, cudaStream_t stream) {
+                   const void* seq_lens, const void* slopes, void* out, int B,
+                   int S, int Hq, int Hkv, float sm_scale, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
-  prefill_attention_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
+  constexpr int smem = (kBQ * D + kBK * (D + 1) + kBK * D) * 4;
+  const cudaError_t err = allow_smem(prefill_attention_kernel<T, D>, smem);
+  if (err != cudaSuccess) return err;
+  prefill_attention_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(seq_lens),
-      static_cast<T*>(out), S, Hq, Hkv, sm_scale);
+      static_cast<const float*>(slopes), static_cast<T*>(out), S, Hq, Hkv,
+      sm_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     const void* seq_lens, void* out, int B, int S, int Hq,
-                     int Hkv, float sm_scale, cudaStream_t stream) {
+                     const void* seq_lens, const void* slopes, void* out, int B,
+                     int S, int Hq, int Hkv, float sm_scale,
+                     cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, seq_lens, out, B, S, Hq, Hkv, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, seq_lens, out, B, S, Hq, Hkv, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, seq_lens, out, B, S, Hq, Hkv, sm_scale, stream);
+    case 32: return launch<T, 32>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, stream);
+    case 64: return launch<T, 64>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, stream);
+    case 96: return launch<T, 96>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, stream);
+    case 128: return launch<T, 128>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, stream);
+    case 256: return launch<T, 256>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q [B, S, Hq, D], k/v [B, S, Hkv, D] (dtype), seq_lens [B] int32,
-// out [B, S, Hq, D] (dtype). D in {32, 64, 128}; Hq % Hkv == 0.
+// q [B, S, Hq, D], k/v [B, S, Hkv, D] (dtype), seq_lens [B] int32, slopes
+// [Hq] f32 ALiBi slopes or null, out [B, S, Hq, D] (dtype). D in
+// {32, 64, 96, 128, 256}; Hq % Hkv == 0.
 extern "C" int tllm_prefill_attention(const void* q, const void* k,
                                       const void* v, const void* seq_lens,
-                                      void* out, int dtype, int B, int S,
-                                      int Hq, int Hkv, int D, float sm_scale,
-                                      int device, void* stream) {
+                                      const void* slopes, void* out, int dtype,
+                                      int B, int S, int Hq, int Hkv, int D,
+                                      float sm_scale, int device,
+                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, seq_lens, out, B, S, Hq, Hkv, sm_scale, s);
+    return launch_d<__nv_bfloat16>(D, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, s);
+  if (dtype == kF16)
+    return launch_d<__half>(D, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, s);
   if (dtype == kF32)
-    return launch_d<float>(D, q, k, v, seq_lens, out, B, S, Hq, Hkv, sm_scale, s);
+    return launch_d<float>(D, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, s);
   return cudaErrorInvalidValue;
 }

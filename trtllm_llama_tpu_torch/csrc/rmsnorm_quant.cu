@@ -91,6 +91,7 @@ extern "C" int tllm_rmsnorm_quant(const void* x, const void* w, void* q,
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return launch<__nv_bfloat16>(x, w, q, scale, M, D, eps, s);
+  if (dtype == kF16) return launch<__half>(x, w, q, scale, M, D, eps, s);
   if (dtype == kF32) return launch<float>(x, w, q, scale, M, D, eps, s);
   return cudaErrorInvalidValue;
 }

@@ -357,6 +357,7 @@ cudaError_t dispatch(int dtype, int mr, const Args& a, int device, void* stream)
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return launch_mr<__nv_bfloat16, FMT, GROUPED>(mr, a, s);
+  if (dtype == kF16) return launch_mr<__half, FMT, GROUPED>(mr, a, s);
   if (dtype == kF32) return launch_mr<float, FMT, GROUPED>(mr, a, s);
   return cudaErrorInvalidValue;
 }

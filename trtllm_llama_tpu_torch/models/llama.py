@@ -51,6 +51,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
                    torch.zeros(shape, dtype=kv_dtype, device=device), scale)
 
 
+def rope_tables(cfg: ModelConfig, device="cpu"):
+    """(cos, sin) tables sized and scaled per cfg (the model protocol's
+    hook, shared with the decoder families)."""
+    return rope_tables_for(cfg, device=device)
+
+
 def fuse_qkv_params(params):
     """Fuse wq/wk/wv into one stacked wqkv projection (exact rewrite).
     Returns new params; no-op when already fused or not fusable."""

@@ -20,10 +20,22 @@ kernel (row 8) for 'split', the one-launch kernel (row 9) for 'fused';
 `decode_attention_at` to row 8 in every mode. `decode_attention` is the
 plain read-only reference of one layer. The paged cache is in
 `ops/paged_attention.py`.
+
+Every attention kernel is instantiated for the head dims 32, 64, 96, 128
+and 256 (every model the port runs) and f32, bf16 and fp16; on the card a
+call outside them raises.
+
+ALiBi (`alibi`: [H_q] slopes from `alibi_slopes`) adds slope * key position
+to the scaled scores: the prefill kernels (2 and 12) take the slopes; a
+decode step with slopes takes the JAX package's own branch, the plain
+write and the plain `decode_attention` over positions + 1 in every
+decode_attn_mode (its decode kernels carry no bias, and neither do the
+port's), counted in `fused_decode_attention_at.alibi_calls`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -108,21 +120,38 @@ def write_kv_packed_at(cache: KVCache, layer: int, k, v, slot_tok,
     return cache
 
 
+def alibi_slopes(n_heads: int, device="cpu") -> torch.Tensor:
+    """Per-head ALiBi slopes (Press et al.), as the JAX package computes
+    them: m_i = 2^(-8(i+1)/n) for a power-of-two head count, else the
+    closest power of two's slopes followed by every other slope of twice
+    that count. Returns [n_heads] f32."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        out = pow2_slopes(n_heads)
+    else:
+        base = 2 ** math.floor(math.log2(n_heads))
+        out = pow2_slopes(base) + pow2_slopes(2 * base)[0::2][:n_heads - base]
+    return torch.tensor(out, dtype=torch.float32, device=device)
+
+
 def prefill_attention(q, k, v, seq_lens=None, scale: Optional[float] = None,
                       alibi=None):
     """Causal self-attention over a prompt. q: [B, S, H_q, D]; k, v:
     [B, S, H_kv, D]; seq_lens: optional [B] valid lengths (keys at
-    positions >= len are masked). Prompts of more rows than
+    positions >= len are masked); alibi: optional [H_q] slopes (slope *
+    key position added to the scaled scores). Prompts of more rows than
     KERNELS['prefill_streaming_min_s'] (None: 2048; 0 sends every prompt)
     go to the streaming kernel, shorter ones to kernel 2. Returns
     [B, S, H_q, D]."""
-    if alibi is not None:
-        raise NotImplementedError("ALiBi attention is not ported yet")
     min_s = KERNELS["prefill_streaming_min_s"]
-    if q.shape[1] > (2048 if min_s is None else min_s):
-        return _streaming.streaming_prefill_attention_kernel(q, k, v,
-                                                             seq_lens, scale)
-    return _prefill.prefill_attention_kernel(q, k, v, seq_lens, scale)
+    kernel = (_streaming.streaming_prefill_attention_kernel
+              if q.shape[1] > (2048 if min_s is None else min_s)
+              else _prefill.prefill_attention_kernel)
+    kw = {} if alibi is None else {"alibi": alibi}
+    return kernel(q, k, v, seq_lens, scale, **kw)
 
 
 def packed_prefill_attention(q, k, v, seg_ids, scale: Optional[float] = None):
@@ -142,27 +171,34 @@ def fused_decode_attention_at(q, k_new, v_new, cache: KVCache, layer: int,
     KERNELS['decode_attn_mode'] (see the module note; an unknown mode
     raises ValueError). With an int8 cache every mode keeps the dequantized
     K/V in f32 (the JAX package's Pallas kernels); its XLA path rounds them
-    to q's dtype first, which is the same at f32."""
-    if alibi is not None:
-        raise NotImplementedError("ALiBi attention is not ported yet")
+    to q's dtype first, which is the same at f32. With `alibi` ([H_q]
+    slopes) every mode takes the JAX package's ALiBi branch: the plain
+    write, then the plain `decode_attention` with the bias."""
     if cache.k.dtype == torch.uint8:
         raise NotImplementedError("fp8 KV caches are not ported yet")
     mode = KERNELS["decode_attn_mode"]
-    if mode in ("auto", "dma", "xla"):
-        out = _decode.dma_decode_attention(q, k_new, v_new, cache.k, cache.v,
-                                           layer, positions, scale,
-                                           kv_scale=cache.scale)
-    elif mode == "fused":
-        out = _decode.fused_decode_attention(q, k_new, v_new, cache.k,
-                                             cache.v, layer, positions, scale,
-                                             kv_scale=cache.scale)
-    elif mode == "split":
-        cache = write_kv_decode_at(cache, layer, k_new, v_new, positions)
-        out = decode_attention_at(q, cache, layer, positions + 1, scale)
-    else:
+    if mode not in ("auto", "dma", "xla", "split", "fused"):
         raise ValueError(f"unknown decode_attn_mode {mode!r}: expected "
                          "'auto', 'dma', 'xla', 'split' or 'fused'")
+    if alibi is not None:
+        fused_decode_attention_at.alibi_calls += 1
+        cache = write_kv_decode_at(cache, layer, k_new, v_new, positions)
+        out = decode_attention(q, cache.k[layer], cache.v[layer],
+                               positions + 1, scale, cache.scale[layer],
+                               alibi)
+        return out, cache
+    args = (q, k_new, v_new, cache.k, cache.v, layer, positions, scale)
+    if mode in ("auto", "dma", "xla"):
+        out = _decode.dma_decode_attention(*args, kv_scale=cache.scale)
+    elif mode == "fused":
+        out = _decode.fused_decode_attention(*args, kv_scale=cache.scale)
+    else:
+        cache = write_kv_decode_at(cache, layer, k_new, v_new, positions)
+        out = decode_attention_at(q, cache, layer, positions + 1, scale)
     return out, cache
+
+
+fused_decode_attention_at.alibi_calls = 0
 
 
 def decode_attention_at(q, cache: KVCache, layer: int, cache_lens,
@@ -179,12 +215,14 @@ def decode_attention_at(q, cache: KVCache, layer: int, cache_lens,
 
 
 def decode_attention(q, k_cache, v_cache, cache_lens,
-                     scale: Optional[float] = None, kv_scale=None):
+                     scale: Optional[float] = None, kv_scale=None,
+                     alibi=None):
     """Single-token attention against ONE layer's cache [B, H_kv, S, D]
     (already written): keys at positions < cache_lens[b]; an int8 cache is
-    dequantized with that layer's `kv_scale` and rounded to q's dtype. The
-    probabilities are cast to q's dtype before p @ v, as in the JAX
-    package's XLA path. Returns [B, H_q, D]."""
+    dequantized with that layer's `kv_scale` and rounded to q's dtype;
+    alibi: optional [H_q] slopes (f32 slope * key position added to the
+    scaled scores before the mask). The probabilities are cast to q's dtype
+    before p @ v, as in the JAX package's XLA path. Returns [B, H_q, D]."""
     b, hq, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else d ** -0.5
@@ -193,7 +231,10 @@ def decode_attention(q, k_cache, v_cache, cache_lens,
     vt = _dequant_kv(v_cache, kv_scale, q.dtype).repeat_interleave(hq // hkv,
                                                                    dim=1)
     logits = torch.einsum("bhd,bhsd->bhs", q.float(), kt.float()) * scale
-    mask = torch.arange(s, device=q.device)[None, :] < cache_lens[:, None]
+    cols = torch.arange(s, device=q.device)
+    if alibi is not None:
+        logits = logits + alibi.float().reshape(1, hq, 1) * cols.float()
+    mask = cols[None, :] < cache_lens[:, None]
     logits = torch.where(mask[:, None], logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhs,bhsd->bhd", probs.float(), vt.float())

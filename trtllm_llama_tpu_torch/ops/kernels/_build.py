@@ -32,7 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # activation dtype codes of csrc/common.cuh (tllm::DType)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# head dims every attention kernel is instantiated for: those of every model
+# the port runs (LLaMA, Bloom, OPT 128; Falcon 64; GPT-NeoX 96; GPT-J 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 
 _LIBS: dict = {}
 

@@ -21,12 +21,15 @@ attention.py::decode_attention_kernel`: kernel 3's body with a read-only
 addressing policy over the rows < cache_lens[b] (a length <= 0 averages V
 over all S rows, as the reference's all-masked softmax does). Row 9
 (`fused_decode_attention`) replaces `attention.py::fused_decode_attention`:
-kernel 3's function in one launch, one block per (kv head, b) that stores
-row pos and then walks the live rows with an online softmax, with no
-partials and no combine launch.
+kernel 3's function in one launch: blocks of up to 8 query heads per
+(kv head, b) (one for a GQA group of 1; Falcon-7B's 71 heads at D=64 in
+9) walk the live rows with an online softmax, with no partials and no
+combine launch; block 0 writes row pos and every block attends its own
+decoded copy of it, so no block reads the row being written.
 
 Each wrapper takes its plain version for CPU tensors and launches its
-kernel for CUDA tensors; `<wrapper>.launches` counts launches.
+kernel for CUDA tensors (head dims 32, 64, 96, 128 and 256, as kernel 14;
+any other raises); `<wrapper>.launches` counts launches.
 """
 
 from __future__ import annotations
@@ -47,9 +50,6 @@ _SIGNATURES = {"tllm_decode_attention": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
                + [_F, _I, _P]}
 _FUSED_SIGNATURES = {"tllm_fused_decode_attention":
                      [_P] * 8 + [_I] * 7 + [_F, _I, _P]}
-_HEAD_DIMS = (32, 64, 128)
-_FUSED_WARPS = 16     # kWarps in csrc/fused_decode_attention.cu
-_MAX_SMEM = 227 * 1024
 
 
 def write_rows(cache, positions, rows):
@@ -135,8 +135,8 @@ def _check(name, q, k_cache, v_cache, layer, lens, kv_scale, new=()):
             or any(t.dtype != q.dtype for t in new)
             or {k_cache.dtype, v_cache.dtype} not in ({q.dtype}, {torch.int8})):
         raise TypeError(f"{name}: unsupported dtypes (q and new K/V share one"
-                        " of f32/bf16; the caches that one or int8)")
-    if (d not in _HEAD_DIMS or hq % hkv or s % CHUNK
+                        " of f32/bf16/fp16; the caches that one or int8)")
+    if (d not in _build.HEAD_DIMS or hq % hkv or s % CHUNK
             or k_cache.shape != (n_layers, b, hkv, s, d)
             or v_cache.shape != k_cache.shape
             or any(t.shape != (b, hkv, d) for t in new)
@@ -214,10 +214,6 @@ def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int,
                        positions, kv_scale, (k_new, v_new))
     b, hq, d = q.shape
     hkv, s = k_cache.shape[2], k_cache.shape[3]
-    group = hq // hkv
-    if group * (d + _FUSED_WARPS * (d + 2)) * 4 > _MAX_SMEM:
-        raise ValueError(f"fused_decode_attention: a GQA group of {group} "
-                         "heads needs more shared memory than a block has")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("fused_decode_attention: caches must be 16-byte "
                          "aligned")

@@ -55,8 +55,8 @@ def fp8_matmul_stacked(x, w: FP8Weight, layer: int, norm_w=None,
                        eps: float = 1e-6, resid=None):
     """y = [resid +] (norm(x) | x) @ dequant(w.qweight[layer]).
 
-    x: [..., K] f32 or bf16; w: stacked FP8Weight, codes [L, K, N], scale
-    [L, N]; norm_w: optional stacked [L, K] RMSNorm weight (prologue);
+    x: [..., K] f32, bf16 or fp16; w: stacked FP8Weight, codes [L, K, N],
+    scale [L, N]; norm_w: optional stacked [L, K] RMSNorm weight (prologue);
     resid: optional [..., N] in x's dtype (epilogue). Returns f32 [..., N].
     """
     if _device_kind(x, "fp8_matmul_stacked") == "cpu":

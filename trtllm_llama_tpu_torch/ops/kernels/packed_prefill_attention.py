@@ -12,7 +12,8 @@ tile holding the first row of its first row's segment (sequences are
 contiguous), so the work is O(sum len^2), not O(T^2).
 
 `packed_prefill_attention_kernel` takes the plain version for CPU tensors
-and launches the kernel for CUDA tensors; `.launches` counts launches.
+and launches the kernel for CUDA tensors (head dims 32, 64, 96, 128 and
+256; any other raises); `.launches` counts launches.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ NEG_INF = -1e9
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_packed_prefill_attention": [_P] * 5 + [_I] * 5
                + [_F, _I, _P]}
-_HEAD_DIMS = (32, 64, 128)
 
 
 def packed_prefill_attention_kernel_plain(q, k, v, seg_ids, sm_scale=None):
@@ -64,7 +64,7 @@ def packed_prefill_attention_kernel(q, k, v, seg_ids, sm_scale=None):
             or v.dtype != q.dtype):
         raise TypeError(f"packed_prefill_attention_kernel: unsupported dtypes"
                         f" {q.dtype}/{k.dtype}/{v.dtype}")
-    if (d not in _HEAD_DIMS or t < 1 or hq % hkv or k.shape != (t, hkv, d)
+    if (d not in _build.HEAD_DIMS or t < 1 or hq % hkv or k.shape != (t, hkv, d)
             or v.shape != k.shape):
         raise ValueError(f"packed_prefill_attention_kernel: shapes q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} v "

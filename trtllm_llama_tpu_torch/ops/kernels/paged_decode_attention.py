@@ -16,7 +16,8 @@ attends the MB * BS table rows; every other row of the pool stays as it
 was. BS must be a multiple of 8.
 
 `paged_decode_attention` takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors; `.launches` counts launches.
+launches the kernel for CUDA tensors (head dims 32, 64, 96, 128 and 256;
+any other raises); `.launches` counts launches.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ CHUNK = 32      # cache rows per block (kChunk in the source)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_paged_decode_attention":
                [_P] * 12 + [_I] * 9 + [_F, _I, _P]}
-_HEAD_DIMS = (32, 64, 128)
 
 
 def _write_blocks(tables, positions, n_blocks: int, bs: int):
@@ -125,9 +125,9 @@ def paged_decode_attention(q, k_new, v_new, pool_k, pool_v, layer: int,
             or {k_new.dtype, v_new.dtype} != {q.dtype}
             or {pool_k.dtype, pool_v.dtype} not in ({q.dtype}, {torch.int8})):
         raise TypeError("paged_decode_attention: unsupported dtypes (q, new "
-                        "K/V share one of f32/bf16; the pools that one or "
+                        "K/V share one of f32/bf16/fp16; the pools that one or "
                         "int8)")
-    if (d not in _HEAD_DIMS or hq % hkv or pool_k.shape[4] != d
+    if (d not in _build.HEAD_DIMS or hq % hkv or pool_k.shape[4] != d
             or v_new.shape != k_new.shape or k_new.shape != (b, hkv, d)
             or pool_v.shape != pool_k.shape or tables.shape != (b, mb)
             or mb < 1 or not 0 <= layer < n_layers):

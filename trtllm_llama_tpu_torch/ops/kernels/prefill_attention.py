@@ -1,14 +1,16 @@
 """Kernel 2: causal GQA prefill attention (csrc/prefill_attention.cu).
 
-Replaces `trtllm_llama_tpu/ops/pallas/attention.py::prefill_attention_kernel`.
-Bound on the H100: q/k/v/out bytes at the main path's short prompts, the
+Replaces `trtllm_llama_tpu/ops/pallas/attention.py::prefill_attention_kernel`,
+its ALiBi branch included (`alibi`: [Hq] slopes, adding slope * key column
+to the scaled scores before the mask, as the JAX kernel does). Bound on the H100: q/k/v/out bytes at the main path's short prompts, the
 causal 4*S^2*H*D flops at long ones. The first design is one block per
 (b, head, 16-row q tile) with an online softmax over 32-row K/V tiles in
 shared memory; masked tiles past the block's rows or the sequence length
 are skipped (see the source's header note).
 
 `prefill_attention_kernel` takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors; `.launches` counts launches.
+launches the kernel for CUDA tensors (head dims 32, 64, 96, 128 and 256;
+any other raises); `.launches` counts launches.
 """
 
 from __future__ import annotations
@@ -22,21 +24,30 @@ from . import _build
 NEG_INF = -1e9
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"tllm_prefill_attention": [_P] * 5 + [_I] * 6 + [_F, _I, _P]}
-_HEAD_DIMS = (32, 64, 128)
+_SIGNATURES = {"tllm_prefill_attention": [_P] * 6 + [_I] * 6 + [_F, _I, _P]}
 
 
-def prefill_attention_kernel_plain(q, k, v, seq_lens=None, sm_scale=None):
-    """Plain PyTorch version: f32 scores * sm_scale, mask cols <= rows and
-    cols < seq_lens[b], f32 softmax, f32 p @ v, cast to q's dtype."""
+def alibi_bias(alibi, cols):
+    """f32 slope * key column, [Hq, 1, S] (0-d when alibi is None)."""
+    if alibi is None:
+        return torch.zeros((), device=cols.device)
+    return alibi.float().reshape(-1, 1, 1) * cols.float()
+
+
+def prefill_attention_kernel_plain(q, k, v, seq_lens=None, sm_scale=None,
+                                   alibi=None):
+    """Plain PyTorch version: f32 scores * sm_scale [+ alibi[h] * col],
+    mask cols <= rows and cols < seq_lens[b] with NEG_INF, f32 softmax,
+    f32 p @ v, cast to q's dtype."""
     b, s, hq, d = q.shape
     rep = hq // k.shape[2]
     scale = sm_scale if sm_scale is not None else d ** -0.5
     qf = q.float().transpose(1, 2)                                # [B,Hq,S,D]
     kf = k.float().transpose(1, 2).repeat_interleave(rep, dim=1)
     vf = v.float().transpose(1, 2).repeat_interleave(rep, dim=1)
-    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale      # [B,Hq,S,S]
     cols = torch.arange(s, device=q.device)
+    scores = (torch.matmul(qf, kf.transpose(-1, -2)) * scale     # [B,Hq,S,S]
+              + alibi_bias(alibi, cols))
     mask = cols[None, :] <= cols[:, None]
     if seq_lens is not None:
         mask = mask & (cols[None, None, :] < seq_lens[:, None, None])
@@ -46,11 +57,14 @@ def prefill_attention_kernel_plain(q, k, v, seq_lens=None, sm_scale=None):
     return torch.matmul(probs, vf).to(q.dtype).transpose(1, 2)
 
 
-def prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None):
+def prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None,
+                             alibi=None):
     """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D]; seq_lens: optional [B] int32
-    valid lengths. Returns [B, S, Hq, D] in q's dtype."""
+    valid lengths; alibi: optional [Hq] slopes. Returns [B, S, Hq, D] in
+    q's dtype."""
     if q.device.type == "cpu":
-        return prefill_attention_kernel_plain(q, k, v, seq_lens, sm_scale)
+        return prefill_attention_kernel_plain(q, k, v, seq_lens, sm_scale,
+                                              alibi)
     if q.device.type != "cuda":
         raise ValueError(f"prefill_attention_kernel: unsupported device {q.device}")
     b, s, hq, d = q.shape
@@ -59,23 +73,28 @@ def prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None):
             or v.dtype != q.dtype):
         raise TypeError(f"prefill_attention_kernel: unsupported dtypes "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if (d not in _HEAD_DIMS or hq % hkv or k.shape != (b, s, hkv, d)
+    if (d not in _build.HEAD_DIMS or hq % hkv or k.shape != (b, s, hkv, d)
             or v.shape != k.shape):
         raise ValueError(f"prefill_attention_kernel: shapes q {tuple(q.shape)}"
                          f" k {tuple(k.shape)} v {tuple(v.shape)}")
     if seq_lens is None:
         seq_lens = torch.full((b,), s, dtype=torch.int32, device=q.device)
     seq_lens = seq_lens.to(torch.int32)
+    if alibi is not None:
+        alibi = alibi.to(device=q.device, dtype=torch.float32).contiguous()
     if (any(t.device != q.device or not t.is_contiguous()
-            for t in (q, k, v, seq_lens)) or seq_lens.shape != (b,)):
+            for t in (q, k, v, seq_lens)) or seq_lens.shape != (b,)
+            or (alibi is not None and alibi.shape != (hq,))):
         raise ValueError("prefill_attention_kernel: tensors must be "
-                         "contiguous and on one device, seq_lens [B]")
+                         "contiguous and on one device, seq_lens [B], "
+                         "alibi [Hq]")
     scale = sm_scale if sm_scale is not None else d ** -0.5
     lib = _build.load("prefill_attention", _SIGNATURES)
     out = torch.empty_like(q)
     err = lib.tllm_prefill_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(seq_lens),
-        _build.ptr(out), _build.DTYPE_CODES[q.dtype], b, s, hq, hkv, d,
+        _build.ptr(alibi), _build.ptr(out), _build.DTYPE_CODES[q.dtype], b,
+        s, hq, hkv, d,
         float(scale), q.device.index or 0, _build.stream_of(q))
     _build.check(err, "prefill_attention_kernel")
     prefill_attention_kernel.launches += 1

@@ -36,7 +36,7 @@ def rmsnorm_quant_plain(x, weight, eps: float = 1e-6):
 
 
 def rmsnorm_quant(x, weight, eps: float = 1e-6):
-    """x: [..., D] f32 or bf16; weight: [D] in x's dtype. Returns
+    """x: [..., D] f32, bf16 or fp16; weight: [D] in x's dtype. Returns
     (q int8 [..., D], scale f32 [..., 1]) with per-row dynamic scales."""
     if x.device.type == "cpu":
         return rmsnorm_quant_plain(x, weight, eps)
@@ -45,7 +45,8 @@ def rmsnorm_quant(x, weight, eps: float = 1e-6):
     d = x.shape[-1]
     if x.dtype not in _build.DTYPE_CODES or weight.dtype != x.dtype:
         raise TypeError(f"rmsnorm_quant: unsupported dtypes {x.dtype}/"
-                        f"{weight.dtype} (x and weight share f32 or bf16)")
+                        f"{weight.dtype} (x and weight share f32, bf16 or "
+                        "fp16)")
     if (weight.shape != (d,) or weight.device != x.device
             or not x.is_contiguous() or not weight.is_contiguous()):
         raise ValueError(f"rmsnorm_quant: x {tuple(x.shape)} and weight "

@@ -2,18 +2,20 @@
 (csrc/streaming_prefill_attention.cu).
 
 Replaces `trtllm_llama_tpu/ops/pallas/attention.py::
-streaming_prefill_attention_kernel` (without ALiBi). Bound on the H100:
-operations, the causal 2*B*Hq*S^2*D flops (0.56 ms per LLaMA-7B layer at
-S=8192 in bf16). Design: one block per (64-row q tile, head, b), four warps
-of 16 rows; 64-key K/V tiles staged in shared memory; Q K^T and P V on the
-tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate, P rounded to bf16
-as the JAX XLA path rounds its probabilities), an f32 online softmax in
-registers; f32 inputs take the same tiling on the CUDA cores. Key tiles past
-the block's rows or the sequence length are skipped (see the source's
-note).
+streaming_prefill_attention_kernel`, its ALiBi branch included (`alibi`:
+[Hq] slopes, slope * key column added to the scaled scores before the
+mask). Bound on the H100: operations, the causal 2*B*Hq*S^2*D flops
+(0.56 ms per LLaMA-7B layer at S=8192 in bf16). Design: one block per
+(64-row q tile, head, b), four warps of 16 rows; 64-key K/V tiles staged in
+shared memory; Q K^T and P V on the tensor cores (mma.sync m16n8k16, bf16
+or fp16 in, f32 accumulate, P rounded to q's dtype as the JAX XLA path
+rounds its probabilities), an f32 online softmax in registers; f32 inputs
+take the same tiling on the CUDA cores. Key tiles past the block's rows or
+the sequence length are skipped (see the source's note).
 
 `streaming_prefill_attention_kernel` takes the plain version for CPU tensors
-and launches the kernel for CUDA tensors; `.launches` counts launches.
+and launches the kernel for CUDA tensors (head dims 32, 64, 96, 128 and
+256; any other raises); `.launches` counts launches.
 """
 
 from __future__ import annotations
@@ -23,21 +25,22 @@ import ctypes
 import torch
 
 from . import _build
+from .prefill_attention import alibi_bias
 
 NEG_INF = -1e9
 Q_BLOCK = 512   # query rows per step of the plain version
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_streaming_prefill_attention":
-               [_P] * 5 + [_I] * 6 + [_F, _I, _P]}
-_HEAD_DIMS = (32, 64, 128)
+               [_P] * 6 + [_I] * 6 + [_F, _I, _P]}
 
 
 def streaming_prefill_attention_kernel_plain(q, k, v, seq_lens=None,
-                                             sm_scale=None):
+                                             sm_scale=None, alibi=None):
     """Plain PyTorch version, Q_BLOCK query rows at a time (f32 scores
     [B, Hq, Q_BLOCK, S], so memory grows with S, not S^2): f32 scores *
-    sm_scale, mask cols <= rows and cols < seq_lens[b] with NEG_INF (a
+    sm_scale [+ alibi[h] * col], mask cols <= rows and cols < seq_lens[b]
+    with NEG_INF (a
     length of 0 averages V over all S columns), f32 softmax, f32 p @ v,
     cast to q's dtype."""
     b, s, hq, d = q.shape
@@ -48,11 +51,13 @@ def streaming_prefill_attention_kernel_plain(q, k, v, seq_lens=None,
     cols = torch.arange(s, device=q.device)
     lens = (torch.full((b,), s, device=q.device) if seq_lens is None
             else seq_lens.to(q.device))
+    bias = alibi_bias(alibi, cols)
     out = torch.empty_like(q)
     for r0 in range(0, s, Q_BLOCK):
         rows = cols[r0:r0 + Q_BLOCK]
         qf = q[:, r0:r0 + Q_BLOCK].float().transpose(1, 2)       # [B,Hq,R,D]
-        scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale  # [B,Hq,R,S]
+        scores = (torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  + bias)                                        # [B,Hq,R,S]
         mask = ((cols[None, :] <= rows[:, None])[None]
                 & (cols[None, None, :] < lens[:, None, None]))   # [B,R,S]
         scores = torch.where(mask[:, None], scores,
@@ -66,12 +71,11 @@ def streaming_prefill_attention_kernel_plain(q, k, v, seq_lens=None,
 def streaming_prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None,
                                        alibi=None):
     """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D]; seq_lens: optional [B] int32
-    valid lengths. Returns [B, S, Hq, D] in q's dtype."""
-    if alibi is not None:
-        raise NotImplementedError("ALiBi attention is not ported yet")
+    valid lengths; alibi: optional [Hq] slopes. Returns [B, S, Hq, D] in
+    q's dtype."""
     if q.device.type == "cpu":
         return streaming_prefill_attention_kernel_plain(q, k, v, seq_lens,
-                                                        sm_scale)
+                                                        sm_scale, alibi)
     if q.device.type != "cuda":
         raise ValueError("streaming_prefill_attention_kernel: unsupported "
                          f"device {q.device}")
@@ -81,7 +85,7 @@ def streaming_prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None,
             or v.dtype != q.dtype):
         raise TypeError("streaming_prefill_attention_kernel: unsupported "
                         f"dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    if (d not in _HEAD_DIMS or hq % hkv or k.shape != (b, s, hkv, d)
+    if (d not in _build.HEAD_DIMS or hq % hkv or k.shape != (b, s, hkv, d)
             or v.shape != k.shape):
         raise ValueError("streaming_prefill_attention_kernel: shapes q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} "
@@ -89,18 +93,22 @@ def streaming_prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None,
     if seq_lens is None:
         seq_lens = torch.full((b,), s, dtype=torch.int32, device=q.device)
     seq_lens = seq_lens.to(torch.int32)
+    if alibi is not None:
+        alibi = alibi.to(device=q.device, dtype=torch.float32).contiguous()
     if (any(t.device != q.device or not t.is_contiguous()
             for t in (q, k, v, seq_lens)) or seq_lens.shape != (b,)
-            or any(t.data_ptr() % 16 for t in (q, k, v))):
+            or any(t.data_ptr() % 16 for t in (q, k, v))
+            or (alibi is not None and alibi.shape != (hq,))):
         raise ValueError("streaming_prefill_attention_kernel: tensors must be"
                          " contiguous, 16-byte aligned and on one device, "
-                         "seq_lens [B]")
+                         "seq_lens [B], alibi [Hq]")
     scale = sm_scale if sm_scale is not None else d ** -0.5
     lib = _build.load("streaming_prefill_attention", _SIGNATURES)
     out = torch.empty_like(q)
     err = lib.tllm_streaming_prefill_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(seq_lens),
-        _build.ptr(out), _build.DTYPE_CODES[q.dtype], b, s, hq, hkv, d,
+        _build.ptr(alibi), _build.ptr(out), _build.DTYPE_CODES[q.dtype], b,
+        s, hq, hkv, d,
         float(scale), q.device.index or 0, _build.stream_of(q))
     _build.check(err, "streaming_prefill_attention_kernel")
     streaming_prefill_attention_kernel.launches += 1

@@ -190,8 +190,8 @@ def woq_matmul_stacked(x, w: WOQWeight, layer: int, norm_w=None,
                        eps: float = 1e-6, resid=None):
     """y = [resid +] (norm(x) | x) @ dequant(w.qweight[layer]).
 
-    x: [..., K] f32 or bf16; w: stacked WOQWeight, int8 [L, K, N] or packed
-    int4 [L, K/2, N], scale [L, N] or grouped [L, K/g, N]; norm_w: optional
+    x: [..., K] f32, bf16 or fp16; w: stacked WOQWeight, int8 [L, K, N] or
+    packed int4 [L, K/2, N], scale [L, N] or grouped [L, K/g, N]; norm_w: optional
     stacked [L, K] RMSNorm weight (prologue); resid: optional [..., N] in
     x's dtype (epilogue). Returns f32 [..., N]."""
     if _device_kind(x, "woq_matmul_stacked") == "cpu":

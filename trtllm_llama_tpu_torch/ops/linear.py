@@ -1,7 +1,8 @@
 """Linear ops with quantized-weight dispatch (the port's `ops/linear.py`).
 
-`dense` dispatches on the weight container: a plain tensor goes to
-`torch.matmul` (a stock product, as the JAX package leaves it to XLA), a
+`dense` dispatches on the weight container: a plain tensor goes to a
+stock product (as the JAX package leaves it to XLA; on the card a bf16 /
+fp16 GEMM with f32 accumulation that never copies the weight to f32), a
 `WOQWeight` (int8 or int4, per-channel or grouped) to kernel 1
 (`ops/kernels/woq_matmul.py`), an `FP8Weight` to kernel 6
 (`ops/kernels/fp8_matmul.py`), an `SQWeight` to kernel 5
@@ -10,7 +11,9 @@ torch ops, as the JAX package quantizes outside its kernel) or with the
 static scale. A stacked weight with `layer` goes to a kernel's stacked
 entry, a 2-D one (the lm_head) to its 2-D entry. `dense_prequant` feeds
 kernel 5 an activation already quantized by `rms_norm_quant`. Each kernel
-wrapper takes its plain version for CPU tensors.
+wrapper takes its plain version for CPU tensors and raises on the card for
+a weight its kernel does not tile (N not a multiple of 16; for W8A8 also
+K % 4).
 """
 
 from __future__ import annotations
@@ -47,9 +50,17 @@ def dense(x, w, out_dtype=None, layer=None):
         return _dense_sq(x, w, out_dtype, layer)
     if layer is not None:
         w = w[layer]
+    w = w.to(x.dtype)
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        # a compute-dtype GEMM with an f32 output (torch.mm's out_dtype):
+        # cuBLAS sums in f32 whatever torch's reduced-precision reduction
+        # flags say, the result rounds once, and the weight is never
+        # copied to f32
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1]).to(out_dtype)
     # f32 products of the compute-dtype operands, f32 sum, one final cast:
     # the JAX package's dot(..., preferred_element_type=f32).astype(out)
-    y = torch.matmul(x.float(), w.to(x.dtype).float())
+    y = torch.matmul(x.float(), w.float())
     return y.to(out_dtype)
 
 

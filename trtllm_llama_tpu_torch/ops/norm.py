@@ -1,4 +1,5 @@
-"""RMSNorm and its fused int8-quantizing variant (the port's `ops/norm.py`)."""
+"""RMSNorm, LayerNorm and the fused int8-quantizing RMSNorm (the port's
+`ops/norm.py`)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,18 @@ def rms_norm(x, weight, eps: float = 1e-6):
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm (the GPT-style families) with f32 mean and variance, the
+    weight and bias applied in f32, cast back to x's dtype (the JAX
+    package's operation order; it has no kernel for it, nor does the
+    port)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 def rms_norm_quant(x, weight, eps: float = 1e-6):

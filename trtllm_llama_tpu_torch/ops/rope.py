@@ -1,5 +1,6 @@
-"""Rotary position embeddings, HF LLaMA "rotate_half" convention
-(the port's `ops/rope.py`)."""
+"""Rotary position embeddings (the port's `ops/rope.py`): the HF LLaMA
+"rotate_half" convention (also GPT-NeoX's and Falcon's, on the first
+`rotary_dim` dims), and GPT-J's interleaved "rotate every two" one."""
 
 from __future__ import annotations
 
@@ -43,6 +44,33 @@ def apply_rope(x, cos, sin):
     [..., S, 1, d]. The product is taken in the promoted dtype (f32 tables)
     and cast back to x's dtype."""
     return (x * cos + _rotate_half(x) * sin).to(x.dtype)
+
+
+def rope_table_interleaved(max_len: int, rotary_dim: int,
+                           theta: float = 10000.0, dtype=torch.float32,
+                           device="cpu"):
+    """GPT-J convention: each frequency repeated twice (interleaved pairs).
+    Returns (cos, sin), each [max_len, rotary_dim]."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, rotary_dim, 2,
+                                             dtype=torch.float32,
+                                             device=device) / rotary_dim))
+    t = torch.arange(max_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)                        # [S, d/2]
+    return (freqs.cos().repeat_interleave(2, dim=-1).to(dtype),
+            freqs.sin().repeat_interleave(2, dim=-1).to(dtype))
+
+
+def apply_rope_interleaved(x, cos, sin, rotary_dim: int = 0):
+    """Rotate every two on the first `rotary_dim` dims (0: all of them).
+    x: [..., H, d]; cos/sin broadcastable [..., 1, rotary_dim]. The product
+    is taken in the promoted dtype and cast back to x's dtype."""
+    d = x.shape[-1]
+    rot_d = rotary_dim or d
+    xr = x[..., :rot_d]
+    rotated = torch.stack([-xr[..., 1::2], xr[..., ::2]], dim=-1
+                          ).reshape(xr.shape)
+    out = (xr * cos + rotated * sin).to(x.dtype)
+    return out if rot_d == d else torch.cat([out, x[..., rot_d:]], dim=-1)
 
 
 def take_rope(cos, sin, positions):

@@ -3,7 +3,8 @@
 `init_random_quantized_params` draws the projection weights directly as
 quantized codes on the target device (int8 or int4 weight-only, fp8, or
 SmoothQuant int8), so a 7B model initialises on one card without ever
-holding its floating-point weights. `quantize_params` rewrites the float
+holding its floating-point weights; with no weight quantization (the mode
+0 or the int8 KV cache alone) it draws them in the compute dtype. `quantize_params` rewrites the float
 projections (and, on request, the lm_head) of a parameter dict into
 quantized containers, as the JAX package's function does; containers that
 are already quantized are left as they are.
@@ -22,15 +23,9 @@ from .tensors import (FP8_INTERLEAVE_BLOCK, FP8Weight, SQWeight, WOQWeight,
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
-def _check_ported(quant_mode: QuantMode) -> None:
-    if quant_mode.has_fp8_kv_cache():
-        raise NotImplementedError(
-            f"quant mode {quant_mode!r}: the fp8 KV cache is not ported")
-    if not (quant_mode.has_fp8_qdq() or quant_mode.is_weight_only()
-            or quant_mode.has_act_and_weight_quant()):
-        raise NotImplementedError(
-            f"quant mode {quant_mode!r}: random params are born quantized "
-            "(weight-only int8 / int4, fp8 or SmoothQuant)")
+def _quantizes_weights(quant_mode: QuantMode) -> bool:
+    return (quant_mode.has_fp8_qdq() or quant_mode.is_weight_only()
+            or quant_mode.has_act_and_weight_quant())
 
 
 def random_fp8_codes(shape, generator, device):
@@ -49,7 +44,8 @@ def init_random_quantized_params(cfg, seed: int = 0,
                                  device="cuda", group_size: int = None):
     """Random LLaMA params on `device`, drawn from a torch.Generator seeded
     with `seed` on that device. Projections as the JAX package's function
-    lays them out: fp8 (`FP8Weight`, uniform encodable codes, scale
+    lays them out: normal * fan_in**-0.5 in `cfg.dtype` when the mode
+    quantizes no weights (0, or INT8_KV_CACHE alone); fp8 (`FP8Weight`, uniform encodable codes, scale
     fan_in**-0.5 / 448, rows declared interleaved by 128 when K allows);
     weight-only int8 or int4 (`WOQWeight`, uniform int8 bytes, which for
     int4 are two packed nibbles; scale fan_in**-0.5 / 127 per channel, or
@@ -59,7 +55,9 @@ def init_random_quantized_params(cfg, seed: int = 0,
     (normal * fan_in**-0.5), unit norms. The random streams differ from
     JAX's."""
     quant_mode = quant_mode if quant_mode is not None else cfg.quant_mode
-    _check_ported(quant_mode)
+    if quant_mode.has_fp8_kv_cache():
+        raise NotImplementedError(
+            f"quant mode {quant_mode!r}: the fp8 KV cache is not ported")
     group_size = cfg.group_size if group_size is None else group_size
     device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -83,6 +81,8 @@ def init_random_quantized_params(cfg, seed: int = 0,
 
     def make_weight(shape):
         fan_in, n = shape[-2], shape[-1]
+        if not _quantizes_weights(quant_mode):
+            return normal(shape, fan_in)
         if quant_mode.has_fp8_qdq():
             ib = FP8_INTERLEAVE_BLOCK if fan_in % FP8_INTERLEAVE_BLOCK == 0 else 0
             return FP8Weight(random_fp8_codes(shape, generator, device),
@@ -119,9 +119,11 @@ def init_random_quantized_params(cfg, seed: int = 0,
     }
 
 
-def _float_projections(layers):
-    """Names of the stacked float projections ([L, in, out] tensors named
-    w*); norms and already-quantized containers are skipped."""
+def _matmul_keys(layers):
+    """Names of the stacked float projections of any family's layout (the
+    llama w_gate / w_up / w_down, the decoder families' w_fc / w_proj):
+    every [L, in, out] tensor named w*; biases, norms and already-quantized
+    containers are skipped."""
     return [k for k, v in layers.items() if k.startswith("w")
             and isinstance(v, torch.Tensor) and v.dim() == 3]
 
@@ -136,11 +138,10 @@ def quantize_params(params, quant_mode: QuantMode, group_size: int = 0,
     lm_head per channel in the model's weight format (int8 for SmoothQuant).
     Embedding and norms stay float; a mode without weight quantization
     (e.g. KV cache only) returns params unchanged."""
-    if not (quant_mode.is_weight_only() or quant_mode.has_fp8_qdq()
-            or quant_mode.has_act_and_weight_quant()):
+    if not _quantizes_weights(quant_mode):
         return params
     layers = dict(params["layers"])
-    names = _float_projections(params["layers"])
+    names = _matmul_keys(params["layers"])
     if quant_mode.has_act_and_weight_quant():
         if act_ranges is None:
             raise ValueError("SmoothQuant needs calibrated act_ranges")

@@ -6,7 +6,9 @@ bucket the prompt, prefill, then decode one token per step with the
 `done` / `lengths` / `positions` bookkeeping of the reference, until
 `max_new_tokens` or every sequence hit `end_id`. The parameters may hold
 any container the port runs (int8 / int4 weight-only, fp8, SmoothQuant,
-a quantized lm_head): the model code dispatches on them.
+a quantized lm_head): the model code dispatches on them. The model is
+`model=` (llama, or a decoder family such as `models.decoder.BLOOM`) or
+the one `models.by_architecture(cfg.architecture)` names.
 """
 
 from __future__ import annotations
@@ -19,8 +21,7 @@ import torch
 
 from ..config import EngineConfig, ModelConfig
 from ..device import resolve_device
-from ..models import llama
-from ..ops.rope import rope_tables_for
+from ..models import by_architecture
 from .sampling import SamplingConfig, sample_step
 
 
@@ -40,18 +41,24 @@ def _params_to(tree, device):
 
 class GenerationSession:
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig,
-                 kv_scales=None, device="cuda"):
+                 kv_scales=None, device="cuda", model=None):
         """kv_scales: optional [L] int8-KV dequant scales (calibrated by the
-        converter; 1.0 when omitted, as in the JAX package)."""
+        converter; 1.0 when omitted, as in the JAX package). model: the
+        model object (default `by_architecture(cfg.architecture)`)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine_cfg = engine_cfg
+        self.model = model or by_architecture(cfg.architecture)
         self.kv_scales = (None if kv_scales is None else torch.as_tensor(
             np.asarray(kv_scales, np.float32), device=self.device))
-        # one device: fuse q/k/v into one matmul, as the JAX session does
-        # (gate/up fusion is opt-in there and not ported)
-        self.params = llama.fuse_qkv_params(_params_to(params, self.device))
-        self.rope = rope_tables_for(cfg, device=self.device)
+        self.params = _params_to(params, self.device)
+        # one device: fuse q/k/v into one matmul where the model has the
+        # rewrite, as the JAX session does (gate/up fusion is opt-in there
+        # and not ported)
+        fuse = getattr(self.model, "fuse_qkv_params", None)
+        if fuse is not None:
+            self.params = fuse(self.params)
+        self.rope = self.model.rope_tables(cfg, device=self.device)
 
     def generate(self, input_ids, seq_lens=None,
                  sampling: Optional[SamplingConfig] = None,
@@ -84,10 +91,11 @@ class GenerationSession:
 
         dev, cfg = self.device, self.cfg
         with torch.inference_mode():
-            caches = llama.init_caches(cfg, b, max_len, dev, self.kv_scales)
+            model = self.model
+            caches = model.init_caches(cfg, b, max_len, dev, self.kv_scales)
             ids = torch.as_tensor(padded, device=dev)
             lens = torch.as_tensor(np.asarray(seq_lens, np.int32), device=dev)
-            logits, caches = llama.forward_prefill(self.params, cfg, ids, lens,
+            logits, caches = model.forward_prefill(self.params, cfg, ids, lens,
                                                    caches, rope=self.rope)
             tokens = sample_step(logits, scfg,
                                  torch.zeros(b, dtype=torch.int32, device=dev))
@@ -99,7 +107,7 @@ class GenerationSession:
             positions = lens.clone()
             step = 1
             while step < max_new_tokens and not bool(done.all()):
-                logits, caches = llama.forward_decode(
+                logits, caches = model.forward_decode(
                     self.params, cfg, tokens, positions, caches,
                     rope=self.rope)
                 gen_lens = torch.full((b,), step, dtype=torch.int32, device=dev)
