@@ -27,8 +27,14 @@
    and 3 at GQA groups of 71 (D=64, Falcon-7B) and 32 (D=128) with one KV
    head; kernels 2 and 3 at each decoder family's head shape (GPT-J 16 x
    256, GPT-NeoX 64 x 96, OPT 32 x 128, Falcon 71:1 x 64) and row 12 at
-   head dims 96 and 256; and each kernel's float16 instantiation at one
-   shape;
+   head dims 96 and 256; each kernel's float16 instantiation at one
+   shape; the SwiGLU prologue of the weight-only and fp8 GEMVs at the
+   down projection's shape (x [M, 2 x 11008] -> 4096) in every format at
+   M = 1, 9 and 16, with and without the residual (bf16, one fp16 and one
+   f32 case); the 2-D W8A8 entry (row 5) at path 7's five shapes, M = 1
+   and 8, per-tensor and per-channel weight scales, timed over distinct
+   weights in turn (L2-cold); and the five decode probes (rows 15-19),
+   exhaustive and bit for bit;
 4. drives each path through GenerationSession.generate with random weights
    born quantized (seed 0), at LLaMA-7B's widths:
    path 1, int8 weight-only per-channel; path 2, SmoothQuant W8A8
@@ -46,8 +52,29 @@
    alone subtracted). Paths 1 and 2 then run the bs1 request again with
    decode_attn_mode 'split' (row 8) and 'fused' (row 9): decode and device
    ms/token, launches (the mode's kernel only), first-decode-step logits
-   against the default mode's, and whether the tokens match. Each path's
+   against the default mode's, and whether the tokens match. Paths 1, 3
+   and 4 then run their bs1 and bs4 requests under TLLM_FUSE_GU=1 (gate/up
+   fused, the SwiGLU prologue in the down projection's kernel): launches
+   (the prologue once per layer in every forward of at most 16 rows),
+   tokens against the unfused runs (where they differ, the two tokens'
+   logits at the first differing step; an error unless their shift is
+   within FUSE_GU_TOL), the fused session's prefill logits against the
+   plain path (LOGITS_TOL), its logits against the unfused session's
+   (FUSE_GU_TOL), decode and device ms/token. Each path's
    session is freed before the next starts;
+4b. path 7, the hackathon's offline build at LLaMA-7B's full width and
+   depth: ModelConfig.from_hf_config of huggyllama/llama-7b's config.json
+   fields, an HF-layout bf16 state dict drawn on the card (seed 0),
+   synthetic calibration ranges (seed 0: |N(0, 1)| per channel with 1%
+   outlier channels x20; the card has no transformers and no corpus),
+   smooth_hf_state_dict -> params_from_hf_state_dict (f32) ->
+   quantize_params (static per-tensor SmoothQuant + int8 KV) ->
+   save_engine -> load_engine(device="cuda") with every leaf byte-equal,
+   each stage's wall time, the engine dir's bytes and the peak device
+   memory; then GenerationSession on the loaded params, driven as paths
+   1-4 with every wrapper's launches held exactly (row 5 five times per
+   layer and forward, rows 6 and 7 never), and again under TLLM_FUSE_GU=1
+   (row 5 four times);
 5. path 5, long context (bench.py's int8_int8kv long rows): int8
    weight-only LLaMA-7B with an int8 KV cache, one 8192-token prompt and
    64 greedy tokens; prints prefill ms, decode ms/token, the launches (the
@@ -104,6 +131,7 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -122,6 +150,11 @@ F32_FLOPS = 67e12     # float32 outside the tensor cores
 # apart.
 BF16_TOL = 2.0 ** -7
 LOGITS_TOL = 5e-2     # 7B prefill logits, relative to max |logit|
+# TLLM_FUSE_GU=1 vs unfused 7B logits, relative to max |logit|: one
+# [K, 2F] gate/up projection splits K unlike two [K, F] ones, so its bf16
+# outputs round apart (at most 1.4e-2 measured, path 1 on an H100). Also
+# the most that the two logits of a token flip may move against each other.
+FUSE_GU_TOL = 2.5e-2
 N_WEIGHT_LAYERS = 4   # stacked layers cycled when timing a matmul (> L2)
 NEW_TOKENS = 50       # each path: 8-token prompt, 50 new tokens
 KV_SCALE = 0.05       # path 2's int8-KV scale, every layer
@@ -205,6 +238,19 @@ FAMILY_CONFIGS = [
                        rms_norm_eps=1e-5, max_position_embeddings=2048),
      ("auto", "fused")),
 ]
+# Path 7: the hackathon's offline build. The published huggyllama/llama-7b
+# config.json fields that ModelConfig.from_hf_config reads.
+HF_LLAMA_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                   num_hidden_layers=32, num_attention_heads=32,
+                   rms_norm_eps=1e-6, max_position_embeddings=2048,
+                   tie_word_embeddings=False)
+SQ_ALPHA = 0.5            # SmoothQuant migration strength
+OUTLIER_SHARE = 0.01      # synthetic ranges: outlier channels ...
+OUTLIER_GAIN = 20.0       # ... and their factor over |N(0, 1)|
+SWIGLU_INT8 = "woq_matmul_stacked (SwiGLU)"
+SWIGLU_INT4 = "woq_matmul_stacked (int4 g128 SwiGLU)"
+SWIGLU_FP8 = "fp8_matmul_stacked (SwiGLU)"
+_PROBES_CU = "trtllm_llama_tpu_torch/csrc/decode_probes.cu"
 ALIBI_PREFILL = "prefill_attention_kernel (ALiBi)"
 ALIBI_STREAMING = "streaming_prefill_attention_kernel (ALiBi)"
 FUSED_G71 = "fused_decode_attention (group 71)"
@@ -318,6 +364,30 @@ KERNELS = {
     FUSED_G71: (
         "fused_decode_attention", f"{_ATTN_PY}:185",
         "trtllm_llama_tpu_torch/csrc/fused_decode_attention.cu"),
+    "w8a8_matmul": (
+        "w8a8_matmul", "trtllm_llama_tpu/ops/pallas/w8a8_matmul.py:103",
+        "trtllm_llama_tpu_torch/csrc/w8a8_matmul.cu"),
+    SWIGLU_INT8: (
+        "woq_matmul_stacked", f"{_WOQ_PY}:617",
+        "trtllm_llama_tpu_torch/csrc/woq_matmul.cu"),
+    SWIGLU_INT4: (
+        "woq_matmul_stacked", f"{_WOQ_PY}:617",
+        "trtllm_llama_tpu_torch/csrc/woq_matmul.cu"),
+    SWIGLU_FP8: (
+        "fp8_matmul_stacked", f"{_WOQ_PY}:654",
+        "trtllm_llama_tpu_torch/csrc/fp8_matmul.cu"),
+    "probe_bitcast_u32_bf16": (
+        "probe_bitcast_u32_bf16", "scripts/probe_int4_kernel.py:33",
+        _PROBES_CU),
+    "probe_u16_ops": (
+        "probe_u16_ops", "scripts/probe_int4_kernel.py:62", _PROBES_CU),
+    "probe_u32_bf16_construct": (
+        "probe_u32_bf16_construct", "scripts/probe_int4_kernel.py:82",
+        _PROBES_CU),
+    "probe_gemv_decodes": (
+        "probe_gemv_decodes", "tests/test_tpu_kernels.py:144", _PROBES_CU),
+    "probe_fp8_planes": (
+        "probe_fp8_planes", "tests/test_tpu_kernels.py:203", _PROBES_CU),
 }
 
 
@@ -542,6 +612,123 @@ def check_gemv(fmt, errors, results):
             record(key_2d, t_k, t_p, t_l, n_bytes, m, d, vocab,
                    "lm_head M=1 (decode)")
     results[key_2d]["max_abs_err"] = err_2d
+
+
+# format -> (JSON key or None, seed)
+SWIGLU_CASES = {"int8": (SWIGLU_INT8, 21), "int4 g128": (SWIGLU_INT4, 22),
+                "int4 per-channel": (None, 23), "fp8": (SWIGLU_FP8, 24)}
+
+
+def check_swiglu(errors, results):
+    """The SwiGLU prologue of rows 2 and 4 at the down projection's shape
+    (x [M, 2 x 11008] = [gate | up] -> N = 4096) in every weight format, at
+    M = 1, 9 and 16 (the FUSE_MAX_ROWS limit), with and without the
+    residual, bf16, plus one fp16 and one f32 case; timed at M = 1 with the
+    residual (the decode step's call) over N_WEIGHT_LAYERS weights."""
+    import torch
+    from trtllm_llama_tpu_torch.config import ModelConfig
+    from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+
+    cfg = ModelConfig.llama_7b()
+    k, n = cfg.intermediate_size, cfg.hidden_size
+    n_l = N_WEIGHT_LAYERS
+    print(f"SwiGLU prologue of rows 2 and 4: x [M, 2 x {k}] -> N={n}, "
+          "silu(g) in f32, times u in the compute dtype:")
+    extra = {"int8": (torch.float16, 1), "fp8": (torch.float32, 9)}
+    for fmt, (key, seed) in SWIGLU_CASES.items():
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        w = make_gemv_weight(fmt, n_l, k, n, g)
+        if fmt == "fp8":
+            fn, plain = f8k.fp8_matmul_stacked, f8k.fp8_matmul_stacked_plain
+        else:
+            fn, plain = woq.woq_matmul_stacked, woq.woq_matmul_stacked_plain
+        cases = [(torch.bfloat16, m) for m in (1, 9, 16)]
+        if fmt in extra:
+            cases.append(extra[fmt])
+        err = 0.0
+        for dtype, m in cases:
+            x = (2 * torch.randn((m, 2 * k), generator=g, device="cuda")).to(
+                dtype)
+            resid = torch.randn((m, n), generator=g, device="cuda").to(dtype)
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            for kw in ({}, {"resid": resid}):
+                got = fn(x, w, 1, swiglu=True, **kw)
+                ref = plain(x, w, 1, swiglu=True, **kw)
+                torch.cuda.synchronize()
+                err = max(err, compare(
+                    f"{fmt} SwiGLU M={m} {str(dtype)[6:]}"
+                    f"{' resid' if kw else ''}", got, ref, errors, tol=tol))
+        x = (2 * torch.randn((1, 2 * k), generator=g, device="cuda")).to(
+            torch.bfloat16)
+        resid = torch.randn((1, n), generator=g, device="cuda").to(
+            torch.bfloat16)
+        h = (torch.nn.functional.silu(x[:, :k].float()).to(x.dtype)
+             * x[:, k:])
+        deq = w.dequantize(torch.bfloat16)                 # yardstick only
+        t_k = time_ms(lambda i: fn(x, w, i % n_l, swiglu=True, resid=resid))
+        t_p = time_ms(lambda i: plain(x, w, i % n_l, swiglu=True,
+                                      resid=resid), iters=8)
+        t_l = time_ms(lambda i: torch.matmul(h, deq[i % n_l]))
+        n_bytes = (w.qweight[0].numel() + w.scale[0].numel() * 4 + 2 * k * 2
+                   + n * 4 + n * 2)
+        b_ms, b_by = bound_ms(n_bytes, 2 * k * n)
+        print(f"  time {fmt} SwiGLU M=1 resid: kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, library(matmul bf16 dequantized, on the "
+              f"composed silu(g) * u) {t_l:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), {n_bytes / t_k / 1e6:.1f} GB/s")
+        if key is not None:       # no path runs int4 per-channel stacked
+            results[key] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                                launches=0,
+                                shape=f"M=1 K={k} N={n} {fmt}, SwiGLU + resid")
+        del w, deq
+
+
+def check_probes(errors, results):
+    """Rows 15-19, each on its exhaustive input, held bit for bit against
+    its plain version (the two e4m3 NaN codes NaN on both sides); no path
+    launches them."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import probes as pr
+
+    print("decode probes (rows 15-19), exact:")
+    cases = [(pr.probe_bitcast_u32_bf16, pr.bitcast_inputs),
+             (pr.probe_u16_ops, pr.u16_inputs),
+             (pr.probe_u32_bf16_construct, pr.construct_inputs),
+             (pr.probe_gemv_decodes, pr.code_inputs),
+             (pr.probe_fp8_planes, pr.planes_inputs)]
+    for fn, make in cases:
+        name = fn.__name__
+        plain = getattr(pr, name + "_plain")
+        x = make("cuda")
+        got, ref = fn(x), plain(x)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        same, n_out = True, 0
+        for a, b in zip(got, ref):
+            nan = torch.isnan(a.float()) & torch.isnan(b.float())
+            same &= (a.shape == b.shape and a.dtype == b.dtype
+                     and bool((nan | (a == b)).all()))
+            n_out += a.numel() * a.element_size()
+        t_k = time_ms(lambda i: fn(x))
+        t_p = time_ms(lambda i: plain(x), iters=8)
+        n_bytes = x.numel() * x.element_size() + n_out
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        print(f"  {name} {tuple(x.shape)} {x.dtype}: "
+              f"{'exact' if same else 'MISMATCH'}; kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        if name == "probe_u32_bf16_construct":
+            pair = got[0].float()[0:2, 9 + 16 * 5].tolist()
+            print(f"  nibbles (9, 5) -> {pair} (the TPU probe expects 200, 168)")
+            same &= pair == [200.0, 168.0]
+        if not same:
+            errors.append(f"{name}: differs from its plain version")
+        results[name] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+                             bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=0.0 if same else float("inf"),
+                             launches=0, shape=f"{tuple(x.shape)} {x.dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -970,30 +1157,68 @@ def check_w8a8(errors, results):
                     ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                     bound_by=b_by, shape=f"M=1 K={k} N={n} (decode qkv)")
         del w_q, deq
-    # the 2-D entry (w8a8_matmul): one weight, per-tensor s_w, static s_x
-    w2 = torch.randint(-127, 128, (d, d), generator=g, device="cuda",
-                       dtype=torch.int8)
-    sw2 = torch.full((1,), d ** -0.5 / 127.0, device="cuda")
-    x_q = torch.randint(-127, 128, (1, d), generator=g, device="cuda",
-                        dtype=torch.int8)
-    sx2 = torch.tensor(0.02, device="cuda")
-    got = w8a8.w8a8_matmul(x_q, w2, sx2, sw2)
-    ref = w8a8.w8a8_matmul_stacked_plain(x_q, w2[None], sx2, sw2[None], 0)
-    torch.cuda.synchronize()
-    max_err = max(max_err, compare(f"2-D w8a8_matmul K={d} N={d} M=1 "
-                                   "static/per-tensor", got, ref, errors,
-                                   tol=1e-6))
-    t_k = time_ms(lambda i: w8a8.w8a8_matmul(x_q, w2, sx2, sw2))
-    t_p = time_ms(lambda i: w8a8.w8a8_matmul_stacked_plain(
-        x_q, w2[None], sx2, sw2[None], 0), iters=8)
-    xd = (x_q.float() * sx2).to(torch.bfloat16)
-    deq2 = (w2.float() * sw2).to(torch.bfloat16)
-    t_l = time_ms(lambda i: torch.matmul(xd, deq2))
-    b_ms, b_by = bound_ms(d * d + 4 + d + 4 + d * 4, 2 * d * d, INT8_OPS)
-    print(f"  time 2-D M=1 {d}x{d}: kernel {t_k:.4f} ms (one weight, so "
-          f"L2-warm), plain {t_p:.4f} ms, library(matmul bf16, dequantized) "
-          f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     results["w8a8_matmul_stacked"]["max_abs_err"] = max_err
+    check_w8a8_2d(errors, results)
+
+
+# row 5's shapes on path 7 (static SmoothQuant): the fused qkv, wo, gate or
+# up, the fused gate/up (TLLM_FUSE_GU) and down
+W8A8_2D_SHAPES = [("qkv", 4096, 12288), ("wo", 4096, 4096),
+                  ("gate, up", 4096, 11008), ("gate/up fused", 4096, 22016),
+                  ("down", 11008, 4096)]
+
+
+def check_w8a8_2d(errors, results):
+    """The 2-D entry (row 5) at path 7's shapes, M = 1 and 8, with a static
+    scalar s_x and per-tensor or per-channel s_w; timed over N_WEIGHT_LAYERS
+    distinct weights in turn, so each call finds its weight cold in L2."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
+
+    print("kernel w8a8_matmul (2-D entry, static scalar s_x; L2-cold):")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    n_l = N_WEIGHT_LAYERS
+    s_x = torch.tensor(0.02, device="cuda")
+    max_err = 0.0
+    for pname, k, n in W8A8_2D_SHAPES:
+        ws = [torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                            dtype=torch.int8) for _ in range(n_l)]
+        for per_channel in (True, False):
+            s_w = torch.rand((n if per_channel else 1,), generator=g,
+                             device="cuda") * 1e-3 + 1e-4
+            deq = [(w.float() * s_w).to(torch.bfloat16) for w in ws]
+            sw_what = "per-channel" if per_channel else "per-tensor"
+            for m in (1, 8):
+                x_q = torch.randint(-127, 128, (m, k), generator=g,
+                                    device="cuda", dtype=torch.int8)
+                got = w8a8.w8a8_matmul(x_q, ws[1], s_x, s_w)
+                ref = w8a8.w8a8_matmul_plain(x_q, ws[1], s_x, s_w)
+                torch.cuda.synchronize()
+                max_err = max(max_err, compare(
+                    f"{pname} K={k} N={n} M={m} {sw_what} s_w", got, ref,
+                    errors, tol=1e-6))
+                t_k = time_ms(lambda i: w8a8.w8a8_matmul(
+                    x_q, ws[i % n_l], s_x, s_w))
+                t_p = time_ms(lambda i: w8a8.w8a8_matmul_plain(
+                    x_q, ws[i % n_l], s_x, s_w), iters=8)
+                xd = (x_q.float() * s_x).to(torch.bfloat16)
+                t_l = time_ms(lambda i: torch.matmul(xd, deq[i % n_l]))
+                n_bytes = k * n + s_w.numel() * 4 + m * k + 4 + m * n * 4
+                b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n, INT8_OPS)
+                print(f"  time {pname} M={m} {sw_what}: kernel {t_k:.4f} ms, "
+                      f"plain {t_p:.4f} ms, library(matmul bf16, dequantized "
+                      f"operands) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                      f"{n_bytes / t_k / 1e6:.1f} GB/s")
+                entry = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                             bound_ms=b_ms, bound_by=b_by,
+                             shape=f"M={m} K={k} N={n} {sw_what} s_w ({pname})")
+                if "w8a8_matmul" not in results:   # qkv M=1, as path 7 runs it
+                    results["w8a8_matmul"] = entry
+                else:
+                    results["w8a8_matmul"].setdefault("more", []).append(entry)
+            del deq
+        del ws
+    results["w8a8_matmul"]["max_abs_err"] = max_err
 
 
 # ---------------------------------------------------------------------------
@@ -1190,7 +1415,8 @@ def make_paths():
              plain=[(woq, "woq_matmul_stacked"),
                     (pa, "prefill_attention_kernel")],
              modes={"split": READ_ONLY, "fused": FUSED},
-             decode="dma_decode_attention"),
+             decode="dma_decode_attention",
+             fused=("woq_matmul_stacked", SWIGLU_INT8)),
         dict(tag="path 2", title="SmoothQuant W8A8 (per-token activation, "
              f"per-channel weight scales), int8 KV (scale {KV_SCALE})",
              mode=(QuantMode.use_smooth_quant(per_token=True, per_channel=True)
@@ -1208,25 +1434,48 @@ def make_paths():
              group_size=128, lm_head=True, kv_scales=None,
              kernels={INT4_STACKED: woq, INT4_2D: woq, **attn},
              plain=[(woq, "woq_matmul_stacked"), (woq, "woq_matmul"),
-                    (pa, "prefill_attention_kernel")]),
+                    (pa, "prefill_attention_kernel")],
+             fused=("woq_matmul_stacked", SWIGLU_INT4)),
         dict(tag="path 4", title="fp8 (e4m3) per-channel projections, fp8 "
              "lm_head (quantize_params), bf16 KV",
              mode=QuantMode.FP8_QDQ, lm_head=True, kv_scales=None,
              kernels={"fp8_matmul_stacked": f8k, "fp8_matmul": f8k, **attn},
              plain=[(f8k, "fp8_matmul_stacked"), (f8k, "fp8_matmul"),
-                    (pa, "prefill_attention_kernel")]),
+                    (pa, "prefill_attention_kernel")],
+             fused=("fp8_matmul_stacked", SWIGLU_FP8)),
     ]
 
 
+def make_path7():
+    """Path 7 (run_offline_build): static per-tensor SmoothQuant W8A8 with
+    an int8 KV cache, from the engine dir. Row 5 runs every projection (5
+    per layer and forward: the fused qkv, wo, gate, up, down), kernel 2
+    once per layer and prefill, kernel 3 (int8) once per layer and decode
+    step; row 6 and rmsnorm_quant never."""
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
+    return dict(
+        tag="path 7", title="static SmoothQuant W8A8 + int8 KV (engine dir)",
+        kernels={"w8a8_matmul": w8a8, "prefill_attention_kernel": pa,
+                 INT8_DECODE: da},
+        plain=[(w8a8, "w8a8_matmul"), (pa, "prefill_attention_kernel")],
+        expect=lambda n_l, forwards, prefills, steps: {
+            "w8a8_matmul": 5 * n_l * forwards,
+            "prefill_attention_kernel": n_l * prefills,
+            "dma_decode_attention": n_l * steps},
+        fused=("w8a8_matmul", None))
+
+
+PATH_ENGINE = dict(max_batch_size=4, max_input_len=1024, max_seq_len=128)
+
+
 def run_path(path, args, errors, results):
-    import numpy as np
     import torch
     from trtllm_llama_tpu_torch import EngineConfig, ModelConfig
-    from trtllm_llama_tpu_torch.models import llama
     from trtllm_llama_tpu_torch.quantization.quantize import (
         init_random_quantized_params, quantize_params,
     )
-    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
     from trtllm_llama_tpu_torch.runtime.session import GenerationSession
 
     tag = path["tag"]
@@ -1246,10 +1495,23 @@ def run_path(path, args, errors, results):
     torch.cuda.synchronize()
     print(f"  weights init: {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-    sess = GenerationSession(cfg, params, EngineConfig(
-        max_batch_size=4, max_input_len=1024, max_seq_len=128),
-        kv_scales=kv_scales, device="cuda")
+    sess = GenerationSession(cfg, params, EngineConfig(**PATH_ENGINE),
+                             kv_scales=kv_scales, device="cuda")
     del params
+    drive_path(path, sess, errors, results)
+
+
+def drive_path(path, sess, errors, results):
+    """One path's runs on its session: bs1 in8 out50 (twice), a second bs1
+    prompt, bs4 ragged; the launches (of the path's kernels, and with
+    path["expect"] every wrapper's count held exactly); the 7B prefill
+    logits against the plain path; a profile; the decode-mode runs where
+    the path has them, and its TLLM_FUSE_GU re-run where it has one."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+
+    tag, cfg = path["tag"], sess.cfg
     scfg = SamplingConfig(end_id=-1)     # no early stop: all tokens generated
     rng = np.random.default_rng(0)
     new = NEW_TOKENS
@@ -1267,14 +1529,17 @@ def run_path(path, args, errors, results):
     generate(p1, 4)                      # warm-up (cuBLAS, allocator, libs)
     wrappers = {name: getattr(mod, KERNELS[name][0])
                 for name, mod in path["kernels"].items()}
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_counts()
     _, pre_ms = generate(p1, 1)
     out1, ms1 = generate(p1, new)
     out1b, _ = generate(p1, new)
     out2, ms2 = generate(p2, new)
     out4, ms4 = generate(p4, new)
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    if "expect" in path:       # 1 + 4 x new forwards, 5 prefills, 4 x 49 steps
+        expect = path["expect"](cfg.num_layers, 1 + 4 * new, 5, 4 * (new - 1))
+        check_counts(f"{tag} every wrapper", read_counts(),
+                     dict(launches=expect, alibi_decode=0), errors)
 
     dec_ms = (ms1 - pre_ms) / (new - 1)
     print(f"  bs1 in8 out{new}: prefill {pre_ms:.2f} ms, decode "
@@ -1306,8 +1571,24 @@ def run_path(path, args, errors, results):
         decode_tokens_per_s=1e3 / dec_ms, e2e_tokens_per_s=new / ms1 * 1e3,
         bs4_tokens_per_s=4 * new / ms4 * 1e3)
 
-    # 7B prefill logits, bs1 and bs4: kernels vs the plain versions on the card
     print("  7B prefill logits, kernels vs plain versions on the card:")
+    prefill_logits_vs_plain("", path["plain"], sess, p1, p4, errors)
+    dev_tok, _ = profile_generate(sess, p1, scfg)
+    results["_e2e"][tag]["device_ms_per_decode_token"] = dev_tok
+    if path.get("modes"):
+        run_decode_modes(path, sess, cfg, p1, out1, errors, results)
+    if path.get("fused"):
+        run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results)
+
+
+def prefill_logits_vs_plain(label, plain, sess, p1, p4, errors):
+    """The session's 7B prefill logits, bs1 (p1) and bs4 ragged (p4): its
+    kernels against their plain versions (the wrappers in `plain` patched
+    to their _plain twins) on the same inputs, within LOGITS_TOL."""
+    import torch
+    from trtllm_llama_tpu_torch.models import llama
+
+    cfg = sess.cfg
     for what, prompts in (("bs1", [p1[0].tolist()]), ("bs4", p4)):
         b = len(prompts)
         with torch.inference_mode():
@@ -1323,43 +1604,169 @@ def run_path(path, args, errors, results):
                                              caches, rope=sess.rope)[0]
             got = prefill()
             with contextlib.ExitStack() as stack:
-                for mod, attr in path["plain"]:
+                for mod, attr in plain:
                     stack.enter_context(patched(
                         mod, attr, getattr(mod, attr + "_plain")))
                 ref = prefill()
-        compare(f"{what} logits", got, ref, errors, tol=LOGITS_TOL)
-        print(f"  {what} argmax kernels {got.argmax(-1).tolist()} plain "
-              f"{ref.argmax(-1).tolist()}")
-    profile_generate(sess, p1, scfg)
-    if path.get("modes"):
-        run_decode_modes(path, sess, cfg, p1, out1, errors, results)
+        compare(f"{label}{what} logits", got, ref, errors, tol=LOGITS_TOL)
+        print(f"  {label}{what} argmax kernels {got.argmax(-1).tolist()} "
+              f"plain {ref.argmax(-1).tolist()}")
+
+
+def fused_session(sess):
+    """A session on the same weights with TLLM_FUSE_GU set: its params hold
+    w_gate_up (the other weights are shared)."""
+    from unittest import mock
+
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+    kv = None if sess.kv_scales is None else sess.kv_scales.cpu().numpy()
+    with mock.patch.dict(os.environ, TLLM_FUSE_GU="1"):
+        fsess = GenerationSession(sess.cfg, sess.params, sess.engine_cfg,
+                                  kv_scales=kv, device="cuda")
+    return fsess
+
+
+def first_difference(tag, sess_a, sess_b, prompt, ids_a, ids_b, row,
+                     errors):
+    """Where row `row` of two runs of one request (`prompt`, output ids
+    [B, new] ids_a and ids_b) first differs, at token k (a picked by
+    sess_a, b by sess_b): both sessions' step k replayed at the run's
+    batch shape on run a's first k tokens. The flip is a near tie when the
+    replays pick a and b again and the two logits moved against each
+    other, (la[a] - la[b]) - (lb[a] - lb[b]), by at most FUSE_GU_TOL x
+    max |la|; that shift bounds each run's lead of its own token. Anything
+    else is an error."""
+    import numpy as np
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+
+    scfg = SamplingConfig(end_id=-1)
+    new = ids_a.shape[1]
+    k = int(np.flatnonzero(ids_a[row] != ids_b[row])[0])
+    a, b = int(ids_a[row, k]), int(ids_b[row, k])
+    common = ids_a[:, :k]
+    la = replay_logits(sess_a, prompt, common, scfg, new)[row].float()
+    lb = replay_logits(sess_b, prompt, common, scfg, new)[row].float()
+    picks = int(la.argmax()) == a and int(lb.argmax()) == b
+    lead_a, lead_b = float(la[a] - la[b]), float(lb[b] - lb[a])
+    limit = FUSE_GU_TOL * float(la.abs().max())
+    tie = picks and lead_a + lead_b <= limit
+    print(f"  {tag}: tokens first differ at {k} ({a} vs {b}); replays pick "
+          f"{int(la.argmax())} / {int(lb.argmax())}; leads {lead_a:.5f} / "
+          f"{lead_b:.5f}, shift {lead_a + lead_b:.5f} (limit {limit:.5f}): "
+          f"{'a near tie' if tie else 'NOT a near tie'}")
+    if not tie:
+        errors.append(f"{tag}: tokens differ at {k} and it is not a near tie")
+
+
+def run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results):
+    """The path's bs1 and bs4 requests again under TLLM_FUSE_GU=1 (one
+    w_gate_up projection, its SwiGLU in the down projection's prologue):
+    the launches (the stacked entry 4 per layer and forward; the SwiGLU
+    prologue once per layer in every forward of at most FUSE_MAX_ROWS
+    rows: the bs1 prefill and every decode step, not bs4's 64-row
+    prefill), tokens against the unfused runs (a row that differs must
+    flip at a near tie, first_difference), the fused session's prefill
+    logits against the plain path within LOGITS_TOL, its logits against
+    the unfused session's within FUSE_GU_TOL (prefill and first decode
+    step), decode ms/token and device ms per decode token beside the
+    unfused run's."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+
+    tag, cfg, new = path["tag"], sess.cfg, NEW_TOKENS
+    n_l = cfg.num_layers
+    entry, key = path["fused"]
+    fn = _wrappers()[entry]
+    scfg = SamplingConfig(end_id=-1)
+    fsess = fused_session(sess)
+    fused_w = fsess.params["layers"]["w_gate_up"]
+    print(f"  {tag} TLLM_FUSE_GU=1: w_gate_up {type(fused_w).__name__} "
+          f"{tuple(fused_w.qweight.shape)}, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    fsess.generate(p1, sampling=scfg, max_new_tokens=4)          # warm-up
+    got = {}
+    for what, ids, ref, b in (("bs1", p1, out1, 1), ("bs4", p4, out4, 4)):
+        zero_counts()
+        outf, ms = timed_generate(fsess, ids, new)
+        n, n_sw = fn.launches, getattr(fn, "swiglu_launches", None)
+        want_sw = None if n_sw is None else n_l * (new if b == 1 else new - 1)
+        ok = n == 4 * n_l * new and n_sw == want_sw
+        print(f"  {tag} fused {what}: {ms:.1f} ms; {entry} launches {n} "
+              f"(expected {4 * n_l * new}), SwiGLU prologue {n_sw} (expected "
+              f"{want_sw}): {'ok' if ok else 'FAIL'}; all counts "
+              f"{read_counts()[0]}")
+        if not ok:
+            errors.append(f"{tag} fused {what}: launches {n} / {n_sw}")
+        got[what] = (n, n_sw)
+        same = np.array_equal(outf.output_ids, ref.output_ids)
+        print(f"  {tag} fused {what} tokens identical to the unfused run: "
+              f"{same}")
+        for row in np.flatnonzero((outf.output_ids != ref.output_ids).any(1)):
+            first_difference(f"{tag} fused {what} row {row}", sess, fsess,
+                             ids, ref.output_ids, outf.output_ids, row,
+                             errors)
+    print(f"  {tag} fused, 7B prefill logits, kernels vs plain versions:")
+    prefill_logits_vs_plain("fused ", path["plain"], fsess, p1, p4, errors)
+    diff = 0.0
+    for k, what in ((0, "prefill"), (1, "first decode step")):
+        common = out1.output_ids[:, :k]
+        la = replay_logits(sess, np.asarray(p1), common, scfg, new)
+        lb = replay_logits(fsess, np.asarray(p1), common, scfg, new)
+        diff = max(diff, compare(f"{tag} fused vs unfused bs1 {what} logits",
+                                 lb, la, errors, tol=FUSE_GU_TOL))
+    _, pre_ms = timed_generate(fsess, p1, 1)
+    _, ms = timed_generate(fsess, p1, new)
+    dec_ms = (ms - pre_ms) / (new - 1)
+    dev_tok, busy = profile_generate(fsess, p1, scfg, row_limit=8)
+    base = results["_e2e"][tag]
+    print(f"  {tag} fused: decode {dec_ms:.3f} ms/token (unfused "
+          f"{base['decode_ms_per_token']:.3f}), device {dev_tok:.3f} ms per "
+          f"decode token (unfused {base['device_ms_per_decode_token']:.3f})")
+    results["_e2e"][f"{tag} TLLM_FUSE_GU"] = dict(
+        layers=n_l, prefill_ms=pre_ms, decode_ms_per_token=dec_ms,
+        device_ms_per_decode_token=dev_tok, device_busy_share=busy,
+        max_logit_diff=diff, launches=got)
+    if key is not None:
+        results[key]["launches"] = sum(n_sw for _, n_sw in got.values())
+    del fsess
 
 
 def replay_logits(sess, prompt, tokens, scfg, new):
-    """f32 logits [1, V] that pick token k of a bs1 `sess.generate(prompt,
+    """f32 logits [B, V] that pick token k of `sess.generate(prompt,
     max_new_tokens=new)` in the current decode_attn_mode, with `tokens`
-    ([1, k] ids) fed as the tokens before it. It makes the session's own
-    calls (bucket, cache rows, prefill, one decode step per token), so it
-    reproduces a run whose first k tokens were `tokens`."""
+    ([B, k] ids) fed as the tokens before it; `prompt` is [B, n] ids or a
+    list of B ragged prompts, as generate takes it. It makes the session's
+    own calls (bucket, cache rows, prefill, one decode step per token), so
+    it reproduces a run whose first k tokens were `tokens`. A row's logits
+    do not depend on the other rows' tokens, only on the batch's shape."""
     import numpy as np
     import torch
     from trtllm_llama_tpu_torch.models import llama
 
     cfg, ecfg = sess.cfg, sess.engine_cfg
-    n = prompt.shape[1]
-    bucket = ecfg.bucket_for(n)
-    padded = np.full((1, bucket), scfg.pad_id, np.int32)
-    padded[:, :n] = prompt
+    if isinstance(prompt, (list, tuple)):
+        n = np.array([len(p) for p in prompt], np.int32)
+        arr = np.full((len(prompt), int(n.max())), scfg.pad_id, np.int32)
+        for row, p in enumerate(prompt):
+            arr[row, :len(p)] = p
+    else:
+        arr = np.asarray(prompt)
+        n = np.full((arr.shape[0],), arr.shape[1], np.int32)
+    b, s = arr.shape
+    bucket = ecfg.bucket_for(s)
+    padded = np.full((b, bucket), scfg.pad_id, np.int32)
+    padded[:, :s] = arr
     with torch.inference_mode():
-        caches = llama.init_caches(cfg, 1, min(ecfg.max_seq_len, bucket + new),
+        caches = llama.init_caches(cfg, b, min(ecfg.max_seq_len, bucket + new),
                                    "cuda", sess.kv_scales)
         ids = torch.as_tensor(padded, device="cuda")
-        lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+        lens = torch.as_tensor(n, device="cuda")
         logits, caches = llama.forward_prefill(sess.params, cfg, ids, lens,
                                                caches, rope=sess.rope)
         pos = lens.clone()
-        for t in np.asarray(tokens)[0]:
-            tok = torch.tensor([t], dtype=torch.int32, device="cuda")
+        for t in np.asarray(tokens, np.int32).T:       # one step's [B] ids
+            tok = torch.as_tensor(t, device="cuda")
             logits, caches = llama.forward_decode(sess.params, cfg, tok, pos,
                                                   caches, rope=sess.rope)
             pos += 1
@@ -1488,6 +1895,171 @@ def profile_generate(sess, ids, scfg, row_limit=24, new=None):
     print(f"  (the profiled request and its table took "
           f"{time.perf_counter() - t_prof:.1f} s)")
     return dec_ms, dev_ms / wall_ms
+
+
+# ---------------------------------------------------------------------------
+# path 7: the hackathon's offline build (SmoothQuant migration, static W8A8
+# + int8 KV engine dir, the loader)
+# ---------------------------------------------------------------------------
+
+def hf_llama_state_dict(cfg, seed=0):
+    """An HF-layout LLaMA state dict ([out, in] linear weights) drawn on
+    the card in bf16: normal x fan_in**-0.5 (embedding and lm_head as
+    init_random_quantized_params draws them), norms of ones."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d, f, bf16 = cfg.hidden_size, cfg.intermediate_size, torch.bfloat16
+
+    def normal(shape, fan_in):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=bf16) * fan_in ** -0.5
+    sd = {}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd[p + f"self_attn.{name}.weight"] = normal((d, d), d)
+        sd[p + "mlp.gate_proj.weight"] = normal((f, d), d)
+        sd[p + "mlp.up_proj.weight"] = normal((f, d), d)
+        sd[p + "mlp.down_proj.weight"] = normal((d, f), f)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[p + f"{norm}.weight"] = torch.ones(d, device="cuda", dtype=bf16)
+    sd["model.embed_tokens.weight"] = normal((cfg.vocab_size, d), d)
+    sd["lm_head.weight"] = normal((cfg.vocab_size, d), d)
+    sd["model.norm.weight"] = torch.ones(d, device="cuda", dtype=bf16)
+    return sd
+
+
+def synthetic_ranges(sd, n_l, d, f, seed=0):
+    """Calibration ranges made from a seed (the card has no transformers
+    and no corpus): x_absmax per layer and input channel |N(0, 1)| with
+    OUTLIER_SHARE of the channels times OUTLIER_GAIN, shared by q/k/v and
+    by gate/up; w_absmax from the weights, as capture_activation_ranges
+    computes it; kv_absmax 127 x KV_SCALE in every layer."""
+    import numpy as np
+    from trtllm_llama_tpu_torch.quantization.calibrate import weight_absmax
+    rng = np.random.default_rng(seed)
+
+    def x_range(k):
+        a = np.abs(rng.standard_normal((n_l, k)))
+        a[rng.random((n_l, k)) < OUTLIER_SHARE] *= OUTLIER_GAIN
+        return a.astype(np.float32)
+    qkv, gate_up = x_range(d), x_range(d)
+    x_absmax = {"wq": qkv, "wk": qkv.copy(), "wv": qkv.copy(), "wo": x_range(d),
+                "w_gate": gate_up, "w_up": gate_up.copy(),
+                "w_down": x_range(f)}
+    return {"x_absmax": x_absmax, "w_absmax": weight_absmax(sd, n_l),
+            "kv_absmax": np.full(n_l, 127.0 * KV_SCALE)}
+
+
+def run_offline_build(args, errors, results):
+    """Path 7: ModelConfig.from_hf_config of huggyllama/llama-7b's
+    config.json fields; an HF-layout bf16 state dict drawn on the card;
+    synthetic ranges; smooth_hf_state_dict (alpha 0.5) ->
+    params_from_hf_state_dict (f32) -> quantize_params (static per-tensor
+    SmoothQuant + int8 KV) -> cast_fp_leaves -> kv_scales_from_ranges ->
+    save_engine -> load_engine(device="cuda"), every leaf byte-equal to the
+    saved one, each stage timed; then GenerationSession on the loaded
+    params, driven as paths 1-4 (row 5 on every projection), and again
+    under TLLM_FUSE_GU=1."""
+    import shutil
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.convert.convert import cast_fp_leaves
+    from trtllm_llama_tpu_torch.convert.hf import params_from_hf_state_dict
+    from trtllm_llama_tpu_torch.convert.serialize import (flatten, load_engine,
+                                                          save_engine)
+    from trtllm_llama_tpu_torch.quantization.calibrate import (
+        act_ranges_for_smoothquant, kv_scales_from_ranges,
+    )
+    from trtllm_llama_tpu_torch.quantization.quantize import quantize_params
+    from trtllm_llama_tpu_torch.quantization.smoothquant import (
+        smooth_hf_state_dict,
+    )
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    mode = QuantMode.use_smooth_quant() | QuantMode.INT8_KV_CACHE
+    hf = types.SimpleNamespace(**HF_LLAMA_7B)
+    cfg = ModelConfig.from_hf_config(hf, dtype="bfloat16", quant_mode=mode)
+    matches = cfg == ModelConfig.llama_7b(quant_mode=mode)
+    if not matches:
+        errors.append(f"path 7: from_hf_config gave {cfg}, not llama_7b's "
+                      "fields")
+    cfg = ModelConfig.from_hf_config(hf, dtype="bfloat16", quant_mode=mode,
+                                     num_layers=min(args.layers, 32))
+    n_l, d, f = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    print(f"path 7: the offline build, LLaMA-7B from huggyllama/llama-7b's "
+          f"config.json (from_hf_config equals llama_7b: {matches}), {n_l} "
+          "layers, static per-tensor SmoothQuant W8A8 + int8 KV, random "
+          "HF-layout bf16 weights (seed 0), synthetic ranges (seed 0)")
+    torch.cuda.reset_peak_memory_stats()
+    stages = {}
+
+    def stage(name, t):
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t
+        print(f"  {name}: {stages[name]:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        return time.perf_counter()
+
+    t = time.perf_counter()
+    sd = hf_llama_state_dict(cfg)
+    t = stage("HF state dict (bf16, on the card)", t)
+    ranges = synthetic_ranges(sd, n_l, d, f)
+    t = stage("ranges (w_absmax from the weights)", t)
+    sd, x_absmax = smooth_hf_state_dict(sd, ranges, n_l, alpha=SQ_ALPHA)
+    t = stage(f"smooth_hf_state_dict (alpha {SQ_ALPHA})", t)
+    params = params_from_hf_state_dict(sd, cfg, dtype="float32")
+    del sd
+    t = stage("params_from_hf_state_dict (f32)", t)
+    q = quantize_params(params, mode, act_ranges=act_ranges_for_smoothquant(
+        {"x_absmax": x_absmax}))
+    del params
+    q = cast_fp_leaves(q, cfg.torch_dtype)
+    kv_scales = kv_scales_from_ranges(ranges)
+    t = stage("quantize_params + cast_fp_leaves + kv_scales", t)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    engine_dir = tempfile.mkdtemp(prefix="path7_engine_", dir=root)
+    try:
+        save_engine(engine_dir, cfg, q, kv_scales)
+        t = stage("save_engine", t)
+        n_bytes = sum(p.stat().st_size for p in Path(engine_dir).rglob("*")
+                      if p.is_file())
+        cfg2, loaded, kv2 = load_engine(engine_dir, device="cuda")
+        t = stage("load_engine (device='cuda')", t)
+    finally:
+        shutil.rmtree(engine_dir)
+    saved, back = flatten(q), flatten(loaded)
+    same = (cfg2 == cfg and np.array_equal(kv2, kv_scales)
+            and [n for n, _ in saved] == [n for n, _ in back]
+            and all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+                a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+                for (_, a), (_, b) in zip(saved, back)))
+    n_leaves = len(back)
+    del q, saved, back
+    t = stage("leaf comparison", t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  engine dir: {n_leaves} leaves, {n_bytes / 1e9:.3f} GB; every "
+          f"leaf byte-equal to the saved one, config and kv_scales equal: "
+          f"{same}; peak device memory {peak:.2f} GiB")
+    if not same:
+        errors.append("path 7: the loaded engine dir differs from the saved "
+                      "params")
+    results["_e2e"]["path 7 build"] = dict(
+        stages_s=stages, engine_dir_bytes=n_bytes, peak_gib=peak,
+        leaves=n_leaves, byte_equal=same)
+    w = loaded["layers"]["wq"]
+    print(f"  wq: SQWeight {tuple(w.qweight.shape)}, per_token "
+          f"{w.per_token}, per_channel {w.per_channel}, scale_x "
+          f"{w.scale_x[:3].tolist()}...; kv_scales {kv2[:3].tolist()}...")
+    sess = GenerationSession(cfg2, loaded, EngineConfig(**PATH_ENGINE),
+                             kv_scales=kv2, device="cuda")
+    del loaded
+    drive_path(make_path7(), sess, errors, results)
 
 
 # ---------------------------------------------------------------------------
@@ -2300,6 +2872,7 @@ def _wrappers():
     from trtllm_llama_tpu_torch.ops.kernels import packed_prefill_attention as ppa
     from trtllm_llama_tpu_torch.ops.kernels import paged_decode_attention as pda
     from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import probes as pr
     from trtllm_llama_tpu_torch.ops.kernels import rmsnorm_quant as rnq
     from trtllm_llama_tpu_torch.ops.kernels import (
         streaming_prefill_attention as spa,
@@ -2308,19 +2881,24 @@ def _wrappers():
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
     return {fn.__name__: fn for fn in (
         woq.woq_matmul_stacked, woq.woq_matmul, f8k.fp8_matmul_stacked,
-        f8k.fp8_matmul, w8a8.w8a8_matmul_stacked, rnq.rmsnorm_quant,
-        pa.prefill_attention_kernel, spa.streaming_prefill_attention_kernel,
+        f8k.fp8_matmul, w8a8.w8a8_matmul_stacked, w8a8.w8a8_matmul,
+        rnq.rmsnorm_quant, pa.prefill_attention_kernel,
+        spa.streaming_prefill_attention_kernel,
         ppa.packed_prefill_attention_kernel, da.dma_decode_attention,
         da.decode_attention_kernel, da.fused_decode_attention,
-        pda.paged_decode_attention)}
+        pda.paged_decode_attention, pr.probe_bitcast_u32_bf16,
+        pr.probe_u16_ops, pr.probe_u32_bf16_construct, pr.probe_gemv_decodes,
+        pr.probe_fp8_planes)}
 
 
 def zero_counts():
-    """Every wrapper's launches and the ALiBi decode branch's count set
-    to 0."""
+    """Every wrapper's launches (and SwiGLU launches) and the ALiBi decode
+    branch's count set to 0."""
     from trtllm_llama_tpu_torch.ops import attention
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "swiglu_launches"):
+            fn.swiglu_launches = 0
     attention.fused_decode_attention_at.alibi_calls = 0
 
 
@@ -2616,6 +3194,8 @@ def check_kernels(errors, results):
     check_decode(errors, results, kv_int8=True)
     for fmt in ("int4 g128", "int4 per-channel", "fp8"):
         check_gemv(fmt, errors, results)
+    check_swiglu(errors, results)
+    check_probes(errors, results)
     check_packed_prefill(errors, results)
     check_paged_decode(errors, results)
     check_paged_decode(errors, results, kv_int8=True)
@@ -2667,7 +3247,8 @@ def main(argv=None) -> int:
     phases += [(path["tag"], lambda path=path: run_path(path, args, errors,
                                                         results))
                for path in make_paths()]
-    phases += [("path 5", lambda: run_long_context(args, errors, results)),
+    phases += [("path 7", lambda: run_offline_build(args, errors, results)),
+               ("path 5", lambda: run_long_context(args, errors, results)),
                ("serving", lambda: run_serving(args, errors, results)),
                ("path 6", lambda: run_bloom(args, errors, results)),
                ("families", lambda: run_families(args, errors, results))]

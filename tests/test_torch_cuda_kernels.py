@@ -17,6 +17,9 @@ and paged pools are bit-identical to the plain write. The streaming
 prefill kernel rounds its probabilities to bf16 before P V in bf16 (the
 2**-7 bound holds); its f32 instantiation and the read-only and fused
 decode kernels differ from their plain versions in summation order only.
+The SwiGLU prologue (silu in f32, the product in the compute dtype) is
+held to the same per-dtype bounds, and the decode probes are exact (bit
+for bit; the two e4m3 NaN codes decode to NaN on both sides).
 """
 
 import numpy as np
@@ -726,3 +729,164 @@ def test_dense_unquantized_makes_no_f32_weight_copy(dev, monkeypatch):
         assert extra < k * n, extra              # an f32 copy is 4 * k * n
         assert y.dtype == (out_dtype or torch.bfloat16)
         _assert_close(y, ref, y.dtype)
+
+
+# the SwiGLU prologue of rows 2 and 4: x [M, 2K] = [gate | up] at the down
+# projection's shape (K = 11008 -> N = 4096)
+SWIGLU_FORMATS = ["int8", "int4 g128", "int4 per-channel", "fp8"]
+
+
+def _swiglu_weight(fmt, g, dev, n_layers=2, k=11008, n=4096):
+    if fmt == "fp8":
+        return FP8Weight(random_fp8_codes((n_layers, k, n), g, dev),
+                         torch.rand((n_layers, n), generator=g,
+                                    device=dev) * 1e-3, 128 if k % 128 == 0
+                         else 0)
+    w_bits = 8 if fmt == "int8" else 4
+    gs = 128 if fmt == "int4 g128" else 0
+    q = torch.randint(-127, 128, (n_layers, k // 2 if w_bits == 4 else k, n),
+                      generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand((n_layers, k // gs, n) if gs else (n_layers, n),
+                   generator=g, device=dev) * 1e-3
+    return WOQWeight(q, s, w_bits, gs, 128 if w_bits == 4 else 0)
+
+
+@pytest.mark.parametrize("resid", [False, True])
+@pytest.mark.parametrize("m", [1, 9, 16])
+@pytest.mark.parametrize("fmt", SWIGLU_FORMATS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_swiglu_prologue_matches_plain(dev, dtype, fmt, m, resid):
+    g = torch.Generator(device=dev).manual_seed(m + 7)
+    w = _swiglu_weight(fmt, g, dev)
+    k, n = w.k_dim, w.qweight.shape[-1]
+    x = (2 * torch.randn((m, 2 * k), generator=g, device=dev)).to(dtype)
+    kw = ({"resid": torch.randn((m, n), generator=g, device=dev).to(dtype)}
+          if resid else {})
+    mod, fn = ((f8k, f8k.fp8_matmul_stacked) if fmt == "fp8"
+               else (woq, woq.woq_matmul_stacked))
+    before = (fn.launches, fn.swiglu_launches)
+    got = fn(x, w, 1, swiglu=True, **kw)
+    assert (fn.launches, fn.swiglu_launches) == (before[0] + 1, before[1] + 1)
+    plain = getattr(mod, fn.__name__ + "_plain")
+    _assert_close(got, plain(x, w, 1, swiglu=True, **kw), dtype)
+    with pytest.raises(ValueError):               # one prologue per matmul
+        fn(x, w, 1, swiglu=True, norm_w=torch.ones(
+            (2, k), device=dev, dtype=dtype))
+    with pytest.raises(ValueError):               # x must be [M, 2K]
+        fn(x[:, :k].contiguous(), w, 1, swiglu=True)
+
+
+# row 5 (the 2-D w8a8_matmul) at the static-SmoothQuant path's shapes:
+# fused qkv, wo, gate or up, fused gate/up, down
+W8A8_PATH7 = [(4096, 12288), (4096, 4096), (4096, 11008), (4096, 22016),
+              (11008, 4096)]
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("kn", W8A8_PATH7)
+@pytest.mark.parametrize("m", [1, 8])
+def test_w8a8_2d_entry_at_static_sq_shapes(dev, m, kn, per_channel):
+    k, n = kn
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x_q = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                        dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                        dtype=torch.int8)
+    s_x = torch.tensor(0.02, device=dev)
+    s_w = torch.rand((n if per_channel else 1,), generator=g,
+                     device=dev) * 1e-3
+    before = (w8a8.w8a8_matmul.launches, w8a8.w8a8_matmul_stacked.launches)
+    got = w8a8.w8a8_matmul(x_q, w_q, s_x, s_w)
+    assert (w8a8.w8a8_matmul.launches,
+            w8a8.w8a8_matmul_stacked.launches) == (before[0] + 1, before[1])
+    torch.testing.assert_close(got, w8a8.w8a8_matmul_plain(x_q, w_q, s_x, s_w),
+                               rtol=1e-6, atol=0)
+
+
+def test_static_sq_dense_takes_the_2d_entry_on_card(dev):
+    """A stacked static SQWeight with a layer runs row 5 on that layer's
+    views; a per-token one row 6."""
+    from trtllm_llama_tpu_torch.ops import linear
+    from trtllm_llama_tpu_torch.quantization.tensors import (
+        quantize_smoothquant_weight,
+    )
+    g = torch.Generator(device=dev).manual_seed(5)
+    w = torch.randn((3, 256, 512), generator=g, device=dev) * 0.05
+    x = torch.randn((4, 256), generator=g, device=dev).to(torch.bfloat16)
+    for per_token, entry in ((False, w8a8.w8a8_matmul),
+                             (True, w8a8.w8a8_matmul_stacked)):
+        sq = quantize_smoothquant_weight(w, torch.full((3,), 3.0),
+                                         per_channel=True,
+                                         per_token=per_token)
+        before = entry.launches
+        got = linear.dense(x, sq, layer=2)
+        assert entry.launches == before + 1
+        ref = linear.dense(x.cpu(), sq.to("cpu"), layer=2)
+        _assert_close(got, ref.to(dev), torch.bfloat16)
+
+
+PROBES = ["bitcast", "u16", "construct", "gemv_decodes", "fp8_planes"]
+
+
+def _same_bits(got, ref):
+    """Exact: equal values, or both NaN (the two e4m3 NaN codes)."""
+    got, ref = got.cpu(), ref.cpu()
+    both_nan = torch.isnan(got.float()) & torch.isnan(ref.float())
+    assert (both_nan | (got == ref)).all()
+
+
+@pytest.mark.parametrize("probe", PROBES)
+def test_decode_probes_exact(dev, probe):
+    from trtllm_llama_tpu_torch.ops.kernels import probes as pr
+    fn, make = {"bitcast": (pr.probe_bitcast_u32_bf16, pr.bitcast_inputs),
+                "u16": (pr.probe_u16_ops, pr.u16_inputs),
+                "construct": (pr.probe_u32_bf16_construct,
+                              pr.construct_inputs),
+                "gemv_decodes": (pr.probe_gemv_decodes, pr.code_inputs),
+                "fp8_planes": (pr.probe_fp8_planes, pr.planes_inputs)}[probe]
+    before = fn.launches
+    got = fn(make(dev))
+    assert fn.launches == before + 1
+    ref = getattr(pr, fn.__name__ + "_plain")(make("cpu"))
+    for a, b in (zip(got, ref) if isinstance(got, tuple) else [(got, ref)]):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _same_bits(a, b)
+
+
+@pytest.mark.parametrize("kind", ["int8wo", "int4 g128", "fp8", "sq-static"])
+def test_fuse_gate_up_generate_on_cuda_matches_cpu(dev, kind, monkeypatch):
+    """Under TLLM_FUSE_GU the card's tokens equal the CPU's, and the SwiGLU
+    prologue runs in the kernel at decode shapes (WOQ / fp8) or row 5 runs
+    every projection (static SQ)."""
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.quantization.quantize import (
+        init_random_quantized_params,
+    )
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    mode = {"int8wo": QuantMode.use_weight_only(),
+            "int4 g128": QuantMode.use_weight_only(True, per_group=True),
+            "fp8": QuantMode.FP8_QDQ,
+            "sq-static": QuantMode.use_smooth_quant()}[kind]
+    cfg = ModelConfig.tiny(dtype="float32", quant_mode=mode, group_size=128)
+    params = init_random_quantized_params(cfg, seed=0, device="cpu")
+    monkeypatch.setenv("TLLM_FUSE_GU", "1")
+    prompts = [[5, 17, 99, 3, 250, 8], [200, 4, 66]]
+    counter = {"fp8": f8k.fp8_matmul_stacked,
+               "sq-static": w8a8.w8a8_matmul}.get(kind, woq.woq_matmul_stacked)
+    outs = []
+    for device in ("cpu", "cuda"):
+        sess = GenerationSession(cfg, params, EngineConfig(
+            max_input_len=16, max_seq_len=48), device=device)
+        assert "w_gate_up" in sess.params["layers"]
+        before = (counter.launches, getattr(counter, "swiglu_launches", 0))
+        outs.append(sess.generate(prompts, sampling=SamplingConfig(end_id=-1),
+                                  max_new_tokens=10).output_ids)
+        after = (counter.launches, getattr(counter, "swiglu_launches", 0))
+        if device == "cuda":
+            # qkv, wo, gate/up, down in each of 10 forwards
+            assert after[0] - before[0] == 4 * cfg.num_layers * 10
+            if kind != "sq-static":     # 2 x 16 prefill rows compose plainly
+                assert after[1] - before[1] == cfg.num_layers * 9
+    np.testing.assert_array_equal(outs[0], outs[1])

@@ -4,8 +4,10 @@ generates on the CPU (int8 weight-only, SmoothQuant with an int8 KV cache,
 int4 g64 and fp8 with a quantized lm_head; every prompt through the
 streaming prefill and the 'split' and 'fused' decode modes; the five
 decoder families of models/decoder.py, picked by models.by_architecture,
-Bloom's ALiBi included) and serves (a paged and a packed ServingEngine)
-with both made unimportable."""
+Bloom's ALiBi included; the offline build from an HF-layout state dict
+through SmoothQuant, static W8A8 + int8 KV, the engine dir and the loader,
+generating under TLLM_FUSE_GU; the decode probes) and serves (a paged and
+a packed ServingEngine) with both made unimportable."""
 
 import ast
 import subprocess
@@ -40,7 +42,13 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert len(files) > 15
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"trtllm_llama_tpu_torch/models/decoder.py",
-            "trtllm_llama_tpu_torch/models/__init__.py"} <= names
+            "trtllm_llama_tpu_torch/models/__init__.py",
+            "trtllm_llama_tpu_torch/convert/serialize.py",
+            "trtllm_llama_tpu_torch/convert/hf.py",
+            "trtllm_llama_tpu_torch/convert/convert.py",
+            "trtllm_llama_tpu_torch/quantization/calibrate.py",
+            "trtllm_llama_tpu_torch/quantization/smoothquant.py",
+            "trtllm_llama_tpu_torch/ops/kernels/probes.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert not bad, bad
@@ -113,6 +121,56 @@ for opts in (dict(paged=True, block_size=8), dict(packed_prefill=True)):
     done = eng.run_to_completion()
     assert sorted(done) == rids and all(
         len(done[r].output_ids) == 5 for r in rids), done
+import os, shutil, tempfile, types
+import numpy as np
+from trtllm_llama_tpu_torch.convert.convert import cast_fp_leaves
+from trtllm_llama_tpu_torch.convert.hf import params_from_hf_state_dict
+from trtllm_llama_tpu_torch.convert.serialize import load_engine, save_engine
+from trtllm_llama_tpu_torch.quantization.calibrate import (
+    act_ranges_for_smoothquant, kv_scales_from_ranges, weight_absmax)
+from trtllm_llama_tpu_torch.quantization.smoothquant import smooth_hf_state_dict
+hf = types.SimpleNamespace(vocab_size=64, hidden_size=32, intermediate_size=64,
+                           num_hidden_layers=2, num_attention_heads=2,
+                           rms_norm_eps=1e-6, max_position_embeddings=64)
+mode = QuantMode.use_smooth_quant() | QuantMode.INT8_KV_CACHE
+cfg = ModelConfig.from_hf_config(hf, dtype="float32", quant_mode=mode)
+g = torch.Generator().manual_seed(0)
+shapes = {"self_attn.q_proj": (32, 32), "self_attn.k_proj": (32, 32),
+          "self_attn.v_proj": (32, 32), "self_attn.o_proj": (32, 32),
+          "mlp.gate_proj": (64, 32), "mlp.up_proj": (64, 32),
+          "mlp.down_proj": (32, 64)}
+sd = {f"model.layers.{i}.{k}.weight": torch.randn(s, generator=g) * 0.2
+      for i in range(2) for k, s in shapes.items()}
+sd.update({f"model.layers.{i}.{n}.weight": torch.ones(32) for i in range(2)
+           for n in ("input_layernorm", "post_attention_layernorm")})
+sd.update({"model.embed_tokens.weight": torch.randn(64, 32, generator=g),
+           "lm_head.weight": torch.randn(64, 32, generator=g) * 0.2,
+           "model.norm.weight": torch.ones(32)})
+x = {k: np.abs(np.random.default_rng(0).standard_normal((2, 64 if k == "w_down"
+     else 32))) for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")}
+for k in ("wk", "wv"):
+    x[k] = x["wq"].copy()
+x["w_up"] = x["w_gate"].copy()
+ranges = {"x_absmax": x, "w_absmax": weight_absmax(sd, 2),
+          "kv_absmax": np.full(2, 6.35)}
+sd, x_sm = smooth_hf_state_dict(sd, ranges, 2)
+params = quantize_params(params_from_hf_state_dict(sd, cfg, "float32"), mode,
+                         act_ranges=act_ranges_for_smoothquant({"x_absmax": x_sm}))
+engine_dir = tempfile.mkdtemp()
+save_engine(engine_dir, cfg, cast_fp_leaves(params, torch.float32),
+            kv_scales_from_ranges(ranges))
+cfg2, loaded, kv2 = load_engine(engine_dir, device="cpu")
+shutil.rmtree(engine_dir)
+os.environ["TLLM_FUSE_GU"] = "1"
+sess = GenerationSession(cfg2, loaded, EngineConfig(max_input_len=16,
+                         max_seq_len=32), kv_scales=kv2, device="cpu")
+assert "w_gate_up" in sess.params["layers"]
+out = sess.generate([[5, 6, 7], [8, 9]], sampling=SamplingConfig(end_id=-1),
+                    max_new_tokens=4)
+assert out.output_ids.shape == (2, 4), out.output_ids.shape
+from trtllm_llama_tpu_torch.ops.kernels import probes
+assert probes.probe_u32_bf16_construct(probes.construct_inputs()).float()[
+    0:2, 89].tolist() == [200.0, 168.0]
 assert not any(m == "jax" or m.startswith(("jax.", "trtllm_llama_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok", out.output_ids.tolist())

@@ -1,14 +1,16 @@
 """Model and engine configuration (the port's copy).
 
-`ModelConfig` and `EngineConfig` carry the same fields, defaults, presets
-and JSON form as the JAX package's `config.py`, so one `config.json` serves
-both packages. The dtype strings map to torch dtypes here.
+`ModelConfig` and `EngineConfig` carry the same fields, defaults, presets,
+JSON form and `from_hf_config` as the JAX package's `config.py`, so one
+`config.json` serves both packages. The dtype strings map to torch dtypes
+here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+from typing import Any
 
 import torch
 
@@ -77,6 +79,46 @@ class ModelConfig:
             num_layers=2, num_heads=4, num_kv_heads=4, head_dim=32,
             max_position_embeddings=128,
         )
+        d.update(over)
+        return cls(**d)
+
+    @classmethod
+    def from_hf_config(cls, hf_cfg: Any, **over) -> "ModelConfig":
+        """Build from any object with the attributes of a transformers
+        LlamaConfig (vocab_size, hidden_size, intermediate_size,
+        num_hidden_layers, num_attention_heads, optional
+        num_key_value_heads / head_dim / rope_theta / tie_word_embeddings /
+        rope_scaling, max_position_embeddings, rms_norm_eps), as the JAX
+        package's. rope_scaling types 'linear' and 'dynamic' / 'ntk' map to
+        'linear' and 'ntk' with their factor (max_position_embeddings is
+        taken as the extended window); any other type raises."""
+        d = dict(
+            vocab_size=hf_cfg.vocab_size,
+            hidden_size=hf_cfg.hidden_size,
+            intermediate_size=hf_cfg.intermediate_size,
+            num_layers=hf_cfg.num_hidden_layers,
+            num_heads=hf_cfg.num_attention_heads,
+            num_kv_heads=getattr(hf_cfg, "num_key_value_heads", None)
+            or hf_cfg.num_attention_heads,
+            head_dim=getattr(hf_cfg, "head_dim", None)
+            or hf_cfg.hidden_size // hf_cfg.num_attention_heads,
+            max_position_embeddings=hf_cfg.max_position_embeddings,
+            rope_theta=getattr(hf_cfg, "rope_theta", 10000.0),
+            rms_norm_eps=hf_cfg.rms_norm_eps,
+            tie_word_embeddings=getattr(hf_cfg, "tie_word_embeddings", False),
+        )
+        rs = getattr(hf_cfg, "rope_scaling", None)
+        if rs:
+            kind = rs.get("rope_type", rs.get("type", ""))
+            if kind in ("linear", "dynamic", "ntk"):
+                d["rope_scaling_type"] = "linear" if kind == "linear" else "ntk"
+                d["rope_scaling_factor"] = float(rs.get("factor", 1.0))
+            elif kind not in ("default", ""):
+                # llama3 / yarn / longrope change inv_freq in ways the
+                # engine does not implement: converting anyway would give
+                # wrong logits at every position
+                raise ValueError(f"unsupported rope_scaling type {kind!r} "
+                                 "(supported: linear, dynamic/ntk)")
         d.update(over)
         return cls(**d)
 

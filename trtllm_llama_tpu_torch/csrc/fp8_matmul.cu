@@ -4,25 +4,27 @@
 // Replaces: trtllm_llama_tpu/ops/pallas/woq_matmul.py::fp8_matmul_stacked
 // and, on a unit layer axis, fp8_matmul (the fp8 branch of _kernel_int8,
 // _decode_fp8_planes on rows interleaved by interleave_fp8_rows, the
-// per-channel scale after the sum, the _fuse_prologue norm and the
-// _fuse_epilogue residual add). A library of its own so that nvcc builds it
+// per-channel scale after the sum, the _fuse_prologue norm and SwiGLU
+// modes and the _fuse_epilogue residual add). A library of its own so that nvcc builds it
 // beside the int8 / int4 one. The design and what bounds it on the H100:
 // see woq_gemv.cuh.
 #include "woq_gemv.cuh"
 
 using namespace tllm;
 
-// x [M, K] (dtype), q uint8 e4m3 codes [K, N] of ONE layer, rows interleaved
+// x [M, K] (dtype; [M, 2K] = [gate | up] with swiglu), q uint8 e4m3 codes [K, N] of ONE layer, rows interleaved
 // by blk (0: logical order), scale f32 [N], norm_w [K] or null, resid
 // [M, N] or null, out [M, N] f32, part [ksplit, M, N] f32 scratch (== out
 // allowed when ksplit == 1). mr in {1, 2, 4, 8}: rows per register tile.
+// swiglu: stage silu(gate) * up as the matmul's input (norm_w null).
 extern "C" int tllm_fp8_matmul_stacked(const void* x, const void* q,
                                        const void* scale, const void* norm_w,
                                        const void* resid, void* out, void* part,
                                        int dtype, int M, int K, int N,
                                        int ksplit, int kc, int mr, int blk,
-                                       float eps, int device, void* stream) {
+                                       float eps, int swiglu, int device,
+                                       void* stream) {
   const gemv::Args a{x, q, scale, norm_w, resid, out, part, M, K, N,
-                     ksplit, kc, blk, 0, eps};
+                     ksplit, kc, blk, 0, eps, swiglu};
   return gemv::dispatch<gemv::kFp8, false>(dtype, mr, a, device, stream);
 }

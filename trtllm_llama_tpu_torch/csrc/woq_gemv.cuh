@@ -3,12 +3,14 @@
 //
 // Replaces the body of trtllm_llama_tpu/ops/pallas/woq_matmul.py
 // (_kernel_int8 with its fp8 branch, _kernel_int4, the _fuse_prologue norm
-// and the _fuse_epilogue residual add). Instantiated by woq_matmul.cu
-// (int8, int4) and fp8_matmul.cu (fp8), two libraries that nvcc builds in
-// parallel.
+// and SwiGLU modes and the _fuse_epilogue residual add). Instantiated by
+// woq_matmul.cu (int8, int4) and fp8_matmul.cu (fp8), two libraries that
+// nvcc builds in parallel; decode_probes.cu calls its decode functions.
 //
 // Computes, for one layer of the stacked weight:
-//   h   = T(x * rsqrt(mean(x^2) + eps) * norm_w)   (optional prologue, f32)
+//   h   = T(x * rsqrt(mean(x^2) + eps) * norm_w)   (optional norm prologue)
+//   h   = T(T(silu(g)) * u), [g | u] = x [M, 2K]   (or the SwiGLU prologue:
+//         silu(g) = g / (1 + exp(-g)) in f32, the product in T)
 //   acc = sum_k f32(h[m, k]) * f32(w[k, n])        (f32 accumulation)
 //   y   = acc * scale[n]                           per-channel, after the sum
 //   y   = sum_g scale[g, n] * (sum_{k in g} ...)   grouped: per group of K rows
@@ -29,7 +31,11 @@
 //     K rows. The x panel is staged in shared memory as f32 in STORED order
 //     (slot_of below), so the inner loop reads x at the stored row it
 //     decodes. The split-K range and the staged tile start on whole pack
-//     (or interleave, or scale-group) blocks, so no block straddles two;
+//     (or interleave, or scale-group) blocks, so no block straddles two.
+//     A prologue runs where the tile is staged: each logical row kk is
+//     computed from x (the norm; or SwiGLU from x[m, kk] and x[m, K + kk],
+//     rows of stride 2K) and lands at the slot of the stored row that holds
+//     it, so the stored order needs nothing more;
 //   - grouped scales vary along K, so they cannot wait for the split-K
 //     reduce: each group's partial sum is scaled before it joins the
 //     accumulator (kept beside it in registers, hence at most 4 rows a tile);
@@ -59,6 +65,25 @@ constexpr int kKT = 512;             // logical K rows of x staged per pass
 __device__ __forceinline__ float plant(uint32_t bytes, int j) {
   // byte j of `bytes` under the exponent of 2^23: the float 2^23 + byte
   return __uint_as_float(__byte_perm(bytes, 0x4B000000u, 0x7440u + j));
+}
+
+// The int8 code in byte j of `word` as an exact float.
+__device__ __forceinline__ float int8_code(uint32_t word, int j) {
+  // byte ^ 0x80 = q + 128 in [0, 255]
+  return plant(word ^ 0x80808080u, j) - 8388736.0f;
+}
+
+// The two int4 codes of byte j of `word` (low nibble, high nibble; stored
+// biased by INT4_BIAS = 8) as exact floats.
+__device__ __forceinline__ void int4_codes(uint32_t word, int j, float& lo,
+                                           float& hi) {
+  lo = plant(word & 0x0F0F0F0Fu, j) - 8388616.0f;  // 2^23 + INT4_BIAS
+  hi = plant((word >> 4) & 0x0F0F0F0Fu, j) - 8388616.0f;
+}
+
+// silu(g) = g / (1 + exp(-g)) in f32 (expf, not the approximate __expf).
+__device__ __forceinline__ float silu_f32(float g) {
+  return g / (1.0f + expf(-g));
 }
 
 // e4m3 codes in the two bytes of `pair` -> two exact floats (low byte first).
@@ -115,12 +140,10 @@ __device__ __forceinline__ void fma_row(const int4 wv, const float* xs_row,
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const uint32_t lo = words[i] & 0x0F0F0F0Fu;
-      const uint32_t hi = (words[i] >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float wl = plant(lo, j) - 8388616.0f;  // 2^23 + INT4_BIAS
-        const float wh = plant(hi, j) - 8388616.0f;
+        float wl, wh;
+        int4_codes(words[i], j, wl, wh);
 #pragma unroll
         for (int r = 0; r < MR; ++r) {
           a[r][4 * i + j] = fmaf(xl[r], wl, a[r][4 * i + j]);
@@ -139,10 +162,8 @@ __device__ __forceinline__ void fma_row(const int4 wv, const float* xs_row,
         fp8x2(words[i], f[0], f[1]);
         fp8x2(words[i] >> 16, f[2], f[3]);
       } else {
-        // byte ^ 0x80 = q + 128 in [0, 255]
-        const uint32_t biased = words[i] ^ 0x80808080u;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) f[j] = plant(biased, j) - 8388736.0f;
+        for (int j = 0; j < 4; ++j) f[j] = int8_code(words[i], j);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -156,12 +177,14 @@ __device__ __forceinline__ void fma_row(const int4 wv, const float* xs_row,
 // blk: int4 pack block or fp8 interleave block (0: identity order);
 // group: logical K rows per scale group (GROUPED), scale then [K/group, N].
 // kc and every tile start are multiples of blk and group (wrapper).
+// swiglu: x is [M, 2K] = [gate | up] and the prologue stages silu(g) * u
+// (norm_w is then null: one prologue per matmul, checked by the wrapper).
 template <typename T, int MR, int FMT, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
     partial_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
                    const float* __restrict__ scale, const T* __restrict__ norm_w,
                    float* __restrict__ part, int M, int K, int N, int kc,
-                   int blk, int group, float eps) {
+                   int blk, int group, float eps, int swiglu) {
   constexpr int kR = FMT == kInt4 ? 2 : 1;    // logical rows per stored row
   __shared__ __align__(16) float xs[MR][kKT];  // staged rows, stored order
   __shared__ float red[MR * kVec * kTN];       // cross-warp reduction
@@ -206,7 +229,10 @@ __global__ void __launch_bounds__(kThreads)
         const int kk = i - r * klen;
         const int m = m0 + r;
         float v = 0.f;
-        if (m < M) {
+        if (m < M && swiglu) {
+          const T* xr = x + static_cast<size_t>(m) * 2 * K + kt + kk;
+          v = round_to<T>(round_to<T>(silu_f32(to_f(xr[0]))) * to_f(xr[K]));
+        } else if (m < M) {
           v = to_f(x[static_cast<size_t>(m) * K + kt + kk]);
           if (norm_w != nullptr)
             v = round_to<T>(v * rstd[r] * to_f(norm_w[kt + kk]));
@@ -304,7 +330,7 @@ __global__ void reduce_kernel(const float* part, const float* __restrict__ scale
 // The arguments every entry point takes (pointers of ONE layer: the
 // wrapper offsets the stacked arrays).
 struct Args {
-  const void* x;       // [M, K] activation (dtype)
+  const void* x;       // [M, K] activation (dtype), [M, 2K] with swiglu
   const void* q;       // stored weight codes of the layer
   const void* scale;   // f32 [N] per-channel or [K/group, N] grouped
   const void* norm_w;  // [K] (dtype) or null
@@ -313,6 +339,7 @@ struct Args {
   void* part;          // f32 [ksplit, M, N] scratch (== out if ksplit == 1)
   int M, K, N, ksplit, kc, blk, group;
   float eps;
+  int swiglu;          // x is [M, 2K] = [gate | up]: the SwiGLU prologue
 };
 
 template <typename T, int MR, int FMT, bool GROUPED>
@@ -322,7 +349,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   partial_kernel<T, MR, FMT, GROUPED><<<grid, block, 0, stream>>>(
       static_cast<const T*>(a.x), static_cast<const uint8_t*>(a.q),
       static_cast<const float*>(a.scale), static_cast<const T*>(a.norm_w),
-      static_cast<float*>(a.part), a.M, a.K, a.N, a.kc, a.blk, a.group, a.eps);
+      static_cast<float*>(a.part), a.M, a.K, a.N, a.kc, a.blk, a.group, a.eps,
+      a.swiglu);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = static_cast<size_t>(a.M) * a.N;

@@ -4,26 +4,29 @@
 // Replaces: trtllm_llama_tpu/ops/pallas/woq_matmul.py::woq_matmul_stacked
 // and, on a unit layer axis, its 2-D form woq_matmul (_kernel_int8's int8
 // branch and _kernel_int4 with _unpack_block_planes, per-channel or grouped
-// scales, the _fuse_prologue norm and the _fuse_epilogue residual add).
+// scales, the _fuse_prologue norm and SwiGLU modes and the _fuse_epilogue
+// residual add).
 // The design and what bounds it on the H100: see woq_gemv.cuh.
 #include "woq_gemv.cuh"
 
 using namespace tllm;
 
-// x [M, K] (dtype), q of ONE layer: int8 [K, N] (w_bits 8) or packed int4
-// [K/2, N] (w_bits 4, pack block blk), scale f32 [N] (group 0) or
-// [K/group, N], norm_w [K] or null, resid [M, N] or null, out [M, N] f32,
+// x [M, K] (dtype; [M, 2K] = [gate | up] with swiglu), q of ONE layer:
+// int8 [K, N] (w_bits 8) or packed int4 [K/2, N] (w_bits 4, pack block
+// blk), scale f32 [N] (group 0) or [K/group, N], norm_w [K] or null, resid
+// [M, N] or null, out [M, N] f32,
 // part [ksplit, M, N] f32 scratch (== out allowed when ksplit == 1).
 // mr in {1, 2, 4, 8} (at most 4 when grouped): rows per register tile.
+// swiglu: stage silu(gate) * up as the matmul's input (norm_w null).
 extern "C" int tllm_woq_matmul_stacked(const void* x, const void* q,
                                        const void* scale, const void* norm_w,
                                        const void* resid, void* out, void* part,
                                        int dtype, int M, int K, int N,
                                        int ksplit, int kc, int mr, int w_bits,
                                        int blk, int group, float eps,
-                                       int device, void* stream) {
+                                       int swiglu, int device, void* stream) {
   const gemv::Args a{x, q, scale, norm_w, resid, out, part, M, K, N,
-                     ksplit, kc, blk, group, eps};
+                     ksplit, kc, blk, group, eps, swiglu};
   if (w_bits == 8)
     return group ? gemv::dispatch<gemv::kInt8, true>(dtype, mr, a, device, stream)
                  : gemv::dispatch<gemv::kInt8, false>(dtype, mr, a, device, stream);

@@ -2,9 +2,10 @@
 
 Params are a plain dict mirroring the JAX package's pytree: `embed` [V, D],
 `layers` (each entry stacked [L, ...]: attn_norm, wq/wk/wv or the fused
-wqkv, wo, mlp_norm, w_gate, w_up, w_down; projections are tensors,
-weight-only `WOQWeight`s (int8 or int4, per-channel or grouped scales),
-`FP8Weight`s or SmoothQuant `SQWeight`s), `final_norm` [D], `lm_head`
+wqkv, wo, mlp_norm, w_gate and w_up or the fused w_gate_up, w_down;
+projections are tensors, weight-only `WOQWeight`s (int8 or int4,
+per-channel or grouped scales), `FP8Weight`s or SmoothQuant `SQWeight`s),
+`final_norm` [D], `lm_head`
 [D, V] (a tensor, or a 2-D `WOQWeight` / `FP8Weight` when quantized). The
 layer loop is a Python loop over the stacked weights; kernels read the
 layer slice in place; `ops.linear.dense` dispatches on the container. The KV cache is the stacked
@@ -68,6 +69,22 @@ def fuse_qkv_params(params):
         return params
     new_lw = {k: v for k, v in lw.items() if k not in ("wq", "wk", "wv")}
     new_lw["wqkv"] = fused
+    return {**params, "layers": new_lw}
+
+
+def fuse_gate_up_params(params):
+    """Fuse w_gate/w_up into one stacked w_gate_up projection (exact, as
+    fuse_qkv_params; the session applies it under TLLM_FUSE_GU, as the
+    JAX package's does). Returns new params; no-op when already fused or
+    not fusable."""
+    lw = params["layers"]
+    if "w_gate_up" in lw or not all(k in lw for k in ("w_gate", "w_up")):
+        return params
+    fused = concat_columns([lw["w_gate"], lw["w_up"]])
+    if fused is None:
+        return params
+    new_lw = {k: v for k, v in lw.items() if k not in ("w_gate", "w_up")}
+    new_lw["w_gate_up"] = fused
     return {**params, "layers": new_lw}
 
 
@@ -135,12 +152,24 @@ def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin, caches,
 
 
 def _mlp_block(cfg: ModelConfig, lw, layer: int, x):
-    if "w_gate_up" in lw:
-        raise NotImplementedError("fused gate/up weights are not ported yet")
-    if _sq_per_token(lw["w_gate"]):
+    fused = "w_gate_up" in lw
+    f = cfg.intermediate_size
+    if _sq_per_token(lw["w_gate_up"] if fused else lw["w_gate"]):
         h_q, h_s = rms_norm_quant(x, lw["mlp_norm"][layer], cfg.rms_norm_eps)
-        g = dense_prequant(h_q, h_s, lw["w_gate"], cfg.torch_dtype, layer)
-        u = dense_prequant(h_q, h_s, lw["w_up"], cfg.torch_dtype, layer)
+        if fused:
+            gu = dense_prequant(h_q, h_s, lw["w_gate_up"], cfg.torch_dtype,
+                                layer)
+            g, u = gu[..., :f], gu[..., f:]
+        else:
+            g = dense_prequant(h_q, h_s, lw["w_gate"], cfg.torch_dtype, layer)
+            u = dense_prequant(h_q, h_s, lw["w_up"], cfg.torch_dtype, layer)
+    elif fused:
+        # the norm runs inside the gate/up kernel, silu(g) * u inside the
+        # down kernel, at decode shapes (dense_fused; composed otherwise)
+        gu = dense_fused(x, lw["w_gate_up"], layer=layer,
+                         norm_w=lw["mlp_norm"], eps=cfg.rms_norm_eps)
+        return dense_fused(gu, lw["w_down"], layer=layer, swiglu=True,
+                           resid=x, out_dtype=x.dtype)
     else:
         h = rms_norm(x, lw["mlp_norm"][layer], cfg.rms_norm_eps)
         g = dense(h, lw["w_gate"], layer=layer)

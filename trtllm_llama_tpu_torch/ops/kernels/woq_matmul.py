@@ -2,8 +2,8 @@
 csrc/woq_gemv.cuh).
 
 Replaces `trtllm_llama_tpu/ops/pallas/woq_matmul.py::woq_matmul_stacked`
-(int8 and int4 branches, per-channel or grouped scales, norm prologue,
-residual epilogue) and its 2-D form `woq_matmul`. Bound on the H100: the
+(int8 and int4 branches, per-channel or grouped scales, the norm and
+SwiGLU prologues, the residual epilogue) and its 2-D form `woq_matmul`. Bound on the H100: the
 weight bytes, read once (a GEMV at M <= 16 does 2*M flops per int8 byte,
 4*M per int4 byte); the design streams them in 16-byte vectors over
 split-K blocks that fill all SMs, with int4 unpacked in registers and x
@@ -11,7 +11,8 @@ staged in the pack layout's row order (see the header's note).
 
 `woq_matmul_stacked` and `woq_matmul` take the plain version for CPU
 tensors and launch the kernel for CUDA tensors; each counts its launches
-in `.launches`. `launch_gemv` is shared with the fp8 wrapper.
+in `.launches` (`woq_matmul_stacked.swiglu_launches` counts those of them
+with the SwiGLU prologue). `launch_gemv` is shared with the fp8 wrapper.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from . import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_woq_matmul_stacked":
-               [_P] * 7 + [_I] * 10 + [_F, _I, _P]}
+               [_P] * 7 + [_I] * 10 + [_F, _I, _I, _P]}
 
 _BN = 512          # output columns per block (kBN in the source)
 _KT = 512          # logical K rows staged per pass (kKT in the source)
@@ -67,10 +68,16 @@ def _split_k(m: int, k: int, n: int, n_sm: int, unit: int = 8):
 # plain versions
 # ---------------------------------------------------------------------------
 
-def norm_prologue(x, norm_w, layer: int, eps: float):
-    """x [..., K] -> h [M, K] in x's dtype: x, or RMSNorm(x) * norm_w[layer]
-    in f32, cast to x's dtype (the kernel's prologue)."""
+def prologue(x, norm_w, layer: int, eps: float, swiglu: bool = False):
+    """x [..., K] -> h [M, K] in x's dtype (the kernel's prologues): x;
+    RMSNorm(x) * norm_w[layer] in f32, cast to x's dtype; or, with swiglu,
+    x [..., 2K] = [g | u] -> silu(g) in f32, cast to x's dtype, times u."""
     h = x.reshape(-1, x.shape[-1])
+    if swiglu:
+        if norm_w is not None:
+            raise ValueError("norm_w and swiglu are mutually exclusive")
+        k = h.shape[-1] // 2
+        return torch.nn.functional.silu(h[:, :k].float()).to(x.dtype) * h[:, k:]
     if norm_w is None:
         return h
     hf = h.float()
@@ -88,14 +95,15 @@ def resid_epilogue(acc, x, resid):
 
 
 def woq_matmul_stacked_plain(x, w: WOQWeight, layer: int, norm_w=None,
-                             eps: float = 1e-6, resid=None):
-    """Plain PyTorch version. x [..., K] -> f32 [..., N]: f32 products of
-    the compute-dtype input and the int8 (or unpacked int4) codes, f32 sum,
-    then the per-channel scale; grouped: each group's sum times its scale,
-    summed over the groups."""
+                             eps: float = 1e-6, resid=None,
+                             swiglu: bool = False):
+    """Plain PyTorch version. x [..., K] ([..., 2K] with swiglu) -> f32
+    [..., N]: f32 products of the compute-dtype input and the int8 (or
+    unpacked int4) codes, f32 sum, then the per-channel scale; grouped:
+    each group's sum times its scale, summed over the groups."""
     w.check_supported()
     k = w.k_dim
-    h = norm_prologue(x, norm_w, layer, eps).float()
+    h = prologue(x, norm_w, layer, eps, swiglu).float()
     q = w.codes(layer).float()
     if w.group_size:
         g = w.group_size
@@ -112,18 +120,23 @@ def woq_matmul_stacked_plain(x, w: WOQWeight, layer: int, norm_w=None,
 # ---------------------------------------------------------------------------
 
 def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
-                fmt_args, unit, max_rows, norm_w=None, eps=1e-6, resid=None):
+                fmt_args, unit, max_rows, norm_w=None, eps=1e-6, resid=None,
+                swiglu=False):
     """Check the operands of one stacked GEMV kernel and launch it.
 
     q: stacked stored codes [L, K or K/2, N] (1 byte per element); scale:
     f32 [L, N] or grouped [L, K/g, N]; fmt_args: the entry's format ints
     (after the rows-per-tile argument); unit: the block that kc and every
     staged tile must be whole multiples of; max_rows: the largest row tile
-    the format's kernel has (4 or 8). Returns f32 [..., N]."""
+    the format's kernel has (4 or 8); swiglu: x is [..., 2K] = [gate | up].
+    Returns f32 [..., N]."""
     n_layers, n = q.shape[0], q.shape[-1]
+    k_x = 2 * k if swiglu else k
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what}: unsupported dtype {x.dtype}")
-    if x.shape[-1] != k or not 0 <= layer < n_layers:
+    if swiglu and norm_w is not None:
+        raise ValueError(f"{what}: norm_w and swiglu are mutually exclusive")
+    if x.shape[-1] != k_x or not 0 <= layer < n_layers:
         raise ValueError(f"{what}: x {tuple(x.shape)}, weight "
                          f"{tuple(q.shape)} (K={k}), layer {layer}")
     if (n % 16 or q.data_ptr() % 16 or scale.data_ptr() % 16
@@ -141,7 +154,7 @@ def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
     if norm_w is not None and (norm_w.dtype != x.dtype
                                or norm_w.shape != (n_layers, k)):
         raise ValueError(f"{what}: norm_w must be [L, K] in x's dtype")
-    m = x.numel() // k
+    m = x.numel() // k_x
     if resid is not None and (resid.dtype != x.dtype or resid.numel() != m * n):
         raise ValueError(f"{what}: resid must be [..., N] in x's dtype")
 
@@ -157,13 +170,13 @@ def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
         _P(scale.data_ptr() + layer * scale.stride(0) * 4), nw_ptr,
         _build.ptr(resid), _build.ptr(out), _build.ptr(part),
         _build.DTYPE_CODES[x.dtype], m, k, n, ksplit, kc,
-        _rows_per_tile(m, max_rows), *fmt_args, eps, x.device.index or 0,
-        _build.stream_of(x))
+        _rows_per_tile(m, max_rows), *fmt_args, eps, int(swiglu),
+        x.device.index or 0, _build.stream_of(x))
     _build.check(err, what)
     return out.reshape(*x.shape[:-1], n)
 
 
-def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid):
+def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid, swiglu=False):
     w.check_supported()
     n_layers, n = w.qweight.shape[0], w.qweight.shape[-1]
     grouped = bool(w.group_size)
@@ -177,7 +190,7 @@ def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid):
     return launch_gemv(what, "woq_matmul", "tllm_woq_matmul_stacked",
                        _SIGNATURES, x, w.qweight, w.scale, layer, w.k_dim,
                        (w.w_bits, w.pack_block, w.group_size), unit, max_rows,
-                       norm_w, eps, resid)
+                       norm_w, eps, resid, swiglu)
 
 
 def _device_kind(x, what):
@@ -187,21 +200,26 @@ def _device_kind(x, what):
 
 
 def woq_matmul_stacked(x, w: WOQWeight, layer: int, norm_w=None,
-                       eps: float = 1e-6, resid=None):
-    """y = [resid +] (norm(x) | x) @ dequant(w.qweight[layer]).
+                       eps: float = 1e-6, resid=None, swiglu: bool = False):
+    """y = [resid +] (norm(x) | silu(g) * u | x) @ dequant(w.qweight[layer]).
 
-    x: [..., K] f32, bf16 or fp16; w: stacked WOQWeight, int8 [L, K, N] or
-    packed int4 [L, K/2, N], scale [L, N] or grouped [L, K/g, N]; norm_w: optional
-    stacked [L, K] RMSNorm weight (prologue); resid: optional [..., N] in
-    x's dtype (epilogue). Returns f32 [..., N]."""
+    x: [..., K] f32, bf16 or fp16 ([..., 2K] = [g | u] with swiglu); w:
+    stacked WOQWeight, int8 [L, K, N] or packed int4 [L, K/2, N], scale
+    [L, N] or grouped [L, K/g, N]; norm_w: optional stacked [L, K] RMSNorm
+    weight (prologue; not with swiglu); resid: optional [..., N] in x's
+    dtype (epilogue). Returns f32 [..., N]."""
     if _device_kind(x, "woq_matmul_stacked") == "cpu":
-        return woq_matmul_stacked_plain(x, w, layer, norm_w, eps, resid)
-    out = _launch("woq_matmul_stacked", x, w, layer, norm_w, eps, resid)
+        return woq_matmul_stacked_plain(x, w, layer, norm_w, eps, resid,
+                                        swiglu)
+    out = _launch("woq_matmul_stacked", x, w, layer, norm_w, eps, resid,
+                  swiglu)
     woq_matmul_stacked.launches += 1
+    woq_matmul_stacked.swiglu_launches += int(swiglu)
     return out
 
 
 woq_matmul_stacked.launches = 0
+woq_matmul_stacked.swiglu_launches = 0
 
 
 def unit_layer(w):

@@ -1,19 +1,25 @@
 """Linear ops with quantized-weight dispatch (the port's `ops/linear.py`).
 
-`dense` dispatches on the weight container: a plain tensor goes to a
-stock product (as the JAX package leaves it to XLA; on the card a bf16 /
-fp16 GEMM with f32 accumulation that never copies the weight to f32), a
-`WOQWeight` (int8 or int4, per-channel or grouped) to kernel 1
-(`ops/kernels/woq_matmul.py`), an `FP8Weight` to kernel 6
-(`ops/kernels/fp8_matmul.py`), an `SQWeight` to kernel 5
-(`ops/kernels/w8a8_matmul.py`) after quantizing the input per token (plain
-torch ops, as the JAX package quantizes outside its kernel) or with the
-static scale. A stacked weight with `layer` goes to a kernel's stacked
-entry, a 2-D one (the lm_head) to its 2-D entry. `dense_prequant` feeds
-kernel 5 an activation already quantized by `rms_norm_quant`. Each kernel
-wrapper takes its plain version for CPU tensors and raises on the card for
-a weight its kernel does not tile (N not a multiple of 16; for W8A8 also
-K % 4).
+`dense` dispatches on the weight container, as the JAX package's `dense`
+does (`ops/linear.py:100-117`). A plain tensor goes to a stock product (as
+the JAX package leaves it to XLA; on the card a bf16 / fp16 GEMM with f32
+accumulation that never copies the weight to f32). A `WOQWeight` (int8 or
+int4, per-channel or grouped) goes to `ops/kernels/woq_matmul.py` and an
+`FP8Weight` to `ops/kernels/fp8_matmul.py`: with `layer` to the stacked
+entry (PERF.md rows 2 and 4), without (the lm_head) to the 2-D one (rows 1
+and 3). An `SQWeight` takes the activation quantized by plain torch ops
+(as the JAX package quantizes outside its kernel): a per-token one with
+`layer` goes to `w8a8_matmul_stacked` (row 6); a static one (one
+per-tensor activation scale) with `layer` is indexed to that layer's
+views and, like any SQWeight without `layer`, goes to the 2-D
+`w8a8_matmul` (row 5), as the JAX package's `_index_layer` and
+`_dense_sq` do.
+`dense_prequant` feeds row 6 (or row 5 without `layer`) an activation
+already quantized by `rms_norm_quant`. `dense_fused` runs the norm or
+SwiGLU prologue and the residual epilogue inside rows 2 and 4 at decode
+shapes. Each kernel wrapper takes its plain version for CPU tensors and
+raises on the card for a weight its kernel does not tile (N not a
+multiple of 16; for W8A8 also K % 4).
 """
 
 from __future__ import annotations
@@ -64,6 +70,12 @@ def dense(x, w, out_dtype=None, layer=None):
     return y.to(out_dtype)
 
 
+def _index_layer(w: SQWeight, layer: int) -> SQWeight:
+    """The SQWeight of one stacked layer (views, no copy)."""
+    return SQWeight(w.qweight[layer], w.scale_w[layer], w.scale_x[layer],
+                    w.scale_y[layer], w.per_channel, w.per_token)
+
+
 def _sq_matmul(x_q, s_x, w: SQWeight, out_dtype, layer):
     if layer is None:
         y = _w8a8.w8a8_matmul(x_q, w.qweight, s_x, w.scale_w)
@@ -74,11 +86,14 @@ def _sq_matmul(x_q, s_x, w: SQWeight, out_dtype, layer):
 
 def _dense_sq(x, w: SQWeight, out_dtype=None, layer=None):
     """SmoothQuant dense: int8 x (dynamic per-token scales, or the static
-    per-tensor scale_x) times the int8 weight, dequantized in f32."""
+    per-tensor scale_x) times the int8 weight, dequantized in f32. Only a
+    per-token weight keeps its layer axis (the stacked kernel)."""
+    if layer is not None and not w.per_token:
+        w, layer = _index_layer(w, layer), None
     if w.per_token:
         x_q, s_x = quantize_per_token(x)
     else:
-        s_x = w.scale_x if layer is None else w.scale_x[layer]
+        s_x = w.scale_x
         x_q = quantize_static(x, s_x)
     return _sq_matmul(x_q, s_x, w, out_dtype or x.dtype, layer)
 
@@ -87,31 +102,38 @@ def dense_prequant(x_q, s_x, w: SQWeight, out_dtype=torch.bfloat16,
                    layer=None):
     """y = dequant(x_q) @ w for an activation already quantized per token
     (the rms_norm_quant -> W8A8 path: quantize once, fan out to the q/k/v
-    or gate/up projections). Only for per-token SQWeights."""
+    or gate/up projections). Only for per-token SQWeights: with `layer`
+    the stacked kernel (row 6), without it the 2-D one (row 5)."""
     if not (isinstance(w, SQWeight) and w.per_token):
         raise ValueError("dense_prequant needs a per-token SQWeight")
     return _sq_matmul(x_q, s_x, w, out_dtype, layer)
 
 
 def dense_fused(x, w, layer=None, out_dtype=None, *, norm_w=None,
-                eps: float = 1e-6, resid=None):
-    """out = [resid +] dense(rms_norm(x, norm_w[layer]) | x, w).
+                eps: float = 1e-6, swiglu: bool = False, resid=None):
+    """out = [resid +] dense(h, w) with h = rms_norm(x, norm_w[layer]), or
+    silu(g) * u of x [..., 2K] = [g | u] (swiglu), or x.
 
-    At up to FUSE_MAX_ROWS rows with a stacked WOQ or FP8 weight the norm
-    prologue and residual epilogue run inside kernel 1 or 6; otherwise (and
-    for every SQWeight) the plain ops are composed in the same rounding
-    order (norm cast to x's dtype before the matmul, matmul cast before the
-    residual add)."""
+    At up to FUSE_MAX_ROWS rows with a stacked WOQ or FP8 weight the
+    prologue and the residual epilogue run inside the kernel (PERF.md rows
+    2 and 4); otherwise (and for every SQWeight) the plain ops are composed
+    in the same rounding order (the norm, or silu in f32, cast to x's dtype
+    before the matmul; the matmul cast before the residual add). norm_w
+    with swiglu raises (one input prologue per matmul)."""
     rows = x.numel() // x.shape[-1]
     fusible = (layer is not None and rows <= FUSE_MAX_ROWS
-               and (norm_w is not None or resid is not None))
+               and (norm_w is not None or swiglu or resid is not None))
     kernel = (_woq.woq_matmul_stacked if isinstance(w, WOQWeight)
               else _fp8.fp8_matmul_stacked if isinstance(w, FP8Weight)
               else None)
     if fusible and kernel is not None:
-        y = kernel(x, w, layer, norm_w=norm_w, eps=eps, resid=resid)
+        y = kernel(x, w, layer, norm_w=norm_w, eps=eps, resid=resid,
+                   swiglu=swiglu)
         return y.to(out_dtype or x.dtype)
-    if norm_w is not None:
+    if swiglu:      # the kernels' plain prologue; raises with norm_w
+        h = _woq.prologue(x, norm_w, layer, eps, swiglu=True)
+        h = h.reshape(*x.shape[:-1], h.shape[-1])
+    elif norm_w is not None:
         nw = norm_w[layer] if layer is not None and norm_w.dim() > 1 else norm_w
         h = rms_norm(x, nw, eps)
     else:

@@ -290,10 +290,11 @@ def quantize_smoothquant_weight(w, act_amax, y_amax=None, per_channel=True,
     else:
         scale_w = absmax_scale(w, dim=(-2, -1)).unsqueeze(-1)      # [..., 1]
     q = quantize_int8(w, scale_w[..., None, :])
-    act_amax = torch.as_tensor(act_amax, dtype=torch.float32)
+    act_amax = torch.as_tensor(act_amax, dtype=torch.float32, device=w.device)
     scale_x = act_amax.clamp_min(1e-8) / 127.0
-    scale_y = (torch.as_tensor(y_amax, dtype=torch.float32).clamp_min(1e-8)
-               / 127.0 if y_amax is not None else torch.ones_like(scale_x))
+    scale_y = (torch.as_tensor(y_amax, dtype=torch.float32, device=w.device)
+               .clamp_min(1e-8) / 127.0 if y_amax is not None
+               else torch.ones_like(scale_x))
     return SQWeight(q, scale_w, scale_x, scale_y, per_channel, per_token)
 
 

@@ -14,6 +14,7 @@ the one `models.by_architecture(cfg.architecture)` names.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -53,11 +54,14 @@ class GenerationSession:
             np.asarray(kv_scales, np.float32), device=self.device))
         self.params = _params_to(params, self.device)
         # one device: fuse q/k/v into one matmul where the model has the
-        # rewrite, as the JAX session does (gate/up fusion is opt-in there
-        # and not ported)
+        # rewrite, as the JAX session does; gate/up fusion is opt-in there,
+        # by the environment variable TLLM_FUSE_GU, and here the same
         fuse = getattr(self.model, "fuse_qkv_params", None)
         if fuse is not None:
             self.params = fuse(self.params)
+        fuse_gu = getattr(self.model, "fuse_gate_up_params", None)
+        if fuse_gu is not None and os.environ.get("TLLM_FUSE_GU"):
+            self.params = fuse_gu(self.params)
         self.rope = self.model.rope_tables(cfg, device=self.device)
 
     def generate(self, input_ids, seq_lens=None,
