@@ -11,12 +11,17 @@
    paths' shapes and prints the max error against the stated tolerance,
    the kernel's time, its bound, the plain version's time and one PyTorch
    library call's time where one computes the same function (a yardstick
-   only: the port never calls it). The weight-only GEMVs are checked in
-   every format: int8, int4 with g128 and with per-channel scales, and fp8
-   (e4m3), stacked at the four projection shapes with the norm and
-   residual options, and the 2-D entries (woq_matmul, fp8_matmul) also at
-   the lm_head's shape. The attention kernels of the long-context path and
-   of the decode modes are checked at its shapes: the streaming prefill
+   only: the port never calls it). Kernels 1 and 6 are checked in every
+   format: int8, int4 with g128 and with per-channel scales, and fp8
+   (e4m3), stacked at the four projection shapes: the GEMV at up to 16
+   rows with the norm and residual options, the tensor-core GEMM at every
+   row count above 16 the paths and serving give (64; int8 also serving's
+   admissions and 8192), and the 2-D entries (woq_matmul, fp8_matmul)
+   also at the lm_head's shape; at the qkv shape the GEMM and the GEMV
+   are timed side by side at 16-8192 rows (the crossover), the GEMM once
+   with fp16 activations. Row 6 (W8A8) is timed at 1024 rows too. The
+   attention kernels of the long-context path and of the decode modes
+   are checked at its shapes: the streaming prefill
    (row 12) at 8192 rows, a GQA case and an f32 case with a length of 0;
    the read-only (row 8) and one-launch (row 9) decodes with bf16 and
    int8 caches at S_max 128 and 8320 and at the edges (lengths 0 and S,
@@ -45,7 +50,10 @@
    one). Each: bs1 with an 8-token prompt and 50 greedy
    tokens, bs1 with another prompt, bs4 with ragged prompts; prints
    prefill ms, decode ms/token and tokens/s, checks that every kernel of
-   the path was launched in the path's run (counts zeroed just before it),
+   the path was launched in the path's run (counts zeroed just before it;
+   kernel 1 / 6's GEMM exactly 5 times a layer, in bs4's 64-row prefill,
+   and its bs4 tokens against a run with the GEMV at every row count,
+   differing only at near ties),
    checks the 7B prefill logits against the plain-version path on the
    card, and profiles one bs1 request (device time by kernel, the device's
    busy share; device ms per decode token with a profile of the prefill
@@ -78,10 +86,11 @@
 5. path 5, long context (bench.py's int8_int8kv long rows): int8
    weight-only LLaMA-7B with an int8 KV cache, one 8192-token prompt and
    64 greedy tokens; prints prefill ms, decode ms/token, the launches (the
-   streaming prefill once per layer, kernel 3 at every decode step), kernel
-   1's time per call at 8192 rows from a profile of the prefill, the 7B
-   prefill logits against the plain path, and decode steps over the 8k
-   cache (host wall, device time, idle share);
+   streaming prefill once per layer, kernel 1's GEMM 5 times per layer in
+   the prefill, kernel 3 at every decode step), kernel 1's time per call
+   at 8192 rows from a profile of the prefill, the 7B prefill logits
+   against the plain path (the first token too), and decode steps over
+   the 8k cache (host wall, device time, idle share);
 6. serves with ServingEngine (int8 weight-only LLaMA-7B, bench.py's
    serving settings: 8 slots, decode_chunk 16, block 64, max_seq_len 200,
    bucket 128) 16 requests of 64 new tokens with prompts of 8-128 tokens
@@ -89,8 +98,11 @@
    dense, paged, packed prefill, paged with an int8 KV cache; prints
    tokens/s, latency_stats, phase_stats, the device busy share of one
    decode step (torch.profiler) and the launch counts, which must equal
-   the layers times the engine's own count of decode steps and prefill
-   calls; checks that every request returns its 64 tokens and that dense
+   the layers times the engine's own count of decode steps (the GEMV) and
+   prefill calls (the GEMM); with the dense engine's weights it prefills
+   each admission wave with the GEMM and with the GEMV and holds the
+   logits within LOGITS_TOL, first tokens differing only at near ties;
+   checks that every request returns its 64 tokens and that dense
    and paged agree on every first token, and prints how many requests
    match the dense run token for token. With the packed engine's weights
    it prefills each admission wave both batched and packed and holds the
@@ -254,6 +266,15 @@ _PROBES_CU = "trtllm_llama_tpu_torch/csrc/decode_probes.cu"
 ALIBI_PREFILL = "prefill_attention_kernel (ALiBi)"
 ALIBI_STREAMING = "streaming_prefill_attention_kernel (ALiBi)"
 FUSED_G71 = "fused_decode_attention (group 71)"
+# kernels 1 and 6 at prefill rows: the tensor-core GEMM (csrc/woq_gemm.cuh)
+GEMM_INT8 = "woq_matmul_stacked (GEMM)"
+GEMM_INT4 = "woq_matmul_stacked (int4 g128 GEMM)"
+GEMM_INT4_PC = "woq_matmul_stacked (int4 per-channel GEMM)"
+GEMM_FP8 = "fp8_matmul_stacked (GEMM)"
+GEMM_KEYS = (GEMM_INT8, GEMM_INT4, GEMM_INT4_PC, GEMM_FP8)
+# Rows at which the kernel phase times the GEMM beside the GEMV (the
+# crossover; GEMM_MIN_ROWS is 17) at the qkv shape, every format.
+CROSSOVER_ROWS = (16, 17, 32, 64, 256, 1024, LONG_PROMPT)
 
 
 def serve_prompt_lens():
@@ -364,6 +385,18 @@ KERNELS = {
     FUSED_G71: (
         "fused_decode_attention", f"{_ATTN_PY}:185",
         "trtllm_llama_tpu_torch/csrc/fused_decode_attention.cu"),
+    GEMM_INT8: (
+        "woq_matmul_stacked", f"{_WOQ_PY}:461",
+        "trtllm_llama_tpu_torch/csrc/woq_gemm.cu"),
+    GEMM_INT4: (
+        "woq_matmul_stacked", f"{_WOQ_PY}:461",
+        "trtllm_llama_tpu_torch/csrc/woq_gemm.cu"),
+    GEMM_INT4_PC: (
+        "woq_matmul_stacked", f"{_WOQ_PY}:461",
+        "trtllm_llama_tpu_torch/csrc/woq_gemm.cu"),
+    GEMM_FP8: (
+        "fp8_matmul_stacked", f"{_WOQ_PY}:654",
+        "trtllm_llama_tpu_torch/csrc/fp8_gemm.cu"),
     "w8a8_matmul": (
         "w8a8_matmul", "trtllm_llama_tpu/ops/pallas/w8a8_matmul.py:103",
         "trtllm_llama_tpu_torch/csrc/w8a8_matmul.cu"),
@@ -468,17 +501,38 @@ def patched(module, name, value):
         setattr(module, name, old)
 
 
+@contextlib.contextmanager
+def route(gemm):
+    """Kernels 1 and 6 forced onto one route: the GEMM at every row count
+    of a call without options (gemm=True), or the GEMV at every row count
+    (gemm=False), through the floor their routing rule reads."""
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    with patched(woq, "GEMM_MIN_ROWS", 1 if gemm else 1 << 62):
+        yield
+
+
+def launches_of(name, fn):
+    """The launches of JSON entry `name` by its wrapper `fn` since the
+    counts were zeroed: the GEMM's share for a GEMM entry, the rest (the
+    GEMV's) for the wrapper's other entries."""
+    gemm = getattr(fn, "gemm_launches", 0)
+    return gemm if name in GEMM_KEYS else fn.launches - gemm
+
+
 
 # ---------------------------------------------------------------------------
 # kernels 1 (int8, int4) and 6 (fp8): the weight-only GEMVs
 # ---------------------------------------------------------------------------
 
-# weight format -> (stacked JSON key or None, 2-D JSON key or None, seed)
+# weight format -> (stacked JSON key or None, 2-D JSON key or None, GEMM
+# JSON key, seed, the rows whose GEMM time the kernels line records: the
+# path's own, path 5's prefill for int8 and bs4's prefill for int4 g128
+# and fp8; no path runs stacked int4 per-channel)
 GEMV_FORMATS = {
-    "int8": ("woq_matmul_stacked", None, 1),
-    "int4 g128": (INT4_STACKED, None, 7),
-    "int4 per-channel": (None, INT4_2D, 8),
-    "fp8": ("fp8_matmul_stacked", "fp8_matmul", 9),
+    "int8": ("woq_matmul_stacked", None, GEMM_INT8, 1, LONG_PROMPT),
+    "int4 g128": (INT4_STACKED, None, GEMM_INT4, 7, 64),
+    "int4 per-channel": (None, INT4_2D, GEMM_INT4_PC, 8, 1024),
+    "fp8": ("fp8_matmul_stacked", "fp8_matmul", GEMM_FP8, 9, 64),
 }
 
 
@@ -511,15 +565,20 @@ def _one_layer(w, layer):
 
 
 def check_gemv(fmt, errors, results):
-    """The stacked kernel at the four projection shapes and every PATH_ROWS
-    row count with each option, and (for formats whose 2-D entry a path
-    launches) the 2-D entry at the same shapes and at the lm_head's."""
+    """The stacked kernel at the four projection shapes: the GEMV at every
+    PATH_ROWS row count up to 16 with each option (and, for int8, the
+    serving decode's 9 rows), the GEMM at every row count above 16 that
+    the paths and serving give (bs4's 64-row prefill; int8 also serving's
+    admissions and path 5's 8192 rows) with none (the paths compose the
+    options there); for formats whose 2-D entry a path launches, the 2-D
+    entry at the same shapes and at the lm_head's. Then check_gemm's
+    side-by-side timing at the qkv shape."""
     import torch
     from trtllm_llama_tpu_torch.config import ModelConfig
     from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
 
-    key_3d, key_2d, seed = GEMV_FORMATS[fmt]
+    key_3d, key_2d, gemm_key, seed, _ = GEMV_FORMATS[fmt]
     if fmt == "fp8":
         stacked, stacked_plain = f8k.fp8_matmul_stacked, f8k.fp8_matmul_stacked_plain
         two_d, two_d_plain = f8k.fp8_matmul, f8k.fp8_matmul_plain
@@ -527,19 +586,20 @@ def check_gemv(fmt, errors, results):
         stacked, stacked_plain = woq.woq_matmul_stacked, woq.woq_matmul_stacked_plain
         two_d, two_d_plain = woq.woq_matmul, woq.woq_matmul_plain
     print(f"kernel {stacked.__name__} / {two_d.__name__} ({fmt} weights, bf16 "
-          "x, f32 out):")
+          "x, f32 out; the GEMV up to 16 rows, the GEMM above):")
     cfg = ModelConfig.llama_7b()
     d, f, vocab = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     qkv = cfg.num_heads * cfg.head_dim + 2 * cfg.num_kv_heads * cfg.head_dim
-    # (name, K, N, option the main path uses)
+    # (name, K, N, option the main path uses at up to 16 rows)
     shapes = [("qkv", d, qkv, "norm"), ("wo", d, d, "resid"),
               ("gate/up", d, f, "none"), ("down", f, d, "resid")]
     g = torch.Generator(device="cuda").manual_seed(seed)
     n_l = N_WEIGHT_LAYERS
-    err_3d = err_2d = 0.0
-    # the serving phase runs int8 weights at its own row counts too
-    rows = PATH_ROWS + (serve_rows() if fmt == "int8" else ())
-    timed = (1, 16) + ((SERVE_ENGINE["max_batch_size"] + 1, max(rows))
+    err_3d = err_2d = err_gemm = 0.0
+    # the serving phase and path 5 run int8 weights at their own row counts
+    rows = PATH_ROWS + ((serve_rows() + (LONG_PROMPT,)) if fmt == "int8"
+                        else ())
+    timed = (1, 16) + ((SERVE_ENGINE["max_batch_size"] + 1,)
                        if fmt == "int8" else ())
 
     def record(key, t_k, t_p, t_l, n_bytes, m, k, n, what):
@@ -561,21 +621,37 @@ def check_gemv(fmt, errors, results):
         for m in rows:
             x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
             resid = torch.randn((m, n), generator=g, device="cuda").to(torch.bfloat16)
-            for opt in ("none", "norm", "resid"):
+            gemm = m >= woq.GEMM_MIN_ROWS
+            for opt in ("none",) if gemm else ("none", "norm", "resid"):
                 kw = {"norm": {"norm_w": nw}, "resid": {"resid": resid},
                       "none": {}}[opt]
+                before = stacked.gemm_launches
                 got = stacked(x, w, 1, **kw)
                 ref = stacked_plain(x, w, 1, **kw)
                 torch.cuda.synchronize()
-                err_3d = max(err_3d, compare(
-                    f"{pname} K={k} N={n} M={m} {opt}", got, ref, errors))
-            if key_2d is not None:
+                err = compare(f"{pname} K={k} N={n} M={m} {opt} "
+                              f"({'GEMM' if gemm else 'GEMV'})", got, ref,
+                              errors)
+                if gemm:
+                    err_gemm = max(err_gemm, err)
+                else:
+                    err_3d = max(err_3d, err)
+                if stacked.gemm_launches - before != int(gemm):
+                    errors.append(f"{fmt} {pname} M={m} {opt}: the "
+                                  f"{'GEMM' if gemm else 'GEMV'} did not run")
+                del got, ref
+            if key_2d is not None and m <= max(PATH_ROWS):
                 w1 = _one_layer(w, 1)
                 got = two_d(x, w1)
                 ref = two_d_plain(x, w1)
                 torch.cuda.synchronize()
-                err_2d = max(err_2d, compare(
-                    f"2-D {pname} K={k} N={n} M={m}", got, ref, errors))
+                err = compare(f"2-D {pname} K={k} N={n} M={m} "
+                              f"({'GEMM' if gemm else 'GEMV'})", got, ref,
+                              errors)
+                if gemm:
+                    err_gemm = max(err_gemm, err)
+                else:
+                    err_2d = max(err_2d, err)
             if m not in timed:
                 continue
             kw = {"norm": {"norm_w": nw}, "resid": {"resid": resid},
@@ -588,21 +664,33 @@ def check_gemv(fmt, errors, results):
                        + (m * n * 2 if path_opt == "resid" else 0))
             record(key_3d if pname == "qkv" and m == 1 else None, t_k, t_p,
                    t_l, n_bytes, m, k, n, f"{pname} M={m} {path_opt}")
+        if pname == "qkv":
+            err_gemm = max(err_gemm, check_gemm(fmt, w, deq, g, errors,
+                                                results))
         del w, deq
+    results[gemm_key]["max_abs_err"] = err_gemm
     if key_3d is not None:
         results[key_3d]["max_abs_err"] = err_3d
     if key_2d is None:
         return
-    # the lm_head: one [4096, 32000] weight, per-channel (bigger than L2)
+    # the lm_head: one [4096, 32000] weight, per-channel (bigger than L2);
+    # bs1 and bs4 decode / last rows on the GEMV, and the GEMM at the
+    # 2-D entry's widest shape
     w = _one_layer(make_gemv_weight(fmt, 1, d, vocab, g), 0)
     deq = w.dequantize(torch.bfloat16)
-    for m in (1, 4):                       # bs1 and bs4 decode / last rows
+    for m in (1, 4, 64):
         x = torch.randn((m, d), generator=g, device="cuda").to(torch.bfloat16)
         got = two_d(x, w)
         ref = two_d_plain(x, w)
         torch.cuda.synchronize()
-        err_2d = max(err_2d, compare(f"2-D lm_head K={d} N={vocab} M={m}",
-                                     got, ref, errors))
+        err = compare(f"2-D lm_head K={d} N={vocab} M={m} "
+                      f"({'GEMV' if m < woq.GEMM_MIN_ROWS else 'GEMM'})",
+                      got, ref, errors)
+        if m < woq.GEMM_MIN_ROWS:
+            err_2d = max(err_2d, err)
+        else:
+            results[gemm_key]["max_abs_err"] = max(
+                results[gemm_key]["max_abs_err"], err)
         if m == 1:
             t_k = time_ms(lambda i: two_d(x, w))
             t_p = time_ms(lambda i: two_d_plain(x, w), iters=8)
@@ -612,6 +700,76 @@ def check_gemv(fmt, errors, results):
             record(key_2d, t_k, t_p, t_l, n_bytes, m, d, vocab,
                    "lm_head M=1 (decode)")
     results[key_2d]["max_abs_err"] = err_2d
+
+
+def check_gemm(fmt, w, deq, g, errors, results):
+    """The GEMM and the GEMV side by side at the qkv shape (w: the stacked
+    weight, deq: its bf16 dequantization, the library yardstick), at each
+    CROSSOVER_ROWS row count, each forced onto its route: their times, the
+    plain version's, the library call's and the bound; the GEMM against
+    the plain version at every count, and once with fp16 activations.
+    Records the GEMM's kernels-line entry at the format's path rows and
+    returns its largest error."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+
+    _, _, gemm_key, _, key_rows = GEMV_FORMATS[fmt]
+    stacked, plain = ((f8k.fp8_matmul_stacked, f8k.fp8_matmul_stacked_plain)
+                      if fmt == "fp8" else
+                      (woq.woq_matmul_stacked, woq.woq_matmul_stacked_plain))
+    n_l, k, n = w.qweight.shape[0], w.k_dim, w.qweight.shape[-1]
+    w_bytes = w.qweight[0].numel() + w.scale[0].numel() * 4
+    err_max, table = 0.0, {}
+    for m in CROSSOVER_ROWS:
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        with route(gemm=True):
+            got = stacked(x, w, 1)
+        ref = plain(x, w, 1)
+        torch.cuda.synchronize()
+        err_max = max(err_max, compare(f"qkv K={k} N={n} M={m} (GEMM forced)",
+                                       got, ref, errors))
+        if m == 1024:
+            xh = x.to(torch.float16)
+            err_max = max(err_max, compare(
+                f"qkv K={k} N={n} M={m} fp16 (GEMM)", stacked(xh, w, 1),
+                plain(xh, w, 1), errors))
+        del got, ref
+        big = m >= 1024                    # the GEMV takes 30-550 ms here
+        with route(gemm=True):
+            t_gemm = time_ms(lambda i: stacked(x, w, i % n_l))
+        with route(gemm=False):
+            t_gemv = time_ms(lambda i: stacked(x, w, i % n_l),
+                             **(dict(iters=2, warmup=1, reps=1) if big else {}))
+        # (int4 g128's plain version holds [M, K/128, N] f32 partials: 13 GB
+        # at 8192 rows, so it is compared there once, not timed)
+        t_p = (None if m == LONG_PROMPT and getattr(w, "group_size", 0) else
+               time_ms(lambda i: plain(x, w, i % n_l), iters=2 if big else 8,
+                       warmup=1, reps=1))
+        t_l = time_ms(lambda i: torch.matmul(x, deq[i % n_l]))
+        n_bytes = w_bytes + m * k * 2 + m * n * 4
+        b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n)
+        table[m] = dict(gemm_ms=t_gemm, gemv_ms=t_gemv, plain_ms=t_p,
+                        library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+        print(f"  time qkv M={m}: GEMM {t_gemm:.4f} ms, GEMV {t_gemv:.4f} ms, "
+              f"plain {'not timed' if t_p is None else f'{t_p:.4f} ms'}, "
+              f"library(matmul bf16 dequantized) "
+              f"{t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); GEMM at "
+              f"{100 * b_ms / t_gemm:.1f}% of the bound, "
+              f"{t_gemm / t_l:.2f}x the library")
+        if m == key_rows:
+            results[gemm_key] = dict(
+                ms=t_gemm, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                bound_by=b_by, shape=f"M={m} K={k} N={n} {fmt}, qkv (GEMM)",
+                launches=0)                # the paths add theirs
+        del x
+    faster = [m for m in CROSSOVER_ROWS
+              if table[m]["gemm_ms"] < table[m]["gemv_ms"]]
+    print(f"  {fmt} crossover: the GEMM is faster than the GEMV at M = "
+          f"{faster} of {list(CROSSOVER_ROWS)} (GEMM_MIN_ROWS "
+          f"{woq.GEMM_MIN_ROWS})")
+    results["_e2e"][f"kernel 1/6 {fmt} qkv GEMM vs GEMV"] = table
+    return err_max
 
 
 # format -> (JSON key or None, seed)
@@ -1131,7 +1289,8 @@ def check_w8a8(errors, results):
                             dtype=torch.int8)
         s_w = torch.full((n_l, n), k ** -0.5 / 127.0, device="cuda")
         deq = (w_q.float() * s_w[:, None, :]).to(torch.bfloat16)  # yardstick
-        for m in PATH_ROWS:
+        # and 1024 rows: a prefill's, beside the bf16 matmul (row 6's factor)
+        for m in PATH_ROWS + (1024,):
             x_q = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                                 dtype=torch.int8)
             s_x = torch.rand((m, 1), generator=g, device="cuda") * 0.05 + 1e-3
@@ -1140,10 +1299,12 @@ def check_w8a8(errors, results):
             torch.cuda.synchronize()
             max_err = max(max_err, compare(
                 f"{pname} K={k} N={n} M={m}", got, ref, errors, tol=1e-6))
+            few = dict(iters=4, warmup=1, reps=1) if m > 64 else {}
             t_k = time_ms(lambda i: w8a8.w8a8_matmul_stacked(
-                x_q, w_q, s_x, s_w, i % n_l))
+                x_q, w_q, s_x, s_w, i % n_l), **few)
             t_p = time_ms(lambda i: w8a8.w8a8_matmul_stacked_plain(
-                x_q, w_q, s_x, s_w, i % n_l), iters=8)
+                x_q, w_q, s_x, s_w, i % n_l), iters=8, **(
+                    dict(warmup=1, reps=1) if few else {}))
             xd = (x_q.float() * s_x).to(torch.bfloat16)
             t_l = time_ms(lambda i: torch.matmul(xd, deq[i % n_l]))
             n_bytes = k * n + n * 4 + m * k + m * 4 + m * n * 4
@@ -1151,7 +1312,8 @@ def check_w8a8(errors, results):
             print(f"  time {pname} M={m}: kernel {t_k:.4f} ms, plain "
                   f"{t_p:.4f} ms, library(matmul bf16, dequantized operands)"
                   f" {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                  f"{n_bytes / t_k / 1e6:.1f} GB/s")
+                  f"{n_bytes / t_k / 1e6:.1f} GB/s, {t_k / t_l:.2f}x the "
+                  "library")
             if pname == "qkv" and m == 1:
                 results["w8a8_matmul_stacked"] = dict(
                     ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
@@ -1397,7 +1559,8 @@ def check_paged_decode(errors, results, kv_int8=False):
 
 def make_paths():
     """Each path: its config, its int8-KV scales, its kernels (JSON name ->
-    (module, wrapper attribute)), and the wrappers replaced by their plain
+    (module, wrapper attribute)), the JSON name of its GEMM (kernels 1 and
+    6 at bs4's 64-row prefill), and the wrappers replaced by their plain
     versions for the prefill-logits check."""
     from trtllm_llama_tpu_torch import ModelConfig, QuantMode
     from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
@@ -1411,7 +1574,8 @@ def make_paths():
     return [
         dict(tag="path 1", title="int8 weight-only per-channel, bf16 KV",
              mode=QuantMode.use_weight_only(), kv_scales=None,
-             kernels={"woq_matmul_stacked": woq, **attn},
+             kernels={"woq_matmul_stacked": woq, GEMM_INT8: woq, **attn},
+             gemm=GEMM_INT8,
              plain=[(woq, "woq_matmul_stacked"),
                     (pa, "prefill_attention_kernel")],
              modes={"split": READ_ONLY, "fused": FUSED},
@@ -1432,14 +1596,18 @@ def make_paths():
              "per-channel lm_head (quantize_params), bf16 KV",
              mode=QuantMode.use_weight_only(True, per_group=True),
              group_size=128, lm_head=True, kv_scales=None,
-             kernels={INT4_STACKED: woq, INT4_2D: woq, **attn},
+             kernels={INT4_STACKED: woq, INT4_2D: woq, GEMM_INT4: woq,
+                      **attn},
+             gemm=GEMM_INT4,
              plain=[(woq, "woq_matmul_stacked"), (woq, "woq_matmul"),
                     (pa, "prefill_attention_kernel")],
              fused=("woq_matmul_stacked", SWIGLU_INT4)),
         dict(tag="path 4", title="fp8 (e4m3) per-channel projections, fp8 "
              "lm_head (quantize_params), bf16 KV",
              mode=QuantMode.FP8_QDQ, lm_head=True, kv_scales=None,
-             kernels={"fp8_matmul_stacked": f8k, "fp8_matmul": f8k, **attn},
+             kernels={"fp8_matmul_stacked": f8k, "fp8_matmul": f8k,
+                      GEMM_FP8: f8k, **attn},
+             gemm=GEMM_FP8,
              plain=[(f8k, "fp8_matmul_stacked"), (f8k, "fp8_matmul"),
                     (pa, "prefill_attention_kernel")],
              fused=("fp8_matmul_stacked", SWIGLU_FP8)),
@@ -1535,7 +1703,16 @@ def drive_path(path, sess, errors, results):
     out1b, _ = generate(p1, new)
     out2, ms2 = generate(p2, new)
     out4, ms4 = generate(p4, new)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {name: launches_of(name, fn) for name, fn in wrappers.items()}
+    if "gemm" in path:         # 5 projections a layer in bs4's prefill only
+        n_gemm, want = launches[path["gemm"]], 5 * cfg.num_layers
+        print(f"  {tag}: GEMM launches {n_gemm} (expected {want}: bs4's "
+              f"{4 * 16}-row prefill), GEMV launches "
+              f"{launches[next(iter(path['kernels']))]} (decode steps, the "
+              f"16-row bs1 prefills, the lm_head): "
+              f"{'ok' if n_gemm == want else 'FAIL'}")
+        if n_gemm != want:
+            errors.append(f"{tag}: GEMM launches {n_gemm} != {want}")
     if "expect" in path:       # 1 + 4 x new forwards, 5 prefills, 4 x 49 steps
         expect = path["expect"](cfg.num_layers, 1 + 4 * new, 5, 4 * (new - 1))
         check_counts(f"{tag} every wrapper", read_counts(),
@@ -1566,6 +1743,18 @@ def drive_path(path, sess, errors, results):
     print(f"  bs1 repeat gives identical tokens: {same}")
     if not same:
         errors.append(f"{tag}: the same bs1 request gave different tokens")
+    if "gemm" in path:
+        # bs4's prefill on the GEMV instead (the bs1 runs never reach the GEMM)
+        with route(gemm=False):
+            out4v, _ = generate(p4, new)
+        same = np.array_equal(out4.output_ids, out4v.output_ids)
+        print(f"  bs4 tokens identical to a run with the GEMV at every row "
+              f"count: {same}")
+        for row in np.flatnonzero((out4.output_ids
+                                   != out4v.output_ids).any(1)):
+            first_difference(f"{tag} GEMM vs GEMV bs4 row {row}", sess, sess,
+                             p4, out4.output_ids, out4v.output_ids, row,
+                             errors, route_b=False)
     results["_e2e"][tag] = dict(
         layers=cfg.num_layers, prefill_ms=pre_ms, decode_ms_per_token=dec_ms,
         decode_tokens_per_s=1e3 / dec_ms, e2e_tokens_per_s=new / ms1 * 1e3,
@@ -1627,7 +1816,7 @@ def fused_session(sess):
 
 
 def first_difference(tag, sess_a, sess_b, prompt, ids_a, ids_b, row,
-                     errors):
+                     errors, route_b=None):
     """Where row `row` of two runs of one request (`prompt`, output ids
     [B, new] ids_a and ids_b) first differs, at token k (a picked by
     sess_a, b by sess_b): both sessions' step k replayed at the run's
@@ -1635,7 +1824,9 @@ def first_difference(tag, sess_a, sess_b, prompt, ids_a, ids_b, row,
     replays pick a and b again and the two logits moved against each
     other, (la[a] - la[b]) - (lb[a] - lb[b]), by at most FUSE_GU_TOL x
     max |la|; that shift bounds each run's lead of its own token. Anything
-    else is an error."""
+    else is an error. route_b: run b's kernel 1 / 6 route (route(); None
+    for the default), against which the limit is LOGITS_TOL x max |la|
+    (the two routes sum in another order, as the plain path does)."""
     import numpy as np
     from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
 
@@ -1645,10 +1836,12 @@ def first_difference(tag, sess_a, sess_b, prompt, ids_a, ids_b, row,
     a, b = int(ids_a[row, k]), int(ids_b[row, k])
     common = ids_a[:, :k]
     la = replay_logits(sess_a, prompt, common, scfg, new)[row].float()
-    lb = replay_logits(sess_b, prompt, common, scfg, new)[row].float()
+    with (contextlib.nullcontext() if route_b is None else route(route_b)):
+        lb = replay_logits(sess_b, prompt, common, scfg, new)[row].float()
     picks = int(la.argmax()) == a and int(lb.argmax()) == b
     lead_a, lead_b = float(la[a] - la[b]), float(lb[b] - lb[a])
-    limit = FUSE_GU_TOL * float(la.abs().max())
+    limit = (FUSE_GU_TOL if route_b is None else LOGITS_TOL) * float(
+        la.abs().max())
     tie = picks and lead_a + lead_b <= limit
     print(f"  {tag}: tokens first differ at {k} ({a} vs {b}); replays pick "
           f"{int(la.argmax())} / {int(lb.argmax())}; leads {lead_a:.5f} / "
@@ -1656,6 +1849,27 @@ def first_difference(tag, sess_a, sess_b, prompt, ids_a, ids_b, row,
           f"{'a near tie' if tie else 'NOT a near tie'}")
     if not tie:
         errors.append(f"{tag}: tokens differ at {k} and it is not a near tie")
+
+
+def flip_check(tag, got, ref, errors):
+    """Rows where two runs' logits ([B, V], got against ref) pick different
+    tokens a and b: a near tie when the two logits moved against each
+    other, (got[a] - got[b]) + (ref[b] - ref[a]), by at most LOGITS_TOL x
+    max |ref|; anything else is an error."""
+    import numpy as np
+    got, ref = got.float(), ref.float()
+    flips = np.flatnonzero((got.argmax(-1) != ref.argmax(-1)).cpu().numpy())
+    print(f"  {tag}: argmax differs for {len(flips)} of {got.shape[0]} rows")
+    for row in flips:
+        a, b = int(got[row].argmax()), int(ref[row].argmax())
+        shift = float(got[row, a] - got[row, b] + ref[row, b] - ref[row, a])
+        limit = LOGITS_TOL * float(ref[row].abs().max())
+        tie = shift <= limit
+        print(f"  {tag} row {row}: {a} vs {b}, shift {shift:.5f} (limit "
+              f"{limit:.5f}): {'a near tie' if tie else 'NOT a near tie'}")
+        if not tie:
+            errors.append(f"{tag} row {row}: tokens differ and it is not a "
+                          "near tie")
 
 
 def run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results):
@@ -1690,14 +1904,19 @@ def run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results):
         zero_counts()
         outf, ms = timed_generate(fsess, ids, new)
         n, n_sw = fn.launches, getattr(fn, "swiglu_launches", None)
+        n_gemm = getattr(fn, "gemm_launches", None)
         want_sw = None if n_sw is None else n_l * (new if b == 1 else new - 1)
-        ok = n == 4 * n_l * new and n_sw == want_sw
+        # the GEMM: bs4's 64-row prefill, 4 projections a layer
+        want_gemm = None if n_gemm is None else 4 * n_l * (b == 4)
+        ok = n == 4 * n_l * new and n_sw == want_sw and n_gemm == want_gemm
         print(f"  {tag} fused {what}: {ms:.1f} ms; {entry} launches {n} "
-              f"(expected {4 * n_l * new}), SwiGLU prologue {n_sw} (expected "
+              f"(expected {4 * n_l * new}), of them the GEMM's {n_gemm} "
+              f"(expected {want_gemm}), SwiGLU prologue {n_sw} (expected "
               f"{want_sw}): {'ok' if ok else 'FAIL'}; all counts "
               f"{read_counts()[0]}")
         if not ok:
-            errors.append(f"{tag} fused {what}: launches {n} / {n_sw}")
+            errors.append(f"{tag} fused {what}: launches {n} / {n_gemm} / "
+                          f"{n_sw}")
         got[what] = (n, n_sw)
         same = np.array_equal(outf.output_ids, ref.output_ids)
         print(f"  {tag} fused {what} tokens identical to the unfused run: "
@@ -2067,14 +2286,15 @@ def run_offline_build(args, errors, results):
 # ---------------------------------------------------------------------------
 
 def gemv_calls(events):
-    """Device ms of each kernel-1 call in a profile, in launch order (a
-    call is its partial kernel plus the split-K reduce that follows it)."""
+    """Device ms of each kernel-1 call in a profile, in launch order: a call
+    is the GEMV's partial kernel or the GEMM's kernel, plus the split-K
+    reduce that follows it."""
     from torch.autograd import DeviceType
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
     calls = []
     for e in kernels:
-        if "gemv::partial_kernel" in e.name:
+        if "gemv::partial_kernel" in e.name or "gemm::gemm_kernel" in e.name:
             calls.append(e.time_range.elapsed_us() / 1e3)
         elif "gemv::reduce_kernel" in e.name and calls:
             calls[-1] += e.time_range.elapsed_us() / 1e3
@@ -2084,10 +2304,13 @@ def gemv_calls(events):
 def run_long_context(args, errors, results):
     """Path 5: bench.py's long-context int8_int8kv configuration through
     GenerationSession: one 8192-token prompt (seed 0), 64 greedy tokens
-    (the counted run: row 12 once per layer, kernel 3 once per layer and
-    decode step, kernel 2 and rows 8 and 9 never). Then one prefill under
-    the profiler (prefill ms, kernel 1's time per call at M=8192), its
-    logits against the plain path's, the first decode step's logits
+    (the counted run: row 12 once per layer, kernel 1's GEMM 5 times per
+    layer in the prefill, its GEMV 5 times per layer and decode step,
+    kernel 3 once per layer and decode step, kernel 2 and rows 8 and 9
+    never). Then one prefill under the profiler (prefill ms, kernel 1's
+    GEMM time per call at M=8192), its logits against the plain path's
+    (the first token: where the argmaxes differ, a near tie), the first
+    decode step's logits
     against the plain path's on a copy of the 8k cache, and decode steps
     over that cache (host wall, device ms, idle share). Decode ms/token is the generate's
     wall less the prefill's, over 63 steps."""
@@ -2126,21 +2349,22 @@ def run_long_context(args, errors, results):
                                                (1, LONG_PROMPT))
 
     wrappers = {"woq_matmul_stacked": woq.woq_matmul_stacked,
+                GEMM_INT8: woq.woq_matmul_stacked,
                 STREAMING: spa.streaming_prefill_attention_kernel,
                 INT8_DECODE: da.dma_decode_attention,
                 "prefill_attention_kernel": pa.prefill_attention_kernel,
                 READ_ONLY_INT8: da.decode_attention_kernel,
                 FUSED_INT8: da.fused_decode_attention}
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     out = sess.generate(prompt, sampling=scfg, max_new_tokens=LONG_NEW)
     ms = (time.perf_counter() - t) * 1e3
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = {k: launches_of(k, fn) for k, fn in wrappers.items()}
     print(f"  bs1 in{LONG_PROMPT} out{LONG_NEW}: {ms:.1f} ms, "
           f"{LONG_NEW / ms * 1e3:.2f} tokens/s end to end")
-    expect = {"woq_matmul_stacked": 5 * n_l * LONG_NEW, STREAMING: n_l,
+    expect = {"woq_matmul_stacked": 5 * n_l * (LONG_NEW - 1),
+              GEMM_INT8: 5 * n_l, STREAMING: n_l,
               INT8_DECODE: n_l * (LONG_NEW - 1),
               "prefill_attention_kernel": 0, READ_ONLY_INT8: 0,
               FUSED_INT8: 0}
@@ -2148,7 +2372,7 @@ def run_long_context(args, errors, results):
           f"{'ok' if launches == expect else 'FAIL'}")
     if launches != expect:
         errors.append(f"path 5: launches {launches} != {expect}")
-    for k in ("woq_matmul_stacked", STREAMING, INT8_DECODE):
+    for k in ("woq_matmul_stacked", GEMM_INT8, STREAMING, INT8_DECODE):
         results[k]["launches"] = results[k].get("launches", 0) + launches[k]
     ids = out.output_ids
     ok = (ids.shape == (1, LONG_NEW) and (ids >= 0).all()
@@ -2186,7 +2410,7 @@ def run_long_context(args, errors, results):
               f"ms/token (the generate's wall less it, over {LONG_NEW - 1} "
               f"steps), {1e3 / dec_ms:.1f} decode tokens/s")
         print(f"  profile of the {LONG_PROMPT}-row prefill: device busy "
-              f"{dev_ms:.1f} ms; kernel 1 (int8 GEMV, M={LONG_PROMPT}) "
+              f"{dev_ms:.1f} ms; kernel 1 (int8 GEMM, M={LONG_PROMPT}) "
               f"{len(calls)} calls, {k1_ms:.1f} ms ({100 * k1_ms / dev_ms:.1f}"
               f"% of the device time)")
         if len(calls) == 5 * n_l:
@@ -2208,6 +2432,9 @@ def run_long_context(args, errors, results):
                 got, ref, errors, tol=LOGITS_TOL)
         print(f"  argmax kernels {got.argmax(-1).tolist()} plain "
               f"{ref.argmax(-1).tolist()}")
+        # the GEMM's first token against the plain path's (the GEMV's
+        # arithmetic; the GEMV itself takes ~44 s for this prefill)
+        flip_check("path 5 first token, GEMM vs plain", got, ref, errors)
 
         # the first decode step over the 8k cache (kernel 3 writes row 8192
         # and attends 8193 int8 rows), kernels vs plain on copies of the
@@ -2269,7 +2496,7 @@ def gemv_8192_yardsticks(sess, results):
     """Kernel 1's plain version and the library call (torch.matmul of the
     bf16-dequantized weight) at path 5's M=8192, on layer 0 of the session's
     int8 weights: the qkv / wo / gate,up / down shapes (the kernel's own
-    times come from the path's profile)."""
+    times, its GEMM's gemm_kernel, come from the path's profile)."""
     import torch
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
 
@@ -2285,8 +2512,8 @@ def gemv_8192_yardsticks(sess, results):
         t_l = time_ms(lambda i: torch.matmul(x, dq), iters=4)
         out[name] = dict(plain_ms=t_p, library_ms=t_l)
         del x, dq
-    print("  kernel 1 at M=8192, plain / library (torch.matmul of the "
-          "bf16-dequantized weight) ms: " + ", ".join(
+    print("  kernel 1 (GEMM) at M=8192, plain / library (torch.matmul of "
+          "the bf16-dequantized weight) ms: " + ", ".join(
               f"{k} {v['plain_ms']:.3f} / {v['library_ms']:.3f}"
               for k, v in out.items()))
     results["_e2e"]["path 5 kernel 1 M=8192 plain and library ms"] = out
@@ -2356,6 +2583,7 @@ def run_serving(args, errors, results):
         prefill = ("packed_prefill_attention_kernel" if eng.packed
                    else "prefill_attention_kernel")
         wrappers = {"woq_matmul_stacked": woq.woq_matmul_stacked,
+                    GEMM_INT8: woq.woq_matmul_stacked,
                     decode: (pda.paged_decode_attention if eng.paged
                              else da.dma_decode_attention),
                     prefill: (ppa.packed_prefill_attention_kernel
@@ -2364,19 +2592,19 @@ def run_serving(args, errors, results):
         eng.phase_times["steps"] = 0
         eng.calls = dict.fromkeys(eng.calls, 0)
         eng._req_times.clear()
-        for fn in wrappers.values():
-            fn.launches = 0
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rids = [eng.submit(p, SERVE_NEW) for p in prompts]
         done = eng.run_to_completion()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in wrappers.items()}
+        launches = {k: launches_of(k, fn) for k, fn in wrappers.items()}
         calls = dict(eng.calls)
         prefills = calls["packed_prefills" if eng.packed else "prefills"]
-        expect = {"woq_matmul_stacked": 5 * n_l * (calls["decode_steps"]
-                                                   + prefills),
+        # the GEMV at the 9-row decode steps, the GEMM at each admission
+        expect = {"woq_matmul_stacked": 5 * n_l * calls["decode_steps"],
+                  GEMM_INT8: 5 * n_l * prefills,
                   decode: n_l * calls["decode_steps"],
                   prefill: n_l * prefills}
         print(f"  serving {name}: {n_tokens / wall:.1f} generated tokens/s "
@@ -2404,6 +2632,8 @@ def run_serving(args, errors, results):
                       for r in rids]
         if eng.packed:
             gaps = check_packed_vs_batched(eng, prompts, errors)
+        if name == "dense":
+            check_gemm_vs_gemv_waves(eng, prompts, errors)
         busy = profile_serving_step(eng, prompts)
         results["_e2e"][f"serving {name}"] = dict(
             layers=n_l, tokens_per_s=n_tokens / wall, wall_s=wall,
@@ -2490,6 +2720,41 @@ def check_packed_vs_batched(eng, prompts, errors):
         off += b
         del batched, packed
     return gaps
+
+
+def check_gemm_vs_gemv_waves(eng, prompts, errors):
+    """Each admission wave of the counted run prefilled batched at the
+    128-token bucket (as dense admission does, kernel 1 on its GEMM) and
+    again with kernel 1 on its GEMV at every row count: the logits within
+    LOGITS_TOL, and a first token that differs only at a near tie."""
+    import torch
+    from trtllm_llama_tpu_torch.models import llama
+
+    cfg, dev, scales = eng.cfg, eng.device, eng.kv_scales
+    bucket = max(SERVE_ENGINE["prefill_buckets"])
+    print("  GEMM vs GEMV prefill of each admission wave (the engine's "
+          "weights, on the card):")
+    off = 0
+    for w, lens in enumerate(serve_waves()[1:], 1):
+        wave, b = prompts[off:off + len(lens)], len(lens)
+        with torch.inference_mode():
+            ids = torch.full((b, bucket), eng.scfg.pad_id, dtype=torch.int32,
+                             device=dev)
+            for i, p in enumerate(wave):
+                ids[i, :len(p)] = torch.as_tensor(p, device=dev)
+            n = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+
+            def prefill():
+                caches = llama.init_caches(cfg, b, bucket, dev, scales)
+                return llama.forward_prefill(eng.params, cfg, ids, n, caches,
+                                             rope=eng.rope)[0]
+            got = prefill()
+            with route(gemm=False):
+                ref = prefill()
+        compare(f"wave {w} ({b} x {bucket} rows) logits, GEMM vs GEMV", got,
+                ref, errors, tol=LOGITS_TOL)
+        flip_check(f"wave {w} first tokens, GEMM vs GEMV", got, ref, errors)
+        off += b
 
 
 def profile_serving_step(eng, prompts):
@@ -2892,22 +3157,29 @@ def _wrappers():
 
 
 def zero_counts():
-    """Every wrapper's launches (and SwiGLU launches) and the ALiBi decode
-    branch's count set to 0."""
+    """Every wrapper's launches (and GEMM and SwiGLU launches) and the ALiBi
+    decode branch's count set to 0."""
     from trtllm_llama_tpu_torch.ops import attention
     for fn in _wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "swiglu_launches"):
-            fn.swiglu_launches = 0
+        for extra in ("gemm_launches", "swiglu_launches"):
+            if hasattr(fn, extra):
+                setattr(fn, extra, 0)
     attention.fused_decode_attention_at.alibi_calls = 0
 
 
 def read_counts():
     """(launches, ALiBi decode calls) since zero_counts; only the non-zero
-    launch counts."""
+    counts: each wrapper's launches, and "<wrapper>.gemm_launches" for the
+    GEMM's share of kernels 1 and 6."""
     from trtllm_llama_tpu_torch.ops import attention
-    return ({k: f.launches for k, f in _wrappers().items() if f.launches},
-            attention.fused_decode_attention_at.alibi_calls)
+    counts = {}
+    for k, f in _wrappers().items():
+        for attr, name in (("launches", k), ("gemm_launches",
+                                             f"{k}.gemm_launches")):
+            if getattr(f, attr, 0):
+                counts[name] = getattr(f, attr)
+    return counts, attention.fused_decode_attention_at.alibi_calls
 
 
 @contextlib.contextmanager

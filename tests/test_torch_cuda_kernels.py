@@ -17,10 +17,15 @@ and paged pools are bit-identical to the plain write. The streaming
 prefill kernel rounds its probabilities to bf16 before P V in bf16 (the
 2**-7 bound holds); its f32 instantiation and the read-only and fused
 decode kernels differ from their plain versions in summation order only.
-The SwiGLU prologue (silu in f32, the product in the compute dtype) is
+Rows 2 and 4 at prefill rows (the tensor-core GEMM) form the same exact
+products (int8 / int4 codes and e4m3 values are exact in bf16 and fp16)
+and differ from the plain versions in the order of the f32 sums only: the
+2**-7 bound holds. The SwiGLU prologue (silu in f32, the product in the compute dtype) is
 held to the same per-dtype bounds, and the decode probes are exact (bit
 for bit; the two e4m3 NaN codes decode to NaN on both sides).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -890,3 +895,73 @@ def test_fuse_gate_up_generate_on_cuda_matches_cpu(dev, kind, monkeypatch):
             if kind != "sq-static":     # 2 x 16 prefill rows compose plainly
                 assert after[1] - before[1] == cfg.num_layers * 9
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+# rows 2 and 4 at prefill rows: the tensor-core GEMM (csrc/woq_gemm.cuh), at
+# LLaMA-7B's projection shapes (fused qkv, wo, gate or up, down) through the
+# stacked entry and at the lm_head's N = 32000 through the 2-D one
+GEMM_FORMATS = ["int8", "int4 per-channel", "int4 g128", "fp8"]
+GEMM_SHAPES = [(4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096),
+               (4096, 32000)]
+
+
+@pytest.mark.parametrize("kn", GEMM_SHAPES)
+@pytest.mark.parametrize("m", [17, 64, 257, 1024])
+@pytest.mark.parametrize("fmt", GEMM_FORMATS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gemm_matches_plain(dev, dtype, fmt, m, kn):
+    k, n = kn
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    w = _swiglu_weight(fmt, g, dev, k=k, n=n)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    mod, fn = ((f8k, f8k.fp8_matmul_stacked) if fmt == "fp8"
+               else (woq, woq.woq_matmul_stacked))
+    if n == 32000:                               # the 2-D entry (lm_head)
+        fn = f8k.fp8_matmul if fmt == "fp8" else woq.woq_matmul
+        args = (x, dataclasses.replace(w, qweight=w.qweight[1],
+                                       scale=w.scale[1]))
+    else:
+        args = (x, w, 1)
+    before = (fn.launches, fn.gemm_launches)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.gemm_launches) == (before[0] + 1, before[1] + 1)
+    plain = getattr(mod, fn.__name__ + "_plain")
+    _assert_close(got, plain(*args), dtype)
+
+
+def test_gemm_route_keeps_f32_and_options_on_the_gemv(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = _swiglu_weight("int8", g, dev, k=4096, n=4096)
+    m = 64
+    x = torch.randn((m, 4096), generator=g, device=dev)
+    cases = [({}, x, torch.float32),                        # f32
+             ({"norm_w": torch.ones((2, 4096), device=dev,
+                                    dtype=torch.bfloat16)},
+              x.to(torch.bfloat16), torch.bfloat16),        # a prologue
+             ({"resid": torch.randn((m, 4096), generator=g, device=dev).to(
+                 torch.bfloat16)}, x.to(torch.bfloat16), torch.bfloat16)]
+    for kw, xx, dtype in cases:
+        fn = woq.woq_matmul_stacked
+        before = (fn.launches, fn.gemm_launches)
+        got = fn(xx, w, 1, **kw)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.gemm_launches) == (before[0] + 1, before[1])
+        _assert_close(got, woq.woq_matmul_stacked_plain(xx, w, 1, **kw),
+                      dtype)
+
+
+def test_gemm_refuses_a_k_it_cannot_take_before_launch(dev):
+    q = torch.zeros((1, 1000, 128), dtype=torch.int8, device=dev)
+    s = torch.ones((1, 128), device=dev)
+    x = torch.ones((64, 1000), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="whole 128-row tiles"):
+        woq.launch_gemm("woq_matmul_stacked", "woq_gemm", "tllm_woq_gemm",
+                        woq._GEMM_SIGNATURES, x, q, s, 0, 1000, "int8", 0, 0,
+                        (8, 0))
+    # the wrapper routes such a K to the GEMV, which takes it
+    w = WOQWeight(q, s)
+    before = woq.woq_matmul_stacked.gemm_launches
+    woq.woq_matmul_stacked(x, w, 0)
+    torch.cuda.synchronize()
+    assert woq.woq_matmul_stacked.gemm_launches == before

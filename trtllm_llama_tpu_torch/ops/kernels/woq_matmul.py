@@ -1,18 +1,29 @@
-"""Kernel 1: weight-only INT8 / INT4 matmul (csrc/woq_matmul.cu, body in
-csrc/woq_gemv.cuh).
+"""Kernel 1: weight-only INT8 / INT4 matmul: the GEMV (csrc/woq_matmul.cu,
+body in csrc/woq_gemv.cuh) at decode rows and the tensor-core GEMM
+(csrc/woq_gemm.cu, body in csrc/woq_gemm.cuh) at prefill rows.
 
 Replaces `trtllm_llama_tpu/ops/pallas/woq_matmul.py::woq_matmul_stacked`
 (int8 and int4 branches, per-channel or grouped scales, the norm and
-SwiGLU prologues, the residual epilogue) and its 2-D form `woq_matmul`. Bound on the H100: the
-weight bytes, read once (a GEMV at M <= 16 does 2*M flops per int8 byte,
-4*M per int4 byte); the design streams them in 16-byte vectors over
-split-K blocks that fill all SMs, with int4 unpacked in registers and x
-staged in the pack layout's row order (see the header's note).
+SwiGLU prologues, the residual epilogue) and its 2-D form `woq_matmul`.
+Bound on the H100: the weight bytes at decode rows (a GEMV at M <= 16
+does 2*M flops per int8 byte, 4*M per int4 byte); the GEMV streams them
+in 16-byte vectors over split-K blocks that fill all SMs, with int4
+unpacked in registers and x staged in the pack layout's row order (see
+the header's note). Above ~300 rows the operations bound it: the GEMM
+decodes each K tile's codes into shared memory once per 128-row M tile
+and runs wgmma on them (see woq_gemm.cuh).
+
+Which kernel runs is decided from the call before launch (`gemm_route`):
+the GEMM for bf16 / fp16 activations of at least GEMM_MIN_ROWS rows with
+no prologue and no residual, on a layout it tiles (`gemm_takes`); the
+GEMV otherwise.
 
 `woq_matmul_stacked` and `woq_matmul` take the plain version for CPU
-tensors and launch the kernel for CUDA tensors; each counts its launches
-in `.launches` (`woq_matmul_stacked.swiglu_launches` counts those of them
-with the SwiGLU prologue). `launch_gemv` is shared with the fp8 wrapper.
+tensors and launch a kernel for CUDA tensors; each counts its launches
+in `.launches`, the GEMM's share of them in `.gemm_launches`
+(`woq_matmul_stacked.swiglu_launches` counts the GEMV launches with the
+SwiGLU prologue). `launch_gemv` and `launch_gemm` are shared with the fp8
+wrapper.
 """
 
 from __future__ import annotations
@@ -28,11 +39,22 @@ from . import _build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_woq_matmul_stacked":
                [_P] * 7 + [_I] * 10 + [_F, _I, _I, _P]}
+_GEMM_SIGNATURES = {"tllm_woq_gemm": [_P] * 6 + [_I] * 9 + [_P]}
 
 _BN = 512          # output columns per block (kBN in the source)
 _KT = 512          # logical K rows staged per pass (kKT in the source)
 _KC_MIN = 64       # fewest K rows a split-K block gets
 _PART_BYTES = 32 << 20   # cap on the split-K partial buffer
+
+# The GEMM takes calls of at least this many rows (FUSE_MAX_ROWS + 1 of
+# ops/linear.py: above 16 rows the paths compose the norm, SwiGLU and
+# residual as plain ops, so their calls carry no prologue). The kernel
+# phase of chip_smoke.py times both kernels at 16-8192 rows (PERF.md).
+GEMM_MIN_ROWS = 17
+GEMM_TILE_K = 128        # logical K rows per GEMM tile (kBK in the source)
+GEMM_DTYPES = (torch.bfloat16, torch.float16)
+_GEMM_BM = _GEMM_BN = 128  # the GEMM's block tile (kBM, kBN)
+_GEMM_SPLIT_TILES = 4      # fewest K tiles a split of the GEMM gets
 
 
 _SM_COUNT: dict = {}
@@ -49,6 +71,19 @@ def _sm_count(device) -> int:
 def _rows_per_tile(m: int, max_rows: int = 8) -> int:
     r = 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
     return min(r, max_rows)
+
+
+def _gemm_split(m: int, k: int, n: int, n_sm: int):
+    """(ksplit, kt_per) of the GEMM: split K over whole 128-row tiles only
+    while the grid has fewer output tiles than SMs (decode-sized M on a
+    narrow N), each split >= _GEMM_SPLIT_TILES tiles, the f32 partials
+    within _PART_BYTES."""
+    tiles = -(-m // _GEMM_BM) * -(-n // _GEMM_BN)
+    nk = k // GEMM_TILE_K
+    ksplit = max(1, min(n_sm // tiles, nk // _GEMM_SPLIT_TILES,
+                        _PART_BYTES // (m * n * 4)))
+    kt_per = -(-nk // ksplit)
+    return -(-nk // kt_per), kt_per
 
 
 def _split_k(m: int, k: int, n: int, n_sm: int, unit: int = 8):
@@ -116,8 +151,95 @@ def woq_matmul_stacked_plain(x, w: WOQWeight, layer: int, norm_w=None,
 
 
 # ---------------------------------------------------------------------------
+# the GEMM's routing rule and tile maps
+# ---------------------------------------------------------------------------
+
+def gemm_takes(k: int, block: int = 0, group: int = 0) -> bool:
+    """Whether the GEMM tiles this layout: K in whole 128-row tiles, an int4
+    pack block or fp8 interleave block (0: none) that divides the tile, and
+    per-channel scales or groups of one tile."""
+    return (k > 0 and k % GEMM_TILE_K == 0
+            and (block == 0 or GEMM_TILE_K % block == 0)
+            and group in (0, GEMM_TILE_K))
+
+
+def gemm_route(rows: int, dtype, prologue: bool = False,
+               residual: bool = False, k: int = GEMM_TILE_K, block: int = 0,
+               group: int = 0) -> bool:
+    """True where a CUDA call goes to the GEMM, False where it goes to the
+    GEMV: the GEMM takes bf16 / fp16 activations of at least GEMM_MIN_ROWS
+    rows, with no norm / SwiGLU prologue and no residual, on a layout it
+    tiles (gemm_takes). f32 activations stay on the GEMV at every row count
+    (the tensor cores have no exact f32 product), and so does a call with a
+    prologue or a residual (no path makes one above 16 rows)."""
+    return (rows >= GEMM_MIN_ROWS and dtype in GEMM_DTYPES
+            and not prologue and not residual
+            and gemm_takes(k, block, group))
+
+
+def tile_rows(fmt: str, block: int = 0) -> list:
+    """The logical row, within a 128-row K tile, of each stored slot of the
+    tile: the map by which the GEMM writes its decoded tile in logical row
+    order (csrc/woq_gemm.cuh reads it). fmt "int8": slot = stored row, in
+    logical order. "int4": slot = 2 * stored row + nibble (0 low, 1 high)
+    in pack_int4's layout with pack block `block`: block-local packed row
+    2m holds quarters (A[m], C[m]), row 2m + 1 holds (B[m], D[m]). "fp8":
+    slot = stored row, rows interleaved within blocks of `block` by
+    interleave_fp8_rows (stored 2m: logical m, 2m + 1: block / 2 + m; 0:
+    logical order)."""
+    t = GEMM_TILE_K
+    if fmt == "int4":
+        rows = []
+        for slot in range(t):
+            s, nibble = divmod(slot, 2)
+            b, sl = divmod(s, block // 2)
+            quarter = 2 * nibble + (sl & 1)
+            rows.append(b * block + quarter * (block // 4) + (sl >> 1))
+        return rows
+    if fmt == "fp8" and block:
+        return [b * block + (j & 1) * (block // 2) + (j >> 1)
+                for b, j in (divmod(s, block) for s in range(t))]
+    if fmt in ("int8", "fp8"):
+        return list(range(t))
+    raise ValueError(f"tile_rows: unknown format {fmt!r}")
+
+
+_TILE_MAPS: dict = {}
+
+
+def _tile_map(fmt, block, device):
+    """tile_rows as a uint8 tensor on `device` (built once per layout)."""
+    key = (fmt, block, device)
+    t = _TILE_MAPS.get(key)
+    if t is None:
+        t = torch.tensor(tile_rows(fmt, block), dtype=torch.uint8,
+                         device=device)
+        _TILE_MAPS[key] = t
+    return t
+
+
+# ---------------------------------------------------------------------------
 # kernel launch
 # ---------------------------------------------------------------------------
+
+def _check_operands(what, x, q, scale, layer, k, k_x, extra=()):
+    """The checks both kernels make: x [..., k_x] beside the stacked codes
+    q [L, ., N] (K = k) and f32 scales, a layer in range, N % 16 == 0,
+    16-byte aligned weight and scales, every tensor contiguous on x's
+    device."""
+    n_layers, n = q.shape[0], q.shape[-1]
+    if x.shape[-1] != k_x or not 0 <= layer < n_layers:
+        raise ValueError(f"{what}: x {tuple(x.shape)}, weight "
+                         f"{tuple(q.shape)} (K={k}), layer {layer}")
+    if (n % 16 or q.data_ptr() % 16 or scale.data_ptr() % 16
+            or scale.dtype != torch.float32):
+        raise ValueError(f"{what}: weight and scales must be 16-byte "
+                         "aligned with N % 16 == 0 and f32 scales")
+    if any(t.device != x.device or not t.is_contiguous()
+           for t in [x, q, scale, *extra]):
+        raise ValueError(f"{what}: tensors must be contiguous and on one "
+                         "device")
+
 
 def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
                 fmt_args, unit, max_rows, norm_w=None, eps=1e-6, resid=None,
@@ -136,21 +258,12 @@ def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
         raise TypeError(f"{what}: unsupported dtype {x.dtype}")
     if swiglu and norm_w is not None:
         raise ValueError(f"{what}: norm_w and swiglu are mutually exclusive")
-    if x.shape[-1] != k_x or not 0 <= layer < n_layers:
-        raise ValueError(f"{what}: x {tuple(x.shape)}, weight "
-                         f"{tuple(q.shape)} (K={k}), layer {layer}")
-    if (n % 16 or q.data_ptr() % 16 or scale.data_ptr() % 16
-            or scale.dtype != torch.float32):
-        raise ValueError(f"{what}: weight and scales must be 16-byte "
-                         "aligned with N % 16 == 0 and f32 scales")
+    _check_operands(what, x, q, scale, layer, k, k_x,
+                    [t for t in (norm_w, resid) if t is not None])
     # unit 8 only aligns kc; a larger unit is a block K must be whole of
     if _KT % unit or k % unit and unit > 8:
         raise ValueError(f"{what}: K={k} must be whole blocks of {unit}, "
                          f"a divisor of {_KT}")
-    tensors = [x, q, scale] + [t for t in (norm_w, resid) if t is not None]
-    if any(t.device != x.device or not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{what}: tensors must be contiguous and on one "
-                         "device")
     if norm_w is not None and (norm_w.dtype != x.dtype
                                or norm_w.shape != (n_layers, k)):
         raise ValueError(f"{what}: norm_w must be [L, K] in x's dtype")
@@ -176,7 +289,44 @@ def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
     return out.reshape(*x.shape[:-1], n)
 
 
+def launch_gemm(what, lib_name, entry, signatures, x, q, scale, layer, k,
+                fmt, block, group, fmt_args=()):
+    """Check the operands of one stacked GEMM kernel and launch it.
+
+    q: stacked stored codes [L, K or K/2, N]; scale: f32 [L, N] or grouped
+    [L, K/128, N]; fmt / block: the layout's tile_rows; group: 0 or 128;
+    fmt_args: the entry's format ints (after N). Raises before launch for
+    a dtype or layout the GEMM does not take. Returns f32 [..., N]."""
+    if x.dtype not in GEMM_DTYPES:
+        raise TypeError(f"{what}: the GEMM takes bf16 or fp16, not {x.dtype}")
+    if not gemm_takes(k, block, group):
+        raise ValueError(f"{what}: the GEMM takes K in whole {GEMM_TILE_K}-"
+                         f"row tiles, blocks dividing {GEMM_TILE_K} and "
+                         f"groups of {GEMM_TILE_K}; got K={k}, block "
+                         f"{block}, group {group}")
+    _check_operands(what, x, q, scale, layer, k, k)
+    n = q.shape[-1]
+    m = x.numel() // k
+    x2 = x.reshape(m, k)
+    if x2.data_ptr() % 16:        # cp.async reads x in 16-byte chunks
+        x2 = x2.clone()
+    lib = _build.load(lib_name, signatures)
+    ksplit, kt_per = _gemm_split(m, k, n, _sm_count(x.device))
+    out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    part = None if ksplit == 1 else torch.empty(
+        (ksplit, m, n), device=x.device, dtype=torch.float32)
+    err = getattr(lib, entry)(
+        _build.ptr(x2), _P(q.data_ptr() + layer * q.stride(0)),
+        _P(scale.data_ptr() + layer * scale.stride(0) * 4),
+        _build.ptr(_tile_map(fmt, block, x.device)), _build.ptr(out),
+        _build.ptr(part), _build.DTYPE_CODES[x.dtype], m, k, n, ksplit,
+        kt_per, *fmt_args, x.device.index or 0, _build.stream_of(x))
+    _build.check(err, what)
+    return out.reshape(*x.shape[:-1], n)
+
+
 def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid, swiglu=False):
+    """(f32 [..., N], whether the GEMM ran) for one CUDA call."""
     w.check_supported()
     n_layers, n = w.qweight.shape[0], w.qweight.shape[-1]
     grouped = bool(w.group_size)
@@ -185,12 +335,20 @@ def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid, swiglu=False):
     if w.qweight.dtype != torch.int8 or w.scale.shape != sshape:
         raise ValueError(f"{what}: qweight must be int8 and scale "
                          f"{sshape}, got {tuple(w.scale.shape)}")
+    if gemm_route(x.numel() // x.shape[-1], x.dtype,
+                  norm_w is not None or swiglu, resid is not None, w.k_dim,
+                  w.pack_block, w.group_size):
+        return launch_gemm(what, "woq_gemm", "tllm_woq_gemm",
+                           _GEMM_SIGNATURES, x, w.qweight, w.scale, layer,
+                           w.k_dim, "int4" if w.w_bits == 4 else "int8",
+                           w.pack_block, w.group_size,
+                           (w.w_bits, int(grouped))), True
     unit = w.pack_block or w.group_size or 8
     max_rows = 4 if grouped else 8         # grouped: a second accumulator
     return launch_gemv(what, "woq_matmul", "tllm_woq_matmul_stacked",
                        _SIGNATURES, x, w.qweight, w.scale, layer, w.k_dim,
                        (w.w_bits, w.pack_block, w.group_size), unit, max_rows,
-                       norm_w, eps, resid, swiglu)
+                       norm_w, eps, resid, swiglu), False
 
 
 def _device_kind(x, what):
@@ -207,18 +365,26 @@ def woq_matmul_stacked(x, w: WOQWeight, layer: int, norm_w=None,
     stacked WOQWeight, int8 [L, K, N] or packed int4 [L, K/2, N], scale
     [L, N] or grouped [L, K/g, N]; norm_w: optional stacked [L, K] RMSNorm
     weight (prologue; not with swiglu); resid: optional [..., N] in x's
-    dtype (epilogue). Returns f32 [..., N]."""
+    dtype (epilogue). Returns f32 [..., N].
+
+    On the card (gemm_route): bf16 / fp16 calls of at least GEMM_MIN_ROWS
+    rows with no prologue and no residual run the GEMM; f32 calls, calls
+    with a prologue or a residual, and layouts the GEMM does not tile run
+    the GEMV at every row count (correct, and no path makes such a call
+    above 16 rows)."""
     if _device_kind(x, "woq_matmul_stacked") == "cpu":
         return woq_matmul_stacked_plain(x, w, layer, norm_w, eps, resid,
                                         swiglu)
-    out = _launch("woq_matmul_stacked", x, w, layer, norm_w, eps, resid,
-                  swiglu)
+    out, gemm = _launch("woq_matmul_stacked", x, w, layer, norm_w, eps,
+                        resid, swiglu)
     woq_matmul_stacked.launches += 1
+    woq_matmul_stacked.gemm_launches += int(gemm)
     woq_matmul_stacked.swiglu_launches += int(swiglu)
     return out
 
 
 woq_matmul_stacked.launches = 0
+woq_matmul_stacked.gemm_launches = 0
 woq_matmul_stacked.swiglu_launches = 0
 
 
@@ -236,12 +402,15 @@ def woq_matmul_plain(x, w: WOQWeight):
 def woq_matmul(x, w: WOQWeight):
     """2-D entry: x [..., K] @ dequant(w), w int8 [K, N] or packed int4
     [K/2, N] with scale [N] or [K/g, N]; the stacked kernel on a unit layer
-    axis, counted in its own `woq_matmul.launches`. Returns f32 [..., N]."""
+    axis (the GEMM or the GEMV as gemm_route decides), counted in its own
+    `woq_matmul.launches` and `.gemm_launches`. Returns f32 [..., N]."""
     if _device_kind(x, "woq_matmul") == "cpu":
         return woq_matmul_plain(x, w)
-    out = _launch("woq_matmul", x, unit_layer(w), 0, None, 1e-6, None)
+    out, gemm = _launch("woq_matmul", x, unit_layer(w), 0, None, 1e-6, None)
     woq_matmul.launches += 1
+    woq_matmul.gemm_launches += int(gemm)
     return out
 
 
 woq_matmul.launches = 0
+woq_matmul.gemm_launches = 0
