@@ -19,7 +19,13 @@
    admissions and 8192), and the 2-D entries (woq_matmul, fp8_matmul)
    also at the lm_head's shape; at the qkv shape the GEMM and the GEMV
    are timed side by side at 16-8192 rows (the crossover), the GEMM once
-   with fp16 activations. Row 6 (W8A8) is timed at 1024 rows too. The
+   with fp16 activations. Row 6 (W8A8) at its four projection shapes:
+   the int8 wgmma GEMM and the dp4a kernel, each forced onto its route,
+   bit for bit against the plain version and timed side by side at 1-1024
+   rows (the crossover, held against W8A8_GEMM_MIN_ROWS; the GEMM at least
+   10x the dp4a kernel's speed at 1024 rows) and the GEMM at 8192 qkv
+   rows, beside the bf16 matmul of the dequantized operands and
+   torch._int_mm (row-major weight and a column-major copy). The
    attention kernels of the long-context path and of the decode modes
    are checked at its shapes: the streaming prefill
    (row 12) at 8192 rows, a GQA case and an f32 case with a length of 0;
@@ -36,9 +42,10 @@
    shape; the SwiGLU prologue of the weight-only and fp8 GEMVs at the
    down projection's shape (x [M, 2 x 11008] -> 4096) in every format at
    M = 1, 9 and 16, with and without the residual (bf16, one fp16 and one
-   f32 case); the 2-D W8A8 entry (row 5) at path 7's five shapes, M = 1
-   and 8, per-tensor and per-channel weight scales, timed over distinct
-   weights in turn (L2-cold); and the five decode probes (rows 15-19),
+   f32 case); the 2-D W8A8 entry (row 5) at path 7's five shapes, M = 1,
+   8, 64 and 923 (dp4a at 1 row, the GEMM from 5 on), per-tensor and
+   per-channel weight scales, bit for bit, timed over distinct weights in
+   turn (L2-cold); and the five decode probes (rows 15-19),
    exhaustive and bit for bit;
 4. drives each path through GenerationSession.generate with random weights
    born quantized (seed 0), at LLaMA-7B's widths:
@@ -57,7 +64,16 @@
    checks the 7B prefill logits against the plain-version path on the
    card, and profiles one bs1 request (device time by kernel, the device's
    busy share; device ms per decode token with a profile of the prefill
-   alone subtracted). Paths 1 and 2 then run the bs1 request again with
+   alone subtracted). Paths 2 and 7 (W8A8) count the GEMM in every
+   forward of at least W8A8_GEMM_MIN_ROWS rows (the 16-row bs1 prefills
+   too) and hold bs4's tokens identical to a run on the dp4a kernel; then
+   Task A (CNN/DailyMail summarization at bs1): one 923-token prompt
+   (1024-row bucket) with the GEMM and with the dp4a kernel at every row
+   count: TTFT, 16 decode steps over its int8 cache, 160 GEMM launches per
+   prefill and none per decode step, first-token logits bit-identical
+   and tokens identical between the routes, and a profile of the prefill
+   (the GEMM's, kernel 2's and row 7's share; the plain quantize ops
+   timed alone). Paths 1 and 2 then run the bs1 request again with
    decode_attn_mode 'split' (row 8) and 'fused' (row 9): decode and device
    ms/token, launches (the mode's kernel only), first-decode-step logits
    against the default mode's, and whether the tokens match. Paths 1, 3
@@ -81,8 +97,9 @@
    each stage's wall time, the engine dir's bytes and the peak device
    memory; then GenerationSession on the loaded params, driven as paths
    1-4 with every wrapper's launches held exactly (row 5 five times per
-   layer and forward, rows 6 and 7 never), and again under TLLM_FUSE_GU=1
-   (row 5 four times);
+   layer and forward, its GEMM in the forwards of at least
+   W8A8_GEMM_MIN_ROWS rows, rows 6 and 7 never), Task A as path 2, and
+   again under TLLM_FUSE_GU=1 (row 5 four times);
 5. path 5, long context (bench.py's int8_int8kv long rows): int8
    weight-only LLaMA-7B with an int8 KV cache, one 8192-token prompt and
    64 greedy tokens; prints prefill ms, decode ms/token, the launches (the
@@ -271,10 +288,25 @@ GEMM_INT8 = "woq_matmul_stacked (GEMM)"
 GEMM_INT4 = "woq_matmul_stacked (int4 g128 GEMM)"
 GEMM_INT4_PC = "woq_matmul_stacked (int4 per-channel GEMM)"
 GEMM_FP8 = "fp8_matmul_stacked (GEMM)"
-GEMM_KEYS = (GEMM_INT8, GEMM_INT4, GEMM_INT4_PC, GEMM_FP8)
+# rows 5 and 6 at prefill rows: the int8 tensor-core GEMM (csrc/w8a8_gemm.cu)
+W8A8_GEMM = "w8a8_matmul_stacked (GEMM)"
+W8A8_GEMM_2D = "w8a8_matmul (GEMM)"
+GEMM_KEYS = (GEMM_INT8, GEMM_INT4, GEMM_INT4_PC, GEMM_FP8, W8A8_GEMM,
+             W8A8_GEMM_2D)
 # Rows at which the kernel phase times the GEMM beside the GEMV (the
 # crossover; GEMM_MIN_ROWS is 17) at the qkv shape, every format.
 CROSSOVER_ROWS = (16, 17, 32, 64, 256, 1024, LONG_PROMPT)
+# Task A of the reference (BASELINE.md:6, bench.py:80-92): CNN/DailyMail
+# summarization at bs1, prompts of up to 923 tokens. Paths 2 and 7 prefill
+# one 923-token prompt (the 1024-row bucket) and decode TASK_A_DECODE
+# tokens over its int8 cache.
+TASK_A_PROMPT = 923
+TASK_A_DECODE = 16
+# Rows at which the kernel phase holds the W8A8 GEMM and the dp4a kernel
+# against their plain version and times them side by side (the crossover:
+# decode and bs4 rows, the rows between, prefill buckets, Task A's prompt
+# and bucket); the qkv shape also at 8192 rows (the GEMM alone).
+W8A8_ROWS = (1, 4, 5, 6, 8, 16, 17, 32, 64, 256, TASK_A_PROMPT, 1024)
 
 
 def serve_prompt_lens():
@@ -400,6 +432,12 @@ KERNELS = {
     "w8a8_matmul": (
         "w8a8_matmul", "trtllm_llama_tpu/ops/pallas/w8a8_matmul.py:103",
         "trtllm_llama_tpu_torch/csrc/w8a8_matmul.cu"),
+    W8A8_GEMM: (
+        "w8a8_matmul_stacked", "trtllm_llama_tpu/ops/pallas/w8a8_matmul.py:113",
+        "trtllm_llama_tpu_torch/csrc/w8a8_gemm.cu"),
+    W8A8_GEMM_2D: (
+        "w8a8_matmul", "trtllm_llama_tpu/ops/pallas/w8a8_matmul.py:58",
+        "trtllm_llama_tpu_torch/csrc/w8a8_gemm.cu"),
     SWIGLU_INT8: (
         "woq_matmul_stacked", f"{_WOQ_PY}:617",
         "trtllm_llama_tpu_torch/csrc/woq_matmul.cu"),
@@ -509,6 +547,30 @@ def route(gemm):
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
     with patched(woq, "GEMM_MIN_ROWS", 1 if gemm else 1 << 62):
         yield
+
+
+@contextlib.contextmanager
+def w8a8_route(gemm):
+    """Rows 5 and 6 forced onto one route: the int8 GEMM at every row count
+    of a layout it tiles (gemm=True), or the dp4a kernel at every row count
+    (gemm=False), through the floor w8a8_gemm_route reads."""
+    from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
+    with patched(w8a8, "W8A8_GEMM_MIN_ROWS", 1 if gemm else 1 << 62):
+        yield
+
+
+def exact(name, got, ref, errors):
+    """got must equal ref bit for bit (the W8A8 kernels: exact int32 sums,
+    the same f32 epilogue). Returns the max abs error."""
+    import torch
+    err = (got.float() - ref.float()).abs().max().item()
+    ok = torch.equal(got, ref)
+    print(f"  {name}: max_abs_err {err:.3e} (bit-equal required) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        errors.append(f"{name}: not bit-equal to the plain version "
+                      f"(max abs err {err:.3e})")
+    return err
 
 
 def launches_of(name, fn):
@@ -906,6 +968,7 @@ def check_prefill(errors, results):
         (4, 16, 32, 32, [8, 5, 12, 3]),  # main path bs4 ragged
         (2, 512, 32, 32, [512, 300]),    # long ragged
         (2, 64, 32, 8, [64, 17]),        # GQA group of 4
+        (1, 1024, 32, 32, [TASK_A_PROMPT]),   # Task A (paths 2 and 7)
     ] + [  # serving: each batched admission at the 128-token bucket
         (len(lens), max(SERVE_ENGINE["prefill_buckets"]), 32, 32, lens)
         for lens in serve_waves()]
@@ -967,7 +1030,12 @@ def check_decode(errors, results, kv_int8=False):
         (4, 32, 32, 128, [8, 5, 12, 3]),    # bs4 ragged
         (2, 32, 8, 128, [31, 100]),         # GQA group of 4
     ]
-    if not kv_int8:
+    if kv_int8:   # Task A (paths 2 and 7): its first and last decode steps
+        # over the session's cache (rows rounded up to 128, init_caches)
+        s_task_a = -(-(1024 + 1 + TASK_A_DECODE) // 128) * 128
+        cases += [(1, 32, 32, s_task_a, [TASK_A_PROMPT]),
+                  (1, 32, 32, s_task_a, [TASK_A_PROMPT + TASK_A_DECODE - 1])]
+    else:
         cases += [(1, 32, 32, 128, [0]), (1, 32, 32, 128, [127]),
                   (1, 32, 32, 2048, [0])]
         # serving (dense cache, bf16): the slots mid-generation and at their
@@ -1236,7 +1304,7 @@ def check_rmsnorm_quant(errors, results):
     w = (1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
          ).to(torch.bfloat16)
     max_err = 0.0
-    for m in PATH_ROWS:
+    for m in PATH_ROWS + (1024,):         # and Task A's 1024-row bucket
         x = (3 * torch.randn((m, d), generator=g, device="cuda")
              ).to(torch.bfloat16)
         q, s = rnq.rmsnorm_quant(x, w)
@@ -1271,55 +1339,140 @@ def check_rmsnorm_quant(errors, results):
 # kernel 5
 # ---------------------------------------------------------------------------
 
+def int_mm_ms(x_q, ws):
+    """torch._int_mm (the int32 product on the int8 tensor cores, cuBLAS)
+    over the weights `ws` in turn, a yardstick: (row-major [K, N] as the
+    engine dir stores it, a column-major copy made outside the timed
+    region); None where it refuses the layout."""
+    import torch
+    out = []
+    for w in (ws, [v.t().contiguous().t() for v in ws]):
+        try:
+            out.append(time_ms(lambda i: torch._int_mm(x_q, w[i % len(w)])))
+        except RuntimeError:
+            out.append(None)
+    return tuple(out)
+
+
+def _fmt_ms(t, m=17):
+    if m < 17:
+        return "not run (it takes more than 16 rows)"
+    return "refused" if t is None else f"{t:.4f} ms"
+
+
 def check_w8a8(errors, results):
+    """Row 6 at LLaMA-7B's four projection shapes, every W8A8_ROWS count
+    (and 8192 rows at the qkv shape): the GEMM and the dp4a kernel, each
+    forced onto its route, against the plain version bit for bit; their
+    times side by side (the crossover), the plain version's, the bf16
+    matmul of the dequantized operands and torch._int_mm (yardsticks) and
+    the bound. Per-token s_x and per-channel s_w, as path 2 runs it (per-
+    tensor s_w once, at 1024 rows)."""
     import torch
     from trtllm_llama_tpu_torch.config import ModelConfig
     from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
 
-    print("kernel w8a8_matmul_stacked (int8 x int8 -> exact int32, f32 out):")
+    print("kernel w8a8_matmul_stacked (int8 x int8 -> exact int32, f32 out): "
+          "the dp4a kernel and the int8 wgmma GEMM:")
     cfg = ModelConfig.llama_7b()
     d, f = cfg.hidden_size, cfg.intermediate_size
     qkv = cfg.num_heads * cfg.head_dim + 2 * cfg.num_kv_heads * cfg.head_dim
     shapes = [("qkv", d, qkv), ("wo", d, d), ("gate/up", d, f), ("down", f, d)]
     g = torch.Generator(device="cuda").manual_seed(6)
     n_l = N_WEIGHT_LAYERS
-    max_err = 0.0
+    err_dp4a = err_gemm = 0.0
+    table = {}
     for pname, k, n in shapes:
-        w_q = torch.randint(-127, 128, (n_l, k, n), generator=g, device="cuda",
+        w_q = torch.randint(-128, 128, (n_l, k, n), generator=g, device="cuda",
                             dtype=torch.int8)
-        s_w = torch.full((n_l, n), k ** -0.5 / 127.0, device="cuda")
+        s_w = torch.rand((n_l, n), generator=g, device="cuda") * 1e-3 + 1e-4
         deq = (w_q.float() * s_w[:, None, :]).to(torch.bfloat16)  # yardstick
-        # and 1024 rows: a prefill's, beside the bf16 matmul (row 6's factor)
-        for m in PATH_ROWS + (1024,):
-            x_q = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+        rows = W8A8_ROWS + ((LONG_PROMPT,) if pname == "qkv" else ())
+        table[pname] = {}
+        for m in rows:
+            x_q = torch.randint(-128, 128, (m, k), generator=g, device="cuda",
                                 dtype=torch.int8)
             s_x = torch.rand((m, 1), generator=g, device="cuda") * 0.05 + 1e-3
-            got = w8a8.w8a8_matmul_stacked(x_q, w_q, s_x, s_w, 1)
             ref = w8a8.w8a8_matmul_stacked_plain(x_q, w_q, s_x, s_w, 1)
-            torch.cuda.synchronize()
-            max_err = max(max_err, compare(
-                f"{pname} K={k} N={n} M={m}", got, ref, errors, tol=1e-6))
-            few = dict(iters=4, warmup=1, reps=1) if m > 64 else {}
-            t_k = time_ms(lambda i: w8a8.w8a8_matmul_stacked(
-                x_q, w_q, s_x, s_w, i % n_l), **few)
+            with w8a8_route(gemm=True):
+                err_gemm = max(err_gemm, exact(
+                    f"{pname} K={k} N={n} M={m} (GEMM)",
+                    w8a8.w8a8_matmul_stacked(x_q, w_q, s_x, s_w, 1), ref,
+                    errors))
+                if m == 1024:
+                    s_w1 = s_w[:, :1].contiguous()
+                    err_gemm = max(err_gemm, exact(
+                        f"{pname} K={k} N={n} M={m} per-tensor s_w (GEMM)",
+                        w8a8.w8a8_matmul_stacked(x_q, w_q, s_x, s_w1, 1),
+                        w8a8.w8a8_matmul_stacked_plain(x_q, w_q, s_x, s_w1,
+                                                       1), errors))
+                t_gemm = time_ms(lambda i: w8a8.w8a8_matmul_stacked(
+                    x_q, w_q, s_x, s_w, i % n_l))
+            t_dp4a = None
+            if m != LONG_PROMPT:        # the dp4a kernel takes ~80 ms there
+                few = dict(iters=4, warmup=1, reps=1) if m > 64 else {}
+                with w8a8_route(gemm=False):
+                    err_dp4a = max(err_dp4a, exact(
+                        f"{pname} K={k} N={n} M={m} (dp4a)",
+                        w8a8.w8a8_matmul_stacked(x_q, w_q, s_x, s_w, 1), ref,
+                        errors))
+                    t_dp4a = time_ms(lambda i: w8a8.w8a8_matmul_stacked(
+                        x_q, w_q, s_x, s_w, i % n_l), **few)
+            del ref
+            big = m > 64
             t_p = time_ms(lambda i: w8a8.w8a8_matmul_stacked_plain(
-                x_q, w_q, s_x, s_w, i % n_l), iters=8, **(
-                    dict(warmup=1, reps=1) if few else {}))
+                x_q, w_q, s_x, s_w, i % n_l), iters=2 if big else 8,
+                **(dict(warmup=1, reps=1) if big else {}))
             xd = (x_q.float() * s_x).to(torch.bfloat16)
             t_l = time_ms(lambda i: torch.matmul(xd, deq[i % n_l]))
+            t_i, t_ic = ((None, None) if m < 17 else
+                         int_mm_ms(x_q, [w_q[i] for i in range(n_l)]))
             n_bytes = k * n + n * 4 + m * k + m * 4 + m * n * 4
             b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n, INT8_OPS)
-            print(f"  time {pname} M={m}: kernel {t_k:.4f} ms, plain "
-                  f"{t_p:.4f} ms, library(matmul bf16, dequantized operands)"
-                  f" {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                  f"{n_bytes / t_k / 1e6:.1f} GB/s, {t_k / t_l:.2f}x the "
-                  "library")
-            if pname == "qkv" and m == 1:
-                results["w8a8_matmul_stacked"] = dict(
-                    ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                    bound_by=b_by, shape=f"M=1 K={k} N={n} (decode qkv)")
+            table[pname][m] = dict(gemm_ms=t_gemm, dp4a_ms=t_dp4a,
+                                   plain_ms=t_p, library_ms=t_l,
+                                   int_mm_ms=t_i, int_mm_col_major_ms=t_ic,
+                                   bound_ms=b_ms, bound_by=b_by)
+            print(f"  time {pname} M={m}: GEMM {t_gemm:.4f} ms "
+                  f"({100 * b_ms / t_gemm:.1f}% of the bound), dp4a "
+                  f"{'not timed' if t_dp4a is None else f'{t_dp4a:.4f} ms'}"
+                  f", plain {t_p:.4f} ms, library(matmul bf16, dequantized "
+                  f"operands) {t_l:.4f} ms, torch._int_mm row-major "
+                  f"{_fmt_ms(t_i, m)} / column-major copy {_fmt_ms(t_ic, m)}, "
+                  f"bound {b_ms:.4f} ms ({b_by}); GEMM {t_gemm / t_l:.2f}x "
+                  "the bf16 library")
+            if pname == "qkv" and m in (1, 1024):
+                key = "w8a8_matmul_stacked" if m == 1 else W8A8_GEMM
+                results[key] = dict(
+                    ms=t_dp4a if m == 1 else t_gemm, plain_ms=t_p,
+                    library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                    shape=f"M={m} K={k} N={n} ("
+                          + ("decode qkv, dp4a)" if m == 1 else
+                             "qkv, the Task A prefill's bucket, GEMM)"),
+                    launches=0)
+            del x_q, xd
         del w_q, deq
-    results["w8a8_matmul_stacked"]["max_abs_err"] = max_err
+    results["w8a8_matmul_stacked"]["max_abs_err"] = err_dp4a
+    results[W8A8_GEMM]["max_abs_err"] = err_gemm
+    results["_e2e"]["row 6 GEMM vs dp4a"] = table
+    # the crossover: the fewest rows from which the GEMM is the faster at
+    # every timed count and shape
+    rows = [m for m in W8A8_ROWS
+            if all(table[p][r]["gemm_ms"] < table[p][r]["dp4a_ms"]
+                   for p in table for r in W8A8_ROWS if r >= m)]
+    cross = min(rows) if rows else None
+    print(f"  W8A8 crossover: the GEMM is the faster from M = {cross} on at "
+          f"every shape (W8A8_GEMM_MIN_ROWS {w8a8.W8A8_GEMM_MIN_ROWS}: "
+          f"{'matches' if cross == w8a8.W8A8_GEMM_MIN_ROWS else 'DIFFERS'})")
+    results["_e2e"]["row 6 crossover"] = dict(
+        measured=cross, W8A8_GEMM_MIN_ROWS=w8a8.W8A8_GEMM_MIN_ROWS)
+    for pname in table:
+        factor = table[pname][1024]["dp4a_ms"] / table[pname][1024]["gemm_ms"]
+        print(f"  {pname} M=1024: the GEMM {factor:.1f}x faster than dp4a "
+              "(at least 10x required)")
+        if factor < 10:
+            errors.append(f"w8a8 GEMM {pname} M=1024: only {factor:.1f}x the "
+                          "dp4a kernel's speed")
     check_w8a8_2d(errors, results)
 
 
@@ -1328,12 +1481,15 @@ def check_w8a8(errors, results):
 W8A8_2D_SHAPES = [("qkv", 4096, 12288), ("wo", 4096, 4096),
                   ("gate, up", 4096, 11008), ("gate/up fused", 4096, 22016),
                   ("down", 11008, 4096)]
+W8A8_2D_ROWS = (1, 8, 64, TASK_A_PROMPT)   # decode, bs1 prefill, ..., Task A
 
 
 def check_w8a8_2d(errors, results):
-    """The 2-D entry (row 5) at path 7's shapes, M = 1 and 8, with a static
-    scalar s_x and per-tensor or per-channel s_w; timed over N_WEIGHT_LAYERS
-    distinct weights in turn, so each call finds its weight cold in L2."""
+    """The 2-D entry (row 5) at path 7's shapes and W8A8_2D_ROWS, with a
+    static scalar s_x and per-tensor or per-channel s_w, bit for bit
+    against the plain version on the route w8a8_gemm_route picks; timed
+    over N_WEIGHT_LAYERS distinct weights in turn, so each call finds its
+    weight cold in L2."""
     import torch
     from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
 
@@ -1341,46 +1497,58 @@ def check_w8a8_2d(errors, results):
     g = torch.Generator(device="cuda").manual_seed(15)
     n_l = N_WEIGHT_LAYERS
     s_x = torch.tensor(0.02, device="cuda")
-    max_err = 0.0
+    err_max = {False: 0.0, True: 0.0}
     for pname, k, n in W8A8_2D_SHAPES:
-        ws = [torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+        ws = [torch.randint(-128, 128, (k, n), generator=g, device="cuda",
                             dtype=torch.int8) for _ in range(n_l)]
         for per_channel in (True, False):
             s_w = torch.rand((n if per_channel else 1,), generator=g,
                              device="cuda") * 1e-3 + 1e-4
             deq = [(w.float() * s_w).to(torch.bfloat16) for w in ws]
             sw_what = "per-channel" if per_channel else "per-tensor"
-            for m in (1, 8):
-                x_q = torch.randint(-127, 128, (m, k), generator=g,
+            for m in W8A8_2D_ROWS:
+                gemm = w8a8.w8a8_gemm_route(m, k, n)
+                kind = "GEMM" if gemm else "dp4a"
+                x_q = torch.randint(-128, 128, (m, k), generator=g,
                                     device="cuda", dtype=torch.int8)
-                got = w8a8.w8a8_matmul(x_q, ws[1], s_x, s_w)
-                ref = w8a8.w8a8_matmul_plain(x_q, ws[1], s_x, s_w)
-                torch.cuda.synchronize()
-                max_err = max(max_err, compare(
-                    f"{pname} K={k} N={n} M={m} {sw_what} s_w", got, ref,
-                    errors, tol=1e-6))
+                err_max[gemm] = max(err_max[gemm], exact(
+                    f"{pname} K={k} N={n} M={m} {sw_what} s_w ({kind})",
+                    w8a8.w8a8_matmul(x_q, ws[1], s_x, s_w),
+                    w8a8.w8a8_matmul_plain(x_q, ws[1], s_x, s_w), errors))
                 t_k = time_ms(lambda i: w8a8.w8a8_matmul(
                     x_q, ws[i % n_l], s_x, s_w))
+                big = m > 64
                 t_p = time_ms(lambda i: w8a8.w8a8_matmul_plain(
-                    x_q, ws[i % n_l], s_x, s_w), iters=8)
+                    x_q, ws[i % n_l], s_x, s_w), iters=2 if big else 8,
+                    **(dict(warmup=1, reps=1) if big else {}))
                 xd = (x_q.float() * s_x).to(torch.bfloat16)
                 t_l = time_ms(lambda i: torch.matmul(xd, deq[i % n_l]))
+                t_i = int_mm_ms(x_q, ws)[0] if m >= 17 else None
                 n_bytes = k * n + s_w.numel() * 4 + m * k + 4 + m * n * 4
                 b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n, INT8_OPS)
-                print(f"  time {pname} M={m} {sw_what}: kernel {t_k:.4f} ms, "
-                      f"plain {t_p:.4f} ms, library(matmul bf16, dequantized "
-                      f"operands) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                      f"{n_bytes / t_k / 1e6:.1f} GB/s")
+                print(f"  time {pname} M={m} {sw_what} ({kind}): kernel "
+                      f"{t_k:.4f} ms, plain {t_p:.4f} ms, library(matmul "
+                      f"bf16, dequantized operands) {t_l:.4f} ms, "
+                      f"torch._int_mm {_fmt_ms(t_i, m)}, bound {b_ms:.4f} ms "
+                      f"({b_by}), {100 * b_ms / t_k:.1f}% of it")
                 entry = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                              bound_ms=b_ms, bound_by=b_by,
-                             shape=f"M={m} K={k} N={n} {sw_what} s_w ({pname})")
-                if "w8a8_matmul" not in results:   # qkv M=1, as path 7 runs it
-                    results["w8a8_matmul"] = entry
+                             shape=f"M={m} K={k} N={n} {sw_what} s_w "
+                                   f"({pname}, {kind})")
+                # path 7 runs qkv per-tensor: decode (M=1) on dp4a, the
+                # Task A prefill on the GEMM
+                key = ("w8a8_matmul" if not gemm else W8A8_GEMM_2D)
+                if (pname == "qkv" and not per_channel
+                        and m in (1, TASK_A_PROMPT)):
+                    results[key] = dict(entry, launches=0)
                 else:
-                    results["w8a8_matmul"].setdefault("more", []).append(entry)
+                    results.setdefault(f"_{key} more", []).append(entry)
             del deq
         del ws
-    results["w8a8_matmul"]["max_abs_err"] = max_err
+    results["w8a8_matmul"]["max_abs_err"] = err_max[False]
+    results[W8A8_GEMM_2D]["max_abs_err"] = err_max[True]
+    results["w8a8_matmul"]["more"] = results.pop("_w8a8_matmul more", [])
+    results[W8A8_GEMM_2D]["more"] = results.pop(f"_{W8A8_GEMM_2D} more", [])
 
 
 # ---------------------------------------------------------------------------
@@ -1571,11 +1739,12 @@ def make_paths():
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
 
     attn = {"prefill_attention_kernel": pa, "dma_decode_attention": da}
+    woq_gemm = dict(route=route, floor=lambda: woq.GEMM_MIN_ROWS)
     return [
         dict(tag="path 1", title="int8 weight-only per-channel, bf16 KV",
              mode=QuantMode.use_weight_only(), kv_scales=None,
              kernels={"woq_matmul_stacked": woq, GEMM_INT8: woq, **attn},
-             gemm=GEMM_INT8,
+             gemm=GEMM_INT8, **woq_gemm,
              plain=[(woq, "woq_matmul_stacked"),
                     (pa, "prefill_attention_kernel")],
              modes={"split": READ_ONLY, "fused": FUSED},
@@ -1587,7 +1756,10 @@ def make_paths():
                    | QuantMode.INT8_KV_CACHE),
              kv_scales=[KV_SCALE] * ModelConfig.llama_7b().num_layers,
              kernels={"rmsnorm_quant": rnq, "w8a8_matmul_stacked": w8a8,
-                      "prefill_attention_kernel": pa, INT8_DECODE: da},
+                      W8A8_GEMM: w8a8, "prefill_attention_kernel": pa,
+                      INT8_DECODE: da},
+             gemm=W8A8_GEMM, route=w8a8_route,
+             floor=lambda: w8a8.W8A8_GEMM_MIN_ROWS, exact=True, task_a=True,
              plain=[(rnq, "rmsnorm_quant"), (w8a8, "w8a8_matmul_stacked"),
                     (pa, "prefill_attention_kernel")],
              modes={"split": READ_ONLY_INT8, "fused": FUSED_INT8},
@@ -1598,7 +1770,7 @@ def make_paths():
              group_size=128, lm_head=True, kv_scales=None,
              kernels={INT4_STACKED: woq, INT4_2D: woq, GEMM_INT4: woq,
                       **attn},
-             gemm=GEMM_INT4,
+             gemm=GEMM_INT4, **woq_gemm,
              plain=[(woq, "woq_matmul_stacked"), (woq, "woq_matmul"),
                     (pa, "prefill_attention_kernel")],
              fused=("woq_matmul_stacked", SWIGLU_INT4)),
@@ -1607,7 +1779,7 @@ def make_paths():
              mode=QuantMode.FP8_QDQ, lm_head=True, kv_scales=None,
              kernels={"fp8_matmul_stacked": f8k, "fp8_matmul": f8k,
                       GEMM_FP8: f8k, **attn},
-             gemm=GEMM_FP8,
+             gemm=GEMM_FP8, **woq_gemm,
              plain=[(f8k, "fp8_matmul_stacked"), (f8k, "fp8_matmul"),
                     (pa, "prefill_attention_kernel")],
              fused=("fp8_matmul_stacked", SWIGLU_FP8)),
@@ -1617,25 +1789,35 @@ def make_paths():
 def make_path7():
     """Path 7 (run_offline_build): static per-tensor SmoothQuant W8A8 with
     an int8 KV cache, from the engine dir. Row 5 runs every projection (5
-    per layer and forward: the fused qkv, wo, gate, up, down), kernel 2
-    once per layer and prefill, kernel 3 (int8) once per layer and decode
-    step; row 6 and rmsnorm_quant never."""
+    per layer and forward: the fused qkv, wo, gate, up, down; the GEMM in
+    the forwards of at least W8A8_GEMM_MIN_ROWS rows), kernel 2 once per
+    layer and prefill, kernel 3 (int8) once per layer and decode step; row
+    6 and rmsnorm_quant never."""
     from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
     from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
     from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
+
+    def expect(n_l, forwards, prefills, steps, gemm_forwards):
+        counts = {"w8a8_matmul": 5 * n_l * forwards,
+                  "prefill_attention_kernel": n_l * prefills,
+                  "dma_decode_attention": n_l * steps}
+        if gemm_forwards:
+            counts["w8a8_matmul.gemm_launches"] = 5 * n_l * gemm_forwards
+        return counts
     return dict(
         tag="path 7", title="static SmoothQuant W8A8 + int8 KV (engine dir)",
-        kernels={"w8a8_matmul": w8a8, "prefill_attention_kernel": pa,
-                 INT8_DECODE: da},
+        kernels={"w8a8_matmul": w8a8, W8A8_GEMM_2D: w8a8,
+                 "prefill_attention_kernel": pa, INT8_DECODE: da},
+        gemm=W8A8_GEMM_2D, route=w8a8_route,
+        floor=lambda: w8a8.W8A8_GEMM_MIN_ROWS, exact=True, task_a=True,
         plain=[(w8a8, "w8a8_matmul"), (pa, "prefill_attention_kernel")],
-        expect=lambda n_l, forwards, prefills, steps: {
-            "w8a8_matmul": 5 * n_l * forwards,
-            "prefill_attention_kernel": n_l * prefills,
-            "dma_decode_attention": n_l * steps},
-        fused=("w8a8_matmul", None))
+        expect=expect, fused=("w8a8_matmul", None))
 
 
-PATH_ENGINE = dict(max_batch_size=4, max_input_len=1024, max_seq_len=128)
+# max_seq_len: room for Task A's prompt at its 1024-row bucket and its
+# decode steps (a session's caches hold min(max_seq_len, bucket + new) rows)
+PATH_ENGINE = dict(max_batch_size=4, max_input_len=1024,
+                   max_seq_len=1024 + 1 + TASK_A_DECODE)
 
 
 def run_path(path, args, errors, results):
@@ -1704,17 +1886,29 @@ def drive_path(path, sess, errors, results):
     out2, ms2 = generate(p2, new)
     out4, ms4 = generate(p4, new)
     launches = {name: launches_of(name, fn) for name, fn in wrappers.items()}
-    if "gemm" in path:         # 5 projections a layer in bs4's prefill only
-        n_gemm, want = launches[path["gemm"]], 5 * cfg.num_layers
-        print(f"  {tag}: GEMM launches {n_gemm} (expected {want}: bs4's "
-              f"{4 * 16}-row prefill), GEMV launches "
-              f"{launches[next(iter(path['kernels']))]} (decode steps, the "
-              f"16-row bs1 prefills, the lm_head): "
-              f"{'ok' if n_gemm == want else 'FAIL'}")
+    # (rows, forwards) of the run: four bs1 prefills at the bucket of 8
+    # tokens, bs4's at 4 x the bucket of its longest prompt, the decode
+    # steps of the three bs1 requests and of bs4
+    ecfg = sess.engine_cfg
+    forwards = [(ecfg.bucket_for(8), 4), (4 * ecfg.bucket_for(max(lens4)), 1),
+                (1, 3 * (new - 1)), (4, new - 1)]
+    gemm_forwards = 0
+    if "gemm" in path:   # 5 projections a layer in each forward >= the floor
+        floor = path["floor"]()
+        gemm_forwards = sum(n for rows, n in forwards if rows >= floor)
+        n_gemm = launches[path["gemm"]]
+        want = 5 * cfg.num_layers * gemm_forwards
+        other = next(k for k in path["kernels"] if k != path["gemm"]
+                     and KERNELS[k][0] == KERNELS[path["gemm"]][0])
+        print(f"  {tag}: GEMM launches {n_gemm} (expected {want}: the "
+              f"forwards of at least {floor} rows, of (rows, forwards) "
+              f"{forwards}), {other} launches {launches[other]} (the rest, "
+              f"and a quantized lm_head): {'ok' if n_gemm == want else 'FAIL'}")
         if n_gemm != want:
             errors.append(f"{tag}: GEMM launches {n_gemm} != {want}")
     if "expect" in path:       # 1 + 4 x new forwards, 5 prefills, 4 x 49 steps
-        expect = path["expect"](cfg.num_layers, 1 + 4 * new, 5, 4 * (new - 1))
+        expect = path["expect"](cfg.num_layers, 1 + 4 * new, 5, 4 * (new - 1),
+                                gemm_forwards)
         check_counts(f"{tag} every wrapper", read_counts(),
                      dict(launches=expect, alibi_decode=0), errors)
 
@@ -1744,14 +1938,20 @@ def drive_path(path, sess, errors, results):
     if not same:
         errors.append(f"{tag}: the same bs1 request gave different tokens")
     if "gemm" in path:
-        # bs4's prefill on the GEMV instead (the bs1 runs never reach the GEMM)
-        with route(gemm=False):
+        # bs4 with the other kernel at every row count: W8A8 is exact on
+        # both, so its tokens must match; kernels 1 and 6 sum in another
+        # order, so theirs may differ at near ties
+        with path["route"](gemm=False):
             out4v, _ = generate(p4, new)
         same = np.array_equal(out4.output_ids, out4v.output_ids)
-        print(f"  bs4 tokens identical to a run with the GEMV at every row "
-              f"count: {same}")
-        for row in np.flatnonzero((out4.output_ids
-                                   != out4v.output_ids).any(1)):
+        print(f"  bs4 tokens identical to a run with the "
+              f"{'dp4a kernel' if path.get('exact') else 'GEMV'} at every "
+              f"row count: {same}")
+        if path.get("exact") and not same:
+            errors.append(f"{tag}: bs4 tokens differ between the GEMM and "
+                          "the dp4a route")
+        for row in ([] if path.get("exact") else np.flatnonzero(
+                (out4.output_ids != out4v.output_ids).any(1))):
             first_difference(f"{tag} GEMM vs GEMV bs4 row {row}", sess, sess,
                              p4, out4.output_ids, out4v.output_ids, row,
                              errors, route_b=False)
@@ -1764,10 +1964,146 @@ def drive_path(path, sess, errors, results):
     prefill_logits_vs_plain("", path["plain"], sess, p1, p4, errors)
     dev_tok, _ = profile_generate(sess, p1, scfg)
     results["_e2e"][tag]["device_ms_per_decode_token"] = dev_tok
+    if path.get("task_a"):
+        run_task_a(path, sess, errors, results)
     if path.get("modes"):
         run_decode_modes(path, sess, cfg, p1, out1, errors, results)
     if path.get("fused"):
         run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results)
+
+
+def run_task_a(path, sess, errors, results):
+    """Task A's prefill on a W8A8 path's session: one bs1 prompt of
+    TASK_A_PROMPT tokens (seed 0; the 1024-row bucket), with the routing
+    rule (the GEMM in the prefill) and then with the dp4a kernel at every
+    row count: the host-clock TTFT of each; the GEMM's launches (5 per
+    layer in the prefill, none in a decode step); the first-token logits
+    bit-identical between the two routes (both exact) and the greedy
+    tokens of 1 + TASK_A_DECODE steps identical; decode ms/token over the
+    prompt's int8 cache; a profile of the prefill (device time of the GEMM,
+    kernel 2, row 7 and the rest) beside the plain activation
+    quantization's device time per prefill (its calls timed alone at the
+    prefill's shapes)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from trtllm_llama_tpu_torch.models import llama
+    from trtllm_llama_tpu_torch.quantization import tensors
+
+    tag, cfg = path["tag"], sess.cfg
+    n_l, d, f = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    gemm_fn = _wrappers()[KERNELS[path["gemm"]][0]]
+    prompt = np.random.default_rng(0).integers(3, cfg.vocab_size,
+                                               (1, TASK_A_PROMPT))
+    rows = sess.engine_cfg.bucket_for(TASK_A_PROMPT)
+    new = 1 + TASK_A_DECODE
+    print(f"  {tag} Task A: bs1, one {TASK_A_PROMPT}-token prompt ({rows}-"
+          f"row bucket), then {TASK_A_DECODE} decode steps over its int8 "
+          "cache; the GEMM route, then the dp4a kernel at every row count")
+
+    def prefill_logits():
+        with torch.inference_mode():
+            ids = torch.zeros((1, rows), dtype=torch.int32, device="cuda")
+            ids[0, :TASK_A_PROMPT] = torch.as_tensor(prompt[0], device="cuda")
+            lens = torch.tensor([TASK_A_PROMPT], dtype=torch.int32,
+                                device="cuda")
+            caches = llama.init_caches(cfg, 1, rows, "cuda", sess.kv_scales)
+            return llama.forward_prefill(sess.params, cfg, ids, lens, caches,
+                                         rope=sess.rope)[0]
+
+    run = {}
+    for gemm in (True, False):
+        what = "GEMM" if gemm else "dp4a"
+        with (contextlib.nullcontext() if gemm
+              else path["route"](gemm=False)):
+            timed_generate(sess, prompt, 1)                     # warm-up
+            zero_counts()
+            _, ttft = timed_generate(sess, prompt, 1)
+            n_pre = gemm_fn.gemm_launches
+            zero_counts()
+            out, ms = timed_generate(sess, prompt, new)
+            n_req = gemm_fn.gemm_launches
+            logits = prefill_logits()
+        dec_ms = (ms - ttft) / TASK_A_DECODE
+        want = 5 * n_l if gemm else 0
+        ok = n_pre == want and n_req == want
+        print(f"  {tag} Task A ({what}): TTFT {ttft:.2f} ms, decode "
+              f"{dec_ms:.3f} ms/token over the {TASK_A_PROMPT}-row cache; "
+              f"GEMM launches {n_pre} in the prefill, {n_req - n_pre} in the "
+              f"{TASK_A_DECODE} decode steps (expected {want} and 0): "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            errors.append(f"{tag} Task A {what}: GEMM launches {n_pre} / "
+                          f"{n_req} != {want}")
+        check_tokens(f"{tag} Task A ({what})", out, new, cfg.vocab_size,
+                     errors)
+        run[what] = dict(ttft_ms=ttft, decode_ms_per_token=dec_ms,
+                         gemm_launches_prefill=n_pre,
+                         gemm_launches_decode=n_req - n_pre,
+                         tokens=out.output_ids, logits=logits)
+        if gemm:
+            results[path["gemm"]]["launches"] += n_req
+    same_logits = torch.equal(run["GEMM"]["logits"], run["dp4a"]["logits"])
+    same_tokens = np.array_equal(run["GEMM"]["tokens"], run["dp4a"]["tokens"])
+    print(f"  {tag} Task A: first-token logits bit-identical between the "
+          f"routes: {same_logits}; greedy tokens identical: {same_tokens} "
+          f"({run['GEMM']['tokens'][0, :8].tolist()}...); TTFT "
+          f"{run['dp4a']['ttft_ms'] / run['GEMM']['ttft_ms']:.1f}x shorter "
+          "on the GEMM")
+    if not (same_logits and same_tokens):
+        errors.append(f"{tag} Task A: the GEMM and dp4a routes differ "
+                      f"(logits equal {same_logits}, tokens {same_tokens})")
+
+    # where the prefill's device time goes (the routing rule: the GEMM)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timed_generate(sess, prompt, 1)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+
+    def dev_ms(sub=""):
+        return sum(e.self_device_time_total for e in events
+                   if sub in e.key) / 1e3
+    parts = {"GEMM (w8a8_gemm_kernel)": dev_ms("w8a8_gemm_kernel"),
+             "kernel 2 (prefill_attention_kernel)":
+                 dev_ms("prefill_attention_kernel"),
+             "row 7 (rmsnorm_quant_kernel)": dev_ms("rmsnorm_quant_kernel")}
+    total = dev_ms()
+    parts["the rest (plain torch ops, the lm_head)"] = total - sum(
+        parts.values())
+    # the activation quantization by plain torch ops in one prefill: path 2
+    # quantizes the wo and down inputs per token (row 7 the others), static
+    # SmoothQuant every projection's input (5 a layer)
+    per_token = sess.params["layers"]["wo"].per_token
+    x = {k: torch.randn((rows, k), device="cuda").to(cfg.torch_dtype)
+         for k in (d, f)}
+    s_x = torch.tensor(0.02, device="cuda")
+    if per_token:
+        calls = {d: 1, f: 1}
+        t_q = {k: time_ms(lambda i: tensors.quantize_per_token(x[k]))
+               for k in calls}
+    else:
+        calls = {d: 4, f: 1}
+        t_q = {k: time_ms(lambda i: tensors.quantize_static(x[k], s_x))
+               for k in calls}
+    quant_ms = n_l * sum(n * t_q[k] for k, n in calls.items())
+    print(f"  {tag} Task A prefill profile: device {total:.2f} ms of "
+          f"{run['GEMM']['ttft_ms']:.2f} ms TTFT; " + ", ".join(
+              f"{k} {v:.2f} ms ({100 * v / total:.1f}%)"
+              for k, v in parts.items())
+          + f"; the activation quantization (plain ops, timed alone: "
+          f"{' + '.join(f'{n} x {t_q[k]:.4f}' for k, n in calls.items())} "
+          f"ms a layer) {quant_ms:.2f} ms")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=10, max_name_column_width=60))
+    results["_e2e"][f"{tag} Task A"] = dict(
+        prompt=TASK_A_PROMPT, rows=rows, decode_steps=TASK_A_DECODE,
+        logits_bit_identical=same_logits, tokens_identical=same_tokens,
+        prefill_device_ms=total, prefill_device_ms_by_part=parts,
+        quantize_ms_per_prefill=quant_ms,
+        **{f"{what} {k}": v for what, r in run.items() for k, v in r.items()
+           if k not in ("tokens", "logits")})
 
 
 def prefill_logits_vs_plain(label, plain, sess, p1, p4, errors):
@@ -1906,8 +2242,11 @@ def run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results):
         n, n_sw = fn.launches, getattr(fn, "swiglu_launches", None)
         n_gemm = getattr(fn, "gemm_launches", None)
         want_sw = None if n_sw is None else n_l * (new if b == 1 else new - 1)
-        # the GEMM: bs4's 64-row prefill, 4 projections a layer
-        want_gemm = None if n_gemm is None else 4 * n_l * (b == 4)
+        # the GEMM: 4 projections a layer in the prefill if its rows (16 at
+        # bs1, 64 at bs4) reach the floor (decode steps: 1 or 4 rows)
+        floor = path["floor"]()
+        want_gemm = None if n_gemm is None else 4 * n_l * (
+            (16 * b >= floor) + (new - 1) * (b >= floor))
         ok = n == 4 * n_l * new and n_sw == want_sw and n_gemm == want_gemm
         print(f"  {tag} fused {what}: {ms:.1f} ms; {entry} launches {n} "
               f"(expected {4 * n_l * new}), of them the GEMM's {n_gemm} "

@@ -965,3 +965,123 @@ def test_gemm_refuses_a_k_it_cannot_take_before_launch(dev):
     woq.woq_matmul_stacked(x, w, 0)
     torch.cuda.synchronize()
     assert woq.woq_matmul_stacked.gemm_launches == before
+
+
+# rows 5 and 6 at prefill rows: the int8 tensor-core GEMM (csrc/w8a8_gemm.cu)
+# at LLaMA-7B's projection shapes (fused qkv, wo, gate or up, down), exact
+# against the plain version (int32 sums, the same f32 epilogue)
+W8A8_GEMM_SHAPES = [(4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096)]
+W8A8_SCALES = ["token/channel", "token/tensor", "static/channel",
+               "static/tensor"]
+
+
+def _w8a8_operands(dev, g, m, k, n, n_layers, scales):
+    x_q = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                        dtype=torch.int8)
+    w_q = torch.randint(-128, 128, (n_layers, k, n), generator=g, device=dev,
+                        dtype=torch.int8)
+    s_x = (torch.rand((m, 1), generator=g, device=dev) * 0.05 + 1e-3
+           if scales.startswith("token") else torch.tensor(0.02, device=dev))
+    s_w = torch.rand((n_layers, n if scales.endswith("channel") else 1),
+                     generator=g, device=dev) * 1e-3 + 1e-4
+    return x_q, w_q, s_x, s_w
+
+
+@pytest.mark.parametrize("scales", W8A8_SCALES)
+@pytest.mark.parametrize("kn", W8A8_GEMM_SHAPES)
+@pytest.mark.parametrize("m", [17, 64, 923, 1024])
+def test_w8a8_gemm_matches_plain_exactly(dev, m, kn, scales):
+    k, n = kn
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x_q, w_q, s_x, s_w = _w8a8_operands(dev, g, m, k, n, 3, scales)
+    fn = w8a8.w8a8_matmul_stacked
+    for layer in (0, 2):
+        before = (fn.launches, fn.gemm_launches)
+        got = fn(x_q, w_q, s_x, s_w, layer)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.gemm_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+        ref = w8a8.w8a8_matmul_stacked_plain(x_q, w_q, s_x, s_w, layer)
+        assert torch.equal(got, ref), (got - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("scales", ["token/channel", "static/tensor"])
+@pytest.mark.parametrize("kn", W8A8_GEMM_SHAPES + [(4096, 22016)])
+@pytest.mark.parametrize("m", [17, 923])
+def test_w8a8_gemm_2d_entry_matches_plain_exactly(dev, m, kn, scales):
+    k, n = kn
+    g = torch.Generator(device=dev).manual_seed(m * 3 + k + n)
+    x_q, w_q, s_x, s_w = _w8a8_operands(dev, g, m, k, n, 1, scales)
+    fn = w8a8.w8a8_matmul
+    before = (fn.launches, fn.gemm_launches,
+              w8a8.w8a8_matmul_stacked.launches)
+    got = fn(x_q, w_q[0], s_x, s_w[0])
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.gemm_launches,
+            w8a8.w8a8_matmul_stacked.launches) == (before[0] + 1,
+                                                   before[1] + 1, before[2])
+    assert torch.equal(got, w8a8.w8a8_matmul_plain(x_q, w_q[0], s_x, s_w[0]))
+
+
+@pytest.mark.parametrize("m,n", [(17, 4096), (64, 4096), (128, 4096),
+                                 (64, 12288)])
+def test_w8a8_gemm_split_k_is_exact(dev, m, n):
+    """Few output tiles (M <= 128 at N = 4096) split K over whole tiles;
+    the int32 partials add exactly."""
+    k = 11008
+    rows, ksplit, _ = w8a8.gemm_tiling(m, k, n,
+                                       woq._sm_count(torch.device(dev)))
+    if n == 4096:
+        assert (rows, ksplit > 1) == (128, True)
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    x_q, w_q, s_x, s_w = _w8a8_operands(dev, g, m, k, n, 2, "token/channel")
+    got = w8a8.w8a8_matmul_stacked(x_q, w_q, s_x, s_w, 1)
+    assert torch.equal(got, w8a8.w8a8_matmul_stacked_plain(x_q, w_q, s_x,
+                                                           s_w, 1))
+
+
+@pytest.mark.parametrize("value", [-128, -127])
+@pytest.mark.parametrize("m", [17, 300])
+def test_w8a8_gemm_sums_exactly_at_full_magnitude(dev, m, value):
+    """|acc| = value^2 * 11008 ~ 1.8e8 > 2^24 in every output: int32 sums,
+    converted once (-127: odd products, which an f32 sum would round)."""
+    k, n = 11008, 256
+    x_q = torch.full((m, k), value, dtype=torch.int8, device=dev)
+    w_q = torch.full((1, k, n), value, dtype=torch.int8, device=dev)
+    w_q[0, 0, 1] = 1                    # one column off the uniform sum
+    got = w8a8.w8a8_matmul_stacked(x_q, w_q, torch.ones(1, device=dev),
+                                   torch.ones((1, 1), device=dev), 0)
+    want = torch.full((n,), float(np.float32(value * value * k)))
+    want[1] = float(np.float32(value * value * (k - 1) + value))
+    assert torch.equal(got.cpu(), want.expand(m, n))
+
+
+def test_w8a8_route_keeps_decode_rows_on_dp4a(dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+    floor = w8a8.W8A8_GEMM_MIN_ROWS
+    x_q, w_q, s_x, s_w = _w8a8_operands(dev, g, floor, 4096, 4096, 1,
+                                        "token/channel")
+    fn = w8a8.w8a8_matmul_stacked
+    for rows, gemm in ((1, 0), (floor - 1, 0), (floor, 1)):
+        before = (fn.launches, fn.gemm_launches)
+        got = fn(x_q[:rows], w_q, s_x[:rows], s_w, 0)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.gemm_launches) == (before[0] + 1,
+                                                   before[1] + gemm)
+        assert torch.equal(got, w8a8.w8a8_matmul_stacked_plain(
+            x_q[:rows], w_q, s_x[:rows], s_w, 0))
+
+
+def test_w8a8_gemm_refuses_a_k_it_cannot_take_before_launch(dev):
+    x_q = torch.ones((64, 1000), dtype=torch.int8, device=dev)
+    w_q = torch.ones((1, 1000, 128), dtype=torch.int8, device=dev)
+    s_x, s_w = torch.ones((64, 1), device=dev), torch.ones((1, 128),
+                                                           device=dev)
+    with pytest.raises(ValueError, match="whole 128-column tiles"):
+        w8a8.launch_gemm("w8a8_matmul_stacked", x_q, w_q, s_x, s_w, 0)
+    # the wrapper routes such a K to the dp4a kernel, which takes it
+    before = w8a8.w8a8_matmul_stacked.gemm_launches
+    got = w8a8.w8a8_matmul_stacked(x_q, w_q, s_x, s_w, 0)
+    torch.cuda.synchronize()
+    assert w8a8.w8a8_matmul_stacked.gemm_launches == before
+    assert torch.equal(got, torch.full((64, 128), 1000.0, device=dev))

@@ -3,11 +3,13 @@
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/w8a8_matmul.py::w8a8_matmul_stacked
 // (and w8a8_matmul, its 2-D form, which the wrapper runs as a weight with
-// one unit layer).
+// one unit layer) at the rows below W8A8_GEMM_MIN_ROWS
+// (ops/kernels/w8a8_matmul.py); the int8 tensor-core GEMM of
+// w8a8_gemm.cu takes the rows from there on.
 //
 // Computes, for one layer of the stacked weight q[L, K, N] int8:
 //   acc[m, n] = sum_k int32(xq[m, k]) * int32(q[k, n])     (exact in int32:
-//               |acc| <= 127 * 127 * K < 2^31 for K < 133,000)
+//               |acc| <= 128 * 128 * K < 2^31 for K < 131,000)
 //   y[m, n]   = (float(acc) * s_x[m]) * s_w[n]             (f32, that order)
 // s_x is per row (dynamic per-token) or one value (static per-tensor); s_w
 // is per output channel or one value (per-tensor). Returns y as f32 [M, N].
@@ -26,10 +28,11 @@
 //     N = 4096 launches ~2 blocks per SM; int32 partials add exactly, and a
 //     second launch sums them in a fixed order, converts and scales.
 // M larger than MR loops over row tiles inside the block, re-reading the
-// block's weight tile from L2; that serves prefill rows correctly, though at
-// M = 16 the dp4a rate, not HBM, starts to bind: a tensor-core (mma / wgmma
-// s8) tile is what large M wants.
-#include "common.cuh"
+// block's weight tile from L2: correct at any M, but from ~16 rows on the
+// dp4a rate, not HBM, binds it. Prefill rows go to the int8 wgmma GEMM
+// (w8a8_gemm.cu), which shares this file's transposes and reduce
+// (w8a8.cuh).
+#include "w8a8.cuh"
 
 using namespace tllm;
 
@@ -42,21 +45,6 @@ constexpr int kBN = kTN * kVec;      // 512 output columns per block
 constexpr int kThreads = kTN * kTK;  // 256
 constexpr int kKT = 512;             // K rows of x staged per pass
 constexpr int kQT = kKT / 4;         // ... as 32-bit K-quads
-
-// Rows a, b, c, d hold 4 columns each (byte j = column j). Returns, for
-// each column j, the word [a_j, b_j, c_j, d_j]: 4 consecutive K-values.
-__device__ __forceinline__ void transpose4x4(uint32_t a, uint32_t b,
-                                             uint32_t c, uint32_t d,
-                                             int* col) {
-  const uint32_t ab01 = __byte_perm(a, b, 0x5140);  // a0 b0 a1 b1
-  const uint32_t cd01 = __byte_perm(c, d, 0x5140);  // c0 d0 c1 d1
-  const uint32_t ab23 = __byte_perm(a, b, 0x7362);  // a2 b2 a3 b3
-  const uint32_t cd23 = __byte_perm(c, d, 0x7362);  // c2 d2 c3 d3
-  col[0] = static_cast<int>(__byte_perm(ab01, cd01, 0x5410));
-  col[1] = static_cast<int>(__byte_perm(ab01, cd01, 0x7632));
-  col[2] = static_cast<int>(__byte_perm(ab23, cd23, 0x5410));
-  col[3] = static_cast<int>(__byte_perm(ab23, cd23, 0x7632));
-}
 
 template <int MR>
 __global__ void __launch_bounds__(kThreads)
@@ -103,16 +91,17 @@ __global__ void __launch_bounds__(kThreads)
           for (int i = 0; i < 4; ++i)
             rows[i] = __ldg(reinterpret_cast<const int4*>(
                 p + static_cast<size_t>(i) * N));
-          int cols[kVec];
-          transpose4x4(rows[0].x, rows[1].x, rows[2].x, rows[3].x, cols + 0);
-          transpose4x4(rows[0].y, rows[1].y, rows[2].y, rows[3].y, cols + 4);
-          transpose4x4(rows[0].z, rows[1].z, rows[2].z, rows[3].z, cols + 8);
-          transpose4x4(rows[0].w, rows[1].w, rows[2].w, rows[3].w, cols + 12);
+          uint32_t cols[kVec];
+          w8a8::transpose4x4(rows[0].x, rows[1].x, rows[2].x, rows[3].x, cols + 0);
+          w8a8::transpose4x4(rows[0].y, rows[1].y, rows[2].y, rows[3].y, cols + 4);
+          w8a8::transpose4x4(rows[0].z, rows[1].z, rows[2].z, rows[3].z, cols + 8);
+          w8a8::transpose4x4(rows[0].w, rows[1].w, rows[2].w, rows[3].w, cols + 12);
 #pragma unroll
           for (int r = 0; r < MR; ++r) {
             const int xv = xs[r][j];
 #pragma unroll
-            for (int c = 0; c < kVec; ++c) acc[r][c] = __dp4a(cols[c], xv, acc[r][c]);
+            for (int c = 0; c < kVec; ++c)
+              acc[r][c] = __dp4a(static_cast<int>(cols[c]), xv, acc[r][c]);
           }
         }
       }
@@ -145,22 +134,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[m, n] = (float(sum_s part[s, m, n]) * sx[m * sx_step]) * sw[n * sw_step]
-__global__ void w8a8_reduce_kernel(const int* __restrict__ part,
-                                   const float* __restrict__ sx, int sx_step,
-                                   const float* __restrict__ sw, int sw_step,
-                                   float* __restrict__ out, int M, int N,
-                                   int ksplit) {
-  const size_t total = static_cast<size_t>(M) * N;
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  int acc = 0;
-  for (int s = 0; s < ksplit; ++s) acc += part[static_cast<size_t>(s) * total + i];
-  const int m = static_cast<int>(i / N);
-  const int n = static_cast<int>(i - static_cast<size_t>(m) * N);
-  out[i] = __int2float_rn(acc) * sx[m * sx_step] * sw[n * sw_step];
-}
-
 template <int MR>
 cudaError_t launch(const void* x, const void* q, const void* sx, int sx_step,
                    const void* sw, int sw_step, void* out, void* part, int M,
@@ -172,14 +145,8 @@ cudaError_t launch(const void* x, const void* q, const void* sx, int sx_step,
       static_cast<int*>(part), M, K, N, kc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t total = static_cast<size_t>(M) * N;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  w8a8_reduce_kernel<<<blocks, threads, 0, stream>>>(
-      static_cast<const int*>(part), static_cast<const float*>(sx), sx_step,
-      static_cast<const float*>(sw), sw_step, static_cast<float*>(out), M, N,
-      ksplit);
-  return cudaGetLastError();
+  return w8a8::launch_reduce(part, sx, sx_step, sw, sw_step, out, M, N,
+                             ksplit, stream);
 }
 
 }  // namespace

@@ -109,6 +109,22 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// The output tile of block `b`: groups of kGroupM M tiles of bm rows, M
+// fastest inside a group, so the blocks resident at once share weight
+// columns and x rows. Sets the tile's first row m0 and column n0.
+__device__ __forceinline__ void raster(int b, int M, int N, int bm, int bn,
+                                       int& m0, int& n0) {
+  const int n_mt = (M + bm - 1) / bm;
+  const int n_nt = (N + bn - 1) / bn;
+  const int per_group = kGroupM * n_nt;
+  const int group = b / per_group;
+  const int first_mt = group * kGroupM;
+  const int g_rows = min(n_mt - first_mt, kGroupM);
+  const int in_group = b - group * per_group;
+  m0 = (first_mt + in_group % g_rows) * bm;
+  n0 = (in_group / g_rows) * bn;
+}
+
 // Shared memory matrix descriptor, 128-byte swizzle. lbo / sbo in bytes.
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo) {
@@ -280,16 +296,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = (tid >> 5) & 3;      // warp in the warpgroup
   const int lane = tid & 31;
 
-  // raster: groups of kGroupM M tiles, M fastest inside a group
-  const int n_mt = (M + kBM - 1) / kBM;
-  const int n_nt = (N + kBN - 1) / kBN;
-  const int per_group = kGroupM * n_nt;
-  const int group = blockIdx.x / per_group;
-  const int first_mt = group * kGroupM;
-  const int g_rows = min(n_mt - first_mt, kGroupM);
-  const int in_group = blockIdx.x - group * per_group;
-  const int m0 = (first_mt + in_group % g_rows) * kBM;
-  const int n0 = (in_group / g_rows) * kBN;
+  int m0, n0;
+  raster(blockIdx.x, M, N, kBM, kBN, m0, n0);
   const int kt0 = blockIdx.y * kt_per;
   const int nk = min(K / kBK - kt0, kt_per);   // this block's K tiles
 

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
-SOURCES = ("woq_gemm", "fp8_gemm", "woq_matmul", "fp8_matmul",
+SOURCES = ("woq_gemm", "fp8_gemm", "w8a8_gemm", "woq_matmul", "fp8_matmul",
            "prefill_attention",
            "decode_attention", "rmsnorm_quant", "w8a8_matmul",
            "paged_decode_attention", "packed_prefill_attention",

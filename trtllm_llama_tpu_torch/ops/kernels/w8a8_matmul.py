@@ -1,16 +1,23 @@
 """Kernel 5: W8A8 (int8 x int8 -> int32) matmul with the dequantizing
-epilogue (csrc/w8a8_matmul.cu).
+epilogue: the dp4a kernel (csrc/w8a8_matmul.cu) at decode rows and the
+int8 tensor-core GEMM (csrc/w8a8_gemm.cu) at prefill rows.
 
 Replaces `trtllm_llama_tpu/ops/pallas/w8a8_matmul.py::w8a8_matmul_stacked`
 (row 6) and, through a unit layer axis, its 2-D form `w8a8_matmul` (row
-5: static SmoothQuant, a per-token weight without a layer). Bound on the
-H100: the int8 weight bytes, read once; the design transposes 4x4 byte
-blocks of the N-contiguous weight and accumulates with dp4a over split-K
-blocks that fill all SMs (see the source's header note).
+5: static SmoothQuant, a per-token weight without a layer). Both kernels
+sum exactly in int32 and scale (f32(acc) * s_x) * s_w in f32, so either
+gives the plain version's output bit for bit. Bound on the H100: the int8
+weight bytes at decode rows, which the dp4a kernel streams once over
+split-K blocks that fill all SMs; the int8 operations from ~300 rows on,
+which the GEMM runs on `wgmma` s8 tiles (see each source's header note).
+
+Which kernel runs is decided from the call's shape before launch
+(`w8a8_gemm_route`): the GEMM for calls of at least W8A8_GEMM_MIN_ROWS
+rows on a K in whole 128-column tiles, the dp4a kernel otherwise.
 
 `w8a8_matmul_stacked` and `w8a8_matmul` take the plain version for CPU
-tensors and launch the kernel for CUDA tensors; each counts its launches
-in its own `.launches`.
+tensors and launch a kernel for CUDA tensors; each counts its launches
+in its own `.launches`, the GEMM's share of them in `.gemm_launches`.
 """
 
 from __future__ import annotations
@@ -20,11 +27,30 @@ import ctypes
 import torch
 
 from . import _build
-from .woq_matmul import _rows_per_tile, _sm_count, _split_k
+from .woq_matmul import (_GEMM_BN, GEMM_TILE_K, _gemm_split,
+                         _rows_per_tile, _sm_count, _split_k)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"tllm_w8a8_matmul_stacked":
                [_P, _P, _P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P]}
+_GEMM_SIGNATURES = {"tllm_w8a8_gemm":
+                    [_P, _P, _P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P]}
+
+# The GEMM takes calls of at least this many rows: the measured crossover
+# (chip_smoke.py times both kernels at 1-1024 rows on LLaMA-7B's shapes;
+# PERF.md rows 5 and 6). Below it the dp4a kernel, whose time grows with
+# its row tile, streams the weight faster than the GEMM's fixed 128-row
+# tile loop; from it on the GEMM is the faster at every shape.
+W8A8_GEMM_MIN_ROWS = 5
+
+
+def w8a8_gemm_route(rows: int, k: int, n: int) -> bool:
+    """True where a CUDA call goes to the int8 tensor-core GEMM, False
+    where it goes to the dp4a kernel: the GEMM takes calls of at least
+    W8A8_GEMM_MIN_ROWS rows on a layout it tiles (K in whole 128-column
+    tiles, N a multiple of 16)."""
+    return (rows >= W8A8_GEMM_MIN_ROWS and k > 0 and k % GEMM_TILE_K == 0
+            and n > 0 and n % 16 == 0)
 
 
 def w8a8_matmul_stacked_plain(x_q, w_q, s_x, s_w, layer: int):
@@ -39,9 +65,22 @@ def w8a8_matmul_stacked_plain(x_q, w_q, s_x, s_w, layer: int):
     return y.reshape(*x_q.shape[:-1], y.shape[-1])
 
 
-def _launch(what, x_q, w_q, s_x, s_w, layer: int):
-    """Check the operands of the kernel and launch it on layer `layer` of
-    the stacked w_q. Returns f32 [..., N]."""
+def gemm_tiling(m: int, k: int, n: int, n_sm: int):
+    """(rows per block tile, ksplit, kt_per) of the GEMM. A 256-row tile
+    takes ~1.5x a 128-row tile's time for twice the rows (measured at 1024
+    and 8192 rows on every LLaMA-7B projection), so it is taken where it
+    needs fewer than 2/3 of the 128-row grid's waves of blocks over the
+    SMs; the 128-row grid splits K over whole tiles while it has fewer
+    tiles than SMs (_gemm_split)."""
+    def waves(rows):
+        return -(-(-(-m // rows) * -(-n // _GEMM_BN)) // n_sm)
+    if 3 * waves(256) < 2 * waves(128):
+        return 256, 1, k // GEMM_TILE_K
+    return (128, *_gemm_split(m, k, n, n_sm))
+
+
+def _check_operands(what, x_q, w_q, s_x, s_w, layer: int):
+    """The checks both kernels make. Returns (M, K, N)."""
     if x_q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x_q.device}")
     n_layers, k, n = w_q.shape
@@ -61,19 +100,66 @@ def _launch(what, x_q, w_q, s_x, s_w, layer: int):
            for t in (x_q, w_q, s_x, s_w)):
         raise ValueError(f"{what}: tensors must be contiguous and on one "
                          "device")
+    return m, k, n
 
+
+def _scale_args(w_q, s_x, s_w, layer: int):
+    """The layer's weight and scale pointers with their steps (0: one
+    value), as both C entries take them."""
+    k, n = w_q.shape[1:]
+    sw_cols = s_w.shape[1]
+    return (_P(w_q.data_ptr() + layer * k * n), _build.ptr(s_x),
+            int(s_x.numel() != 1), _P(s_w.data_ptr() + layer * sw_cols * 4),
+            int(sw_cols != 1))
+
+
+def launch_gemm(what, x_q, w_q, s_x, s_w, layer: int):
+    """Check the operands of the int8 tensor-core GEMM and launch it on
+    layer `layer` of the stacked w_q. Raises before launch for a K that is
+    not whole 128-column tiles. Returns f32 [..., N]."""
+    m, k, n = _check_operands(what, x_q, w_q, s_x, s_w, layer)
+    if k % GEMM_TILE_K:
+        raise ValueError(f"{what}: the GEMM takes K in whole {GEMM_TILE_K}-"
+                         f"column tiles, got K={k}")
+    x2 = x_q.reshape(m, k)
+    if x2.data_ptr() % 16:            # cp.async reads x in 16-byte chunks
+        x2 = x2.clone()
+    lib = _build.load("w8a8_gemm", _GEMM_SIGNATURES)
+    rows_tile, ksplit, kt_per = gemm_tiling(m, k, n, _sm_count(x_q.device))
+    out = torch.empty((m, n), device=x_q.device, dtype=torch.float32)
+    part = None if ksplit == 1 else torch.empty(
+        (ksplit, m, n), device=x_q.device, dtype=torch.int32)
+    err = lib.tllm_w8a8_gemm(
+        _build.ptr(x2), *_scale_args(w_q, s_x, s_w, layer), _build.ptr(out),
+        _build.ptr(part), m, k, n, ksplit, kt_per, rows_tile,
+        x_q.device.index or 0, _build.stream_of(x_q))
+    _build.check(err, what)
+    return out.reshape(*x_q.shape[:-1], n)
+
+
+def launch_dp4a(what, x_q, w_q, s_x, s_w, layer: int):
+    """Check the operands of the dp4a kernel and launch it on layer
+    `layer` of the stacked w_q. Returns f32 [..., N]."""
+    m, k, n = _check_operands(what, x_q, w_q, s_x, s_w, layer)
     lib = _build.load("w8a8_matmul", _SIGNATURES)
     ksplit, kc = _split_k(m, k, n, _sm_count(x_q.device))
     out = torch.empty((m, n), device=x_q.device, dtype=torch.float32)
     part = torch.empty((ksplit, m, n), device=x_q.device, dtype=torch.int32)
-    sw_cols = s_w.shape[1]
     err = lib.tllm_w8a8_matmul_stacked(
-        _build.ptr(x_q), _P(w_q.data_ptr() + layer * k * n), _build.ptr(s_x),
-        int(s_x.numel() != 1), _P(s_w.data_ptr() + layer * sw_cols * 4),
-        int(sw_cols != 1), _build.ptr(out), _build.ptr(part), m, k, n, ksplit,
-        kc, _rows_per_tile(m), x_q.device.index or 0, _build.stream_of(x_q))
+        _build.ptr(x_q), *_scale_args(w_q, s_x, s_w, layer), _build.ptr(out),
+        _build.ptr(part), m, k, n, ksplit, kc, _rows_per_tile(m),
+        x_q.device.index or 0, _build.stream_of(x_q))
     _build.check(err, what)
     return out.reshape(*x_q.shape[:-1], n)
+
+
+def _launch(what, x_q, w_q, s_x, s_w, layer: int):
+    """(f32 [..., N], whether the GEMM ran) for one CUDA call: the kernel
+    w8a8_gemm_route picks from the call's shape."""
+    k, n = w_q.shape[1:]
+    gemm = w8a8_gemm_route(x_q.numel() // max(k, 1), k, n)
+    launch = launch_gemm if gemm else launch_dp4a
+    return launch(what, x_q, w_q, s_x, s_w, layer), gemm
 
 
 def w8a8_matmul_stacked(x_q, w_q, s_x, s_w, layer: int):
@@ -81,15 +167,18 @@ def w8a8_matmul_stacked(x_q, w_q, s_x, s_w, layer: int):
 
     x_q: int8 [..., K]; w_q: stacked int8 [L, K, N]; s_x: f32 per-row
     [..., 1] or one static value (numel 1); s_w: f32 [L, N] per-channel or
-    [L, 1] per-tensor. Returns f32 [..., N]."""
+    [L, 1] per-tensor. Returns f32 [..., N]. On the card the GEMM or the
+    dp4a kernel runs, as w8a8_gemm_route decides from the shape."""
     if x_q.device.type == "cpu":
         return w8a8_matmul_stacked_plain(x_q, w_q, s_x, s_w, layer)
-    out = _launch("w8a8_matmul_stacked", x_q, w_q, s_x, s_w, layer)
+    out, gemm = _launch("w8a8_matmul_stacked", x_q, w_q, s_x, s_w, layer)
     w8a8_matmul_stacked.launches += 1
+    w8a8_matmul_stacked.gemm_launches += int(gemm)
     return out
 
 
 w8a8_matmul_stacked.launches = 0
+w8a8_matmul_stacked.gemm_launches = 0
 
 
 def w8a8_matmul_plain(x_q, w_q, s_x, s_w):
@@ -101,13 +190,17 @@ def w8a8_matmul_plain(x_q, w_q, s_x, s_w):
 def w8a8_matmul(x_q, w_q, s_x, s_w):
     """2-D entry: y = (f32(x_q @ w_q) * s_x) * s_w. w_q int8 [K, N]; s_x
     f32 per-row [..., 1] or one static value; s_w f32 [N] per-channel or
-    [1] per-tensor. The stacked kernel on a unit layer axis (views, no
-    copy). Returns f32 [..., N]."""
+    [1] per-tensor. The stacked kernels on a unit layer axis (views, no
+    copy), counted in its own `.launches` and `.gemm_launches`. Returns
+    f32 [..., N]."""
     if x_q.device.type == "cpu":
         return w8a8_matmul_plain(x_q, w_q, s_x, s_w)
-    out = _launch("w8a8_matmul", x_q, w_q[None], s_x, s_w.reshape(1, -1), 0)
+    out, gemm = _launch("w8a8_matmul", x_q, w_q[None], s_x,
+                        s_w.reshape(1, -1), 0)
     w8a8_matmul.launches += 1
+    w8a8_matmul.gemm_launches += int(gemm)
     return out
 
 
 w8a8_matmul.launches = 0
+w8a8_matmul.gemm_launches = 0
