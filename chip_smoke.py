@@ -29,11 +29,17 @@
    attention kernels of the long-context path and of the decode modes
    are checked at its shapes: the streaming prefill
    (row 12) at 8192 rows, a GQA case and an f32 case with a length of 0;
+   rows 10 and 12 side by side on the same bf16 inputs at S = 512-8192
+   (B=1, 32 heads of 128, full length: which should take prompts past
+   prefill_streaming_min_s); row 10 (the wgmma flash tile) at
+   the paths' and serving's shapes, S = 150 with a length of 0 among
+   them, and row 13 at segment edges, head dims 96 and 256 and fp16;
    the read-only (row 8) and one-launch (row 9) decodes with bf16 and
    int8 caches at S_max 128 and 8320 and at the edges (lengths 0 and S,
    positions 0, S - 1 and past S), beside kernel 3 on the same inputs;
-   rows 10 and 12 with Bloom's ALiBi slopes (row 10 at B=1 S=16 and at
-   the first serving wave, row 12 at one 3072-row prompt), timed with and
+   rows 10 and 12 with Bloom's ALiBi slopes (row 10 at B=1 S=16, at
+   the first serving wave and at B=3 S=150 with lengths 150 / 77 / 0, row
+   12 at one 3072-row prompt), timed with and
    without slopes beside SDPA with a float mask holding the bias; rows 9
    and 3 at GQA groups of 71 (D=64, Falcon-7B) and 32 (D=128) with one KV
    head; kernels 2 and 3 at each decoder family's head shape (GPT-J 16 x
@@ -496,6 +502,38 @@ def bound_ms(n_bytes, flops, peak=BF16_FLOPS):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def prefill_attention_work(lens, s, hq, hkv, d, itemsize=2, alibi=False):
+    """(bytes, operations) that row 10's contract needs on [B, S] inputs
+    with valid lengths `lens`: a sequence of length n > 0 reads its S rows
+    of q and min(n, S) rows of K and V and does 4 * D operations per
+    unmasked (row, col) pair for each q head; one of length 0 averages V
+    over all S rows (one add a value), reading no q and no K. Every row's
+    output is written; lens (and slopes) are read once."""
+    n_bytes, ops = len(lens) * 4 + (hq * 4 if alibi else 0), 0
+    for n in lens:
+        n_bytes += s * hq * d * itemsize                       # out
+        if n > 0:
+            m = min(n, s)
+            n_bytes += (s * hq + 2 * m * hkv) * d * itemsize   # q, K, V
+            ops += 4 * hq * d * (m * (m + 1) // 2 + (s - m) * m)
+        else:
+            n_bytes += s * hkv * d * itemsize                  # V
+            ops += s * hkv * d
+    return n_bytes, ops
+
+
+def packed_attention_work(seg_lens, t, hq, hkv, d, itemsize=2):
+    """(bytes, operations) that row 13's contract needs on a T-row stream
+    whose segments have lengths `seg_lens` (pad rows after them): q, K, V
+    and out of the segments' rows only (a pad row's output is undefined),
+    the T segment ids, and 4 * D operations per (row, col) pair of a
+    segment's causal triangle for each q head."""
+    rows = sum(seg_lens)
+    pairs = sum(n * (n + 1) // 2 for n in seg_lens)
+    return (rows * (2 * hq + 2 * hkv) * d * itemsize + t * 4,
+            4 * hq * d * pairs)
+
+
 def compare(name, got, ref, errors, tol=BF16_TOL):
     """Max abs / rel error of got vs ref; records a failure past tol."""
     import torch
@@ -956,11 +994,17 @@ def check_probes(errors, results):
 # ---------------------------------------------------------------------------
 
 def check_prefill(errors, results):
+    """Row 10 (kernel 2) at the paths' and serving's shapes, bf16, 32 heads
+    of 128, against its plain version; each MHA case timed beside the bound
+    and SDPA with the same mask. bf16 / fp16 run the wgmma flash tile
+    (csrc/flash_attention.cuh), which carries P through P V as three bf16
+    terms (f32's precision)."""
     import torch
     import torch.nn.functional as F
     from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
 
-    print("kernel prefill_attention_kernel (causal GQA, bf16):")
+    print("kernel prefill_attention_kernel (causal GQA, bf16; the wgmma "
+          "flash tile):")
     g = torch.Generator(device="cuda").manual_seed(2)
     d = 128
     cases = [  # (B, S, Hq, Hkv, lens)
@@ -968,6 +1012,7 @@ def check_prefill(errors, results):
         (4, 16, 32, 32, [8, 5, 12, 3]),  # main path bs4 ragged
         (2, 512, 32, 32, [512, 300]),    # long ragged
         (2, 64, 32, 8, [64, 17]),        # GQA group of 4
+        (3, 150, 32, 32, [150, 77, 0]),  # S off the tile, a length of 0
         (1, 1024, 32, 32, [TASK_A_PROMPT]),   # Task A (paths 2 and 7)
     ] + [  # serving: each batched admission at the 128-token bucket
         (len(lens), max(SERVE_ENGINE["prefill_buckets"]), 32, 32, lens)
@@ -993,17 +1038,68 @@ def check_prefill(errors, results):
         t_p = time_ms(lambda i: pa.prefill_attention_kernel_plain(q, k, v, sl))
         t_l = time_ms(lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
-        pairs = sum(sum(min(r + 1, n) if n > 0 else 0 for r in range(s))
-                    for n in lens)
-        n_bytes = b * s * d * 2 * (2 * hq + 2 * hkv) + b * 4
-        b_ms, b_by = bound_ms(n_bytes, 4 * hq * d * pairs)
+        b_ms, b_by = bound_ms(*prefill_attention_work(lens, s, hq, hkv, d))
         print(f"  time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-              f"library(sdpa) {t_l:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+              f"library(sdpa) {t_l:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+              f"{100 * b_ms / t_k:.1f}% of it")
+        entry = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                     bound_by=b_by, shape=f"B={b} S={s} lens={lens} "
+                     "Hq=Hkv=32 D=128 bf16")
         if b == 1 and s == 16:
-            results["prefill_attention_kernel"] = dict(
-                ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                bound_by=b_by, shape="B=1 S=16 len=8 Hq=Hkv=32 D=128 bf16")
+            results["prefill_attention_kernel"] = entry
+        else:
+            results["prefill_attention_kernel"].setdefault(
+                "more", []).append(entry)
     results["prefill_attention_kernel"]["max_abs_err"] = max_err
+
+
+def check_prefill_vs_streaming(errors, results):
+    """Rows 10 (the flash tile) and 12 (mma.sync) on the same bf16 inputs,
+    B=1, 32 heads of 128, full length, at S = 512-8192: each against the
+    plain version and timed beside SDPA (is_causal) and the operations
+    bound. prefill_streaming_min_s (2048) sends longer prompts to row 12;
+    this table says whether row 10's tile should take them."""
+    import torch
+    import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+
+    print("rows 10 and 12 side by side (B=1, Hq=Hkv=32, D=128, bf16, full "
+          "length):")
+    g = torch.Generator(device="cuda").manual_seed(22)
+    d, hq = 128, 32
+    table = []
+    for s in (512, 1024, 2048, 4096, LONG_PROMPT):
+        q, k, v = (torch.randn((1, s, hq, d), generator=g, device="cuda"
+                               ).to(torch.bfloat16) for _ in range(3))
+        sl = torch.tensor([s], dtype=torch.int32, device="cuda")
+        ref = pa.prefill_attention_kernel_plain(q, k, v, sl)
+        err_10 = compare(f"row 10 S={s}", pa.prefill_attention_kernel(
+            q, k, v, sl), ref, errors)
+        err_12 = compare(f"row 12 S={s}",
+                         spa.streaming_prefill_attention_kernel(q, k, v, sl),
+                         ref, errors)
+        del ref
+        fold_err(results, "prefill_attention_kernel", err_10)
+        fold_err(results, STREAMING, err_12)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        t_10 = time_ms(lambda i: pa.prefill_attention_kernel(q, k, v, sl))
+        t_12 = time_ms(lambda i: spa.streaming_prefill_attention_kernel(
+            q, k, v, sl))
+        t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        n_bytes, flops = prefill_attention_work([s], s, hq, hq, d)
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        print(f"  S={s}: row 10 {t_10:.4f} ms ({flops / t_10 / 1e9:.1f} "
+              f"TFLOP/s), row 12 {t_12:.4f} ms ({flops / t_12 / 1e9:.1f}), "
+              f"library(sdpa, is_causal) {t_l:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); row 10 {t_12 / t_10:.2f}x row 12's speed")
+        table.append(dict(S=s, row10_ms=t_10, row12_ms=t_12, library_ms=t_l,
+                          bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, qt, kt, vt
+    results["_e2e"]["row 10 vs row 12"] = table
 
 
 # ---------------------------------------------------------------------------
@@ -1154,13 +1250,12 @@ def check_streaming_prefill(errors, results):
             q, k, v, sl), iters=2, warmup=1, reps=1)
         t_l = time_ms(lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
-        pairs = sum(sum(min(r + 1, n) if n > 0 else s for r in range(s))
-                    for n in lens)
-        n_bytes = b * s * d * q.element_size() * (2 * hq + 2 * hkv) + b * 4
-        b_ms, b_by = bound_ms(n_bytes, 4 * hq * d * pairs)
+        n_bytes, flops = prefill_attention_work(lens, s, hq, hkv, d,
+                                                q.element_size())
+        b_ms, b_by = bound_ms(n_bytes, flops)
         print(f"  time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
               f"library(sdpa, is_causal) {t_l:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}), {4 * hq * d * pairs / t_k / 1e9:.1f} TFLOP/s")
+              f"({b_by}), {flops / t_k / 1e9:.1f} TFLOP/s")
         results[STREAMING] = dict(
             ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
             bound_by=b_by, shape=f"B=1 S={s} Hq=Hkv=32 D=128 bf16 "
@@ -1556,23 +1651,34 @@ def check_w8a8_2d(errors, results):
 # ---------------------------------------------------------------------------
 
 def check_packed_prefill(errors, results):
+    """Row 13 against its plain version: segment edges, GQA, the head dims
+    of the other families and fp16, and each packed serving wave's stream
+    (bf16, 32 heads of 128; timed beside the bound and SDPA with the
+    block-diagonal causal mask)."""
     import torch
     import torch.nn.functional as F
     from trtllm_llama_tpu_torch.ops.kernels import packed_prefill_attention as ppa
 
-    print("kernel packed_prefill_attention_kernel (packed causal GQA, bf16):")
+    print("kernel packed_prefill_attention_kernel (packed causal GQA; the "
+          "wgmma flash tile):")
     g = torch.Generator(device="cuda").manual_seed(13)
-    d = 128
+    bf16, f16 = torch.bfloat16, torch.float16
     waves = serve_waves()
     first = waves[1]                 # the counted run's first admission
-    cases = [  # (T, Hq, Hkv, segment lengths; pad rows follow them)
-        (64, 32, 32, [20, 30, 1]),   # a 1-row segment, segments crossing tiles
-        (256, 32, 8, [100, 1, 77]),  # GQA group of 4
-    ] + [(packed_len(sum(w)), 32, 32, w) for w in waves]   # serving
-    max_err = 0.0
-    for t, hq, hkv, lens in cases:
+    cases = [  # (T, Hq, Hkv, D, dtype, segment lengths; pad rows follow)
+        (64, 32, 32, 128, bf16, [20, 30, 1]),   # a 1-row segment, segments crossing tiles
+        (256, 32, 8, 128, bf16, [100, 1, 77]),  # GQA group of 4
+        # a 1-row segment on a tile edge, pad rows; GPT-NeoX's and GPT-J's
+        # head dims, fp16
+        (200, 32, 8, 96, bf16, [64, 1, 63, 65]),
+        (200, 16, 16, 256, bf16, [64, 1, 63, 65]),
+        (200, 32, 8, 128, f16, [64, 1, 63, 65]),
+        (200, 16, 16, 256, f16, [64, 1, 63, 65]),
+    ] + [(packed_len(sum(w)), 32, 32, 128, bf16, w) for w in waves]  # serving
+    max_err, timed = 0.0, []
+    for t, hq, hkv, d, dtype, lens in cases:
         q, k, v = (torch.randn((t, h, d), generator=g, device="cuda"
-                               ).to(torch.bfloat16) for h in (hq, hkv, hkv))
+                               ).to(dtype) for h in (hq, hkv, hkv))
         seg = torch.full((t,), -1, dtype=torch.int32, device="cuda")
         off = 0
         for i, n in enumerate(lens):
@@ -1581,7 +1687,8 @@ def check_packed_prefill(errors, results):
         got = ppa.packed_prefill_attention_kernel(q, k, v, seg)
         ref = ppa.packed_prefill_attention_kernel_plain(q, k, v, seg)
         torch.cuda.synchronize()
-        name = f"T={t} Hq={hq} Hkv={hkv} segments={lens}"
+        name = (f"T={t} Hq={hq} Hkv={hkv} D={d} "
+                f"{'fp16' if dtype == f16 else 'bf16'} segments={lens}")
         if not bool(torch.isfinite(got.float()).all()):
             errors.append(f"packed prefill {name}: non-finite rows")
         real = seg >= 0
@@ -1597,19 +1704,19 @@ def check_packed_prefill(errors, results):
             q, k, v, seg), iters=8)
         t_l = time_ms(lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
-        pairs = sum(n * (n + 1) // 2 for n in lens)
-        n_bytes = t * d * 2 * (2 * hq + 2 * hkv) + t * 4
-        b_ms, b_by = bound_ms(n_bytes, 4 * hq * d * pairs)
+        b_ms, b_by = bound_ms(*packed_attention_work(lens, t, hq, hkv, d))
         print(f"  time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
               f"library(sdpa, block-diagonal causal mask) {t_l:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by})")
-        if lens is not first:
-            continue
-        results["packed_prefill_attention_kernel"] = dict(
+              f"bound {b_ms:.5f} ms ({b_by}), {100 * b_ms / t_k:.1f}% of it")
+        timed.append((lens is first, dict(
             ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
             bound_by=b_by, shape=f"T={t} ({sum(lens)} prompt rows in "
-            f"{len(lens)} segments) Hq=Hkv=32 D=128 bf16")
-    results["packed_prefill_attention_kernel"]["max_abs_err"] = max_err
+            f"{len(lens)} segments) Hq=Hkv=32 D=128 bf16")))
+    # the counted run's first admission first, the other waves beside it
+    results["packed_prefill_attention_kernel"] = dict(
+        next(e for is_first, e in timed if is_first),
+        more=[e for is_first, e in timed if not is_first],
+        max_abs_err=max_err)
 
 
 def check_paged_decode(errors, results, kv_int8=False):
@@ -2066,8 +2173,8 @@ def run_task_a(path, sess, errors, results):
         return sum(e.self_device_time_total for e in events
                    if sub in e.key) / 1e3
     parts = {"GEMM (w8a8_gemm_kernel)": dev_ms("w8a8_gemm_kernel"),
-             "kernel 2 (prefill_attention_kernel)":
-                 dev_ms("prefill_attention_kernel"),
+             "kernel 2 (row 10's tile, flash::flash_kernel)":
+                 dev_ms("flash::flash_kernel"),
              "row 7 (rmsnorm_quant_kernel)": dev_ms("rmsnorm_quant_kernel")}
     total = dev_ms()
     parts["the rest (plain torch ops, the lm_head)"] = total - sum(
@@ -2510,15 +2617,21 @@ def synthetic_ranges(sd, n_l, d, f, seed=0):
 
 
 def run_offline_build(args, errors, results):
-    """Path 7: ModelConfig.from_hf_config of huggyllama/llama-7b's
+    """Path 7: the offline build (build_offline), driven as paths 1-4 (row 5
+    on every projection), and again under TLLM_FUSE_GU=1."""
+    drive_path(make_path7(), build_offline(args, errors, results), errors,
+               results)
+
+
+def build_offline(args, errors, results):
+    """Path 7's session: ModelConfig.from_hf_config of huggyllama/llama-7b's
     config.json fields; an HF-layout bf16 state dict drawn on the card;
     synthetic ranges; smooth_hf_state_dict (alpha 0.5) ->
     params_from_hf_state_dict (f32) -> quantize_params (static per-tensor
     SmoothQuant + int8 KV) -> cast_fp_leaves -> kv_scales_from_ranges ->
     save_engine -> load_engine(device="cuda"), every leaf byte-equal to the
     saved one, each stage timed; then GenerationSession on the loaded
-    params, driven as paths 1-4 (row 5 on every projection), and again
-    under TLLM_FUSE_GU=1."""
+    params."""
     import shutil
     import tempfile
     import types
@@ -2614,10 +2727,8 @@ def run_offline_build(args, errors, results):
     print(f"  wq: SQWeight {tuple(w.qweight.shape)}, per_token "
           f"{w.per_token}, per_channel {w.per_channel}, scale_x "
           f"{w.scale_x[:3].tolist()}...; kv_scales {kv2[:3].tolist()}...")
-    sess = GenerationSession(cfg2, loaded, EngineConfig(**PATH_ENGINE),
+    return GenerationSession(cfg2, loaded, EngineConfig(**PATH_ENGINE),
                              kv_scales=kv2, device="cuda")
-    del loaded
-    drive_path(make_path7(), sess, errors, results)
 
 
 # ---------------------------------------------------------------------------
@@ -3157,8 +3268,9 @@ def _alibi_mask(slopes, s, lens, dtype):
 
 def check_alibi_prefill(errors, results):
     """Rows 10 and 12 with Bloom's slopes (32 heads of 128, bf16) at the
-    shapes path 6 and serving give them: row 10 at B=1 S=16 len 8 and at
-    the first serving wave (8 x 128), row 12 at one 3072-row prompt; each
+    shapes path 6 and serving give them: row 10 at B=1 S=16 len 8, at
+    the first serving wave (8 x 128) and at S=150 with lengths 150 / 77 / 0
+    (the -inf padding columns), row 12 at one 3072-row prompt; each
     against its plain version with the same slopes, timed with and without
     slopes beside the bound (operations) and SDPA with a float attn_mask
     holding the bias and the causal and length mask."""
@@ -3180,6 +3292,8 @@ def check_alibi_prefill(errors, results):
         (ALIBI_PREFILL, pa, "prefill_attention_kernel", 1, 16, [8]),
         (ALIBI_PREFILL, pa, "prefill_attention_kernel", len(wave),
          max(SERVE_ENGINE["prefill_buckets"]), wave),
+        # S off the 64-row tile, a length of 0 (-inf padding columns)
+        (ALIBI_PREFILL, pa, "prefill_attention_kernel", 3, 150, [150, 77, 0]),
         (ALIBI_STREAMING, spa, "streaming_prefill_attention_kernel", 1,
          BLOOM_LONG, [BLOOM_LONG]),
     ]
@@ -3203,9 +3317,8 @@ def check_alibi_prefill(errors, results):
                       **(dict(iters=2, warmup=1, reps=1) if long else {}))
         t_l = time_ms(lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
-        pairs = sum(sum(min(r + 1, n) for r in range(s)) for n in lens)
-        n_bytes = b * s * d * 2 * 4 * hq + b * 4 + hq * 4
-        b_ms, b_by = bound_ms(n_bytes, 4 * hq * d * pairs)
+        b_ms, b_by = bound_ms(*prefill_attention_work(lens, s, hq, hq, d,
+                                                      alibi=True))
         print(f"  time {name}: kernel {t_k:.4f} ms with slopes, {t_n:.4f} "
               f"ms without; plain {t_p:.4f} ms, library(sdpa, float mask: "
               f"bias + causal + length) {t_l:.4f} ms, bound {b_ms:.5f} ms "
@@ -3333,9 +3446,8 @@ def check_family_attention(errors, results):
                 q, k, v, sl))
             t_l = time_ms(lambda i: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask))
-            pairs = sum(min(r + 1, 8) for r in range(16))
-            b_ms, b_by = bound_ms(16 * d * 2 * (2 * hq + 2 * hkv) + 4,
-                                  4 * hq * d * pairs)
+            b_ms, b_by = bound_ms(*prefill_attention_work([8], 16, hq, hkv,
+                                                          d))
             print(f"  time prefill {name}: kernel {t_k:.4f} ms, plain "
                   f"{t_p:.4f} ms, library(sdpa, mask) {t_l:.4f} ms, bound "
                   f"{b_ms:.5f} ms ({b_by})")
@@ -3797,6 +3909,7 @@ def check_kernels(errors, results):
     check_gemv("int8", errors, results)
     check_prefill(errors, results)
     check_streaming_prefill(errors, results)
+    check_prefill_vs_streaming(errors, results)
     check_decode(errors, results)
     check_decode_modes(errors, results)
     check_decode_modes(errors, results, kv_int8=True)

@@ -14,9 +14,11 @@ exact against its plain version (int32 sums, the same f32 epilogue);
 rmsnorm_quant's scales agree to 1e-6 relative and its codes within one
 step (the row's sum of squares is taken in another order); int8 KV caches
 and paged pools are bit-identical to the plain write. The streaming
-prefill kernel rounds its probabilities to bf16 before P V in bf16 (the
-2**-7 bound holds); its f32 instantiation and the read-only and fused
-decode kernels differ from their plain versions in summation order only.
+prefill kernel (row 12) rounds its probabilities to q's dtype before P V
+in bf16 / fp16 (the 2**-7 bound holds); rows 10 and 13 carry them as
+three bf16 (two fp16) terms, and they, every f32 instantiation and the
+read-only and fused decode kernels differ from their plain versions in
+summation order only (bf16 / fp16 outputs by a rounding step).
 Rows 2 and 4 at prefill rows (the tensor-core GEMM) form the same exact
 products (int8 / int4 codes and e4m3 values are exact in bf16 and fp16)
 and differ from the plain versions in the order of the f32 sums only: the
@@ -151,16 +153,25 @@ def test_fp8_kernel_matches_plain(dev, dtype, k, m, opt):
     _assert_close(got2, f8k.fp8_matmul_plain(x, w2), dtype)
 
 
+@pytest.mark.parametrize("s,lens", [
+    (40, [40, 17, 1]), (1, [1]), (63, [63, 0]), (64, [64, 1]),
+    (65, [65, 64, 0]), (1024, [1024, 923]), (2048, [2048])])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (71, 1)])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d):
-    g = torch.Generator(device=dev).manual_seed(d)
-    b, s = 3, 40
+def test_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d, s, lens):
+    """The flash tile's edges (bf16 / fp16; f32 keeps the CUDA-core body):
+    S on and off the 64-row query tile and the 64-key (32 at D = 256) K/V
+    tile, lengths 0, 1 and S, B > 1 (rows of b + 1 follow b's last row in
+    memory), GQA 4 and Falcon's 71:1, one launch per call."""
+    g = torch.Generator(device=dev).manual_seed(d + s)
+    b = len(lens)
     q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
                for h in (hq, hkv, hkv))
-    lens = torch.tensor([40, 17, 1], dtype=torch.int32, device=dev)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    launches = pa.prefill_attention_kernel.launches
     got = pa.prefill_attention_kernel(q, k, v, lens)
+    assert pa.prefill_attention_kernel.launches == launches + 1
     _assert_close(got, pa.prefill_attention_kernel_plain(q, k, v, lens), dtype)
 
 
@@ -456,13 +467,16 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, kv_int8, hq, hkv, bs,
 
 @pytest.mark.parametrize("t,lens", [(24, [5, 1, 9]), (64, [20, 30, 1]),
                                     (100, [37, 1, 50]), (48, [48]),
-                                    (1024, [128, 77, 3, 128, 100, 1, 128])])
-@pytest.mark.parametrize("d", [96, 128, 256])
-@pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8)])
+                                    (1024, [128, 77, 3, 128, 100, 1, 128]),
+                                    (1, [1]), (200, [64, 1, 63, 65]),
+                                    (2048, [700, 1, 1000, 300])])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8), (71, 1)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_packed_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d, t, lens):
-    """Segment layouts with pad rows, a length-1 segment and segments that
-    cross 32-row tiles; pad rows must come out finite."""
+    """Segment layouts with pad rows, a length-1 segment (also on a 64-row
+    tile edge), segments that cross tiles and long ones, T off the tile,
+    GQA 4 and 71:1; pad rows must come out finite; one launch per call."""
     g = torch.Generator(device=dev).manual_seed(t + hkv)
     q, k, v = (torch.randn((t, h, d), generator=g, device=dev).to(dtype)
                for h in (hq, hkv, hkv))
@@ -622,30 +636,33 @@ def test_decode_and_streaming_wrappers_reject_bad_inputs(dev):
     _assert_close(got, ref, torch.float32)
 
 
+@pytest.mark.parametrize("s,lens", [(150, [150, 77, 0]), (65, [1, 65]),
+                                    (1024, [1024, 923, 64])])
 @pytest.mark.parametrize("kernel", ["prefill", "streaming"])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_alibi_prefill_kernels_match_plain(dev, dtype, kernel):
+def test_alibi_prefill_kernels_match_plain(dev, dtype, kernel, s, lens):
     """ALiBi: distinct slopes per head (interpolated for 12 heads), a length
-    mask with a length of 0, S off the 64-row tile, GQA."""
+    mask with lengths of 0, 1 and S, S off the 64-row tile, GQA, every head
+    dim."""
     from trtllm_llama_tpu_torch.ops.attention import alibi_slopes
     fn, plain = ((pa.prefill_attention_kernel,
                   pa.prefill_attention_kernel_plain) if kernel == "prefill"
                  else (spa.streaming_prefill_attention_kernel,
                        spa.streaming_prefill_attention_kernel_plain))
-    g = torch.Generator(device=dev).manual_seed(70)
-    b, s, hq, hkv = 3, 150, 12, 4
-    for d in (64, 128):
+    g = torch.Generator(device=dev).manual_seed(70 + s)
+    b, hq, hkv = len(lens), 12, 4
+    for d in HEAD_DIMS:
         q, k, v = (torch.randn((b, s, h, d), generator=g,
                                device=dev).to(dtype) for h in (hq, hkv, hkv))
-        lens = torch.tensor([150, 77, 0], dtype=torch.int32, device=dev)
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
         slopes = alibi_slopes(hq, device=dev)
         launches = fn.launches
-        got = fn(q, k, v, lens, alibi=slopes)
+        got = fn(q, k, v, sl, alibi=slopes)
         assert fn.launches == launches + 1
-        ref = plain(q, k, v, lens, alibi=slopes)
+        ref = plain(q, k, v, sl, alibi=slopes)
         torch.cuda.synchronize()
         _assert_close(got, ref, dtype)
-        assert not torch.allclose(got.float(), plain(q, k, v, lens).float(),
+        assert not torch.allclose(got.float(), plain(q, k, v, sl).float(),
                                   atol=1e-2)
 
 

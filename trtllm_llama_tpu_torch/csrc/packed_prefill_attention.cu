@@ -1,4 +1,4 @@
-// Kernel 13: causal GQA attention over one packed (remove-padding) token
+// Row 13: causal GQA attention over one packed (remove-padding) token
 // stream.
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/attention.py::
@@ -13,23 +13,39 @@
 // being the first row of its run. Pad rows attend the pad rows before them
 // in their run: finite, and undefined by the contract.
 //
-// What bounds it on the H100: the q/k/v/out bytes, or the
+// What bounds it on the H100: the q/k/v/out bytes of the segments' rows
+// (a pad row's output is undefined), or the
 // 4 * Hq * D * sum(len * (len + 1) / 2) flops of the segments, which only
-// the tensor cores (wgmma) serve at rate. This first kernel is kernel 2's
-// (prefill_attention.cu) design with the length mask replaced by the
-// segment mask: one block per (16-row q tile, head), four warps of four
-// rows; K/V tiles of 32 rows staged in dynamic shared memory as f32 (K
-// padded to D+1 columns), an online softmax with each row's max, denominator and
-// D/32 accumulators per lane in registers. The block's K/V loop starts at
-// the tile holding start(row0) -- found by one warp scanning the ids back
-// 32 at a time -- and ends at its last row, so the work is O(sum len^2)
-// rather than O(T^2).
+// the tensor cores serve at rate.
+//   - bf16 and fp16: row 10's wgmma flash-attention tile
+//     (flash_attention.cuh) with the segment mask in place of the length
+//     mask: one warpgroup per 64-row query tile and head. The block finds
+//     the run starts of its first and last rows (the block scans the ids
+//     back 1024 at a time); its K/V loop starts at the tile holding
+//     start(row0) and ends at its last row, so the work is O(sum len^2)
+//     rather than O(T^2); a key tile inside the last row's run and below
+//     the diagonal takes no mask. On an H100 80GB HBM3 at 700 W the T=1024
+//     packed serving wave (709 rows in 8 segments, 32 heads of 128) takes
+//     0.0422 ms, 0.62x SDPA with the block-diagonal mask and 16% of the
+//     byte bound, where the
+//     CUDA-core loop below took 0.3772-0.4876 ms in bf16 (chip_smoke.py;
+//     PERF.md).
+//   - f32: the exact CUDA-core body below: one block per (16-row q tile,
+//     head), four warps of four rows; 32-row K/V tiles staged in shared
+//     memory as f32 (K padded to D+1 columns), an online softmax with each
+//     row's max, denominator and D/32 accumulators per lane in registers;
+//     the K/V loop starts at the tile holding start(row0), found by one
+//     warp scanning the ids back 32 at a time.
+#include <type_traits>
+
 #include "common.cuh"
+#include "flash_attention.cuh"
 
 using namespace tllm;
 
 namespace {
 
+// the f32 body
 constexpr int kBQ = 16;      // query rows per block
 constexpr int kBK = 32;      // key rows per staged tile (one per lane)
 constexpr int kWarps = 4;
@@ -37,10 +53,10 @@ constexpr int kRows = kBQ / kWarps;  // query rows per warp
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
-    packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const int* __restrict__ seg,
-                          T* __restrict__ out, int Tn, int Hq, int Hkv,
-                          float sm_scale) {
+    packed_prefill_f32(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const int* __restrict__ seg,
+                       T* __restrict__ out, int Tn, int Hq, int Hkv,
+                       float sm_scale) {
   constexpr int DL = D / 32;  // head dims per lane
   extern __shared__ float packed_smem[];
   auto qs = reinterpret_cast<float (*)[D]>(packed_smem);
@@ -142,15 +158,20 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* seg, void* out, int Tn, int Hq, int Hkv,
                    float sm_scale, cudaStream_t stream) {
-  const dim3 grid((Tn + kBQ - 1) / kBQ, Hq);
-  constexpr int smem = (kBQ * D + kBK * (D + 1) + kBK * D) * 4;
-  const cudaError_t err = allow_smem(packed_prefill_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  packed_prefill_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(seg),
-      static_cast<T*>(out), Tn, Hq, Hkv, sm_scale);
-  return cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    return flash::launch<T, D, true>(q, k, v, seg, nullptr, out, 1, Tn, Hq,
+                                     Hkv, sm_scale, stream);
+  } else {
+    const dim3 grid((Tn + kBQ - 1) / kBQ, Hq);
+    constexpr int smem = (kBQ * D + kBK * (D + 1) + kBK * D) * 4;
+    const cudaError_t err = allow_smem(packed_prefill_f32<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    packed_prefill_f32<T, D><<<grid, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(seg),
+        static_cast<T*>(out), Tn, Hq, Hkv, sm_scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

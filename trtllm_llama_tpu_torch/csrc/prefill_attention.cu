@@ -1,35 +1,49 @@
-// Causal GQA prefill (context-phase) attention.
+// Row 10: causal GQA prefill (context-phase) attention.
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/attention.py::prefill_attention_kernel
-// (its ALiBi branch included)
-// (and, by design, the contract of streaming_prefill_attention_kernel: the
-// K/V loop below is already an online softmax over K/V tiles, so S is not
-// bounded by on-chip memory).
+// (its ALiBi branch included), for prompts of up to prefill_streaming_min_s
+// (2048) rows; longer ones take row 12 (streaming_prefill_attention.cu).
 //
 // Computes, per (b, h, row): scores = (q . k) * sm_scale + slopes[h] * col in
 // f32 (ALiBi's key-position form, as the JAX package adds it; no bias when
 // slopes is null), masked to cols <= row and cols < seq_lens[b] with the
 // finite NEG_INF of the reference (never NEG_INF + bias; a length of 0 masks
-// every column, and the row averages V over exactly the S columns: the
-// padding of the last 32-column tile scores -inf), an f32 softmax, and (p @ v) / sum(p) cast to q's dtype. The
-// K/V head is h / (Hq / Hkv) (GQA).
+// every column, and the row averages V over exactly the S columns: columns
+// at or past S score -inf), an f32 softmax, and (p @ v) / sum(p) cast to
+// q's dtype. The K/V head is h / (Hq / Hkv) (GQA).
 //
-// What bounds it on the H100: at the main path's S = 16 it is bytes and
-// launch latency (4 * B*S*H*D*2 bytes is ~0.5 MB at 7B widths); at long S
-// it becomes 4*S^2*H*D flops, which only the tensor cores (wgmma) serve
-// at rate. This first kernel is right rather than fast: one block per
-// (b, h, 16-row q tile), four warps of four rows each; K/V tiles of 32 rows
-// are staged in dynamic shared memory as f32 (82 KB at D = 256; K padded
-// to D+1 columns so the lane-per-key dot product is free of bank
-// conflicts), tiles past the block's last causal or valid column are
-// skipped, and each row keeps its running max, denominator and D/32
-// accumulators per lane in registers.
+// What bounds it on the H100: the bytes the contract reads and writes
+// (q and out of every row, K and V of each sequence's min(len, S) valid
+// rows) and launch latency at the main path's S = 16; at Task A's 1024
+// rows (923 valid) still the bytes, 0.0095 ms, with the causal
+// 4 * Hq * D * pairs flops close behind, which only the tensor cores
+// serve at rate.
+//   - bf16 and fp16: the wgmma flash-attention tile of flash_attention.cuh
+//     (one warpgroup per 64-row query tile, a 2-stage cp.async K/V ring,
+//     S = Q K^T and O += P V on wgmma, the online softmax in registers, P
+//     carried through P V as three bf16 (two fp16) terms so that it keeps
+//     f32's precision, the mask only on edge tiles). On an H100 80GB HBM3
+//     at 700 W, Task A's B=1 S=1024 len 923 with 32 heads of 128 takes
+//     0.0490 ms (0.72x SDPA with the same mask, 19% of the byte bound),
+//     where the CUDA-core loop below took 1.2989 ms in bf16 (chip_smoke.py;
+//     PERF.md).
+//   - f32: no path feeds f32 to the card; it keeps the exact CUDA-core body
+//     below: one block per (b, h, 16-row q tile), four warps of four rows;
+//     32-key K/V tiles staged in shared memory as f32 (K padded to D+1
+//     columns so the lane-per-key dot product is free of bank conflicts),
+//     tiles past the block's last causal or valid column skipped, each
+//     row's running max, denominator and D/32 accumulators per lane in
+//     registers.
+#include <type_traits>
+
 #include "common.cuh"
+#include "flash_attention.cuh"
 
 using namespace tllm;
 
 namespace {
 
+// the f32 body
 constexpr int kBQ = 16;      // query rows per block
 constexpr int kBK = 32;      // key rows per staged tile (one per lane)
 constexpr int kWarps = 4;
@@ -37,11 +51,12 @@ constexpr int kRows = kBQ / kWarps;  // query rows per warp
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
-    prefill_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const int* __restrict__ seq_lens,
-                             const float* __restrict__ slopes, T* __restrict__ out,
-                             int S, int Hq, int Hkv, float sm_scale) {
+    prefill_attention_f32(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const int* __restrict__ seq_lens,
+                          const float* __restrict__ slopes,
+                          T* __restrict__ out, int S, int Hq, int Hkv,
+                          float sm_scale) {
   constexpr int DL = D / 32;  // head dims per lane
   extern __shared__ float prefill_smem[];
   auto qs = reinterpret_cast<float (*)[D]>(prefill_smem);
@@ -138,16 +153,21 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* seq_lens, const void* slopes, void* out, int B,
                    int S, int Hq, int Hkv, float sm_scale, cudaStream_t stream) {
-  const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
-  constexpr int smem = (kBQ * D + kBK * (D + 1) + kBK * D) * 4;
-  const cudaError_t err = allow_smem(prefill_attention_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  prefill_attention_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(seq_lens),
-      static_cast<const float*>(slopes), static_cast<T*>(out), S, Hq, Hkv,
-      sm_scale);
-  return cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    return flash::launch<T, D, false>(q, k, v, seq_lens, slopes, out, B, S,
+                                      Hq, Hkv, sm_scale, stream);
+  } else {
+    const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
+    constexpr int smem = (kBQ * D + kBK * (D + 1) + kBK * D) * 4;
+    const cudaError_t err = allow_smem(prefill_attention_f32<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    prefill_attention_f32<T, D><<<grid, kWarps * 32, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(seq_lens),
+        static_cast<const float*>(slopes), static_cast<T*>(out), S, Hq, Hkv,
+        sm_scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

@@ -59,6 +59,7 @@
 // not the tensor cores; a 64-row K tile with a deeper ring was slower.
 #pragma once
 
+#include "wgmma.cuh"
 #include "woq_gemv.cuh"
 
 namespace tllm {
@@ -83,32 +84,6 @@ constexpr int kOffMap = kOffScale + kStages * kScaleTile;
 // + 1024: the base is rounded up to the 1024-byte swizzle period
 constexpr int kSmemBytes = kOffMap + kBK + 1024;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  // src-size 0 zero-fills the 16 bytes (rows past M, columns past N)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Generic-proxy writes (st.shared, cp.async) made visible to wgmma.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // The output tile of block `b`: groups of kGroupM M tiles of bm rows, M
 // fastest inside a group, so the blocks resident at once share weight
 // columns and x rows. Sets the tile's first row m0 and column n0.
@@ -123,84 +98,6 @@ __device__ __forceinline__ void raster(int b, int M, int N, int bm, int bn,
   const int in_group = b - group * per_group;
   m0 = (first_mt + in_group % g_rows) * bm;
   n0 = (in_group / g_rows) * bn;
-}
-
-// Shared memory matrix descriptor, 128-byte swizzle. lbo / sbo in bytes.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void fence_operand(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_fragment(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_operand(d[i]);
-}
-
-#define TLLM_D8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define TLLM_WGMMA_M64N128K16(TY)                                          \
-  asm volatile(                                                            \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "         \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                \
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"                                      \
-      : TLLM_D8(0), TLLM_D8(8), TLLM_D8(16), TLLM_D8(24), TLLM_D8(32),     \
-        TLLM_D8(40), TLLM_D8(48), TLLM_D8(56)                              \
-      : "l"(da), "l"(db), "r"(scale_d))
-
-// d += A (K-major, smem) x B (N-major, smem: transpose bit set), 64 x 128 x 16.
-template <typename T>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db, int scale_d);
-template <>
-__device__ __forceinline__ void wgmma_m64n128k16<__nv_bfloat16>(
-    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  TLLM_WGMMA_M64N128K16("bf16");
-}
-template <>
-__device__ __forceinline__ void wgmma_m64n128k16<__half>(float (&d)[64],
-                                                         uint64_t da,
-                                                         uint64_t db,
-                                                         int scale_d) {
-  TLLM_WGMMA_M64N128K16("f16");
-}
-#undef TLLM_WGMMA_M64N128K16
-#undef TLLM_D8
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Two exact floats -> one 32-bit pair of T (low half = a).
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float a, float b);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float a, float b) {
-  const __half2 v = __floats2half2_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Columns 16c .. 16c + 15 of logical row r of the decoded tile (p: 8 pairs).

@@ -1,12 +1,22 @@
-"""Kernel 2: causal GQA prefill attention (csrc/prefill_attention.cu).
+"""Kernel 2 (row 10): causal GQA prefill attention (csrc/prefill_attention.cu).
 
-Replaces `trtllm_llama_tpu/ops/pallas/attention.py::prefill_attention_kernel`,
-its ALiBi branch included (`alibi`: [Hq] slopes, adding slope * key column
-to the scaled scores before the mask, as the JAX kernel does). Bound on the H100: q/k/v/out bytes at the main path's short prompts, the
-causal 4*S^2*H*D flops at long ones. The first design is one block per
-(b, head, 16-row q tile) with an online softmax over 32-row K/V tiles in
-shared memory; masked tiles past the block's rows or the sequence length
-are skipped (see the source's header note).
+Replaces
+`trtllm_llama_tpu/ops/pallas/attention.py::prefill_attention_kernel`, its
+ALiBi branch included (`alibi`: [Hq] slopes, adding slope * key column to
+the scaled scores before the mask, as the JAX kernel does). Bound on the
+H100: the bytes of q and out and of each sequence's min(len, S) valid K/V
+rows up to Task A's 1024 rows, the causal 4*Hq*D*pairs flops at longer
+ones. bf16 / fp16 run the wgmma flash-attention tile of
+`csrc/flash_attention.cuh`: one warpgroup per 64-row query tile and head, a
+2-stage cp.async ring of K/V tiles, S = Q K^T and O += P V on the tensor
+cores, the online softmax in registers with P carried through P V as three
+bf16 (two fp16) terms (`split_p`), so that it keeps f32's precision as the
+plain version does (rounded P moved path 7's logits by a third:
+`attention_precision.py`), the mask only on tiles that cross the diagonal
+or the length. On an H100 80GB HBM3 at 700 W, B=1 S=1024 len 923 with 32
+heads of 128 (Task A's prefill) takes 0.0490 ms (19% of its 0.0095 ms byte
+bound), against 0.0680 for SDPA with the same mask and 1.2989 for the
+CUDA-core loop that f32 keeps (chip_smoke.py; PERF.md).
 
 `prefill_attention_kernel` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors (head dims 32, 64, 96, 128 and 256;
@@ -34,11 +44,27 @@ def alibi_bias(alibi, cols):
     return alibi.float().reshape(-1, 1, 1) * cols.float()
 
 
+def split_p(p, dtype, n):
+    """p (f32) as n tensors of dtype, each the rounding of what the ones
+    before it left (p - round(p) is exact in f32); returned in f32. Their
+    sum is P as the card's tile carries it through P V (n = 3 for bf16, 2
+    for fp16: p_terms<T>() in csrc/flash_attention.cuh). n = 1 is P
+    rounded to dtype."""
+    terms = []
+    for _ in range(n):
+        t = p.to(dtype).float()
+        terms.append(t)
+        p = p - t
+    return terms
+
+
 def prefill_attention_kernel_plain(q, k, v, seq_lens=None, sm_scale=None,
-                                   alibi=None):
+                                   alibi=None, p_terms=None):
     """Plain PyTorch version: f32 scores * sm_scale [+ alibi[h] * col],
     mask cols <= rows and cols < seq_lens[b] with NEG_INF, f32 softmax,
-    f32 p @ v, cast to q's dtype."""
+    f32 p @ v, cast to q's dtype. p_terms = n carries the unnormalised P
+    through P V as split_p(P, q's dtype, n) (the sum of P stays f32): a
+    measure of how precisely P must be carried, not the contract."""
     b, s, hq, d = q.shape
     rep = hq // k.shape[2]
     scale = sm_scale if sm_scale is not None else d ** -0.5
@@ -53,8 +79,13 @@ def prefill_attention_kernel_plain(q, k, v, seq_lens=None, sm_scale=None,
         mask = mask & (cols[None, None, :] < seq_lens[:, None, None])
         mask = mask[:, None]
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    return torch.matmul(probs, vf).to(q.dtype).transpose(1, 2)
+    if p_terms is None:
+        out = torch.matmul(torch.softmax(scores, dim=-1), vf)
+    else:
+        p = torch.exp(scores - scores.amax(-1, keepdim=True))
+        out = (torch.matmul(sum(split_p(p, q.dtype, p_terms)), vf)
+               / p.sum(-1, keepdim=True))
+    return out.to(q.dtype).transpose(1, 2)
 
 
 def prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None,
@@ -88,6 +119,9 @@ def prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None,
         raise ValueError("prefill_attention_kernel: tensors must be "
                          "contiguous and on one device, seq_lens [B], "
                          "alibi [Hq]")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("prefill_attention_kernel: q, k and v must be "
+                         "16-byte aligned (the tile loads 16-byte chunks)")
     scale = sm_scale if sm_scale is not None else d ** -0.5
     lib = _build.load("prefill_attention", _SIGNATURES)
     out = torch.empty_like(q)
