@@ -37,6 +37,12 @@
    the read-only (row 8) and one-launch (row 9) decodes with bf16 and
    int8 caches at S_max 128 and 8320 and at the edges (lengths 0 and S,
    positions 0, S - 1 and past S), beside kernel 3 on the same inputs;
+   kernel 3 and row 9 (one split-cache body, csrc/flash_decode.cuh) at the
+   edges of the host's split (decode_split) of path 5's 8320-row cache
+   (first and last row of a split, 0, S - 1, past S, bs4 ragged 0-8200)
+   and of one KV head's 2048 rows (groups 32 and 71), one launch a call,
+   and timed side by side at S_max 128 / 1152 / 2048 / 8320 and GQA
+   groups 1 / 32 / 71, bf16 and int8 caches, beside SDPA and the bound;
    rows 10 and 12 with Bloom's ALiBi slopes (row 10 at B=1 S=16, at
    the first serving wave and at B=3 S=150 with lengths 150 / 77 / 0, row
    12 at one 3072-row prompt), timed with and
@@ -113,7 +119,8 @@
    the prefill, kernel 3 at every decode step), kernel 1's time per call
    at 8192 rows from a profile of the prefill, the 7B prefill logits
    against the plain path (the first token too), and decode steps over
-   the 8k cache (host wall, device time, idle share);
+   the 8k cache (host wall, device time, idle share, kernel 3's device ms
+   per decode token from the profile: one kernel a layer and step);
 6. serves with ServingEngine (int8 weight-only LLaMA-7B, bench.py's
    serving settings: 8 slots, decode_chunk 16, block 64, max_seq_len 200,
    bucket 128) 16 requests of 64 new tokens with prompts of 8-128 tokens
@@ -286,6 +293,8 @@ SWIGLU_INT8 = "woq_matmul_stacked (SwiGLU)"
 SWIGLU_INT4 = "woq_matmul_stacked (int4 g128 SwiGLU)"
 SWIGLU_FP8 = "fp8_matmul_stacked (SwiGLU)"
 _PROBES_CU = "trtllm_llama_tpu_torch/csrc/decode_probes.cu"
+# kernel 3 and row 9 (entries decode_attention.cu, fused_decode_attention.cu)
+_FLASH_DECODE = "trtllm_llama_tpu_torch/csrc/flash_decode.cuh"
 ALIBI_PREFILL = "prefill_attention_kernel (ALiBi)"
 ALIBI_STREAMING = "streaming_prefill_attention_kernel (ALiBi)"
 FUSED_G71 = "fused_decode_attention (group 71)"
@@ -376,7 +385,7 @@ KERNELS = {
     "dma_decode_attention": (
         "dma_decode_attention",
         "trtllm_llama_tpu/ops/pallas/dma_decode_attention.py:156",
-        "trtllm_llama_tpu_torch/csrc/decode_attention.cu"),
+        _FLASH_DECODE),
     "rmsnorm_quant": (
         "rmsnorm_quant", "trtllm_llama_tpu/ops/pallas/rmsnorm_quant.py:31",
         "trtllm_llama_tpu_torch/csrc/rmsnorm_quant.cu"),
@@ -386,7 +395,7 @@ KERNELS = {
     INT8_DECODE: (
         "dma_decode_attention",
         "trtllm_llama_tpu/ops/pallas/dma_decode_attention.py:156",
-        "trtllm_llama_tpu_torch/csrc/decode_attention.cu"),
+        _FLASH_DECODE),
     "packed_prefill_attention_kernel": (
         "packed_prefill_attention_kernel",
         "trtllm_llama_tpu/ops/pallas/attention.py:315",
@@ -409,11 +418,9 @@ KERNELS = {
         "decode_attention_kernel", f"{_ATTN_PY}:72",
         "trtllm_llama_tpu_torch/csrc/decode_attention.cu"),
     FUSED: (
-        "fused_decode_attention", f"{_ATTN_PY}:185",
-        "trtllm_llama_tpu_torch/csrc/fused_decode_attention.cu"),
+        "fused_decode_attention", f"{_ATTN_PY}:185", _FLASH_DECODE),
     FUSED_INT8: (
-        "fused_decode_attention", f"{_ATTN_PY}:185",
-        "trtllm_llama_tpu_torch/csrc/fused_decode_attention.cu"),
+        "fused_decode_attention", f"{_ATTN_PY}:185", _FLASH_DECODE),
     ALIBI_PREFILL: (
         "prefill_attention_kernel", f"{_ATTN_PY}:504",
         "trtllm_llama_tpu_torch/csrc/prefill_attention.cu"),
@@ -421,8 +428,7 @@ KERNELS = {
         "streaming_prefill_attention_kernel", f"{_ATTN_PY}:433",
         "trtllm_llama_tpu_torch/csrc/streaming_prefill_attention.cu"),
     FUSED_G71: (
-        "fused_decode_attention", f"{_ATTN_PY}:185",
-        "trtllm_llama_tpu_torch/csrc/fused_decode_attention.cu"),
+        "fused_decode_attention", f"{_ATTN_PY}:185", _FLASH_DECODE),
     GEMM_INT8: (
         "woq_matmul_stacked", f"{_WOQ_PY}:461",
         "trtllm_llama_tpu_torch/csrc/woq_gemm.cu"),
@@ -472,16 +478,20 @@ def time_ms(fn, iters=20, warmup=3, reps=3):
     """Device time per fn(i) call: `iters` calls captured in one CUDA graph,
     replayed `reps` times between CUDA events. Replay keeps the host out of
     the measurement (an eager call adds its Python and launch overhead,
-    which the end-to-end numbers carry)."""
+    which the end-to-end numbers carry). Warm-up and capture share one
+    side stream, so the capture finds the per-stream state (kernel 3's
+    workspace, cuBLAS's) that the warm-up made."""
     import torch
-    side = torch.cuda.Stream()
+    if not hasattr(time_ms, "side"):
+        time_ms.side = torch.cuda.Stream()
+    side = time_ms.side
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for i in range(warmup):
             fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(i)
     graph.replay()
@@ -500,6 +510,35 @@ def bound_ms(n_bytes, flops, peak=BF16_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_work(live, hq, hkv, d, elem, kv_int8, write):
+    """(bytes, operations) that one decode-attention call needs, bf16 q:
+    kernel 3 / row 9 (write=True) or row 8 (write=False), each sequence
+    attending live[b] cache rows of `elem` bytes an element. Bytes: the
+    live K/V rows once (a writer writes row pos in place of reading it),
+    q and out, the positions or lengths, an int8 cache's scale and a
+    writer's new K/V; 4 * Hq * D operations per live row."""
+    b, n = len(live), sum(live)
+    n_bytes = (2 * hkv * n * d * elem + 2 * b * hq * d * 2 + b * 4
+               + (4 if kv_int8 else 0) + (2 * b * hkv * d * 2 if write else 0))
+    return n_bytes, 4 * hq * d * n
+
+
+def split_edges():
+    """Kernel 3 / row 9 cases (B, Hq, Hkv, S_max, positions) at LLaMA-7B's
+    widths on path 5's 8320-row cache that reach the edges of the host's
+    split (decode_split): positions 0, the last row of split 0, the first
+    of split 1, S_max - 1 and past S_max at bs1; at bs4, ragged positions
+    0 to 8200, a split's last and first row among them, so some splits
+    hold one live row and others all of theirs."""
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    sms = da.sm_count(0)
+    edge1 = da.decode_split(1, 32, LONG_S_MAX, 1, sms)[1] * da.TILE
+    edge4 = da.decode_split(4, 32, LONG_S_MAX, 1, sms)[1] * da.TILE
+    return ([(1, 32, 32, LONG_S_MAX, [p]) for p in
+             (0, edge1 - 1, edge1, LONG_S_MAX - 1, LONG_S_MAX + 5)]
+            + [(4, 32, 32, LONG_S_MAX, [0, edge4 - 1, edge4, 8200])])
 
 
 def prefill_attention_work(lens, s, hq, hkv, d, itemsize=2, alibi=False):
@@ -1110,6 +1149,7 @@ def check_decode(errors, results, kv_int8=False):
     import torch
     import torch.nn.functional as F
     from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    sms = da.sm_count(0)
 
     kind = (f"int8 cache, scale {KV_SCALE} per layer" if kv_int8
             else "bf16 cache")
@@ -1141,6 +1181,8 @@ def check_decode(errors, results, kv_int8=False):
         cases += [(len(w) + 1, 32, 32, s_serve, [n + t for n in w] + [0])
                   for w, t in ((waves[1], SERVE_NEW // 2),
                                (waves[-1], SERVE_NEW - 2))]
+    edges = split_edges()
+    cases += edges
     kv_scale = (torch.full((n_l,), KV_SCALE, device="cuda") if kv_int8
                 else None)
     elem = 1 if kv_int8 else 2
@@ -1165,19 +1207,23 @@ def check_decode(errors, results, kv_int8=False):
               ).to(torch.bfloat16)
         pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
         kc2, vc2 = kc.clone(), vc.clone()
+        n0 = da.dma_decode_attention.launches
         got = da.dma_decode_attention(q, kn, vn, kc, vc, layer, pt,
                                       kv_scale=kv_scale)
         ref = da.dma_decode_attention_plain(q, kn, vn, kc2, vc2, layer, pt,
                                             kv_scale=kv_scale)
         torch.cuda.synchronize()
-        name = f"B={b} Hq={hq} Hkv={hkv} S_max={s} pos={pos}"
+        name = (f"B={b} Hq={hq} Hkv={hkv} S_max={s} pos={pos} splits "
+                f"{da.decode_split(b, hkv, s, hq // hkv, sms)}")
         max_err = max(max_err, compare(name, got, ref, errors))
         same = torch.equal(kc, kc2) and torch.equal(vc, vc2)
         print(f"  {name}: cache equals the plain write bit for bit: {same}")
         if not same:
             errors.append(f"decode {kind} {name}: cache differs from the "
                           "plain write")
-        if b != 1 or hq != hkv:
+        if da.dma_decode_attention.launches != n0 + 1:
+            errors.append(f"decode {kind} {name}: not one launch a call")
+        if b != 1 or hq != hkv or (b, hq, hkv, s, pos) in edges:
             continue
         p = pos[0]
         t_k = time_ms(lambda i: da.dma_decode_attention(
@@ -1190,9 +1236,8 @@ def check_decode(errors, results, kv_int8=False):
             kl = (kl.float() * KV_SCALE).to(torch.bfloat16)
             vl = (vl.float() * KV_SCALE).to(torch.bfloat16)
         t_l = time_ms(lambda i: F.scaled_dot_product_attention(ql, kl, vl))
-        n_bytes = (2 * b * hkv * (p + 1) * d * elem + 2 * b * hq * d * 2
-                   + 2 * b * hkv * d * 2 + b * 4 + (4 if kv_int8 else 0))
-        b_ms, b_by = bound_ms(n_bytes, 4 * b * hq * (p + 1) * d)
+        b_ms, b_by = bound_ms(*decode_work([p + 1], hq, hkv, d, elem,
+                                           kv_int8, True))
         lib = ("sdpa on bf16-dequantized K/V, no write" if kv_int8
                else "sdpa, no write")
         print(f"  time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
@@ -1289,6 +1334,8 @@ def check_decode_modes(errors, results, kv_int8=False):
         (2, 32, 8, 128, [31, 100]),
         (4, 32, 32, 128, [0, 127, 128, 300]),   # edges: first, last, past S
     ]
+    edges = split_edges()   # row 9's split edges (row 8 reads pos + 1)
+    cases += edges
     kv_scale = (torch.full((n_l,), KV_SCALE, device="cuda") if kv_int8
                 else None)
     elem = 1 if kv_int8 else 2
@@ -1324,6 +1371,7 @@ def check_decode_modes(errors, results, kv_int8=False):
         if not (torch.equal(kc, before[0]) and torch.equal(vc, before[1])):
             errors.append(f"read-only decode {kind} {name}: cache written")
         kc2, vc2 = kc.clone(), vc.clone()
+        n0 = da.fused_decode_attention.launches
         got = da.fused_decode_attention(q, kn, vn, kc, vc, layer, pt,
                                         kv_scale=kv_scale)
         ref = da.fused_decode_attention_plain(q, kn, vn, kc2, vc2, layer, pt,
@@ -1331,6 +1379,8 @@ def check_decode_modes(errors, results, kv_int8=False):
         torch.cuda.synchronize()
         err[keys[1]] = max(err[keys[1]], compare(
             f"fused {name} pos={pos}", got, ref, errors))
+        if da.fused_decode_attention.launches != n0 + 1:
+            errors.append(f"fused decode {kind} {name}: not one launch")
         same = torch.equal(kc, kc2) and torch.equal(vc, vc2)
         moved = (kc != before[0]).any(-1).any(2) | (vc != before[1]).any(-1).any(2)
         allowed = torch.zeros_like(moved)
@@ -1343,7 +1393,7 @@ def check_decode_modes(errors, results, kv_int8=False):
         if not (same and only):
             errors.append(f"fused decode {kind} {name}: caches differ from "
                           "the plain write")
-        if b != 1:
+        if b != 1 or (b, hq, hkv, s, pos) in edges:
             continue
         p_ = pos[0]
         t_r = time_ms(lambda i: da.decode_attention_kernel(
@@ -1362,14 +1412,12 @@ def check_decode_modes(errors, results, kv_int8=False):
             vl = (vl.float() * KV_SCALE).to(torch.bfloat16)
         t_l = time_ms(lambda i: F.scaled_dot_product_attention(
             q[:, :, None], kl, vl))
-        live = 2 * b * hkv * (p_ + 1) * d * elem + (4 if kv_int8 else 0)
-        io = 2 * b * hq * d * 2 + b * 4
-        flops = 4 * b * hq * (p_ + 1) * d
-        # row 9 also reads the new K/V and writes row pos
-        for key, t_k, t_p, extra, what in (
-                (keys[0], t_r, t_rp, 0, "read-only"),
-                (keys[1], t_f, t_fp, 2 * b * hkv * d * (2 + elem), "fused")):
-            b_ms, b_by = bound_ms(live + io + extra, flops)
+        # row 9 also reads the new K/V (row pos is written, not read)
+        for key, t_k, t_p, write, what in (
+                (keys[0], t_r, t_rp, False, "read-only"),
+                (keys[1], t_f, t_fp, True, "fused")):
+            b_ms, b_by = bound_ms(*decode_work([p_ + 1], hq, hkv, d, elem,
+                                               kv_int8, write))
             print(f"  time {what} {name} pos={p_}: kernel {t_k:.4f} ms, "
                   f"plain {t_p:.4f} ms, library(sdpa, no write) {t_l:.4f} "
                   f"ms, bound {b_ms:.5f} ms ({b_by})")
@@ -1378,7 +1426,7 @@ def check_decode_modes(errors, results, kv_int8=False):
                     ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                     bound_by=b_by, shape=f"B=1 Hq=Hkv=32 S_max=128 pos=45 "
                     f"D=128 bf16 q, {'int8' if kv_int8 else 'bf16'} cache")
-        print(f"  time kernel 3 (dma_decode_attention, two launches) on the "
+        print(f"  time kernel 3 (dma_decode_attention, the same body) on the "
               f"same inputs: {t_3:.4f} ms; fused / kernel 3 = "
               f"{t_f / t_3:.2f}")
     for key in keys:
@@ -1812,18 +1860,16 @@ def check_paged_decode(errors, results, kv_int8=False):
                 <= pt[:, None])[:, None, None]
         t_l = time_ms(lambda i: F.scaled_dot_product_attention(
             q[:, :, None], kg, vg, attn_mask=mask))
-        live = sum(min(p + 1, mb * bs) for p in pos)
-        n_bytes = (2 * hkv * live * d * elem + 2 * b * hq * d * 2
-                   + 2 * b * hkv * d * 2 + b * mb * 4 + b * 4
-                   + (4 if kv_int8 else 0))
-        b_ms, b_by = bound_ms(n_bytes, 4 * hq * d * live)
+        live = [min(p + 1, mb * bs) for p in pos]
+        n_bytes, flops = decode_work(live, hq, hkv, d, elem, kv_int8, True)
+        b_ms, b_by = bound_ms(n_bytes + b * mb * 4, flops)   # + block table
         print(f"  time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
               f"library(sdpa over pre-gathered K/V, no write) {t_l:.4f} ms, "
               f"bound {b_ms:.5f} ms ({b_by})")
         results[key] = dict(
             ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
             bound_by=b_by, shape=f"B=9 (8 slots + trash) BS={bs} MB={mb} "
-            f"Hq=Hkv=32 D=128, {live} live rows, bf16 q, "
+            f"Hq=Hkv=32 D=128, {sum(live)} live rows, bf16 q, "
             f"{'int8' if kv_int8 else 'bf16'} pools")
     results[key]["max_abs_err"] = max_err
 
@@ -2443,7 +2489,8 @@ def run_decode_modes(path, sess, cfg, prompt, out_auto, errors, results):
     after the plain write) and 'fused' (row 9): decode ms/token, device
     ms/token, launches (the mode's kernel once per layer and decode step,
     kernel 3 never), first-decode-step logits against the 'auto' run's,
-    and whether the tokens equal the 'auto' run's. Where they first differ,
+    and whether the tokens equal the 'auto' run's ('fused' must: row 9
+    runs kernel 3's body). Where they first differ,
     at token k, both runs' step k is replayed on their common first k
     tokens: the mode's logits against the 'auto' ones, beside the top-2 gap
     of the 'auto' logits. The knob is restored."""
@@ -2495,6 +2542,8 @@ def run_decode_modes(path, sess, cfg, prompt, out_auto, errors, results):
             same = np.array_equal(out.output_ids, auto_ids)
             print(f"  {mode} tokens identical to 'auto': {same} "
                   f"({out.output_ids[0, :12].tolist()}...)")
+            if mode == "fused" and not same:  # row 9 runs kernel 3's body
+                errors.append(f"{tag} 'fused': tokens differ from 'auto'")
             if not same:
                 first = int(np.flatnonzero(out.output_ids[0] != auto_ids[0])[0])
                 got_i = replay(first)
@@ -2924,22 +2973,40 @@ def run_long_context(args, errors, results):
         steps(n_steps)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / n_steps
+        calls = da.dma_decode_attention.launches
         with profile(activities=acts) as prof:
             steps(n_steps)
             torch.cuda.synchronize()
+        calls = da.dma_decode_attention.launches - calls
         step_dev = sum(e.self_device_time_total for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA) / 1e3 / n_steps
+        # kernel 3 in the profile: at most one kernel a call (the profiler
+        # may miss a kernel as it starts) and no partial / combine kernel
+        k3 = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and "flash_decode" in e.key]
+        k3_ms = sum(e.self_device_time_total for e in k3) / 1e3 / n_steps
+        k3_n = sum(e.count for e in k3)
+        stale = [e.key for e in prof.key_averages()
+                 if "decode_partial" in e.key or "decode_combine" in e.key]
     print(f"  decode steps at positions {LONG_PROMPT + 2}-"
           f"{LONG_PROMPT + 1 + 2 * n_steps}: {wall:.3f} ms/token wall, "
           f"device {step_dev:.3f} ms/token: {100 * step_dev / wall:.1f}% "
           f"busy, {100 - 100 * step_dev / wall:.1f}% idle")
+    print(f"  kernel 3 (flash_decode): {k3_n} kernels in the profile for "
+          f"{calls} calls ({n_steps} steps of {n_l} layers), {k3_ms:.3f} "
+          f"device ms per decode token of {step_dev:.3f}")
+    if (calls != n_steps * n_l or k3_n > calls or k3_n < calls - n_l
+            or stale):
+        errors.append(f"path 5: kernel 3 ran {k3_n} kernels in the profile "
+                      f"for {calls} calls (one a call), others {stale}")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=8, max_name_column_width=60))
     results["_e2e"]["path 5"] = dict(
         layers=n_l, prefill_ms=pre_ms, decode_ms_per_token=dec_ms,
         decode_tokens_per_s=1e3 / dec_ms, e2e_tokens_per_s=LONG_NEW / ms * 1e3,
         prefill_device_ms=dev_ms, prefill_kernel1_ms=k1_ms,
-        decode_step_wall_ms=wall, decode_step_device_ms=step_dev)
+        decode_step_wall_ms=wall, decode_step_device_ms=step_dev,
+        decode_step_kernel3_ms=k3_ms)
 
 
 def gemv_8192_yardsticks(sess, results):
@@ -3350,6 +3417,7 @@ def check_fused_groups(errors, results):
     import torch
     import torch.nn.functional as F
     from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    sms = da.sm_count(0)
 
     print("kernels fused_decode_attention and dma_decode_attention at large "
           "GQA groups (one KV head, bf16 cache):")
@@ -3390,8 +3458,8 @@ def check_fused_groups(errors, results):
         vl = vc[layer, :, :, :p + 1].expand(1, hq, p + 1, d)
         t_l = time_ms(lambda i: F.scaled_dot_product_attention(
             q[:, :, None], kl, vl))
-        n_bytes = 2 * (p + 1) * d * 2 + 2 * hq * d * 2 + 2 * d * 2 + 4
-        b_ms, b_by = bound_ms(n_bytes, 4 * hq * (p + 1) * d)
+        b_ms, b_by = bound_ms(*decode_work([p + 1], hq, 1, d, 2, False,
+                                           True))
         print(f"  time {name}: kernel {t_k:.4f} ms (kernel 3 {t_3:.4f} ms), "
               f"plain {t_p:.4f} ms, library(sdpa on expanded K/V, no write)"
               f" {t_l:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
@@ -3402,8 +3470,114 @@ def check_fused_groups(errors, results):
             results[FUSED_G71] = entry
         else:
             results[FUSED_G71].setdefault("more", []).append(entry)
+    # the split edges at one KV head: 2048 rows split over the card
+    for hq, d in ((71, 64), (32, 128)):
+        edge = da.decode_split(4, 1, 2048, hq, sms)[1] * da.TILE
+        shape = (n_l, 4, 1, 2048, d)
+        kc, vc = (torch.randn(shape, generator=g, device="cuda"
+                              ).to(torch.bfloat16) for _ in range(2))
+        q = torch.randn((4, hq, d), generator=g, device="cuda").to(
+            torch.bfloat16)
+        kn, vn = (torch.randn((4, 1, d), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        pt = torch.tensor([edge - 1, edge, 2047, 2051], dtype=torch.int32,
+                          device="cuda")
+        kc2, vc2 = kc.clone(), vc.clone()
+        kc3, vc3 = kc.clone(), vc.clone()
+        ref = da.fused_decode_attention_plain(q, kn, vn, kc2, vc2, layer, pt)
+        got = da.fused_decode_attention(q, kn, vn, kc, vc, layer, pt)
+        got_3 = da.dma_decode_attention(q, kn, vn, kc3, vc3, layer, pt)
+        torch.cuda.synchronize()
+        name = f"group {hq} D={d} B=4 S_max=2048 pos={pt.tolist()}"
+        max_err = max(max_err, compare(f"row 9 {name}", got, ref, errors))
+        err_3 = max(err_3, compare(f"kernel 3 {name}", got_3, ref, errors))
+        for which, k_, v_ in (("row 9", kc, vc), ("kernel 3", kc3, vc3)):
+            if not (torch.equal(k_, kc2) and torch.equal(v_, vc2)):
+                errors.append(f"{which} {name}: cache differs from the "
+                              "plain write")
+        del kc, vc, kc2, vc2, kc3, vc3
     results[FUSED_G71]["max_abs_err"] = max_err
     fold_err(results, "dma_decode_attention", err_3)
+
+
+# (tag, Hq, Hkv, D): GQA groups 1 (LLaMA-7B), 32 and 71 (Falcon-7B) on
+# one KV head
+DECODE_GROUPS = [("group 1", 32, 32, 128), ("group 32", 32, 1, 128),
+                 ("group 71", 71, 1, 64)]
+# (S_max, pos): paths 1-4, Task A, the families' long prompts, path 5
+DECODE_LENGTHS = [(128, 45), (1152, TASK_A_PROMPT), (2048, 1037),
+                  (LONG_S_MAX, 8200)]
+
+
+def check_decode_table(errors, results):
+    """Kernel 3 and row 9 (one body) timed side by side at S_max 128 /
+    1152 / 2048 / 8320 and GQA groups 1 / 32 / 71, bf16 and int8 caches,
+    each beside its byte bound (the live K/V, q, the new row, out) and
+    SDPA over the live rows (bf16, the int8 cache dequantized beforehand,
+    K/V expanded to the group; no write). The rows go into the `more`
+    lists of the JSON entries of kernel 3 and row 9."""
+    import torch
+    import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    sms = da.sm_count(0)
+
+    print("kernels dma_decode_attention (kernel 3) and fused_decode_attention "
+          "(row 9) side by side:")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    n_l, layer = 2, 1
+    table = []
+    for tag, hq, hkv, d in DECODE_GROUPS:
+        for s, p in DECODE_LENGTHS:
+            for int8 in (False, True):
+                shape = (n_l, 1, hkv, s, d)
+                if int8:
+                    kc, vc = (torch.randint(-127, 128, shape, generator=g,
+                                            device="cuda", dtype=torch.int8)
+                              for _ in range(2))
+                    kvs = torch.full((n_l,), KV_SCALE, device="cuda")
+                else:
+                    kc, vc = (torch.randn(shape, generator=g, device="cuda"
+                                          ).to(torch.bfloat16)
+                              for _ in range(2))
+                    kvs = None
+                q = torch.randn((1, hq, d), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                kn, vn = (torch.randn((1, hkv, d), generator=g,
+                                      device="cuda").to(torch.bfloat16)
+                          for _ in range(2))
+                pt = torch.tensor([p], dtype=torch.int32, device="cuda")
+                t_3 = time_ms(lambda i: da.dma_decode_attention(
+                    q, kn, vn, kc, vc, layer, pt, kv_scale=kvs))
+                t_9 = time_ms(lambda i: da.fused_decode_attention(
+                    q, kn, vn, kc, vc, layer, pt, kv_scale=kvs))
+                kl, vl = kc[layer, :, :, :p + 1], vc[layer, :, :, :p + 1]
+                if int8:
+                    kl = (kl.float() * KV_SCALE).to(torch.bfloat16)
+                    vl = (vl.float() * KV_SCALE).to(torch.bfloat16)
+                kl = kl.expand(1, hq, p + 1, d) if hkv == 1 else kl
+                vl = vl.expand(1, hq, p + 1, d) if hkv == 1 else vl
+                t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+                    q[:, :, None], kl, vl))
+                elem = 1 if int8 else 2
+                b_ms, b_by = bound_ms(*decode_work([p + 1], hq, hkv, d, elem,
+                                                   int8, True))
+                shape_s = (f"B=1 Hq={hq} Hkv={hkv} D={d} S_max={s} pos={p} "
+                           f"bf16 q, {'int8' if int8 else 'bf16'} cache")
+                print(f"  {tag} S_max={s} pos={p} {'int8' if int8 else 'bf16'}"
+                      f": kernel 3 {t_3:.4f} ms, row 9 {t_9:.4f} ms, sdpa "
+                      f"{t_l:.4f} ms, bound {b_ms:.5f} ms ({b_by}), splits "
+                      f"{da.decode_split(1, hkv, s, hq // hkv, sms)}")
+                for key, t_k in ((INT8_DECODE if int8 else
+                                  "dma_decode_attention", t_3),
+                                 (FUSED_INT8 if int8 else FUSED, t_9)):
+                    results[key].setdefault("more", []).append(dict(
+                        ms=t_k, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                        shape=shape_s))
+                table.append(dict(group=tag, s_max=s, pos=p, int8=int8,
+                                  kernel3_ms=t_3, row9_ms=t_9, sdpa_ms=t_l,
+                                  bound_ms=b_ms))
+                del kc, vc, kl, vl
+    results["_e2e"]["decode table"] = table
 
 
 def check_family_attention(errors, results):
@@ -3476,9 +3650,8 @@ def check_family_attention(errors, results):
             kl, vl = kc[1, :, :, :p + 1], vc[1, :, :, :p + 1]
             t_l = time_ms(lambda i: F.scaled_dot_product_attention(
                 qd[:, :, None], kl, vl))
-            b_ms, b_by = bound_ms(
-                2 * hkv * (p + 1) * d * 2 + 2 * hq * d * 2 + 2 * hkv * d * 2
-                + 4, 4 * hq * (p + 1) * d)
+            b_ms, b_by = bound_ms(*decode_work([p + 1], hq, hkv, d, 2, False,
+                                               True))
             print(f"  time decode {name} pos={p}: kernel {t_k:.4f} ms, plain "
                   f"{t_p:.4f} ms, library(sdpa, no write) {t_l:.4f} ms, "
                   f"bound {b_ms:.5f} ms ({b_by})")
@@ -3847,9 +4020,10 @@ def run_families(args, errors, results):
     """GPT-J-6B, GPT-NeoX-20B, OPT-6.7b and Falcon-7B at their published
     widths, FAMILY_LAYERS layers, bf16 random weights (seed 0): one 8-token
     prompt, FAMILY_NEW greedy tokens per decode mode (Falcon also 'fused',
-    row 9 at its group of 71); the launches (kernel 2 once per layer,
-    kernel 3 or row 9 once per layer and decode step, at every family's
-    head dim), the first-step logits against the plain path."""
+    row 9 at its group of 71, its tokens identical to 'auto''s: the same
+    body); the launches (kernel 2 once per layer, kernel 3 or row 9 once
+    per layer and decode step, at every family's head dim), the first-step
+    logits against the plain path."""
     from unittest import mock
 
     import numpy as np
@@ -3865,6 +4039,7 @@ def run_families(args, errors, results):
         n_l, model = cfg.num_layers, by_architecture(cfg.architecture)
         params = model.init_params(cfg, seed=0, device="cuda")
         ids = np.random.default_rng(0).integers(3, cfg.vocab_size, (1, 8))
+        tokens = {}
         for mode in modes:
             with mock.patch.dict(knobs, decode_attn_mode=mode):
                 sess = GenerationSession(cfg, params, EngineConfig(
@@ -3888,6 +4063,7 @@ def run_families(args, errors, results):
                 if tag == "Falcon-7B" and mode == "fused":
                     results[FUSED_G71]["launches"] = launches.get(decode, 0)
                 check_tokens(name, out, FAMILY_NEW, cfg.vocab_size, errors)
+                tokens[mode] = np.asarray(out.output_ids)
                 got, ref = first_logits(model, sess, ids, attention_pairs())
                 compare(f"{name} first-step logits, kernels vs plain", got,
                         ref, errors, tol=LOGITS_TOL)
@@ -3898,6 +4074,11 @@ def run_families(args, errors, results):
                     layers=n_l, head_dim=cfg.head_dim, wall_ms=ms,
                     launches=launches)
                 del sess
+        if len(tokens) > 1:   # row 9 runs kernel 3's body: the same tokens
+            same = np.array_equal(tokens["fused"], tokens["auto"])
+            print(f"  {tag}: 'fused' tokens identical to 'auto': {same}")
+            if not same:
+                errors.append(f"{tag}: 'fused' tokens differ from 'auto'")
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3925,6 +4106,7 @@ def check_kernels(errors, results):
     check_paged_decode(errors, results, kv_int8=True)
     check_alibi_prefill(errors, results)
     check_fused_groups(errors, results)
+    check_decode_table(errors, results)
     check_family_attention(errors, results)
     check_float16(errors, results)
 

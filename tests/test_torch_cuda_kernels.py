@@ -175,23 +175,55 @@ def test_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d, s, lens):
     _assert_close(got, pa.prefill_attention_kernel_plain(q, k, v, lens), dtype)
 
 
-@pytest.mark.parametrize("d", [32, 96, 128, 256])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
-    g = torch.Generator(device=dev).manual_seed(d)
-    n_layers, b, s = 2, 4, 128
-    kc = torch.randn((n_layers, b, hkv, s, d), generator=g, device=dev).to(dtype)
-    vc = torch.randn_like(kc)
-    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
-    kn = torch.randn((b, hkv, d), generator=g, device=dev).to(dtype)
-    vn = torch.randn_like(kn)
-    pos = torch.tensor([0, 31, 32, 127], dtype=torch.int32, device=dev)
-    kc2, vc2 = kc.clone(), vc.clone()
-    got = da.dma_decode_attention(q, kn, vn, kc, vc, 1, pos)
-    ref = da.dma_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos)
+# Kernel 3 / row 9 calls (B, S_max, write positions): S_max 128 is one
+# split; at B = 5 and Hkv <= 4, 1024 rows split into 8-16 splits of 64 or
+# 128 rows (decode_split), so 127 / 128 are the last / first row of a
+# split, 1023 the last row and 1030 past it (no write, all rows).
+DECODE_CASES = [(4, 128, [0, 31, 32, 127]), (5, 1024, [0, 127, 128, 1023, 1030])]
+# GQA groups 1, 4, 8 and 8 on one KV head
+DECODE_GROUPS = [(4, 4), (8, 2), (32, 4), (8, 1)]
+
+
+def _write_case(fn, plain, q, kn, vn, kc, vc, pos, kv_scale, dtype):
+    """One call of kernel 3 or row 9 against its plain version: the output
+    within the dtype's bound, the caches equal to the plain write bit for
+    bit, no row but positions[b] moved, one launch."""
+    kc2, vc2, before = kc.clone(), vc.clone(), (kc.clone(), vc.clone())
+    launches = fn.launches
+    got = fn(q, kn, vn, kc, vc, 1, pos, kv_scale=kv_scale)
+    assert fn.launches == launches + 1
+    ref = plain(q, kn, vn, kc2, vc2, 1, pos, kv_scale=kv_scale)
+    torch.cuda.synchronize()
     _assert_close(got, ref, dtype)
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    moved = ((kc != before[0]).any(-1) | (vc != before[1]).any(-1))  # [L,B,H,S]
+    allowed = torch.zeros_like(moved)
+    s = kc.shape[3]
+    for i, p_ in enumerate(pos.tolist()):
+        if p_ < s:
+            allowed[1, i, :, p_] = True
+    assert not (moved & ~allowed).any()
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("hq,hkv", DECODE_GROUPS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
+    """Kernel 3 over a float cache: positions 0, S - 1, past S and on both
+    sides of a split boundary; with one KV head also B = 4 at ragged
+    positions 0-8200 of an 8320-row cache (26 splits: splits holding one
+    live row, splits holding all of theirs, empty ones)."""
+    cases = DECODE_CASES + ([(4, 8320, [0, 959, 4000, 8200])]
+                            if hkv == 1 and d == 128 else [])
+    for b, s, pos in cases:
+        splits, tps = da.decode_split(b, hkv, s, hq // hkv,
+                                      da.sm_count(dev))
+        assert s == 128 or splits > 1
+        q, kn, vn, kc, vc, _ = _decode_cache(dev, dtype, False, hq, hkv, b, s,
+                                             d, d + s)
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        _write_case(da.dma_decode_attention, da.dma_decode_attention_plain,
+                    q, kn, vn, kc, vc, pos, None, dtype)
 
 
 @pytest.mark.parametrize("d", [128, 1000, 4096])
@@ -234,35 +266,30 @@ def test_w8a8_kernel_matches_plain(dev, m, scales):
     torch.testing.assert_close(got2d, ref2d, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("d", [32, 96, 128, 256])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("hq,hkv", DECODE_GROUPS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_int8_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
-    g = torch.Generator(device=dev).manual_seed(d + hq)
-    n_layers, b, s = 2, 4, 128
-    kc = torch.randint(-127, 128, (n_layers, b, hkv, s, d), generator=g,
-                       device=dev, dtype=torch.int8)
-    vc = torch.randint(-127, 128, kc.shape, generator=g, device=dev,
-                       dtype=torch.int8)
-    kv_scale = torch.tensor([0.05, 0.021], device=dev)
-    q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
-    kn = (4 * torch.randn((b, hkv, d), generator=g, device=dev)).to(dtype)
-    vn = (4 * torch.randn((b, hkv, d), generator=g, device=dev)).to(dtype)
-    pos = torch.tensor([0, 31, 32, 127], dtype=torch.int32, device=dev)
-    kc2, vc2 = kc.clone(), vc.clone()
-    got = da.dma_decode_attention(q, kn, vn, kc, vc, 1, pos, kv_scale=kv_scale)
-    ref = da.dma_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos,
-                                        kv_scale=kv_scale)
-    _assert_close(got, ref, dtype)
-    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    """Kernel 3 over an int8 cache (the layer's scale 0.021), the cases of
+    test_decode_kernel_matches_plain."""
+    cases = DECODE_CASES + ([(4, 8320, [0, 959, 4000, 8200])]
+                            if hkv == 1 and d == 128 else [])
+    for b, s, pos in cases:
+        q, kn, vn, kc, vc, kv_scale = _decode_cache(dev, dtype, True, hq, hkv,
+                                                    b, s, d, d + hq + s)
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        _write_case(da.dma_decode_attention, da.dma_decode_attention_plain,
+                    q, kn, vn, kc, vc, pos, kv_scale, dtype)
 
 
+@pytest.mark.parametrize("s", [64, 1024])
 @pytest.mark.parametrize("kv_int8", [False, True])
-def test_decode_kernel_drops_a_write_past_the_cache(dev, kv_int8):
+def test_decode_kernel_drops_a_write_past_the_cache(dev, kv_int8, s):
     """pos == S_max (and past it) writes nothing and attends all S_max rows,
-    as the plain version (and the JAX scatter) does."""
+    as the plain version (and the JAX scatter) does; with one split and
+    with sixteen (every split holds live rows)."""
     g = torch.Generator(device=dev).manual_seed(11)
-    n_layers, b, hq, hkv, s, d = 2, 3, 8, 2, 64, 128
+    n_layers, b, hq, hkv, d = 2, 3, 8, 2, 128
     if kv_int8:
         kc = torch.randint(-127, 128, (n_layers, b, hkv, s, d), generator=g,
                            device=dev, dtype=torch.int8)
@@ -276,7 +303,9 @@ def test_decode_kernel_drops_a_write_past_the_cache(dev, kv_int8):
               for _ in range(2))
     pos = torch.tensor([s, 9, s + 3], dtype=torch.int32, device=dev)
     kc2, vc2, before = kc.clone(), vc.clone(), kc.clone()
+    launches = da.dma_decode_attention.launches
     got = da.dma_decode_attention(q, kn, vn, kc, vc, 1, pos, kv_scale=kv_scale)
+    assert da.dma_decode_attention.launches == launches + 1
     ref = da.dma_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos,
                                         kv_scale=kv_scale)
     torch.cuda.synchronize()
@@ -354,21 +383,21 @@ def test_read_only_decode_kernel_matches_plain(dev, dtype, hq, hkv, d,
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_decode_kernel_matches_plain(dev, dtype, hq, hkv, d, kv_int8):
     """Write positions 0, a tile edge, the last row and past S (no write,
-    all S rows); the caches equal the plain write bit for bit."""
+    all S rows), then on both sides of a split boundary of a 1024-row
+    cache; the caches equal the plain write bit for bit, no other row
+    moves, one launch a call."""
     q, kn, vn, kc, vc, kv_scale = _decode_cache(dev, dtype, kv_int8, hq, hkv,
                                                 6, 128, d, d + hkv)
     pos = torch.tensor([0, 31, 32, 100, 127, 300], dtype=torch.int32,
                        device=dev)
-    kc2, vc2 = kc.clone(), vc.clone()
-    launches = da.fused_decode_attention.launches
-    got = da.fused_decode_attention(q, kn, vn, kc, vc, 1, pos,
-                                    kv_scale=kv_scale)
-    assert da.fused_decode_attention.launches == launches + 1
-    ref = da.fused_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos,
-                                          kv_scale=kv_scale)
-    torch.cuda.synchronize()
-    _assert_close(got, ref, dtype)
-    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    _write_case(da.fused_decode_attention, da.fused_decode_attention_plain,
+                q, kn, vn, kc, vc, pos, kv_scale, dtype)
+    b, s, pos = DECODE_CASES[1]
+    q, kn, vn, kc, vc, kv_scale = _decode_cache(dev, dtype, kv_int8, hq, hkv,
+                                                b, s, d, d + hq + 1)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    _write_case(da.fused_decode_attention, da.fused_decode_attention_plain,
+                q, kn, vn, kc, vc, pos, kv_scale, dtype)
 
 
 def test_decode_modes_generate_on_cuda_match_cpu(dev):
@@ -625,8 +654,8 @@ def test_decode_and_streaming_wrappers_reject_bad_inputs(dev):
         da.decode_attention_kernel(new, cache, cache.clone(), 0, lens)
     with pytest.raises(ValueError):               # int8 cache, no kv_scale
         da.fused_decode_attention(new, new, new, cache, cache.clone(), 0, lens)
-    # a GQA group of 512 heads is no longer refused: row 9 takes the group
-    # in blocks of up to 8 query heads per KV head
+    # a GQA group of 512 heads is not refused: row 9 cuts a group whose
+    # state outgrows shared memory into head chunks
     big = torch.randn((1, 1, 1, 32, 128), device=dev)
     q = torch.randn((1, 512, 128), device=dev)
     got = da.fused_decode_attention(q, big[0, :, :, 0], big[0, :, :, 0], big,
@@ -671,19 +700,63 @@ def test_alibi_prefill_kernels_match_plain(dev, dtype, kernel, s, lens):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_decode_kernel_large_groups(dev, dtype, hq, d, kv_int8):
     """Row 9 with one KV head for the whole group (Falcon-7B: 71 heads of
-    64); the group's heads are split over blocks of up to 8."""
+    64), served in chunks of up to 8 heads: a 256-row cache, then a
+    2048-row one split over the card at positions 1037, the first row of
+    the second split, the last row and past it."""
     q, kn, vn, kc, vc, kv_scale = _decode_cache(dev, dtype, kv_int8, hq, 1,
                                                 2, 256, d, hq)
     pos = torch.tensor([5, 200], dtype=torch.int32, device=dev)
-    kc2, vc2 = kc.clone(), vc.clone()
-    got = da.fused_decode_attention(q, kn, vn, kc, vc, 1, pos,
-                                    kv_scale=kv_scale)
-    ref = da.fused_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos,
-                                          kv_scale=kv_scale)
-    torch.cuda.synchronize()
-    _assert_close(got, ref, dtype)
-    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    _write_case(da.fused_decode_attention, da.fused_decode_attention_plain,
+                q, kn, vn, kc, vc, pos, kv_scale, dtype)
+    b, s = 4, 2048
+    splits, tps = da.decode_split(b, 1, s, hq, da.sm_count(dev))
+    assert splits > 1
+    q, kn, vn, kc, vc, kv_scale = _decode_cache(dev, dtype, kv_int8, hq, 1, b,
+                                                s, d, hq + d)
+    pos = torch.tensor([1037, tps * da.TILE, 2047, 2048], dtype=torch.int32,
+                       device=dev)
+    _write_case(da.fused_decode_attention, da.fused_decode_attention_plain,
+                q, kn, vn, kc, vc, pos, kv_scale, dtype)
 
+
+
+@pytest.mark.parametrize("fn", [da.dma_decode_attention,
+                                da.fused_decode_attention],
+                         ids=["kernel3", "row9"])
+def test_decode_kernel_on_two_streams(dev, fn):
+    """Kernel 3 / row 9 launched on two streams at once at a shape split
+    over the card (one KV head, a group of 8, 2048 rows: 32 splits, a
+    grid small enough for both launches to run side by side), a bf16 and
+    an int8 cache: each stream merges its splits in a workspace of its
+    own, so every output equals the plain version, the caches equal the
+    plain write and each call adds one launch."""
+    hq, d, s, n_calls = 8, 128, 2048, 20
+    assert da.decode_split(1, 1, s, hq, da.sm_count(dev))[0] > 1
+    cases, refs = [], []
+    for kv_int8, p_, seed in ((False, 1037, 1), (True, s - 1, 2)):
+        q, kn, vn, kc, vc, kvs = _decode_cache(dev, torch.bfloat16, kv_int8,
+                                               hq, 1, 1, s, d, seed)
+        pos = torch.tensor([p_], dtype=torch.int32, device=dev)
+        kc2, vc2 = kc.clone(), vc.clone()
+        refs.append((da.dma_decode_attention_plain(
+            q, kn, vn, kc2, vc2, 1, pos, kv_scale=kvs), kc2, vc2))
+        cases.append((q, kn, vn, kc, vc, pos, kvs))
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    launches = fn.launches
+    outs = [[] for _ in cases]
+    for _ in range(n_calls):
+        for st, case, got in zip(streams, cases, outs):
+            q, kn, vn, kc, vc, pos, kvs = case
+            with torch.cuda.stream(st):
+                got.append(fn(q, kn, vn, kc, vc, 1, pos, kv_scale=kvs))
+    torch.cuda.synchronize()
+    assert fn.launches == launches + n_calls * len(cases)
+    for case, (ref, kc2, vc2), got in zip(cases, refs, outs):
+        assert torch.equal(case[3], kc2) and torch.equal(case[4], vc2)
+        for out in got:
+            _assert_close(out, ref, torch.bfloat16)
 
 def test_head_dim_without_a_kernel_raises_on_card(dev):
     """Head dim 80 has no instantiation: every attention op raises on the

@@ -1,0 +1,91 @@
+"""The host's split of kernel 3's and row 9's one launch (ops/kernels/
+decode_attention.py::decode_split, the function the wrappers call) over
+ranges of B, Hkv, S_max, the GQA group and the SM count: the splits tile
+the S_max rows in whole 64-row tiles, none empty; the split count stays
+within the kernel's limit; a short cache is one split; the grid (a block per
+split, chunk of up to 8 heads, kv head and sequence) fills the card
+whenever the cache and the split limit allow it, in one wave. Which rows
+each block then reads lives only in the kernel; the card tests (-m cuda)
+run groups 1-71 and reach its edges.
+"""
+
+import re
+from pathlib import Path
+
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+
+HEADER = (Path(da.__file__).resolve().parents[2] / "csrc"
+          / "flash_decode.cuh").read_text()
+
+
+H100_SMS = 132     # the SMs of the card the rule is tuned for
+
+
+def _constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", HEADER).group(1))
+
+
+def test_split_constants_match_the_kernel():
+    """The rule's tile, split limit, head chunk and blocks an SM are the
+    kernel's."""
+    assert da.TILE == _constant("kTile")
+    assert da.MAX_SPLITS == _constant("kMaxSplits") == 32
+    assert da.HEAD_CHUNK == _constant("kChunk")
+    assert re.search(rf"__launch_bounds__\(kThreads, {da.BLOCKS_PER_SM}\)",
+                     HEADER)
+
+
+@settings(max_examples=400, deadline=None)
+@given(b=st.integers(1, 64), hkv=st.integers(1, 64),
+       s_chunks=st.integers(1, 4096),
+       group=st.sampled_from([1, 2, 4, 8, 9, 32, 71, 128]),
+       sms=st.sampled_from([H100_SMS, 114, 78]))     # SXM, PCIe, a cut card
+def test_splits_tile_the_cache(b, hkv, s_chunks, group, sms):
+    s = da.CHUNK * s_chunks            # S_max % 32 == 0 (the wrappers' check)
+    splits, tps = da.decode_split(b, hkv, s, group, sms)
+    tiles = -(-s // da.TILE)
+    assert 1 <= splits <= da.MAX_SPLITS and tps >= 1
+    # split i covers tiles [i * tps, (i + 1) * tps): all rows, none empty
+    assert (splits - 1) * tps < tiles <= splits * tps
+    assert tiles >= da.SHORT_TILES or splits == 1
+    # the card fills whenever the cache and the split limit allow two
+    # blocks an SM, and a split grid stays within one wave of them
+    per_split = b * hkv * -(-group // da.HEAD_CHUNK)
+    blocks = splits * per_split
+    room = min(da.MAX_SPLITS, tiles if tiles >= da.SHORT_TILES else 1)
+    if per_split * room >= da.BLOCKS_PER_SM * sms:
+        assert blocks >= sms
+    assert splits == 1 or blocks <= da.BLOCKS_PER_SM * sms
+
+
+@given(b=st.integers(1, 256), hkv=st.integers(1, 128),
+       s=st.sampled_from([32, 64, 96, 128, 160, 192]),
+       group=st.integers(1, 80))
+def test_a_short_cache_is_one_split(b, hkv, s, group):
+    assert (da.decode_split(b, hkv, s, group, H100_SMS)
+            == (1, -(-s // da.TILE)))
+
+
+def test_the_paths_splits():
+    """The shapes the paths give kernel 3: paths 1-4 and the families
+    (S_max 128, B = 1 / 4) and serving (9 rows of 256) are one launch of
+    one split per kv head; path 5's 8320 rows and Task A's 1152 fill the
+    card; at 2048 rows one KV head takes 32 splits of a tile for a group
+    of 8 or 32 (4 chunks), 16 splits of 2 tiles for Falcon-7B's 71 (9
+    chunks)."""
+    def split(b, hkv, s, group=1):
+        return da.decode_split(b, hkv, s, group, H100_SMS)
+
+    assert split(1, 32, 128) == (1, 2)
+    assert split(4, 32, 128) == (1, 2)
+    assert split(9, 32, 256) == (1, 4)      # 264 // 288 blocks: 1
+    splits, tps = split(1, 32, 8320)        # LLaMA-7B, bs1
+    assert splits * 32 >= H100_SMS and splits * tps * da.TILE >= 8320
+    splits, _ = split(1, 32, 1152)          # Task A
+    assert splits * 32 >= H100_SMS
+    assert split(1, 1, 2048) == (32, 1)
+    assert split(1, 1, 2048, 32) == (32, 1)
+    assert split(1, 1, 2048, 71) == (16, 2)

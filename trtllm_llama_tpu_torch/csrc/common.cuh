@@ -66,6 +66,26 @@ cudaError_t allow_smem(K kernel, int bytes) {
              : cudaSuccess;
 }
 
+// KV-cache element codec of the decode kernels: enc stores an f32 value, dec
+// reads one back as f32 (`scale` is the layer's dequant scale, used by int8
+// caches only: enc(x) = clamp(rint(x / scale), +-127) by true division, as
+// the JAX package's _quant_kv; dec(c) = c * scale).
+template <typename TC>
+struct KVCodec {
+  __device__ static TC enc(float v, float) { return from_f<TC>(v); }
+  __device__ static float dec(TC c, float) { return to_f(c); }
+};
+template <>
+struct KVCodec<int8_t> {
+  __device__ static int8_t enc(float v, float scale) {
+    return static_cast<int8_t>(
+        fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f));
+  }
+  __device__ static float dec(int8_t c, float scale) {
+    return static_cast<float>(c) * scale;
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

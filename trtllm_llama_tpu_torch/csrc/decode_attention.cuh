@@ -1,9 +1,11 @@
-// One-token decode attention, with or without the in-place KV-cache write:
-// the body shared by kernel 3 (decode_attention.cu, a layer of the stacked
-// cache [B, Hkv, S, D], rows contiguous), row 8 (decode_attention.cu, the
-// same cache read-only) and kernel 14 (paged_decode_attention.cu, a layer of
-// the block pool [NB, Hkv, BS, D], rows found through a block table). They
-// differ only in the addressing policy `Rows`:
+// One-token decode attention over chunks of the cache, with partials in
+// device memory and a combine launch: the body of row 8 (decode_attention.cu,
+// `decode_attention_kernel`: a layer of the stacked cache [B, Hkv, S, D]
+// read-only, rows contiguous) and kernel 14 (paged_decode_attention.cu, a
+// layer of the block pool [NB, Hkv, BS, D] with the in-place KV write, rows
+// found through a block table). Kernel 3 and row 9 left this body for the
+// one-launch split-cache kernel of flash_decode.cuh; rows 8 and 14 are the
+// next to follow. They differ only in the addressing policy `Rows`:
 //
 //   Rows::kWrite                 true: positions[b] is the write position;
 //                                false: it is the cache length (no write)
@@ -20,12 +22,9 @@
 // or, read-only, with len = positions[b]: the rows j < clamp(len, 0, cap),
 // and for len <= 0 all cap rows with every score at the reference's finite
 // NEG_INF, so the softmax averages V over them (live_rows below).
-// where a float cache stores the value as is (enc/dec are the dtype cast),
-// and an int8 cache stores enc(x) = clamp(rint(x / scale), +-127) (a true
-// division, as the JAX package's _quant_kv; its Pallas kernels multiply by
-// 1/scale, which may move a code by one) and reads dec(c) = c * scale in
-// f32, scale = the layer's kv_scale read from device memory. Rows other than
-// the write row are left unchanged.
+// enc / dec are the cache codec of common.cuh (KVCodec: the dtype cast, or
+// int8 codes with the layer's kv_scale read from device memory). Rows other
+// than the write row are left unchanged.
 //
 // What bounds it on the H100: the K/V bytes of the live rows,
 // 2 * B * Hkv * n_live * D * sizeof(cache element), at 3.35 TB/s (int8
@@ -57,24 +56,6 @@ namespace decode {
 
 constexpr int kChunk = 32;   // cache rows per block (one per lane)
 constexpr int kWarps = 4;
-
-// Cache element codec: enc stores an f32 value, dec reads one back as f32
-// (`scale` is the layer's dequant scale, used by int8 caches only).
-template <typename TC>
-struct KVCodec {
-  __device__ static TC enc(float v, float) { return from_f<TC>(v); }
-  __device__ static float dec(TC c, float) { return to_f(c); }
-};
-template <>
-struct KVCodec<int8_t> {
-  __device__ static int8_t enc(float v, float scale) {
-    return static_cast<int8_t>(
-        fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f));
-  }
-  __device__ static float dec(int8_t c, float scale) {
-    return static_cast<float>(c) * scale;
-  }
-};
 
 // The rows sequence b attends, from v = positions[b] (see the note above).
 struct Live {

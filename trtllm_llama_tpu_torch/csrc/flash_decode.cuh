@@ -1,0 +1,616 @@
+// One-token decode attention fused with the in-place KV-cache write, in one
+// launch over one layer of the stacked cache [B, Hkv, S, D] (a sequence's
+// rows contiguous): the body of kernel 3 (decode_attention.cu,
+// `dma_decode_attention`, every default decode step) and row 9
+// (fused_decode_attention.cu, `fused_decode_attention`, the 'fused' mode).
+//
+// Replaces: trtllm_llama_tpu/ops/pallas/dma_decode_attention.py:156
+// (dma_decode_attention, pallas_call at :207) and
+// trtllm_llama_tpu/ops/pallas/attention.py:185 (fused_decode_attention,
+// pallas_call at :240). Both compute, for each sequence b with pos =
+// positions[b] and n_live = min(pos + 1, S):
+//   row pos = enc(k_new[b]), likewise v (dropped when pos >= S, which then
+//   attends all S rows);
+//   out[b, h] = softmax_f32((q[b, h] . dec(K[j])) * sm_scale, j < n_live)
+//               @ dec(V), p @ v in f32;
+// a float cache stores the value as is (enc / dec are the dtype cast), an
+// int8 cache enc(x) = clamp(rint(x / scale), +-127) by true division (the
+// JAX package's _quant_kv) and dec(c) = c * scale in f32 (common.cuh; here
+// the scale multiplies the f32 sums, which moves them by a rounding).
+//
+// What bounds it on the H100: the live K/V bytes, 2 * B * Hkv * n_live * D *
+// sizeof(cache element), at 3.35 TB/s (LLaMA-7B's bf16 cache at 8.2k rows:
+// 0.040 ms; int8 0.020). At a large GQA group (Falcon-7B's 71 heads on one
+// KV head) the f32 scoring on CUDA cores comes next. Design:
+//   - Split the cache over the card in one launch. Grid (split, kv head x
+//     head chunk, b); split s covers the whole 64-row tiles [s * tps,
+//     (s + 1) * tps) of the S rows, clipped to n_live. The host picks
+//     `splits` and `tps` from (B, Hkv, S, group) and the SM count alone
+//     (ops/kernels/decode_attention.py::decode_split: one wave of two
+//     blocks an SM), so no host sync. Each block leaves its running max,
+//     sum and acc[D] per head in a small workspace (one per CUDA stream,
+//     kept by the wrapper between calls, not allocated per call) and takes
+//     an arrival ticket; the last of a (kv head, chunk, b)'s splits to
+//     arrive merges them and resets the counter.
+//     No combine launch. A thread-block cluster merging through
+//     distributed shared memory was tried first: its launch cost ~25 us at
+//     8k rows and ~8 us at one live row (decode_breakdown.py, H100).
+//   - Serve the GQA group from as few reads as the heads allow: a block
+//     serves up to kChunk query heads of its kv head (q in shared memory,
+//     or in registers for LLaMA-7B's group of 1), so LLaMA-7B's and every
+//     group up to 8 read each KV head's rows once. A larger group is cut
+//     into balanced chunks of at most kChunk heads along grid y (Falcon-7B's
+//     71: 8 x 8 + 7), each chunk re-reading its split's rows from L2 (0.27
+//     MB at Falcon-7B's 1038 rows): a block serving all 71 heads spent its
+//     time on f32 scoring on one SM and merging 32 splits of 71 heads
+//     (0.066 ms against SDPA's 0.0106, decode_breakdown.py, H100).
+//   - Stream raw bytes: 16-byte cp.async of the stored codes through a
+//     4-stage ring of kRows-row stages (kRows * D * sizeof(element) <= 8 KB
+//     a stage and operand), rows padded by 16 bytes so lanes reading other
+//     rows hit other banks; codes read in registers as f32 (int8 by byte
+//     permutes, the layer's scale applied to the f32 sums).
+//   - Warp w takes its rows of every stage for all of the block's heads:
+//     lane (row, part) scores its part and the row's lanes add by
+//     shuffles, so every warp works at a group of 1; the warp's online
+//     softmax and p @ V (lane l: head dims [l * C, (l + 1) * C)) stay in
+//     registers. One block barrier a stage (the ring); the warps merge once.
+//   - The write race: only the block whose range holds pos touches row pos.
+//     The thread that would cp.async a 16-byte chunk of that row encodes it
+//     from k_new / v_new instead and stores it to the cache and to the
+//     stage, so the block attends dec(enc(k_new)) as stored and no block
+//     reads the row being written.
+// Scores, the softmax and p @ V stay in f32 on CUDA cores, as the contract
+// says.
+#pragma once
+
+#include <type_traits>
+
+#include "common.cuh"
+#include "wgmma.cuh"
+
+namespace tllm {
+namespace flash_decode {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;      // cache rows of a split's unit (decode_split)
+constexpr int kStages = 4;     // cp.async ring
+constexpr int kMaxSplits = 32;  // splits of one (kv head, b)
+
+// Stage geometry of a cache element type and head dim.
+template <typename TC, int D>
+struct Shape {
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(TC));
+  static constexpr int kStride = kRowBytes + 16;  // padded row in a stage
+  static constexpr int kRows = 8192 / kRowBytes >= 64   ? 64
+                               : 8192 / kRowBytes >= 32 ? 32
+                                                        : 16;
+  static constexpr int kParts = kThreads / kRows;  // lanes scoring a row
+  static constexpr int kPart = D / kParts;         // head dims of a part
+  static constexpr int kCpr = kRowBytes / 16;      // 16-byte chunks a row
+  static constexpr int kChunks = kRows * kCpr;
+  static constexpr int kC = D / 32;                // head dims a lane in p @ V
+  static constexpr int kStageBytes = kRows * kStride;
+  static constexpr int kRingBytes = 2 * kStages * kStageBytes;
+  static_assert(D % kParts == 0 && D % 32 == 0 && kRowBytes % 16 == 0,
+                "unsupported head dim");
+};
+
+// q in shared memory, in its own dtype T, part by part: a part of kPart
+// elements padded by 16 bytes, so the parts that a warp reads at once sit
+// in different banks.
+template <typename T, typename TC, int D>
+__host__ __device__ constexpr int q_stride() {
+  return Shape<TC, D>::kPart + 16 / static_cast<int>(sizeof(T));
+}
+
+// The alignment of n bytes read as one vector: their lowest set bit, at
+// most 16 (the widest load).
+constexpr size_t pack_align(size_t n) {
+  return (n & (~n + 1)) < 16 ? (n & (~n + 1)) : 16;
+}
+
+template <typename E, int N>
+struct alignas(pack_align(sizeof(E) * N)) Pack {
+  E v[N];
+};
+
+__device__ __forceinline__ float raw_f(int8_t c) { return static_cast<float>(c); }
+template <typename E>
+__device__ __forceinline__ float raw_f(E v) {
+  return to_f(v);
+}
+
+// x[i] = the N elements at p as f32, read as one vector: a float cache's
+// values, an int8 cache's integer codes (the kernels apply the layer's
+// scale to the f32 sums: s * scale * sm_scale, and p @ V times scale).
+// Codes go four at a time: each, offset by 128, is planted in the low
+// mantissa of 2^23 by a byte permute and 2^23 + 128 subtracted, exactly
+// and at the full rate (a conversion instruction runs at a quarter of it).
+template <typename E, int N>
+__device__ __forceinline__ void load_raw(const E* p, float (&x)[N]) {
+  if constexpr (std::is_same<E, int8_t>::value && N % 4 == 0) {
+    const Pack<uint32_t, N / 4> pw =
+        *reinterpret_cast<const Pack<uint32_t, N / 4>*>(p);
+#pragma unroll
+    for (int w = 0; w < N / 4; ++w) {
+      const uint32_t u = pw.v[w] ^ 0x80808080u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[4 * w + j] =
+            __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) -
+            8388736.f;
+    }
+  } else {
+    const Pack<E, N> pk = *reinterpret_cast<const Pack<E, N>*>(p);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = raw_f(pk.v[i]);
+  }
+}
+
+struct Params {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  void* kc;
+  void* vc;
+  const float* kv_scale;
+  const int* positions;
+  void* out;
+  float* part;    // [B, Hkv, splits, group, D + 2]: the splits' states
+  int* counters;  // [B, Hkv * head chunks]: arrivals, 0 between launches
+  int Hq, Hkv, S;
+  int tps;    // 64-row tiles a split covers
+  int heads;  // query heads a block serves (a chunk of the group)
+  float sm_scale;
+};
+
+// What a block covers: split blockIdx.x of (kv head, head chunk) blockIdx.y
+// of sequence blockIdx.z; its rows [row_begin, row_end) in n_st stages.
+struct Block {
+  int split, n_split, group, hk, hc, b, g0, heads;
+  int pos, row_begin, row_end, n_st;
+  float kvs;
+  size_t panel;     // row 0 of (b, hk) in the layer's cache, in rows
+  size_t new_base;  // (b, hk) in k_new / v_new, in elements
+};
+
+template <typename TC, int D>
+__device__ __forceinline__ Block block_of(const Params& p) {
+  constexpr int kRows = Shape<TC, D>::kRows;
+  Block k;
+  k.split = blockIdx.x;
+  k.n_split = gridDim.x;
+  k.group = p.Hq / p.Hkv;
+  const int n_hc = gridDim.y / p.Hkv;
+  k.hk = blockIdx.y / n_hc;
+  k.hc = blockIdx.y - k.hk * n_hc;
+  k.b = blockIdx.z;
+  k.g0 = k.hc * p.heads;
+  k.heads = min(p.heads, k.group - k.g0);
+  k.pos = p.positions[k.b];
+  const int n_live = min(k.pos + 1, p.S);
+  k.row_begin = k.split * p.tps * kTile;
+  k.row_end = min(k.row_begin + p.tps * kTile, n_live);
+  k.n_st = k.row_end > k.row_begin
+               ? (k.row_end - k.row_begin + kRows - 1) / kRows
+               : 0;
+  k.kvs = p.kv_scale != nullptr ? *p.kv_scale : 1.f;
+  k.panel = (static_cast<size_t>(k.b) * p.Hkv + k.hk) * p.S;
+  k.new_base = (static_cast<size_t>(k.b) * p.Hkv + k.hk) * D;
+  return k;
+}
+
+// q of the block's heads into shared memory, part by part:
+// qs[(g * kParts + part) * q_stride + j] = q[g, part * kPart + j].
+template <typename T, typename TC, int D>
+__device__ __forceinline__ void load_q(const Params& p, const Block& k,
+                                       T* qs) {
+  using Sh = Shape<TC, D>;
+  const T* qg = static_cast<const T*>(p.q) +
+                (static_cast<size_t>(k.b) * p.Hq + k.hk * k.group + k.g0) * D;
+  for (int i = threadIdx.x; i < k.heads * D; i += kThreads) {
+    const int g = i / D, d = i - g * D;
+    qs[(g * Sh::kParts + d / Sh::kPart) * q_stride<T, TC, D>() +
+       d % Sh::kPart] = qg[i];
+  }
+}
+
+// The dot product of a thread's kPart cache elements with the same part of
+// the q at qp (f32 products and sum).
+template <typename T, int kPart>
+__device__ __forceinline__ float dot_part(const T* qp, const float (&kx)[kPart]) {
+  const Pack<T, kPart> qv = *reinterpret_cast<const Pack<T, kPart>*>(qp);
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPart; ++j) s = fmaf(to_f(qv.v[j]), kx[j], s);
+  return s;
+}
+
+// Stage i of the block's rows into ring slot i % kStages: rows row_begin +
+// i * kRows + [0, kRows), those at or past row_end zero-filled by cp.async
+// (src-size 0). The 16-byte chunks of row pos are not read: the thread that
+// would copy one encodes it from k_new / v_new, stores it to the stage and,
+// for head chunk 0, to the cache (the only write of the row).
+template <typename T, typename TC, int D>
+__device__ __forceinline__ void load_stage(const Params& p, const Block& k,
+                                           unsigned char* ring, int i) {
+  using Sh = Shape<TC, D>;
+  constexpr int kEpc = 16 / static_cast<int>(sizeof(TC));  // elements a chunk
+  const int row0 = k.row_begin + i * Sh::kRows;
+  unsigned char* ks = ring + (i % kStages) * Sh::kStageBytes;
+  unsigned char* vs = ring + (kStages + i % kStages) * Sh::kStageBytes;
+  unsigned char* kbytes = static_cast<unsigned char*>(p.kc);
+  unsigned char* vbytes = static_cast<unsigned char*>(p.vc);
+  for (int c = threadIdx.x; c < Sh::kChunks; c += kThreads) {
+    const int r = c / Sh::kCpr, cc = c - r * Sh::kCpr;
+    const int row = row0 + r;
+    const size_t goff = (k.panel + row) * Sh::kRowBytes + cc * 16;
+    unsigned char* kd = ks + r * Sh::kStride + cc * 16;
+    unsigned char* vd = vs + r * Sh::kStride + cc * 16;
+    if (row == k.pos) {  // only inside the owner's range (pos < S)
+      const T* kn = static_cast<const T*>(p.k_new) + k.new_base + cc * kEpc;
+      const T* vn = static_cast<const T*>(p.v_new) + k.new_base + cc * kEpc;
+      Pack<TC, kEpc> kp, vp;
+#pragma unroll
+      for (int j = 0; j < kEpc; ++j) {
+        kp.v[j] = KVCodec<TC>::enc(to_f(kn[j]), k.kvs);
+        vp.v[j] = KVCodec<TC>::enc(to_f(vn[j]), k.kvs);
+      }
+      *reinterpret_cast<Pack<TC, kEpc>*>(kd) = kp;
+      *reinterpret_cast<Pack<TC, kEpc>*>(vd) = vp;
+      if (k.hc == 0) {
+        *reinterpret_cast<Pack<TC, kEpc>*>(kbytes + goff) = kp;
+        *reinterpret_cast<Pack<TC, kEpc>*>(vbytes + goff) = vp;
+      }
+    } else {
+      const bool live = row < k.row_end;
+      gemm::cp_async16(gemm::smem_addr(kd), live ? kbytes + goff : kbytes,
+                       live);
+      gemm::cp_async16(gemm::smem_addr(vd), live ? vbytes + goff : vbytes,
+                       live);
+    }
+  }
+}
+
+// After the block's state is in shared memory (running max mx[g], sum
+// sm[g], acc fin[g][D] of raw V for its heads), write the output: at one
+// split directly; else the block leaves its state in the workspace, takes
+// an arrival ticket, and the last of the splits of its (kv head, chunk, b)
+// to arrive merges all of them (the others return) and sets the counter
+// back to 0 for the next launch. The merge loads every split's max and sum
+// at once into `scratch` (2 * heads * splits floats of shared memory),
+// weighs split j of head g by exp(m_j - max) / sum, then reads each live
+// split's acc once, coalesced.
+template <typename T, int D>
+__device__ __forceinline__ void merge_splits(const Params& p, const Block& k,
+                                             const float* mx, const float* sm,
+                                             const float* fin,
+                                             float* scratch) {
+  constexpr int kState = D + 2;  // acc[D], max, sum
+  __syncthreads();               // the block's state is complete
+  T* out = static_cast<T*>(p.out) +
+           (static_cast<size_t>(k.b) * p.Hq + k.hk * k.group + k.g0) * D;
+  const int n = k.n_split;
+  if (n == 1) {
+    for (int i = threadIdx.x; i < k.heads * D; i += kThreads)
+      out[i] = from_f<T>(fin[i] * k.kvs / sm[i / D]);  // int8: V's scale
+    return;
+  }
+  // split j of head g at all + (j * group + g) * kState
+  float* all = p.part + (static_cast<size_t>(k.b) * p.Hkv + k.hk) * n *
+                            k.group * kState +
+               static_cast<size_t>(k.g0) * kState;
+  const size_t split_stride = static_cast<size_t>(k.group) * kState;
+  float* mine = all + k.split * split_stride;
+  for (int i = threadIdx.x; i < k.heads * kState; i += kThreads) {
+    const int g = i / kState, j = i - g * kState;
+    mine[i] = j < D ? fin[g * D + j] : j == D ? mx[g] : sm[g];
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ int last;
+  if (threadIdx.x == 0) {
+    int* c = p.counters + static_cast<size_t>(k.b) * gridDim.y + blockIdx.y;
+    last = atomicAdd(c, 1) == n - 1;
+    if (last) *c = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float* wm = scratch;                  // [heads][n]: split j's max, weight
+  float* wl = scratch + k.heads * n;    // [heads][n]: split j's sum
+  for (int i = threadIdx.x; i < k.heads * n; i += kThreads) {
+    const int g = i / n, j = i - g * n;
+    const float* st = all + j * split_stride + static_cast<size_t>(g) * kState;
+    wm[i] = __ldcg(st + D);
+    wl[i] = __ldcg(st + D + 1);
+  }
+  __syncthreads();
+  for (int g = threadIdx.x; g < k.heads; g += kThreads) {
+    float m = kLowest;
+    for (int j = 0; j < n; ++j) m = fmaxf(m, wm[g * n + j]);
+    float l = 0.f;
+    for (int j = 0; j < n; ++j) {  // a split with no live rows weighs 0
+      const float w = expf(wm[g * n + j] - m);
+      wm[g * n + j] = w;
+      l = fmaf(w, wl[g * n + j], l);
+    }
+    const float r = k.kvs / l;  // int8: V's scale
+    for (int j = 0; j < n; ++j) wm[g * n + j] *= r;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < k.heads * D; i += kThreads) {
+    const int g = i / D, d = i - g * D;
+    const float* st = all + static_cast<size_t>(g) * kState + d;
+    float a = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const float w = wm[g * n + j];
+      if (w != 0.f) a = fmaf(w, __ldcg(st + j * split_stride), a);  // live
+    }
+    out[i] = from_f<T>(a);
+  }
+}
+
+constexpr int kChunk = 8;  // query heads a block serves, at most
+
+// Dynamic shared memory of the warp kernel: the ring (which holds the
+// warps' states at the end), q, the block's state per head, the merge's
+// scratch.
+template <typename T, typename TC, int D>
+constexpr int warp_smem_bytes(int heads, int splits) {
+  using Sh = Shape<TC, D>;
+  return Sh::kRingBytes +
+         heads * Sh::kParts * q_stride<T, TC, D>() * static_cast<int>(sizeof(T)) +
+         heads * (D + 2) * 4 + 2 * heads * splits * 4;
+}
+
+// A chunk of at most kChunk heads of a group: warp w takes rows
+// [w * kRw, (w + 1) * kRw) of every stage for all heads, lane (row, part)
+// scoring its part and the row's kParts lanes adding by shuffles; the warp's
+// online softmax runs over its rows by shuffles and its running max, sum
+// and acc (lane l: head dims [l * C, (l + 1) * C)) stay in registers. One
+// block barrier a stage (the ring); the warps merge once, at the end.
+// Two blocks an SM (at most 128 registers a thread): a group of 1 at 8k
+// rows has ~2 blocks per SM streaming. kH: the most heads (1, with q in
+// registers, for LLaMA-7B's group of 1; or kChunk).
+template <typename T, typename TC, int D, int kH>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_decode_kernel(const Params p) {
+  using Sh = Shape<TC, D>;
+  constexpr int kParts = Sh::kParts, kPart = Sh::kPart, C = Sh::kC;
+  constexpr int kRw = Sh::kRows / kWarps;  // rows of a stage a warp takes
+  static_assert(kRw * kParts == 32, "a warp covers whole rows");
+  static_assert(kWarps * kH * (D + 2) * 4 <= Sh::kRingBytes,
+                "the warps' states fit the ring");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Block k = block_of<TC, D>(p);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int part = lane % kParts;
+  const int r = warp * kRw + lane / kParts;  // this lane's row of a stage
+  constexpr int kQs = q_stride<T, TC, D>();
+  unsigned char* ring = smem;
+  T* qs = reinterpret_cast<T*>(smem + Sh::kRingBytes);
+  float* fin = reinterpret_cast<float*>(qs + k.heads * kParts * kQs);  // [heads][D]
+  float* mx = fin + k.heads * D;
+  float* sm = mx + k.heads;
+  float* scratch = sm + k.heads;
+  float qr[kH == 1 ? kPart : 1];  // a group of 1: this lane's part of q
+  if constexpr (kH == 1) {
+    const T* qg = static_cast<const T*>(p.q) +
+                  (static_cast<size_t>(k.b) * p.Hq + k.hk * k.group + k.g0) *
+                      D +
+                  part * kPart;
+#pragma unroll
+    for (int j = 0; j < kPart; ++j) qr[j] = to_f(qg[j]);
+  } else {
+    load_q<T, TC, D>(p, k, qs);
+  }
+  const float qk_scale = p.sm_scale * k.kvs;
+
+  float m[kH], l[kH], acc[kH][C];
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+    m[h] = kLowest;
+    l[h] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[h][c] = 0.f;
+  }
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < k.n_st) load_stage<T, TC, D>(p, k, ring, i);
+    gemm::cp_async_commit();
+  }
+  for (int i = 0; i < k.n_st; ++i) {
+    gemm::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage i landed; every warp is done with stage i - 1
+    if (i + kStages - 1 < k.n_st) load_stage<T, TC, D>(p, k, ring, i + kStages - 1);
+    gemm::cp_async_commit();  // (an empty group keeps the count)
+    const unsigned char* ks = ring + (i % kStages) * Sh::kStageBytes;
+    const unsigned char* vs = ring + (kStages + i % kStages) * Sh::kStageBytes;
+    const bool valid = k.row_begin + i * Sh::kRows + r < k.row_end;
+    float kx[kPart];
+    load_raw<TC, kPart>(
+        reinterpret_cast<const TC*>(ks + r * Sh::kStride) + part * kPart, kx);
+    float pv[kH];
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      pv[h] = 0.f;
+      if (h < k.heads) {  // warp-uniform
+        float s = 0.f;
+        if constexpr (kH == 1) {
+#pragma unroll
+          for (int j = 0; j < kPart; ++j) s = fmaf(qr[j], kx[j], s);
+        } else {
+          s = dot_part<T, kPart>(qs + (h * kParts + part) * kQs, kx);
+        }
+#pragma unroll
+        for (int o = kParts / 2; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        s = valid ? s * qk_scale : neg_infinity();
+        float mt = s;  // the max over the warp's rows (-inf if none live)
+#pragma unroll
+        for (int o = kParts; o < 32; o <<= 1)
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+        const float m_new = fmaxf(m[h], mt);
+        const float e = expf(s - m_new);
+        float es = e;  // each row once: lanes of one part, all rows
+#pragma unroll
+        for (int o = kParts; o < 32; o <<= 1)
+          es += __shfl_xor_sync(0xffffffffu, es, o);
+        const float a = expf(m[h] - m_new);
+        l[h] = fmaf(l[h], a, es);
+        m[h] = m_new;
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[h][c] *= a;
+        pv[h] = e;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRw; ++rr) {
+      float v[C];
+      load_raw<TC, C>(reinterpret_cast<const TC*>(
+                          vs + (warp * kRw + rr) * Sh::kStride) + lane * C,
+                      v);
+#pragma unroll
+      for (int h = 0; h < kH; ++h) {
+        if (h < k.heads) {
+          const float ph = __shfl_sync(0xffffffffu, pv[h], rr * kParts);
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[h][c] = fmaf(ph, v[c], acc[h][c]);
+        }
+      }
+    }
+  }
+  gemm::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the warps' states go there
+
+  float* wst = reinterpret_cast<float*>(ring);  // [kWarps][heads][D + 2]
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+    if (h < k.heads) {
+      float* w = wst + (warp * k.heads + h) * (D + 2);
+#pragma unroll
+      for (int c = 0; c < C; ++c) w[lane * C + c] = acc[h][c];
+      if (lane == 0) {
+        w[D] = m[h];
+        w[D + 1] = l[h];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < k.heads * D; i += kThreads) {
+    const int h = i / D, d = i - h * D;
+    float mm = kLowest;
+    for (int w = 0; w < kWarps; ++w)
+      mm = fmaxf(mm, wst[(w * k.heads + h) * (D + 2) + D]);
+    float a = 0.f, ll = 0.f;
+    for (int w = 0; w < kWarps; ++w) {  // a warp with no rows weighs 0
+      const float* st = wst + (w * k.heads + h) * (D + 2);
+      const float e = expf(st[D] - mm);
+      a = fmaf(e, st[d], a);
+      ll = fmaf(e, st[D + 1], ll);
+    }
+    fin[i] = a;
+    if (d == 0) {
+      mx[h] = mm;
+      sm[h] = ll;
+    }
+  }
+  merge_splits<T, D>(p, k, mx, sm, fin, scratch);
+}
+
+// Pointers and sizes of one launch (the cache pointers are the layer's).
+struct Args {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  void* kc;
+  void* vc;
+  const void* kv_scale;
+  const void* positions;
+  void* out;
+  void* part;      // the workspace (null at one split)
+  void* counters;
+  int B, Hq, Hkv, S;
+  int splits, tps;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename K>
+cudaError_t launch_grid(K kernel, const Args& a, int chunks, int smem,
+                        const Params& prm) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.splits, a.Hkv * chunks, a.B), kThreads, smem, a.stream>>>(
+      prm);
+  return cudaGetLastError();
+}
+
+// A group of more than kChunk heads is cut into balanced chunks of at most
+// kChunk along grid y (Falcon-7B's 71 as 8 x 8 + 7), each chunk's block
+// reading its split's K/V again (from L2: 0.27 MB at Falcon-7B's 1038 rows).
+template <typename T, typename TC, int D>
+cudaError_t launch(const Args& a) {
+  const int group = a.Hq / a.Hkv;
+  const int chunks = (group + kChunk - 1) / kChunk;
+  const int heads = (group + chunks - 1) / chunks;
+  const Params prm{a.q,  a.k_new, a.v_new, a.kc, a.vc,
+                   static_cast<const float*>(a.kv_scale),
+                   static_cast<const int*>(a.positions),
+                   a.out, static_cast<float*>(a.part),
+                   static_cast<int*>(a.counters),
+                   a.Hq, a.Hkv, a.S, a.tps, heads, a.sm_scale};
+  const int smem = warp_smem_bytes<T, TC, D>(heads, a.splits);
+  if (heads == 1)
+    return launch_grid(flash_decode_kernel<T, TC, D, 1>, a, chunks, smem, prm);
+  return launch_grid(flash_decode_kernel<T, TC, D, kChunk>, a, chunks, smem,
+                     prm);
+}
+
+template <typename T, typename TC>
+cudaError_t launch_d(int D, const Args& a) {
+  switch (D) {
+    case 32:
+      return launch<T, TC, 32>(a);
+    case 64:
+      return launch<T, TC, 64>(a);
+    case 96:
+      return launch<T, TC, 96>(a);
+    case 128:
+      return launch<T, TC, 128>(a);
+    case 256:
+      return launch<T, TC, 256>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// dtype: the activation code (kF32 / kBF16 / kF16); the cache holds that
+// type or, with kv_int8, int8. The splits must cover the S rows in whole
+// 64-row tiles with none empty, at most kMaxSplits of them; more than one
+// needs the workspace.
+inline cudaError_t dispatch(int dtype, bool kv_int8, int D, const Args& a) {
+  const int tiles = (a.S + kTile - 1) / kTile;
+  if (a.splits < 1 || a.splits > kMaxSplits || a.tps < 1 ||
+      a.splits * a.tps < tiles || (a.splits - 1) * a.tps >= tiles ||
+      a.Hkv < 1 || a.Hq % a.Hkv != 0 ||
+      (a.splits > 1 && (a.part == nullptr || a.counters == nullptr)))
+    return cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return kv_int8 ? launch_d<__nv_bfloat16, int8_t>(D, a)
+                   : launch_d<__nv_bfloat16, __nv_bfloat16>(D, a);
+  if (dtype == kF16)
+    return kv_int8 ? launch_d<__half, int8_t>(D, a)
+                   : launch_d<__half, __half>(D, a);
+  if (dtype == kF32)
+    return kv_int8 ? launch_d<float, int8_t>(D, a)
+                   : launch_d<float, float>(D, a);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace flash_decode
+}  // namespace tllm

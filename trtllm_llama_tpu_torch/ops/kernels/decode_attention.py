@@ -1,31 +1,33 @@
 """Decode attention over one layer of the stacked KV cache: kernel 3
-(the write plus attention, csrc/decode_attention.cu, its body in
-csrc/decode_attention.cuh, shared with kernel 14), row 8 (the same
-attention read-only, csrc/decode_attention.cu) and row 9 (the write plus
-attention in one launch with no split over the cache,
-csrc/fused_decode_attention.cu).
+(the write plus attention, csrc/decode_attention.cu), row 9 (the same
+function, csrc/fused_decode_attention.cu) and row 8 (the attention
+read-only, csrc/decode_attention.cu).
 
 Kernel 3 replaces `trtllm_llama_tpu/ops/pallas/dma_decode_attention.py::
-dma_decode_attention`, for bf16/f32 caches and int8 caches with one static
-dequant scale per layer. Bound on the H100: the live K/V bytes,
-2*B*Hkv*(pos+1)*D*(2 for bf16, 1 for int8). Design: flash-decoding split-K
-over only the live 32-row chunks, one block per (chunk, kv head, b)
-covering the GQA group, then a combine launch; the block owning pos's chunk
-is the only writer of row pos and attends it as stored (int8: encoded then
-decoded), so the write never races a reader (see the source's note). A
+dma_decode_attention` (:156), for bf16/f32 caches and int8 caches with one
+static dequant scale per layer; row 9 replaces `trtllm_llama_tpu/ops/
+pallas/attention.py::fused_decode_attention` (:185), the 'fused' mode.
+Both compute the same function and run one body, the split-cache kernel
+of csrc/flash_decode.cuh, each from a library of its own with its own
+counter. Bound on the H100: the live K/V bytes,
+2*B*Hkv*(pos+1)*D*(2 for bf16, 1 for int8), at 3.35 TB/s. Design: one
+launch; the S_max rows split into `decode_split`'s ranges of whole 64-row
+tiles, one block per (split, kv head, b) serving up to HEAD_CHUNK of the
+GQA group's query heads (a larger group in chunks); the last of a (kv
+head, chunk, b)'s splits to finish merges their softmax states from a
+small workspace that the wrapper keeps for each stream (no combine launch,
+no allocation per call); K/V streamed as stored through a cp.async ring
+and read in registers; the block whose range holds pos is the only writer
+of row pos and attends it as stored (int8: encoded then decoded). A
 position >= S_max writes nothing (the JAX scatter drops it) and attends
 all S_max rows.
 
 Row 8 (`decode_attention_kernel`) replaces `trtllm_llama_tpu/ops/pallas/
-attention.py::decode_attention_kernel`: kernel 3's body with a read-only
-addressing policy over the rows < cache_lens[b] (a length <= 0 averages V
-over all S rows, as the reference's all-masked softmax does). Row 9
-(`fused_decode_attention`) replaces `attention.py::fused_decode_attention`:
-kernel 3's function in one launch: blocks of up to 8 query heads per
-(kv head, b) (one for a GQA group of 1; Falcon-7B's 71 heads at D=64 in
-9) walk the live rows with an online softmax, with no partials and no
-combine launch; block 0 writes row pos and every block attends its own
-decoded copy of it, so no block reads the row being written.
+attention.py::decode_attention_kernel`: the read-only policy of
+csrc/decode_attention.cuh (shared with kernel 14) over the rows <
+cache_lens[b], 32-row chunks with partials in device memory and a combine
+launch (a length <= 0 averages V over all S rows, as the reference's
+all-masked softmax does).
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors (head dims 32, 64, 96, 128 and 256, as kernel 14;
@@ -42,14 +44,45 @@ from ...quantization.tensors import quantize_int8
 from . import _build
 
 NEG_INF = -1e9
-CHUNK = 32      # cache rows per block (kChunk in the source)
+CHUNK = 32      # S_max must be a whole number of these (row 8's chunk)
+TILE = 64       # cache rows of a split's unit (kTile in flash_decode.cuh)
+MAX_SPLITS = 32     # splits of one (kv head, b) (kMaxSplits)
+HEAD_CHUNK = 8      # query heads a block serves (kChunk)
+SHORT_TILES = 4     # a cache of fewer tiles than this stays one split
+BLOCKS_PER_SM = 2   # the kernel's launch bound
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"tllm_decode_attention": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+_WRITE_ARGS = [_P] * 10 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
+_SIGNATURES = {"tllm_decode_attention": _WRITE_ARGS,
                "tllm_decode_attention_read": [_P] * 9 + [_I] * 7
                + [_F, _I, _P]}
-_FUSED_SIGNATURES = {"tllm_fused_decode_attention":
-                     [_P] * 8 + [_I] * 7 + [_F, _I, _P]}
+_FUSED_SIGNATURES = {"tllm_fused_decode_attention": _WRITE_ARGS}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA `device` (132 on an H100
+    SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def decode_split(b: int, hkv: int, s: int, group: int, sms: int
+                 ) -> tuple[int, int]:
+    """(splits, tiles per split) of kernel 3's and row 9's launch over
+    [b, hkv, s] caches with `group` query heads a kv head on a card of
+    `sms` SMs: split i covers the 64-row tiles [i * tps, (i + 1) * tps) of
+    the s rows (the last one clipped to s), none empty, at most
+    MAX_SPLITS. As many splits as fit one wave of BLOCKS_PER_SM blocks on
+    each SM, a block per (split, chunk of up to HEAD_CHUNK heads, kv head,
+    b); a cache of fewer than SHORT_TILES tiles stays one split. From the
+    shapes alone: no position, no host sync."""
+    tiles = -(-s // TILE)
+    if tiles < SHORT_TILES:
+        return 1, tiles
+    chunks = -(-group // HEAD_CHUNK)
+    want = max(1, BLOCKS_PER_SM * sms // (b * hkv * chunks))
+    n = min(want, MAX_SPLITS, tiles)
+    tps = -(-tiles // n)
+    return -(-tiles // tps), tps
 
 
 def write_rows(cache, positions, rows):
@@ -202,31 +235,83 @@ def decode_attention_kernel(q, k_cache, v_cache, layer: int, cache_lens,
 decode_attention_kernel.launches = 0
 
 
+_WORKSPACE: dict = {}
+_RETIRED: list = []     # outgrown workspaces: a launch may still use one
+WORKSPACE_MIN = (1 << 20, 1 << 14)  # floats, counters: 4 MB covers the paths
+
+
+def _workspace(device, n_part, n_counters):
+    """Kernel 3's and row 9's workspace for launches on the current CUDA
+    stream of `device`: the splits' softmax states (f32) and the
+    arrival counters (int32, zeroed here once; each launch leaves them at
+    0). One per stream, so launches in flight on two streams never share
+    one; launches on one stream run in order. Allocated at first use, at
+    least WORKSPACE_MIN, grown only when a call needs more (the old one
+    is kept alive), so no call allocates. It cannot be made while the
+    stream is being captured (the zeroing would run only at replay): make
+    one eager call on a stream before capturing it. A CUDA graph keeps
+    the workspace of the stream it was captured on, so graphs captured on
+    one stream must not be replayed at the same time."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_counters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "kernel 3 / row 9: no workspace of this size for the stream "
+                "being captured; make one eager call on it first")
+        if ws is not None:
+            _RETIRED.append(ws)
+        n_part = max(n_part, WORKSPACE_MIN[0], ws[0].numel() if ws else 0)
+        n_counters = max(n_counters, WORKSPACE_MIN[1],
+                         ws[1].numel() if ws else 0)
+        ws = (torch.empty(n_part, device=device, dtype=torch.float32),
+              torch.zeros(n_counters, device=device, dtype=torch.int32))
+        _WORKSPACE[key] = ws
+    return ws
+
+
+def _write_and_attend(name, lib_name, signatures, entry, q, k_new, v_new,
+                      k_cache, v_cache, layer, positions, sm_scale, kv_scale):
+    """Launch kernel 3's body (csrc/flash_decode.cuh) from library
+    `lib_name`'s `entry` once; see `dma_decode_attention`."""
+    positions = _check(name, q, k_cache, v_cache, layer, positions, kv_scale,
+                       (k_new, v_new))
+    b, hq, d = q.shape
+    hkv, s = k_cache.shape[2], k_cache.shape[3]
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError(f"{name}: caches must be 16-byte aligned")
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    splits, tps = decode_split(b, hkv, s, hq // hkv, sm_count(q.device))
+    stream = _build.stream_of(q)
+    part = counters = None
+    if splits > 1:
+        part, counters = _workspace(q.device, b * hq * splits * (d + 2),
+                                    b * hq)
+    lib = _build.load(lib_name, signatures)
+    out = torch.empty_like(q)
+    kc, vc, kvs = _layer_ptrs(k_cache, v_cache, kv_scale, layer)
+    err = getattr(lib, entry)(
+        _build.ptr(q), _build.ptr(k_new), _build.ptr(v_new), kc, vc, kvs,
+        _build.ptr(positions), _build.ptr(out), _build.ptr(part),
+        _build.ptr(counters), _build.DTYPE_CODES[q.dtype],
+        int(k_cache.dtype == torch.int8), b, hq, hkv, s, d, float(scale),
+        splits, tps, q.device.index or 0, stream)
+    _build.check(err, name)
+    return out
+
+
 def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int,
                            positions, sm_scale=None, kv_scale=None):
-    """Row 9: kernel 3's call (see `dma_decode_attention`) in one launch
-    with no split over the cache. The caches must be 16-byte aligned."""
+    """Row 9: kernel 3's call (see `dma_decode_attention`) from its own
+    library and counter. The caches must be 16-byte aligned."""
     if q.device.type == "cpu":
         return fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
                                             layer, positions, sm_scale,
                                             kv_scale)
-    positions = _check("fused_decode_attention", q, k_cache, v_cache, layer,
-                       positions, kv_scale, (k_new, v_new))
-    b, hq, d = q.shape
-    hkv, s = k_cache.shape[2], k_cache.shape[3]
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("fused_decode_attention: caches must be 16-byte "
-                         "aligned")
-    scale = sm_scale if sm_scale is not None else d ** -0.5
-    lib = _build.load("fused_decode_attention", _FUSED_SIGNATURES)
-    out = torch.empty_like(q)
-    kc, vc, kvs = _layer_ptrs(k_cache, v_cache, kv_scale, layer)
-    err = lib.tllm_fused_decode_attention(
-        _build.ptr(q), _build.ptr(k_new), _build.ptr(v_new), kc, vc, kvs,
-        _build.ptr(positions), _build.ptr(out), _build.DTYPE_CODES[q.dtype],
-        int(k_cache.dtype == torch.int8), b, hq, hkv, s, d, float(scale),
-        q.device.index or 0, _build.stream_of(q))
-    _build.check(err, "fused_decode_attention")
+    out = _write_and_attend("fused_decode_attention", "fused_decode_attention",
+                            _FUSED_SIGNATURES, "tllm_fused_decode_attention",
+                            q, k_new, v_new, k_cache, v_cache, layer,
+                            positions, sm_scale, kv_scale)
     fused_decode_attention.launches += 1
     return out
 
@@ -239,33 +324,16 @@ def dma_decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int,
     """Decode step of layer `layer`: write the new token's K/V at
     `positions` [B] (int32) into the stacked caches IN PLACE and attend.
     q: [B, Hq, D]; k_new, v_new: [B, Hkv, D] in q's dtype; caches
-    [L, B, Hkv, S, D] in q's dtype or int8; kv_scale: f32 [L] dequant
-    scales (int8 caches; ignored for float ones). Returns out [B, Hq, D]
-    in q's dtype."""
+    [L, B, Hkv, S, D] in q's dtype or int8, 16-byte aligned; kv_scale:
+    f32 [L] dequant scales (int8 caches; ignored for float ones). Returns
+    out [B, Hq, D] in q's dtype. One launch."""
     if q.device.type == "cpu":
         return dma_decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
                                           layer, positions, sm_scale, kv_scale)
-    positions = _check("dma_decode_attention", q, k_cache, v_cache, layer,
-                       positions, kv_scale, (k_new, v_new))
-    b, hq, d = q.shape
-    hkv, s = k_cache.shape[2], k_cache.shape[3]
-    scale = sm_scale if sm_scale is not None else d ** -0.5
-    lib = _build.load("decode_attention", _SIGNATURES)
-    n_chunks = s // CHUNK
-    out = torch.empty_like(q)
-    part_ml = torch.empty((2, b, hq, n_chunks), device=q.device,
-                          dtype=torch.float32)
-    part_acc = torch.empty((b, hq, n_chunks, d), device=q.device,
-                           dtype=torch.float32)
-    kc, vc, kvs = _layer_ptrs(k_cache, v_cache, kv_scale, layer)
-    err = lib.tllm_decode_attention(
-        _build.ptr(q), _build.ptr(k_new), _build.ptr(v_new), kc, vc, kvs,
-        _build.ptr(positions), _build.ptr(out), _build.ptr(part_ml[0]),
-        _build.ptr(part_ml[1]), _build.ptr(part_acc),
-        _build.DTYPE_CODES[q.dtype], int(k_cache.dtype == torch.int8), b,
-        hq, hkv, s, d, float(scale), q.device.index or 0,
-        _build.stream_of(q))
-    _build.check(err, "dma_decode_attention")
+    out = _write_and_attend("dma_decode_attention", "decode_attention",
+                            _SIGNATURES, "tllm_decode_attention", q, k_new,
+                            v_new, k_cache, v_cache, layer, positions,
+                            sm_scale, kv_scale)
     dma_decode_attention.launches += 1
     return out
 
