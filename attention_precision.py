@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""How precisely rows 10 and 13 must carry P through P V: path 7's 7B
+"""How precisely rows 10, 12 and 13 must carry P through P V: path 7's 7B
 prefill logits with the attention's P in 1, 2 and 3 bf16 terms, on one GPU.
 
     python3 attention_precision.py [--layers N]
@@ -11,9 +11,10 @@ random weights, seed 0), then prefills its bs1 and bs4 prompts (8 and
 plain versions: the reference. Against it, the same prefill with the
 attention's probabilities P carried through P V as the sum of 1, 2 and 3
 bf16 terms (the plain version's p_terms; 1 is P rounded to bf16, as row
-12 and the JAX package's XLA path round it), and with the card's tile
-(row 10, three terms) under the plain projections and under the kernels.
-Prints
+12's mma.sync loop before its redesign and the JAX package's XLA path
+round it), with the card's tile (row 10, three terms) under the plain
+projections and under the kernels, and with row 12 (every prompt sent to
+it: `prefill_streaming_min_s` 0) under both. Prints
 each variant's largest logit error relative to the largest logit, beside
 LOGITS_TOL, and the card's name and power limit. A variant past the
 tolerance is reported, not an error: this measures how far the network
@@ -34,6 +35,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32)
     args = ap.parse_args(argv)
+    from unittest import mock
+
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -44,6 +47,7 @@ def main(argv=None) -> int:
     from trtllm_llama_tpu_torch.models import llama
     from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
     from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
+    from trtllm_llama_tpu_torch.ops.registry import KERNELS
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -67,13 +71,18 @@ def main(argv=None) -> int:
                                 dtype=torch.int32, device="cuda")
 
             def prefill(plain_projections, attention):
+                """attention: row 10's stand-in, or None for row 12."""
                 with contextlib.ExitStack() as stack, \
                         torch.inference_mode():
                     if plain_projections:
                         stack.enter_context(cs.patched(
                             w8a8, "w8a8_matmul", w8a8.w8a8_matmul_plain))
-                    stack.enter_context(cs.patched(
-                        pa, "prefill_attention_kernel", attention))
+                    if attention is None:
+                        stack.enter_context(mock.patch.dict(
+                            KERNELS, prefill_streaming_min_s=0))
+                    else:
+                        stack.enter_context(cs.patched(
+                            pa, "prefill_attention_kernel", attention))
                     caches = llama.init_caches(cfg, b, 66, "cuda",
                                                sess.kv_scales)
                     return llama.forward_prefill(sess.params, cfg, ids, lens,
@@ -89,7 +98,9 @@ def main(argv=None) -> int:
                     ("P in 3 bf16 terms", True,
                      functools.partial(plain, p_terms=3)),
                     ("row 10's tile, plain projections", True, tile),
-                    ("row 10's tile and row 5's kernels", False, tile)):
+                    ("row 10's tile and row 5's kernels", False, tile),
+                    ("row 12, plain projections", True, None),
+                    ("row 12 and row 5's kernels", False, None)):
                 cs.compare(f"{what} {name}", prefill(plain_proj, attention),
                            ref, [], tol=cs.LOGITS_TOL)
 

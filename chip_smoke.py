@@ -293,8 +293,10 @@ SWIGLU_INT8 = "woq_matmul_stacked (SwiGLU)"
 SWIGLU_INT4 = "woq_matmul_stacked (int4 g128 SwiGLU)"
 SWIGLU_FP8 = "fp8_matmul_stacked (SwiGLU)"
 _PROBES_CU = "trtllm_llama_tpu_torch/csrc/decode_probes.cu"
-# kernel 3 and row 9 (entries decode_attention.cu, fused_decode_attention.cu)
+# kernel 3 and rows 8 and 9 (entries in decode_attention.cu, one library)
 _FLASH_DECODE = "trtllm_llama_tpu_torch/csrc/flash_decode.cuh"
+# row 12 at the paths' head dims (64 / 96 / 128, bf16 / fp16)
+_FLASH_WS = "trtllm_llama_tpu_torch/csrc/flash_attention_ws.cuh"
 ALIBI_PREFILL = "prefill_attention_kernel (ALiBi)"
 ALIBI_STREAMING = "streaming_prefill_attention_kernel (ALiBi)"
 FUSED_G71 = "fused_decode_attention (group 71)"
@@ -409,14 +411,11 @@ KERNELS = {
         "trtllm_llama_tpu/ops/pallas/paged_decode_attention.py:157",
         "trtllm_llama_tpu_torch/csrc/paged_decode_attention.cu"),
     STREAMING: (
-        "streaming_prefill_attention_kernel", f"{_ATTN_PY}:433",
-        "trtllm_llama_tpu_torch/csrc/streaming_prefill_attention.cu"),
+        "streaming_prefill_attention_kernel", f"{_ATTN_PY}:433", _FLASH_WS),
     READ_ONLY: (
-        "decode_attention_kernel", f"{_ATTN_PY}:72",
-        "trtllm_llama_tpu_torch/csrc/decode_attention.cu"),
+        "decode_attention_kernel", f"{_ATTN_PY}:72", _FLASH_DECODE),
     READ_ONLY_INT8: (
-        "decode_attention_kernel", f"{_ATTN_PY}:72",
-        "trtllm_llama_tpu_torch/csrc/decode_attention.cu"),
+        "decode_attention_kernel", f"{_ATTN_PY}:72", _FLASH_DECODE),
     FUSED: (
         "fused_decode_attention", f"{_ATTN_PY}:185", _FLASH_DECODE),
     FUSED_INT8: (
@@ -425,8 +424,7 @@ KERNELS = {
         "prefill_attention_kernel", f"{_ATTN_PY}:504",
         "trtllm_llama_tpu_torch/csrc/prefill_attention.cu"),
     ALIBI_STREAMING: (
-        "streaming_prefill_attention_kernel", f"{_ATTN_PY}:433",
-        "trtllm_llama_tpu_torch/csrc/streaming_prefill_attention.cu"),
+        "streaming_prefill_attention_kernel", f"{_ATTN_PY}:433", _FLASH_WS),
     FUSED_G71: (
         "fused_decode_attention", f"{_ATTN_PY}:185", _FLASH_DECODE),
     GEMM_INT8: (
@@ -1093,11 +1091,11 @@ def check_prefill(errors, results):
 
 
 def check_prefill_vs_streaming(errors, results):
-    """Rows 10 (the flash tile) and 12 (mma.sync) on the same bf16 inputs,
-    B=1, 32 heads of 128, full length, at S = 512-8192: each against the
-    plain version and timed beside SDPA (is_causal) and the operations
-    bound. prefill_streaming_min_s (2048) sends longer prompts to row 12;
-    this table says whether row 10's tile should take them."""
+    """Rows 10 (the flash tile) and 12 (the warp-specialized tile) on the
+    same bf16 inputs, B=1, 32 heads of 128, full length, at S = 512-8192:
+    each against the plain version and timed beside SDPA (is_causal) and
+    the operations bound. prefill_streaming_min_s (2048) sends longer
+    prompts to row 12; this table says whether it should."""
     import torch
     import torch.nn.functional as F
     from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
@@ -1262,12 +1260,19 @@ def check_streaming_prefill(errors, results):
     )
 
     print("kernel streaming_prefill_attention_kernel (causal GQA, long "
-          "prompts; mma.sync bf16, CUDA-core f32):")
+          "prompts; the warp-specialized wgmma tile at D = 64 / 96 / 128, "
+          "row 10's tile at 256, bf16; CUDA-core f32):")
     g = torch.Generator(device="cuda").manual_seed(12)
     cases = [  # (B, S, Hq, Hkv, D, lens, dtype)
         (1, LONG_PROMPT, 32, 32, 128, [LONG_PROMPT], torch.bfloat16),  # path 5
         (2, 2100, 32, 8, 128, [2100, 64], torch.bfloat16),  # GQA, ragged
         (2, 2100, 8, 2, 128, [2100, 0], torch.float32),     # a length of 0
+        # the 128-row query tile's edges: one row past a tile, a length of 0
+        # (V averaged over all S rows) and one of 1
+        (3, 2049, 32, 8, 128, [2049, 0, 1], torch.bfloat16),
+        (1, 4097, 32, 32, 128, [4097], torch.bfloat16),
+        # Falcon-7B's 71 heads of 64 on one KV head
+        (1, 2100, 71, 1, 64, [2100], torch.bfloat16),
         # GPT-J's and GPT-NeoX's head dims (prompts past 2048 rows)
         (1, 2100, 16, 16, 256, [2100], torch.bfloat16),
         (1, 2100, 16, 16, 96, [2100], torch.bfloat16),
@@ -1316,10 +1321,12 @@ def check_streaming_prefill(errors, results):
 def check_decode_modes(errors, results, kv_int8=False):
     """Row 8 over rows < lens and row 9 (write + attend) against their
     plain versions at path 1's shape (S_max 128, pos 45), path 5's (S_max
-    8320, pos 8200), a GQA group and the edges (lengths 0 and S; positions 0,
-    the last row and past S). Row 9's caches must equal the plain write and
-    row 8's stay untouched. Times both, kernel 3 on the same inputs, their
-    plain versions and SDPA over the live rows (no write)."""
+    8320, pos 8200), GQA groups of 4 and 32 and the edges (lengths 0, 1, S
+    and past S, and ragged up to 8201 over the split of an 8320-row cache;
+    positions 0, a split's last and first row, the last row and past S),
+    one launch a call. Row 9's caches must equal the plain write and row 8's
+    stay untouched. Times both, kernel 3 on the same inputs, their plain
+    versions and SDPA over the live rows (no write)."""
     import torch
     import torch.nn.functional as F
     from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
@@ -1333,6 +1340,8 @@ def check_decode_modes(errors, results, kv_int8=False):
         (1, 32, 32, 128, [45]), (1, 32, 32, LONG_S_MAX, [8200]),
         (2, 32, 8, 128, [31, 100]),
         (4, 32, 32, 128, [0, 127, 128, 300]),   # edges: first, last, past S
+        # a group of 32 on one KV head, 2048 rows split over the card
+        (2, 32, 1, 2048, [1037, 2047]),
     ]
     edges = split_edges()   # row 9's split edges (row 8 reads pos + 1)
     cases += edges
@@ -1356,11 +1365,14 @@ def check_decode_modes(errors, results, kv_int8=False):
                    ).to(torch.bfloat16) for _ in range(2))
         pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
         lens = pt + 1
-        if b == 4:          # row 8's edges: 0, S, past S and one mid length
+        if b == 4 and s == 128:   # row 8's edges: 0, S, past S, a mid length
             lens = torch.tensor([0, s, s + 72, 45], dtype=torch.int32,
                                 device="cuda")
+        elif b == 4:        # 0 and the split edges, ragged up to 8201
+            lens[0] = 0
         name = f"B={b} Hq={hq} Hkv={hkv} S_max={s}"
         before = kc.clone(), vc.clone()
+        n0 = da.decode_attention_kernel.launches
         got = da.decode_attention_kernel(q, kc, vc, layer, lens,
                                          kv_scale=kv_scale)
         ref = da.decode_attention_kernel_plain(q, kc, vc, layer, lens,
@@ -1368,6 +1380,8 @@ def check_decode_modes(errors, results, kv_int8=False):
         torch.cuda.synchronize()
         err[keys[0]] = max(err[keys[0]], compare(
             f"read-only {name} lens={lens.tolist()}", got, ref, errors))
+        if da.decode_attention_kernel.launches != n0 + 1:
+            errors.append(f"read-only decode {kind} {name}: not one launch")
         if not (torch.equal(kc, before[0]) and torch.equal(vc, before[1])):
             errors.append(f"read-only decode {kind} {name}: cache written")
         kc2, vc2 = kc.clone(), vc.clone()
@@ -1964,7 +1978,7 @@ def make_path7():
         gemm=W8A8_GEMM_2D, route=w8a8_route,
         floor=lambda: w8a8.W8A8_GEMM_MIN_ROWS, exact=True, task_a=True,
         plain=[(w8a8, "w8a8_matmul"), (pa, "prefill_attention_kernel")],
-        expect=expect, fused=("w8a8_matmul", None))
+        expect=expect, fused=("w8a8_matmul", None), streamed=True)
 
 
 # max_seq_len: room for Task A's prompt at its 1024-row bucket and its
@@ -2115,6 +2129,8 @@ def drive_path(path, sess, errors, results):
 
     print("  7B prefill logits, kernels vs plain versions on the card:")
     prefill_logits_vs_plain("", path["plain"], sess, p1, p4, errors)
+    if path.get("streamed"):
+        streamed_logits_vs_plain(path, sess, p1, p4, errors)
     dev_tok, _ = profile_generate(sess, p1, scfg)
     results["_e2e"][tag]["device_ms_per_decode_token"] = dev_tok
     if path.get("task_a"):
@@ -2289,6 +2305,37 @@ def prefill_logits_vs_plain(label, plain, sess, p1, p4, errors):
         compare(f"{label}{what} logits", got, ref, errors, tol=LOGITS_TOL)
         print(f"  {label}{what} argmax kernels {got.argmax(-1).tolist()} "
               f"plain {ref.argmax(-1).tolist()}")
+
+
+def streamed_logits_vs_plain(path, sess, p1, p4, errors):
+    """The session's bs1 and bs4 prefill logits with every prompt sent to
+    row 12 (prefill_streaming_min_s 0), against the plain path within
+    LOGITS_TOL, row 12 launched once per layer and prefill. Row 12 carries
+    P at f32 precision; with P rounded to bf16, as row 12's earlier
+    mma.sync loop rounded it, path 7's logits moved by 31-35% of the
+    largest (attention_precision.py)."""
+    from unittest import mock
+
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+    from trtllm_llama_tpu_torch.ops.registry import KERNELS as ROUTES
+
+    fn = spa.streaming_prefill_attention_kernel
+    n0 = fn.launches
+    print("  7B prefill logits with every prompt on row 12, kernels vs plain "
+          "versions:")
+    with mock.patch.dict(ROUTES, prefill_streaming_min_s=0):
+        prefill_logits_vs_plain(
+            "row 12 ",
+            path["plain"] + [(spa, "streaming_prefill_attention_kernel")],
+            sess, p1, p4, errors)
+    n, want = fn.launches - n0, 2 * sess.cfg.num_layers
+    print(f"  row 12 launches in the two prefills: {n} (expected {want}) "
+          f"{'ok' if n == want else 'FAIL'}")
+    if n != want:
+        errors.append(f"{path['tag']}: row 12 launched {n} times in the "
+                      f"streamed prefills, not {want}")
 
 
 def fused_session(sess):
@@ -3394,6 +3441,11 @@ def check_alibi_prefill(errors, results):
                      library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
                      shape=f"B={b} S={s} lens={lens} Hq=Hkv=32 D=128 bf16, "
                      "Bloom's slopes")
+        if key == ALIBI_STREAMING:   # row 10's tile on the same inputs
+            entry["row10_ms"] = time_ms(lambda i: pa.prefill_attention_kernel(
+                q, k, v, sl, alibi=slopes))
+            print(f"  row 10's tile on the same inputs: {entry['row10_ms']:.4f}"
+                  " ms")
         if key not in results:
             results[key] = entry
         else:

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of kernel 3 / row 9's split-cache decode goes, on one GPU.
+"""Where the time of the split-cache decode (kernel 3, rows 8 and 9) goes,
+on one GPU.
 
     python3 decode_breakdown.py
 
-Builds csrc/fused_decode_attention.cu (row 9's entry over
-csrc/flash_decode.cuh) as it is and in variants with one part of the
+Builds csrc/decode_attention.cu (the entries over csrc/flash_decode.cuh;
+kernel 3's is timed) as it is and in variants with one part of the
 kernel switched off (the scores and softmax, the p @ V pass, the cp.async
 loads past the first stages, the merge of the splits, or all but the
 loads),
@@ -95,7 +96,7 @@ def main() -> int:
         (d / "flash_decode.cuh").write_text(text)
         procs[name] = (d, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-o",
-             str(d / "lib.so"), str(d / "fused_decode_attention.cu")],
+             str(d / "lib.so"), str(d / "decode_attention.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (d, proc) in procs.items():
@@ -104,8 +105,8 @@ def main() -> int:
             print(f"{name}: nvcc failed\n{log}", file=sys.stderr)
             return 1
         lib = ctypes.CDLL(str(d / "lib.so"))
-        fn = lib.tllm_fused_decode_attention
-        fn.argtypes = da._FUSED_SIGNATURES["tllm_fused_decode_attention"]
+        fn = lib.tllm_decode_attention
+        fn.argtypes = da._SIGNATURES["tllm_decode_attention"]
         fn.restype = ctypes.c_int
         libs[name] = fn
 
@@ -133,7 +134,8 @@ def main() -> int:
             tiles = -(-s // da.TILE)
             tps = -(-tiles // splits)
             n = -(-tiles // tps)
-        part, counters = da._workspace(q.device, hq * n * (d + 2), hq)
+        part, counters = da._workspace(q.device,
+                                       *da.workspace_size(1, hq, d, n))
         stream = torch.cuda.current_stream().cuda_stream
         for name, fn in libs.items():
             def call():

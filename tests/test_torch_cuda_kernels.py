@@ -13,12 +13,11 @@ same bounds. The W8A8 kernel is
 exact against its plain version (int32 sums, the same f32 epilogue);
 rmsnorm_quant's scales agree to 1e-6 relative and its codes within one
 step (the row's sum of squares is taken in another order); int8 KV caches
-and paged pools are bit-identical to the plain write. The streaming
-prefill kernel (row 12) rounds its probabilities to q's dtype before P V
-in bf16 / fp16 (the 2**-7 bound holds); rows 10 and 13 carry them as
-three bf16 (two fp16) terms, and they, every f32 instantiation and the
-read-only and fused decode kernels differ from their plain versions in
-summation order only (bf16 / fp16 outputs by a rounding step).
+and paged pools are bit-identical to the plain write. Rows 10, 12 and 13
+carry the probabilities through P V as three bf16 (two fp16) terms, and
+they, every f32 instantiation and the read-only and fused decode kernels
+differ from their plain versions in summation order only (bf16 / fp16
+outputs by a rounding step).
 Rows 2 and 4 at prefill rows (the tensor-core GEMM) form the same exact
 products (int8 / int4 codes and e4m3 values are exact in bf16 and fp16)
 and differ from the plain versions in the order of the f32 sums only: the
@@ -315,23 +314,32 @@ def test_decode_kernel_drops_a_write_past_the_cache(dev, kv_int8, s):
     assert moved.sum().item() <= 1 and not moved[:, [0, 2]].any()
 
 
+@pytest.mark.parametrize("alibi", [False, True])
 @pytest.mark.parametrize("s,lens", [(40, [40, 17, 1]), (200, [200, 130, 0]),
-                                    (64, [64, 63, 64])])
+                                    (64, [64, 63, 64]), (2049, [2049, 2048, 0]),
+                                    (2100, [2100, 1500, 1]),
+                                    (4097, [4097, 4096, 65])])
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_streaming_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d, s,
-                                                lens):
+                                                lens, alibi):
     """Ragged lengths, a length of 0 (the row averages V over all S
-    columns), S off the 64-row tile and exactly on it."""
+    columns), S off the 64-row and the 128-row query tiles and exactly on
+    them (2049, 2100 and 4097 are prompts the length dispatch sends here),
+    GQA, ALiBi slopes, every head dim: D = 64 / 96 / 128 on the
+    warp-specialized tile, 32 / 256 on row 10's, in bf16 and fp16; f32 on
+    the CUDA-core loop."""
+    from trtllm_llama_tpu_torch.ops.attention import alibi_slopes
     g = torch.Generator(device=dev).manual_seed(s + d)
     q, k, v = (torch.randn((3, s, h, d), generator=g, device=dev).to(dtype)
                for h in (hq, hkv, hkv))
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = {"alibi": alibi_slopes(hq, device=dev)} if alibi else {}
     launches = spa.streaming_prefill_attention_kernel.launches
-    got = spa.streaming_prefill_attention_kernel(q, k, v, sl)
+    got = spa.streaming_prefill_attention_kernel(q, k, v, sl, **kw)
     assert spa.streaming_prefill_attention_kernel.launches == launches + 1
-    ref = spa.streaming_prefill_attention_kernel_plain(q, k, v, sl)
+    ref = spa.streaming_prefill_attention_kernel_plain(q, k, v, sl, **kw)
     torch.cuda.synchronize()
     _assert_close(got, ref, dtype)
 
@@ -355,26 +363,44 @@ def _decode_cache(dev, dtype, kv_int8, hq, hkv, b, s, d, seed):
     return q, kn, vn, kc, vc, kv_scale
 
 
+# GQA groups 1, 4, 8, 32 and 71 (the last three on one KV head)
+READ_GROUPS = [(4, 4), (8, 2), (8, 1), (32, 1), (71, 1)]
+
+
 @pytest.mark.parametrize("kv_int8", [False, True])
-@pytest.mark.parametrize("d", [32, 96, 128, 256])
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("hq,hkv", READ_GROUPS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_read_only_decode_kernel_matches_plain(dev, dtype, hq, hkv, d,
                                                kv_int8):
-    """Lengths 0 (the mean of V over all S rows), 1, a chunk edge, S and
-    past S; the caches are not written."""
-    q, _, _, kc, vc, kv_scale = _decode_cache(dev, dtype, kv_int8, hq, hkv,
-                                              5, 128, d, d + hq)
-    lens = torch.tensor([0, 1, 33, 128, 200], dtype=torch.int32, device=dev)
-    before = kc.clone(), vc.clone()
-    launches = da.decode_attention_kernel.launches
-    got = da.decode_attention_kernel(q, kc, vc, 1, lens, kv_scale=kv_scale)
-    assert da.decode_attention_kernel.launches == launches + 1
-    ref = da.decode_attention_kernel_plain(q, kc, vc, 1, lens,
-                                           kv_scale=kv_scale)
-    torch.cuda.synchronize()
-    _assert_close(got, ref, dtype)
-    assert torch.equal(kc, before[0]) and torch.equal(vc, before[1])
+    """Row 8 on the split-cache body: lengths 0 (the mean of V over all S
+    rows), 1, a tile edge, S and past S in a 128-row cache (one split);
+    lengths 0, 1, the last row of a split and the first of the next, S
+    and past S in a 1024-row cache split over the card; at D = 128 also
+    B = 4 ragged lengths up to 8201 in an 8320-row cache. The caches are
+    not written; one launch a call."""
+    b, s = 6, 1024
+    splits, tps = da.decode_split(b, hkv, s, hq // hkv, da.sm_count(dev))
+    assert splits > 1
+    edge = tps * da.TILE           # the first row of split 1
+    cases = [(5, 128, [0, 1, 33, 128, 200]),
+             (b, s, [0, 1, edge, edge + 1, s, s + 76])]
+    if d == 128:
+        cases.append((4, 8320, [8201, 1, 4000, 0]))
+    for b, s, lens in cases:
+        q, _, _, kc, vc, kv_scale = _decode_cache(dev, dtype, kv_int8, hq,
+                                                  hkv, b, s, d, d + hq + s)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        before = kc.clone(), vc.clone()
+        launches = da.decode_attention_kernel.launches
+        got = da.decode_attention_kernel(q, kc, vc, 1, lens,
+                                         kv_scale=kv_scale)
+        assert da.decode_attention_kernel.launches == launches + 1
+        ref = da.decode_attention_kernel_plain(q, kc, vc, 1, lens,
+                                               kv_scale=kv_scale)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, dtype)
+        assert torch.equal(kc, before[0]) and torch.equal(vc, before[1])
 
 
 @pytest.mark.parametrize("kv_int8", [False, True])
@@ -727,9 +753,11 @@ def test_decode_kernel_on_two_streams(dev, fn):
     """Kernel 3 / row 9 launched on two streams at once at a shape split
     over the card (one KV head, a group of 8, 2048 rows: 32 splits, a
     grid small enough for both launches to run side by side), a bf16 and
-    an int8 cache: each stream merges its splits in a workspace of its
-    own, so every output equals the plain version, the caches equal the
-    plain write and each call adds one launch."""
+    an int8 cache, each call followed on its stream by row 8 over the rows
+    just written: each stream merges its splits in a workspace of its own,
+    which its row 8 and kernel 3 / row 9 calls share in turn, so every
+    output equals the plain version, the caches equal the plain write and
+    each call adds one launch."""
     hq, d, s, n_calls = 8, 128, 2048, 20
     assert da.decode_split(1, 1, s, hq, da.sm_count(dev))[0] > 1
     cases, refs = [], []
@@ -738,25 +766,34 @@ def test_decode_kernel_on_two_streams(dev, fn):
                                                hq, 1, 1, s, d, seed)
         pos = torch.tensor([p_], dtype=torch.int32, device=dev)
         kc2, vc2 = kc.clone(), vc.clone()
-        refs.append((da.dma_decode_attention_plain(
-            q, kn, vn, kc2, vc2, 1, pos, kv_scale=kvs), kc2, vc2))
+        ref = da.dma_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos,
+                                            kv_scale=kvs)
+        ref_read = da.decode_attention_kernel_plain(q, kc2, vc2, 1, pos + 1,
+                                                    kv_scale=kvs)
+        refs.append((ref, ref_read, kc2, vc2))
         cases.append((q, kn, vn, kc, vc, pos, kvs))
     streams = [torch.cuda.Stream(dev) for _ in cases]
     for st in streams:
         st.wait_stream(torch.cuda.current_stream(dev))
-    launches = fn.launches
+    launches = fn.launches, da.decode_attention_kernel.launches
     outs = [[] for _ in cases]
     for _ in range(n_calls):
         for st, case, got in zip(streams, cases, outs):
             q, kn, vn, kc, vc, pos, kvs = case
             with torch.cuda.stream(st):
-                got.append(fn(q, kn, vn, kc, vc, 1, pos, kv_scale=kvs))
+                got.append((fn(q, kn, vn, kc, vc, 1, pos, kv_scale=kvs),
+                            da.decode_attention_kernel(q, kc, vc, 1, pos + 1,
+                                                       kv_scale=kvs)))
     torch.cuda.synchronize()
-    assert fn.launches == launches + n_calls * len(cases)
-    for case, (ref, kc2, vc2), got in zip(cases, refs, outs):
+    assert fn.launches == launches[0] + n_calls * len(cases)
+    assert (da.decode_attention_kernel.launches
+            == launches[1] + n_calls * len(cases))
+    for case, (ref, ref_read, kc2, vc2), got in zip(cases, refs, outs):
         assert torch.equal(case[3], kc2) and torch.equal(case[4], vc2)
-        for out in got:
+        for out, out_read in got:
             _assert_close(out, ref, torch.bfloat16)
+            _assert_close(out_read, ref_read, torch.bfloat16)
+
 
 def test_head_dim_without_a_kernel_raises_on_card(dev):
     """Head dim 80 has no instantiation: every attention op raises on the

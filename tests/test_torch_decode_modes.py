@@ -71,12 +71,13 @@ def _cache_inputs(hq, hkv, s, kv_int8, seed):
     return q, kn, vn, kc, vc, scale
 
 
-@pytest.mark.parametrize("lens", [(10, 37), (0, 64), (64, 1)])
+@pytest.mark.parametrize("lens", [(10, 37), (0, 64), (64, 1), (100, 3),
+                                  (-3, 65), (-1, 200)])
 @pytest.mark.parametrize("kv_int8", [False, True])
 @pytest.mark.parametrize("hq,hkv", HEADS)
 def test_read_only_decode_matches_jax_kernel(hq, hkv, kv_int8, lens):
-    """Row 8: rows < cache_lens; a length of 0 averages V over all rows,
-    a length of S attends them all."""
+    """Row 8: rows < cache_lens; a length of 0 or below averages V over all
+    rows, a length of S or past it attends them all."""
     q, _, _, kc, vc, scale = _cache_inputs(hq, hkv, 64, kv_int8, seed=1)
     sl = np.asarray(lens, np.int32)
     for layer in (0, 1):
@@ -90,7 +91,7 @@ def test_read_only_decode_matches_jax_kernel(hq, hkv, kv_int8, lens):
             _t(q), attention.KVCache(_t(kc), _t(vc), _t(scale)), layer,
             _t(sl))
         np.testing.assert_array_equal(via_op.numpy(), got.numpy())
-    if lens[0] == 0:
+    if lens[0] <= 0:
         dec = vc[1, 0].astype(np.float32) * (scale[1] if kv_int8 else 1.0)
         mean_v = np.repeat(dec.mean(1), hq // hkv, axis=0)      # [Hq, D]
         np.testing.assert_allclose(got.numpy()[0], mean_v, **TOL)

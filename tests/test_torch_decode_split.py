@@ -1,16 +1,21 @@
-"""The host's split of kernel 3's and row 9's one launch (ops/kernels/
-decode_attention.py::decode_split, the function the wrappers call) over
-ranges of B, Hkv, S_max, the GQA group and the SM count: the splits tile
-the S_max rows in whole 64-row tiles, none empty; the split count stays
-within the kernel's limit; a short cache is one split; the grid (a block per
-split, chunk of up to 8 heads, kv head and sequence) fills the card
-whenever the cache and the split limit allow it, in one wave. Which rows
+"""The host's split of the split-cache decode's one launch (kernel 3, rows
+8 and 9; ops/kernels/decode_attention.py::decode_split, the function the
+wrappers call) over ranges of B, Hkv, S_max, the GQA group and the SM count:
+the splits tile the S_max rows in whole 64-row tiles, none empty; the split
+count stays within the kernel's limit; a short cache is one split; the grid
+(a block per split, chunk of up to 8 heads, kv head and sequence) fills the
+card whenever the cache and the split limit allow it, in one wave. Row 8's
+wrapper launches with kernel 3's split and asks for kernel 3's workspace
+(driven on meta tensors, its library replaced by a recorder). Which rows
 each block then reads lives only in the kernel; the card tests (-m cuda)
 run groups 1-71 and reach its edges.
 """
 
 import re
 from pathlib import Path
+from unittest import mock
+
+import torch
 
 from hypothesis import given, settings
 from hypothesis import strategies as st
@@ -89,3 +94,62 @@ def test_the_paths_splits():
     assert split(1, 1, 2048) == (32, 1)
     assert split(1, 1, 2048, 32) == (32, 1)
     assert split(1, 1, 2048, 71) == (16, 2)
+
+
+class _Recorder:
+    """Stands in for the kernel library: records each entry's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        def launch(*args):
+            self.calls.append((entry, args))
+            return 0
+        return launch
+
+
+@settings(max_examples=200, deadline=None)
+@given(b=st.integers(1, 16), hkv=st.sampled_from([1, 2, 8, 32]),
+       s_chunks=st.integers(1, 300), group=st.sampled_from([1, 4, 8, 32, 71]),
+       d=st.sampled_from([64, 128, 256]), int8=st.booleans())
+def test_read_only_wrapper_asks_for_kernel3s_workspace(b, hkv, s_chunks,
+                                                       group, d, int8):
+    """Row 8's wrapper and kernel 3's at the same shapes: one launch each,
+    with the same (splits, tiles per split), asking the per-stream
+    workspace for the same size (`workspace_size`), none at one split; each
+    passes as many arguments as its entry's signature names."""
+    s, hq = da.CHUNK * s_chunks, hkv * group
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    q, new = torch.empty((b, hq, d), **meta), torch.empty((b, hkv, d), **meta)
+    cache = torch.empty((2, b, hkv, s, d), device="meta",
+                        dtype=torch.int8 if int8 else torch.bfloat16)
+    kv_scale = torch.empty(2, device="meta") if int8 else None
+    lens = torch.empty(b, device="meta", dtype=torch.int32)
+    asked, lib = [], _Recorder()
+    launches = (da.decode_attention_kernel.launches,
+                da.dma_decode_attention.launches)
+    with mock.patch.object(da, "_check", lambda name, q, kc, vc, layer, lens,
+                           kvs, new=(): lens), \
+            mock.patch.object(da, "sm_count", lambda device: H100_SMS), \
+            mock.patch.object(da, "_workspace", lambda device, *n: (
+                asked.append(n), (None, None))[1]), \
+            mock.patch.object(da._build, "load", lambda name, sigs: lib), \
+            mock.patch.object(da._build, "stream_of", lambda t: None):
+        try:
+            da.decode_attention_kernel(q, cache, cache, 1, lens,
+                                       kv_scale=kv_scale)
+            da.dma_decode_attention(q, new, new, cache, cache, 1, lens,
+                                    kv_scale=kv_scale)
+        finally:
+            (da.decode_attention_kernel.launches,
+             da.dma_decode_attention.launches) = launches
+    (read, read_args), (write, write_args) = lib.calls
+    assert (read, write) == ("tllm_decode_attention_read",
+                             "tllm_decode_attention")
+    assert len(read_args) == len(da._SIGNATURES[read])
+    assert len(write_args) == len(da._SIGNATURES[write])
+    splits, tps = da.decode_split(b, hkv, s, group, H100_SMS)
+    assert read_args[-4:-2] == write_args[-4:-2] == (splits, tps)
+    want = [da.workspace_size(b, hq, d, splits)] * 2 if splits > 1 else []
+    assert asked == want

@@ -4,9 +4,11 @@ JAX package: its Pallas streaming kernel in interpret mode, its XLA path,
 and a tiny f32 model whose prompts take the streaming kernel in both
 packages.
 
-f32 throughout. Tolerances: rtol/atol 2e-3 against the streaming kernel
-(the JAX package's own test of it holds it to the XLA path there: blocked
-online softmax against one softmax over all columns); 1e-5 against the XLA
+f32, and bf16 against the streaming kernel. Tolerances: rtol/atol 2e-3
+against the streaming kernel in f32 (the JAX package's own test of it holds
+it to the XLA path there: blocked online softmax against one softmax over
+all columns); in bf16 one rounding of the output (2**-7 of the largest) and
+at most 1% of the outputs different (see BF16_DIFFER); 1e-5 against the XLA
 path (summation order only); model logits within 1e-4 of the largest.
 """
 
@@ -71,6 +73,45 @@ def test_streaming_plain_matches_jax_kernel(hq, hkv, s, lens):
     want_xla = jax_attn.prefill_attention(jnp.asarray(q), jnp.asarray(k),
                                           jnp.asarray(v), jnp.asarray(sl))
     np.testing.assert_allclose(got, np.asarray(want_xla), **XLA_TOL)
+
+
+# P at f32 precision: the Pallas kernel keeps p in f32 into its f32 P V, as
+# the port's plain version does (and the card's tile, through P's terms);
+# the XLA path rounds p to the inputs' dtype first. The two f32 paths sum in
+# other orders, which flips the bf16 rounding of an output only near a tie:
+# 0.02% of the outputs at these shapes, each by one rounding; P rounded to
+# bf16 changes 39% of them.
+BF16_TOL = 2.0 ** -7      # one bf16 rounding of the output, relative
+BF16_DIFFER = 0.01        # the share of outputs that may differ at all
+
+
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("hq,hkv,s,lens", [
+    (4, 2, 640, (600, 512)),
+    (2, 1, 2100, (2100, 64)),
+])
+def test_streaming_plain_bf16_matches_jax_kernel(hq, hkv, s, lens, alibi):
+    """bf16 q/k/v: the port's plain version against the Pallas streaming
+    kernel (interpret mode): outputs within one bf16 rounding, and at most
+    1% of them different at all. Both keep the probabilities in f32 through
+    P V, the contract the card's row 12 meets."""
+    q, k, v = (jnp.asarray(x, jnp.bfloat16) for x in _qkv(2, s, hq, hkv, 128,
+                                                         seed=11))
+    sl = np.asarray(lens, np.int32)
+    slopes = attention.alibi_slopes(hq) if alibi else None
+    want = np.asarray(jax_streaming(
+        q, k, v, jnp.asarray(sl), interpret=True,
+        alibi=None if slopes is None else jnp.asarray(slopes.numpy())
+    ).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        torch.bfloat16) for x in (q, k, v))
+    kw = {} if slopes is None else {"alibi": slopes}
+    got = _streaming.streaming_prefill_attention_kernel(
+        tq, tk, tv, _t(sl), **kw)
+    assert got.dtype == torch.bfloat16
+    diff = np.abs(got.float().numpy() - want)
+    assert diff.max() <= BF16_TOL * np.abs(want).max(), diff.max()
+    assert (diff > 0).mean() <= BF16_DIFFER, (diff > 0).mean()
 
 
 def test_streaming_plain_length_zero_averages_like_xla():

@@ -1,15 +1,12 @@
 // One-token decode attention over chunks of the cache, with partials in
-// device memory and a combine launch: the body of row 8 (decode_attention.cu,
-// `decode_attention_kernel`: a layer of the stacked cache [B, Hkv, S, D]
-// read-only, rows contiguous) and kernel 14 (paged_decode_attention.cu, a
-// layer of the block pool [NB, Hkv, BS, D] with the in-place KV write, rows
-// found through a block table). Kernel 3 and row 9 left this body for the
-// one-launch split-cache kernel of flash_decode.cuh; rows 8 and 14 are the
-// next to follow. They differ only in the addressing policy `Rows`:
+// device memory and a combine launch: the body of kernel 14 alone
+// (paged_decode_attention.cu, `paged_decode_attention`: a layer of the block
+// pool [NB, Hkv, BS, D] with the in-place KV write, rows found through a
+// block table). Kernel 3 and rows 8 and 9 run the one-launch split-cache
+// kernel of flash_decode.cuh; kernel 14 is the next to follow. The
+// addressing policy `Rows`:
 //
-//   Rows::kWrite                 true: positions[b] is the write position;
-//                                false: it is the cache length (no write)
-//   Rows::cap                    rows a sequence can attend (S, or MB * BS)
+//   Rows::cap                    rows a sequence can attend (MB * BS)
 //   Rows::offset(b, hk, row)     element offset of a cache row, row < cap
 //   Rows::write_offset(b, hk, pos)
 //                                element offset of the row that receives the
@@ -19,9 +16,6 @@
 // n_live = min(pos + 1, cap) attended rows:
 //   row pos (at write_offset) = enc(k_new[b]); likewise v
 //   out[b, h] = softmax_f32((q[b, h] . dec(K[j])) * sm_scale, j < n_live) @ dec(V)
-// or, read-only, with len = positions[b]: the rows j < clamp(len, 0, cap),
-// and for len <= 0 all cap rows with every score at the reference's finite
-// NEG_INF, so the softmax averages V over them (live_rows below).
 // enc / dec are the cache codec of common.cuh (KVCodec: the dtype cast, or
 // int8 codes with the layer's kv_scale read from device memory). Rows other
 // than the write row are left unchanged.
@@ -42,9 +36,8 @@
 //     encodes that row from k_new / v_new, stores it, and attends dec(stored)
 //     -- the token exactly as the cache now holds it -- so it is the only
 //     writer, and no other block reads row pos. A write past the attended
-//     rows (pos >= cap, which only the paged policy keeps, into its trash
-//     block) is made by the block of the last live chunk, before it stages
-//     its rows.
+//     rows (pos >= cap, into the trash block) is made by the block of the
+//     last live chunk, before it stages its rows.
 //   - launch 2: one block per (b, h) rescales the live partials by
 //     exp(m_c - max) and divides by the summed denominators.
 #pragma once
@@ -57,20 +50,15 @@ namespace decode {
 constexpr int kChunk = 32;   // cache rows per block (one per lane)
 constexpr int kWarps = 4;
 
-// The rows sequence b attends, from v = positions[b] (see the note above).
+// The rows sequence b attends, from its write position v = positions[b].
 struct Live {
-  int n;        // rows attended, [0, n)
-  int pos;      // the write row, -1 when read-only
-  bool masked;  // every attended row scores NEG_INF (read-only, len <= 0)
+  int n;    // rows attended, [0, n)
+  int pos;  // the write row
 };
 
 template <typename Rows>
 __device__ __forceinline__ Live live_rows(const Rows& rows, int v) {
-  if constexpr (Rows::kWrite) {
-    return {min(v + 1, rows.cap), v, false};
-  } else {
-    return v > 0 ? Live{min(v, rows.cap), -1, false} : Live{rows.cap, -1, true};
-  }
+  return {min(v + 1, rows.cap), v};
 }
 
 // The staged K (padded) and V of one chunk, f32: 66 KB at D = 256.
@@ -152,7 +140,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     float s = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) s = fmaf(to_f(qh[d]), ks[lane][d], s);
-    s = (row0 + lane < n_live && !live.masked) ? s * sm_scale : kNegInf;
+    s = row0 + lane < n_live ? s * sm_scale : kNegInf;
     const float mx = warp_max(s);
     const float p = expf(s - mx);
     const float l = warp_sum(p);

@@ -1,19 +1,26 @@
-// One-token decode attention fused with the in-place KV-cache write, in one
-// launch over one layer of the stacked cache [B, Hkv, S, D] (a sequence's
-// rows contiguous): the body of kernel 3 (decode_attention.cu,
-// `dma_decode_attention`, every default decode step) and row 9
-// (fused_decode_attention.cu, `fused_decode_attention`, the 'fused' mode).
+// One-token decode attention over one layer of the stacked cache [B, Hkv,
+// S, D] (a sequence's rows contiguous), in one launch: the body of kernel 3
+// (`dma_decode_attention`, every default decode step) and row 9
+// (`fused_decode_attention`, the 'fused' mode), which write the new token's
+// row in place and attend, and of row 8 (`decode_attention_kernel`, the
+// 'split' mode and `decode_attention_at`), which attends read-only. All
+// three enter through decode_attention.cu, one library.
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/dma_decode_attention.py:156
-// (dma_decode_attention, pallas_call at :207) and
+// (dma_decode_attention, pallas_call at :207),
 // trtllm_llama_tpu/ops/pallas/attention.py:185 (fused_decode_attention,
-// pallas_call at :240). Both compute, for each sequence b with pos =
+// pallas_call at :240) and attention.py:72 (decode_attention_kernel,
+// pallas_call at :109). The writers compute, for each sequence b with pos =
 // positions[b] and n_live = min(pos + 1, S):
 //   row pos = enc(k_new[b]), likewise v (dropped when pos >= S, which then
 //   attends all S rows);
 //   out[b, h] = softmax_f32((q[b, h] . dec(K[j])) * sm_scale, j < n_live)
 //               @ dec(V), p @ v in f32;
-// a float cache stores the value as is (enc / dec are the dtype cast), an
+// row 8 (Params::read_only) writes nothing and attends, with len =
+// positions[b] (the cache length), n_live = min(len, S) rows, or at len <= 0
+// all S rows with one score for every row (the reference masks them all to
+// its finite NEG_INF), so p is uniform and the output the mean of dec(V).
+// A float cache stores the value as is (enc / dec are the dtype cast), an
 // int8 cache enc(x) = clamp(rint(x / scale), +-127) by true division (the
 // JAX package's _quant_kv) and dec(c) = c * scale in f32 (common.cuh; here
 // the scale multiplies the f32 sums, which moves them by a rounding).
@@ -27,11 +34,12 @@
 //     (s + 1) * tps) of the S rows, clipped to n_live. The host picks
 //     `splits` and `tps` from (B, Hkv, S, group) and the SM count alone
 //     (ops/kernels/decode_attention.py::decode_split: one wave of two
-//     blocks an SM), so no host sync. Each block leaves its running max,
-//     sum and acc[D] per head in a small workspace (one per CUDA stream,
-//     kept by the wrapper between calls, not allocated per call) and takes
-//     an arrival ticket; the last of a (kv head, chunk, b)'s splits to
-//     arrive merges them and resets the counter.
+//     blocks an SM), so no host sync; a block whose range starts past
+//     n_live streams nothing and leaves an empty state. Each block leaves
+//     its running max, sum and acc[D] per head in a small workspace (one per
+//     CUDA stream, kept by the wrapper between calls, not allocated per
+//     call) and takes an arrival ticket; the last of a (kv head, chunk,
+//     b)'s splits to arrive merges them and resets the counter.
 //     No combine launch. A thread-block cluster merging through
 //     distributed shared memory was tried first: its launch cost ~25 us at
 //     8k rows and ~8 us at one live row (decode_breakdown.py, H100).
@@ -163,6 +171,7 @@ struct Params {
   int tps;    // 64-row tiles a split covers
   int heads;  // query heads a block serves (a chunk of the group)
   float sm_scale;
+  bool read_only;  // row 8: positions[] are cache lengths, no write
 };
 
 // What a block covers: split blockIdx.x of (kv head, head chunk) blockIdx.y
@@ -170,6 +179,7 @@ struct Params {
 struct Block {
   int split, n_split, group, hk, hc, b, g0, heads;
   int pos, row_begin, row_end, n_st;
+  bool uniform;     // read-only at a length <= 0: every row scores alike
   float kvs;
   size_t panel;     // row 0 of (b, hk) in the layer's cache, in rows
   size_t new_base;  // (b, hk) in k_new / v_new, in elements
@@ -188,8 +198,12 @@ __device__ __forceinline__ Block block_of(const Params& p) {
   k.b = blockIdx.z;
   k.g0 = k.hc * p.heads;
   k.heads = min(p.heads, k.group - k.g0);
-  k.pos = p.positions[k.b];
-  const int n_live = min(k.pos + 1, p.S);
+  const int v = p.positions[k.b];
+  // the write row (-1: none) and the rows attended
+  k.pos = p.read_only ? -1 : v;
+  k.uniform = p.read_only && v <= 0;
+  const int n_live = !p.read_only ? min(v + 1, p.S) : v > 0 ? min(v, p.S)
+                                                            : p.S;
   k.row_begin = k.split * p.tps * kTile;
   k.row_end = min(k.row_begin + p.tps * kTile, n_live);
   k.n_st = k.row_end > k.row_begin
@@ -248,7 +262,7 @@ __device__ __forceinline__ void load_stage(const Params& p, const Block& k,
     const size_t goff = (k.panel + row) * Sh::kRowBytes + cc * 16;
     unsigned char* kd = ks + r * Sh::kStride + cc * 16;
     unsigned char* vd = vs + r * Sh::kStride + cc * 16;
-    if (row == k.pos) {  // only inside the owner's range (pos < S)
+    if (row == k.pos) {  // only inside the owner's range (0 <= pos < S)
       const T* kn = static_cast<const T*>(p.k_new) + k.new_base + cc * kEpc;
       const T* vn = static_cast<const T*>(p.v_new) + k.new_base + cc * kEpc;
       Pack<TC, kEpc> kp, vp;
@@ -449,7 +463,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int o = kParts / 2; o > 0; o >>= 1)
           s += __shfl_xor_sync(0xffffffffu, s, o);
-        s = valid ? s * qk_scale : neg_infinity();
+        s = !valid ? neg_infinity() : k.uniform ? 0.f : s * qk_scale;
         float mt = s;  // the max over the warp's rows (-inf if none live)
 #pragma unroll
         for (int o = kParts; o < 32; o <<= 1)
@@ -538,6 +552,7 @@ struct Args {
   int splits, tps;
   float sm_scale;
   cudaStream_t stream;
+  bool read_only;  // row 8 (k_new / v_new null, positions the lengths)
 };
 
 template <typename K>
@@ -563,7 +578,8 @@ cudaError_t launch(const Args& a) {
                    static_cast<const int*>(a.positions),
                    a.out, static_cast<float*>(a.part),
                    static_cast<int*>(a.counters),
-                   a.Hq, a.Hkv, a.S, a.tps, heads, a.sm_scale};
+                   a.Hq, a.Hkv, a.S, a.tps, heads, a.sm_scale,
+                   a.read_only};
   const int smem = warp_smem_bytes<T, TC, D>(heads, a.splits);
   if (heads == 1)
     return launch_grid(flash_decode_kernel<T, TC, D, 1>, a, chunks, smem, prm);

@@ -15,7 +15,7 @@
 // unguarded, which a finished serving slot at max_seq_len reaches.
 //
 // The body, its bound (the live K/V bytes, 2 * B * Hkv * (pos + 1) * D *
-// elt) and its design are kernel 3's (decode_attention.cuh): flash-decoding
+// elt) and its design are in decode_attention.cuh: flash-decoding
 // over live 32-row chunks, a chunk's rows looked up through the table once
 // per block. The TPU kernel's whole-block double-buffered DMA, its VMEM
 // window read-modify-write and its row patching exist for the TPU's DMA
@@ -29,7 +29,6 @@ using namespace tllm;
 namespace {
 
 struct PagedRows {
-  static constexpr bool kWrite = true;
   int cap;  // MB * BS
   const int* tables;  // [B, MB]
   int mb, bs, hkv, d, trash;

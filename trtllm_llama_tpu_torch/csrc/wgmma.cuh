@@ -8,7 +8,10 @@
 //     K-major (flash_attention.cuh: S = Q K^T with K stored [keys, D]);
 //   - wgmma_rs: m64nNk16 (N = 64, 128), A from registers (four 32-bit
 //     pairs a thread, the m16n8k16 A layout per warp), B N-major from
-//     shared memory (flash_attention.cuh: O += P V with V stored [keys, D]).
+//     shared memory (flash_attention.cuh: O += P V with V stored [keys, D]);
+//   - wgmma_rk: m64n64k16, A from registers as wgmma_rs, B K-major from
+//     shared memory (flash_attention_ws.cuh: S = Q K^T with Q held in
+//     registers).
 // The accumulator of m64nNk16: thread t of the warpgroup holds rows
 // 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1) in
 // d[4 j .. 4 j + 3] (row, row, row + 8, row + 8).
@@ -107,6 +110,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Two exact floats -> one 32-bit pair of T (low half = a).
 template <typename T>
@@ -153,7 +161,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
       "%16, %17, p, 1, 1, 0, 0;\n}\n"                                       \
       : TLLM_D8(0), TLLM_D8(8)                                              \
       : "l"(da), "l"(db), "r"(scale_d))
-#define TLLM_WGMMA_RS_N64(TY)                                               \
+// TB: B's transpose bit, "1" for N-major B (wgmma_rs), "0" for K-major
+#define TLLM_WGMMA_RS_N64(TY, TB)                                           \
   asm volatile(                                                             \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
       "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
@@ -162,7 +171,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
       "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
       "%24, %25, %26, %27, %28, %29, %30, %31}, "                           \
       "{%32, %33, %34, %35}, "                                              \
-      "%36, p, 1, 1, 1;\n}\n"                                               \
+      "%36, p, 1, 1, " TB ";\n}\n"                                           \
       : TLLM_D8(0), TLLM_D8(8), TLLM_D8(16), TLLM_D8(24)                    \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
 #define TLLM_WGMMA_RS_N128(TY)                                              \
@@ -206,12 +215,27 @@ __device__ __forceinline__ void wgmma_kk<__half, 32>(
 template <>
 __device__ __forceinline__ void wgmma_rs<__nv_bfloat16, 64>(
     float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  TLLM_WGMMA_RS_N64("bf16");
+  TLLM_WGMMA_RS_N64("bf16", "1");
 }
 template <>
 __device__ __forceinline__ void wgmma_rs<__half, 64>(
     float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  TLLM_WGMMA_RS_N64("f16");
+  TLLM_WGMMA_RS_N64("f16", "1");
+}
+// d (+)= A (registers) x B (K-major, smem), 64 x 64 x 16.
+template <typename T>
+__device__ __forceinline__ void wgmma_rk(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_rk<__nv_bfloat16>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  TLLM_WGMMA_RS_N64("bf16", "0");
+}
+template <>
+__device__ __forceinline__ void wgmma_rk<__half>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  TLLM_WGMMA_RS_N64("f16", "0");
 }
 template <>
 __device__ __forceinline__ void wgmma_rs<__nv_bfloat16, 128>(

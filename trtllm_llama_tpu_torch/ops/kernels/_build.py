@@ -28,8 +28,7 @@ SOURCES = ("woq_gemm", "fp8_gemm", "w8a8_gemm", "woq_matmul", "fp8_matmul",
            "prefill_attention",
            "decode_attention", "rmsnorm_quant", "w8a8_matmul",
            "paged_decode_attention", "packed_prefill_attention",
-           "streaming_prefill_attention", "fused_decode_attention",
-           "decode_probes")
+           "streaming_prefill_attention", "decode_probes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,37 +1,34 @@
 """Decode attention over one layer of the stacked KV cache: kernel 3
-(the write plus attention, csrc/decode_attention.cu), row 9 (the same
-function, csrc/fused_decode_attention.cu) and row 8 (the attention
-read-only, csrc/decode_attention.cu).
+(the write plus attention), row 9 (the same function) and row 8 (the
+attention read-only), one library, csrc/decode_attention.cu.
 
 Kernel 3 replaces `trtllm_llama_tpu/ops/pallas/dma_decode_attention.py::
 dma_decode_attention` (:156), for bf16/f32 caches and int8 caches with one
 static dequant scale per layer; row 9 replaces `trtllm_llama_tpu/ops/
-pallas/attention.py::fused_decode_attention` (:185), the 'fused' mode.
-Both compute the same function and run one body, the split-cache kernel
-of csrc/flash_decode.cuh, each from a library of its own with its own
-counter. Bound on the H100: the live K/V bytes,
-2*B*Hkv*(pos+1)*D*(2 for bf16, 1 for int8), at 3.35 TB/s. Design: one
-launch; the S_max rows split into `decode_split`'s ranges of whole 64-row
-tiles, one block per (split, kv head, b) serving up to HEAD_CHUNK of the
-GQA group's query heads (a larger group in chunks); the last of a (kv
-head, chunk, b)'s splits to finish merges their softmax states from a
-small workspace that the wrapper keeps for each stream (no combine launch,
-no allocation per call); K/V streamed as stored through a cp.async ring
-and read in registers; the block whose range holds pos is the only writer
-of row pos and attends it as stored (int8: encoded then decoded). A
-position >= S_max writes nothing (the JAX scatter drops it) and attends
-all S_max rows.
+pallas/attention.py::fused_decode_attention` (:185), the 'fused' mode;
+row 8 replaces `attention.py::decode_attention_kernel` (:72), the 'split'
+mode and `decode_attention_at`. All three run one body, the split-cache
+kernel of csrc/flash_decode.cuh (entries `tllm_decode_attention` and
+`tllm_decode_attention_read`), each wrapper with its own counter. Bound
+on the H100: the live K/V bytes, 2*B*Hkv*n_live*D*(2 for bf16, 1 for
+int8), at 3.35 TB/s. Design: one launch; the S_max rows split into
+`decode_split`'s ranges of whole 64-row tiles, one block per (split, kv
+head, b) serving up to HEAD_CHUNK of the GQA group's query heads (a larger
+group in chunks); the last of a (kv head, chunk, b)'s splits to finish
+merges their softmax states from a small workspace that the wrapper keeps
+for each stream (no combine launch, no allocation per call); K/V streamed
+as stored through a cp.async ring and read in registers. The writers:
+the block whose range holds pos is the only writer of row pos and attends
+it as stored (int8: encoded then decoded); a position >= S_max writes
+nothing (the JAX scatter drops it) and attends all S_max rows. Row 8
+attends rows < cache_lens[b] (all S_max rows past S_max; a length <= 0
+averages V over all S_max rows, as the reference's all-masked softmax
+does).
 
-Row 8 (`decode_attention_kernel`) replaces `trtllm_llama_tpu/ops/pallas/
-attention.py::decode_attention_kernel`: the read-only policy of
-csrc/decode_attention.cuh (shared with kernel 14) over the rows <
-cache_lens[b], 32-row chunks with partials in device memory and a combine
-launch (a length <= 0 averages V over all S rows, as the reference's
-all-masked softmax does).
-
-Each wrapper takes its plain version for CPU tensors and launches its
-kernel for CUDA tensors (head dims 32, 64, 96, 128 and 256, as kernel 14;
-any other raises); `<wrapper>.launches` counts launches.
+Each wrapper takes its plain version for CPU tensors and launches the
+kernel for CUDA tensors (head dims 32, 64, 96, 128 and 256, S_max % 32 ==
+0, caches 16-byte aligned; anything else raises before launch);
+`<wrapper>.launches` counts launches.
 """
 
 from __future__ import annotations
@@ -44,7 +41,7 @@ from ...quantization.tensors import quantize_int8
 from . import _build
 
 NEG_INF = -1e9
-CHUNK = 32      # S_max must be a whole number of these (row 8's chunk)
+CHUNK = 32      # S_max must be a whole number of these
 TILE = 64       # cache rows of a split's unit (kTile in flash_decode.cuh)
 MAX_SPLITS = 32     # splits of one (kv head, b) (kMaxSplits)
 HEAD_CHUNK = 8      # query heads a block serves (kChunk)
@@ -52,11 +49,10 @@ SHORT_TILES = 4     # a cache of fewer tiles than this stays one split
 BLOCKS_PER_SM = 2   # the kernel's launch bound
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_WRITE_ARGS = [_P] * 10 + [_I] * 7 + [_F] + [_I] * 3 + [_P]
-_SIGNATURES = {"tllm_decode_attention": _WRITE_ARGS,
-               "tllm_decode_attention_read": [_P] * 9 + [_I] * 7
-               + [_F, _I, _P]}
-_FUSED_SIGNATURES = {"tllm_fused_decode_attention": _WRITE_ARGS}
+_SIGNATURES = {"tllm_decode_attention": [_P] * 10 + [_I] * 7 + [_F]
+               + [_I] * 3 + [_P],
+               "tllm_decode_attention_read": [_P] * 8 + [_I] * 7 + [_F]
+               + [_I] * 3 + [_P]}
 
 
 def sm_count(device) -> int:
@@ -67,7 +63,8 @@ def sm_count(device) -> int:
 
 def decode_split(b: int, hkv: int, s: int, group: int, sms: int
                  ) -> tuple[int, int]:
-    """(splits, tiles per split) of kernel 3's and row 9's launch over
+    """(splits, tiles per split) of the split-cache launch (kernel 3,
+    rows 8 and 9) over
     [b, hkv, s] caches with `group` query heads a kv head on a card of
     `sms` SMs: split i covers the 64-row tiles [i * tps, (i + 1) * tps) of
     the s rows (the last one clipped to s), none empty, at most
@@ -204,30 +201,13 @@ def decode_attention_kernel(q, k_cache, v_cache, layer: int, cache_lens,
                             sm_scale=None, kv_scale=None):
     """Row 8: read-only decode attention of q [B, Hq, D] over layer `layer`
     of the caches [L, B, Hkv, S, D] (q's dtype or int8 with kv_scale f32
-    [L]), rows < cache_lens[b] (int32 [B]). Returns [B, Hq, D] in q's
-    dtype."""
+    [L]; 16-byte aligned), rows < cache_lens[b] (int32 [B]). Returns
+    [B, Hq, D] in q's dtype. One launch."""
     if q.device.type == "cpu":
         return decode_attention_kernel_plain(q, k_cache, v_cache, layer,
                                              cache_lens, sm_scale, kv_scale)
-    lens = _check("decode_attention_kernel", q, k_cache, v_cache, layer,
-                  cache_lens, kv_scale)
-    b, hq, d = q.shape
-    hkv, s = k_cache.shape[2], k_cache.shape[3]
-    scale = sm_scale if sm_scale is not None else d ** -0.5
-    lib = _build.load("decode_attention", _SIGNATURES)
-    n_chunks = s // CHUNK
-    out = torch.empty_like(q)
-    part_ml = torch.empty((2, b, hq, n_chunks), device=q.device,
-                          dtype=torch.float32)
-    part_acc = torch.empty((b, hq, n_chunks, d), device=q.device,
-                           dtype=torch.float32)
-    kc, vc, kvs = _layer_ptrs(k_cache, v_cache, kv_scale, layer)
-    err = lib.tllm_decode_attention_read(
-        _build.ptr(q), kc, vc, kvs, _build.ptr(lens), _build.ptr(out),
-        _build.ptr(part_ml[0]), _build.ptr(part_ml[1]), _build.ptr(part_acc),
-        _build.DTYPE_CODES[q.dtype], int(k_cache.dtype == torch.int8), b, hq,
-        hkv, s, d, float(scale), q.device.index or 0, _build.stream_of(q))
-    _build.check(err, "decode_attention_kernel")
+    out = _launch("decode_attention_kernel", q, k_cache, v_cache, layer,
+                  cache_lens, sm_scale, kv_scale)
     decode_attention_kernel.launches += 1
     return out
 
@@ -241,7 +221,8 @@ WORKSPACE_MIN = (1 << 20, 1 << 14)  # floats, counters: 4 MB covers the paths
 
 
 def _workspace(device, n_part, n_counters):
-    """Kernel 3's and row 9's workspace for launches on the current CUDA
+    """The split-cache body's workspace (kernel 3, rows 8 and 9; sized by
+    `workspace_size`) for launches on the current CUDA
     stream of `device`: the splits' softmax states (f32) and the
     arrival counters (int32, zeroed here once; each launch leaves them at
     0). One per stream, so launches in flight on two streams never share
@@ -257,7 +238,7 @@ def _workspace(device, n_part, n_counters):
     if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_counters:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                "kernel 3 / row 9: no workspace of this size for the stream "
+                "decode attention: no workspace of this size for the stream "
                 "being captured; make one eager call on it first")
         if ws is not None:
             _RETIRED.append(ws)
@@ -270,48 +251,59 @@ def _workspace(device, n_part, n_counters):
     return ws
 
 
-def _write_and_attend(name, lib_name, signatures, entry, q, k_new, v_new,
-                      k_cache, v_cache, layer, positions, sm_scale, kv_scale):
-    """Launch kernel 3's body (csrc/flash_decode.cuh) from library
-    `lib_name`'s `entry` once; see `dma_decode_attention`."""
-    positions = _check(name, q, k_cache, v_cache, layer, positions, kv_scale,
-                       (k_new, v_new))
+def workspace_size(b: int, hq: int, d: int, splits: int) -> tuple[int, int]:
+    """(f32 elements, int32 counters) of the workspace that one split-cache
+    launch over `splits` splits needs: each split's max, sum and acc[d] per
+    query head, and an arrival counter per (b, query head); (0, 0) at one
+    split, which needs none."""
+    return (b * hq * splits * (d + 2), b * hq) if splits > 1 else (0, 0)
+
+
+def _launch(name, q, k_cache, v_cache, layer, lens, sm_scale, kv_scale,
+            new=()):
+    """Launch the split-cache body (csrc/flash_decode.cuh) once: kernel 3's
+    and row 9's write and attention with new = (k_new, v_new) and
+    positions `lens`, row 8's read-only attention over rows < `lens`
+    without."""
+    lens = _check(name, q, k_cache, v_cache, layer, lens, kv_scale, new)
     b, hq, d = q.shape
     hkv, s = k_cache.shape[2], k_cache.shape[3]
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError(f"{name}: caches must be 16-byte aligned")
     scale = sm_scale if sm_scale is not None else d ** -0.5
     splits, tps = decode_split(b, hkv, s, hq // hkv, sm_count(q.device))
-    stream = _build.stream_of(q)
     part = counters = None
     if splits > 1:
-        part, counters = _workspace(q.device, b * hq * splits * (d + 2),
-                                    b * hq)
-    lib = _build.load(lib_name, signatures)
+        part, counters = _workspace(q.device,
+                                    *workspace_size(b, hq, d, splits))
+    lib = _build.load("decode_attention", _SIGNATURES)
     out = torch.empty_like(q)
     kc, vc, kvs = _layer_ptrs(k_cache, v_cache, kv_scale, layer)
-    err = getattr(lib, entry)(
-        _build.ptr(q), _build.ptr(k_new), _build.ptr(v_new), kc, vc, kvs,
-        _build.ptr(positions), _build.ptr(out), _build.ptr(part),
-        _build.ptr(counters), _build.DTYPE_CODES[q.dtype],
-        int(k_cache.dtype == torch.int8), b, hq, hkv, s, d, float(scale),
-        splits, tps, q.device.index or 0, stream)
+    tail = (_build.ptr(out), _build.ptr(part), _build.ptr(counters),
+            _build.DTYPE_CODES[q.dtype], int(k_cache.dtype == torch.int8), b,
+            hq, hkv, s, d, float(scale), splits, tps, q.device.index or 0,
+            _build.stream_of(q))
+    if new:
+        err = lib.tllm_decode_attention(
+            _build.ptr(q), _build.ptr(new[0]), _build.ptr(new[1]), kc, vc,
+            kvs, _build.ptr(lens), *tail)
+    else:
+        err = lib.tllm_decode_attention_read(_build.ptr(q), kc, vc, kvs,
+                                             _build.ptr(lens), *tail)
     _build.check(err, name)
     return out
 
 
 def fused_decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int,
                            positions, sm_scale=None, kv_scale=None):
-    """Row 9: kernel 3's call (see `dma_decode_attention`) from its own
-    library and counter. The caches must be 16-byte aligned."""
+    """Row 9: kernel 3's call (see `dma_decode_attention`) with its own
+    counter. The caches must be 16-byte aligned."""
     if q.device.type == "cpu":
         return fused_decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
                                             layer, positions, sm_scale,
                                             kv_scale)
-    out = _write_and_attend("fused_decode_attention", "fused_decode_attention",
-                            _FUSED_SIGNATURES, "tllm_fused_decode_attention",
-                            q, k_new, v_new, k_cache, v_cache, layer,
-                            positions, sm_scale, kv_scale)
+    out = _launch("fused_decode_attention", q, k_cache, v_cache, layer,
+                  positions, sm_scale, kv_scale, (k_new, v_new))
     fused_decode_attention.launches += 1
     return out
 
@@ -330,10 +322,8 @@ def dma_decode_attention(q, k_new, v_new, k_cache, v_cache, layer: int,
     if q.device.type == "cpu":
         return dma_decode_attention_plain(q, k_new, v_new, k_cache, v_cache,
                                           layer, positions, sm_scale, kv_scale)
-    out = _write_and_attend("dma_decode_attention", "decode_attention",
-                            _SIGNATURES, "tllm_decode_attention", q, k_new,
-                            v_new, k_cache, v_cache, layer, positions,
-                            sm_scale, kv_scale)
+    out = _launch("dma_decode_attention", q, k_cache, v_cache, layer,
+                  positions, sm_scale, kv_scale, (k_new, v_new))
     dma_decode_attention.launches += 1
     return out
 

@@ -5,13 +5,17 @@ Replaces `trtllm_llama_tpu/ops/pallas/attention.py::
 streaming_prefill_attention_kernel`, its ALiBi branch included (`alibi`:
 [Hq] slopes, slope * key column added to the scaled scores before the
 mask). Bound on the H100: operations, the causal 2*B*Hq*S^2*D flops
-(0.56 ms per LLaMA-7B layer at S=8192 in bf16). Design: one block per
-(64-row q tile, head, b), four warps of 16 rows; 64-key K/V tiles staged in
-shared memory; Q K^T and P V on the tensor cores (mma.sync m16n8k16, bf16
-or fp16 in, f32 accumulate, P rounded to q's dtype as the JAX XLA path
-rounds its probabilities), an f32 online softmax in registers; f32 inputs
-take the same tiling on the CUDA cores. Key tiles past the block's rows or
-the sequence length are skipped (see the source's note).
+(0.56 ms per LLaMA-7B layer at S=8192 in bf16; P carried in three bf16
+terms makes the tensor work ~1.1 ms). Design: bf16 / fp16 at head dims 64,
+96 and 128 run a warp-specialized flash tile (csrc/flash_attention_ws.cuh:
+a producer warpgroup keeps a ring of 64-key K/V tiles full by TMA, two
+consumer warpgroups of 64 query rows share each tile and take turns on
+the tensor cores, wgmma for Q K^T and P V, P kept at f32's precision as
+three bf16 / two fp16 terms, an f32 online softmax in registers); head
+dims 32 and 256 run row 10's tile (csrc/flash_attention.cuh, the same
+contract), chosen by shape before launch; f32 inputs take a CUDA-core
+loop. Key tiles past the block's rows or the sequence length are skipped
+(see the sources' notes).
 
 `streaming_prefill_attention_kernel` takes the plain version for CPU tensors
 and launches the kernel for CUDA tensors (head dims 32, 64, 96, 128 and
