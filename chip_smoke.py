@@ -13,13 +13,16 @@
    library call's time where one computes the same function (a yardstick
    only: the port never calls it). Kernels 1 and 6 are checked in every
    format: int8, int4 with g128 and with per-channel scales, and fp8
-   (e4m3), stacked at the four projection shapes: the GEMV at up to 16
-   rows with the norm and residual options, the tensor-core GEMM at every
-   row count above 16 the paths and serving give (64; int8 also serving's
-   admissions and 8192), and the 2-D entries (woq_matmul, fp8_matmul)
-   also at the lm_head's shape; at the qkv shape the GEMM and the GEMV
-   are timed side by side at 16-8192 rows (the crossover), the GEMM once
-   with fp16 activations. Row 6 (W8A8) at its four projection shapes:
+   (e4m3), stacked at the four projection shapes: the tensor-core GEMV
+   (csrc/woq_gemv_tc.cuh) from TC_MIN_ROWS to 16 rows and the CUDA-core
+   GEMV below, with the norm and residual options, each call's route held
+   by the counters, the two GEMVs timed side by side at 1, 2, 4, 8, 9 and
+   16 rows with the path's option (the crossover, TC_MIN_ROWS), the
+   tensor-core GEMM at every row count above 16 the paths and serving
+   give (64; int8 also serving's admissions and 8192), and the 2-D
+   entries (woq_matmul, fp8_matmul) also at the lm_head's shape; at the
+   qkv shape the GEMM and the GEMV are timed side by side at 16-8192 rows
+   (the crossover), the GEMM once with fp16 activations. Row 6 (W8A8) at its four projection shapes:
    the int8 wgmma GEMM and the dp4a kernel, each forced onto its route,
    bit for bit against the plain version and timed side by side at 1-1024
    rows (the crossover, held against W8A8_GEMM_MIN_ROWS; the GEMM at least
@@ -53,11 +56,12 @@
    head dims 96 and 256; each kernel's float16 instantiation at one
    shape; the SwiGLU prologue of the weight-only and fp8 GEMVs at the
    down projection's shape (x [M, 2 x 11008] -> 4096) in every format at
-   M = 1, 9 and 16, with and without the residual (bf16, one fp16 and one
+   M = 1, 4, 9 and 16, with and without the residual (bf16, one fp16 and one
    f32 case); the 2-D W8A8 entry (row 5) at path 7's five shapes, M = 1,
    8, 64 and 923 (dp4a at 1 row, the GEMM from 5 on), per-tensor and
    per-channel weight scales, bit for bit, timed over distinct weights in
-   turn (L2-cold); and the five decode probes (rows 15-19),
+   turn (L2-cold); and the five decode probes (rows 15-19; row 18 also
+   through the tensor-core GEMV's pair decoders into bf16 and fp16),
    exhaustive and bit for bit;
 4. drives each path through GenerationSession.generate with random weights
    born quantized (seed 0), at LLaMA-7B's widths:
@@ -71,7 +75,9 @@
    prefill ms, decode ms/token and tokens/s, checks that every kernel of
    the path was launched in the path's run (counts zeroed just before it;
    kernel 1 / 6's GEMM exactly 5 times a layer, in bs4's 64-row prefill,
-   and its bs4 tokens against a run with the GEMV at every row count,
+   the tensor-core GEMV 5 times a layer in the 16-row bs1 prefills and
+   bs4's decode steps, and the GEMM's bs4 tokens against a run with the
+   GEMVs at every row count,
    differing only at near ties),
    checks the 7B prefill logits against the plain-version path on the
    card, and profiles one bs1 request (device time by kernel, the device's
@@ -128,8 +134,9 @@
    dense, paged, packed prefill, paged with an int8 KV cache; prints
    tokens/s, latency_stats, phase_stats, the device busy share of one
    decode step (torch.profiler) and the launch counts, which must equal
-   the layers times the engine's own count of decode steps (the GEMV) and
-   prefill calls (the GEMM); with the dense engine's weights it prefills
+   the layers times the engine's own count of decode steps (the
+   tensor-core GEMV at 9 rows) and prefill calls (the GEMM); with the
+   dense engine's weights it prefills
    each admission wave with the GEMM and with the GEMV and holds the
    logits within LOGITS_TOL, first tokens differing only at near ties;
    checks that every request returns its 64 tokens and that dense
@@ -310,6 +317,20 @@ W8A8_GEMM = "w8a8_matmul_stacked (GEMM)"
 W8A8_GEMM_2D = "w8a8_matmul (GEMM)"
 GEMM_KEYS = (GEMM_INT8, GEMM_INT4, GEMM_INT4_PC, GEMM_FP8, W8A8_GEMM,
              W8A8_GEMM_2D)
+# kernels 1 and 6 at TC_MIN_ROWS-16 rows: the tensor-core GEMV
+# (csrc/woq_gemv_tc.cuh); `.tc_launches` counts its share of `.launches`
+TC_INT8 = "woq_matmul_stacked (tensor-core GEMV)"
+TC_INT4 = "woq_matmul_stacked (int4 g128 tensor-core GEMV)"
+TC_INT4_2D = "woq_matmul (int4 per-channel tensor-core GEMV)"
+TC_FP8 = "fp8_matmul_stacked (tensor-core GEMV)"
+TC_FP8_2D = "fp8_matmul (tensor-core GEMV)"
+TC_KEYS = (TC_INT8, TC_INT4, TC_INT4_2D, TC_FP8, TC_FP8_2D)
+_WOQ_TC = "trtllm_llama_tpu_torch/csrc/woq_gemv_tc.cuh"
+# Rows at which the kernel phase holds both GEMVs against their plain
+# version and times them side by side (the crossover, TC_MIN_ROWS): decode
+# bs1 / bs4, the rows between, serving's 9-row decode steps, the 16-row
+# bucket.
+GEMV_ROWS = (1, 2, 4, 8, 9, 16)
 # Rows at which the kernel phase times the GEMM beside the GEMV (the
 # crossover; GEMM_MIN_ROWS is 17) at the qkv shape, every format.
 CROSSOVER_ROWS = (16, 17, 32, 64, 256, 1024, LONG_PROMPT)
@@ -469,6 +490,13 @@ KERNELS = {
         "probe_gemv_decodes", "tests/test_tpu_kernels.py:144", _PROBES_CU),
     "probe_fp8_planes": (
         "probe_fp8_planes", "tests/test_tpu_kernels.py:203", _PROBES_CU),
+    "probe_tc_pairs": (
+        "probe_tc_pairs", "tests/test_tpu_kernels.py:144", _PROBES_CU),
+    TC_INT8: ("woq_matmul_stacked", f"{_WOQ_PY}:617", _WOQ_TC),
+    TC_INT4: ("woq_matmul_stacked", f"{_WOQ_PY}:617", _WOQ_TC),
+    TC_INT4_2D: ("woq_matmul", f"{_WOQ_PY}:416", _WOQ_TC),
+    TC_FP8: ("fp8_matmul_stacked", f"{_WOQ_PY}:654", _WOQ_TC),
+    TC_FP8_2D: ("fp8_matmul", f"{_WOQ_PY}:646", _WOQ_TC),
 }
 
 
@@ -650,10 +678,32 @@ def exact(name, got, ref, errors):
 
 def launches_of(name, fn):
     """The launches of JSON entry `name` by its wrapper `fn` since the
-    counts were zeroed: the GEMM's share for a GEMM entry, the rest (the
-    GEMV's) for the wrapper's other entries."""
+    counts were zeroed: the GEMM's share for a GEMM entry, the tensor-core
+    GEMV's for a TC_KEYS entry, the rest (the CUDA-core GEMV's, or all)
+    for the wrapper's other entries."""
     gemm = getattr(fn, "gemm_launches", 0)
-    return gemm if name in GEMM_KEYS else fn.launches - gemm
+    tc = getattr(fn, "tc_launches", 0)
+    if name in GEMM_KEYS:
+        return gemm
+    return tc if name in TC_KEYS else fn.launches - gemm - tc
+
+
+def tc_rows(rows):
+    """Whether a bf16 call of `rows` rows at LLaMA-7B's widths runs the
+    tensor-core GEMV (tc_route)."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    return woq.tc_route(rows, torch.bfloat16, 4096)
+
+
+@contextlib.contextmanager
+def tc_route_forced(tc):
+    """Kernels 1 and 6 at up to 16 rows forced onto one GEMV: the
+    tensor-core body at every row count it tiles (tc=True), or the
+    CUDA-core body (tc=False), through the floor tc_route reads."""
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    with patched(woq, "TC_MIN_ROWS", 1 if tc else 1 << 30):
+        yield
 
 
 
@@ -664,12 +714,17 @@ def launches_of(name, fn):
 # weight format -> (stacked JSON key or None, 2-D JSON key or None, GEMM
 # JSON key, seed, the rows whose GEMM time the kernels line records: the
 # path's own, path 5's prefill for int8 and bs4's prefill for int4 g128
-# and fp8; no path runs stacked int4 per-channel)
+# and fp8; no path runs stacked int4 per-channel; then the tensor-core
+# GEMV's stacked and 2-D keys and the rows its line records: serving's 9
+# for int8, bs4's decode for the rest)
 GEMV_FORMATS = {
-    "int8": ("woq_matmul_stacked", None, GEMM_INT8, 1, LONG_PROMPT),
-    "int4 g128": (INT4_STACKED, None, GEMM_INT4, 7, 64),
-    "int4 per-channel": (None, INT4_2D, GEMM_INT4_PC, 8, 1024),
-    "fp8": ("fp8_matmul_stacked", "fp8_matmul", GEMM_FP8, 9, 64),
+    "int8": ("woq_matmul_stacked", None, GEMM_INT8, 1, LONG_PROMPT, TC_INT8,
+             None, 9),
+    "int4 g128": (INT4_STACKED, None, GEMM_INT4, 7, 64, TC_INT4, None, 4),
+    "int4 per-channel": (None, INT4_2D, GEMM_INT4_PC, 8, 1024, None,
+                         TC_INT4_2D, 4),
+    "fp8": ("fp8_matmul_stacked", "fp8_matmul", GEMM_FP8, 9, 64, TC_FP8,
+            TC_FP8_2D, 4),
 }
 
 
@@ -702,20 +757,24 @@ def _one_layer(w, layer):
 
 
 def check_gemv(fmt, errors, results):
-    """The stacked kernel at the four projection shapes: the GEMV at every
-    PATH_ROWS row count up to 16 with each option (and, for int8, the
-    serving decode's 9 rows), the GEMM at every row count above 16 that
-    the paths and serving give (bs4's 64-row prefill; int8 also serving's
-    admissions and path 5's 8192 rows) with none (the paths compose the
-    options there); for formats whose 2-D entry a path launches, the 2-D
-    entry at the same shapes and at the lm_head's. Then check_gemm's
-    side-by-side timing at the qkv shape."""
+    """The stacked kernel at the four projection shapes: at every PATH_ROWS
+    and GEMV_ROWS row count up to 16 with each option (and, for int8,
+    serving's rows), on the route tc_route / gemm_route give it (the
+    tensor-core GEMV from TC_MIN_ROWS, the CUDA-core one below), the GEMM
+    at every row count above 16 that the paths and serving give (bs4's
+    64-row prefill; int8 also serving's admissions and path 5's 8192 rows)
+    with none (the paths compose the options there); for formats whose
+    2-D entry a path launches, the 2-D entry at the same shapes and at the
+    lm_head's. At GEMV_ROWS both GEMVs, each forced onto its body, are
+    timed side by side with the path's option beside the library call and
+    the bound. Then check_gemm's side-by-side timing at the qkv shape."""
     import torch
     from trtllm_llama_tpu_torch.config import ModelConfig
     from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
 
-    key_3d, key_2d, gemm_key, seed, _ = GEMV_FORMATS[fmt]
+    (key_3d, key_2d, gemm_key, seed, _, tc_3d, tc_2d,
+     tc_key_rows) = GEMV_FORMATS[fmt]
     if fmt == "fp8":
         stacked, stacked_plain = f8k.fp8_matmul_stacked, f8k.fp8_matmul_stacked_plain
         two_d, two_d_plain = f8k.fp8_matmul, f8k.fp8_matmul_plain
@@ -723,7 +782,8 @@ def check_gemv(fmt, errors, results):
         stacked, stacked_plain = woq.woq_matmul_stacked, woq.woq_matmul_stacked_plain
         two_d, two_d_plain = woq.woq_matmul, woq.woq_matmul_plain
     print(f"kernel {stacked.__name__} / {two_d.__name__} ({fmt} weights, bf16 "
-          "x, f32 out; the GEMV up to 16 rows, the GEMM above):")
+          f"x, f32 out; the tensor-core GEMV at {woq.TC_MIN_ROWS}-16 rows, "
+          "the CUDA-core GEMV below, the GEMM above):")
     cfg = ModelConfig.llama_7b()
     d, f, vocab = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     qkv = cfg.num_heads * cfg.head_dim + 2 * cfg.num_kv_heads * cfg.head_dim
@@ -732,12 +792,17 @@ def check_gemv(fmt, errors, results):
               ("gate/up", d, f, "none"), ("down", f, d, "resid")]
     g = torch.Generator(device="cuda").manual_seed(seed)
     n_l = N_WEIGHT_LAYERS
-    err_3d = err_2d = err_gemm = 0.0
+    err = {"gemv": 0.0, "tc": 0.0, "gemm": 0.0, "2-D gemv": 0.0,
+           "2-D tc": 0.0}
     # the serving phase and path 5 run int8 weights at their own row counts
-    rows = PATH_ROWS + ((serve_rows() + (LONG_PROMPT,)) if fmt == "int8"
-                        else ())
-    timed = (1, 16) + ((SERVE_ENGINE["max_batch_size"] + 1,)
-                       if fmt == "int8" else ())
+    rows = sorted(set(PATH_ROWS + GEMV_ROWS + (
+        (serve_rows() + (LONG_PROMPT,)) if fmt == "int8" else ())))
+    table = {}
+
+    def route_of(m):
+        return ("gemm" if m >= woq.GEMM_MIN_ROWS
+                else "tc" if woq.TC_MIN_ROWS <= m <= woq.TC_MAX_ROWS
+                else "gemv")
 
     def record(key, t_k, t_p, t_l, n_bytes, m, k, n, what):
         b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n)
@@ -758,85 +823,112 @@ def check_gemv(fmt, errors, results):
         for m in rows:
             x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
             resid = torch.randn((m, n), generator=g, device="cuda").to(torch.bfloat16)
-            gemm = m >= woq.GEMM_MIN_ROWS
-            for opt in ("none",) if gemm else ("none", "norm", "resid"):
+            rt = route_of(m)
+            for opt in ("none",) if rt == "gemm" else ("none", "norm", "resid"):
                 kw = {"norm": {"norm_w": nw}, "resid": {"resid": resid},
                       "none": {}}[opt]
-                before = stacked.gemm_launches
+                before = (stacked.gemm_launches, stacked.tc_launches)
                 got = stacked(x, w, 1, **kw)
                 ref = stacked_plain(x, w, 1, **kw)
                 torch.cuda.synchronize()
-                err = compare(f"{pname} K={k} N={n} M={m} {opt} "
-                              f"({'GEMM' if gemm else 'GEMV'})", got, ref,
-                              errors)
-                if gemm:
-                    err_gemm = max(err_gemm, err)
-                else:
-                    err_3d = max(err_3d, err)
-                if stacked.gemm_launches - before != int(gemm):
-                    errors.append(f"{fmt} {pname} M={m} {opt}: the "
-                                  f"{'GEMM' if gemm else 'GEMV'} did not run")
+                e = compare(f"{pname} K={k} N={n} M={m} {opt} ({rt})", got,
+                            ref, errors)
+                err[rt] = max(err[rt], e)
+                moved = (stacked.gemm_launches - before[0],
+                         stacked.tc_launches - before[1])
+                if moved != (int(rt == "gemm"), int(rt == "tc")):
+                    errors.append(f"{fmt} {pname} M={m} {opt}: the {rt} did "
+                                  f"not run (GEMM / tensor-core launches "
+                                  f"{moved})")
                 del got, ref
             if key_2d is not None and m <= max(PATH_ROWS):
                 w1 = _one_layer(w, 1)
                 got = two_d(x, w1)
                 ref = two_d_plain(x, w1)
                 torch.cuda.synchronize()
-                err = compare(f"2-D {pname} K={k} N={n} M={m} "
-                              f"({'GEMM' if gemm else 'GEMV'})", got, ref,
-                              errors)
-                if gemm:
-                    err_gemm = max(err_gemm, err)
-                else:
-                    err_2d = max(err_2d, err)
-            if m not in timed:
+                e = compare(f"2-D {pname} K={k} N={n} M={m} ({rt})", got, ref,
+                            errors)
+                key = "gemm" if rt == "gemm" else f"2-D {rt}"
+                err[key] = max(err[key], e)
+            if m not in GEMV_ROWS:
                 continue
             kw = {"norm": {"norm_w": nw}, "resid": {"resid": resid},
                   "none": {}}[path_opt]
-            t_k = time_ms(lambda i: stacked(x, w, i % n_l, **kw))
-            t_p = time_ms(lambda i: stacked_plain(x, w, i % n_l, **kw), iters=8)
+            with tc_route_forced(True):
+                t_tc = time_ms(lambda i: stacked(x, w, i % n_l, **kw))
+            with tc_route_forced(False):
+                t_cc = time_ms(lambda i: stacked(x, w, i % n_l, **kw))
             t_l = time_ms(lambda i: torch.matmul(x, deq[i % n_l]))
             n_bytes = (w_bytes + m * k * 2 + m * n * 4
                        + (k * 2 if path_opt == "norm" else 0)
                        + (m * n * 2 if path_opt == "resid" else 0))
-            record(key_3d if pname == "qkv" and m == 1 else None, t_k, t_p,
-                   t_l, n_bytes, m, k, n, f"{pname} M={m} {path_opt}")
+            b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n)
+            table[f"{pname} M={m} {path_opt}"] = dict(
+                tc_ms=t_tc, cuda_core_ms=t_cc, library_ms=t_l, bound_ms=b_ms,
+                bound_by=b_by)
+            print(f"  time {pname} M={m} {path_opt}: tensor-core {t_tc:.4f} "
+                  f"ms, CUDA-core {t_cc:.4f} ms, library(matmul bf16 "
+                  f"dequantized) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                  f"tensor-core at {100 * b_ms / t_tc:.1f}% of the bound, "
+                  f"{t_tc / t_l:.2f}x the library")
+            for key, route_ms, at in ((key_3d, t_cc, 1), (tc_3d, t_tc,
+                                                          tc_key_rows)):
+                if key is not None and pname == "qkv" and m == at:
+                    t_p = time_ms(lambda i: stacked_plain(x, w, i % n_l,
+                                                          **kw), iters=8)
+                    record(key, route_ms, t_p, t_l, n_bytes, m, k, n,
+                           f"{pname} M={m} {path_opt}")
         if pname == "qkv":
-            err_gemm = max(err_gemm, check_gemm(fmt, w, deq, g, errors,
-                                                results))
+            err["gemm"] = max(err["gemm"], check_gemm(fmt, w, deq, g, errors,
+                                                      results))
         del w, deq
-    results[gemm_key]["max_abs_err"] = err_gemm
-    if key_3d is not None:
-        results[key_3d]["max_abs_err"] = err_3d
+    for pname, _, _, path_opt in shapes:
+        no_slower = [m for m in GEMV_ROWS
+                     if table[f"{pname} M={m} {path_opt}"]["tc_ms"]
+                     <= table[f"{pname} M={m} {path_opt}"]["cuda_core_ms"]]
+        print(f"  {fmt} {pname}: the tensor-core GEMV is no slower than the "
+              f"CUDA-core one at M = {no_slower} (TC_MIN_ROWS "
+              f"{woq.TC_MIN_ROWS})")
+    results["_e2e"][f"kernel 1/6 {fmt} GEMV tensor-core vs CUDA-core"] = table
+    results[gemm_key]["max_abs_err"] = err["gemm"]
+    for key, e in ((key_3d, err["gemv"]), (tc_3d, err["tc"])):
+        if key is not None:
+            results[key]["max_abs_err"] = e
     if key_2d is None:
         return
     # the lm_head: one [4096, 32000] weight, per-channel (bigger than L2);
-    # bs1 and bs4 decode / last rows on the GEMV, and the GEMM at the
+    # bs1 and bs4 decode / last rows on the GEMVs, and the GEMM at the
     # 2-D entry's widest shape
     w = _one_layer(make_gemv_weight(fmt, 1, d, vocab, g), 0)
     deq = w.dequantize(torch.bfloat16)
     for m in (1, 4, 64):
         x = torch.randn((m, d), generator=g, device="cuda").to(torch.bfloat16)
+        rt = route_of(m)
+        before = (two_d.gemm_launches, two_d.tc_launches)
         got = two_d(x, w)
         ref = two_d_plain(x, w)
         torch.cuda.synchronize()
-        err = compare(f"2-D lm_head K={d} N={vocab} M={m} "
-                      f"({'GEMV' if m < woq.GEMM_MIN_ROWS else 'GEMM'})",
-                      got, ref, errors)
-        if m < woq.GEMM_MIN_ROWS:
-            err_2d = max(err_2d, err)
-        else:
+        e = compare(f"2-D lm_head K={d} N={vocab} M={m} ({rt})", got, ref,
+                    errors)
+        if (two_d.gemm_launches - before[0],
+                two_d.tc_launches - before[1]) != (int(rt == "gemm"),
+                                                   int(rt == "tc")):
+            errors.append(f"{fmt} 2-D lm_head M={m}: the {rt} did not run")
+        if rt == "gemm":
             results[gemm_key]["max_abs_err"] = max(
-                results[gemm_key]["max_abs_err"], err)
-        if m == 1:
+                results[gemm_key]["max_abs_err"], e)
+        else:
+            err[f"2-D {rt}"] = max(err[f"2-D {rt}"], e)
+        if rt != "gemm":
             t_k = time_ms(lambda i: two_d(x, w))
             t_p = time_ms(lambda i: two_d_plain(x, w), iters=8)
             t_l = time_ms(lambda i: torch.matmul(x, deq))
-            n_bytes = (w.qweight.numel() + w.scale.numel() * 4 + d * 2
-                       + vocab * 4)
-            record(key_2d, t_k, t_p, t_l, n_bytes, m, d, vocab,
-                   "lm_head M=1 (decode)")
-    results[key_2d]["max_abs_err"] = err_2d
+            n_bytes = (w.qweight.numel() + w.scale.numel() * 4 + m * d * 2
+                       + m * vocab * 4)
+            record(key_2d if rt == "gemv" else tc_2d, t_k, t_p, t_l, n_bytes,
+                   m, d, vocab, f"lm_head M={m} ({rt})")
+    results[key_2d]["max_abs_err"] = err["2-D gemv"]
+    results[tc_2d]["max_abs_err"] = err["2-D tc"]
 
 
 def check_gemm(fmt, w, deq, g, errors, results):
@@ -851,7 +943,7 @@ def check_gemm(fmt, w, deq, g, errors, results):
     from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
 
-    _, _, gemm_key, _, key_rows = GEMV_FORMATS[fmt]
+    _, _, gemm_key, _, key_rows, _, _, _ = GEMV_FORMATS[fmt]
     stacked, plain = ((f8k.fp8_matmul_stacked, f8k.fp8_matmul_stacked_plain)
                       if fmt == "fp8" else
                       (woq.woq_matmul_stacked, woq.woq_matmul_stacked_plain))
@@ -917,7 +1009,8 @@ SWIGLU_CASES = {"int8": (SWIGLU_INT8, 21), "int4 g128": (SWIGLU_INT4, 22),
 def check_swiglu(errors, results):
     """The SwiGLU prologue of rows 2 and 4 at the down projection's shape
     (x [M, 2 x 11008] = [gate | up] -> N = 4096) in every weight format, at
-    M = 1, 9 and 16 (the FUSE_MAX_ROWS limit), with and without the
+    M = 1, 4, 9 and 16 (the FUSE_MAX_ROWS limit; the tensor-core GEMV from
+    TC_MIN_ROWS, the CUDA-core one below), with and without the
     residual, bf16, plus one fp16 and one f32 case; timed at M = 1 with the
     residual (the decode step's call) over N_WEIGHT_LAYERS weights."""
     import torch
@@ -938,7 +1031,7 @@ def check_swiglu(errors, results):
             fn, plain = f8k.fp8_matmul_stacked, f8k.fp8_matmul_stacked_plain
         else:
             fn, plain = woq.woq_matmul_stacked, woq.woq_matmul_stacked_plain
-        cases = [(torch.bfloat16, m) for m in (1, 9, 16)]
+        cases = [(torch.bfloat16, m) for m in (1, 4, 9, 16)]
         if fmt in extra:
             cases.append(extra[fmt])
         err = 0.0
@@ -982,8 +1075,9 @@ def check_swiglu(errors, results):
 
 def check_probes(errors, results):
     """Rows 15-19, each on its exhaustive input, held bit for bit against
-    its plain version (the two e4m3 NaN codes NaN on both sides); no path
-    launches them."""
+    its plain version (the two e4m3 NaN codes NaN on both sides; row 18
+    also through the tensor-core GEMV's pair decoders, into bf16 and fp16);
+    no path launches them."""
     import torch
     from trtllm_llama_tpu_torch.ops.kernels import probes as pr
 
@@ -992,6 +1086,7 @@ def check_probes(errors, results):
              (pr.probe_u16_ops, pr.u16_inputs),
              (pr.probe_u32_bf16_construct, pr.construct_inputs),
              (pr.probe_gemv_decodes, pr.code_inputs),
+             (pr.probe_tc_pairs, pr.code_inputs),
              (pr.probe_fp8_planes, pr.planes_inputs)]
     for fn, make in cases:
         name = fn.__name__
@@ -1895,8 +1990,9 @@ def check_paged_decode(errors, results, kv_int8=False):
 def make_paths():
     """Each path: its config, its int8-KV scales, its kernels (JSON name ->
     (module, wrapper attribute)), the JSON name of its GEMM (kernels 1 and
-    6 at bs4's 64-row prefill), and the wrappers replaced by their plain
-    versions for the prefill-logits check."""
+    6 at bs4's 64-row prefill) and of its tensor-core GEMV (the 16-row bs1
+    prefills and bs4's 4-row decode steps), and the wrappers replaced by
+    their plain versions for the prefill-logits check."""
     from trtllm_llama_tpu_torch import ModelConfig, QuantMode
     from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
     from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
@@ -1910,8 +2006,9 @@ def make_paths():
     return [
         dict(tag="path 1", title="int8 weight-only per-channel, bf16 KV",
              mode=QuantMode.use_weight_only(), kv_scales=None,
-             kernels={"woq_matmul_stacked": woq, GEMM_INT8: woq, **attn},
-             gemm=GEMM_INT8, **woq_gemm,
+             kernels={"woq_matmul_stacked": woq, GEMM_INT8: woq,
+                      TC_INT8: woq, **attn},
+             gemm=GEMM_INT8, tc=TC_INT8, **woq_gemm,
              plain=[(woq, "woq_matmul_stacked"),
                     (pa, "prefill_attention_kernel")],
              modes={"split": READ_ONLY, "fused": FUSED},
@@ -1936,8 +2033,8 @@ def make_paths():
              mode=QuantMode.use_weight_only(True, per_group=True),
              group_size=128, lm_head=True, kv_scales=None,
              kernels={INT4_STACKED: woq, INT4_2D: woq, GEMM_INT4: woq,
-                      **attn},
-             gemm=GEMM_INT4, **woq_gemm,
+                      TC_INT4: woq, TC_INT4_2D: woq, **attn},
+             gemm=GEMM_INT4, tc=TC_INT4, **woq_gemm,
              plain=[(woq, "woq_matmul_stacked"), (woq, "woq_matmul"),
                     (pa, "prefill_attention_kernel")],
              fused=("woq_matmul_stacked", SWIGLU_INT4)),
@@ -1945,8 +2042,8 @@ def make_paths():
              "lm_head (quantize_params), bf16 KV",
              mode=QuantMode.FP8_QDQ, lm_head=True, kv_scales=None,
              kernels={"fp8_matmul_stacked": f8k, "fp8_matmul": f8k,
-                      GEMM_FP8: f8k, **attn},
-             gemm=GEMM_FP8, **woq_gemm,
+                      GEMM_FP8: f8k, TC_FP8: f8k, TC_FP8_2D: f8k, **attn},
+             gemm=GEMM_FP8, tc=TC_FP8, **woq_gemm,
              plain=[(f8k, "fp8_matmul_stacked"), (f8k, "fp8_matmul"),
                     (pa, "prefill_attention_kernel")],
              fused=("fp8_matmul_stacked", SWIGLU_FP8)),
@@ -2073,6 +2170,14 @@ def drive_path(path, sess, errors, results):
               f"and a quantized lm_head): {'ok' if n_gemm == want else 'FAIL'}")
         if n_gemm != want:
             errors.append(f"{tag}: GEMM launches {n_gemm} != {want}")
+    if "tc" in path:     # 5 projections a layer in each forward it takes
+        tc_forwards = sum(n for rows, n in forwards if tc_rows(rows))
+        n_tc, want = launches[path["tc"]], 5 * cfg.num_layers * tc_forwards
+        print(f"  {tag}: tensor-core GEMV launches {n_tc} (expected {want}: "
+              f"the forwards its route takes, of (rows, forwards) "
+              f"{forwards}): {'ok' if n_tc == want else 'FAIL'}")
+        if n_tc != want:
+            errors.append(f"{tag}: tensor-core GEMV launches {n_tc} != {want}")
     if "expect" in path:       # 1 + 4 x new forwards, 5 prefills, 4 x 49 steps
         expect = path["expect"](cfg.num_layers, 1 + 4 * new, 5, 4 * (new - 1),
                                 gemm_forwards)
@@ -2133,6 +2238,17 @@ def drive_path(path, sess, errors, results):
         streamed_logits_vs_plain(path, sess, p1, p4, errors)
     dev_tok, _ = profile_generate(sess, p1, scfg)
     results["_e2e"][tag]["device_ms_per_decode_token"] = dev_tok
+    if "tc" in path:     # bs4's decode steps (4 rows) on the tensor-core
+        # GEMV, then on the CUDA-core GEMV, same session
+        dev_step4, _ = profile_generate(sess, p4, scfg, row_limit=8)
+        with tc_route_forced(False):
+            dev_step4_cc, _ = profile_generate(sess, p4, scfg, row_limit=4)
+        print(f"  {tag} bs4: {dev_step4:.3f} device ms per decode step on "
+              f"the tensor-core GEMV, {dev_step4_cc:.3f} on the CUDA-core "
+              "GEMV")
+        results["_e2e"][tag].update(
+            device_ms_per_decode_step_bs4=dev_step4,
+            device_ms_per_decode_step_bs4_cuda_core_gemv=dev_step4_cc)
     if path.get("task_a"):
         run_task_a(path, sess, errors, results)
     if path.get("modes"):
@@ -2414,7 +2530,8 @@ def run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results):
     the launches (the stacked entry 4 per layer and forward; the SwiGLU
     prologue once per layer in every forward of at most FUSE_MAX_ROWS
     rows: the bs1 prefill and every decode step, not bs4's 64-row
-    prefill), tokens against the unfused runs (a row that differs must
+    prefill; the tensor-core GEMV in the 16-row bs1 prefill and bs4's
+    decode steps), tokens against the unfused runs (a row that differs must
     flip at a near tie, first_difference), the fused session's prefill
     logits against the plain path within LOGITS_TOL, its logits against
     the unfused session's within FUSE_GU_TOL (prefill and first decode
@@ -2447,15 +2564,22 @@ def run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results):
         floor = path["floor"]()
         want_gemm = None if n_gemm is None else 4 * n_l * (
             (16 * b >= floor) + (new - 1) * (b >= floor))
-        ok = n == 4 * n_l * new and n_sw == want_sw and n_gemm == want_gemm
+        # the tensor-core GEMV: the forwards of TC_MIN_ROWS-16 rows (the
+        # 16-row bs1 prefill, bs4's 4-row decode steps)
+        n_tc = getattr(fn, "tc_launches", None)
+        want_tc = None if n_tc is None else 4 * n_l * (
+            tc_rows(16 * b) + (new - 1) * tc_rows(b))
+        ok = (n == 4 * n_l * new and n_sw == want_sw
+              and n_gemm == want_gemm and n_tc == want_tc)
         print(f"  {tag} fused {what}: {ms:.1f} ms; {entry} launches {n} "
               f"(expected {4 * n_l * new}), of them the GEMM's {n_gemm} "
-              f"(expected {want_gemm}), SwiGLU prologue {n_sw} (expected "
+              f"(expected {want_gemm}) and the tensor-core GEMV's {n_tc} "
+              f"(expected {want_tc}), SwiGLU prologue {n_sw} (expected "
               f"{want_sw}): {'ok' if ok else 'FAIL'}; all counts "
               f"{read_counts()[0]}")
         if not ok:
             errors.append(f"{tag} fused {what}: launches {n} / {n_gemm} / "
-                          f"{n_sw}")
+                          f"{n_tc} / {n_sw}")
         got[what] = (n, n_sw)
         same = np.array_equal(outf.output_ids, ref.output_ids)
         print(f"  {tag} fused {what} tokens identical to the unfused run: "
@@ -2616,8 +2740,9 @@ def run_decode_modes(path, sess, cfg, prompt, out_auto, errors, results):
 
 
 def profile_generate(sess, ids, scfg, row_limit=24, new=None):
-    """One bs1 request of `new` tokens (default PROFILE_NEW), timed on the
-    host clock and then under torch.profiler: device time by kernel, and
+    """One request (bs1, or a batch) of `new` tokens (default PROFILE_NEW),
+    timed on the host clock and then under torch.profiler: device time by
+    kernel, and
     the device's busy share of the unprofiled wall; then the prefill alone
     (one token) under the profiler. Returns (device ms per decode token:
     the request's device time less the prefill's, over new - 1 steps; busy
@@ -2647,8 +2772,9 @@ def profile_generate(sess, ids, scfg, row_limit=24, new=None):
         sess.generate(ids, sampling=scfg, max_new_tokens=1)
     pre_ms = device_ms(prof1.key_averages())
     dec_ms = (dev_ms - pre_ms) / (new - 1)
-    print(f"  profile bs1 out{new}: device busy {dev_ms:.1f} ms, prefill "
-          f"alone {pre_ms:.2f} ms, so {dec_ms:.3f} ms per decode token; of "
+    print(f"  profile bs{len(ids)} out{new}: device busy {dev_ms:.1f} ms, "
+          f"prefill alone {pre_ms:.2f} ms, so {dec_ms:.3f} ms per decode "
+          f"step; of "
           f"{wall_ms:.1f} ms unprofiled wall: {100 * dev_ms / wall_ms:.1f}% "
           f"busy, {100 - 100 * dev_ms / wall_ms:.1f}% idle")
     print(events.table(sort_by="self_device_time_total", row_limit=row_limit,
@@ -2895,6 +3021,7 @@ def run_long_context(args, errors, results):
                                                (1, LONG_PROMPT))
 
     wrappers = {"woq_matmul_stacked": woq.woq_matmul_stacked,
+                TC_INT8: woq.woq_matmul_stacked,
                 GEMM_INT8: woq.woq_matmul_stacked,
                 STREAMING: spa.streaming_prefill_attention_kernel,
                 INT8_DECODE: da.dma_decode_attention,
@@ -2909,7 +3036,9 @@ def run_long_context(args, errors, results):
     launches = {k: launches_of(k, fn) for k, fn in wrappers.items()}
     print(f"  bs1 in{LONG_PROMPT} out{LONG_NEW}: {ms:.1f} ms, "
           f"{LONG_NEW / ms * 1e3:.2f} tokens/s end to end")
-    expect = {"woq_matmul_stacked": 5 * n_l * (LONG_NEW - 1),
+    dec = 5 * n_l * (LONG_NEW - 1)             # 1-row decode steps
+    expect = {"woq_matmul_stacked": 0 if tc_rows(1) else dec,
+              TC_INT8: dec if tc_rows(1) else 0,
               GEMM_INT8: 5 * n_l, STREAMING: n_l,
               INT8_DECODE: n_l * (LONG_NEW - 1),
               "prefill_attention_kernel": 0, READ_ONLY_INT8: 0,
@@ -2918,7 +3047,8 @@ def run_long_context(args, errors, results):
           f"{'ok' if launches == expect else 'FAIL'}")
     if launches != expect:
         errors.append(f"path 5: launches {launches} != {expect}")
-    for k in ("woq_matmul_stacked", GEMM_INT8, STREAMING, INT8_DECODE):
+    for k in ("woq_matmul_stacked", TC_INT8, GEMM_INT8, STREAMING,
+              INT8_DECODE):
         results[k]["launches"] = results[k].get("launches", 0) + launches[k]
     ids = out.output_ids
     ok = (ids.shape == (1, LONG_NEW) and (ids >= 0).all()
@@ -3147,6 +3277,7 @@ def run_serving(args, errors, results):
         prefill = ("packed_prefill_attention_kernel" if eng.packed
                    else "prefill_attention_kernel")
         wrappers = {"woq_matmul_stacked": woq.woq_matmul_stacked,
+                    TC_INT8: woq.woq_matmul_stacked,
                     GEMM_INT8: woq.woq_matmul_stacked,
                     decode: (pda.paged_decode_attention if eng.paged
                              else da.dma_decode_attention),
@@ -3166,8 +3297,12 @@ def run_serving(args, errors, results):
         launches = {k: launches_of(k, fn) for k, fn in wrappers.items()}
         calls = dict(eng.calls)
         prefills = calls["packed_prefills" if eng.packed else "prefills"]
-        # the GEMV at the 9-row decode steps, the GEMM at each admission
-        expect = {"woq_matmul_stacked": 5 * n_l * calls["decode_steps"],
+        # the tensor-core GEMV at the 9-row decode steps (the slots and the
+        # trash row), the GEMM at each admission
+        steps = 5 * n_l * calls["decode_steps"]
+        dec_tc = tc_rows(SERVE_ENGINE["max_batch_size"] + 1)
+        expect = {"woq_matmul_stacked": 0 if dec_tc else steps,
+                  TC_INT8: steps if dec_tc else 0,
                   GEMM_INT8: 5 * n_l * prefills,
                   decode: n_l * calls["decode_steps"],
                   prefill: n_l * prefills}
@@ -3198,7 +3333,8 @@ def run_serving(args, errors, results):
             gaps = check_packed_vs_batched(eng, prompts, errors)
         if name == "dense":
             check_gemm_vs_gemv_waves(eng, prompts, errors)
-        busy = profile_serving_step(eng, prompts)
+        busy = profile_serving_step(eng, prompts,
+                                    gemv_side_by_side=name == "dense")
         results["_e2e"][f"serving {name}"] = dict(
             layers=n_l, tokens_per_s=n_tokens / wall, wall_s=wall,
             latency=stats, phases=phases, calls=calls, **busy)
@@ -3321,12 +3457,14 @@ def check_gemm_vs_gemv_waves(eng, prompts, errors):
         off += b
 
 
-def profile_serving_step(eng, prompts):
+def profile_serving_step(eng, prompts, gemv_side_by_side=False):
     """Admits 8 requests under the profiler (the admission step: one batched
     or packed prefill of the 8 prompts, then a decode chunk), times the next,
     decode-only step (one chunk of decode_chunk steps) on the host clock and
     profiles the one after it: device time by kernel and the device's busy
-    share of the unprofiled decode step. Drains the engine afterwards."""
+    share of the unprofiled decode step; with gemv_side_by_side, profiles
+    one more decode step with kernel 1 forced onto its CUDA-core GEMV (its
+    other body at 9 rows). Drains the engine afterwards."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3354,6 +3492,13 @@ def profile_serving_step(eng, prompts):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
     dev_ms, events = profiled_step()
+    extra = {}
+    if gemv_side_by_side:
+        with tc_route_forced(False):
+            extra["step_device_ms_cuda_core_gemv"], _ = profiled_step()
+        print(f"  the next decode step with kernel 1 on the CUDA-core GEMV: "
+              f"device busy {extra['step_device_ms_cuda_core_gemv']:.2f} ms "
+              f"(the tensor-core GEMV's step: {dev_ms:.2f} ms)")
     eng.run_to_completion()
     print(f"  profile of one decode step ({SERVE_CHUNK} tokens x 9 rows): "
           f"device busy {dev_ms:.2f} ms of the {step_ms:.2f} ms unprofiled "
@@ -3362,7 +3507,8 @@ def profile_serving_step(eng, prompts):
     print(events.table(sort_by="self_device_time_total", row_limit=12,
                        max_name_column_width=60))
     return dict(admit_step_device_ms=admit_ms, step_ms=step_ms,
-                step_device_ms=dev_ms, step_busy_share=dev_ms / step_ms)
+                step_device_ms=dev_ms, step_busy_share=dev_ms / step_ms,
+                **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -3829,16 +3975,16 @@ def _wrappers():
         da.decode_attention_kernel, da.fused_decode_attention,
         pda.paged_decode_attention, pr.probe_bitcast_u32_bf16,
         pr.probe_u16_ops, pr.probe_u32_bf16_construct, pr.probe_gemv_decodes,
-        pr.probe_fp8_planes)}
+        pr.probe_tc_pairs, pr.probe_fp8_planes)}
 
 
 def zero_counts():
-    """Every wrapper's launches (and GEMM and SwiGLU launches) and the ALiBi
-    decode branch's count set to 0."""
+    """Every wrapper's launches (and GEMM, tensor-core GEMV and SwiGLU
+    launches) and the ALiBi decode branch's count set to 0."""
     from trtllm_llama_tpu_torch.ops import attention
     for fn in _wrappers().values():
         fn.launches = 0
-        for extra in ("gemm_launches", "swiglu_launches"):
+        for extra in ("gemm_launches", "tc_launches", "swiglu_launches"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
     attention.fused_decode_attention_at.alibi_calls = 0
@@ -3846,13 +3992,15 @@ def zero_counts():
 
 def read_counts():
     """(launches, ALiBi decode calls) since zero_counts; only the non-zero
-    counts: each wrapper's launches, and "<wrapper>.gemm_launches" for the
-    GEMM's share of kernels 1 and 6."""
+    counts: each wrapper's launches, and "<wrapper>.gemm_launches" /
+    "<wrapper>.tc_launches" for the GEMM's and the tensor-core GEMV's
+    shares of kernels 1 and 6."""
     from trtllm_llama_tpu_torch.ops import attention
     counts = {}
     for k, f in _wrappers().items():
-        for attr, name in (("launches", k), ("gemm_launches",
-                                             f"{k}.gemm_launches")):
+        for attr, name in (("launches", k),
+                           ("gemm_launches", f"{k}.gemm_launches"),
+                           ("tc_launches", f"{k}.tc_launches")):
             if getattr(f, attr, 0):
                 counts[name] = getattr(f, attr)
     return counts, attention.fused_decode_attention_at.alibi_calls
@@ -4053,14 +4201,22 @@ def run_bloom(args, errors, results):
                     woq.woq_matmul_stacked_plain(x, w, 0), errors)
     sess = GenerationSession(cfg, q, ecfg, device="cuda", model=BLOOM)
     del q
+    # six projections a layer and forward: the 16-row prefill (8 tokens at
+    # the 16-row bucket) on the tensor-core GEMV, the decode steps on the
+    # body tc_route gives one row
+    n_tc = 6 * n_l * (tc_rows(16) + (NEW_TOKENS - 1) * tc_rows(1))
+    launches = {"woq_matmul_stacked": 6 * n_l * NEW_TOKENS,
+                "prefill_attention_kernel": n_l}
+    if n_tc:
+        launches["woq_matmul_stacked.tc_launches"] = n_tc
     bloom_request("path 6b int8 in8 out50", sess, short, NEW_TOKENS, dict(
-        launches={"woq_matmul_stacked": 6 * n_l * NEW_TOKENS,
-                  "prefill_attention_kernel": n_l},
-        alibi_decode=n_l * (NEW_TOKENS - 1)), errors, results, floors["int8"])
+        launches=launches, alibi_decode=n_l * (NEW_TOKENS - 1)), errors,
+        results, floors["int8"])
     results[ALIBI_PREFILL]["launches"] += n_l
     results["woq_matmul_stacked"]["launches"] = (
         results["woq_matmul_stacked"].get("launches", 0)
-        + 6 * n_l * NEW_TOKENS)
+        + 6 * n_l * NEW_TOKENS - n_tc)
+    results[TC_INT8]["launches"] = results[TC_INT8].get("launches", 0) + n_tc
     got, ref = first_logits(BLOOM, sess, short, attn_pairs
                             + [(woq, "woq_matmul_stacked")])
     compare("path 6b in8 first-step logits, kernels vs plain", got, ref,

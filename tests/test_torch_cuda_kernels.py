@@ -18,10 +18,10 @@ carry the probabilities through P V as three bf16 (two fp16) terms, and
 they, every f32 instantiation and the read-only and fused decode kernels
 differ from their plain versions in summation order only (bf16 / fp16
 outputs by a rounding step).
-Rows 2 and 4 at prefill rows (the tensor-core GEMM) form the same exact
-products (int8 / int4 codes and e4m3 values are exact in bf16 and fp16)
-and differ from the plain versions in the order of the f32 sums only: the
-2**-7 bound holds. The SwiGLU prologue (silu in f32, the product in the compute dtype) is
+Rows 2 and 4 at prefill rows (the tensor-core GEMM) and at TC_MIN_ROWS-16
+rows (the tensor-core GEMV) form the same exact products (int8 / int4
+codes and e4m3 values are exact in bf16 and fp16) and differ from the
+plain versions in the order of the f32 sums only: the 2**-7 bound holds. The SwiGLU prologue (silu in f32, the product in the compute dtype) is
 held to the same per-dtype bounds, and the decode probes are exact (bit
 for bit; the two e4m3 NaN codes decode to NaN on both sides).
 """
@@ -957,7 +957,8 @@ def test_static_sq_dense_takes_the_2d_entry_on_card(dev):
         _assert_close(got, ref.to(dev), torch.bfloat16)
 
 
-PROBES = ["bitcast", "u16", "construct", "gemv_decodes", "fp8_planes"]
+PROBES = ["bitcast", "u16", "construct", "gemv_decodes", "tc_pairs",
+          "fp8_planes"]
 
 
 def _same_bits(got, ref):
@@ -975,6 +976,7 @@ def test_decode_probes_exact(dev, probe):
                 "construct": (pr.probe_u32_bf16_construct,
                               pr.construct_inputs),
                 "gemv_decodes": (pr.probe_gemv_decodes, pr.code_inputs),
+                "tc_pairs": (pr.probe_tc_pairs, pr.code_inputs),
                 "fp8_planes": (pr.probe_fp8_planes, pr.planes_inputs)}[probe]
     before = fn.launches
     got = fn(make(dev))
@@ -1212,3 +1214,152 @@ def test_w8a8_gemm_refuses_a_k_it_cannot_take_before_launch(dev):
     torch.cuda.synchronize()
     assert w8a8.w8a8_matmul_stacked.gemm_launches == before
     assert torch.equal(got, torch.full((64, 128), 1000.0, device=dev))
+
+
+# rows 2 and 4 at TC_MIN_ROWS-16 rows: the tensor-core GEMV
+# (csrc/woq_gemv_tc.cuh), every format and option, bf16 and fp16; the
+# products are exact as in the GEMM and the sums differ in order only, so
+# the 2**-7 bound holds (fp16 too)
+TC_FORMATS = ["int8", "int4 per-channel", "int4 g128", "fp8"]
+
+
+def _tc_call(fmt, w, x, opt, g, dev):
+    """(wrapper, plain version, kwargs) of one stacked call with `opt`."""
+    k, n = w.k_dim, w.qweight.shape[-1]
+    mod, fn = ((f8k, f8k.fp8_matmul_stacked) if fmt == "fp8"
+               else (woq, woq.woq_matmul_stacked))
+    m = x.numel() // x.shape[-1]
+    kw = {"none": {}, "swiglu": {"swiglu": True},
+          "norm": {"norm_w": (1 + 0.1 * torch.randn(
+              (w.qweight.shape[0], k), generator=g, device=dev)).to(x.dtype)},
+          "resid": {"resid": torch.randn((m, n), generator=g,
+                                         device=dev).to(x.dtype)}}[opt]
+    return fn, getattr(mod, fn.__name__ + "_plain"), kw
+
+
+@pytest.mark.parametrize("opt", ["none", "norm", "resid", "swiglu"])
+@pytest.mark.parametrize("m", list(range(2, 17)))
+@pytest.mark.parametrize("fmt", TC_FORMATS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tc_gemv_matches_plain(dev, dtype, fmt, m, opt):
+    """Every row count the body takes, a ragged last column tile (N = 784)
+    and K split over blocks and warps."""
+    g = torch.Generator(device=dev).manual_seed(m + 31 * len(opt))
+    w = _swiglu_weight(fmt, g, dev, n_layers=3, k=1152, n=784)
+    k = w.k_dim
+    x = torch.randn((m, 2 * k if opt == "swiglu" else k), generator=g,
+                    device=dev).to(dtype)
+    fn, plain, kw = _tc_call(fmt, w, x, opt, g, dev)
+    before = (fn.launches, fn.tc_launches, fn.gemm_launches)
+    got = fn(x, w, 2, **kw)
+    torch.cuda.synchronize()
+    tc = m >= woq.TC_MIN_ROWS
+    assert (fn.launches, fn.tc_launches, fn.gemm_launches) == (
+        before[0] + 1, before[1] + int(tc), before[2])
+    _assert_close(got, plain(x, w, 2, **kw), dtype)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4 per-channel", "fp8"])
+def test_tc_gemv_2d_lm_head_at_bs4(dev, fmt):
+    """The 2-D entry at the lm_head's shape (4096 -> 32000) at bs4's 4 rows
+    runs the body (its own counter), as paths 3 and 4 do."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    w = _swiglu_weight(fmt, g, dev, n_layers=1, k=4096, n=32000)
+    w2 = dataclasses.replace(w, qweight=w.qweight[0], scale=w.scale[0])
+    x = torch.randn((4, 4096), generator=g, device=dev).to(torch.bfloat16)
+    fn = f8k.fp8_matmul if fmt == "fp8" else woq.woq_matmul
+    plain = f8k.fp8_matmul_plain if fmt == "fp8" else woq.woq_matmul_plain
+    before = (fn.launches, fn.tc_launches)
+    got = fn(x, w2)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches) == (before[0] + 1, before[1] + 1)
+    _assert_close(got, plain(x, w2), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [4, 9, 16])
+@pytest.mark.parametrize("kn,fmt,block", [
+    ((4544, 4672), "int8", 0),            # Falcon-7B's qkv: 284 steps
+    ((4544, 4544), "int4 per-channel", 64),
+    ((4544, 18176), "fp8", 0),            # logical order (4544 % 128)
+    ((6144, 18432), "int8", 0),           # GPT-NeoX-20B's qkv
+    ((6144, 6144), "int4 g128", 128),
+    ((6144, 24576), "fp8", 128)])
+def test_tc_gemv_at_the_families_widths(dev, m, kn, fmt, block):
+    k, n = kn
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    if fmt == "fp8":
+        w = FP8Weight(random_fp8_codes((2, k, n), g, dev),
+                      torch.rand((2, n), generator=g, device=dev) * 1e-3,
+                      block)
+    else:
+        bits, gs = (8, 0) if fmt == "int8" else (4, 128 if "g128" in fmt
+                                                  else 0)
+        w = WOQWeight(torch.randint(-127, 128, (2, k // 2 if bits == 4 else k,
+                                                n), generator=g, device=dev,
+                                    dtype=torch.int8),
+                      torch.rand((2, k // gs, n) if gs else (2, n),
+                                 generator=g, device=dev) * 1e-3,
+                      bits, gs, block)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    for opt in ("norm", "resid"):
+        fn, plain, kw = _tc_call(fmt, w, x, opt, g, dev)
+        before = fn.tc_launches
+        got = fn(x, w, 1, **kw)
+        torch.cuda.synchronize()
+        assert fn.tc_launches == before + 1
+        _assert_close(got, plain(x, w, 1, **kw), torch.bfloat16)
+
+
+def test_tc_gemv_route_keeps_f32_one_row_and_odd_k_off_it(dev):
+    """f32 at any row count, a K of half steps and the rows below
+    TC_MIN_ROWS go to the CUDA-core body, 17 rows to the GEMM: the counters
+    say which ran, and every result equals the plain version."""
+    g = torch.Generator(device=dev).manual_seed(43)
+    w = _swiglu_weight("int8", g, dev, n_layers=2, k=1152, n=784)
+    odd = WOQWeight(torch.randint(-127, 128, (2, 1000, 784), generator=g,
+                                  device=dev, dtype=torch.int8),
+                    torch.rand((2, 784), generator=g, device=dev) * 1e-3)
+    fn = woq.woq_matmul_stacked
+    cases = [(w, 9, torch.float32, (0, 0)), (odd, 9, torch.bfloat16, (0, 0)),
+             (w, 17, torch.bfloat16, (0, 1)),
+             (w, woq.TC_MIN_ROWS, torch.bfloat16, (1, 0))]
+    if woq.TC_MIN_ROWS > 1:
+        cases.append((w, woq.TC_MIN_ROWS - 1, torch.bfloat16, (0, 0)))
+    for ww, m, dtype, (tc, gemm) in cases:
+        x = torch.randn((m, ww.k_dim), generator=g, device=dev).to(dtype)
+        before = (fn.tc_launches, fn.gemm_launches)
+        got = fn(x, ww, 1)
+        torch.cuda.synchronize()
+        assert (fn.tc_launches - before[0], fn.gemm_launches - before[1]) == (
+            tc, gemm), (m, dtype)
+        _assert_close(got, woq.woq_matmul_stacked_plain(x, ww, 1), dtype)
+
+
+def test_tc_gemv_on_two_streams(dev):
+    """The body split over K (LLaMA-7B's wo and down shapes at 9 rows) on
+    two streams at once: each stream sums its splits in a workspace of its
+    own, so every output equals the plain version and each call adds one
+    tensor-core launch."""
+    g = torch.Generator(device=dev).manual_seed(47)
+    cases = []
+    for k, n in ((4096, 4096), (11008, 4096)):
+        w = _swiglu_weight("int8", g, dev, n_layers=2, k=k, n=n)
+        assert woq.tc_plan(9, k, n, da.sm_count(dev))[0] > 1
+        x = torch.randn((9, k), generator=g, device=dev).to(torch.bfloat16)
+        r = torch.randn((9, n), generator=g, device=dev).to(torch.bfloat16)
+        cases.append((w, x, r, woq.woq_matmul_stacked_plain(x, w, 1,
+                                                            resid=r)))
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    n_calls, before = 20, woq.woq_matmul_stacked.tc_launches
+    outs = [[] for _ in cases]
+    for _ in range(n_calls):
+        for st, (w, x, r, _), got in zip(streams, cases, outs):
+            with torch.cuda.stream(st):
+                got.append(woq.woq_matmul_stacked(x, w, 1, resid=r))
+    torch.cuda.synchronize()
+    assert woq.woq_matmul_stacked.tc_launches == before + n_calls * len(cases)
+    for (_, _, _, ref), got in zip(cases, outs):
+        for out in got:
+            _assert_close(out, ref, torch.bfloat16)

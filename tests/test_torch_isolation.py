@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of trtllm_llama_tpu_torch, nor
-chip_smoke.py, gemm_breakdown.py, attention_precision.py,
-decode_breakdown.py or streaming_breakdown.py, imports JAX or
+chip_smoke.py, gemm_breakdown.py, gemv_breakdown.py,
+attention_precision.py, decode_breakdown.py or streaming_breakdown.py,
+imports JAX or
 the JAX package, and the port imports and
 generates on the CPU (int8 weight-only, SmoothQuant with an int8 KV cache,
 int4 g64 and fp8 with a quantized lm_head; every prompt through the
@@ -41,6 +42,7 @@ def _forbidden(name):
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "trtllm_llama_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "gemm_breakdown.py",
+              ROOT / "gemv_breakdown.py",
               ROOT / "attention_precision.py", ROOT / "decode_breakdown.py",
               ROOT / "streaming_breakdown.py"]
     assert len(files) > 15

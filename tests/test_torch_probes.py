@@ -1,7 +1,8 @@
 """Rows 15-19, the decode probes: their plain versions give what the JAX
 package's TPU probes expect (`scripts/probe_int4_kernel.py` and the two
-fp8 kernels of `tests/test_tpu_kernels.py`), exhaustively and exactly;
-on CPU tensors the wrappers run them and launch nothing."""
+fp8 kernels of `tests/test_tpu_kernels.py`; row 18 also through the
+tensor-core GEMV's pair decoders), exhaustively and exactly; on CPU
+tensors the wrappers run them and launch nothing."""
 
 import numpy as np
 import pytest
@@ -63,6 +64,37 @@ def test_gemv_decodes_match_the_codecs():
     np.testing.assert_array_equal(int4.numpy()[:, 1], (codes >> 4) - 8.0)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "fp16"])
+def test_tc_pairs_match_the_codecs(dtype):
+    """Row 18 through the tensor-core GEMV's pair decoders: every int8 and
+    e4m3 code in the low half beside the code of the word n / 2 on (high
+    half), every int4 byte as (low, high) nibble, each the exact value in
+    bf16 / fp16 (the JAX codec's e4m3 values; the two NaN codes NaN)."""
+    words = pr.code_inputs()
+    out = pr.probe_tc_pairs(words)
+    int8, int4, fp8 = out[:3] if dtype == "bf16" else out[3:]
+    want_dt = torch.bfloat16 if dtype == "bf16" else torch.float16
+    codes = np.arange(256, dtype=np.uint8)
+    partner = np.roll(codes.reshape(64, 4), -32, axis=0).reshape(-1)
+    assert all(t.dtype == want_dt and t.shape == (256, 2)
+               for t in (int8, int4, fp8))
+    np.testing.assert_array_equal(int8.float().numpy()[:, 0],
+                                  codes.view(np.int8))
+    np.testing.assert_array_equal(int8.float().numpy()[:, 1],
+                                  partner.view(np.int8))
+    np.testing.assert_array_equal(int4.float().numpy()[:, 0],
+                                  (codes & 15) - 8.0)
+    np.testing.assert_array_equal(int4.float().numpy()[:, 1],
+                                  (codes >> 4) - 8.0)
+    for half, c in ((0, codes), (1, partner)):
+        want = np.asarray(jax_fp8_decode(jnp.asarray(c), jnp.float32))
+        got = fp8.float().numpy()[:, half]
+        nan = np.isnan(want)
+        assert nan.sum() == 2 and np.isnan(got[nan]).all()
+        # every e4m3 value is exact in bf16 and fp16
+        np.testing.assert_array_equal(got[~nan], want[~nan])
+
+
 def test_fp8_planes_read_back_the_logical_rows():
     q = pr.planes_inputs()
     codes = np.broadcast_to(np.arange(256, dtype=np.uint8).reshape(128, 2)[
@@ -78,12 +110,14 @@ def test_fp8_planes_read_back_the_logical_rows():
 
 @pytest.mark.parametrize("name", ["probe_bitcast_u32_bf16", "probe_u16_ops",
                                   "probe_u32_bf16_construct",
-                                  "probe_gemv_decodes", "probe_fp8_planes"])
+                                  "probe_gemv_decodes", "probe_tc_pairs",
+                                  "probe_fp8_planes"])
 def test_cpu_tensors_take_the_plain_version(name):
     inputs = {"probe_bitcast_u32_bf16": pr.bitcast_inputs,
               "probe_u16_ops": pr.u16_inputs,
               "probe_u32_bf16_construct": pr.construct_inputs,
               "probe_gemv_decodes": pr.code_inputs,
+              "probe_tc_pairs": pr.code_inputs,
               "probe_fp8_planes": pr.planes_inputs}[name]()
     fn = getattr(pr, name)
     before = fn.launches

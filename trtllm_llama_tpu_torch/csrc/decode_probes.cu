@@ -12,8 +12,8 @@
 // On the TPU they pinned Mosaic's bitcast and lane semantics; here they pin
 // the same facts for Hopper's registers and, for rows 18-19, run every code
 // through the very __device__ functions the GEMV decodes with
-// (woq_gemv.cuh: fp8x2, int8_code, int4_codes, slot_of), so a change there
-// shows up in the probe.
+// (woq_gemv.cuh: fp8x2, int8_code, int4_codes, slot_of; woq_gemv_tc.cuh:
+// the pair decoders), so a change there shows up in the probe.
 //
 //   15  each uint32 read as __nv_bfloat162: .x is the low half (little
 //       endian), written to row 2r, .y (high half) to row 2r + 1;
@@ -23,11 +23,14 @@
 //   17  ((w << 3) & 0x00780078) | 0x43004300 plants the nibbles at bits
 //       0-3 and 16-19 as the two bf16 128 + 8 n;
 //   18  all 256 e4m3 codes (fp8x2), all 256 int8 codes (int8_code) and all
-//       256 int4 nibble pairs (int4_codes) decoded exactly;
+//       256 int4 nibble pairs (int4_codes) decoded exactly; and the same
+//       codes through the tensor-core body's pair decoders
+//       (woq_gemv_tc.cuh: int8_pair, int4_pair, fp8_pair) into bf16 and
+//       fp16 pairs, every code in the low and in the high half;
 //   19  an e4m3 block stored interleaved (interleave_fp8_rows) read back in
 //       logical row order through slot_of<kFp8>.
 // Each is a few bytes; what bounds them is the launch.
-#include "woq_gemv.cuh"
+#include "woq_gemv_tc.cuh"
 
 using namespace tllm;
 
@@ -74,6 +77,33 @@ __global__ void gemv_decodes_kernel(const uint32_t* __restrict__ words,
     int4[2 * (4 * i + j)] = lo;
     int4[2 * (4 * i + j) + 1] = hi;
   }
+}
+
+// The pair decoders of one dtype: word i's byte j (low half) beside byte
+// j of word (i + n / 2) % n (high half) as int8 and e4m3 codes, and its two
+// nibbles as an int4 pair -> out [3][4 n] 32-bit pairs (int8, int4, fp8).
+template <typename T>
+__device__ __forceinline__ void tc_pairs(const uint32_t* words, uint32_t* out,
+                                         int i, int n_words) {
+  const uint32_t w = words[i];
+  const uint32_t v = words[(i + n_words / 2) % n_words];
+  const size_t n4 = 4 * static_cast<size_t>(n_words);
+  const gemv_tc::Plants c = gemv_tc::kPlants;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    out[4 * i + j] = gemv_tc::int8_pair<T>(w, v, j, c);
+    out[n4 + 4 * i + j] = gemv_tc::int4_pair<T>(w, j, c);
+    out[2 * n4 + 4 * i + j] = gemv_tc::fp8_pair<T>(w, v, j);
+  }
+}
+
+// words [n_words] -> out [2 (bf16, fp16)][3][4 n_words] 32-bit pairs.
+__global__ void tc_pairs_kernel(const uint32_t* __restrict__ words,
+                                uint32_t* __restrict__ out, int n_words) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_words) return;
+  tc_pairs<__nv_bfloat16>(words, out, i, n_words);
+  tc_pairs<__half>(words, out + 12 * static_cast<size_t>(n_words), i, n_words);
 }
 
 // q: e4m3 codes [K, N] stored interleaved by blk -> out f32 [K, N] in
@@ -141,6 +171,19 @@ extern "C" int tllm_probe_gemv_decodes(const void* words, void* fp8,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<float*>(fp8),
       static_cast<float*>(int8), static_cast<float*>(int4), n_words);
+  return cudaGetLastError();
+}
+
+// words uint32 [n_words] -> out uint32 [2][3][4 n_words] (bf16 then fp16
+// pairs of int8, int4 and e4m3 codes).
+extern "C" int tllm_probe_tc_pairs(const void* words, void* out, int n_words,
+                                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  tc_pairs_kernel<<<blocks_for(n_words), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<uint32_t*>(out),
+      n_words);
   return cudaGetLastError();
 }
 

@@ -1,14 +1,15 @@
 // FP8 (e4m3) weight stacked matmul for few rows (decode / short prefill):
-// the fp8 instantiation of woq_gemv.cuh.
+// the fp8 instantiations of woq_gemv.cuh (CUDA cores) and woq_gemv_tc.cuh
+// (tensor cores: bf16 / fp16 at TC_MIN_ROWS..16 rows).
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/woq_matmul.py::fp8_matmul_stacked
 // and, on a unit layer axis, fp8_matmul (the fp8 branch of _kernel_int8,
 // _decode_fp8_planes on rows interleaved by interleave_fp8_rows, the
 // per-channel scale after the sum, the _fuse_prologue norm and SwiGLU
 // modes and the _fuse_epilogue residual add). A library of its own so that nvcc builds it
-// beside the int8 / int4 one. The design and what bounds it on the H100:
-// see woq_gemv.cuh.
-#include "woq_gemv.cuh"
+// beside the int8 / int4 one. The designs and what bounds them on the
+// H100: see the two headers.
+#include "woq_gemv_tc.cuh"
 
 using namespace tllm;
 
@@ -27,4 +28,18 @@ extern "C" int tllm_fp8_matmul_stacked(const void* x, const void* q,
   const gemv::Args a{x, q, scale, norm_w, resid, out, part, M, K, N,
                      ksplit, kc, blk, 0, eps, swiglu};
   return gemv::dispatch<gemv::kFp8, false>(dtype, mr, a, device, stream);
+}
+
+// The tensor-core body (woq_gemv_tc.cuh) for bf16 / fp16 x of 1-16 rows:
+// as tllm_woq_gemv_tc (e4m3 codes, rows interleaved by blk, per-channel
+// scales).
+extern "C" int tllm_fp8_gemv_tc(const void* x, const void* q, const void* scale,
+                                const void* norm_w, const void* resid,
+                                void* out, void* part, int dtype,
+                                int M, int K, int N, int ksplit, int sps,
+                                int mt, int nt, int blk, float eps, int swiglu,
+                                int device, void* stream) {
+  const gemv_tc::Args a{x, q, scale, norm_w, resid, out, part, M, K, N,
+                        ksplit, sps, mt, nt, blk, 0, eps, swiglu};
+  return gemv_tc::dispatch<gemv::kFp8, false>(dtype, a, device, stream);
 }

@@ -1,5 +1,8 @@
 // Weight-only INT8 / INT4 stacked matmul for few rows (decode / short
-// prefill): the int8 and int4 instantiations of woq_gemv.cuh.
+// prefill): the int8 and int4 instantiations of woq_gemv.cuh, the
+// CUDA-core body (one row, f32 activations and the layouts only it tiles;
+// woq_gemv_tc.cu holds the tensor-core body's, a library of its own so
+// that nvcc builds the two in parallel).
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/woq_matmul.py::woq_matmul_stacked
 // and, on a unit layer axis, its 2-D form woq_matmul (_kernel_int8's int8

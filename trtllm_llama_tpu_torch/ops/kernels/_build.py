@@ -24,8 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC.parents[1] / "build" / "kernels"
-SOURCES = ("woq_gemm", "fp8_gemm", "w8a8_gemm", "woq_matmul", "fp8_matmul",
-           "prefill_attention",
+SOURCES = ("woq_gemm", "fp8_gemm", "w8a8_gemm", "woq_matmul", "woq_gemv_tc",
+           "fp8_matmul", "prefill_attention",
            "decode_attention", "rmsnorm_quant", "w8a8_matmul",
            "paged_decode_attention", "packed_prefill_attention",
            "streaming_prefill_attention", "decode_probes")
@@ -39,6 +39,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (32, 64, 96, 128, 256)
 
 _LIBS: dict = {}
+_WORKSPACE: dict = {}
+_RETIRED: list = []     # outgrown workspaces: a launch may still use one
+WORKSPACE_MIN = (1 << 20, 1 << 14)  # floats, counters: 4 MB covers the paths
 
 
 def _nvcc() -> str:
@@ -121,3 +124,35 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
 def ptr(t) -> ctypes.c_void_p:
     """Device pointer of a tensor (NULL for None)."""
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def workspace(device, n_part, n_counters=0):
+    """Scratch that a kernel keeps between calls, for launches on the current
+    CUDA stream of `device`: (f32 [>= n_part], int32 counters [>=
+    n_counters], zeroed here once; each launch leaves them at 0). The
+    split-cache decode (kernel 3, rows 8 and 9) keeps its splits' softmax
+    states and arrival counters there, the tensor-core GEMV of kernels 1
+    and 6 its K splits' sums: launches on one stream run in order, so they
+    share it, and launches in flight on two streams never do. Allocated at
+    first use, at least WORKSPACE_MIN, grown only when a call needs more
+    (the old one is kept alive), so no call allocates. It cannot be made
+    while the stream is being captured (the zeroing would run only at
+    replay): make one eager call on a stream before capturing it. A CUDA
+    graph keeps the workspace of the stream it was captured on, so graphs
+    captured on one stream must not be replayed at the same time."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_counters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "kernel workspace: none of this size for the stream being "
+                "captured; make one eager call on it first")
+        if ws is not None:
+            _RETIRED.append(ws)
+        n_part = max(n_part, WORKSPACE_MIN[0], ws[0].numel() if ws else 0)
+        n_counters = max(n_counters, WORKSPACE_MIN[1],
+                         ws[1].numel() if ws else 0)
+        ws = (torch.empty(n_part, device=device, dtype=torch.float32),
+              torch.zeros(n_counters, device=device, dtype=torch.int32))
+        _WORKSPACE[key] = ws
+    return ws

@@ -215,40 +215,7 @@ def decode_attention_kernel(q, k_cache, v_cache, layer: int, cache_lens,
 decode_attention_kernel.launches = 0
 
 
-_WORKSPACE: dict = {}
-_RETIRED: list = []     # outgrown workspaces: a launch may still use one
-WORKSPACE_MIN = (1 << 20, 1 << 14)  # floats, counters: 4 MB covers the paths
-
-
-def _workspace(device, n_part, n_counters):
-    """The split-cache body's workspace (kernel 3, rows 8 and 9; sized by
-    `workspace_size`) for launches on the current CUDA
-    stream of `device`: the splits' softmax states (f32) and the
-    arrival counters (int32, zeroed here once; each launch leaves them at
-    0). One per stream, so launches in flight on two streams never share
-    one; launches on one stream run in order. Allocated at first use, at
-    least WORKSPACE_MIN, grown only when a call needs more (the old one
-    is kept alive), so no call allocates. It cannot be made while the
-    stream is being captured (the zeroing would run only at replay): make
-    one eager call on a stream before capturing it. A CUDA graph keeps
-    the workspace of the stream it was captured on, so graphs captured on
-    one stream must not be replayed at the same time."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    ws = _WORKSPACE.get(key)
-    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_counters:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "decode attention: no workspace of this size for the stream "
-                "being captured; make one eager call on it first")
-        if ws is not None:
-            _RETIRED.append(ws)
-        n_part = max(n_part, WORKSPACE_MIN[0], ws[0].numel() if ws else 0)
-        n_counters = max(n_counters, WORKSPACE_MIN[1],
-                         ws[1].numel() if ws else 0)
-        ws = (torch.empty(n_part, device=device, dtype=torch.float32),
-              torch.zeros(n_counters, device=device, dtype=torch.int32))
-        _WORKSPACE[key] = ws
-    return ws
+_workspace = _build.workspace     # the split-cache body's, per stream
 
 
 def workspace_size(b: int, hq: int, d: int, splits: int) -> tuple[int, int]:

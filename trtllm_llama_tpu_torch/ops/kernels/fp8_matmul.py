@@ -1,22 +1,24 @@
-"""Kernel 6: FP8 (e4m3) weight matmul: the GEMV (csrc/fp8_matmul.cu, body
-in csrc/woq_gemv.cuh) at decode rows and the tensor-core GEMM
-(csrc/fp8_gemm.cu, body in csrc/woq_gemm.cuh) at prefill rows.
+"""Kernel 6: FP8 (e4m3) weight matmul: kernel 1's three bodies on e4m3
+codes, picked by kernel 1's rules (`tc_route`, `gemm_route`).
 
 Replaces `trtllm_llama_tpu/ops/pallas/woq_matmul.py::fp8_matmul_stacked`
 (the fp8 branch of `_kernel_int8`: e4m3 codes in rows interleaved by
 `interleave_fp8_rows`, per-channel scale after the sum, the norm and
 SwiGLU prologues, the residual epilogue) and its 2-D form `fp8_matmul`.
 Bound on the H100: the weight bytes (one per weight) at decode rows; the
-GEMV is kernel 1's with Hopper's exact e4m3x2 -> f16x2 convert as the
-decode and x staged in the interleaved row order. Above ~300 rows the
-operations: the GEMM decodes the codes into shared memory in logical row
-order and runs wgmma on them. kernel 1's `gemm_route` picks the kernel.
+operations above ~300 rows. The tensor-core GEMV (csrc/fp8_matmul.cu,
+body in csrc/woq_gemv_tc.cuh) takes bf16 / fp16 calls of TC_MIN_ROWS..16
+rows, decoding pairs of codes with Hopper's exact e4m3x2 -> f16x2 convert
+into mma.sync's A operand, x staged in the interleaved row order; the
+CUDA-core GEMV (csrc/fp8_matmul.cu, body in csrc/woq_gemv.cuh) f32 and
+the rest; the GEMM (csrc/fp8_gemm.cu, body in csrc/woq_gemm.cuh) decodes
+the codes into shared memory in logical row order and runs wgmma on them.
 
 `fp8_matmul_stacked` and `fp8_matmul` take the plain version for CPU
 tensors and launch a kernel for CUDA tensors; each counts its launches
-in `.launches`, the GEMM's share in `.gemm_launches`
-(`fp8_matmul_stacked.swiglu_launches` counts the GEMV launches with the
-SwiGLU prologue).
+in `.launches`, the GEMM's share in `.gemm_launches`, the tensor-core
+GEMV's in `.tc_launches` (`fp8_matmul_stacked.swiglu_launches` counts the
+GEMV launches with the SwiGLU prologue).
 """
 
 from __future__ import annotations
@@ -28,11 +30,13 @@ import torch
 from ...quantization.tensors import FP8Weight
 from ..fp8 import fp8_decode
 from .woq_matmul import (_device_kind, gemm_route, launch_gemm, launch_gemv,
-                         prologue, resid_epilogue, unit_layer)
+                         launch_tc, prologue, resid_epilogue, tc_route,
+                         unit_layer)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_fp8_matmul_stacked":
-               [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P]}
+               [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
+               "tllm_fp8_gemv_tc": [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P]}
 _GEMM_SIGNATURES = {"tllm_fp8_gemm": [_P] * 6 + [_I] * 7 + [_P]}
 
 
@@ -48,7 +52,8 @@ def fp8_matmul_stacked_plain(x, w: FP8Weight, layer: int, norm_w=None,
 
 
 def _launch(what, x, w: FP8Weight, layer, norm_w, eps, resid, swiglu=False):
-    """(f32 [..., N], whether the GEMM ran) for one CUDA call."""
+    """(f32 [..., N], the route: "gemm", "tc" or "gemv") for one CUDA
+    call."""
     n_layers, k, n = w.qweight.shape
     if w.qweight.dtype != torch.uint8 or w.scale.shape != (n_layers, n):
         raise ValueError(f"{what}: qweight must be uint8 codes and scale "
@@ -58,10 +63,14 @@ def _launch(what, x, w: FP8Weight, layer, norm_w, eps, resid, swiglu=False):
                   norm_w is not None or swiglu, resid is not None, k, ib):
         return launch_gemm(what, "fp8_gemm", "tllm_fp8_gemm",
                            _GEMM_SIGNATURES, x, w.qweight, w.scale, layer, k,
-                           "fp8", ib, 0), True
+                           "fp8", ib, 0), "gemm"
+    if tc_route(x.numel() // x.shape[-1], x.dtype, k, ib):
+        return launch_tc(what, "fp8_matmul", "tllm_fp8_gemv_tc", _SIGNATURES,
+                         x, w.qweight, w.scale, layer, k, (ib,), 8, ib, 0,
+                         norm_w, eps, resid, swiglu), "tc"
     return launch_gemv(what, "fp8_matmul", "tllm_fp8_matmul_stacked",
                        _SIGNATURES, x, w.qweight, w.scale, layer, k, (ib,),
-                       ib or 8, 8, norm_w, eps, resid, swiglu), False
+                       ib or 8, 8, norm_w, eps, resid, swiglu), "gemv"
 
 
 def fp8_matmul_stacked(x, w: FP8Weight, layer: int, norm_w=None,
@@ -73,24 +82,25 @@ def fp8_matmul_stacked(x, w: FP8Weight, layer: int, norm_w=None,
     stacked [L, K] RMSNorm weight (prologue; not with swiglu); resid:
     optional [..., N] in x's dtype (epilogue). Returns f32 [..., N].
 
-    On the card (gemm_route): bf16 / fp16 calls of at least GEMM_MIN_ROWS
-    rows with no prologue and no residual run the GEMM; f32 calls, calls
-    with a prologue or a residual, and layouts the GEMM does not tile run
-    the GEMV at every row count (correct, and no path makes such a call
-    above 16 rows)."""
+    On the card, kernel 1's routes: the GEMM for bf16 / fp16 calls of at
+    least GEMM_MIN_ROWS rows with no prologue and no residual, the
+    tensor-core GEMV for bf16 / fp16 calls of TC_MIN_ROWS..16 rows, the
+    CUDA-core GEMV for f32 and the layouts neither tiles."""
     if _device_kind(x, "fp8_matmul_stacked") == "cpu":
         return fp8_matmul_stacked_plain(x, w, layer, norm_w, eps, resid,
                                         swiglu)
-    out, gemm = _launch("fp8_matmul_stacked", x, w, layer, norm_w, eps,
-                        resid, swiglu)
+    out, route = _launch("fp8_matmul_stacked", x, w, layer, norm_w, eps,
+                         resid, swiglu)
     fp8_matmul_stacked.launches += 1
-    fp8_matmul_stacked.gemm_launches += int(gemm)
+    fp8_matmul_stacked.gemm_launches += int(route == "gemm")
+    fp8_matmul_stacked.tc_launches += int(route == "tc")
     fp8_matmul_stacked.swiglu_launches += int(swiglu)
     return out
 
 
 fp8_matmul_stacked.launches = 0
 fp8_matmul_stacked.gemm_launches = 0
+fp8_matmul_stacked.tc_launches = 0
 fp8_matmul_stacked.swiglu_launches = 0
 
 
@@ -101,16 +111,19 @@ def fp8_matmul_plain(x, w: FP8Weight):
 
 def fp8_matmul(x, w: FP8Weight):
     """2-D entry: x [..., K] @ dequant(w), codes [K, N], scale [N]; the
-    stacked kernels on a unit layer axis (the GEMM or the GEMV as
-    gemm_route decides), counted in its own `fp8_matmul.launches` and
-    `.gemm_launches`. Returns f32 [..., N]."""
+    stacked kernels on a unit layer axis (routed as fp8_matmul_stacked),
+    counted in its own `fp8_matmul.launches`, `.gemm_launches` and
+    `.tc_launches`. Returns f32 [..., N]."""
     if _device_kind(x, "fp8_matmul") == "cpu":
         return fp8_matmul_plain(x, w)
-    out, gemm = _launch("fp8_matmul", x, unit_layer(w), 0, None, 1e-6, None)
+    out, route = _launch("fp8_matmul", x, unit_layer(w), 0, None, 1e-6,
+                         None)
     fp8_matmul.launches += 1
-    fp8_matmul.gemm_launches += int(gemm)
+    fp8_matmul.gemm_launches += int(route == "gemm")
+    fp8_matmul.tc_launches += int(route == "tc")
     return out
 
 
 fp8_matmul.launches = 0
 fp8_matmul.gemm_launches = 0
+fp8_matmul.tc_launches = 0

@@ -7,8 +7,10 @@ its int4 / fp8 decodes rely on:
 of `tests/test_tpu_kernels.py::test_fp8_decode_exact_on_chip` (18) and
 `::test_fp8_planes_decode_exact_on_chip` (19). On Hopper each probes the
 same fact in registers, and rows 18-19 run every code through the decode
-functions of `csrc/woq_gemv.cuh` that the GEMV uses. A few bytes each, so
-the launch bounds them.
+functions of `csrc/woq_gemv.cuh` that the CUDA-core GEMV uses; row 18's
+second probe (`probe_tc_pairs`) runs them through the pair decoders of
+`csrc/woq_gemv_tc.cuh` that the tensor-core GEMV feeds mma.sync with, into
+bf16 and fp16. A few bytes each, so the launch bounds them.
 
 uint32 words travel as int32 tensors (the same bits). Each wrapper takes
 its plain version for CPU tensors and launches its kernel for CUDA tensors,
@@ -36,6 +38,7 @@ _SIGNATURES = {"tllm_probe_bitcast_u32_bf16": _SWAR,
                "tllm_probe_u16_ops": _SWAR,
                "tllm_probe_u32_bf16_construct": _SWAR,
                "tllm_probe_gemv_decodes": [_P] * 4 + [_I, _I, _P],
+               "tllm_probe_tc_pairs": [_P, _P, _I, _I, _P],
                "tllm_probe_fp8_planes": [_P, _P, _I, _I, _I, _I, _P]}
 FP8_BLOCK = 128      # the interleave block of row 19's input
 
@@ -121,6 +124,24 @@ def probe_gemv_decodes_plain(words):
     return (fp8_decode(codes), codes.view(torch.int8).float(), int4.float())
 
 
+def probe_tc_pairs_plain(words):
+    """The pair decoders' output for words [n] (int32): for bf16 then fp16,
+    (int8, int4, e4m3) pairs [4n, 2] of that dtype; pair 4 i + j holds
+    byte j of word i low and byte j of word (i + n / 2) % n high (int4:
+    the byte's low and high nibble, each biased by 8)."""
+    codes = words.view(torch.uint8)
+    n = words.numel()
+    partner = torch.roll(codes.reshape(n, 4), -(n // 2), dims=0).reshape(-1)
+    u = codes.to(torch.int32)
+    int8 = torch.stack([codes.view(torch.int8), partner.view(torch.int8)],
+                       dim=-1).float()
+    int4 = torch.stack([(u & 15) - INT4_BIAS, (u >> 4) - INT4_BIAS],
+                       dim=-1).float()
+    fp8 = torch.stack([fp8_decode(codes), fp8_decode(partner)], dim=-1)
+    return tuple(v.to(dt) for dt in (torch.bfloat16, torch.float16)
+                 for v in (int8, int4, fp8))
+
+
 def probe_fp8_planes_plain(q):
     return fp8_decode(deinterleave_fp8_rows(q, FP8_BLOCK))
 
@@ -197,6 +218,28 @@ def probe_gemv_decodes(words):
     return fp8, int8, int4
 
 
+def probe_tc_pairs(words):
+    """Row 18, the tensor-core body's decoders: every byte of the words [n]
+    (int32, n even) as a bf16 and an fp16 pair of int8 codes, of int4
+    nibbles and of e4m3 codes. Returns (int8, int4, fp8) bf16 [4n, 2], then
+    the same in fp16."""
+    if _device_kind(words, "probe_tc_pairs") == "cpu":
+        return probe_tc_pairs_plain(words)
+    _check("probe_tc_pairs", words, torch.int32)
+    n = words.numel()
+    if n % 2:
+        raise ValueError("probe_tc_pairs: needs an even number of words")
+    out = torch.empty((2, 3, 4 * n), device=words.device, dtype=torch.int32)
+    lib = _build.load("decode_probes", _SIGNATURES)
+    _build.check(lib.tllm_probe_tc_pairs(
+        _build.ptr(words), _build.ptr(out), n, words.device.index or 0,
+        _build.stream_of(words)), "probe_tc_pairs")
+    probe_tc_pairs.launches += 1
+    return tuple(out[d, f].view(dt).reshape(4 * n, 2)
+                 for d, dt in enumerate((torch.bfloat16, torch.float16))
+                 for f in range(3))
+
+
 def probe_fp8_planes(q):
     """Row 19: e4m3 codes [K, N] stored interleaved by FP8_BLOCK -> f32
     [K, N] in logical row order."""
@@ -217,6 +260,6 @@ def probe_fp8_planes(q):
 
 
 for _fn in (probe_bitcast_u32_bf16, probe_u16_ops, probe_u32_bf16_construct,
-            probe_gemv_decodes, probe_fp8_planes):
+            probe_gemv_decodes, probe_tc_pairs, probe_fp8_planes):
     _fn.launches = 0
 del _fn

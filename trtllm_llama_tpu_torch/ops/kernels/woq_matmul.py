@@ -1,35 +1,39 @@
-"""Kernel 1: weight-only INT8 / INT4 matmul: the GEMV (csrc/woq_matmul.cu,
-body in csrc/woq_gemv.cuh) at decode rows and the tensor-core GEMM
-(csrc/woq_gemm.cu, body in csrc/woq_gemm.cuh) at prefill rows.
+"""Kernel 1: weight-only INT8 / INT4 matmul: three CUDA bodies, picked from
+the call before launch.
 
 Replaces `trtllm_llama_tpu/ops/pallas/woq_matmul.py::woq_matmul_stacked`
 (int8 and int4 branches, per-channel or grouped scales, the norm and
 SwiGLU prologues, the residual epilogue) and its 2-D form `woq_matmul`.
 Bound on the H100: the weight bytes at decode rows (a GEMV at M <= 16
-does 2*M flops per int8 byte, 4*M per int4 byte); the GEMV streams them
-in 16-byte vectors over split-K blocks that fill all SMs, with int4
-unpacked in registers and x staged in the pack layout's row order (see
-the header's note). Above ~300 rows the operations bound it: the GEMM
-decodes each K tile's codes into shared memory once per 128-row M tile
-and runs wgmma on them (see woq_gemm.cuh).
-
-Which kernel runs is decided from the call before launch (`gemm_route`):
-the GEMM for bf16 / fp16 activations of at least GEMM_MIN_ROWS rows with
-no prologue and no residual, on a layout it tiles (`gemm_takes`); the
-GEMV otherwise.
+does 2*M flops per int8 byte, 4*M per int4 byte); above ~300 rows the
+operations.
+- The tensor-core GEMV (csrc/woq_gemv_tc.cu, body in csrc/woq_gemv_tc.cuh)
+  takes bf16 / fp16 calls of TC_MIN_ROWS..16 rows on a layout it tiles
+  (`tc_route`): mma.sync with the weight as the A operand, its codes read
+  once per call into registers and decoded there by byte permutes, K in
+  stored order, split-K blocks whose sums a second launch adds up (from
+  the per-stream workspace `_build.workspace`).
+- The CUDA-core GEMV (csrc/woq_matmul.cu, body in csrc/woq_gemv.cuh)
+  takes the rest of the calls up to 16 rows and f32 at every row count:
+  16-byte vectors over split-K blocks, one FFMA per weight and row.
+- The tensor-core GEMM (csrc/woq_gemm.cu, body in csrc/woq_gemm.cuh) takes
+  bf16 / fp16 calls of at least GEMM_MIN_ROWS rows with no prologue and no
+  residual on a layout it tiles (`gemm_route`): each K tile's codes
+  decoded into shared memory once per 128-row M tile, then wgmma.
 
 `woq_matmul_stacked` and `woq_matmul` take the plain version for CPU
 tensors and launch a kernel for CUDA tensors; each counts its launches
-in `.launches`, the GEMM's share of them in `.gemm_launches`
-(`woq_matmul_stacked.swiglu_launches` counts the GEMV launches with the
-SwiGLU prologue). `launch_gemv` and `launch_gemm` are shared with the fp8
-wrapper.
+in `.launches`, the GEMM's share of them in `.gemm_launches` and the
+tensor-core GEMV's in `.tc_launches` (`woq_matmul_stacked.swiglu_launches`
+counts the GEMV launches with the SwiGLU prologue). `launch_gemv`,
+`launch_tc` and `launch_gemm` are shared with the fp8 wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -39,6 +43,7 @@ from . import _build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_woq_matmul_stacked":
                [_P] * 7 + [_I] * 10 + [_F, _I, _I, _P]}
+_TC_SIGNATURES = {"tllm_woq_gemv_tc": [_P] * 7 + [_I] * 11 + [_F, _I, _I, _P]}
 _GEMM_SIGNATURES = {"tllm_woq_gemm": [_P] * 6 + [_I] * 9 + [_P]}
 
 _BN = 512          # output columns per block (kBN in the source)
@@ -56,6 +61,23 @@ GEMM_DTYPES = (torch.bfloat16, torch.float16)
 _GEMM_BM = _GEMM_BN = 128  # the GEMM's block tile (kBM, kBN)
 _GEMM_SPLIT_TILES = 4      # fewest K tiles a split of the GEMM gets
 
+
+# The tensor-core GEMV (csrc/woq_gemv_tc.cuh) takes bf16 / fp16 calls of
+# TC_MIN_ROWS..TC_MAX_ROWS rows (FUSE_MAX_ROWS of ops/linear.py: every call
+# with a prologue or a residual is at most that) on a layout it tiles
+# (tc_takes). The kernel phase of chip_smoke.py times it beside the
+# CUDA-core GEMV at 1-16 rows (PERF.md): from 2 rows it is faster in every
+# int8 and e4m3 shape; at 1 row the CUDA-core body is (its one FFMA per
+# weight is then cheaper than the pair decode), by up to 25% at int4 g128.
+TC_MIN_ROWS = 2
+TC_MAX_ROWS = 16
+TC_STEP = 16              # K slots of one mma step (kStep in the source)
+TC_WARPS = 4              # warps of a block, each a part of its K (kWarps)
+# blocks of the body that reside on an SM (its registers bound them): three
+# at up to 8 rows, two at 9-16 rows or with grouped fragments
+TC_BLOCKS_PER_SM = {(8, False): 3, (8, True): 2, (16, False): 2,
+                    (16, True): 2}
+TC_PANEL_BYTES = 32 << 10  # most of a block's staged x panel
 
 _SM_COUNT: dict = {}
 
@@ -177,6 +199,70 @@ def gemm_route(rows: int, dtype, prologue: bool = False,
             and gemm_takes(k, block, group))
 
 
+def tc_takes(k: int, block: int = 0, group: int = 0) -> bool:
+    """Whether the tensor-core GEMV tiles this layout: K in whole 16-slot
+    mma steps and groups (if any) of whole steps. A split-K range starts
+    on whole pack (interleave) blocks and groups (tc_plan), so the block
+    itself needs nothing more (K is whole blocks by the weight's own
+    contract)."""
+    return k > 0 and k % TC_STEP == 0 and group % TC_STEP == 0
+
+
+def tc_route(rows: int, dtype, k: int = TC_STEP, block: int = 0,
+             group: int = 0) -> bool:
+    """True where a CUDA call of at most GEMM_MIN_ROWS - 1 rows goes to the
+    tensor-core GEMV (any prologue or residual), False where it goes to the
+    CUDA-core one: bf16 / fp16 activations of TC_MIN_ROWS..TC_MAX_ROWS rows
+    on a layout it tiles (tc_takes). f32 stays on the CUDA cores (the
+    tensor cores have no exact f32 product)."""
+    return (TC_MIN_ROWS <= rows <= TC_MAX_ROWS and dtype in GEMM_DTYPES
+            and tc_takes(k, block, group))
+
+
+def tc_plan(m: int, k: int, n: int, sms: int, w_bits: int = 8,
+            block: int = 0, group: int = 0) -> tuple[int, int, int, int]:
+    """(ksplit, sps, mt, nt) of one tensor-core GEMV launch: mt 8 (M <= 8,
+    one mma per 16 columns and step) or 16 (two; grouped scales then apply
+    to each step's products); nt the tiles a warp covers (16: 256 columns;
+    8 for grouped int8); the K steps split into ksplit ranges of sps steps
+    (the last one shorter), each whole pack or interleave blocks and
+    groups, so that the grid of column tiles x ksplit fills the card in one
+    wave of TC_BLOCKS_PER_SM[mt, grouped] blocks an SM (the most that its
+    registers let reside), each of the block's TC_WARPS warps at least one
+    step (grouped: one group) and, where K allows, an equal share, and the
+    x panel within TC_PANEL_BYTES."""
+    mt = 8 if m <= 8 else 16
+    nt = 8 if group and w_bits == 8 else 16
+    tiles = -(-n // (16 * nt))
+    steps = k // TC_STEP
+    unit = math.lcm(TC_STEP, block or TC_STEP, group or TC_STEP) // TC_STEP
+    warp_unit = group // TC_STEP if group else 1
+    want = max(1, TC_BLOCKS_PER_SM[mt, bool(group)] * sms // tiles)
+    most = max(1, steps // (TC_WARPS * warp_unit))
+    fewest = -(-steps * TC_STEP * mt * 2 // TC_PANEL_BYTES)
+    ksplit = max(fewest, min(want, most))
+    # whole blocks and groups a split, and where K allows an equal share
+    # for every warp (an uneven share is time the other warps wait)
+    per = math.lcm(unit, TC_WARPS * warp_unit)
+    if steps >= per * ksplit:
+        unit = per
+    sps = -(-steps // ksplit)
+    sps = -(-sps // unit) * unit
+    return -(-steps // sps), sps, mt, nt
+
+
+def tc_column_map(n: int, nt: int) -> list:
+    """The output column of each (column tile, tile j, A row r) of the
+    tensor-core GEMV, r and j in 0..15 and 0..nt-1: tile j's row r is
+    column 16 nt * tile + nt * r + j (None past N), so that thread g of a
+    warp reads nt contiguous bytes of a stored row at nt * g and at
+    nt * (g + 8) and feeds slot j of every tile from byte j."""
+    tiles = -(-n // (16 * nt))
+    return [[[c if (c := 16 * nt * tile + nt * r + j) < n else None
+              for r in range(16)] for j in range(nt)]
+            for tile in range(tiles)]
+
+
 def tile_rows(fmt: str, block: int = 0) -> list:
     """The logical row, within a 128-row K tile, of each stored slot of the
     tile: the map by which the GEMM writes its decoded tile in logical row
@@ -241,6 +327,24 @@ def _check_operands(what, x, q, scale, layer, k, k_x, extra=()):
                          "device")
 
 
+def _check_options(what, x, q, scale, layer, k, norm_w, resid, swiglu):
+    """The checks both GEMVs make: _check_operands, one prologue at most, a
+    norm_w [L, K] and a resid [..., N] in x's dtype. Returns M."""
+    n_layers, n = q.shape[0], q.shape[-1]
+    k_x = 2 * k if swiglu else k
+    if swiglu and norm_w is not None:
+        raise ValueError(f"{what}: norm_w and swiglu are mutually exclusive")
+    _check_operands(what, x, q, scale, layer, k, k_x,
+                    [t for t in (norm_w, resid) if t is not None])
+    if norm_w is not None and (norm_w.dtype != x.dtype
+                               or norm_w.shape != (n_layers, k)):
+        raise ValueError(f"{what}: norm_w must be [L, K] in x's dtype")
+    m = x.numel() // k_x
+    if resid is not None and (resid.dtype != x.dtype or resid.numel() != m * n):
+        raise ValueError(f"{what}: resid must be [..., N] in x's dtype")
+    return m
+
+
 def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
                 fmt_args, unit, max_rows, norm_w=None, eps=1e-6, resid=None,
                 swiglu=False):
@@ -252,24 +356,14 @@ def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
     staged tile must be whole multiples of; max_rows: the largest row tile
     the format's kernel has (4 or 8); swiglu: x is [..., 2K] = [gate | up].
     Returns f32 [..., N]."""
-    n_layers, n = q.shape[0], q.shape[-1]
-    k_x = 2 * k if swiglu else k
+    n = q.shape[-1]
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what}: unsupported dtype {x.dtype}")
-    if swiglu and norm_w is not None:
-        raise ValueError(f"{what}: norm_w and swiglu are mutually exclusive")
-    _check_operands(what, x, q, scale, layer, k, k_x,
-                    [t for t in (norm_w, resid) if t is not None])
+    m = _check_options(what, x, q, scale, layer, k, norm_w, resid, swiglu)
     # unit 8 only aligns kc; a larger unit is a block K must be whole of
     if _KT % unit or k % unit and unit > 8:
         raise ValueError(f"{what}: K={k} must be whole blocks of {unit}, "
                          f"a divisor of {_KT}")
-    if norm_w is not None and (norm_w.dtype != x.dtype
-                               or norm_w.shape != (n_layers, k)):
-        raise ValueError(f"{what}: norm_w must be [L, K] in x's dtype")
-    m = x.numel() // k_x
-    if resid is not None and (resid.dtype != x.dtype or resid.numel() != m * n):
-        raise ValueError(f"{what}: resid must be [..., N] in x's dtype")
 
     lib = _build.load(lib_name, signatures)
     ksplit, kc = _split_k(m, k, n, _sm_count(x.device), unit)
@@ -285,6 +379,56 @@ def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
         _build.DTYPE_CODES[x.dtype], m, k, n, ksplit, kc,
         _rows_per_tile(m, max_rows), *fmt_args, eps, int(swiglu),
         x.device.index or 0, _build.stream_of(x))
+    _build.check(err, what)
+    return out.reshape(*x.shape[:-1], n)
+
+
+def _aligned(t):
+    """t, or a copy of it where its data is not 16-byte aligned (the
+    kernels read it in 16-byte vectors)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch_tc(what, lib_name, entry, signatures, x, q, scale, layer, k,
+              fmt_args, w_bits, block, group, norm_w=None, eps=1e-6,
+              resid=None, swiglu=False):
+    """Check the operands of one stacked tensor-core GEMV and launch it.
+
+    q: stacked stored codes [L, K or K/2, N]; scale: f32 [L, N] or grouped
+    [L, K/g, N]; fmt_args: the entry's format ints (after nt); w_bits,
+    block (pack or interleave block, 0: none) and group: the layout, for
+    tc_plan; swiglu: x is [..., 2K] = [gate | up]. Raises before launch
+    (and before any build) for a dtype, row count or layout the body does
+    not take. Returns f32 [..., N]."""
+    n = q.shape[-1]
+    if x.dtype not in GEMM_DTYPES:
+        raise TypeError(f"{what}: the tensor-core GEMV takes bf16 or fp16, "
+                        f"not {x.dtype}")
+    if not tc_takes(k, block, group):
+        raise ValueError(f"{what}: the tensor-core GEMV takes K in whole "
+                         f"{TC_STEP}-row steps and groups of whole steps; "
+                         f"got K={k}, group {group}")
+    m = _check_options(what, x, q, scale, layer, k, norm_w, resid, swiglu)
+    if not 1 <= m <= TC_MAX_ROWS:
+        raise ValueError(f"{what}: the tensor-core GEMV takes 1-"
+                         f"{TC_MAX_ROWS} rows, got {m}")
+    x2 = _aligned(x.reshape(m, x.shape[-1]))
+    norm_w = _aligned(norm_w)
+
+    lib = _build.load(lib_name, signatures)
+    ksplit, sps, mt, nt = tc_plan(m, k, n, _sm_count(x.device), w_bits,
+                                  block, group)
+    part = (_build.workspace(x.device, ksplit * m * n)[0] if ksplit > 1
+            else None)
+    out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    nw_ptr = (_P(norm_w.data_ptr() + layer * k * x.element_size())
+              if norm_w is not None else _P(None))
+    err = getattr(lib, entry)(
+        _build.ptr(x2), _P(q.data_ptr() + layer * q.stride(0)),
+        _P(scale.data_ptr() + layer * scale.stride(0) * 4), nw_ptr,
+        _build.ptr(resid), _build.ptr(out), _build.ptr(part),
+        _build.DTYPE_CODES[x.dtype], m, k, n, ksplit, sps, mt, nt, *fmt_args,
+        eps, int(swiglu), x.device.index or 0, _build.stream_of(x))
     _build.check(err, what)
     return out.reshape(*x.shape[:-1], n)
 
@@ -326,7 +470,8 @@ def launch_gemm(what, lib_name, entry, signatures, x, q, scale, layer, k,
 
 
 def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid, swiglu=False):
-    """(f32 [..., N], whether the GEMM ran) for one CUDA call."""
+    """(f32 [..., N], the route: "gemm", "tc" or "gemv") for one CUDA
+    call."""
     w.check_supported()
     n_layers, n = w.qweight.shape[0], w.qweight.shape[-1]
     grouped = bool(w.group_size)
@@ -342,13 +487,21 @@ def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid, swiglu=False):
                            _GEMM_SIGNATURES, x, w.qweight, w.scale, layer,
                            w.k_dim, "int4" if w.w_bits == 4 else "int8",
                            w.pack_block, w.group_size,
-                           (w.w_bits, int(grouped))), True
+                           (w.w_bits, int(grouped))), "gemm"
+    fmt_args = (w.w_bits, w.pack_block, w.group_size)
+    if tc_route(x.numel() // x.shape[-1], x.dtype, w.k_dim, w.pack_block,
+                w.group_size):
+        return launch_tc(what, "woq_gemv_tc", "tllm_woq_gemv_tc",
+                         _TC_SIGNATURES,
+                         x, w.qweight, w.scale, layer, w.k_dim, fmt_args,
+                         w.w_bits, w.pack_block, w.group_size, norm_w, eps,
+                         resid, swiglu), "tc"
     unit = w.pack_block or w.group_size or 8
     max_rows = 4 if grouped else 8         # grouped: a second accumulator
     return launch_gemv(what, "woq_matmul", "tllm_woq_matmul_stacked",
                        _SIGNATURES, x, w.qweight, w.scale, layer, w.k_dim,
-                       (w.w_bits, w.pack_block, w.group_size), unit, max_rows,
-                       norm_w, eps, resid, swiglu), False
+                       fmt_args, unit, max_rows, norm_w, eps, resid,
+                       swiglu), "gemv"
 
 
 def _device_kind(x, what):
@@ -367,24 +520,26 @@ def woq_matmul_stacked(x, w: WOQWeight, layer: int, norm_w=None,
     weight (prologue; not with swiglu); resid: optional [..., N] in x's
     dtype (epilogue). Returns f32 [..., N].
 
-    On the card (gemm_route): bf16 / fp16 calls of at least GEMM_MIN_ROWS
-    rows with no prologue and no residual run the GEMM; f32 calls, calls
-    with a prologue or a residual, and layouts the GEMM does not tile run
-    the GEMV at every row count (correct, and no path makes such a call
-    above 16 rows)."""
+    On the card: bf16 / fp16 calls of at least GEMM_MIN_ROWS rows with no
+    prologue and no residual run the GEMM (gemm_route); bf16 / fp16 calls
+    of TC_MIN_ROWS..16 rows the tensor-core GEMV (tc_route); f32 calls and
+    the layouts neither tiles the CUDA-core GEMV at every row count
+    (correct, and no path makes such a call above 16 rows)."""
     if _device_kind(x, "woq_matmul_stacked") == "cpu":
         return woq_matmul_stacked_plain(x, w, layer, norm_w, eps, resid,
                                         swiglu)
-    out, gemm = _launch("woq_matmul_stacked", x, w, layer, norm_w, eps,
-                        resid, swiglu)
+    out, route = _launch("woq_matmul_stacked", x, w, layer, norm_w, eps,
+                         resid, swiglu)
     woq_matmul_stacked.launches += 1
-    woq_matmul_stacked.gemm_launches += int(gemm)
+    woq_matmul_stacked.gemm_launches += int(route == "gemm")
+    woq_matmul_stacked.tc_launches += int(route == "tc")
     woq_matmul_stacked.swiglu_launches += int(swiglu)
     return out
 
 
 woq_matmul_stacked.launches = 0
 woq_matmul_stacked.gemm_launches = 0
+woq_matmul_stacked.tc_launches = 0
 woq_matmul_stacked.swiglu_launches = 0
 
 
@@ -401,16 +556,20 @@ def woq_matmul_plain(x, w: WOQWeight):
 
 def woq_matmul(x, w: WOQWeight):
     """2-D entry: x [..., K] @ dequant(w), w int8 [K, N] or packed int4
-    [K/2, N] with scale [N] or [K/g, N]; the stacked kernel on a unit layer
-    axis (the GEMM or the GEMV as gemm_route decides), counted in its own
-    `woq_matmul.launches` and `.gemm_launches`. Returns f32 [..., N]."""
+    [K/2, N] with scale [N] or [K/g, N]; the stacked kernels on a unit
+    layer axis (the GEMM, the tensor-core or the CUDA-core GEMV, as
+    woq_matmul_stacked routes), counted in its own `woq_matmul.launches`,
+    `.gemm_launches` and `.tc_launches`. Returns f32 [..., N]."""
     if _device_kind(x, "woq_matmul") == "cpu":
         return woq_matmul_plain(x, w)
-    out, gemm = _launch("woq_matmul", x, unit_layer(w), 0, None, 1e-6, None)
+    out, route = _launch("woq_matmul", x, unit_layer(w), 0, None, 1e-6,
+                         None)
     woq_matmul.launches += 1
-    woq_matmul.gemm_launches += int(gemm)
+    woq_matmul.gemm_launches += int(route == "gemm")
+    woq_matmul.tc_launches += int(route == "tc")
     return out
 
 
 woq_matmul.launches = 0
 woq_matmul.gemm_launches = 0
+woq_matmul.tc_launches = 0
