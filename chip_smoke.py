@@ -62,7 +62,11 @@
    per-channel weight scales, bit for bit, timed over distinct weights in
    turn (L2-cold); and the five decode probes (rows 15-19; row 18 also
    through the tensor-core GEMV's pair decoders into bf16 and fp16),
-   exhaustive and bit for bit;
+   exhaustive and bit for bit; row 14 (the split-cache body through the
+   block table) at serving's shapes, block sizes 8-96, a position at
+   MB * BS and path 5's length through a shuffled table, beside kernel 3
+   on the same rows stored dense; row 7 at the paths' rows, Task A's 1024
+   and D = 1000, one launch a call;
 4. drives each path through GenerationSession.generate with random weights
    born quantized (seed 0), at LLaMA-7B's widths:
    path 1, int8 weight-only per-channel; path 2, SmoothQuant W8A8
@@ -1552,14 +1556,18 @@ def check_rmsnorm_quant(errors, results):
 
     print("kernel rmsnorm_quant (RMSNorm -> per-row int8 + scale, bf16 x):")
     g = torch.Generator(device="cuda").manual_seed(5)
-    d = 4096
-    w = (1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
-         ).to(torch.bfloat16)
     max_err = 0.0
-    for m in PATH_ROWS + (1024,):         # and Task A's 1024-row bucket
+    # the paths' rows, Task A's 1024-row bucket, and D = 1000 (125 loads
+    # of 8 elements: a row's threads hold unequal shares)
+    for m, d in [(m, 4096) for m in PATH_ROWS + (1024,)] + [(3, 1000)]:
         x = (3 * torch.randn((m, d), generator=g, device="cuda")
              ).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
+             ).to(torch.bfloat16)
+        n0 = rnq.rmsnorm_quant.launches
         q, s = rnq.rmsnorm_quant(x, w)
+        if rnq.rmsnorm_quant.launches != n0 + 1:
+            errors.append(f"rmsnorm_quant M={m} D={d}: not one launch")
         q_ref, s_ref = rnq.rmsnorm_quant_plain(x, w)
         torch.cuda.synchronize()
         step = (q.int() - q_ref.int()).abs().max().item()
@@ -1577,13 +1585,16 @@ def check_rmsnorm_quant(errors, results):
         t_p = time_ms(lambda i: rnq.rmsnorm_quant_plain(x, w))
         n_bytes = m * d * 2 + d * 2 + m * d + m * 4
         b_ms, b_by = bound_ms(n_bytes, 10 * m * d, F32_FLOPS)
-        print(f"  time M={m}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        print(f"  time M={m} D={d}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
               f"library — (no single PyTorch call), bound {b_ms:.6f} ms "
               f"({b_by})")
         if m == 1:
             results["rmsnorm_quant"] = dict(
                 ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by, shape="M=1 D=4096 bf16 (decode norm)")
+        elif m == 1024:
+            results["rmsnorm_quant"].update(m1024_ms=t_k, m1024_plain_ms=t_p,
+                                            m1024_bound_ms=b_ms)
     results["rmsnorm_quant"]["max_abs_err"] = max_err
 
 
@@ -1877,8 +1888,17 @@ def check_packed_prefill(errors, results):
 
 
 def check_paged_decode(errors, results, kv_int8=False):
+    """Row 14 (one launch of the split-cache body through the block table)
+    against its plain version: serving's shapes (a sequence whose table is
+    all -1 writing and reading trash row 0), block sizes 8 / 16 / 24 / 96
+    (24 and 96 cross the body's 64-row tile), a position at MB * BS (the
+    trash block), and path 5's length (B=1, 8201 live rows) through a
+    shuffled table, timed beside kernel 3 on the same rows stored dense;
+    the pools equal to the plain write bit for bit, every other row
+    untouched, one launch a call."""
     import torch
     import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
     from trtllm_llama_tpu_torch.ops.kernels import paged_decode_attention as pda
 
     kind = (f"int8 pools, scale {KV_SCALE} per layer" if kv_int8
@@ -1892,29 +1912,35 @@ def check_paged_decode(errors, results, kv_int8=False):
     waves = serve_waves()
     serve_pos = [n + SERVE_NEW // 2 for n in waves[1]]   # mid-generation
     last_pos = [n + SERVE_NEW - 2 for n in waves[-1]]    # last decode step
-    cases = [  # (block size, positions, the trash row at pos 0 last)
-        (SERVE_BLOCK, serve_pos + [0], True),         # the serving shapes
-        (SERVE_BLOCK, last_pos + [0], True),
-        (8, serve_pos, False), (16, serve_pos, False),
+    cases = [  # (block size, table blocks, positions, the trash row last)
+        (SERVE_BLOCK, None, serve_pos + [0], True),     # the serving shapes
+        (SERVE_BLOCK, None, last_pos + [0], True),
+        (8, None, serve_pos, False), (16, None, serve_pos, False),
+        (24, None, serve_pos, False), (96, None, serve_pos + [0], True),
         # a position at MB * BS: writes the trash block, attends MB blocks
-        (SERVE_BLOCK, serve_pos[:7] + [-(-smax // SERVE_BLOCK) * SERVE_BLOCK],
-         False),
+        (SERVE_BLOCK, None,
+         serve_pos[:7] + [-(-smax // SERVE_BLOCK) * SERVE_BLOCK], False),
+        # path 5's length, one sequence through a shuffled table
+        (SERVE_BLOCK, LONG_S_MAX // SERVE_BLOCK, [8200], False),
     ]
     kv_scale = (torch.full((n_l,), KV_SCALE, device="cuda") if kv_int8
                 else None)
     elem = 1 if kv_int8 else 2
     key = INT8_PAGED if kv_int8 else "paged_decode_attention"
+    sms = da.sm_count(0)
     max_err = 0.0
-    for bs, pos, trash_row in cases:
-        mb = -(-smax // bs)
-        nb = slots * mb + 1
-        tables = torch.randperm(nb - 1, generator=g, device="cuda")[
-            :slots * mb].reshape(slots, mb)
-        if trash_row:
-            tables = torch.cat([tables, torch.full((1, mb), nb - 1,
-                                                   device="cuda")])
+    for bs, mb, pos, trash_row in cases:
+        long_case = mb is not None
+        mb = mb or -(-smax // bs)
         b = len(pos)
-        tables = tables[:b].to(torch.int32).contiguous()
+        nb = (1 if long_case else slots) * mb + 1
+        tables = torch.randperm(nb - 1, generator=g, device="cuda")[
+            :(nb - 1) // mb * mb].reshape(-1, mb)
+        if trash_row:
+            tables = torch.cat([tables, torch.full((1, mb), -1,
+                                                   device="cuda")])
+        tables = tables[-b:] if trash_row else tables[:b]
+        tables = tables.to(torch.int32).contiguous()
         shape = (n_l, nb, hkv, bs, d)
         if kv_int8:
             pk = torch.randint(-127, 128, shape, generator=g, device="cuda",
@@ -1931,27 +1957,31 @@ def check_paged_decode(errors, results, kv_int8=False):
         vn = (amp * torch.randn((b, hkv, d), generator=g, device="cuda")
               ).to(torch.bfloat16)
         pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
-        pk2, pv2, before = pk.clone(), pv.clone(), pk.clone()
+        pk2, pv2, before = pk.clone(), pv.clone(), (pk.clone(), pv.clone())
+        n0 = pda.paged_decode_attention.launches
         got = pda.paged_decode_attention(q, kn, vn, pk, pv, layer, tables, pt,
                                          kv_scale=kv_scale)
         ref = pda.paged_decode_attention_plain(q, kn, vn, pk2, pv2, layer,
                                                tables, pt, kv_scale=kv_scale)
         torch.cuda.synchronize()
-        name = f"B={b} BS={bs} MB={mb} pos={pos}"
+        name = (f"B={b} BS={bs} MB={mb} pos={pos if b < 9 else 'serving'} "
+                f"splits {da.decode_split(b, hkv, mb * bs, hq // hkv, sms)}")
         max_err = max(max_err, compare(name, got, ref, errors))
         same = torch.equal(pk, pk2) and torch.equal(pv, pv2)
         _, w_blk, w_row = pda._write_blocks(tables, pt, nb, bs)
-        allowed = torch.zeros(before.shape[:2] + (bs,), dtype=torch.bool,
+        allowed = torch.zeros(pk.shape[:2] + (bs,), dtype=torch.bool,
                               device="cuda")
         allowed[layer, w_blk, w_row] = True
-        moved = (pk != before).any(-1).any(2)
+        moved = ((pk != before[0]).any(-1) | (pv != before[1]).any(-1)).any(2)
         only = not bool((moved & ~allowed).any())
         print(f"  {name}: pools equal the plain write bit for bit: {same}; "
               f"every row outside the write rows untouched: {only}")
         if not (same and only):
             errors.append(f"paged decode {kind} {name}: pools differ from "
                           "the plain write")
-        if pos is not cases[0][1]:
+        if pda.paged_decode_attention.launches != n0 + 1:
+            errors.append(f"paged decode {kind} {name}: not one launch a call")
+        if pos is not cases[0][2] and not long_case:
             continue
         t_k = time_ms(lambda i: pda.paged_decode_attention(
             q, kn, vn, pk, pv, layer, tables, pt, kv_scale=kv_scale))
@@ -1961,25 +1991,52 @@ def check_paged_decode(errors, results, kv_int8=False):
 
         def gathered(pool):
             x = pool[layer][tables.long()].permute(0, 2, 1, 3, 4)
-            x = x.reshape(b, hkv, mb * bs, d)
-            return ((x.float() * KV_SCALE).to(torch.bfloat16) if kv_int8
-                    else x.contiguous())
+            return x.reshape(b, hkv, mb * bs, d).contiguous()
         kg, vg = gathered(pk), gathered(pv)
+        kgl, vgl = ((x.float() * KV_SCALE).to(torch.bfloat16) if kv_int8
+                    else x for x in (kg, vg))
         mask = (torch.arange(mb * bs, device="cuda")[None, :]
                 <= pt[:, None])[:, None, None]
         t_l = time_ms(lambda i: F.scaled_dot_product_attention(
-            q[:, :, None], kg, vg, attn_mask=mask))
+            q[:, :, None], kgl, vgl, attn_mask=mask))
         live = [min(p + 1, mb * bs) for p in pos]
         n_bytes, flops = decode_work(live, hq, hkv, d, elem, kv_int8, True)
         b_ms, b_by = bound_ms(n_bytes + b * mb * 4, flops)   # + block table
+        dense = ""
+        if long_case:   # kernel 3 on the same rows, stored dense
+            kc = torch.zeros((n_l, b, hkv, mb * bs, d), dtype=pk.dtype,
+                             device="cuda")
+            vc = torch.zeros_like(kc)
+            kc[layer], vc[layer] = kg, vg
+            got_d = da.dma_decode_attention(q, kn, vn, kc, vc, layer, pt,
+                                            kv_scale=kv_scale)
+            torch.cuda.synchronize()
+            compare(f"{name}: kernel 3 on the rows stored dense", got_d, ref,
+                    errors)
+            t_d = time_ms(lambda i: da.dma_decode_attention(
+                q, kn, vn, kc, vc, layer, pt, kv_scale=kv_scale))
+            dense = f", kernel 3 on the same rows dense {t_d:.4f} ms"
+            del kc, vc
         print(f"  time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
               f"library(sdpa over pre-gathered K/V, no write) {t_l:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by})")
-        results[key] = dict(
-            ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-            bound_by=b_by, shape=f"B=9 (8 slots + trash) BS={bs} MB={mb} "
-            f"Hq=Hkv=32 D=128, {sum(live)} live rows, bf16 q, "
-            f"{'int8' if kv_int8 else 'bf16'} pools")
+              f"bound {b_ms:.5f} ms ({b_by}){dense}")
+        if b == 9:      # the 8 slots alone: 256 blocks, one wave of 2 an SM
+            t_8 = time_ms(lambda i: pda.paged_decode_attention(
+                q[:8], kn[:8], vn[:8], pk, pv, layer, tables[:8], pt[:8],
+                kv_scale=kv_scale))
+            print(f"  time {name}, its first 8 sequences alone: kernel "
+                  f"{t_8:.4f} ms")
+        if long_case:
+            results[key].update(long_ms=t_k, long_dense_ms=t_d,
+                                long_plain_ms=t_p, long_library_ms=t_l,
+                                long_bound_ms=b_ms)
+        else:
+            results[key] = dict(
+                ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                bound_by=b_by, shape=f"B=9 (8 slots + trash) BS={bs} MB={mb} "
+                f"Hq=Hkv=32 D=128, {sum(live)} live rows, bf16 q, "
+                f"{'int8' if kv_int8 else 'bf16'} pools")
+        del kg, vg, kgl, vgl
     results[key]["max_abs_err"] = max_err
 
 

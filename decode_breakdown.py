@@ -45,7 +45,8 @@ def variants(base: str) -> dict:
     """Source text of flash_decode.cuh per variant."""
     scores_w = "if (h < k.heads) {  // warp-uniform"
     pv_w = "for (int rr = 0; rr < kRw; ++rr) {"
-    loads = ("if (i + kStages - 1 < k.n_st) load_stage<T, TC, D>(p, k, ring, "
+    loads = ("if (i + kStages - 1 < k.n_st)\n"
+             "      load_stage<T, TC, D, kPaged>(p, k, tbl, ring, "
              "i + kStages - 1);")
     merge = ("  if (n == 1) {\n    for (int i",
              "  if (true) {\n    for (int i")

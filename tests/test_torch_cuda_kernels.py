@@ -225,10 +225,13 @@ def test_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
                     q, kn, vn, kc, vc, pos, None, dtype)
 
 
-@pytest.mark.parametrize("d", [128, 1000, 4096])
-@pytest.mark.parametrize("m", [1, 3, 64])
+@pytest.mark.parametrize("d", [128, 1000, 1001, 4096, 5120, 8192, 20000])
+@pytest.mark.parametrize("m", [1, 3, 64, 1024])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm_quant_kernel_matches_plain(dev, dtype, m, d):
+    """Row 7 in every branch of its plan: a block a row (M 1, 3) and
+    several rows a block (M 64, 1024), 16-byte loads and one element a load
+    (D 1001), the register tile and the strided branch past it (D 20000)."""
     g = torch.Generator(device=dev).manual_seed(m + d)
     x = (3 * torch.randn((m, d), generator=g, device=dev)).to(dtype)
     w = (1 + 0.3 * torch.randn((d,), generator=g, device=dev)).to(dtype)
@@ -460,28 +463,34 @@ def test_decode_modes_generate_on_cuda_match_cpu(dev):
         KERNELS.update(old)
 
 
-# tables of five sequences over a pool of 14 blocks (13 is the trash
-# block): a mid-block write; a -1 entry past the attended blocks; a position
-# past the table (writes trash row 5, attends all MB * BS rows); the table's
-# last row; a -1 write block (writes trash row 2, reads trash rows 0-1).
-# No two sequences touch one trash row, so the result is defined.
+# Five sequences on a 3-block table: mid-block; a table ending in -1;
+# past the table (writes trash row 5, attends all MB * BS rows); the
+# table's last row; a -1 write block (writes trash row 2, reads trash rows
+# 0-1). No two sequences touch one trash row, so the result is defined.
 PAGED_TABLES = [[3, 0, 5], [7, 1, -1], [2, 4, 6], [8, 9, 10], [12, -1, -1]]
+# (int8 pools, BS): bf16 / f16 / f32 pools at 8-64 (24 crosses the 64-row
+# tile), int8 at 32-96 (96 too)
+PAGED_BLOCKS = [(False, 8), (False, 16), (False, 24), (False, 64),
+                (True, 32), (True, 64), (True, 96)]
+PAGED_GROUPS = [(32, 32), (32, 8), (32, 4), (32, 1)]     # groups 1-32
 
 
-def _paged_case(dev, dtype, kv_int8, hq, hkv, bs, seed, d=128):
-    g = torch.Generator(device=dev).manual_seed(seed)
-    n_layers, nb, mb = 2, 14, 3
+def _pools(dev, dtype, kv_int8, n_layers, nb, hkv, bs, d, g):
     shape = (n_layers, nb, hkv, bs, d)
     if kv_int8:
         pk = torch.randint(-127, 128, shape, generator=g, device=dev,
                            dtype=torch.int8)
         pv = torch.randint(-127, 128, shape, generator=g, device=dev,
                            dtype=torch.int8)
-        kv_scale = torch.tensor([0.05, 0.021], device=dev)
-    else:
-        pk = torch.randn(shape, generator=g, device=dev).to(dtype)
-        pv = torch.randn(shape, generator=g, device=dev).to(dtype)
-        kv_scale = None
+        return pk, pv, torch.tensor([0.05, 0.021], device=dev)[:n_layers]
+    return (torch.randn(shape, generator=g, device=dev).to(dtype),
+            torch.randn(shape, generator=g, device=dev).to(dtype), None)
+
+
+def _paged_case(dev, dtype, kv_int8, hq, hkv, bs, seed, d=128):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb, mb = 14, 3
+    pk, pv, kv_scale = _pools(dev, dtype, kv_int8, 2, nb, hkv, bs, d, g)
     b = len(PAGED_TABLES)
     tables = torch.tensor(PAGED_TABLES, dtype=torch.int32, device=dev)
     pos = torch.tensor([bs + 3, 5, mb * bs + 5, mb * bs - 1, bs + 2],
@@ -492,16 +501,11 @@ def _paged_case(dev, dtype, kv_int8, hq, hkv, bs, seed, d=128):
     return q, kn, vn, pk, pv, tables, pos, kv_scale
 
 
-@pytest.mark.parametrize("d", [96, 128, 256])
-@pytest.mark.parametrize("bs", [8, 16, 64])
-@pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 8)])
-@pytest.mark.parametrize("kv_int8", [False, True])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_paged_decode_kernel_matches_plain(dev, dtype, kv_int8, hq, hkv, bs,
-                                           d):
-    q, kn, vn, pk, pv, tables, pos, kv_scale = _paged_case(
-        dev, dtype, kv_int8, hq, hkv, bs, bs + hkv, d)
-    pk2, pv2, before = pk.clone(), pv.clone(), pk.clone()
+def _paged_write_case(q, kn, vn, pk, pv, tables, pos, kv_scale, dtype):
+    """One row 14 call against its plain version: the output within the
+    dtype's bound, the pools equal to the plain write bit for bit, no row
+    but the write rows (`_write_blocks`) of layer 1 moved, one launch."""
+    pk2, pv2, before = pk.clone(), pv.clone(), (pk.clone(), pv.clone())
     launches = pda.paged_decode_attention.launches
     got = pda.paged_decode_attention(q, kn, vn, pk, pv, 1, tables, pos,
                                      kv_scale=kv_scale)
@@ -511,13 +515,77 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, kv_int8, hq, hkv, bs,
     torch.cuda.synchronize()
     _assert_close(got, ref, dtype)
     assert torch.equal(pk, pk2) and torch.equal(pv, pv2)
-    # only the five write rows of layer 1 moved: blocks 0 (row 3), 7
-    # (row 5), 10 (its last row) and the trash block (rows 5 and 2)
-    moved = (pk != before).any(-1).any(2)                  # [L, NB, BS]
-    allowed = torch.zeros_like(moved)
-    for blk, row in ((0, 3), (7, 5), (10, bs - 1), (13, 5 % bs), (13, 2)):
-        allowed[1, blk, row] = True
+    moved = ((pk != before[0]).any(-1) | (pv != before[1]).any(-1)).any(2)
+    allowed = torch.zeros_like(moved)                      # [L, NB, BS]
+    _, w_blk, w_row = pda._write_blocks(tables, pos, pk.shape[1], pk.shape[3])
+    allowed[1, w_blk, w_row] = True
     assert not (moved & ~allowed).any()
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("kv_int8,bs", PAGED_BLOCKS)
+@pytest.mark.parametrize("hq,hkv", PAGED_GROUPS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_kernel_matches_plain(dev, dtype, hq, hkv, kv_int8, bs,
+                                           d):
+    _paged_write_case(*_paged_case(dev, dtype, kv_int8, hq, hkv, bs,
+                                   bs + hkv + d, d), dtype)
+
+
+@pytest.mark.parametrize("kv_int8,bs", [(False, 64), (False, 24),
+                                        (True, 64), (True, 96)])
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 4)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_kernel_long_cache(dev, dtype, hq, hkv, kv_int8, bs):
+    """Row 14 over path 5's length through shuffled tables, split over the
+    card: bs1 at 8201 live rows; then bs4 at ragged positions 0, a split's
+    first row, the table's last row and MB * BS, which writes trash row 0
+    and, through -1 entries among its live rows, reads the trash block: its
+    aliases of the write row attend the new token, as the plain write-then-
+    gather does."""
+    d, cap = 128, 8320
+    mb = -(-cap // bs)
+    g = torch.Generator(device=dev).manual_seed(bs + hkv)
+    for b in (1, 4):
+        splits, tps = da.decode_split(b, hkv, mb * bs, hq // hkv,
+                                      da.sm_count(dev))
+        assert splits > 1
+        nb = b * mb + 1
+        pk, pv, kv_scale = _pools(dev, dtype, kv_int8, 2, nb, hkv, bs, d, g)
+        tables = torch.randperm(nb - 1, generator=g, device=dev).reshape(
+            b, mb).to(torch.int32)
+        if b == 1:
+            pos = [8200]
+        else:
+            pos = [0, tps * da.TILE, mb * bs - 1, mb * bs]
+            tables[3, 3:7] = -1
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        q = torch.randn((b, hq, d), generator=g, device=dev).to(dtype)
+        kn = (4 * torch.randn((b, hkv, d), generator=g, device=dev)).to(dtype)
+        vn = (4 * torch.randn((b, hkv, d), generator=g, device=dev)).to(dtype)
+        _paged_write_case(q, kn, vn, pk, pv, tables, pos, kv_scale, dtype)
+
+
+def test_paged_decode_kernel_allocates_only_its_output(dev):
+    """A second call of row 14 at a shape split over the card allocates
+    nothing but its output (the workspace is the stream's, made at the
+    first call)."""
+    hq, hkv, d, bs, mb = 32, 4, 128, 64, 32
+    g = torch.Generator(device=dev).manual_seed(3)
+    assert da.decode_split(2, hkv, mb * bs, hq // hkv, da.sm_count(dev))[0] > 1
+    pk, pv, _ = _pools(dev, torch.bfloat16, False, 2, 2 * mb + 1, hkv, bs, d,
+                       g)
+    tables = torch.arange(2 * mb, dtype=torch.int32, device=dev).reshape(2, mb)
+    pos = torch.tensor([1500, 2047], dtype=torch.int32, device=dev)
+    q = torch.randn((2, hq, d), generator=g, device=dev).to(torch.bfloat16)
+    kn = torch.randn((2, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    pda.paged_decode_attention(q, kn, kn, pk, pv, 1, tables, pos)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    out = pda.paged_decode_attention(q, kn, kn, pk, pv, 1, tables, pos)
+    torch.cuda.synchronize()
+    out_bytes = -(-out.numel() * out.element_size() // 512) * 512
+    assert torch.cuda.memory_allocated(dev) - before <= out_bytes
 
 
 @pytest.mark.parametrize("t,lens", [(24, [5, 1, 9]), (64, [20, 30, 1]),
@@ -754,45 +822,66 @@ def test_decode_kernel_on_two_streams(dev, fn):
     over the card (one KV head, a group of 8, 2048 rows: 32 splits, a
     grid small enough for both launches to run side by side), a bf16 and
     an int8 cache, each call followed on its stream by row 8 over the rows
-    just written: each stream merges its splits in a workspace of its own,
-    which its row 8 and kernel 3 / row 9 calls share in turn, so every
-    output equals the plain version, the caches equal the plain write and
-    each call adds one launch."""
-    hq, d, s, n_calls = 8, 128, 2048, 20
+    just written and by row 14 on the same rows held in a paged pool (a
+    shuffled table): each stream merges its splits in a workspace of its
+    own, which its row 8, row 14 and kernel 3 / row 9 calls share in turn,
+    so every output equals the plain version, the caches and pools equal
+    the plain write and each call adds one launch."""
+    hq, d, s, bs, n_calls = 8, 128, 2048, 64, 20
     assert da.decode_split(1, 1, s, hq, da.sm_count(dev))[0] > 1
     cases, refs = [], []
     for kv_int8, p_, seed in ((False, 1037, 1), (True, s - 1, 2)):
         q, kn, vn, kc, vc, kvs = _decode_cache(dev, torch.bfloat16, kv_int8,
                                                hq, 1, 1, s, d, seed)
         pos = torch.tensor([p_], dtype=torch.int32, device=dev)
-        kc2, vc2 = kc.clone(), vc.clone()
+        # the same rows, paged: block order shuffled, one trash block
+        order = torch.randperm(s // bs, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev)
+        tables = order.to(torch.int32)[None]
+        pk, pv = (torch.zeros((2, s // bs + 1, 1, bs, d), device=dev,
+                              dtype=c.dtype) for c in (kc, vc))
+        pk[:, order.long()] = kc[:, 0].reshape(2, 1, s // bs, bs, d
+                                               ).transpose(1, 2)
+        pv[:, order.long()] = vc[:, 0].reshape(2, 1, s // bs, bs, d
+                                               ).transpose(1, 2)
+        kc2, vc2, pk2, pv2 = kc.clone(), vc.clone(), pk.clone(), pv.clone()
         ref = da.dma_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pos,
                                             kv_scale=kvs)
         ref_read = da.decode_attention_kernel_plain(q, kc2, vc2, 1, pos + 1,
                                                     kv_scale=kvs)
-        refs.append((ref, ref_read, kc2, vc2))
-        cases.append((q, kn, vn, kc, vc, pos, kvs))
+        ref_paged = pda.paged_decode_attention_plain(q, kn, vn, pk2, pv2, 1,
+                                                     tables, pos, kv_scale=kvs)
+        refs.append((ref, ref_read, ref_paged, kc2, vc2, pk2, pv2))
+        cases.append((q, kn, vn, kc, vc, pos, kvs, pk, pv, tables))
     streams = [torch.cuda.Stream(dev) for _ in cases]
     for st in streams:
         st.wait_stream(torch.cuda.current_stream(dev))
-    launches = fn.launches, da.decode_attention_kernel.launches
+    launches = (fn.launches, da.decode_attention_kernel.launches,
+                pda.paged_decode_attention.launches)
     outs = [[] for _ in cases]
     for _ in range(n_calls):
         for st, case, got in zip(streams, cases, outs):
-            q, kn, vn, kc, vc, pos, kvs = case
+            q, kn, vn, kc, vc, pos, kvs, pk, pv, tables = case
             with torch.cuda.stream(st):
                 got.append((fn(q, kn, vn, kc, vc, 1, pos, kv_scale=kvs),
                             da.decode_attention_kernel(q, kc, vc, 1, pos + 1,
+                                                       kv_scale=kvs),
+                            pda.paged_decode_attention(q, kn, vn, pk, pv, 1,
+                                                       tables, pos,
                                                        kv_scale=kvs)))
     torch.cuda.synchronize()
-    assert fn.launches == launches[0] + n_calls * len(cases)
-    assert (da.decode_attention_kernel.launches
-            == launches[1] + n_calls * len(cases))
-    for case, (ref, ref_read, kc2, vc2), got in zip(cases, refs, outs):
-        assert torch.equal(case[3], kc2) and torch.equal(case[4], vc2)
-        for out, out_read in got:
+    calls = n_calls * len(cases)
+    assert (fn.launches, da.decode_attention_kernel.launches,
+            pda.paged_decode_attention.launches) == tuple(
+                n + calls for n in launches)
+    for case, ref_case, got in zip(cases, refs, outs):
+        ref, ref_read, ref_paged = ref_case[:3]
+        for have, want in zip(case[3:5] + case[7:9], ref_case[3:]):
+            assert torch.equal(have, want)
+        for out, out_read, out_paged in got:
             _assert_close(out, ref, torch.bfloat16)
             _assert_close(out_read, ref_read, torch.bfloat16)
+            _assert_close(out_paged, ref_paged, torch.bfloat16)
 
 
 def test_head_dim_without_a_kernel_raises_on_card(dev):

@@ -6,9 +6,14 @@ count stays within the kernel's limit; a short cache is one split; the grid
 (a block per split, chunk of up to 8 heads, kv head and sequence) fills the
 card whenever the cache and the split limit allow it, in one wave. Row 8's
 wrapper launches with kernel 3's split and asks for kernel 3's workspace
-(driven on meta tensors, its library replaced by a recorder). Which rows
-each block then reads lives only in the kernel; the card tests (-m cuda)
-run groups 1-71 and reach its edges.
+(driven on meta tensors, its library replaced by a recorder). Row 14 runs
+the same split over the MB * BS rows of its block table: its addressing,
+as the wrapper states it (`paged_decode_attention.split_rows`), reads each
+live row once, through the table as the plain version gathers, from a
+table slice that fits the kernel's (`table_slice`), and exactly one block
+writes, where `_write_blocks` says. Which rows each block then reads lives
+only in the kernel; the card tests (-m cuda) run groups 1-71 and reach its
+edges.
 """
 
 import re
@@ -21,6 +26,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+from trtllm_llama_tpu_torch.ops.kernels import paged_decode_attention as pda
 
 HEADER = (Path(da.__file__).resolve().parents[2] / "csrc"
           / "flash_decode.cuh").read_text()
@@ -153,3 +159,39 @@ def test_read_only_wrapper_asks_for_kernel3s_workspace(b, hkv, s_chunks,
     assert read_args[-4:-2] == write_args[-4:-2] == (splits, tps)
     want = [da.workspace_size(b, hq, d, splits)] * 2 if splits > 1 else []
     assert asked == want
+
+
+@settings(max_examples=300, deadline=None)
+@given(data=st.data(), b=st.integers(1, 16),
+       hkv=st.sampled_from([1, 2, 8, 32]),
+       group=st.sampled_from([1, 4, 8, 32]), mb=st.integers(1, 150),
+       bs=st.sampled_from([8, 16, 24, 32, 64, 96]))
+def test_paged_splits_read_the_table_rows_once(data, b, hkv, group, mb, bs):
+    """Row 14's addressing over random tables with -1 entries and positions
+    below, at and past MB * BS: the splits attend rows 0 .. n_live - 1 once
+    each, at the (block, row) the plain version gathers; each split's
+    table entries fit its slice; one split writes, at `_write_blocks`'s
+    row (the trash block past the table or through a -1 entry)."""
+    nb = mb + 4                     # the pool's blocks, the last the trash
+    cap = mb * bs
+    table = data.draw(st.lists(st.integers(-1, nb - 2), min_size=mb,
+                               max_size=mb))
+    pos = data.draw(st.one_of(st.integers(0, cap - 1),
+                              st.integers(cap, cap + 2 * bs)))
+    splits, tps = da.decode_split(b, hkv, cap, group, H100_SMS)
+    model = pda.split_rows(table, pos, nb, bs, splits, tps)
+    assert len(model) == splits
+    rows = [row for split, _ in model for row in split]
+    n_live = min(pos + 1, cap)
+    assert [r for r, _, _ in rows] == list(range(n_live))
+    # the plain version's gather: pool[layer][tables] -> rows of the table
+    ids = torch.arange(nb * bs).reshape(nb, 1, bs, 1)
+    tbl = torch.where(torch.tensor(table) < 0, nb - 1, torch.tensor(table))
+    gathered = ids[tbl].permute(1, 0, 2, 3).reshape(mb * bs)[:n_live]
+    assert [blk * bs + off for _, blk, off in rows] == gathered.tolist()
+    for split, _ in model:
+        assert len({r // bs for r, _, _ in split}) <= pda.table_slice(bs, tps)
+    _, w_blk, w_row = pda._write_blocks(torch.tensor([table]),
+                                        torch.tensor([pos]), nb, bs)
+    writes = [w for _, w in model if w is not None]
+    assert writes == [(int(w_blk[0]), int(w_row[0]))]

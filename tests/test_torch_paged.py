@@ -216,14 +216,18 @@ def test_paged_decode_attention_matches_jax(kv_int8, hq, hkv):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("kv_int8,bs", [(False, 8), (True, 8), (False, 24),
+                                        (True, 24)],
+                         ids=["False", "True", "False-bs24", "True-bs24"])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
-def test_paged_fused_decode_matches_jax_xla(kv_int8, hq, hkv):
+def test_paged_fused_decode_matches_jax_xla(kv_int8, bs, hq, hkv):
     """Kernel 14's plain version against the JAX XLA path (write, then
-    attend positions + 1 rows), including a position past the table."""
+    attend positions + 1 rows), including a position at MB * BS (past the
+    table: the trash block takes the write), at block sizes 8 and 24 (24
+    does not divide the kernel's 64-row tile)."""
     rng = np.random.default_rng(10 + hq + kv_int8)
-    pk, pv, scale = _pools(rng, kv_int8, hkv=hkv)
-    mb, bs = 3, 8
+    pk, pv, scale = _pools(rng, kv_int8, hkv=hkv, bs=bs)
+    mb = 3
     # no -1 entries in attended blocks: the XLA read maps them to block 0,
     # the fused paths (the kernel, and the JAX caller of the Pallas kernel)
     # to the trash block; serving uploads tables without -1
@@ -242,11 +246,14 @@ def test_paged_fused_decode_matches_jax_xla(kv_int8, hq, hkv):
     _assert_pools_equal(cache, jcache, skip_trash=False)
 
 
-@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("kv_int8,bs", [(False, 32), (True, 32), (False, 24)],
+                         ids=["False", "True", "False-bs24"])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
-def test_paged_fused_decode_matches_pallas_interpret(kv_int8, hq, hkv):
+def test_paged_fused_decode_matches_pallas_interpret(kv_int8, bs, hq, hkv):
+    """Against the interpret-mode Pallas kernel, at BS 32 and 24 (the
+    Pallas kernel takes int8 pools only at multiples of 32)."""
     rng = np.random.default_rng(20 + hq + kv_int8)
-    nb, bs, d = 11, 32, 128
+    nb, d = 11, 128
     pk, pv, scale = _pools(rng, kv_int8, nb=nb, hkv=hkv, bs=bs, d=d)
     if not kv_int8:
         pk, pv = pk * 0.3, pv * 0.3

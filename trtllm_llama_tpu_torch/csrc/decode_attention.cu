@@ -46,7 +46,7 @@ extern "C" int tllm_decode_attention(const void* q, const void* k_new,
                              positions,   out,   part, counters, B,
                              Hq,  Hkv,      S,     splits,   tps, sm_scale,
                              static_cast<cudaStream_t>(stream), false};
-  return flash_decode::dispatch(dtype, kv_int8 != 0, D, a);
+  return flash_decode::dispatch<false>(dtype, kv_int8 != 0, D, a);
 }
 
 // Row 8: as tllm_decode_attention with no new K/V and nothing written;
@@ -67,5 +67,5 @@ extern "C" int tllm_decode_attention_read(const void* q, const void* kc,
                              kv_scale, cache_lens, out, part, counters, B,
                              Hq,      Hkv,      S,     splits,   tps, sm_scale,
                              static_cast<cudaStream_t>(stream), true};
-  return flash_decode::dispatch(dtype, kv_int8 != 0, D, a);
+  return flash_decode::dispatch<false>(dtype, kv_int8 != 0, D, a);
 }

@@ -1,19 +1,28 @@
-// One-token decode attention over one layer of the stacked cache [B, Hkv,
-// S, D] (a sequence's rows contiguous), in one launch: the body of kernel 3
-// (`dma_decode_attention`, every default decode step) and row 9
-// (`fused_decode_attention`, the 'fused' mode), which write the new token's
-// row in place and attend, and of row 8 (`decode_attention_kernel`, the
-// 'split' mode and `decode_attention_at`), which attends read-only. All
-// three enter through decode_attention.cu, one library.
+// One-token decode attention over one layer of a KV cache, in one launch,
+// with one of two row addressings (a compile-time policy, kPaged):
+//   - dense: the stacked cache [B, Hkv, S, D], a sequence's rows contiguous.
+//     The body of kernel 3 (`dma_decode_attention`, every default decode
+//     step) and row 9 (`fused_decode_attention`, the 'fused' mode), which
+//     write the new token's row in place and attend, and of row 8
+//     (`decode_attention_kernel`, the 'split' mode and
+//     `decode_attention_at`), which attends read-only; all three enter
+//     through decode_attention.cu, one library.
+//   - paged: a layer's block pool [NB, Hkv, BS, D], sequence b's row j at
+//     row j % BS of block tables[b, j / BS] (-1: the trash block NB - 1),
+//     S = MB * BS (the table's width MB): row 14
+//     (`paged_decode_attention`, every paged serving decode step), which
+//     writes and attends; entry paged_decode_attention.cu.
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/dma_decode_attention.py:156
 // (dma_decode_attention, pallas_call at :207),
 // trtllm_llama_tpu/ops/pallas/attention.py:185 (fused_decode_attention,
-// pallas_call at :240) and attention.py:72 (decode_attention_kernel,
-// pallas_call at :109). The writers compute, for each sequence b with pos =
-// positions[b] and n_live = min(pos + 1, S):
-//   row pos = enc(k_new[b]), likewise v (dropped when pos >= S, which then
-//   attends all S rows);
+// pallas_call at :240), attention.py:72 (decode_attention_kernel,
+// pallas_call at :109) and paged_decode_attention.py:157
+// (paged_decode_attention, pallas_call at :218). The writers compute, for
+// each sequence b with pos = positions[b] and n_live = min(pos + 1, S):
+//   row pos = enc(k_new[b]), likewise v (when pos >= S the dense cache
+//   drops the write and a paged pool takes it at row pos % BS of the trash
+//   block; either then attends all S rows);
 //   out[b, h] = softmax_f32((q[b, h] . dec(K[j])) * sm_scale, j < n_live)
 //               @ dec(V), p @ v in f32;
 // row 8 (Params::read_only) writes nothing and attends, with len =
@@ -66,7 +75,18 @@
 //     The thread that would cp.async a 16-byte chunk of that row encodes it
 //     from k_new / v_new instead and stores it to the cache and to the
 //     stage, so the block attends dec(enc(k_new)) as stored and no block
-//     reads the row being written.
+//     reads the row being written. A paged pool can alias that stored row
+//     from other table rows (-1 entries all map to the trash block), so
+//     there every block encodes each live row whose (block, row) is the
+//     write's instead of reading it, and only head chunk 0 of the owner of
+//     row pos stores it; at pos >= S head chunk 0 of the last split stores
+//     the trash row before it stages anything. Two sequences that write or
+//     read one trash row race, as in the reference.
+//   - Paged rows: a block loads its split's slice of tables[b, :] once into
+//     shared memory (-1 mapped to the trash block), and load_stage turns
+//     each row into (block, row % BS) from there, row by row, so a BS that
+//     does not divide the 64-row tile (24, 96) crosses blocks inside a
+//     stage. The host sizes the slice (`table_slice`).
 // Scores, the softmax and p @ V stay in f32 on CUDA cores, as the contract
 // says.
 #pragma once
@@ -172,6 +192,10 @@ struct Params {
   int heads;  // query heads a block serves (a chunk of the group)
   float sm_scale;
   bool read_only;  // row 8: positions[] are cache lengths, no write
+  // paged pools only: tables [B, mb], block size bs, the trash block and
+  // the table entries a block's slice holds
+  const int* tables;
+  int mb, bs, trash, slice;
 };
 
 // What a block covers: split blockIdx.x of (kv head, head chunk) blockIdx.y
@@ -181,11 +205,20 @@ struct Block {
   int pos, row_begin, row_end, n_st;
   bool uniform;     // read-only at a length <= 0: every row scores alike
   float kvs;
-  size_t panel;     // row 0 of (b, hk) in the layer's cache, in rows
+  size_t panel;     // dense: row 0 of (b, hk) in the layer's cache, in rows
   size_t new_base;  // (b, hk) in k_new / v_new, in elements
+  int e0;            // paged: the table entry of row_begin
+  int w_blk, w_row;  // paged: where the write lands
 };
 
-template <typename TC, int D>
+// The row of (pool block blk, row r in it) for kv head hk, in rows of the
+// layer's pool [NB, Hkv, BS, D].
+__device__ __forceinline__ size_t pool_row(const Params& p, int hk, int blk,
+                                           int r) {
+  return (static_cast<size_t>(blk) * p.Hkv + hk) * p.bs + r;
+}
+
+template <typename TC, int D, bool kPaged>
 __device__ __forceinline__ Block block_of(const Params& p) {
   constexpr int kRows = Shape<TC, D>::kRows;
   Block k;
@@ -212,6 +245,14 @@ __device__ __forceinline__ Block block_of(const Params& p) {
   k.kvs = p.kv_scale != nullptr ? *p.kv_scale : 1.f;
   k.panel = (static_cast<size_t>(k.b) * p.Hkv + k.hk) * p.S;
   k.new_base = (static_cast<size_t>(k.b) * p.Hkv + k.hk) * D;
+  if constexpr (kPaged) {  // a writer: pos >= 0
+    k.e0 = k.row_begin / p.bs;
+    const int e = k.pos / p.bs;
+    k.w_row = k.pos - e * p.bs;
+    const int blk = e < p.mb ? p.tables[static_cast<size_t>(k.b) * p.mb + e]
+                             : p.trash;
+    k.w_blk = blk < 0 ? p.trash : blk;
+  }
   return k;
 }
 
@@ -241,16 +282,56 @@ __device__ __forceinline__ float dot_part(const T* qp, const float (&kx)[kPart])
   return s;
 }
 
+// 16 bytes of the cache's element type: one cp.async chunk.
+template <typename TC>
+using Chunk = Pack<TC, 16 / static_cast<int>(sizeof(TC))>;
+
+// Chunk cc of the new token's K and V rows of the block's (b, hk), encoded
+// as the cache stores them.
+template <typename T, typename TC>
+__device__ __forceinline__ void encode_new(const Params& p, const Block& k,
+                                           int cc, Chunk<TC>& kp,
+                                           Chunk<TC>& vp) {
+  constexpr int kEpc = 16 / static_cast<int>(sizeof(TC));  // elements a chunk
+  const T* kn = static_cast<const T*>(p.k_new) + k.new_base + cc * kEpc;
+  const T* vn = static_cast<const T*>(p.v_new) + k.new_base + cc * kEpc;
+#pragma unroll
+  for (int j = 0; j < kEpc; ++j) {
+    kp.v[j] = KVCodec<TC>::enc(to_f(kn[j]), k.kvs);
+    vp.v[j] = KVCodec<TC>::enc(to_f(vn[j]), k.kvs);
+  }
+}
+
+// A paged write past the table (pos >= S): row pos % BS of the trash
+// block, stored by head chunk 0 of the last split before it stages a row.
+template <typename T, typename TC, int D>
+__device__ __forceinline__ void write_past_table(const Params& p,
+                                                 const Block& k) {
+  using Sh = Shape<TC, D>;
+  if (k.pos < p.S || k.hc != 0 || k.split != k.n_split - 1) return;
+  const size_t off = pool_row(p, k.hk, k.w_blk, k.w_row) * Sh::kRowBytes;
+  for (int cc = threadIdx.x; cc < Sh::kCpr; cc += kThreads) {
+    Chunk<TC> kp, vp;
+    encode_new<T, TC>(p, k, cc, kp, vp);
+    *reinterpret_cast<Chunk<TC>*>(static_cast<unsigned char*>(p.kc) + off +
+                                  cc * 16) = kp;
+    *reinterpret_cast<Chunk<TC>*>(static_cast<unsigned char*>(p.vc) + off +
+                                  cc * 16) = vp;
+  }
+}
+
 // Stage i of the block's rows into ring slot i % kStages: rows row_begin +
 // i * kRows + [0, kRows), those at or past row_end zero-filled by cp.async
-// (src-size 0). The 16-byte chunks of row pos are not read: the thread that
-// would copy one encodes it from k_new / v_new, stores it to the stage and,
-// for head chunk 0, to the cache (the only write of the row).
-template <typename T, typename TC, int D>
+// (src-size 0). The 16-byte chunks of the write's row are not read: the
+// thread that would copy one encodes it from k_new / v_new, stores it to
+// the stage and, for head chunk 0 at row pos, to the cache (the only write
+// of the row). Paged: row -> (tbl[row / BS - e0], row % BS), tbl the
+// block's slice of the table in shared memory.
+template <typename T, typename TC, int D, bool kPaged>
 __device__ __forceinline__ void load_stage(const Params& p, const Block& k,
+                                           const int* tbl,
                                            unsigned char* ring, int i) {
   using Sh = Shape<TC, D>;
-  constexpr int kEpc = 16 / static_cast<int>(sizeof(TC));  // elements a chunk
   const int row0 = k.row_begin + i * Sh::kRows;
   unsigned char* ks = ring + (i % kStages) * Sh::kStageBytes;
   unsigned char* vs = ring + (kStages + i % kStages) * Sh::kStageBytes;
@@ -259,26 +340,33 @@ __device__ __forceinline__ void load_stage(const Params& p, const Block& k,
   for (int c = threadIdx.x; c < Sh::kChunks; c += kThreads) {
     const int r = c / Sh::kCpr, cc = c - r * Sh::kCpr;
     const int row = row0 + r;
-    const size_t goff = (k.panel + row) * Sh::kRowBytes + cc * 16;
+    const bool live = row < k.row_end;
+    size_t at = 0;       // the row in the layer's cache or pool, in rows
+    bool fresh = false;  // the row the write lands on
+    if (live) {
+      if constexpr (kPaged) {
+        const int e = row / p.bs;
+        const int blk = tbl[e - k.e0], in_blk = row - e * p.bs;
+        at = pool_row(p, k.hk, blk, in_blk);
+        fresh = blk == k.w_blk && in_blk == k.w_row;
+      } else {
+        at = k.panel + row;
+        fresh = row == k.pos;  // only inside the owner's range (pos < S)
+      }
+    }
+    const size_t goff = at * Sh::kRowBytes + cc * 16;
     unsigned char* kd = ks + r * Sh::kStride + cc * 16;
     unsigned char* vd = vs + r * Sh::kStride + cc * 16;
-    if (row == k.pos) {  // only inside the owner's range (0 <= pos < S)
-      const T* kn = static_cast<const T*>(p.k_new) + k.new_base + cc * kEpc;
-      const T* vn = static_cast<const T*>(p.v_new) + k.new_base + cc * kEpc;
-      Pack<TC, kEpc> kp, vp;
-#pragma unroll
-      for (int j = 0; j < kEpc; ++j) {
-        kp.v[j] = KVCodec<TC>::enc(to_f(kn[j]), k.kvs);
-        vp.v[j] = KVCodec<TC>::enc(to_f(vn[j]), k.kvs);
-      }
-      *reinterpret_cast<Pack<TC, kEpc>*>(kd) = kp;
-      *reinterpret_cast<Pack<TC, kEpc>*>(vd) = vp;
-      if (k.hc == 0) {
-        *reinterpret_cast<Pack<TC, kEpc>*>(kbytes + goff) = kp;
-        *reinterpret_cast<Pack<TC, kEpc>*>(vbytes + goff) = vp;
+    if (fresh) {
+      Chunk<TC> kp, vp;
+      encode_new<T, TC>(p, k, cc, kp, vp);
+      *reinterpret_cast<Chunk<TC>*>(kd) = kp;
+      *reinterpret_cast<Chunk<TC>*>(vd) = vp;
+      if (k.hc == 0 && row == k.pos) {
+        *reinterpret_cast<Chunk<TC>*>(kbytes + goff) = kp;
+        *reinterpret_cast<Chunk<TC>*>(vbytes + goff) = vp;
       }
     } else {
-      const bool live = row < k.row_end;
       gemm::cp_async16(gemm::smem_addr(kd), live ? kbytes + goff : kbytes,
                        live);
       gemm::cp_async16(gemm::smem_addr(vd), live ? vbytes + goff : vbytes,
@@ -371,13 +459,13 @@ constexpr int kChunk = 8;  // query heads a block serves, at most
 
 // Dynamic shared memory of the warp kernel: the ring (which holds the
 // warps' states at the end), q, the block's state per head, the merge's
-// scratch.
+// scratch, a paged block's slice of the table.
 template <typename T, typename TC, int D>
-constexpr int warp_smem_bytes(int heads, int splits) {
+constexpr int warp_smem_bytes(int heads, int splits, int slice) {
   using Sh = Shape<TC, D>;
   return Sh::kRingBytes +
          heads * Sh::kParts * q_stride<T, TC, D>() * static_cast<int>(sizeof(T)) +
-         heads * (D + 2) * 4 + 2 * heads * splits * 4;
+         heads * (D + 2) * 4 + 2 * heads * splits * 4 + slice * 4;
 }
 
 // A chunk of at most kChunk heads of a group: warp w takes rows
@@ -388,8 +476,9 @@ constexpr int warp_smem_bytes(int heads, int splits) {
 // block barrier a stage (the ring); the warps merge once, at the end.
 // Two blocks an SM (at most 128 registers a thread): a group of 1 at 8k
 // rows has ~2 blocks per SM streaming. kH: the most heads (1, with q in
-// registers, for LLaMA-7B's group of 1; or kChunk).
-template <typename T, typename TC, int D, int kH>
+// registers, for LLaMA-7B's group of 1; or kChunk). kPaged: the rows'
+// addressing (see the top of this file).
+template <typename T, typename TC, int D, int kH, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_decode_kernel(const Params p) {
   using Sh = Shape<TC, D>;
@@ -399,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   static_assert(kWarps * kH * (D + 2) * 4 <= Sh::kRingBytes,
                 "the warps' states fit the ring");
   extern __shared__ __align__(16) unsigned char smem[];
-  const Block k = block_of<TC, D>(p);
+  const Block k = block_of<TC, D, kPaged>(p);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int part = lane % kParts;
   const int r = warp * kRw + lane / kParts;  // this lane's row of a stage
@@ -410,6 +499,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* mx = fin + k.heads * D;
   float* sm = mx + k.heads;
   float* scratch = sm + k.heads;
+  int* tbl = reinterpret_cast<int*>(scratch + 2 * k.heads * k.n_split);
+  if constexpr (kPaged) {  // the split's slice of the table, then the
+                           // write past it
+    const int n_e = k.n_st > 0 ? (k.row_end - 1) / p.bs - k.e0 + 1 : 0;
+    for (int e = threadIdx.x; e < n_e; e += kThreads) {
+      const int blk =
+          p.tables[static_cast<size_t>(k.b) * p.mb + k.e0 + e];
+      tbl[e] = blk < 0 ? p.trash : blk;
+    }
+    write_past_table<T, TC, D>(p, k);
+    __syncthreads();
+  }
   float qr[kH == 1 ? kPart : 1];  // a group of 1: this lane's part of q
   if constexpr (kH == 1) {
     const T* qg = static_cast<const T*>(p.q) +
@@ -434,13 +535,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
-    if (i < k.n_st) load_stage<T, TC, D>(p, k, ring, i);
+    if (i < k.n_st) load_stage<T, TC, D, kPaged>(p, k, tbl, ring, i);
     gemm::cp_async_commit();
   }
   for (int i = 0; i < k.n_st; ++i) {
     gemm::cp_async_wait<kStages - 2>();
     __syncthreads();  // stage i landed; every warp is done with stage i - 1
-    if (i + kStages - 1 < k.n_st) load_stage<T, TC, D>(p, k, ring, i + kStages - 1);
+    if (i + kStages - 1 < k.n_st)
+      load_stage<T, TC, D, kPaged>(p, k, tbl, ring, i + kStages - 1);
     gemm::cp_async_commit();  // (an empty group keeps the count)
     const unsigned char* ks = ring + (i % kStages) * Sh::kStageBytes;
     const unsigned char* vs = ring + (kStages + i % kStages) * Sh::kStageBytes;
@@ -553,6 +655,10 @@ struct Args {
   float sm_scale;
   cudaStream_t stream;
   bool read_only;  // row 8 (k_new / v_new null, positions the lengths)
+  // paged pools (row 14): tables [B, mb] (null for a dense cache), the
+  // block size, the trash block, the table entries a block's slice holds
+  const void* tables;
+  int mb, bs, trash, slice;
 };
 
 template <typename K>
@@ -568,7 +674,7 @@ cudaError_t launch_grid(K kernel, const Args& a, int chunks, int smem,
 // A group of more than kChunk heads is cut into balanced chunks of at most
 // kChunk along grid y (Falcon-7B's 71 as 8 x 8 + 7), each chunk's block
 // reading its split's K/V again (from L2: 0.27 MB at Falcon-7B's 1038 rows).
-template <typename T, typename TC, int D>
+template <typename T, typename TC, int D, bool kPaged>
 cudaError_t launch(const Args& a) {
   const int group = a.Hq / a.Hkv;
   const int chunks = (group + kChunk - 1) / kChunk;
@@ -579,27 +685,30 @@ cudaError_t launch(const Args& a) {
                    a.out, static_cast<float*>(a.part),
                    static_cast<int*>(a.counters),
                    a.Hq, a.Hkv, a.S, a.tps, heads, a.sm_scale,
-                   a.read_only};
-  const int smem = warp_smem_bytes<T, TC, D>(heads, a.splits);
+                   a.read_only, static_cast<const int*>(a.tables), a.mb,
+                   a.bs, a.trash, a.slice};
+  const int smem = warp_smem_bytes<T, TC, D>(heads, a.splits,
+                                             kPaged ? a.slice : 0);
   if (heads == 1)
-    return launch_grid(flash_decode_kernel<T, TC, D, 1>, a, chunks, smem, prm);
-  return launch_grid(flash_decode_kernel<T, TC, D, kChunk>, a, chunks, smem,
-                     prm);
+    return launch_grid(flash_decode_kernel<T, TC, D, 1, kPaged>, a, chunks,
+                       smem, prm);
+  return launch_grid(flash_decode_kernel<T, TC, D, kChunk, kPaged>, a, chunks,
+                     smem, prm);
 }
 
-template <typename T, typename TC>
+template <typename T, typename TC, bool kPaged>
 cudaError_t launch_d(int D, const Args& a) {
   switch (D) {
     case 32:
-      return launch<T, TC, 32>(a);
+      return launch<T, TC, 32, kPaged>(a);
     case 64:
-      return launch<T, TC, 64>(a);
+      return launch<T, TC, 64, kPaged>(a);
     case 96:
-      return launch<T, TC, 96>(a);
+      return launch<T, TC, 96, kPaged>(a);
     case 128:
-      return launch<T, TC, 128>(a);
+      return launch<T, TC, 128, kPaged>(a);
     case 256:
-      return launch<T, TC, 256>(a);
+      return launch<T, TC, 256, kPaged>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -608,23 +717,29 @@ cudaError_t launch_d(int D, const Args& a) {
 // dtype: the activation code (kF32 / kBF16 / kF16); the cache holds that
 // type or, with kv_int8, int8. The splits must cover the S rows in whole
 // 64-row tiles with none empty, at most kMaxSplits of them; more than one
-// needs the workspace.
-inline cudaError_t dispatch(int dtype, bool kv_int8, int D, const Args& a) {
+// needs the workspace. Paged: S = mb * bs, and a slice holds the table
+// entries that tps tiles starting anywhere span.
+template <bool kPaged>
+cudaError_t dispatch(int dtype, bool kv_int8, int D, const Args& a) {
   const int tiles = (a.S + kTile - 1) / kTile;
   if (a.splits < 1 || a.splits > kMaxSplits || a.tps < 1 ||
       a.splits * a.tps < tiles || (a.splits - 1) * a.tps >= tiles ||
       a.Hkv < 1 || a.Hq % a.Hkv != 0 ||
       (a.splits > 1 && (a.part == nullptr || a.counters == nullptr)))
     return cudaErrorInvalidValue;
+  if (kPaged && (a.tables == nullptr || a.read_only || a.bs < 1 ||
+                 a.mb < 1 || a.mb * a.bs != a.S || a.trash < 0 ||
+                 a.slice < (a.tps * kTile + a.bs - 1) / a.bs + 1))
+    return cudaErrorInvalidValue;
   if (dtype == kBF16)
-    return kv_int8 ? launch_d<__nv_bfloat16, int8_t>(D, a)
-                   : launch_d<__nv_bfloat16, __nv_bfloat16>(D, a);
+    return kv_int8 ? launch_d<__nv_bfloat16, int8_t, kPaged>(D, a)
+                   : launch_d<__nv_bfloat16, __nv_bfloat16, kPaged>(D, a);
   if (dtype == kF16)
-    return kv_int8 ? launch_d<__half, int8_t>(D, a)
-                   : launch_d<__half, __half>(D, a);
+    return kv_int8 ? launch_d<__half, int8_t, kPaged>(D, a)
+                   : launch_d<__half, __half, kPaged>(D, a);
   if (dtype == kF32)
-    return kv_int8 ? launch_d<float, int8_t>(D, a)
-                   : launch_d<float, float>(D, a);
+    return kv_int8 ? launch_d<float, int8_t, kPaged>(D, a)
+                   : launch_d<float, float, kPaged>(D, a);
   return cudaErrorInvalidValue;
 }
 

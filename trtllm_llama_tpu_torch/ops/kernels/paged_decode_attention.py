@@ -1,14 +1,18 @@
-"""Kernel 14: paged decode attention with the in-place KV write
-(csrc/paged_decode_attention.cu, its body in csrc/decode_attention.cuh,
-shared with kernel 3).
+"""Row 14: paged decode attention with the in-place KV write
+(csrc/paged_decode_attention.cu on the split-cache body of
+csrc/flash_decode.cuh, kernel 3's, with its paged row addressing).
 
 Replaces `trtllm_llama_tpu/ops/pallas/paged_decode_attention.py::
 paged_decode_attention`, for bf16/f32 pools and int8 pools with one static
 dequant scale per layer. Bound on the H100: the live K/V bytes,
-2*B*Hkv*(pos+1)*D*(2 for bf16, 1 for int8). Design: kernel 3's
-flash-decoding over the live 32-row chunks, a chunk's rows found through
-the block table (`tables[b, row // BS]`, row `row % BS`) instead of
-contiguously; the block owning pos's chunk is the only writer of row pos.
+2*Hkv*D*(2 for bf16, 1 for int8)*sum_b min(pos_b + 1, MB*BS). Design:
+kernel 3's one launch, the MB * BS table rows split over the card by
+`decode_split` (64-row tiles), a block per (split, kv head and chunk of up
+to 8 query heads, b) finding its rows through its slice of the block table
+(`tables[b, row // BS]`, row `row % BS`; `table_slice` entries in shared
+memory), the last split to finish merging from the per-stream workspace:
+no allocation but the output, no host sync. `split_rows` is the addressing
+as a model: what each split reads and which one writes.
 
 Rules (both versions): table entries -1 stand for the trash block (the
 pool's last); a position with pos // BS >= MB writes to the trash block and
@@ -28,13 +32,47 @@ import torch
 
 from ...quantization.tensors import quantize_int8
 from . import _build
+from .decode_attention import TILE, decode_split, sm_count, workspace_size
 
 NEG_INF = -1e9
-CHUNK = 32      # cache rows per block (kChunk in the source)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_paged_decode_attention":
-               [_P] * 12 + [_I] * 9 + [_F, _I, _P]}
+               [_P] * 11 + [_I] * 9 + [_F] + [_I] * 4 + [_P]}
+
+
+def table_slice(bs: int, tps: int) -> int:
+    """Table entries a block holds in shared memory: as many as `tps`
+    64-row tiles starting at any row span at block size `bs`."""
+    return -(-tps * TILE // bs) + 1
+
+
+def split_rows(table, pos: int, n_blocks: int, bs: int, splits: int,
+               tps: int):
+    """The kernel's addressing for one sequence and kv head, as a model:
+    for each split s, (the (logical row, pool block, row in it) it attends,
+    the (block, row) it stores the new token at or None). Split s attends
+    the rows [s * tps * TILE, (s + 1) * tps * TILE) below n_live = min(pos +
+    1, MB * BS), each through its slice of the table (at most
+    `table_slice` entries, -1 as the trash block n_blocks - 1); the owner
+    of row pos stores it, and at pos >= MB * BS the last split stores row
+    pos % BS of the trash block."""
+    mb, trash = len(table), n_blocks - 1
+    cap = mb * bs
+    n_live = min(pos + 1, cap)
+    out = []
+    for s in range(splits):
+        begin = s * tps * TILE
+        end = min(begin + tps * TILE, n_live)
+        e0 = begin // bs
+        entries = [trash if t < 0 else int(t)
+                   for t in table[e0:max(end - 1, begin) // bs + 1]]
+        rows = [(r, entries[r // bs - e0], r % bs) for r in range(begin, end)]
+        write = next(((blk, off) for r, blk, off in rows if r == pos), None)
+        if pos >= cap and s == splits - 1:
+            write = (trash, pos % bs)
+        out.append((rows, write))
+    return out
 
 
 def _write_blocks(tables, positions, n_blocks: int, bs: int):
@@ -147,14 +185,17 @@ def paged_decode_attention(q, k_new, v_new, pool_k, pool_v, layer: int,
             or positions.shape != (b,)):
         raise ValueError("paged_decode_attention: tensors must be contiguous "
                          "and on one device, positions [B]")
+    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
+        raise ValueError("paged_decode_attention: pools must be 16-byte "
+                         "aligned")
     scale = sm_scale if sm_scale is not None else d ** -0.5
+    splits, tps = decode_split(b, hkv, mb * bs, hq // hkv, sm_count(q.device))
+    part = counters = None
+    if splits > 1:
+        part, counters = _build.workspace(
+            q.device, *workspace_size(b, hq, d, splits))
     lib = _build.load("paged_decode_attention", _SIGNATURES)
-    n_chunks = -(-mb * bs // CHUNK)
     out = torch.empty_like(q)
-    part_ml = torch.empty((2, b, hq, n_chunks), device=q.device,
-                          dtype=torch.float32)
-    part_acc = torch.empty((b, hq, n_chunks, d), device=q.device,
-                           dtype=torch.float32)
     layer_bytes = nb * hkv * bs * d * pool_k.element_size()
     kvs_ptr = (_P(kv_scale.data_ptr() + layer * 4) if kv_int8 else _P(None))
     err = lib.tllm_paged_decode_attention(
@@ -162,9 +203,10 @@ def paged_decode_attention(q, k_new, v_new, pool_k, pool_v, layer: int,
         _P(pool_k.data_ptr() + layer * layer_bytes),
         _P(pool_v.data_ptr() + layer * layer_bytes), kvs_ptr,
         _build.ptr(tables), _build.ptr(positions), _build.ptr(out),
-        _build.ptr(part_ml[0]), _build.ptr(part_ml[1]), _build.ptr(part_acc),
+        _build.ptr(part), _build.ptr(counters),
         _build.DTYPE_CODES[q.dtype], int(kv_int8), b, hq, hkv, nb, bs, mb, d,
-        float(scale), q.device.index or 0, _build.stream_of(q))
+        float(scale), splits, tps, table_slice(bs, tps),
+        q.device.index or 0, _build.stream_of(q))
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
