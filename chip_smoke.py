@@ -14,8 +14,9 @@
    only: the port never calls it). Kernels 1 and 6 are checked in every
    format: int8, int4 with g128 and with per-channel scales, and fp8
    (e4m3), stacked at the four projection shapes: the tensor-core GEMV
-   (csrc/woq_gemv_tc.cuh) from TC_MIN_ROWS to 16 rows and the CUDA-core
-   GEMV below, with the norm and residual options, each call's route held
+   (csrc/woq_gemv_tc.cuh) from TC_MIN_ROWS to 16 rows and the one-row
+   GEMV below (csrc/woq_gemv.cuh, one launch), with the norm and residual
+   options, each call's route held
    by the counters, the two GEMVs timed side by side at 1, 2, 4, 8, 9 and
    16 rows with the path's option (the crossover, TC_MIN_ROWS), the
    tensor-core GEMM at every row count above 16 the paths and serving
@@ -244,6 +245,11 @@ LONG_ROPE = 16384     # bench.py:134: max(2048, next_pow2(in + out + 16))
 LONG_S_MAX = 8320     # the session's cache rows: 8192 + 64, rounded to 128
 DECODE_MODES = ("split", "fused")   # run again on paths 1 and 2
 PROFILE_NEW = 16      # tokens of each profiled request (profile_generate)
+# kernels whose launches decode_step_launches counts in the decode steps:
+# the split-K reduce (of the tensor-core GEMV and the GEMMs; no bs1 decode
+# step launches it) and the one-launch GEMVs that take every bs1 projection
+DECODE_KERNELS = ("gemv::reduce_kernel", "w8a8::reduce_kernel",
+                  "gemv::gemv_kernel", "dp4a_kernel")
 F32_TOL = 1e-5        # f32 kernels against their plain versions
 # Path 6: Bloom-7b1, from bigscience/bloom-7b1's config.json (vocab_size
 # 250880, hidden_size 4096, n_layer 30, n_head 32, layer_norm_epsilon 1e-5,
@@ -348,7 +354,7 @@ TASK_A_DECODE = 16
 # against their plain version and times them side by side (the crossover:
 # decode and bs4 rows, the rows between, prefill buckets, Task A's prompt
 # and bucket); the qkv shape also at 8192 rows (the GEMM alone).
-W8A8_ROWS = (1, 4, 5, 6, 8, 16, 17, 32, 64, 256, TASK_A_PROMPT, 1024)
+W8A8_ROWS = (1, 2, 4, 5, 6, 8, 16, 17, 32, 64, 256, TASK_A_PROMPT, 1024)
 
 
 def serve_prompt_lens():
@@ -683,7 +689,7 @@ def exact(name, got, ref, errors):
 def launches_of(name, fn):
     """The launches of JSON entry `name` by its wrapper `fn` since the
     counts were zeroed: the GEMM's share for a GEMM entry, the tensor-core
-    GEMV's for a TC_KEYS entry, the rest (the CUDA-core GEMV's, or all)
+    GEMV's for a TC_KEYS entry, the rest (the one-row GEMV's, or all)
     for the wrapper's other entries."""
     gemm = getattr(fn, "gemm_launches", 0)
     tc = getattr(fn, "tc_launches", 0)
@@ -704,7 +710,7 @@ def tc_rows(rows):
 def tc_route_forced(tc):
     """Kernels 1 and 6 at up to 16 rows forced onto one GEMV: the
     tensor-core body at every row count it tiles (tc=True), or the
-    CUDA-core body (tc=False), through the floor tc_route reads."""
+    one-row body (tc=False), through the floor tc_route reads."""
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
     with patched(woq, "TC_MIN_ROWS", 1 if tc else 1 << 30):
         yield
@@ -764,7 +770,7 @@ def check_gemv(fmt, errors, results):
     """The stacked kernel at the four projection shapes: at every PATH_ROWS
     and GEMV_ROWS row count up to 16 with each option (and, for int8,
     serving's rows), on the route tc_route / gemm_route give it (the
-    tensor-core GEMV from TC_MIN_ROWS, the CUDA-core one below), the GEMM
+    tensor-core GEMV from TC_MIN_ROWS, the one-row one below), the GEMM
     at every row count above 16 that the paths and serving give (bs4's
     64-row prefill; int8 also serving's admissions and path 5's 8192 rows)
     with none (the paths compose the options there); for formats whose
@@ -787,7 +793,7 @@ def check_gemv(fmt, errors, results):
         two_d, two_d_plain = woq.woq_matmul, woq.woq_matmul_plain
     print(f"kernel {stacked.__name__} / {two_d.__name__} ({fmt} weights, bf16 "
           f"x, f32 out; the tensor-core GEMV at {woq.TC_MIN_ROWS}-16 rows, "
-          "the CUDA-core GEMV below, the GEMM above):")
+          "the one-row GEMV below, the GEMM above):")
     cfg = ModelConfig.llama_7b()
     d, f, vocab = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     qkv = cfg.num_heads * cfg.head_dim + 2 * cfg.num_kv_heads * cfg.head_dim
@@ -868,13 +874,14 @@ def check_gemv(fmt, errors, results):
                        + (m * n * 2 if path_opt == "resid" else 0))
             b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n)
             table[f"{pname} M={m} {path_opt}"] = dict(
-                tc_ms=t_tc, cuda_core_ms=t_cc, library_ms=t_l, bound_ms=b_ms,
+                tc_ms=t_tc, one_row_ms=t_cc, library_ms=t_l, bound_ms=b_ms,
                 bound_by=b_by)
             print(f"  time {pname} M={m} {path_opt}: tensor-core {t_tc:.4f} "
-                  f"ms, CUDA-core {t_cc:.4f} ms, library(matmul bf16 "
+                  f"ms, one-row {t_cc:.4f} ms, library(matmul bf16 "
                   f"dequantized) {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-                  f"tensor-core at {100 * b_ms / t_tc:.1f}% of the bound, "
-                  f"{t_tc / t_l:.2f}x the library")
+                  f"tensor-core at {100 * b_ms / t_tc:.1f}%, one-row at "
+                  f"{100 * b_ms / t_cc:.1f}% of the bound; "
+                  f"{t_tc / t_l:.2f}x / {t_cc / t_l:.2f}x the library")
             for key, route_ms, at in ((key_3d, t_cc, 1), (tc_3d, t_tc,
                                                           tc_key_rows)):
                 if key is not None and pname == "qkv" and m == at:
@@ -889,11 +896,11 @@ def check_gemv(fmt, errors, results):
     for pname, _, _, path_opt in shapes:
         no_slower = [m for m in GEMV_ROWS
                      if table[f"{pname} M={m} {path_opt}"]["tc_ms"]
-                     <= table[f"{pname} M={m} {path_opt}"]["cuda_core_ms"]]
+                     <= table[f"{pname} M={m} {path_opt}"]["one_row_ms"]]
         print(f"  {fmt} {pname}: the tensor-core GEMV is no slower than the "
-              f"CUDA-core one at M = {no_slower} (TC_MIN_ROWS "
+              f"one-row one at M = {no_slower} (TC_MIN_ROWS "
               f"{woq.TC_MIN_ROWS})")
-    results["_e2e"][f"kernel 1/6 {fmt} GEMV tensor-core vs CUDA-core"] = table
+    results["_e2e"][f"kernel 1/6 {fmt} GEMV tensor-core vs one-row"] = table
     results[gemm_key]["max_abs_err"] = err["gemm"]
     for key, e in ((key_3d, err["gemv"]), (tc_3d, err["tc"])):
         if key is not None:
@@ -1014,7 +1021,7 @@ def check_swiglu(errors, results):
     """The SwiGLU prologue of rows 2 and 4 at the down projection's shape
     (x [M, 2 x 11008] = [gate | up] -> N = 4096) in every weight format, at
     M = 1, 4, 9 and 16 (the FUSE_MAX_ROWS limit; the tensor-core GEMV from
-    TC_MIN_ROWS, the CUDA-core one below), with and without the
+    TC_MIN_ROWS, the one-row one below), with and without the
     residual, bf16, plus one fp16 and one f32 case; timed at M = 1 with the
     residual (the decode step's call) over N_WEIGHT_LAYERS weights."""
     import torch
@@ -2295,13 +2302,35 @@ def drive_path(path, sess, errors, results):
         streamed_logits_vs_plain(path, sess, p1, p4, errors)
     dev_tok, _ = profile_generate(sess, p1, scfg)
     results["_e2e"][tag]["device_ms_per_decode_token"] = dev_tok
+    # a bs1 decode step: every projection one launch of the one-row GEMV
+    # (kernels 1 / 6) or the dp4a GEMV (rows 5 / 6), no split-K reduce
+    # (PyTorch's own reductions are at::native::reduce_kernel): the
+    # profile of the decode steps alone shows no reduce_kernel and the
+    # one-launch kernels, the wrappers' counts one call a projection
+    dl, dc = decode_step_launches(sess, p1, scfg)
+    steps = PROFILE_NEW - 1
+    want = 5 * cfg.num_layers * steps
+    seen = dl["gemv::gemv_kernel"] + dl["dp4a_kernel"]
+    ok = (dl["gemv::reduce_kernel"] + dl["w8a8::reduce_kernel"] == 0
+          and dc["projections"] == want and dc["lm_head"] in (0, steps)
+          and dc["other"] == 0
+          and 0 < seen <= dc["projections"] + dc["lm_head"])
+    print(f"  {tag} bs1 decode steps' launches: profile {dl}, wrappers {dc} "
+          f"(no split-K reduce_kernel in the {steps} steps; {want} one-row "
+          f"projection calls, the lm_head's 0 or {steps}, each one kernel "
+          f"the profile saw, up to the records it drops): "
+          f"{'ok' if ok else 'FAIL'}")
+    results["_e2e"][tag]["decode_step_launches"] = dict(profile=dl,
+                                                        wrappers=dc)
+    if not ok:
+        errors.append(f"{tag}: bs1 decode steps launched {dl}")
     if "tc" in path:     # bs4's decode steps (4 rows) on the tensor-core
-        # GEMV, then on the CUDA-core GEMV, same session
+        # GEMV, then on the one-row GEMV, same session
         dev_step4, _ = profile_generate(sess, p4, scfg, row_limit=8)
         with tc_route_forced(False):
             dev_step4_cc, _ = profile_generate(sess, p4, scfg, row_limit=4)
         print(f"  {tag} bs4: {dev_step4:.3f} device ms per decode step on "
-              f"the tensor-core GEMV, {dev_step4_cc:.3f} on the CUDA-core "
+              f"the tensor-core GEMV, {dev_step4_cc:.3f} on the one-row "
               "GEMV")
         results["_e2e"][tag].update(
             device_ms_per_decode_step_bs4=dev_step4,
@@ -2841,6 +2870,69 @@ def profile_generate(sess, ids, scfg, row_limit=24, new=None):
     return dec_ms, dev_ms / wall_ms
 
 
+def decode_step_launches(sess, ids, scfg, new=PROFILE_NEW):
+    """The decode steps of one request of `new` tokens, seen two ways from
+    the request's first forward_decode (the prefill's kernels finished)
+    to its end: (profile, calls). profile: each DECODE_KERNELS name's
+    kernels in one profile of those steps alone (the profiler drops a
+    record now and then: 0-2 of ~2400 GEMV kernels on an H100,
+    so it shows which kernels ran, not their exact number); calls: the
+    GEMV wrappers' exact one-row launches in the same steps ("projections":
+    the stacked wrappers and the 2-D w8a8_matmul of static SmoothQuant;
+    "lm_head": the 2-D woq / fp8 entries) and their tensor-core / GEMM
+    launches ("other")."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    model = sess.model
+    wrappers = _wrappers()
+    groups = {"projections": ("woq_matmul_stacked", "fp8_matmul_stacked",
+                              "w8a8_matmul_stacked", "w8a8_matmul"),
+              "lm_head": ("woq_matmul", "fp8_matmul")}
+
+    def calls():
+        out = {"other": 0}
+        for group, names in groups.items():
+            out[group] = 0
+            for name in names:
+                fn = wrappers[name]
+                other = (getattr(fn, "gemm_launches", 0)
+                         + getattr(fn, "tc_launches", 0))
+                out[group] += fn.launches - other
+                out["other"] += other
+        return out
+
+    class StartAtFirstStep:
+        before = None
+
+        def __getattr__(self, name):
+            return getattr(model, name)
+
+        def forward_decode(self, *args, **kwargs):
+            if self.before is None:
+                torch.cuda.synchronize()       # the prefill's kernels ended
+                self.before = calls()
+                prof.start()
+            return model.forward_decode(*args, **kwargs)
+
+    sess.model = hook = StartAtFirstStep()
+    try:
+        sess.generate(ids, sampling=scfg, max_new_tokens=new)
+        torch.cuda.synchronize()
+    finally:
+        sess.model = model
+        if hook.before is not None:
+            prof.stop()
+    after = calls()
+    events = prof.key_averages()
+    return ({name: sum(e.count for e in events
+                       if e.device_type == DeviceType.CUDA and name in e.key)
+             for name in DECODE_KERNELS},
+            {k: after[k] - hook.before[k] for k in after})
+
+
 # ---------------------------------------------------------------------------
 # path 7: the hackathon's offline build (SmoothQuant migration, static W8A8
 # + int8 KV engine dir, the loader)
@@ -3016,14 +3108,14 @@ def build_offline(args, errors, results):
 
 def gemv_calls(events):
     """Device ms of each kernel-1 call in a profile, in launch order: a call
-    is the GEMV's partial kernel or the GEMM's kernel, plus the split-K
-    reduce that follows it."""
+    is the one-row GEMV's kernel or the GEMM's kernel, plus the split-K
+    reduce that follows the GEMM's."""
     from torch.autograd import DeviceType
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
     calls = []
     for e in kernels:
-        if "gemv::partial_kernel" in e.name or "gemm::gemm_kernel" in e.name:
+        if "gemv::gemv_kernel" in e.name or "gemm::gemm_kernel" in e.name:
             calls.append(e.time_range.elapsed_us() / 1e3)
         elif "gemv::reduce_kernel" in e.name and calls:
             calls[-1] += e.time_range.elapsed_us() / 1e3
@@ -3520,7 +3612,7 @@ def profile_serving_step(eng, prompts, gemv_side_by_side=False):
     decode-only step (one chunk of decode_chunk steps) on the host clock and
     profiles the one after it: device time by kernel and the device's busy
     share of the unprofiled decode step; with gemv_side_by_side, profiles
-    one more decode step with kernel 1 forced onto its CUDA-core GEMV (its
+    one more decode step with kernel 1 forced onto its one-row GEMV (its
     other body at 9 rows). Drains the engine afterwards."""
     import torch
     from torch.autograd import DeviceType
@@ -3552,9 +3644,9 @@ def profile_serving_step(eng, prompts, gemv_side_by_side=False):
     extra = {}
     if gemv_side_by_side:
         with tc_route_forced(False):
-            extra["step_device_ms_cuda_core_gemv"], _ = profiled_step()
-        print(f"  the next decode step with kernel 1 on the CUDA-core GEMV: "
-              f"device busy {extra['step_device_ms_cuda_core_gemv']:.2f} ms "
+            extra["step_device_ms_one_row_gemv"], _ = profiled_step()
+        print(f"  the next decode step with kernel 1 on the one-row GEMV: "
+              f"device busy {extra['step_device_ms_one_row_gemv']:.2f} ms "
               f"(the tensor-core GEMV's step: {dev_ms:.2f} ms)")
     eng.run_to_completion()
     print(f"  profile of one decode step ({SERVE_CHUNK} tokens x 9 rows): "

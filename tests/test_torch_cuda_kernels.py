@@ -21,7 +21,9 @@ outputs by a rounding step).
 Rows 2 and 4 at prefill rows (the tensor-core GEMM) and at TC_MIN_ROWS-16
 rows (the tensor-core GEMV) form the same exact products (int8 / int4
 codes and e4m3 values are exact in bf16 and fp16) and differ from the
-plain versions in the order of the f32 sums only: the 2**-7 bound holds. The SwiGLU prologue (silu in f32, the product in the compute dtype) is
+plain versions in the order of the f32 sums only: the 2**-7 bound holds;
+so does the one-row GEMV (one launch, its K splits merged in split order:
+two calls give the same bits), and the one-launch dp4a GEMV is exact. The SwiGLU prologue (silu in f32, the product in the compute dtype) is
 held to the same per-dtype bounds, and the decode probes are exact (bit
 for bit; the two e4m3 NaN codes decode to NaN on both sides).
 """
@@ -90,9 +92,9 @@ def test_woq_kernel_matches_plain(dev, dtype, m, opt):
 
 
 # (w_bits, group_size, pack_block, K): int4 per-channel and grouped (two
-# pack blocks), int8 grouped, with K ragged against the 512-row tile
+# pack blocks), int8 grouped, with K ragged against the K splits
 WOQ_FORMATS = [(4, 0, 128, 1152), (4, 128, 128, 1152), (4, 32, 32, 800),
-               (8, 64, 0, 1216)]
+               (4, 96, 96, 1152), (8, 64, 0, 1216)]
 
 
 @pytest.mark.parametrize("opt", ["none", "norm", "resid"])
@@ -698,8 +700,8 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):               # N % 16 != 0
         woq.woq_matmul_stacked(torch.ones((1, 64), device=dev), w, 0)
     w4 = WOQWeight(torch.zeros((1, 48, 32), dtype=torch.int8, device=dev),
-                   torch.ones((1, 32), device=dev), 4, 0, 96)
-    with pytest.raises(ValueError):               # pack block 96 !| 512
+                   torch.ones((1, 32), device=dev), 4, 0, 64)
+    with pytest.raises(ValueError):               # K 96 !% pack block 64
         woq.woq_matmul_stacked(torch.ones((1, 96), device=dev), w4, 0)
     f8 = FP8Weight(torch.zeros((1, 64, 32), dtype=torch.int8, device=dev),
                    torch.ones((1, 32), device=dev))
@@ -1452,3 +1454,201 @@ def test_tc_gemv_on_two_streams(dev):
     for (_, _, _, ref), got in zip(cases, outs):
         for out in got:
             _assert_close(out, ref, torch.bfloat16)
+
+
+# rows 1-4 at one row (and f32 / the layouts the tensor-core bodies do not
+# tile at every row count): the one-launch GEMV (csrc/woq_gemv.cuh on
+# csrc/gemv_stream.cuh); rows 5-6 below W8A8_GEMM_MIN_ROWS: the one-launch
+# dp4a GEMV (csrc/w8a8_matmul.cu). The same exact products as the plain
+# versions, summed in another order (the dp4a sums are exact int32)
+ONE_ROW_FORMATS = ["int8", "int4 per-channel", "int4 g128", "fp8"]
+ONE_ROW_OPTIONS = ["none", "norm", "resid", "swiglu"]
+
+
+def _one_row_counts(fn):
+    return (fn.launches, fn.tc_launches, fn.gemm_launches)
+
+
+@pytest.mark.parametrize("opt", ONE_ROW_OPTIONS)
+@pytest.mark.parametrize("fmt", ONE_ROW_FORMATS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_one_row_gemv_matches_plain(dev, dtype, fmt, opt):
+    """M = 1 in every format, option and dtype, a ragged last column tile
+    (N = 784), K split over blocks: one launch of the one-row body."""
+    g = torch.Generator(device=dev).manual_seed(len(fmt) + 7 * len(opt))
+    w = _swiglu_weight(fmt, g, dev, n_layers=3, k=1152, n=784)
+    k = w.k_dim
+    x = torch.randn((1, 2 * k if opt == "swiglu" else k), generator=g,
+                    device=dev).to(dtype)
+    fn, plain, kw = _tc_call(fmt, w, x, opt, g, dev)
+    before = _one_row_counts(fn)
+    got = fn(x, w, 2, **kw)
+    torch.cuda.synchronize()
+    assert _one_row_counts(fn) == (before[0] + 1, before[1], before[2])
+    _assert_close(got, plain(x, w, 2, **kw), dtype)
+
+
+@pytest.mark.parametrize("m", list(range(1, 17)))
+@pytest.mark.parametrize("case", ["f32 int8", "f32 int4 g128", "f32 fp8",
+                                  "f32 int4 g96 b96", "bf16 int8 K=1000",
+                                  "fp16 fp8 K=1000"])
+def test_one_row_gemv_at_every_row_count_it_takes(dev, case, m):
+    """The calls the route leaves to the body above one row: f32 in every
+    format (int4 also with pack blocks and groups of 96 rows, which do
+    not divide the 512-row passes of the body before this one), and K of
+    half mma steps (K = 1000) in bf16 / fp16, at 1-16 rows (row tiles of
+    1, 2 or 4), with the norm and the residual."""
+    dt, fmt = case.split()[:2]
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "fp16": torch.float16}[dt]
+    k = 1000 if "K=1000" in case else 1152
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    if "b96" in case:
+        q = torch.randint(-127, 128, (2, k // 2, 784), generator=g,
+                          device=dev, dtype=torch.int8)
+        s = torch.rand((2, k // 96, 784), generator=g, device=dev) * 1e-3
+        w = WOQWeight(q, s, 4, 96, 96)
+    else:
+        w = _swiglu_weight("int4 g128" if fmt == "int4" else fmt, g, dev,
+                           n_layers=2, k=k, n=784)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    for opt in ("norm", "resid"):
+        fn, plain, kw = _tc_call(fmt, w, x, opt, g, dev)
+        before = _one_row_counts(fn)
+        got = fn(x, w, 1, **kw)
+        torch.cuda.synchronize()
+        assert _one_row_counts(fn) == (before[0] + 1, before[1], before[2])
+        _assert_close(got, plain(x, w, 1, **kw), dtype)
+
+
+# LLaMA-7B's four projections, the lm_head (2-D entry), the fused gate/up,
+# Falcon-7B's qkv, GPT-NeoX-20B's qkv and Bloom's MLP
+ONE_ROW_SHAPES = [(4096, 12288), (4096, 4096), (4096, 11008), (11008, 4096),
+                  (4096, 22016), (4544, 4672), (6144, 18432), (4096, 16384)]
+
+
+@pytest.mark.parametrize("fmt,kn", [
+    (fmt, kn) for fmt in ONE_ROW_FORMATS for kn in ONE_ROW_SHAPES
+    if not (fmt.startswith("int4") and kn[0] % 128)])  # 128-row pack blocks
+def test_one_row_gemv_at_the_paths_shapes(dev, fmt, kn):
+    """bf16 at one row with each option the paths use there, at the
+    paths' and the families' widths."""
+    k, n = kn
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    w = _swiglu_weight(fmt, g, dev, n_layers=2, k=k, n=n)
+    x = torch.randn((1, k), generator=g, device=dev).to(torch.bfloat16)
+    for opt in ("none", "norm", "resid"):
+        fn, plain, kw = _tc_call(fmt, w, x, opt, g, dev)
+        before = _one_row_counts(fn)
+        got = fn(x, w, 1, **kw)
+        torch.cuda.synchronize()
+        assert _one_row_counts(fn) == (before[0] + 1, before[1], before[2])
+        _assert_close(got, plain(x, w, 1, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4 per-channel", "fp8"])
+def test_one_row_gemv_2d_lm_head(dev, fmt):
+    """The 2-D entry at the lm_head's shape (4096 -> 32000) at one row, as
+    paths 3 and 4 run it every decode step: its own counter."""
+    g = torch.Generator(device=dev).manual_seed(53)
+    w = _swiglu_weight(fmt, g, dev, n_layers=1, k=4096, n=32000)
+    w2 = dataclasses.replace(w, qweight=w.qweight[0], scale=w.scale[0])
+    x = torch.randn((1, 4096), generator=g, device=dev).to(torch.bfloat16)
+    fn = f8k.fp8_matmul if fmt == "fp8" else woq.woq_matmul
+    plain = f8k.fp8_matmul_plain if fmt == "fp8" else woq.woq_matmul_plain
+    before = _one_row_counts(fn)
+    got = fn(x, w2)
+    torch.cuda.synchronize()
+    assert _one_row_counts(fn) == (before[0] + 1, before[1], before[2])
+    _assert_close(got, plain(x, w2), torch.bfloat16)
+
+
+@pytest.mark.parametrize("fmt", ONE_ROW_FORMATS)
+def test_one_row_gemv_is_bitwise_repeatable_on_two_streams(dev, fmt):
+    """LLaMA-7B's wo (with the residual) and down shapes at one row, whose
+    K is split over blocks: every call on either of two streams at once
+    gives the first call's output bit for bit (the splits merge in split
+    order, whatever order they finish in)."""
+    g = torch.Generator(device=dev).manual_seed(59)
+    cases = []
+    for k, n in ((4096, 4096), (11008, 4096)):
+        w = _swiglu_weight(fmt, g, dev, n_layers=2, k=k, n=n)
+        x = torch.randn((1, k), generator=g, device=dev).to(torch.bfloat16)
+        r = torch.randn((1, n), generator=g, device=dev).to(torch.bfloat16)
+        fn, plain, _ = _tc_call(fmt, w, x, "none", g, dev)
+        first = fn(x, w, 1, resid=r)
+        torch.cuda.synchronize()
+        _assert_close(first, plain(x, w, 1, resid=r), torch.bfloat16)
+        cases.append((fn, w, x, r, first))
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for _ in range(10):
+        for st in streams:
+            with torch.cuda.stream(st):
+                for fn, w, x, r, _ in cases:
+                    outs.append((fn(x, w, 1, resid=r), len(outs) % 2))
+    torch.cuda.synchronize()
+    for i, (out, _) in enumerate(outs):
+        assert torch.equal(out, cases[i % len(cases)][4])
+
+
+@pytest.mark.parametrize("fmt", ONE_ROW_FORMATS)
+def test_one_row_gemv_allocates_only_its_output(dev, fmt):
+    """A second call at a shape split over the card allocates nothing but
+    its output (the splits meet in the stream's workspace, made at the
+    first call)."""
+    g = torch.Generator(device=dev).manual_seed(61)
+    w = _swiglu_weight(fmt, g, dev, n_layers=2, k=4096, n=4096)
+    x = torch.randn((1, 4096), generator=g, device=dev).to(torch.bfloat16)
+    r = torch.randn((1, 4096), generator=g, device=dev).to(torch.bfloat16)
+    unit = w.pack_block or 8 if fmt != "fp8" else w.interleave_block or 8
+    assert woq.gemv_plan(1, 4096, 4096, da.sm_count(dev), unit).ksplit > 1
+    fn = f8k.fp8_matmul_stacked if fmt == "fp8" else woq.woq_matmul_stacked
+    fn(x, w, 1, resid=r)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    out = fn(x, w, 1, resid=r)
+    torch.cuda.synchronize()
+    out_bytes = -(-out.numel() * out.element_size() // 512) * 512
+    assert torch.cuda.memory_allocated(dev) - before <= out_bytes
+
+
+@pytest.mark.parametrize("scales", W8A8_SCALES)
+@pytest.mark.parametrize("kn", W8A8_GEMM_SHAPES + [(4096, 22016)])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_dp4a_gemv_matches_plain_exactly(dev, m, kn, scales):
+    """The dp4a GEMV at every row count it takes, LLaMA-7B's shapes, every
+    scale kind: bit for bit, stacked and 2-D, one launch each, twice the
+    same bits."""
+    k, n = kn
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x_q, w_q, s_x, s_w = _w8a8_operands(dev, g, m, k, n, 2, scales)
+    fn = w8a8.w8a8_matmul_stacked
+    before = (fn.launches, fn.gemm_launches)
+    got = fn(x_q, w_q, s_x, s_w, 1)
+    again = fn(x_q, w_q, s_x, s_w, 1)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.gemm_launches) == (before[0] + 2, before[1])
+    ref = w8a8.w8a8_matmul_stacked_plain(x_q, w_q, s_x, s_w, 1)
+    assert torch.equal(got, ref) and torch.equal(again, ref)
+    got2d = w8a8.w8a8_matmul(x_q, w_q[1], s_x, s_w[1])
+    assert torch.equal(got2d, ref)
+
+
+@pytest.mark.parametrize("value", [-128, -127])
+@pytest.mark.parametrize("m", [1, 4])
+def test_dp4a_gemv_sums_exactly_at_full_magnitude(dev, m, value):
+    """|sum| up to 128 * 128 * K, K split over blocks: the int32 merge of
+    the splits is exact (f32 would not be)."""
+    k, n = 11008, 4096
+    x_q = torch.full((m, k), value, dtype=torch.int8, device=dev)
+    w_q = torch.full((1, k, n), value, dtype=torch.int8, device=dev)
+    w_q[0, 0, 0] = 1
+    ones = torch.ones((m, 1), device=dev)
+    got = w8a8.w8a8_matmul_stacked(x_q, w_q, ones, torch.ones((1, n),
+                                                                device=dev), 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, w8a8.w8a8_matmul_stacked_plain(
+        x_q, w_q, ones, torch.ones((1, n), device=dev), 0))

@@ -12,8 +12,9 @@
 // On the TPU they pinned Mosaic's bitcast and lane semantics; here they pin
 // the same facts for Hopper's registers and, for rows 18-19, run every code
 // through the very __device__ functions the GEMV decodes with
-// (woq_gemv.cuh: fp8x2, int8_code, int4_codes, slot_of; woq_gemv_tc.cuh:
-// the pair decoders), so a change there shows up in the probe.
+// (woq_gemv.cuh: fp8x2, int8_code, int4_word, int4_codes, slot_of;
+// woq_gemv_tc.cuh: the pair decoders), so a change there shows up in the
+// probe.
 //
 //   15  each uint32 read as __nv_bfloat162: .x is the low half (little
 //       endian), written to row 2r, .y (high half) to row 2r + 1;
@@ -23,7 +24,8 @@
 //   17  ((w << 3) & 0x00780078) | 0x43004300 plants the nibbles at bits
 //       0-3 and 16-19 as the two bf16 128 + 8 n;
 //   18  all 256 e4m3 codes (fp8x2), all 256 int8 codes (int8_code) and all
-//       256 int4 nibble pairs (int4_codes) decoded exactly; and the same
+//       256 int4 nibble pairs (int4_word, the one-row GEMV's; int4_codes,
+//       the GEMM's, must agree) decoded exactly; and the same
 //       codes through the tensor-core body's pair decoders
 //       (woq_gemv_tc.cuh: int8_pair, int4_pair, fp8_pair) into bf16 and
 //       fp16 pairs, every code in the low and in the high half;
@@ -65,17 +67,19 @@ __global__ void gemv_decodes_kernel(const uint32_t* __restrict__ words,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_words) return;
   const uint32_t w = words[i];
-  float f[4];
+  float f[4], lo4[4], hi4[4];
   gemv::fp8x2(w, f[0], f[1]);
   gemv::fp8x2(w >> 16, f[2], f[3]);
+  gemv::int4_word(w, lo4, hi4);          // the one-row GEMV's int4 decode
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     fp8[4 * i + j] = f[j];
     int8[4 * i + j] = gemv::int8_code(w, j);
+    // the GEMM's int4 decode must agree with it: a difference leaves NaN
     float lo, hi;
     gemv::int4_codes(w, j, lo, hi);
-    int4[2 * (4 * i + j)] = lo;
-    int4[2 * (4 * i + j) + 1] = hi;
+    int4[2 * (4 * i + j)] = lo == lo4[j] ? lo4[j] : nanf("");
+    int4[2 * (4 * i + j) + 1] = hi == hi4[j] ? hi4[j] : nanf("");
   }
 }
 

@@ -1,6 +1,6 @@
 // FP8 (e4m3) weight stacked matmul for few rows (decode / short prefill):
-// the fp8 instantiations of woq_gemv.cuh (CUDA cores) and woq_gemv_tc.cuh
-// (tensor cores: bf16 / fp16 at TC_MIN_ROWS..16 rows).
+// the fp8 instantiations of woq_gemv.cuh (one row, f32 and the rest) and
+// woq_gemv_tc.cuh (tensor cores: bf16 / fp16 at TC_MIN_ROWS..16 rows).
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/woq_matmul.py::fp8_matmul_stacked
 // and, on a unit layer axis, fp8_matmul (the fp8 branch of _kernel_int8,
@@ -13,21 +13,24 @@
 
 using namespace tllm;
 
-// x [M, K] (dtype; [M, 2K] = [gate | up] with swiglu), q uint8 e4m3 codes [K, N] of ONE layer, rows interleaved
-// by blk (0: logical order), scale f32 [N], norm_w [K] or null, resid
-// [M, N] or null, out [M, N] f32, part [ksplit, M, N] f32 scratch (== out
-// allowed when ksplit == 1). mr in {1, 2, 4, 8}: rows per register tile.
-// swiglu: stage silu(gate) * up as the matmul's input (norm_w null).
+// x [M, K] (dtype; [M, 2K] = [gate | up] with swiglu), q uint8 e4m3 codes
+// [K, N] of ONE layer, rows interleaved by blk (0: logical order), scale
+// f32 [N], norm_w [K] or null, resid [M, N] or null, out [M, N] f32; part
+// and counters of the stream's workspace, ksplit, kc, mr (1, 2 or 4) and
+// lanes as tllm_woq_matmul_stacked. One launch.
 extern "C" int tllm_fp8_matmul_stacked(const void* x, const void* q,
                                        const void* scale, const void* norm_w,
                                        const void* resid, void* out, void* part,
-                                       int dtype, int M, int K, int N,
-                                       int ksplit, int kc, int mr, int blk,
-                                       float eps, int swiglu, int device,
-                                       void* stream) {
-  const gemv::Args a{x, q, scale, norm_w, resid, out, part, M, K, N,
-                     ksplit, kc, blk, 0, eps, swiglu};
-  return gemv::dispatch<gemv::kFp8, false>(dtype, mr, a, device, stream);
+                                       void* counters, int dtype, int M, int K,
+                                       int N, int ksplit, int kc, int mr,
+                                       int lanes, int blk, float eps,
+                                       int swiglu, int device, void* stream) {
+  const gemv::Params p{x, static_cast<const uint8_t*>(q),
+                       static_cast<const float*>(scale), norm_w, resid,
+                       static_cast<float*>(out), static_cast<float*>(part),
+                       static_cast<int*>(counters), M, K, N, kc, ksplit,
+                       lanes, blk, 0, eps, swiglu};
+  return gemv::dispatch<gemv::kFp8, false>(dtype, mr, p, device, stream);
 }
 
 // The tensor-core body (woq_gemv_tc.cuh) for bf16 / fp16 x of 1-16 rows:

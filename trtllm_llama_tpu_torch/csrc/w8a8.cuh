@@ -29,8 +29,9 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw);
 }
 
-// out[m, n] = dequant(sum_s part[s, m, n]): the split-K partials (int32,
-// exact in any order) summed in a fixed order, converted and scaled.
+// out[m, n] = dequant(sum_s part[s, m, n]): the GEMM's split-K partials
+// (int32, exact in any order) summed in a fixed order, converted and
+// scaled, by a second launch (the dp4a GEMV merges its splits in-kernel).
 __global__ void reduce_kernel(const int* __restrict__ part,
                               const float* __restrict__ sx, int sx_step,
                               const float* __restrict__ sw, int sw_step,

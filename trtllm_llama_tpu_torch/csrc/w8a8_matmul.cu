@@ -1,5 +1,5 @@
 // W8A8 (int8 activation x int8 weight) matmul with the dequantizing
-// epilogue, for few rows (decode / short prefill).
+// epilogue, for few rows (decode / short prefill): one launch.
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/w8a8_matmul.py::w8a8_matmul_stacked
 // (and w8a8_matmul, its 2-D form, which the wrapper runs as a weight with
@@ -14,139 +14,180 @@
 // s_x is per row (dynamic per-token) or one value (static per-tensor); s_w
 // is per output channel or one value (per-tensor). Returns y as f32 [M, N].
 //
-// What bounds it on the H100: the weight bytes. At M <= 16 the product does
-// 2*M operations per weight byte, far below the ~590 int8 operations per
+// What bounds it on the H100: the weight bytes. At M <= 4 the product does
+// 2 to 8 operations per weight byte, far below the ~590 int8 operations per
 // byte at which the tensor cores, not HBM (3.35 TB/s), become the limit. So
-// the design streams q once and keeps the loop free of conversions:
-//   - the weight is N-contiguous: each thread reads 4 K-rows x 16 columns
-//     (four 16-byte loads; a warp covers 512 contiguous bytes of each row),
-//     transposes every 4x4 byte block with 8 __byte_perm into one 32-bit
-//     word of 4 K-values per column, and accumulates with __dp4a against
-//     the activation's K-quads staged in shared memory: no int -> float
-//     conversion and no float math in the loop;
-//   - K is split across blocks (split-K, as in woq_matmul.cu) so even
-//     N = 4096 launches ~2 blocks per SM; int32 partials add exactly, and a
-//     second launch sums them in a fixed order, converts and scales.
-// M larger than MR loops over row tiles inside the block, re-reading the
-// block's weight tile from L2: correct at any M, but from ~16 rows on the
-// dp4a rate, not HBM, binds it. Prefill rows go to the int8 wgmma GEMM
-// (w8a8_gemm.cu), which shares this file's transposes and reduce
+// the design streams q once, in one launch, on gemv_stream.cuh's stream
+// (the column tile, the register ring issued before x is staged, the
+// one-pass block sum, the K splits merged by the last block of a column
+// tile, in split order), and keeps the loop free of conversions:
+//   - the weight is N-contiguous: a thread's step is 4 K-rows x 16 columns
+//     (four 16-byte loads of 4 consecutive stored rows); it transposes every
+//     4x4 byte block with 8 __byte_perm into one 32-bit word of 4 K-values
+//     per column and accumulates with __dp4a against the activation's
+//     K-quads staged in shared memory: no int -> float conversion and no
+//     float math in the loop; 2 steps (8 loads, 32 KB a block at one row)
+//     stay in flight in a register ring (gemv_stream.cuh's swap_load);
+//   - int32 partial sums add exactly in any order, so the split merge and
+//     the block sum give the plain version's sums bit for bit, and the
+//     epilogue converts and scales once (w8a8::dequant).
+// M larger than the row tile (1, 2 or 4 rows) loops over row tiles inside
+// the block, re-reading the block's weight tile: correct at any M, but
+// from ~16 rows on the dp4a rate, not HBM, binds it. Prefill rows go to the
+// int8 wgmma GEMM (w8a8_gemm.cu), which shares this file's transposes
 // (w8a8.cuh).
+#include "gemv_stream.cuh"
 #include "w8a8.cuh"
 
 using namespace tllm;
 
 namespace {
 
-constexpr int kTN = 32;              // threads along N: one warp
-constexpr int kTK = 8;               // warps along K
-constexpr int kVec = 16;             // int8 columns per thread (16 bytes)
-constexpr int kBN = kTN * kVec;      // 512 output columns per block
-constexpr int kThreads = kTN * kTK;  // 256
-constexpr int kKT = 512;             // K rows of x staged per pass
-constexpr int kQT = kKT / 4;         // ... as 32-bit K-quads
+using stream::kThreads;
+using stream::kVec;
+
+struct Params {
+  const int8_t* x;     // [M, K]
+  const int8_t* q;     // [K, N] of one layer
+  const float* sx;     // [M] (sx_step 1) or [1] (sx_step 0)
+  int sx_step;
+  const float* sw;     // [N] (sw_step 1) or [1] (sw_step 0)
+  int sw_step;
+  float* out;          // [M, N]
+  int* part;           // [ksplit, M, N] workspace (ksplit > 1)
+  int* counters;       // [column tiles] workspace, 0 between launches
+  int M, K, N;
+  int kc;              // K rows of a split (a multiple of 16)
+  int ksplit;
+  int lanes;           // threads along N (gemv_stream.cuh Tile)
+};
+
+// 4-row steps a thread keeps in flight (4 loads each): 2 at one row.
+template <int MR>
+__host__ __device__ constexpr int ring_depth() {
+  return MR == 1 ? 2 : 1;
+}
+
+// Dynamic shared memory: x's K-quads [MR][kc / 4] and the block sum
+// [kWarps][MR][bn], int32.
+template <int MR>
+size_t smem_bytes(const Params& p) {
+  return 4 * (static_cast<size_t>(MR) * (p.kc / 4) +
+              static_cast<size_t>(stream::kWarps) * MR * kVec * p.lanes);
+}
+
+// The dequantizing epilogue: (f32(acc) * s_x[m]) * s_w[n].
+struct Epilogue {
+  const float* sx;
+  int sx_step;
+  const float* sw;
+  int sw_step;
+  float* out;
+  int N;
+  __device__ __forceinline__ float2 load(int m, int n) const {
+    return make_float2(sx[m * sx_step], sw[n * sw_step]);
+  }
+  __device__ __forceinline__ void store(int acc, int m, int n,
+                                        float2 in) const {
+    out[static_cast<size_t>(m) * N + n] = w8a8::dequant(acc, in.x, in.y);
+  }
+};
 
 template <int MR>
-__global__ void __launch_bounds__(kThreads)
-    w8a8_partial_kernel(const int8_t* __restrict__ x,
-                        const int8_t* __restrict__ q, int* __restrict__ part,
-                        int M, int K, int N, int kc) {
-  __shared__ int xs[MR][kQT];                 // staged K-quads of x
-  __shared__ int red[MR * kVec * kTN];        // cross-warp reduction
+__global__ void __launch_bounds__(kThreads, 2) dp4a_kernel(const Params p) {
+  constexpr int kDQ = ring_depth<MR>();
+  extern __shared__ __align__(16) int smem_i[];
 
-  const int tn = threadIdx.x;
-  const int tk = threadIdx.y;
-  const int tid = tk * kTN + tn;
-  const int n0 = blockIdx.x * kBN + tn * kVec;
-  const bool n_ok = n0 < N;                   // N % 16 == 0 (wrapper)
-  const int ks = blockIdx.y;
-  const int k_begin = ks * kc;                // kc % 4 == 0 (wrapper)
-  const int k_end = min(K, k_begin + kc);     // K % 4 == 0 (wrapper)
+  const stream::Tile t = stream::tile_of(p.lanes);
+  const int tid = threadIdx.x;
+  const int split = blockIdx.y;
+  const int k_begin = split * p.kc;                 // kc % 16 == 0
+  const int nq = (min(p.K, k_begin + p.kc) - k_begin) / 4;  // K % 4 == 0
+  const int n_tile = blockIdx.x * t.bn;
+  const int n0 = n_tile + t.ln * kVec;
+  // this thread's K-quads: t.slot + j * t.rows, j < mine
+  const int mine = n0 < p.N && nq > t.slot
+                       ? (nq - t.slot + t.rows - 1) / t.rows : 0;
+  const int8_t* wp =
+      p.q + (static_cast<size_t>(k_begin) + 4 * t.slot) * p.N + n0;
+  const size_t step = static_cast<size_t>(4 * t.rows) * p.N;
 
-  for (int m0 = 0; m0 < M; m0 += MR) {
+  int* xs = smem_i;                               // [MR][kc / 4]
+  int* red = xs + MR * (p.kc / 4);                // block sum
+  const stream::Splits<int> sp{p.M, p.N, n_tile, split, p.ksplit, p.part,
+                               p.counters};
+  const Epilogue epi{p.sx, p.sx_step, p.sw, p.sw_step, p.out, p.N};
+
+  for (int m0 = 0; m0 < p.M; m0 += MR) {
+    // the weight's first bytes go out before x is staged
+    int4 ring[kDQ][4];
+#pragma unroll
+    for (int i = 0; i < kDQ; ++i)
+      if (i < mine) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          ring[i][u] = stream::load16(wp + i * step + static_cast<size_t>(u) * p.N);
+      }
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      const int m = m0 + r;
+      for (int j = tid; j < nq; j += kThreads)
+        xs[r * (p.kc / 4) + j] =
+            m < p.M ? *reinterpret_cast<const int*>(
+                          p.x + static_cast<size_t>(m) * p.K + k_begin + 4 * j)
+                    : 0;
+    }
+    __syncthreads();
+
     int acc[MR][kVec];
 #pragma unroll
     for (int r = 0; r < MR; ++r)
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) acc[r][j] = 0;
-
-    for (int kt = k_begin; kt < k_end; kt += kKT) {
-      const int nq = min(kKT, k_end - kt) / 4;
-      for (int i = tid; i < MR * nq; i += kThreads) {
-        const int r = i / nq;
-        const int j = i - r * nq;
-        const int m = m0 + r;
-        xs[r][j] = m < M ? *reinterpret_cast<const int*>(
-                               x + static_cast<size_t>(m) * K + kt + 4 * j)
-                         : 0;
-      }
-      __syncthreads();
-      if (n_ok) {
-        const int8_t* qp = q + static_cast<size_t>(kt) * N + n0;
-#pragma unroll 2
-        for (int j = tk; j < nq; j += kTK) {
-          const int8_t* p = qp + static_cast<size_t>(4 * j) * N;
-          int4 rows[4];
+      for (int c = 0; c < kVec; ++c) acc[r][c] = 0;
+    for (int j0 = 0; j0 < mine; j0 += kDQ) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            rows[i] = __ldg(reinterpret_cast<const int4*>(
-                p + static_cast<size_t>(i) * N));
-          uint32_t cols[kVec];
-          w8a8::transpose4x4(rows[0].x, rows[1].x, rows[2].x, rows[3].x, cols + 0);
-          w8a8::transpose4x4(rows[0].y, rows[1].y, rows[2].y, rows[3].y, cols + 4);
-          w8a8::transpose4x4(rows[0].z, rows[1].z, rows[2].z, rows[3].z, cols + 8);
-          w8a8::transpose4x4(rows[0].w, rows[1].w, rows[2].w, rows[3].w, cols + 12);
+      for (int i = 0; i < kDQ; ++i) {
+        const int j = j0 + i;
+        const int8_t* next = wp + (j + kDQ) * step;
+        int4 rows[4];
 #pragma unroll
-          for (int r = 0; r < MR; ++r) {
-            const int xv = xs[r][j];
+        for (int u = 0; u < 4; ++u)
+          rows[u] = stream::swap_load(ring[i][u],
+                                      next + static_cast<size_t>(u) * p.N,
+                                      j + kDQ < mine);
+        if (j >= mine) continue;
+        // the step's 4x4 byte blocks transposed into K-quads per column
+        uint32_t cols[kVec];
+        w8a8::transpose4x4(rows[0].x, rows[1].x, rows[2].x, rows[3].x, cols + 0);
+        w8a8::transpose4x4(rows[0].y, rows[1].y, rows[2].y, rows[3].y, cols + 4);
+        w8a8::transpose4x4(rows[0].z, rows[1].z, rows[2].z, rows[3].z, cols + 8);
+        w8a8::transpose4x4(rows[0].w, rows[1].w, rows[2].w, rows[3].w, cols + 12);
+        const int qi = t.slot + j * t.rows;
 #pragma unroll
-            for (int c = 0; c < kVec; ++c)
-              acc[r][c] = __dp4a(static_cast<int>(cols[c]), xv, acc[r][c]);
-          }
+        for (int r = 0; r < MR; ++r) {
+          const int xv = xs[r * (p.kc / 4) + qi];
+#pragma unroll
+          for (int c = 0; c < kVec; ++c)
+            acc[r][c] = __dp4a(static_cast<int>(cols[c]), xv, acc[r][c]);
         }
       }
-      __syncthreads();  // xs is restaged by the next pass
     }
 
-    // Sum the kTK warps' accumulators (int32: exact in any order).
-    for (int w = 0; w < kTK; ++w) {
-      if (tk == w) {
-#pragma unroll
-        for (int r = 0; r < MR; ++r)
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) {
-            int* p = &red[(r * kVec + j) * kTN + tn];
-            *p = (w == 0 ? 0 : *p) + acc[r][j];
-          }
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < MR * kBN; i += kThreads) {
-      const int r = i / kBN;
-      const int c = i - r * kBN;
-      const int m = m0 + r;
-      const int n = blockIdx.x * kBN + c;
-      if (m < M && n < N)
-        part[(static_cast<size_t>(ks) * M + m) * N + n] =
-            red[(r * kVec + (c % kVec)) * kTN + c / kVec];
-    }
-    __syncthreads();  // red is reused by the next row tile
+    stream::block_sum<int, MR>(acc, t, red);
+    stream::tile_out<int, MR>(red, t, sp, m0, epi);
+    __syncthreads();  // xs and red are restaged by the next row tile
   }
+  stream::merge_splits<int>(t, sp, epi);
 }
 
 template <int MR>
-cudaError_t launch(const void* x, const void* q, const void* sx, int sx_step,
-                   const void* sw, int sw_step, void* out, void* part, int M,
-                   int K, int N, int ksplit, int kc, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, ksplit);
-  const dim3 block(kTN, kTK);
-  w8a8_partial_kernel<MR><<<grid, block, 0, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
-      static_cast<int*>(part), M, K, N, kc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return w8a8::launch_reduce(part, sx, sx_step, sw, sw_step, out, M, N,
-                             ksplit, stream);
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  if ((p.lanes != 8 && p.lanes != 16 && p.lanes != 32) || MR * p.lanes > 32 ||
+      (p.ksplit > 1 && (p.part == nullptr || p.counters == nullptr)))
+    return cudaErrorInvalidValue;
+  const dim3 grid((p.N + kVec * p.lanes - 1) / (kVec * p.lanes), p.ksplit);
+  return tllm::stream::launch<dp4a_kernel<MR>>(grid, smem_bytes<MR>(p),
+                                              stream, p);
 }
 
 }  // namespace
@@ -154,27 +195,28 @@ cudaError_t launch(const void* x, const void* q, const void* sx, int sx_step,
 // x [M, K] int8, q [K, N] int8 of ONE layer and sw its scales (the wrapper
 // offsets the stacked arrays); sx [M] (sx_step 1) or [1] (sx_step 0), sw [N]
 // (sw_step 1) or [1] (sw_step 0); out [M, N] f32; part [ksplit, M, N] int32
-// scratch. K % 4 == 0, kc % 4 == 0, N % 16 == 0; mr in {1, 2, 4, 8}: rows
-// per register tile.
+// and counters [column tiles] of the stream's workspace (null at ksplit 1).
+// K % 4 == 0, kc % 16 == 0, N % 16 == 0; mr in {1, 2, 4}: rows per
+// register tile; lanes threads along N (the wrapper's gemv_plan).
 extern "C" int tllm_w8a8_matmul_stacked(const void* x, const void* q,
                                         const void* sx, int sx_step,
                                         const void* sw, int sw_step, void* out,
-                                        void* part, int M, int K, int N,
-                                        int ksplit, int kc, int mr, int device,
+                                        void* part, void* counters, int M,
+                                        int K, int N, int ksplit, int kc,
+                                        int mr, int lanes, int device,
                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const Params p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
+                 static_cast<const float*>(sx), sx_step,
+                 static_cast<const float*>(sw), sw_step,
+                 static_cast<float*>(out), static_cast<int*>(part),
+                 static_cast<int*>(counters), M, K, N, kc, ksplit, lanes};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mr) {
-    case 1:
-      return launch<1>(x, q, sx, sx_step, sw, sw_step, out, part, M, K, N, ksplit, kc, s);
-    case 2:
-      return launch<2>(x, q, sx, sx_step, sw, sw_step, out, part, M, K, N, ksplit, kc, s);
-    case 4:
-      return launch<4>(x, q, sx, sx_step, sw, sw_step, out, part, M, K, N, ksplit, kc, s);
-    case 8:
-      return launch<8>(x, q, sx, sx_step, sw, sw_step, out, part, M, K, N, ksplit, kc, s);
-    default:
-      return cudaErrorInvalidValue;
+    case 1: return launch<1>(p, s);
+    case 2: return launch<2>(p, s);
+    case 4: return launch<4>(p, s);
+    default: return cudaErrorInvalidValue;
   }
 }

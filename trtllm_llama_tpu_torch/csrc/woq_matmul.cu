@@ -1,6 +1,7 @@
 // Weight-only INT8 / INT4 stacked matmul for few rows (decode / short
 // prefill): the int8 and int4 instantiations of woq_gemv.cuh, the
-// CUDA-core body (one row, f32 activations and the layouts only it tiles;
+// one-launch body of one row (and of f32 activations and the layouts only
+// it tiles;
 // woq_gemv_tc.cu holds the tensor-core body's, a library of its own so
 // that nvcc builds the two in parallel).
 //
@@ -17,24 +18,30 @@ using namespace tllm;
 // x [M, K] (dtype; [M, 2K] = [gate | up] with swiglu), q of ONE layer:
 // int8 [K, N] (w_bits 8) or packed int4 [K/2, N] (w_bits 4, pack block
 // blk), scale f32 [N] (group 0) or [K/group, N], norm_w [K] or null, resid
-// [M, N] or null, out [M, N] f32,
-// part [ksplit, M, N] f32 scratch (== out allowed when ksplit == 1).
-// mr in {1, 2, 4, 8} (at most 4 when grouped): rows per register tile.
-// swiglu: stage silu(gate) * up as the matmul's input (norm_w null).
+// [M, N] or null, out [M, N] f32; part [ksplit, M, N] f32 and counters
+// [column tiles] int32 of the stream's workspace (null at ksplit 1). K is
+// split into ksplit ranges of kc logical rows; lanes threads along N;
+// mr in {1, 2, 4} (at most 2 when grouped): rows per register tile (the
+// wrapper's gemv_plan). swiglu: stage silu(gate) * up as the matmul's
+// input (norm_w null). One launch.
 extern "C" int tllm_woq_matmul_stacked(const void* x, const void* q,
                                        const void* scale, const void* norm_w,
                                        const void* resid, void* out, void* part,
-                                       int dtype, int M, int K, int N,
-                                       int ksplit, int kc, int mr, int w_bits,
-                                       int blk, int group, float eps,
-                                       int swiglu, int device, void* stream) {
-  const gemv::Args a{x, q, scale, norm_w, resid, out, part, M, K, N,
-                     ksplit, kc, blk, group, eps, swiglu};
+                                       void* counters, int dtype, int M, int K,
+                                       int N, int ksplit, int kc, int mr,
+                                       int lanes, int w_bits, int blk,
+                                       int group, float eps, int swiglu,
+                                       int device, void* stream) {
+  const gemv::Params p{x, static_cast<const uint8_t*>(q),
+                       static_cast<const float*>(scale), norm_w, resid,
+                       static_cast<float*>(out), static_cast<float*>(part),
+                       static_cast<int*>(counters), M, K, N, kc, ksplit,
+                       lanes, blk, group, eps, swiglu};
   if (w_bits == 8)
-    return group ? gemv::dispatch<gemv::kInt8, true>(dtype, mr, a, device, stream)
-                 : gemv::dispatch<gemv::kInt8, false>(dtype, mr, a, device, stream);
+    return group ? gemv::dispatch<gemv::kInt8, true>(dtype, mr, p, device, stream)
+                 : gemv::dispatch<gemv::kInt8, false>(dtype, mr, p, device, stream);
   if (w_bits == 4)
-    return group ? gemv::dispatch<gemv::kInt4, true>(dtype, mr, a, device, stream)
-                 : gemv::dispatch<gemv::kInt4, false>(dtype, mr, a, device, stream);
+    return group ? gemv::dispatch<gemv::kInt4, true>(dtype, mr, p, device, stream)
+                 : gemv::dispatch<gemv::kInt4, false>(dtype, mr, p, device, stream);
   return cudaErrorInvalidValue;
 }

@@ -10,8 +10,8 @@ operations above ~300 rows. The tensor-core GEMV (csrc/fp8_matmul.cu,
 body in csrc/woq_gemv_tc.cuh) takes bf16 / fp16 calls of TC_MIN_ROWS..16
 rows, decoding pairs of codes with Hopper's exact e4m3x2 -> f16x2 convert
 into mma.sync's A operand, x staged in the interleaved row order; the
-CUDA-core GEMV (csrc/fp8_matmul.cu, body in csrc/woq_gemv.cuh) f32 and
-the rest; the GEMM (csrc/fp8_gemm.cu, body in csrc/woq_gemm.cuh) decodes
+one-row GEMV (csrc/fp8_matmul.cu, body in csrc/woq_gemv.cuh, one launch)
+one-row calls, f32 and the rest; the GEMM (csrc/fp8_gemm.cu, body in csrc/woq_gemm.cuh) decodes
 the codes into shared memory in logical row order and runs wgmma on them.
 
 `fp8_matmul_stacked` and `fp8_matmul` take the plain version for CPU
@@ -35,7 +35,7 @@ from .woq_matmul import (_device_kind, gemm_route, launch_gemm, launch_gemv,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_fp8_matmul_stacked":
-               [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
+               [_P] * 8 + [_I] * 9 + [_F, _I, _I, _P],
                "tllm_fp8_gemv_tc": [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P]}
 _GEMM_SIGNATURES = {"tllm_fp8_gemm": [_P] * 6 + [_I] * 7 + [_P]}
 
@@ -70,7 +70,8 @@ def _launch(what, x, w: FP8Weight, layer, norm_w, eps, resid, swiglu=False):
                          norm_w, eps, resid, swiglu), "tc"
     return launch_gemv(what, "fp8_matmul", "tllm_fp8_matmul_stacked",
                        _SIGNATURES, x, w.qweight, w.scale, layer, k, (ib,),
-                       ib or 8, 8, norm_w, eps, resid, swiglu), "gemv"
+                       ib or 8, norm_w=norm_w, eps=eps, resid=resid,
+                       swiglu=swiglu), "gemv"
 
 
 def fp8_matmul_stacked(x, w: FP8Weight, layer: int, norm_w=None,
@@ -85,7 +86,7 @@ def fp8_matmul_stacked(x, w: FP8Weight, layer: int, norm_w=None,
     On the card, kernel 1's routes: the GEMM for bf16 / fp16 calls of at
     least GEMM_MIN_ROWS rows with no prologue and no residual, the
     tensor-core GEMV for bf16 / fp16 calls of TC_MIN_ROWS..16 rows, the
-    CUDA-core GEMV for f32 and the layouts neither tiles."""
+    one-row GEMV for one row, f32 and the layouts neither tiles."""
     if _device_kind(x, "fp8_matmul_stacked") == "cpu":
         return fp8_matmul_stacked_plain(x, w, layer, norm_w, eps, resid,
                                         swiglu)

@@ -7,8 +7,9 @@ Replaces `trtllm_llama_tpu/ops/pallas/w8a8_matmul.py::w8a8_matmul_stacked`
 5: static SmoothQuant, a per-token weight without a layer). Both kernels
 sum exactly in int32 and scale (f32(acc) * s_x) * s_w in f32, so either
 gives the plain version's output bit for bit. Bound on the H100: the int8
-weight bytes at decode rows, which the dp4a kernel streams once over
-split-K blocks that fill all SMs; the int8 operations from ~300 rows on,
+weight bytes at decode rows, which the dp4a kernel streams once in one
+launch over a grid of column tiles x K splits that fills all SMs
+(woq_matmul.gemv_plan); the int8 operations from ~300 rows on,
 which the GEMM runs on `wgmma` s8 tiles (see each source's header note).
 
 Which kernel runs is decided from the call's shape before launch
@@ -27,12 +28,12 @@ import ctypes
 import torch
 
 from . import _build
-from .woq_matmul import (_GEMM_BN, GEMM_TILE_K, _gemm_split,
-                         _rows_per_tile, _sm_count, _split_k)
+from . import woq_matmul
+from .woq_matmul import _GEMM_BN, GEMM_TILE_K, _gemm_split, _sm_count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"tllm_w8a8_matmul_stacked":
-               [_P, _P, _P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P]}
+               [_P, _P, _P, _I, _P, _I, _P, _P, _P] + [_I] * 8 + [_P]}
 _GEMM_SIGNATURES = {"tllm_w8a8_gemm":
                     [_P, _P, _P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P]}
 
@@ -139,16 +140,23 @@ def launch_gemm(what, x_q, w_q, s_x, s_w, layer: int):
 
 def launch_dp4a(what, x_q, w_q, s_x, s_w, layer: int):
     """Check the operands of the dp4a kernel and launch it on layer
-    `layer` of the stacked w_q. Returns f32 [..., N]."""
+    `layer` of the stacked w_q: one launch on the grid of
+    woq_matmul.gemv_plan (K splits of whole 16-row blocks: 4-row steps,
+    a 16-byte aligned shared-memory layout), its splits
+    merged in the stream's workspace. Returns f32 [..., N]."""
     m, k, n = _check_operands(what, x_q, w_q, s_x, s_w, layer)
     lib = _build.load("w8a8_matmul", _SIGNATURES)
-    ksplit, kc = _split_k(m, k, n, _sm_count(x_q.device))
+    plan = woq_matmul.gemv_plan(m, k, n, _sm_count(x_q.device), unit=16,
+                                x_bytes=1)
+    part, counters = _build.workspace(
+        x_q.device, plan.ksplit * m * n if plan.ksplit > 1 else 0,
+        -(-n // (16 * plan.lanes)))
     out = torch.empty((m, n), device=x_q.device, dtype=torch.float32)
-    part = torch.empty((ksplit, m, n), device=x_q.device, dtype=torch.int32)
     err = lib.tllm_w8a8_matmul_stacked(
         _build.ptr(x_q), *_scale_args(w_q, s_x, s_w, layer), _build.ptr(out),
-        _build.ptr(part), m, k, n, ksplit, kc, _rows_per_tile(m),
-        x_q.device.index or 0, _build.stream_of(x_q))
+        _build.ptr(part), _build.ptr(counters), m, k, n, plan.ksplit,
+        plan.kc, plan.mr, plan.lanes, x_q.device.index or 0,
+        _build.stream_of(x_q))
     _build.check(err, what)
     return out.reshape(*x_q.shape[:-1], n)
 

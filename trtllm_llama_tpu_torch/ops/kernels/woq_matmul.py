@@ -13,9 +13,13 @@ operations.
   once per call into registers and decoded there by byte permutes, K in
   stored order, split-K blocks whose sums a second launch adds up (from
   the per-stream workspace `_build.workspace`).
-- The CUDA-core GEMV (csrc/woq_matmul.cu, body in csrc/woq_gemv.cuh)
-  takes the rest of the calls up to 16 rows and f32 at every row count:
-  16-byte vectors over split-K blocks, one FFMA per weight and row.
+- The one-row GEMV (csrc/woq_matmul.cu, body in csrc/woq_gemv.cuh on
+  csrc/gemv_stream.cuh) takes one-row calls, f32 at every row count and
+  the layouts neither tensor-core body tiles: one launch that streams the
+  weight in 16-byte loads from a register ring over a grid of column
+  tiles x K splits sized to one wave (`gemv_plan`), one FFMA per weight
+  and row, the splits merged in the kernel by the last block of each
+  column tile (from the per-stream workspace `_build.workspace`).
 - The tensor-core GEMM (csrc/woq_gemm.cu, body in csrc/woq_gemm.cuh) takes
   bf16 / fp16 calls of at least GEMM_MIN_ROWS rows with no prologue and no
   residual on a layout it tiles (`gemm_route`): each K tile's codes
@@ -26,7 +30,8 @@ tensors and launch a kernel for CUDA tensors; each counts its launches
 in `.launches`, the GEMM's share of them in `.gemm_launches` and the
 tensor-core GEMV's in `.tc_launches` (`woq_matmul_stacked.swiglu_launches`
 counts the GEMV launches with the SwiGLU prologue). `launch_gemv`,
-`launch_tc` and `launch_gemm` are shared with the fp8 wrapper.
+`launch_tc` and `launch_gemm` are shared with the fp8 wrapper, `gemv_plan`
+with the W8A8 dp4a GEMV.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -42,14 +48,34 @@ from . import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_woq_matmul_stacked":
-               [_P] * 7 + [_I] * 10 + [_F, _I, _I, _P]}
+               [_P] * 8 + [_I] * 11 + [_F, _I, _I, _P]}
 _TC_SIGNATURES = {"tllm_woq_gemv_tc": [_P] * 7 + [_I] * 11 + [_F, _I, _I, _P]}
 _GEMM_SIGNATURES = {"tllm_woq_gemm": [_P] * 6 + [_I] * 9 + [_P]}
 
-_BN = 512          # output columns per block (kBN in the source)
-_KT = 512          # logical K rows staged per pass (kKT in the source)
-_KC_MIN = 64       # fewest K rows a split-K block gets
-_PART_BYTES = 32 << 20   # cap on the split-K partial buffer
+_PART_BYTES = 32 << 20   # cap on the GEMM's split-K partial buffer
+
+# The one-row GEMV (csrc/woq_gemv.cuh) and the W8A8 dp4a GEMV
+# (csrc/w8a8_matmul.cu) stream the weight in one launch
+# (csrc/gemv_stream.cuh): a block of GEMV_THREADS threads covers a column
+# tile of 16 x lanes columns over one K split, lanes threads along N and
+# GEMV_THREADS / lanes stored rows at a time; the splits of a column tile
+# merge inside the launch.
+GEMV_THREADS = 256        # kThreads in the source
+GEMV_WARPS = GEMV_THREADS // 32
+# threads along N a plan takes, in this order: narrow tiles first (more
+# column tiles, fewer K splits to merge); grouped weights wide tiles first
+# (a thread's rows are then closer, so it scales a group's sums every 8
+# rows rather than every 2), unless that takes more than
+# GEMV_GROUPED_SPLITS K splits (the last block of a column tile reads every
+# split's sums). Measured at one row, int4 g128 (gemv_breakdown.py, H100):
+# qkv 0.0194 / 0.0211 / 0.0252 ms at 32 / 16 / 8 lanes, wo (33 splits at
+# 32 lanes) 0.0123 / 0.0113 / 0.0116.
+GEMV_LANES = (8, 16, 32)
+GEMV_LANES_GROUPED = (32, 16, 8)
+GEMV_GROUPED_SPLITS = 16
+GEMV_BLOCKS_PER_SM = 2    # resident blocks an SM (__launch_bounds__)
+GEMV_KC_MIN = 64          # fewest logical K rows a split gets
+GEMV_SMEM_BYTES = 96 << 10  # most dynamic shared memory a block takes
 
 # The GEMM takes calls of at least this many rows (FUSE_MAX_ROWS + 1 of
 # ops/linear.py: above 16 rows the paths compose the norm, SwiGLU and
@@ -66,9 +92,7 @@ _GEMM_SPLIT_TILES = 4      # fewest K tiles a split of the GEMM gets
 # TC_MIN_ROWS..TC_MAX_ROWS rows (FUSE_MAX_ROWS of ops/linear.py: every call
 # with a prologue or a residual is at most that) on a layout it tiles
 # (tc_takes). The kernel phase of chip_smoke.py times it beside the
-# CUDA-core GEMV at 1-16 rows (PERF.md): from 2 rows it is faster in every
-# int8 and e4m3 shape; at 1 row the CUDA-core body is (its one FFMA per
-# weight is then cheaper than the pair decode), by up to 25% at int4 g128.
+# one-row GEMV at 1-16 rows (PERF.md).
 TC_MIN_ROWS = 2
 TC_MAX_ROWS = 16
 TC_STEP = 16              # K slots of one mma step (kStep in the source)
@@ -90,11 +114,6 @@ def _sm_count(device) -> int:
     return n
 
 
-def _rows_per_tile(m: int, max_rows: int = 8) -> int:
-    r = 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
-    return min(r, max_rows)
-
-
 def _gemm_split(m: int, k: int, n: int, n_sm: int):
     """(ksplit, kt_per) of the GEMM: split K over whole 128-row tiles only
     while the grid has fewer output tiles than SMs (decode-sized M on a
@@ -108,17 +127,83 @@ def _gemm_split(m: int, k: int, n: int, n_sm: int):
     return -(-nk // kt_per), kt_per
 
 
-def _split_k(m: int, k: int, n: int, n_sm: int, unit: int = 8):
-    """(ksplit, kc): enough blocks for ~2 per SM, each with >= _KC_MIN rows
-    of K, the f32 partials within _PART_BYTES, and kc a multiple of `unit`
-    (a pack, interleave or scale-group block never straddles two splits)."""
-    col_blocks = -(-n // _BN)
-    ksplit = max(1, -(-2 * n_sm // col_blocks))
-    ksplit = min(ksplit, max(1, k // _KC_MIN),
-                 max(1, _PART_BYTES // (m * n * 4)))
-    kc = -(-k // ksplit)
-    kc = -(-kc // unit) * unit
-    return -(-k // kc), kc
+class GemvPlan(NamedTuple):
+    """One launch of the one-row GEMV or the dp4a GEMV."""
+    ksplit: int   # K splits of a column tile (grid y)
+    kc: int       # logical K rows of a split (the last one shorter)
+    lanes: int    # threads along N: a column tile of 16 x lanes columns
+    mr: int       # rows of the register tile (1, 2 or 4)
+
+
+def gemv_rows_per_tile(m: int, grouped: bool = False) -> int:
+    """Rows of the GEMVs' register tile: 1, 2 or 4 (2 at most when
+    grouped: each row keeps a second accumulator)."""
+    return 1 if m == 1 else 2 if m == 2 or grouped else 4
+
+
+def gemv_smem(plan: GemvPlan, x_bytes: int = 4, group: int = 0) -> int:
+    """Dynamic shared memory of one block (the sources' smem_bytes): x's
+    [mr, kc] staged (f32, or int8 for dp4a), the split's group scales
+    [kc / group, 16 lanes] and the block sum [warps, mr, 16 lanes]."""
+    bn = 16 * plan.lanes
+    return (plan.mr * plan.kc * x_bytes
+            + (plan.kc // group * bn * 4 if group else 0)
+            + GEMV_WARPS * plan.mr * bn * 4)
+
+
+def _group_fits(group_rows: int, rows: int) -> bool:
+    """A scale group of group_rows stored rows and a block covering `rows`
+    stored rows at a time: one divides the other, so a thread's rows (rows
+    apart) end a group on a fixed count."""
+    return not group_rows or group_rows % rows == 0 or rows % group_rows == 0
+
+
+def gemv_plan(m: int, k: int, n: int, sms: int, unit: int = 8,
+              group: int = 0, kr: int = 1, x_bytes: int = 4) -> GemvPlan:
+    """The grid of one GEMV launch: column tiles of 16 x lanes columns
+    times ksplit K splits of kc logical rows, sized to one wave of
+    GEMV_BLOCKS_PER_SM blocks on each of `sms` SMs.
+
+    unit: what kc is whole of (the int4 pack block, the fp8 interleave
+    block or the scale group; 8, or 16 for dp4a); group: logical rows of a
+    scale group (0: per-channel); kr: logical rows a stored row holds (2
+    for int4); x_bytes: bytes of a staged x value (4, or 1 for dp4a).
+    Takes the first of GEMV_LANES (when grouped,
+    GEMV_LANES_GROUPED, those of at most GEMV_GROUPED_SPLITS splits first)
+    whose tile the register tile and the group allow and whose grid fills
+    the SMs (else the fullest grid); each split gets at least
+    GEMV_KC_MIN rows, the splits' sums fit the workspace's floats
+    (_build.WORKSPACE_MIN) and a block's shared memory GEMV_SMEM_BYTES."""
+    mr = gemv_rows_per_tile(m, bool(group))
+    order = GEMV_LANES_GROUPED if group else GEMV_LANES
+    cands = [c for c in order
+             if mr * c <= 32 and _group_fits(group // kr, GEMV_THREADS // c)]
+    if group:                     # wide tiles while their splits stay few
+        few = [c for c in cands if GEMV_BLOCKS_PER_SM * sms
+               // -(-n // (16 * c)) <= GEMV_GROUPED_SPLITS]
+        cands = few + [c for c in cands if c not in few]
+    if not cands:
+        raise ValueError(f"gemv_plan: no column tile takes {mr} rows with "
+                         f"groups of {group} (lanes {order})")
+    best = None
+    for c in cands:
+        tiles = -(-n // (16 * c))
+        ksplit = min(max(1, GEMV_BLOCKS_PER_SM * sms // tiles),
+                     max(1, k // max(GEMV_KC_MIN, unit)),
+                     max(1, _build.WORKSPACE_MIN[0] // (m * n)))
+        kc = -(-k // ksplit)
+        kc = -(-kc // unit) * unit
+        # shared memory: x, the group scales and the block sum
+        bn = 16 * c
+        per_row = mr * x_bytes + (bn * 4 / group if group else 0)
+        kc_max = int((GEMV_SMEM_BYTES - GEMV_WARPS * mr * bn * 4) // per_row)
+        kc = min(kc, max(unit, kc_max // unit * unit))
+        plan = GemvPlan(-(-k // kc), kc, c, mr)
+        if tiles * plan.ksplit >= sms:
+            return plan
+        if best is None or tiles * plan.ksplit > best[0]:
+            best = (tiles * plan.ksplit, plan)
+    return best[1]
 
 
 # ---------------------------------------------------------------------------
@@ -212,9 +297,9 @@ def tc_route(rows: int, dtype, k: int = TC_STEP, block: int = 0,
              group: int = 0) -> bool:
     """True where a CUDA call of at most GEMM_MIN_ROWS - 1 rows goes to the
     tensor-core GEMV (any prologue or residual), False where it goes to the
-    CUDA-core one: bf16 / fp16 activations of TC_MIN_ROWS..TC_MAX_ROWS rows
-    on a layout it tiles (tc_takes). f32 stays on the CUDA cores (the
-    tensor cores have no exact f32 product)."""
+    one-row GEMV: bf16 / fp16 activations of TC_MIN_ROWS..TC_MAX_ROWS rows
+    on a layout it tiles (tc_takes). f32 stays on the one-row GEMV's CUDA
+    cores (the tensor cores have no exact f32 product)."""
     return (TC_MIN_ROWS <= rows <= TC_MAX_ROWS and dtype in GEMM_DTYPES
             and tc_takes(k, block, group))
 
@@ -346,39 +431,40 @@ def _check_options(what, x, q, scale, layer, k, norm_w, resid, swiglu):
 
 
 def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
-                fmt_args, unit, max_rows, norm_w=None, eps=1e-6, resid=None,
-                swiglu=False):
-    """Check the operands of one stacked GEMV kernel and launch it.
+                fmt_args, unit, kr=1, group=0, norm_w=None, eps=1e-6,
+                resid=None, swiglu=False):
+    """Check the operands of one stacked one-row GEMV and launch it.
 
     q: stacked stored codes [L, K or K/2, N] (1 byte per element); scale:
     f32 [L, N] or grouped [L, K/g, N]; fmt_args: the entry's format ints
-    (after the rows-per-tile argument); unit: the block that kc and every
-    staged tile must be whole multiples of; max_rows: the largest row tile
-    the format's kernel has (4 or 8); swiglu: x is [..., 2K] = [gate | up].
-    Returns f32 [..., N]."""
+    (after lanes); unit, kr, group: the layout, for gemv_plan (what K
+    splits are whole of, logical rows a stored row, a scale group's rows);
+    swiglu: x is [..., 2K] = [gate | up]. One launch; its splits meet in
+    the stream's workspace (made at the stream's first call). Returns f32
+    [..., N]."""
     n = q.shape[-1]
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what}: unsupported dtype {x.dtype}")
     m = _check_options(what, x, q, scale, layer, k, norm_w, resid, swiglu)
     # unit 8 only aligns kc; a larger unit is a block K must be whole of
-    if _KT % unit or k % unit and unit > 8:
-        raise ValueError(f"{what}: K={k} must be whole blocks of {unit}, "
-                         f"a divisor of {_KT}")
+    if k % unit and unit > 8:
+        raise ValueError(f"{what}: K={k} must be whole blocks of {unit}")
 
     lib = _build.load(lib_name, signatures)
-    ksplit, kc = _split_k(m, k, n, _sm_count(x.device), unit)
+    plan = gemv_plan(m, k, n, _sm_count(x.device), unit, group, kr)
+    part, counters = _build.workspace(
+        x.device, plan.ksplit * m * n if plan.ksplit > 1 else 0,
+        -(-n // (16 * plan.lanes)))
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
-    part = out if ksplit == 1 else torch.empty(
-        (ksplit, m, n), device=x.device, dtype=torch.float32)
     nw_ptr = (_P(norm_w.data_ptr() + layer * k * x.element_size())
               if norm_w is not None else _P(None))
     err = getattr(lib, entry)(
         _build.ptr(x), _P(q.data_ptr() + layer * q.stride(0)),
         _P(scale.data_ptr() + layer * scale.stride(0) * 4), nw_ptr,
         _build.ptr(resid), _build.ptr(out), _build.ptr(part),
-        _build.DTYPE_CODES[x.dtype], m, k, n, ksplit, kc,
-        _rows_per_tile(m, max_rows), *fmt_args, eps, int(swiglu),
-        x.device.index or 0, _build.stream_of(x))
+        _build.ptr(counters), _build.DTYPE_CODES[x.dtype], m, k, n,
+        plan.ksplit, plan.kc, plan.mr, plan.lanes, *fmt_args, eps,
+        int(swiglu), x.device.index or 0, _build.stream_of(x))
     _build.check(err, what)
     return out.reshape(*x.shape[:-1], n)
 
@@ -496,12 +582,11 @@ def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid, swiglu=False):
                          x, w.qweight, w.scale, layer, w.k_dim, fmt_args,
                          w.w_bits, w.pack_block, w.group_size, norm_w, eps,
                          resid, swiglu), "tc"
-    unit = w.pack_block or w.group_size or 8
-    max_rows = 4 if grouped else 8         # grouped: a second accumulator
     return launch_gemv(what, "woq_matmul", "tllm_woq_matmul_stacked",
                        _SIGNATURES, x, w.qweight, w.scale, layer, w.k_dim,
-                       fmt_args, unit, max_rows, norm_w, eps, resid,
-                       swiglu), "gemv"
+                       fmt_args, w.pack_block or w.group_size or 8,
+                       2 if w.w_bits == 4 else 1, w.group_size, norm_w, eps,
+                       resid, swiglu), "gemv"
 
 
 def _device_kind(x, what):
@@ -522,9 +607,9 @@ def woq_matmul_stacked(x, w: WOQWeight, layer: int, norm_w=None,
 
     On the card: bf16 / fp16 calls of at least GEMM_MIN_ROWS rows with no
     prologue and no residual run the GEMM (gemm_route); bf16 / fp16 calls
-    of TC_MIN_ROWS..16 rows the tensor-core GEMV (tc_route); f32 calls and
-    the layouts neither tiles the CUDA-core GEMV at every row count
-    (correct, and no path makes such a call above 16 rows)."""
+    of TC_MIN_ROWS..16 rows the tensor-core GEMV (tc_route); one-row calls,
+    f32 calls and the layouts neither tiles the one-row GEMV at every row
+    count (correct, and no path makes such a call above 16 rows)."""
     if _device_kind(x, "woq_matmul_stacked") == "cpu":
         return woq_matmul_stacked_plain(x, w, layer, norm_w, eps, resid,
                                         swiglu)
@@ -557,7 +642,7 @@ def woq_matmul_plain(x, w: WOQWeight):
 def woq_matmul(x, w: WOQWeight):
     """2-D entry: x [..., K] @ dequant(w), w int8 [K, N] or packed int4
     [K/2, N] with scale [N] or [K/g, N]; the stacked kernels on a unit
-    layer axis (the GEMM, the tensor-core or the CUDA-core GEMV, as
+    layer axis (the GEMM, the tensor-core or the one-row GEMV, as
     woq_matmul_stacked routes), counted in its own `woq_matmul.launches`,
     `.gemm_launches` and `.tc_launches`. Returns f32 [..., N]."""
     if _device_kind(x, "woq_matmul") == "cpu":
