@@ -8,13 +8,16 @@ Builds csrc/decode_attention.cu (the entries over csrc/flash_decode.cuh;
 kernel 3's is timed) as it is and in variants with one part of the
 kernel switched off (the scores and softmax, the p @ V pass, the cp.async
 loads past the first stages, the merge of the splits, or all but the
-loads),
-into build/decode_breakdown/, and times each with CUDA events at the
-shapes that matter: LLaMA-7B's bs1 cache at 8320 rows (pos 8200, int8 and
-bf16, the host's split and one split) and one KV head for a group of 32
-(D=128) or 71 (D=64, Falcon-7B) at 2048 rows (pos 1037), and two of them
-at pos 0 (one live row: the fixed cost). The variants
-compute wrong results: they only show which part the time follows.
+loads), and one that reads e4m3 codes through a 256-entry table in shared
+memory instead of cvt.rn.f16x2.e4m3x2 (the same values: the other way an
+fp8 cache could decode), into build/decode_breakdown/, and times each with
+CUDA events at the shapes that matter: LLaMA-7B's bs1 cache at 8320 rows
+(pos 8200, int8, e4m3 and bf16, the host's split and one split), at
+Task A's 1152 rows and at 128 (pos 45) in e4m3, and one KV head for a
+group of 32 (D=128) or 71 (D=64, Falcon-7B) at 2048 rows (pos 1037; 32
+also in e4m3), and two of them at pos 0 (one live row: the fixed cost).
+The switched-off variants compute wrong results: they only show which part
+the time follows.
 Prints the card (nvidia-smi) and one JSON line of ms per variant and
 shape. Imports nothing of JAX.
 """
@@ -29,15 +32,21 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# (tag, Hq, Hkv, D, S_max, pos, int8 cache, splits or None for the rule's)
+# (tag, Hq, Hkv, D, S_max, pos, cache kind (None: bf16), splits or None
+# for the rule's)
 SHAPES = [
-    ("llama 8k int8", 32, 32, 128, 8320, 8200, True, None),
-    ("llama 8k int8, 1 split", 32, 32, 128, 8320, 8200, True, 1),
-    ("llama 8k bf16", 32, 32, 128, 8320, 8200, False, None),
-    ("group 32 2k bf16", 32, 1, 128, 2048, 1037, False, None),
-    ("group 71 2k bf16", 71, 1, 64, 2048, 1037, False, None),
-    ("llama 8k int8, pos 0", 32, 32, 128, 8320, 0, True, None),
-    ("group 71 2k bf16, pos 0", 71, 1, 64, 2048, 0, False, None),
+    ("llama 8k int8", 32, 32, 128, 8320, 8200, "int8", None),
+    ("llama 8k e4m3", 32, 32, 128, 8320, 8200, "e4m3", None),
+    ("llama 8k int8, 1 split", 32, 32, 128, 8320, 8200, "int8", 1),
+    ("llama 8k e4m3, 1 split", 32, 32, 128, 8320, 8200, "e4m3", 1),
+    ("llama 8k bf16", 32, 32, 128, 8320, 8200, None, None),
+    ("llama 1152 e4m3", 32, 32, 128, 1152, 923, "e4m3", None),
+    ("llama 128 e4m3", 32, 32, 128, 128, 45, "e4m3", None),
+    ("group 32 2k bf16", 32, 1, 128, 2048, 1037, None, None),
+    ("group 32 2k e4m3", 32, 1, 128, 2048, 1037, "e4m3", None),
+    ("group 71 2k bf16", 71, 1, 64, 2048, 1037, None, None),
+    ("llama 8k int8, pos 0", 32, 32, 128, 8320, 0, "int8", None),
+    ("group 71 2k bf16, pos 0", 71, 1, 64, 2048, 0, None, None),
 ]
 
 
@@ -50,6 +59,26 @@ def variants(base: str) -> dict:
              "i + kStages - 1);")
     merge = ("  if (n == 1) {\n    for (int i",
              "  if (true) {\n    for (int i")
+    # e4m3 codes through a table in shared memory, filled by each block
+    # before its first stage (the loop's first barrier orders the reads)
+    lut_fn = ("// Four e4m3 codes (byte j of w is code j) as their exact "
+              "values.\n",
+              "__shared__ float e4m3_lut[256];\n"
+              "__device__ __forceinline__ void e4m3x4_lut(uint32_t w, "
+              "float* x) {\n"
+              "#pragma unroll\n"
+              "  for (int j = 0; j < 4; ++j) x[j] = e4m3_lut[(w >> (8 * j)) "
+              "& 0xFFu];\n}\n\n"
+              "// Four e4m3 codes (byte j of w is code j) as their exact "
+              "values.\n")
+    lut_use = ("for (int w = 0; w < N / 4; ++w) e4m3x4(pw.v[w], x + 4 * w);",
+               "for (int w = 0; w < N / 4; ++w) e4m3x4_lut(pw.v[w], "
+               "x + 4 * w);")
+    lut_fill = ("  const Block k = block_of<TC, D, kPaged>(p);\n",
+                "  const Block k = block_of<TC, D, kPaged>(p);\n"
+                "  for (int c = threadIdx.x; c < 256; c += kThreads) {\n"
+                "    float lo, hi;\n    fp8x2(c, lo, hi);\n"
+                "    e4m3_lut[c] = lo;\n  }\n")
 
     def edit(t, *pairs):
         for anchor, repl in pairs:
@@ -67,6 +96,7 @@ def variants(base: str) -> dict:
         "no loads": edit(base, (loads, "if (false) " + loads)),
         "loads only": edit(base, no_scores, no_pv),
         "no merge": edit(base, merge),
+        "e4m3 by table": edit(base, lut_fn, lut_use, lut_fill),
     }
     for name, text in out.items():
         if name != "kernel" and text == base:
@@ -82,6 +112,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from trtllm_llama_tpu_torch.ops.kernels import _build
     from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.quantization.quantize import random_fp8_codes
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -113,11 +144,13 @@ def main() -> int:
 
     g = torch.Generator(device="cuda").manual_seed(0)
     table = {}
-    for tag, hq, hkv, d, s, pos, int8, splits in SHAPES:
+    for tag, hq, hkv, d, s, pos, kv, splits in SHAPES:
         shape = (1, 1, hkv, s, d)
-        if int8:
-            kc, vc = (torch.randint(-127, 128, shape, generator=g,
-                                    device="cuda", dtype=torch.int8)
+        if kv:
+            dt = torch.int8 if kv == "int8" else torch.uint8
+            kc, vc = (random_fp8_codes(shape, g, "cuda") if kv == "e4m3"
+                      else torch.randint(-127, 128, shape, generator=g,
+                                         device="cuda", dtype=dt)
                       for _ in range(2))
             kvs = torch.full((1,), 0.05, device="cuda")
         else:
@@ -145,7 +178,8 @@ def main() -> int:
                          None if kvs is None else kvs.data_ptr(),
                          pt.data_ptr(), o.data_ptr(), part.data_ptr(),
                          counters.data_ptr(),
-                         _build.DTYPE_CODES[torch.bfloat16], int(int8), 1,
+                         _build.DTYPE_CODES[torch.bfloat16],
+                         da.cache_kind(kc.dtype), 1,
                          hq, hkv, s, d, d ** -0.5, n, tps, 0, stream)
                 if err:
                     raise RuntimeError(f"{name}: launch failed ({err})")

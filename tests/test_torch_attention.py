@@ -129,14 +129,3 @@ def test_cache_writes_match_jax():
     cache = attention.write_kv_decode_at(cache, 0, _t(kn), _t(kn), _t(pos))
     np.testing.assert_array_equal(cache.k.numpy(), np.asarray(jcache.k))
     np.testing.assert_array_equal(cache.v.numpy(), np.asarray(jcache.v))
-
-
-def test_unported_attention_options_raise():
-    q, kn, vn, kc, vc, pos = _decode_inputs(4, 4, 64)
-    fp8_cache = attention.KVCache(_t(kc).to(torch.uint8), _t(vc).to(torch.uint8),
-                                  torch.ones(2))
-    with pytest.raises(NotImplementedError):
-        attention.fused_decode_attention_at(_t(q), _t(kn), _t(vn), fp8_cache,
-                                            0, _t(pos))
-    with pytest.raises(NotImplementedError):    # ALiBi is ported; fp8 is not
-        attention.decode_attention_at(_t(q), fp8_cache, 0, _t(pos) + 1)

@@ -64,6 +64,7 @@ MODES = {
     "sq-static": (int(QuantMode.use_smooth_quant()
                       | QuantMode.INT8_KV_CACHE), 0),
     "int8kv": (int(QuantMode.INT8_KV_CACHE), 0),
+    "fp8kv": (int(QuantMode.FP8_QDQ | QuantMode.FP8_KV_CACHE), 0),
 }
 
 
@@ -220,7 +221,8 @@ def _jax_params(mode_name):
                w_down=np.asarray([4.0, 2.0], np.float32))
     params = jax_quantize_params(params, cfg.quant_mode, gs, act_ranges=act)
     kv = (np.asarray([0.05, 0.07], np.float32)
-          if cfg.quant_mode.has_int8_kv_cache() else None)
+          if (cfg.quant_mode.has_int8_kv_cache()
+              or cfg.quant_mode.has_fp8_kv_cache()) else None)
     return cfg, params, kv
 
 
@@ -351,6 +353,34 @@ def test_convert_hf_model_matches_jax(hf_tiny, tmp_path, mode_name):
     ids = np.random.default_rng(0).integers(3, 120, (2, 8))
     np.testing.assert_array_equal(_generate_port(port_dir, ids),
                                   _generate_jax(jax_dir, ids))
+
+
+def test_convert_hf_model_fp8kv_engine_dir_equals_jax(hf_tiny, tmp_path):
+    """bench.py's fp8kv (fp8 projections, an e4m3 KV cache) built by both
+    converters from one HF model: the engine dirs are equal byte for byte,
+    the KV scales are the calibrated K/V ranges over 448 (e4m3's largest
+    value), and either package's loader gives the same greedy tokens."""
+    model, tok = hf_tiny
+    mode = QuantMode.FP8_QDQ | QuantMode.FP8_KV_CACHE
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    convert.convert_hf_model(model, tok, str(port_dir), quant_mode=mode,
+                             dtype="float32", calib_texts=CALIB)
+    jax_convert.convert_hf_model(model, tok, str(jax_dir),
+                                 quant_mode=JaxQuantMode(int(mode)),
+                                 dtype="float32", calib_texts=CALIB)
+    assert _files(port_dir) == _files(jax_dir) and _files(port_dir)
+    for name in ("manifest.json", "config.json"):
+        assert (json.loads((port_dir / name).read_text())
+                == json.loads((jax_dir / name).read_text()))
+    cfg, params, kv = serialize.load_engine(str(port_dir), device="cpu")
+    assert cfg.kv_dtype == "fp8" and params["layers"]["wq"].qweight.dtype \
+        == torch.uint8
+    ranges = calibrate.capture_activation_ranges(model, tok, CALIB)
+    np.testing.assert_array_equal(
+        kv, calibrate.kv_scales_from_ranges(ranges, qmax=448.0))
+    ids = np.random.default_rng(0).integers(3, 120, (2, 8))
+    np.testing.assert_array_equal(_generate_port(str(port_dir), ids),
+                                  _generate_jax(str(jax_dir), ids))
 
 
 def test_convert_hf_model_needs_calibration_texts(hf_tiny, tmp_path):

@@ -12,8 +12,12 @@ or grouped) and fp8 codes decode exactly, so those kernels are held to the
 same bounds. The W8A8 kernel is
 exact against its plain version (int32 sums, the same f32 epilogue);
 rmsnorm_quant's scales agree to 1e-6 relative and its codes within one
-step (the row's sum of squares is taken in another order); int8 KV caches
-and paged pools are bit-identical to the plain write. Rows 10, 12 and 13
+step (the row's sum of squares is taken in another order); int8 and e4m3
+(fp8) KV caches and paged pools are bit-identical to the plain write (the
+e4m3 codes of x / scale by the same true division and nearest-even
+rounding), and their outputs are held to the float caches' bounds (the
+codes decode exactly; the scale multiplies the f32 sums instead of each
+value, a rounding step). Rows 10, 12 and 13
 carry the probabilities through P V as three bf16 (two fp16) terms, and
 they, every f32 instantiation and the read-only and fused decode kernels
 differ from their plain versions in summation order only (bf16 / fp16
@@ -183,6 +187,9 @@ def test_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d, s, lens):
 DECODE_CASES = [(4, 128, [0, 31, 32, 127]), (5, 1024, [0, 127, 128, 1023, 1030])]
 # GQA groups 1, 4, 8 and 8 on one KV head
 DECODE_GROUPS = [(4, 4), (8, 2), (32, 4), (8, 1)]
+# cache kinds of the decode tests: a float cache (False), int8 codes (True)
+# and e4m3 (fp8) codes
+KV_KINDS = [False, True, "e4m3"]
 
 
 def _write_case(fn, plain, q, kn, vn, kc, vc, pos, kv_scale, dtype):
@@ -270,16 +277,17 @@ def test_w8a8_kernel_matches_plain(dev, m, scales):
     torch.testing.assert_close(got2d, ref2d, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("kv", [True, "e4m3"])
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("hq,hkv", DECODE_GROUPS)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_int8_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
-    """Kernel 3 over an int8 cache (the layer's scale 0.021), the cases of
-    test_decode_kernel_matches_plain."""
+def test_int8_decode_kernel_matches_plain(dev, dtype, hq, hkv, d, kv):
+    """Kernel 3 over an int8 and an e4m3 cache (the layer's scale 0.021),
+    the cases of test_decode_kernel_matches_plain."""
     cases = DECODE_CASES + ([(4, 8320, [0, 959, 4000, 8200])]
                             if hkv == 1 and d == 128 else [])
     for b, s, pos in cases:
-        q, kn, vn, kc, vc, kv_scale = _decode_cache(dev, dtype, True, hq, hkv,
+        q, kn, vn, kc, vc, kv_scale = _decode_cache(dev, dtype, kv, hq, hkv,
                                                     b, s, d, d + hq + s)
         pos = torch.tensor(pos, dtype=torch.int32, device=dev)
         _write_case(da.dma_decode_attention, da.dma_decode_attention_plain,
@@ -287,7 +295,7 @@ def test_int8_decode_kernel_matches_plain(dev, dtype, hq, hkv, d):
 
 
 @pytest.mark.parametrize("s", [64, 1024])
-@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("kv_int8", KV_KINDS)
 def test_decode_kernel_drops_a_write_past_the_cache(dev, kv_int8, s):
     """pos == S_max (and past it) writes nothing and attends all S_max rows,
     as the plain version (and the JAX scatter) does; with one split and
@@ -295,9 +303,8 @@ def test_decode_kernel_drops_a_write_past_the_cache(dev, kv_int8, s):
     g = torch.Generator(device=dev).manual_seed(11)
     n_layers, b, hq, hkv, d = 2, 3, 8, 2, 128
     if kv_int8:
-        kc = torch.randint(-127, 128, (n_layers, b, hkv, s, d), generator=g,
-                           device=dev, dtype=torch.int8)
-        kv_scale = torch.tensor([0.05, 0.021], device=dev)
+        kc, _, kv_scale = _quant_cache((n_layers, b, hkv, s, d), kv_int8, g,
+                                       dev)
     else:
         kc = torch.randn((n_layers, b, hkv, s, d), generator=g, device=dev)
         kv_scale = None
@@ -349,15 +356,25 @@ def test_streaming_prefill_kernel_matches_plain(dev, dtype, hq, hkv, d, s,
     _assert_close(got, ref, dtype)
 
 
-def _decode_cache(dev, dtype, kv_int8, hq, hkv, b, s, d, seed):
+def _quant_cache(shape, kv, g, dev):
+    """Random K and V codes of kind kv (True: int8; "e4m3": encodable
+    e4m3 codes in uint8) and two layers' dequant scales."""
+    if kv == "e4m3":
+        k, v = (random_fp8_codes(shape, g, dev) for _ in range(2))
+    else:
+        k, v = (torch.randint(-127, 128, shape, generator=g, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+    return k, v, torch.tensor([0.05, 0.021], device=dev)[:shape[0]]
+
+
+def _decode_cache(dev, dtype, kv, hq, hkv, b, s, d, seed):
+    """Kernel 3 / rows 8 and 9 inputs: q, new K/V (4 x N(0, 1): past an
+    int8 or e4m3 code's range at the scale 0.021, so encodes clamp or
+    saturate) and a 2-layer cache of kind kv (see KV_KINDS)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     shape = (2, b, hkv, s, d)
-    if kv_int8:
-        kc = torch.randint(-127, 128, shape, generator=g, device=dev,
-                           dtype=torch.int8)
-        vc = torch.randint(-127, 128, shape, generator=g, device=dev,
-                           dtype=torch.int8)
-        kv_scale = torch.tensor([0.05, 0.021], device=dev)
+    if kv:
+        kc, vc, kv_scale = _quant_cache(shape, kv, g, dev)
     else:
         kc = torch.randn(shape, generator=g, device=dev).to(dtype)
         vc = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -372,7 +389,7 @@ def _decode_cache(dev, dtype, kv_int8, hq, hkv, b, s, d, seed):
 READ_GROUPS = [(4, 4), (8, 2), (8, 1), (32, 1), (71, 1)]
 
 
-@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("kv_int8", KV_KINDS)
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("hq,hkv", READ_GROUPS)
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -408,7 +425,7 @@ def test_read_only_decode_kernel_matches_plain(dev, dtype, hq, hkv, d,
         assert torch.equal(kc, before[0]) and torch.equal(vc, before[1])
 
 
-@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("kv_int8", KV_KINDS)
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 4)])
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -470,21 +487,18 @@ def test_decode_modes_generate_on_cuda_match_cpu(dev):
 # table's last row; a -1 write block (writes trash row 2, reads trash rows
 # 0-1). No two sequences touch one trash row, so the result is defined.
 PAGED_TABLES = [[3, 0, 5], [7, 1, -1], [2, 4, 6], [8, 9, 10], [12, -1, -1]]
-# (int8 pools, BS): bf16 / f16 / f32 pools at 8-64 (24 crosses the 64-row
-# tile), int8 at 32-96 (96 too)
+# (pool kind, BS): bf16 / f16 / f32 pools at 8-64 (24 crosses the 64-row
+# tile), int8 at 32-96 (96 too), e4m3 at 8, 64 and 96
 PAGED_BLOCKS = [(False, 8), (False, 16), (False, 24), (False, 64),
-                (True, 32), (True, 64), (True, 96)]
+                (True, 32), (True, 64), (True, 96),
+                ("e4m3", 8), ("e4m3", 64), ("e4m3", 96)]
 PAGED_GROUPS = [(32, 32), (32, 8), (32, 4), (32, 1)]     # groups 1-32
 
 
 def _pools(dev, dtype, kv_int8, n_layers, nb, hkv, bs, d, g):
     shape = (n_layers, nb, hkv, bs, d)
     if kv_int8:
-        pk = torch.randint(-127, 128, shape, generator=g, device=dev,
-                           dtype=torch.int8)
-        pv = torch.randint(-127, 128, shape, generator=g, device=dev,
-                           dtype=torch.int8)
-        return pk, pv, torch.tensor([0.05, 0.021], device=dev)[:n_layers]
+        return _quant_cache(shape, kv_int8, g, dev)
     return (torch.randn(shape, generator=g, device=dev).to(dtype),
             torch.randn(shape, generator=g, device=dev).to(dtype), None)
 
@@ -535,7 +549,8 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, hq, hkv, kv_int8, bs,
 
 
 @pytest.mark.parametrize("kv_int8,bs", [(False, 64), (False, 24),
-                                        (True, 64), (True, 96)])
+                                        (True, 64), (True, 96),
+                                        ("e4m3", 64), ("e4m3", 24)])
 @pytest.mark.parametrize("hq,hkv", [(32, 32), (32, 4)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_paged_decode_kernel_long_cache(dev, dtype, hq, hkv, kv_int8, bs):
@@ -791,7 +806,7 @@ def test_alibi_prefill_kernels_match_plain(dev, dtype, kernel, s, lens):
                                   atol=1e-2)
 
 
-@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("kv_int8", KV_KINDS)
 @pytest.mark.parametrize("hq,d", [(26, 128), (32, 128), (71, 64)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_decode_kernel_large_groups(dev, dtype, hq, d, kv_int8):
@@ -1076,6 +1091,105 @@ def test_decode_probes_exact(dev, probe):
     for a, b in (zip(got, ref) if isinstance(got, tuple) else [(got, ref)]):
         assert a.shape == b.shape and a.dtype == b.dtype
         _same_bits(a, b)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.05, 0.021])
+def test_kv_codec_probe_exact(dev, scale):
+    """The fp8 KV cache's codec in the decode kernels: the encode sweep
+    (ties, +-448 and past it, subnormals, -0) bit for bit against
+    fp8_encode(x / scale), all 256 codes through dec and both load_raw reads
+    against fp8_decode (NaN codes NaN on both sides)."""
+    from trtllm_llama_tpu_torch.ops.kernels import probes as pr
+    x = pr.kv_codec_inputs()
+    s = torch.tensor([scale])
+    before = pr.probe_kv_codec.launches
+    got = pr.probe_kv_codec(x.to(dev), s.to(dev))
+    assert pr.probe_kv_codec.launches == before + 1
+    for a, b in zip(got, pr.probe_kv_codec_plain(x, s)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _same_bits(a, b)
+
+
+@pytest.mark.parametrize("fn", [da.dma_decode_attention,
+                                da.fused_decode_attention,
+                                da.decode_attention_kernel,
+                                pda.paged_decode_attention],
+                         ids=["kernel3", "row9", "row8", "row14"])
+def test_e4m3_decode_is_bitwise_repeatable(dev, fn):
+    """Two calls on copies of one e4m3 cache split over the card (bf16 q,
+    8320 rows, GQA group 4) give the same output and cache bits: the
+    splits merge in split order, whichever finishes last."""
+    b, hq, hkv, s, d = 2, 32, 8, 8320, 128
+    q, kn, vn, kc, vc, kv_scale = _decode_cache(dev, torch.bfloat16, "e4m3",
+                                                hq, hkv, b, s, d, 17)
+    pos = torch.tensor([8200, 4000], dtype=torch.int32, device=dev)
+    if fn is pda.paged_decode_attention:   # the same rows through a table
+        bs = 64
+        pk = kc.reshape(2, b, hkv, s // bs, bs, d).permute(0, 1, 3, 2, 4, 5)
+        pk = pk.reshape(2, b * s // bs, hkv, bs, d)
+        kc = torch.cat([pk, pk[:, :1]], dim=1).contiguous()
+        vc = kc.flip(-1).contiguous()
+        tables = torch.arange(b * s // bs, dtype=torch.int32,
+                              device=dev).reshape(b, s // bs)
+
+        def call(k, v):
+            return fn(q, kn, vn, k, v, 1, tables, pos, kv_scale=kv_scale)
+    elif fn is da.decode_attention_kernel:
+        def call(k, v):
+            return fn(q, k, v, 1, pos + 1, kv_scale=kv_scale)
+    else:
+        def call(k, v):
+            return fn(q, kn, vn, k, v, 1, pos, kv_scale=kv_scale)
+    outs = []
+    for _ in range(2):
+        k, v = kc.clone(), vc.clone()
+        outs.append((call(k, v), k, v))
+    torch.cuda.synchronize()
+    for a, b_ in zip(*outs):
+        assert torch.equal(a, b_)
+
+
+def test_tiny_fp8kv_generate_on_cuda_matches_cpu(dev):
+    """bench.py's fp8kv (fp8 projections and lm_head, an e4m3 KV cache at
+    scale 0.05) on a tiny f32 model, dense and paged: the card's greedy
+    tokens equal the CPU's, and the card ran kernel 3 / row 14."""
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.quantization.quantize import (
+        init_random_quantized_params, quantize_params,
+    )
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.serving import ServingEngine
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    mode = QuantMode.FP8_QDQ | QuantMode.FP8_KV_CACHE
+    cfg = ModelConfig.tiny(dtype="float32", quant_mode=mode)
+    params = quantize_params(
+        init_random_quantized_params(cfg, seed=0, device="cpu"), mode,
+        quantize_lm_head=True)
+    prompts = [[5, 17, 99, 3, 250, 8], [200, 4, 66]]
+    scales = [0.05] * cfg.num_layers
+    outs, served = [], []
+    for device in ("cpu", "cuda"):
+        sess = GenerationSession(cfg, params, EngineConfig(
+            max_input_len=16, max_seq_len=48), kv_scales=scales,
+            device=device)
+        before = da.dma_decode_attention.launches
+        outs.append(sess.generate(prompts, sampling=SamplingConfig(end_id=-1),
+                                  max_new_tokens=10).output_ids)
+        assert ((da.dma_decode_attention.launches > before)
+                == (device == "cuda"))
+        eng = ServingEngine(cfg, params, EngineConfig(
+            max_batch_size=2, max_input_len=16, max_seq_len=48),
+            sampling=SamplingConfig(end_id=-1), kv_scales=scales,
+            decode_chunk=4, device=device, paged=True, block_size=8)
+        rids = [eng.submit(p_, 10) for p_ in prompts]
+        before = pda.paged_decode_attention.launches
+        done = eng.run_to_completion()
+        assert ((pda.paged_decode_attention.launches > before)
+                == (device == "cuda"))
+        served.append([list(done[r].output_ids) for r in rids])
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert served[0] == served[1]
 
 
 @pytest.mark.parametrize("kind", ["int8wo", "int4 g128", "fp8", "sq-static"])

@@ -60,8 +60,11 @@ def test_kv_codec_matches_jax():
             want_back = jax_attn._dequant_kv(want, jcache, jdtype)
             np.testing.assert_array_equal(back.float().numpy(),
                                           np.asarray(want_back, np.float32))
-    with pytest.raises(NotImplementedError):
-        attention._quant_kv(_t(x), torch.uint8, torch.tensor(1.0))
+    # an fp8 cache (uint8) takes the JAX package's e4m3 codec at scale 1.0
+    fp8 = jax_attn.make_kv_cache(1, 1, 1, 1, jnp.uint8, 1.0)
+    np.testing.assert_array_equal(
+        attention._quant_kv(_t(x), torch.uint8, torch.tensor(1.0)).numpy(),
+        np.asarray(jax_attn._quant_kv(jnp.asarray(x), fp8)))
 
 
 def test_int8_cache_writes_match_jax():
@@ -135,11 +138,3 @@ def test_int8_decode_matches_jax_dma_kernel(hq, hkv, s):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3,
                                atol=1e-3)
 
-
-def test_decode_rejects_fp8_cache():
-    q, kn, vn, kc, vc, pos = _int8_cache_inputs(4, 4, 64, seed=5)
-    fp8 = attention.KVCache(_t(kc).view(torch.uint8), _t(vc).view(torch.uint8),
-                            _t(SCALES))
-    with pytest.raises(NotImplementedError):
-        attention.fused_decode_attention_at(_t(q), _t(kn), _t(vn), fp8, 0,
-                                            _t(pos))

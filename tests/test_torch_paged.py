@@ -286,12 +286,6 @@ def test_paged_block_size_must_be_a_multiple_of_8():
                                    torch.zeros(1, dtype=torch.int32))
 
 
-def test_fp8_paged_pool_is_not_ported():
-    cfg = ModelConfig.tiny(quant_mode=QuantMode.FP8_KV_CACHE)
-    with pytest.raises(NotImplementedError):
-        paged.init_paged_caches(cfg, 4, 8, 2, 2, "cpu")
-
-
 # ---------------------------------------------------------------------------
 # dense cache: a decode write past S_max is dropped (the JAX scatter's rule)
 # ---------------------------------------------------------------------------

@@ -134,6 +134,8 @@ def test_init_caches_int8_and_unported_fp8():
     assert caches.k.shape == (2, 2, 4, 256, 32) and caches.v.dtype == torch.int8
     np.testing.assert_array_equal(caches.scale.numpy(), KV_SCALES)
     assert torch.equal(llama.init_caches(cfg, 1, 8, "cpu").scale, torch.ones(2))
+    # an fp8 KV cache: e4m3 codes in uint8, with the given scales
     fp8 = ModelConfig.tiny(quant_mode=QuantMode.FP8_KV_CACHE)
-    with pytest.raises(NotImplementedError):
-        llama.init_caches(fp8, 1, 8, "cpu")
+    caches = llama.init_caches(fp8, 2, 130, "cpu", KV_SCALES)
+    assert caches.k.shape == (2, 2, 4, 256, 32) and caches.v.dtype == torch.uint8
+    np.testing.assert_array_equal(caches.scale.numpy(), KV_SCALES)

@@ -8,6 +8,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,10 +67,23 @@ cudaError_t allow_smem(K kernel, int bytes) {
              : cudaSuccess;
 }
 
+// e4m3 codes in the two bytes of `pair` -> two exact floats (low byte
+// first): one cvt.rn.f16x2.e4m3x2 (every e4m3 value is an f16), then each
+// half widened. The two NaN codes give NaN.
+__device__ __forceinline__ void fp8x2(uint32_t pair, float& lo, float& hi) {
+  uint32_t h2;
+  const unsigned short p = static_cast<unsigned short>(pair & 0xFFFFu);
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"(p));
+  const unsigned short h_lo = static_cast<unsigned short>(h2 & 0xFFFFu);
+  const unsigned short h_hi = static_cast<unsigned short>(h2 >> 16);
+  asm("cvt.f32.f16 %0, %1;" : "=f"(lo) : "h"(h_lo));
+  asm("cvt.f32.f16 %0, %1;" : "=f"(hi) : "h"(h_hi));
+}
+
 // KV-cache element codec of the decode kernels: enc stores an f32 value, dec
 // reads one back as f32 (`scale` is the layer's dequant scale, used by int8
-// caches only: enc(x) = clamp(rint(x / scale), +-127) by true division, as
-// the JAX package's _quant_kv; dec(c) = c * scale).
+// and e4m3 caches only). int8: enc(x) = clamp(rint(x / scale), +-127) by
+// true division, as the JAX package's _quant_kv; dec(c) = c * scale.
 template <typename TC>
 struct KVCodec {
   __device__ static TC enc(float v, float) { return from_f<TC>(v); }
@@ -83,6 +97,29 @@ struct KVCodec<int8_t> {
   }
   __device__ static float dec(int8_t c, float scale) {
     return static_cast<float>(c) * scale;
+  }
+};
+// An fp8 cache holds e4m3fn codes (the torch uint8 storage of the JAX
+// package's ops/fp8.py bit codes) as __nv_fp8_e4m3, a type of its own, so no
+// template takes them for int8 codes. enc(x) = the e4m3 code of x / scale
+// (true division), rounded to nearest even and saturated at +-448, never a
+// NaN code (cvt.rn.satfinite: fp8_encode bit for bit on every finite x, -0,
+// subnormals and ties included); dec(c) = the code's exact value * scale.
+template <>
+struct KVCodec<__nv_fp8_e4m3> {
+  __device__ static __nv_fp8_e4m3 enc(float v, float scale) {
+    unsigned short pair;  // b (x) in the low byte, a (0) in the high one
+    asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;"
+        : "=h"(pair)
+        : "f"(0.f), "f"(__fdiv_rn(v, scale)));
+    __nv_fp8_e4m3 c;
+    c.__x = static_cast<__nv_fp8_storage_t>(pair & 0xFFu);
+    return c;
+  }
+  __device__ static float dec(__nv_fp8_e4m3 c, float scale) {
+    float v, unused;
+    fp8x2(c.__x, v, unused);
+    return v * scale;
   }
 };
 

@@ -31,7 +31,14 @@
 //       fp16 pairs, every code in the low and in the high half;
 //   19  an e4m3 block stored interleaved (interleave_fp8_rows) read back in
 //       logical row order through slot_of<kFp8>.
+// And the fp8 KV cache's codec, which no TPU kernel had (the JAX package
+// runs fp8 caches on XLA): values through the split-cache decode's
+// KVCodec<__nv_fp8_e4m3>::enc (common.cuh) at a given scale, and all 256
+// codes through its dec and through flash_decode.cuh's load_raw (four
+// codes a word, and one at a time), against ops/fp8.py's fp8_encode /
+// fp8_decode.
 // Each is a few bytes; what bounds them is the launch.
+#include "flash_decode.cuh"
 #include "woq_gemv_tc.cuh"
 
 using namespace tllm;
@@ -130,6 +137,35 @@ __global__ void fp8_planes_kernel(const uint8_t* __restrict__ q,
   for (int j = 0; j < 4; ++j) out[static_cast<size_t>(kk) * N + c + j] = f[j];
 }
 
+// codes[i] = enc(values[i], scale) for i < n; for the 256 codes c:
+// dec[c] = dec(c, scale), raw[c] = load_raw's value of c read four codes a
+// word, raw[256 + c] read alone.
+__global__ void kv_codec_kernel(const float* __restrict__ values,
+                                const float* __restrict__ scale,
+                                uint8_t* __restrict__ codes,
+                                float* __restrict__ dec,
+                                float* __restrict__ raw, int n) {
+  using E = __nv_fp8_e4m3;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float s = *scale;
+  if (i < n) codes[i] = KVCodec<E>::enc(values[i], s).__x;
+  if (i < 256 / 4) {  // word i holds codes 4 i .. 4 i + 3, low byte first
+    const uint32_t w = 0x03020100u + 0x04040404u * static_cast<uint32_t>(i);
+    float x4[4];
+    flash_decode::load_raw<E, 4>(reinterpret_cast<const E*>(&w), x4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      E c;
+      c.__x = static_cast<__nv_fp8_storage_t>(4 * i + j);
+      float x1[1];
+      flash_decode::load_raw<E, 1>(&c, x1);
+      dec[4 * i + j] = KVCodec<E>::dec(c, s);
+      raw[4 * i + j] = x4[j];
+      raw[256 + 4 * i + j] = x1[0];
+    }
+  }
+}
+
 unsigned blocks_for(int n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
 template <int OP>
@@ -199,5 +235,20 @@ extern "C" int tllm_probe_fp8_planes(const void* q, void* out, int K, int N,
   fp8_planes_kernel<<<blocks_for(K * (N / 4)), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(q), static_cast<float*>(out), K, N, blk);
+  return cudaGetLastError();
+}
+
+// values f32 [n], scale f32 [1] -> codes uint8 [n], dec f32 [256], raw f32
+// [2, 256].
+extern "C" int tllm_probe_kv_codec(const void* values, const void* scale,
+                                   void* codes, void* dec, void* raw, int n,
+                                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  kv_codec_kernel<<<blocks_for(n > 64 ? n : 64), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(values), static_cast<const float*>(scale),
+      static_cast<uint8_t*>(codes), static_cast<float*>(dec),
+      static_cast<float*>(raw), n);
   return cudaGetLastError();
 }

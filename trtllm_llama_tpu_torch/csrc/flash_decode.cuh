@@ -31,13 +31,16 @@
 // its finite NEG_INF), so p is uniform and the output the mean of dec(V).
 // A float cache stores the value as is (enc / dec are the dtype cast), an
 // int8 cache enc(x) = clamp(rint(x / scale), +-127) by true division (the
-// JAX package's _quant_kv) and dec(c) = c * scale in f32 (common.cuh; here
-// the scale multiplies the f32 sums, which moves them by a rounding).
+// JAX package's _quant_kv) and dec(c) = c * scale in f32, an e4m3 (fp8)
+// cache enc(x) = the e4m3 code of x / scale (true division, nearest even,
+// saturated at +-448: the JAX package's fp8_encode) and dec(c) = the code's
+// exact value * scale in f32 (common.cuh; here the scale multiplies the f32
+// sums, which moves them by a rounding).
 //
 // What bounds it on the H100: the live K/V bytes, 2 * B * Hkv * n_live * D *
 // sizeof(cache element), at 3.35 TB/s (LLaMA-7B's bf16 cache at 8.2k rows:
-// 0.040 ms; int8 0.020). At a large GQA group (Falcon-7B's 71 heads on one
-// KV head) the f32 scoring on CUDA cores comes next. Design:
+// 0.040 ms; int8 or e4m3 0.020). At a large GQA group (Falcon-7B's 71 heads
+// on one KV head) the f32 scoring on CUDA cores comes next. Design:
 //   - Split the cache over the card in one launch. Grid (split, kv head x
 //     head chunk, b); split s covers the whole 64-row tiles [s * tps,
 //     (s + 1) * tps) of the S rows, clipped to n_live. The host picks
@@ -65,7 +68,9 @@
 //     4-stage ring of kRows-row stages (kRows * D * sizeof(element) <= 8 KB
 //     a stage and operand), rows padded by 16 bytes so lanes reading other
 //     rows hit other banks; codes read in registers as f32 (int8 by byte
-//     permutes, the layer's scale applied to the f32 sums).
+//     permutes, e4m3 two codes a cvt.rn.f16x2.e4m3x2; the layer's scale
+//     applied to the f32 sums). An e4m3 row has int8's bytes, so its stage
+//     geometry (Shape) too.
 //   - Warp w takes its rows of every stage for all of the block's heads:
 //     lane (row, part) scores its part and the row's lanes add by
 //     shuffles, so every warp works at a group of 1; the warp's online
@@ -144,20 +149,35 @@ struct alignas(pack_align(sizeof(E) * N)) Pack {
 };
 
 __device__ __forceinline__ float raw_f(int8_t c) { return static_cast<float>(c); }
+__device__ __forceinline__ float raw_f(__nv_fp8_e4m3 c) {
+  return KVCodec<__nv_fp8_e4m3>::dec(c, 1.f);
+}
+
+// Four e4m3 codes (byte j of w is code j) as their exact values.
+__device__ __forceinline__ void e4m3x4(uint32_t w, float* x) {
+  fp8x2(w, x[0], x[1]);
+  fp8x2(w >> 16, x[2], x[3]);
+}
 template <typename E>
 __device__ __forceinline__ float raw_f(E v) {
   return to_f(v);
 }
 
 // x[i] = the N elements at p as f32, read as one vector: a float cache's
-// values, an int8 cache's integer codes (the kernels apply the layer's
-// scale to the f32 sums: s * scale * sm_scale, and p @ V times scale).
-// Codes go four at a time: each, offset by 128, is planted in the low
-// mantissa of 2^23 by a byte permute and 2^23 + 128 subtracted, exactly
-// and at the full rate (a conversion instruction runs at a quarter of it).
+// values, an int8 or e4m3 cache's codes as their values (the kernels apply
+// the layer's scale to the f32 sums: s * scale * sm_scale, and p @ V times
+// scale). int8 codes go four at a time: each, offset by 128, is planted in
+// the low mantissa of 2^23 by a byte permute and 2^23 + 128 subtracted,
+// exactly and at the full rate (a conversion instruction runs at a quarter
+// of it); e4m3 codes two a cvt.rn.f16x2.e4m3x2 and a widening each.
 template <typename E, int N>
 __device__ __forceinline__ void load_raw(const E* p, float (&x)[N]) {
-  if constexpr (std::is_same<E, int8_t>::value && N % 4 == 0) {
+  if constexpr (std::is_same<E, __nv_fp8_e4m3>::value && N % 4 == 0) {
+    const Pack<uint32_t, N / 4> pw =
+        *reinterpret_cast<const Pack<uint32_t, N / 4>*>(p);
+#pragma unroll
+    for (int w = 0; w < N / 4; ++w) e4m3x4(pw.v[w], x + 4 * w);
+  } else if constexpr (std::is_same<E, int8_t>::value && N % 4 == 0) {
     const Pack<uint32_t, N / 4> pw =
         *reinterpret_cast<const Pack<uint32_t, N / 4>*>(p);
 #pragma unroll
@@ -714,32 +734,39 @@ cudaError_t launch_d(int D, const Args& a) {
   }
 }
 
-// dtype: the activation code (kF32 / kBF16 / kF16); the cache holds that
-// type or, with kv_int8, int8. The splits must cover the S rows in whole
-// 64-row tiles with none empty, at most kMaxSplits of them; more than one
-// needs the workspace. Paged: S = mb * bs, and a slice holds the table
-// entries that tps tiles starting anywhere span.
+// What a cache holds (the wrappers' cache kind codes): the activation
+// type, int8 codes or e4m3 codes.
+enum CacheKind : int { kCacheFloat = 0, kCacheInt8 = 1, kCacheE4M3 = 2 };
+
+template <typename T, bool kPaged>
+cudaError_t launch_kind(int kind, int D, const Args& a) {
+  if (kind == kCacheFloat) return launch_d<T, T, kPaged>(D, a);
+  if (kind == kCacheInt8) return launch_d<T, int8_t, kPaged>(D, a);
+  if (kind == kCacheE4M3) return launch_d<T, __nv_fp8_e4m3, kPaged>(D, a);
+  return cudaErrorInvalidValue;
+}
+
+// dtype: the activation code (kF32 / kBF16 / kF16); kind: the cache's
+// (CacheKind; int8 and e4m3 take the layer's scale). The splits must cover
+// the S rows in whole 64-row tiles with none empty, at most kMaxSplits of
+// them; more than one needs the workspace. Paged: S = mb * bs, and a slice
+// holds the table entries that tps tiles starting anywhere span.
 template <bool kPaged>
-cudaError_t dispatch(int dtype, bool kv_int8, int D, const Args& a) {
+cudaError_t dispatch(int dtype, int kind, int D, const Args& a) {
   const int tiles = (a.S + kTile - 1) / kTile;
   if (a.splits < 1 || a.splits > kMaxSplits || a.tps < 1 ||
       a.splits * a.tps < tiles || (a.splits - 1) * a.tps >= tiles ||
       a.Hkv < 1 || a.Hq % a.Hkv != 0 ||
-      (a.splits > 1 && (a.part == nullptr || a.counters == nullptr)))
+      (a.splits > 1 && (a.part == nullptr || a.counters == nullptr)) ||
+      (kind != kCacheFloat && a.kv_scale == nullptr))
     return cudaErrorInvalidValue;
   if (kPaged && (a.tables == nullptr || a.read_only || a.bs < 1 ||
                  a.mb < 1 || a.mb * a.bs != a.S || a.trash < 0 ||
                  a.slice < (a.tps * kTile + a.bs - 1) / a.bs + 1))
     return cudaErrorInvalidValue;
-  if (dtype == kBF16)
-    return kv_int8 ? launch_d<__nv_bfloat16, int8_t, kPaged>(D, a)
-                   : launch_d<__nv_bfloat16, __nv_bfloat16, kPaged>(D, a);
-  if (dtype == kF16)
-    return kv_int8 ? launch_d<__half, int8_t, kPaged>(D, a)
-                   : launch_d<__half, __half, kPaged>(D, a);
-  if (dtype == kF32)
-    return kv_int8 ? launch_d<float, int8_t, kPaged>(D, a)
-                   : launch_d<float, float, kPaged>(D, a);
+  if (dtype == kBF16) return launch_kind<__nv_bfloat16, kPaged>(kind, D, a);
+  if (dtype == kF16) return launch_kind<__half, kPaged>(kind, D, a);
+  if (dtype == kF32) return launch_kind<float, kPaged>(kind, D, a);
   return cudaErrorInvalidValue;
 }
 

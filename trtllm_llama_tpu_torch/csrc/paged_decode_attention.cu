@@ -3,7 +3,8 @@
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/paged_decode_attention.py:157
 // (paged_decode_attention, pallas_call at :218; bf16 / f32 pools, and int8
-// pools with one static dequant scale per layer).
+// pools with one static dequant scale per layer; the port also takes e4m3
+// (fp8) pools, which the JAX package serves on its XLA path).
 //
 // Sequence b's row r lives in pool block tables[b, r / BS] at row r % BS;
 // its first MB * BS rows are attendable (MB = the table's width). Table
@@ -29,9 +30,10 @@
 using namespace tllm;
 
 // q [B, Hq, D], k_new/v_new [B, Hkv, D] (dtype), pk/pv: layer `layer` of the
-// pools, i.e. [NB, Hkv, BS, D] in dtype or, with kv_int8, int8 (the wrapper
-// offsets the pointers; 16-byte aligned), kv_scale: that layer's f32
-// dequant scale (int8 only, else null), tables [B, MB] int32, positions [B]
+// pools, i.e. [NB, Hkv, BS, D] in dtype or, by kv_kind (CacheKind of
+// flash_decode.cuh), int8 or e4m3 codes (the wrapper offsets the pointers;
+// 16-byte aligned), kv_scale: that layer's f32 dequant scale (int8 and e4m3
+// only, else null), tables [B, MB] int32, positions [B]
 // int32, out [B, Hq, D]; splits / tps: decode_split of the MB * BS rows;
 // slice: the table entries a block holds (table_slice); part / counters:
 // the workspace (null at one split). BS % 8 == 0, D in {32, 64, 96, 128,
@@ -39,7 +41,7 @@ using namespace tllm;
 extern "C" int tllm_paged_decode_attention(
     const void* q, const void* k_new, const void* v_new, void* pk, void* pv,
     const void* kv_scale, const void* tables, const void* positions,
-    void* out, void* part, void* counters, int dtype, int kv_int8, int B,
+    void* out, void* part, void* counters, int dtype, int kv_kind, int B,
     int Hq, int Hkv, int NB, int BS, int MB, int D, float sm_scale,
     int splits, int tps, int slice, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -50,5 +52,5 @@ extern "C" int tllm_paged_decode_attention(
                              tps,   sm_scale, static_cast<cudaStream_t>(stream),
                              false, tables, MB,       BS,       NB - 1,
                              slice};
-  return flash_decode::dispatch<true>(dtype, kv_int8 != 0, D, a);
+  return flash_decode::dispatch<true>(dtype, kv_kind, D, a);
 }

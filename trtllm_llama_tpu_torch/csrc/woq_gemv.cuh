@@ -131,16 +131,7 @@ __device__ __forceinline__ float silu_f32(float g) {
   return g / (1.0f + expf(-g));
 }
 
-// e4m3 codes in the two bytes of `pair` -> two exact floats (low byte first).
-__device__ __forceinline__ void fp8x2(uint32_t pair, float& lo, float& hi) {
-  uint32_t h2;
-  const unsigned short p = static_cast<unsigned short>(pair & 0xFFFFu);
-  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"(p));
-  const unsigned short h_lo = static_cast<unsigned short>(h2 & 0xFFFFu);
-  const unsigned short h_hi = static_cast<unsigned short>(h2 >> 16);
-  asm("cvt.f32.f16 %0, %1;" : "=f"(lo) : "h"(h_lo));
-  asm("cvt.f32.f16 %0, %1;" : "=f"(hi) : "h"(h_hi));
-}
+using ::tllm::fp8x2;  // e4m3 pairs (common.cuh)
 
 // The 16 bytes of T values at p (16-byte aligned) as floats.
 template <typename T>

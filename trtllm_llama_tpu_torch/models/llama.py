@@ -9,8 +9,8 @@ per-channel or grouped scales), `FP8Weight`s or SmoothQuant `SQWeight`s),
 [D, V] (a tensor, or a 2-D `WOQWeight` / `FP8Weight` when quantized). The
 layer loop is a Python loop over the stacked weights; kernels read the
 layer slice in place; `ops.linear.dense` dispatches on the container. The KV cache is the stacked
-[L, B, H_kv, S_max, D] `KVCache` (compute dtype, or int8 with per-layer
-scales) or the paged `PagedKVCache` (block pools [L, NB, H_kv, BS, D] with
+[L, B, H_kv, S_max, D] `KVCache` (compute dtype, or int8 or fp8 e4m3
+codes with per-layer scales) or the paged `PagedKVCache` (block pools [L, NB, H_kv, BS, D] with
 a block table), updated in place; `forward_prefill` and `forward_decode`
 dispatch on its type, and `forward_prefill_packed` prefills one packed
 token stream into the dense cache.
@@ -36,11 +36,10 @@ from ..quantization.tensors import SQWeight, concat_columns
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
                 kv_scales=None) -> KVCache:
     """Zeroed stacked cache [L, B, H_kv, S_max, D] in `cfg.kv_dtype` (the
-    compute dtype, or int8 with INT8_KV_CACHE; fp8 is not ported yet),
-    with S_max rounded up to a multiple of 128 rows as in the JAX package.
-    kv_scales: optional [L] int8-KV dequant scales (default 1.0)."""
-    if cfg.kv_dtype == "fp8":
-        raise NotImplementedError("fp8 KV caches are not ported yet")
+    compute dtype, int8 with INT8_KV_CACHE, or e4m3 codes in uint8 with
+    FP8_KV_CACHE), with S_max rounded up to a multiple of 128 rows as in
+    the JAX package. kv_scales: optional [L] dequant scales (default
+    1.0)."""
     kv_dtype = str_dtype_to_torch(cfg.kv_dtype)
     max_len = -(-max_len // 128) * 128
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)

@@ -5,7 +5,10 @@ KV cache layout: [L, B, H_kv, S_max, D] per k and v, as in the JAX package.
 The port updates the cache IN PLACE (the JAX functions return a new cache;
 here the returned `KVCache` is the same tensors, written). An int8 cache
 stores clamp(round(x / scale[layer]), +-127) with one static scale per
-layer and reads code * scale; fp8 caches are not ported yet.
+layer and reads code * scale; an fp8 cache (uint8 storage) stores the e4m3
+code of x / scale[layer] (`ops/fp8.py`, round to nearest even, saturated
+at +-448) and reads the code's value * scale, as the JAX package's
+_quant_kv / _dequant_kv.
 
 Which kernel runs is chosen by the knobs of `ops/registry.KERNELS`, as in
 the JAX package; whether it is the CUDA kernel or its plain version, by the
@@ -17,7 +20,9 @@ kernel 13; `fused_decode_attention_at` by `decode_attn_mode`: kernel 3 for
 to its DMA kernel at S_max >= 4096 is a TPU crossover the port does not
 copy, and its XLA path is not ported), the plain write and the read-only
 kernel (row 8) for 'split', the one-launch kernel (row 9) for 'fused';
-`decode_attention_at` to row 8 in every mode. `decode_attention` is the
+`decode_attention_at` to row 8 in every mode. Float, int8 and fp8 caches
+alike: the JAX package sends an fp8 cache to its XLA path in every mode,
+the port to the same kernels. `decode_attention` is the
 plain read-only reference of one layer. The paged cache is in
 `ops/paged_attention.py`.
 
@@ -40,7 +45,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..quantization.tensors import quantize_int8
 from .kernels import decode_attention as _decode
 from .kernels import packed_prefill_attention as _packed
 from .kernels import prefill_attention as _prefill
@@ -52,30 +56,22 @@ NEG_INF = -1e9
 
 class KVCache(NamedTuple):
     """Stacked cache: k, v [L, B, H_kv, S_max, D]; scale [L] f32 (the int8
-    dequant scale, 1.0 for float caches)."""
+    or fp8 dequant scale, 1.0 for float caches)."""
 
     k: torch.Tensor
     v: torch.Tensor
     scale: torch.Tensor
 
 
-def _quant_kv(x, cache_dtype, scale):
-    """x as a cache of `cache_dtype` stores it; `scale` is the layer's
-    dequant scale (int8 only)."""
-    if cache_dtype == torch.int8:
-        return quantize_int8(x, scale)
-    if cache_dtype == torch.uint8:
-        raise NotImplementedError("fp8 KV caches are not ported yet")
-    return x.to(cache_dtype)
+# x as a cache of `cache_dtype` stores it, `scale` the layer's dequant scale
+# (int8 and fp8 only; true division in f32): the kernels' codec
+_quant_kv = _decode.kv_encode
 
 
 def _dequant_kv(x, scale, dtype):
-    """Stored cache rows x back as `dtype` (int8: x * scale in f32)."""
-    if x.dtype == torch.int8:
-        return (x.float() * scale).to(dtype)
-    if x.dtype == torch.uint8:
-        raise NotImplementedError("fp8 KV caches are not ported yet")
-    return x.to(dtype)
+    """Stored cache rows x back as `dtype` (int8: x * scale, fp8: the e4m3
+    value * scale, in f32, then rounded to `dtype`)."""
+    return _decode.kv_decode(x, scale).to(dtype)
 
 
 def write_kv_prefill_at(cache: KVCache, layer: int, k, v,
@@ -169,13 +165,12 @@ def fused_decode_attention_at(q, k_new, v_new, cache: KVCache, layer: int,
     `positions` [B] and attend q [B, H_q, D] over rows <= positions.
     Returns (attn_out [B, H_q, D], cache). The kernel follows
     KERNELS['decode_attn_mode'] (see the module note; an unknown mode
-    raises ValueError). With an int8 cache every mode keeps the dequantized
-    K/V in f32 (the JAX package's Pallas kernels); its XLA path rounds them
-    to q's dtype first, which is the same at f32. With `alibi` ([H_q]
-    slopes) every mode takes the JAX package's ALiBi branch: the plain
-    write, then the plain `decode_attention` with the bias."""
-    if cache.k.dtype == torch.uint8:
-        raise NotImplementedError("fp8 KV caches are not ported yet")
+    raises ValueError). With an int8 or fp8 cache every mode keeps the
+    dequantized K/V in f32 (as the JAX package's Pallas kernels keep int8
+    ones); its XLA path, where it runs every fp8 cache, rounds them to q's
+    dtype first, which is the same at f32. With `alibi` ([H_q] slopes) every
+    mode takes the JAX package's ALiBi branch: the plain write, then the
+    plain `decode_attention` with the bias."""
     mode = KERNELS["decode_attn_mode"]
     if mode not in ("auto", "dma", "xla", "split", "fused"):
         raise ValueError(f"unknown decode_attn_mode {mode!r}: expected "
@@ -205,10 +200,9 @@ def decode_attention_at(q, cache: KVCache, layer: int, cache_lens,
                         scale: Optional[float] = None):
     """Read-only decode attention of q [B, H_q, D] against layer `layer` of
     the stacked cache, rows < cache_lens [B] (row 8, in every
-    decode_attn_mode; the JAX package runs its kernel only in the Pallas
-    modes and XLA otherwise). Returns [B, H_q, D]."""
-    if cache.k.dtype == torch.uint8:
-        raise NotImplementedError("fp8 KV caches are not ported yet")
+    decode_attn_mode and for every cache kind; the JAX package runs its
+    kernel only in the Pallas modes for non-fp8 caches, and XLA otherwise).
+    Returns [B, H_q, D]."""
     return _decode.decode_attention_kernel(q, cache.k, cache.v, layer,
                                            cache_lens, scale,
                                            kv_scale=cache.scale)
@@ -218,8 +212,9 @@ def decode_attention(q, k_cache, v_cache, cache_lens,
                      scale: Optional[float] = None, kv_scale=None,
                      alibi=None):
     """Single-token attention against ONE layer's cache [B, H_kv, S, D]
-    (already written): keys at positions < cache_lens[b]; an int8 cache is
-    dequantized with that layer's `kv_scale` and rounded to q's dtype;
+    (already written): keys at positions < cache_lens[b]; an int8 or fp8
+    cache is dequantized with that layer's `kv_scale` and rounded to q's
+    dtype;
     alibi: optional [H_q] slopes (f32 slope * key position added to the
     scaled scores before the mask). The probabilities are cast to q's dtype
     before p @ v, as in the JAX package's XLA path. Returns [B, H_q, D]."""

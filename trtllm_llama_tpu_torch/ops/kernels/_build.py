@@ -29,6 +29,11 @@ SOURCES = ("woq_gemm", "fp8_gemm", "w8a8_gemm", "woq_matmul", "woq_gemv_tc",
            "decode_attention", "rmsnorm_quant", "w8a8_matmul",
            "paged_decode_attention", "packed_prefill_attention",
            "streaming_prefill_attention", "decode_probes")
+# The split-cache decode's sources instantiate every head dim, activation
+# type and cache kind, the build's longest compiles: nvcc optimises their
+# kernels in parallel (-split-compile=0, one thread per core).
+SOURCE_FLAGS = {"decode_attention": ("-split-compile=0",),
+                "paged_decode_attention": ("-split-compile=0",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,7 +66,7 @@ def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -76,8 +81,8 @@ def build(names=SOURCES) -> dict:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-               str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-I",
+               str(CSRC), "-o", tmp, str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)

@@ -4,8 +4,10 @@ csrc/flash_decode.cuh, kernel 3's, with its paged row addressing).
 
 Replaces `trtllm_llama_tpu/ops/pallas/paged_decode_attention.py::
 paged_decode_attention`, for bf16/f32 pools and int8 pools with one static
-dequant scale per layer. Bound on the H100: the live K/V bytes,
-2*Hkv*D*(2 for bf16, 1 for int8)*sum_b min(pos_b + 1, MB*BS). Design:
+dequant scale per layer, and takes e4m3 (fp8, uint8 storage) pools with one
+too, which the JAX package serves on its XLA path. Bound on the H100: the
+live K/V bytes, 2*Hkv*D*(2 for bf16, 1 for int8 and e4m3)*sum_b min(pos_b
++ 1, MB*BS). Design:
 kernel 3's one launch, the MB * BS table rows split over the card by
 `decode_split` (64-row tiles), a block per (split, kv head and chunk of up
 to 8 query heads, b) finding its rows through its slice of the block table
@@ -30,9 +32,10 @@ import ctypes
 
 import torch
 
-from ...quantization.tensors import quantize_int8
 from . import _build
-from .decode_attention import TILE, decode_split, sm_count, workspace_size
+from .decode_attention import (CACHE_KINDS, TILE, cache_kind, check_scales,
+                               decode_split, kv_decode, kv_encode,
+                               layer_scale, sm_count, workspace_size)
 
 NEG_INF = -1e9
 
@@ -103,29 +106,26 @@ def paged_decode_attention_plain(q, k_new, v_new, pool_k, pool_v, layer: int,
                                  kv_scale=None):
     """Plain PyTorch version. Writes k_new/v_new [B, Hkv, D] at row
     pos % BS of block tables[b, pos // BS] of layer `layer` of the pools
-    [L, NB, Hkv, BS, D] (in place; an int8 pool stores
-    clamp(round(x / kv_scale[layer]), +-127)), then attends q [B, Hq, D]
-    over the rows < min(pos + 1, MB * BS) of the table's blocks with an f32
-    softmax and f32 p @ v (int8 rows read as code * kv_scale[layer] in f32).
-    Returns [B, Hq, D] in q's dtype."""
+    [L, NB, Hkv, BS, D] (in place; an int8 or e4m3 pool stores kv_encode(x,
+    its dtype, kv_scale[layer])), then attends q [B, Hq, D] over the rows <
+    min(pos + 1, MB * BS) of the table's blocks with an f32 softmax and f32
+    p @ v (quantized rows read as kv_decode: their values * kv_scale[layer]
+    in f32). Returns [B, Hq, D] in q's dtype."""
     b, hq, d = q.shape
     nb, hkv, bs = pool_k.shape[1], pool_k.shape[2], pool_k.shape[3]
     scale = sm_scale if sm_scale is not None else d ** -0.5
-    int8 = pool_k.dtype == torch.int8
-    enc = ((lambda x: quantize_int8(x, kv_scale[layer])) if int8
-           else (lambda x: x.to(pool_k.dtype)))
-    write_rows(pool_k, layer, tables, positions, enc(k_new))
-    write_rows(pool_v, layer, tables, positions, enc(v_new))
+    kvs = layer_scale(pool_k, kv_scale, layer)
+    write_rows(pool_k, layer, tables, positions,
+               kv_encode(k_new, pool_k.dtype, kvs))
+    write_rows(pool_v, layer, tables, positions,
+               kv_encode(v_new, pool_v.dtype, kvs))
     tbl = torch.where(tables < 0, nb - 1, tables).long()
     mb = tbl.shape[1]
     rep = hq // hkv
 
     def gather(pool):              # [B, Hq, MB*BS, D] f32
-        x = pool[layer][tbl].float().permute(0, 2, 1, 3, 4)
-        x = x.reshape(b, hkv, mb * bs, d)
-        if int8:
-            x = x * kv_scale[layer]
-        return x.repeat_interleave(rep, dim=1)
+        x = kv_decode(pool[layer][tbl], kvs).permute(0, 2, 1, 3, 4)
+        return x.reshape(b, hkv, mb * bs, d).repeat_interleave(rep, dim=1)
     scores = torch.einsum("bhd,bhsd->bhs", q.float(), gather(pool_k)) * scale
     mask = (torch.arange(mb * bs, device=q.device)[None, :]
             <= positions.long()[:, None])
@@ -140,14 +140,15 @@ def paged_decode_attention(q, k_new, v_new, pool_k, pool_v, layer: int,
     """Decode step of layer `layer` over the paged pools: write the new
     token's K/V at `positions` [B] (int32) through `tables` [B, MB] (int32)
     into the pools IN PLACE and attend. q: [B, Hq, D]; k_new, v_new:
-    [B, Hkv, D] in q's dtype; pools [L, NB, Hkv, BS, D] in q's dtype or
-    int8, the last block the trash block; kv_scale: f32 [L] dequant scales
-    (int8 pools; ignored for float ones). Returns out [B, Hq, D] in q's
-    dtype."""
+    [B, Hkv, D] in q's dtype; pools [L, NB, Hkv, BS, D] in q's dtype, int8
+    or uint8 (e4m3 codes), the last block the trash block; kv_scale: f32
+    [L] dequant scales (int8 and e4m3 pools; ignored for float ones).
+    Returns out [B, Hq, D] in q's dtype."""
     bs = pool_k.shape[3]
     if bs % 8:
         raise ValueError(f"paged_decode_attention: block size {bs} is not "
                          "a multiple of 8")
+    check_scales("paged_decode_attention", pool_k, kv_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_new, v_new, pool_k, pool_v,
                                             layer, tables, positions,
@@ -158,13 +159,14 @@ def paged_decode_attention(q, k_new, v_new, pool_k, pool_v, layer: int,
     b, hq, d = q.shape
     n_layers, nb, hkv, _, _ = pool_k.shape
     mb = tables.shape[1]
-    kv_int8 = pool_k.dtype == torch.int8
+    kind = cache_kind(pool_k.dtype)
     if (q.dtype not in _build.DTYPE_CODES
             or {k_new.dtype, v_new.dtype} != {q.dtype}
-            or {pool_k.dtype, pool_v.dtype} not in ({q.dtype}, {torch.int8})):
+            or {pool_k.dtype, pool_v.dtype} not in (
+                {q.dtype}, *({c} for c in CACHE_KINDS))):
         raise TypeError("paged_decode_attention: unsupported dtypes (q, new "
-                        "K/V share one of f32/bf16/fp16; the pools that one or "
-                        "int8)")
+                        "K/V share one of f32/bf16/fp16; the pools that one, "
+                        "int8 or uint8 e4m3 codes)")
     if (d not in _build.HEAD_DIMS or hq % hkv or pool_k.shape[4] != d
             or v_new.shape != k_new.shape or k_new.shape != (b, hkv, d)
             or pool_v.shape != pool_k.shape or tables.shape != (b, mb)
@@ -175,11 +177,7 @@ def paged_decode_attention(q, k_new, v_new, pool_k, pool_v, layer: int,
     positions = positions.to(torch.int32)
     tables = tables.to(torch.int32)
     tensors = [q, k_new, v_new, pool_k, pool_v, tables, positions]
-    if kv_int8:
-        if (kv_scale is None or kv_scale.dtype != torch.float32
-                or kv_scale.shape != (n_layers,)):
-            raise ValueError("paged_decode_attention: an int8 pool needs "
-                             "kv_scale, f32 [L]")
+    if kind:
         tensors.append(kv_scale)
     if (any(t.device != q.device or not t.is_contiguous() for t in tensors)
             or positions.shape != (b,)):
@@ -197,14 +195,14 @@ def paged_decode_attention(q, k_new, v_new, pool_k, pool_v, layer: int,
     lib = _build.load("paged_decode_attention", _SIGNATURES)
     out = torch.empty_like(q)
     layer_bytes = nb * hkv * bs * d * pool_k.element_size()
-    kvs_ptr = (_P(kv_scale.data_ptr() + layer * 4) if kv_int8 else _P(None))
+    kvs_ptr = (_P(kv_scale.data_ptr() + layer * 4) if kind else _P(None))
     err = lib.tllm_paged_decode_attention(
         _build.ptr(q), _build.ptr(k_new), _build.ptr(v_new),
         _P(pool_k.data_ptr() + layer * layer_bytes),
         _P(pool_v.data_ptr() + layer * layer_bytes), kvs_ptr,
         _build.ptr(tables), _build.ptr(positions), _build.ptr(out),
         _build.ptr(part), _build.ptr(counters),
-        _build.DTYPE_CODES[q.dtype], int(kv_int8), b, hq, hkv, nb, bs, mb, d,
+        _build.DTYPE_CODES[q.dtype], kind, b, hq, hkv, nb, bs, mb, d,
         float(scale), splits, tps, table_slice(bs, tps),
         q.device.index or 0, _build.stream_of(q))
     _build.check(err, "paged_decode_attention")

@@ -10,7 +10,10 @@ same fact in registers, and rows 18-19 run every code through the decode
 functions of `csrc/woq_gemv.cuh` that the CUDA-core GEMV uses; row 18's
 second probe (`probe_tc_pairs`) runs them through the pair decoders of
 `csrc/woq_gemv_tc.cuh` that the tensor-core GEMV feeds mma.sync with, into
-bf16 and fp16. A few bytes each, so the launch bounds them.
+bf16 and fp16. `probe_kv_codec` replaces no TPU kernel (the JAX package
+runs fp8 KV caches on XLA): it holds the fp8 KV cache's e4m3 codec of the
+split-cache decode (csrc/common.cuh KVCodec, csrc/flash_decode.cuh
+load_raw) to `ops/fp8.py`. A few bytes each, so the launch bounds them.
 
 uint32 words travel as int32 tensors (the same bits). Each wrapper takes
 its plain version for CPU tensors and launches its kernel for CUDA tensors,
@@ -28,7 +31,7 @@ import torch
 
 from ...quantization.tensors import (INT4_BIAS, deinterleave_fp8_rows,
                                      interleave_fp8_rows)
-from ..fp8 import fp8_decode
+from ..fp8 import FP8_MAX, fp8_decode, fp8_encode
 from . import _build
 from .woq_matmul import _device_kind
 
@@ -39,7 +42,8 @@ _SIGNATURES = {"tllm_probe_bitcast_u32_bf16": _SWAR,
                "tllm_probe_u32_bf16_construct": _SWAR,
                "tllm_probe_gemv_decodes": [_P] * 4 + [_I, _I, _P],
                "tllm_probe_tc_pairs": [_P, _P, _I, _I, _P],
-               "tllm_probe_fp8_planes": [_P, _P, _I, _I, _I, _I, _P]}
+               "tllm_probe_fp8_planes": [_P, _P, _I, _I, _I, _I, _P],
+               "tllm_probe_kv_codec": [_P] * 5 + [_I, _I, _P]}
 FP8_BLOCK = 128      # the interleave block of row 19's input
 
 
@@ -82,6 +86,28 @@ def planes_inputs(device="cpu"):
         128, 2)
     codes = codes[:, :, None].expand(128, 2, 64).reshape(128, 128)
     return interleave_fp8_rows(codes, FP8_BLOCK).contiguous().to(device)
+
+
+def kv_codec_inputs(device="cpu"):
+    """f32 values that reach every rounding case of an e4m3 encode: each
+    finite e4m3 value, each midpoint between two neighbours (ties, to even)
+    and the f32 values just beside it, +-448 and its f32 neighbours, values
+    past 448 up to the f32 maximum, subnormals, f32 denormals, +-0, and
+    4096 normal draws at 30 magnitudes (seed 0); both signs."""
+    vals = fp8_decode(torch.arange(128, dtype=torch.uint8))[:127]  # >= 0
+    mids = (vals[1:] + vals[:-1]) / 2                     # exact in f32
+    big = torch.tensor([FP8_MAX, 460.0, 464.0, 480.0, 1e4, 3.4e38])
+    tiny = torch.tensor([2.0 ** -9, 2.0 ** -10, 3 * 2.0 ** -10,
+                         2.0 ** -6, 2.0 ** -7 + 2.0 ** -10, 1e-45, 1e-40])
+    g = torch.Generator().manual_seed(0)
+    draws = (torch.randn(4096, generator=g)[:, None]
+             * torch.logspace(-12, 17, 30, base=2.0)[None]).reshape(-1)
+    x = torch.cat([vals, mids, big, tiny, draws])
+    up = torch.nextafter(x, torch.full_like(x, float("inf")))
+    down = torch.nextafter(x, torch.zeros_like(x))
+    x = torch.cat([x, up, down])
+    x = x[torch.isfinite(x)]
+    return torch.cat([x, -x]).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +170,16 @@ def probe_tc_pairs_plain(words):
 
 def probe_fp8_planes_plain(q):
     return fp8_decode(deinterleave_fp8_rows(q, FP8_BLOCK))
+
+
+def probe_kv_codec_plain(values, scale):
+    """(the e4m3 codes of values / scale [n] uint8, the 256 codes' values
+    * scale [256] f32, the 256 codes' values twice [2, 256] f32: the
+    kernel's two load_raw reads). `scale`: f32 [1]."""
+    codes = torch.arange(256, device=values.device).to(torch.uint8)
+    raw = fp8_decode(codes)
+    return (fp8_encode(values.float() / scale), raw * scale,
+            torch.stack([raw, raw]))
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +295,33 @@ def probe_fp8_planes(q):
     return out
 
 
+def probe_kv_codec(values, scale):
+    """The fp8 KV cache's codec on the card: values f32 [n] through
+    KVCodec<__nv_fp8_e4m3>::enc at `scale` (f32 [1]); the 256 codes through
+    its dec and through the split-cache decode's load_raw, four a word and
+    one at a time. Returns (codes uint8 [n], dec f32 [256], raw f32
+    [2, 256])."""
+    if _device_kind(values, "probe_kv_codec") == "cpu":
+        return probe_kv_codec_plain(values, scale)
+    _check("probe_kv_codec", values, torch.float32)
+    _check("probe_kv_codec", scale, torch.float32)
+    if values.dim() != 1 or scale.shape != (1,):
+        raise ValueError("probe_kv_codec: values [n] and scale [1]")
+    n, dev = values.numel(), values.device
+    codes = torch.empty(n, device=dev, dtype=torch.uint8)
+    dec = torch.empty(256, device=dev, dtype=torch.float32)
+    raw = torch.empty((2, 256), device=dev, dtype=torch.float32)
+    lib = _build.load("decode_probes", _SIGNATURES)
+    _build.check(lib.tllm_probe_kv_codec(
+        _build.ptr(values), _build.ptr(scale), _build.ptr(codes),
+        _build.ptr(dec), _build.ptr(raw), n, dev.index or 0,
+        _build.stream_of(values)), "probe_kv_codec")
+    probe_kv_codec.launches += 1
+    return codes, dec, raw
+
+
 for _fn in (probe_bitcast_u32_bf16, probe_u16_ops, probe_u32_bf16_construct,
-            probe_gemv_decodes, probe_tc_pairs, probe_fp8_planes):
+            probe_gemv_decodes, probe_tc_pairs, probe_fp8_planes,
+            probe_kv_codec):
     _fn.launches = 0
 del _fn

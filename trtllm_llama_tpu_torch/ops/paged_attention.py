@@ -9,7 +9,8 @@ block is a trash block by convention: invalid table entries (-1) and
 positions past a table redirect there, never into a live block. The port
 updates the pools IN PLACE (the JAX functions return new pools; here the
 returned `PagedKVCache` holds the same tensors, written). An int8 pool
-stores clamp(round(x / scale[layer]), +-127); fp8 pools are not ported.
+stores clamp(round(x / scale[layer]), +-127), an fp8 pool (uint8 storage)
+the e4m3 code of x / scale[layer], as the dense cache does.
 
 `paged_fused_decode_attention_at` goes to kernel 14 (CUDA tensors) or its
 plain version (CPU tensors); `paged_write_decode_at` and
@@ -33,7 +34,8 @@ NEG_INF = -1e9
 
 class PagedKVCache(NamedTuple):
     """pool_k/pool_v: [L, NB, H, BS, D]; tables: [B, MB] int32 block indices
-    (-1 pad); scale: [L] f32 (int8-KV dequant scales, ones otherwise)."""
+    (-1 pad); scale: [L] f32 (int8 / fp8 KV dequant scales, ones
+    otherwise)."""
 
     pool_k: torch.Tensor
     pool_v: torch.Tensor
@@ -44,10 +46,9 @@ class PagedKVCache(NamedTuple):
 def init_paged_caches(cfg, n_blocks: int, block_size: int, batch: int,
                       max_blocks_per_seq: int, device,
                       kv_scales=None) -> PagedKVCache:
-    """Zeroed pools in `cfg.kv_dtype` (the compute dtype, or int8 with
-    INT8_KV_CACHE; fp8 is not ported yet) and an all -1 table."""
-    if cfg.kv_dtype == "fp8":
-        raise NotImplementedError("fp8 KV caches are not ported yet")
+    """Zeroed pools in `cfg.kv_dtype` (the compute dtype, int8 with
+    INT8_KV_CACHE, or e4m3 codes in uint8 with FP8_KV_CACHE) and an all -1
+    table; kv_scales: optional [L] dequant scales (default 1.0)."""
     kv_dtype = str_dtype_to_torch(cfg.kv_dtype)
     shape = (cfg.num_layers, n_blocks, cfg.num_kv_heads, block_size,
              cfg.head_dim)
@@ -64,7 +65,8 @@ def init_paged_caches(cfg, n_blocks: int, block_size: int, batch: int,
 
 
 def _quant(x, cache: PagedKVCache, layer: int):
-    """x as the pools store it (int8: true division by the layer's scale)."""
+    """x as the pools store it (int8, fp8: true division by the layer's
+    scale)."""
     return _quant_kv(x, cache.pool_k.dtype, cache.scale[layer])
 
 
@@ -107,10 +109,8 @@ def paged_fused_decode_attention_at(q, k_new, v_new, cache: PagedKVCache,
                                     layer: int, positions,
                                     scale: Optional[float] = None):
     """Decode step over the paged cache: write k/v_new [B, H_kv, D] at
-    `positions` and attend over positions+1 tokens (kernel 14). Returns
-    (out, cache)."""
-    if cache.pool_k.dtype == torch.uint8:
-        raise NotImplementedError("fp8 KV caches are not ported yet")
+    `positions` and attend over positions+1 tokens (kernel 14; float, int8
+    and fp8 pools). Returns (out, cache)."""
     out = _paged.paged_decode_attention(
         q, k_new, v_new, cache.pool_k, cache.pool_v, layer, cache.tables,
         positions, scale, kv_scale=cache.scale)

@@ -4,7 +4,7 @@
 quantized codes on the target device (int8 or int4 weight-only, fp8, or
 SmoothQuant int8), so a 7B model initialises on one card without ever
 holding its floating-point weights; with no weight quantization (the mode
-0 or the int8 KV cache alone) it draws them in the compute dtype. `quantize_params` rewrites the float
+0 or an int8 / fp8 KV cache alone) it draws them in the compute dtype. `quantize_params` rewrites the float
 projections (and, on request, the lm_head) of a parameter dict into
 quantized containers, as the JAX package's function does; containers that
 are already quantized are left as they are.
@@ -45,7 +45,8 @@ def init_random_quantized_params(cfg, seed: int = 0,
     """Random LLaMA params on `device`, drawn from a torch.Generator seeded
     with `seed` on that device. Projections as the JAX package's function
     lays them out: normal * fan_in**-0.5 in `cfg.dtype` when the mode
-    quantizes no weights (0, or INT8_KV_CACHE alone); fp8 (`FP8Weight`, uniform encodable codes, scale
+    quantizes no weights (0, or a KV-cache flag alone: the KV flags leave
+    the weights as they are); fp8 (`FP8Weight`, uniform encodable codes, scale
     fan_in**-0.5 / 448, rows declared interleaved by 128 when K allows);
     weight-only int8 or int4 (`WOQWeight`, uniform int8 bytes, which for
     int4 are two packed nibbles; scale fan_in**-0.5 / 127 per channel, or
@@ -55,9 +56,6 @@ def init_random_quantized_params(cfg, seed: int = 0,
     (normal * fan_in**-0.5), unit norms. The random streams differ from
     JAX's."""
     quant_mode = quant_mode if quant_mode is not None else cfg.quant_mode
-    if quant_mode.has_fp8_kv_cache():
-        raise NotImplementedError(
-            f"quant mode {quant_mode!r}: the fp8 KV cache is not ported")
     group_size = cfg.group_size if group_size is None else group_size
     device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
