@@ -120,8 +120,23 @@
    logits at the first differing step; an error unless their shift is
    within FUSE_GU_TOL), the fused session's prefill logits against the
    plain path (LOGITS_TOL), its logits against the unfused session's
-   (FUSE_GU_TOL), decode and device ms/token. Each path's
-   session is freed before the next starts;
+   (FUSE_GU_TOL), decode and device ms/token. Path 1 then samples
+   (run_sampling): bs1 and bs4 with temperature 0.8, top-k 40, top-p 0.95
+   and repetition penalty 1.1 and their logprobs, each twice with one
+   seed (identical tokens and logprobs), every token in the kept set of
+   the plain filter on the session's own replay (edge tokens printed with
+   their margins), logprobs within 5e-2 of the replay's; top_k=1 with
+   top_p=0.9 against the greedy tokens (near ties only); a greedy bad word
+   never emitted; a greedy stop word pair ending the run where it first
+   completes; the card's sampler against the CPU's on the bs4 prefill
+   logits with one noise tensor; device ms per sampled decode token
+   beside greedy's. Then beam search (run_beams): bs1, 4 beams, in8 out50
+   on the dense cache and with beam_paged_block 64: launches held exactly
+   (the tiled 64-row prefill on the GEMM, each 4-row decode step on the
+   tensor-core GEMV, kernel 3 or row 14 a layer a step), the two runs'
+   beams alike, the best beam's score against its replayed log-probs,
+   device ms per decode step. Each path's session is freed before the
+   next starts;
 4b. path 7, the hackathon's offline build at LLaMA-7B's full width,
    PATH7_DEPTH layers deep (the time budget; from_hf_config is checked at
    full depth): ModelConfig.from_hf_config of huggyllama/llama-7b's config.json
@@ -149,8 +164,14 @@
 6. serves with ServingEngine (int8 weight-only LLaMA-7B, bench.py's
    serving settings: 8 slots, decode_chunk 16, block 64, max_seq_len 200,
    bucket 128) 16 requests of 64 new tokens with prompts of 8-128 tokens
-   (seed 0), in five configurations, each engine freed before the next:
-   dense, paged, packed prefill, paged with an int8 and with an e4m3 KV
+   (seed 0), in six configurations, each engine freed before the next:
+   dense, "dense, per-request sampling" (return_logprobs, max_bad_words
+   4: 6 greedy requests, 6 sampled, 2 penalized with a min_length, one
+   with a two-token bad word and one with a stop word, both from the
+   dense run's tokens; the greedy ones must equal the dense run's, near
+   ties aside, the bad word never completed, the stop request end
+   "stop_words" where its pair first completes, a logprob a token),
+   paged, packed prefill, paged with an int8 and with an e4m3 KV
    cache (scale 0.05); prints
    tokens/s, latency_stats, phase_stats, the device busy share of one
    decode step (torch.profiler) and the launch counts, which must equal
@@ -174,7 +195,7 @@
 7. path 6, Bloom-7b1 at full width and depth (ALiBi, random weights drawn
    on the card, seed 0) through GenerationSession(model=decoder.BLOOM):
    bf16 weights with an 8-token prompt and 50 tokens (row 10 with slopes,
-   once per layer) and a 3072-token prompt with 32 tokens (row 12 with
+   once per layer) and a 3072-token prompt's prefill (row 12 with
    slopes), then the same tree int8 weight-only (quantize_params; kernel
    1 at Bloom's six projection shapes, held against its plain version
    first) with the 8-token prompt. Decode attention takes the JAX
@@ -273,7 +294,8 @@ DECODE_MODES = ("split", "fused")   # run again on paths 1 and 2
 SHORT_DEPTH = 8       # layers of paths 3 and 4 (make_paths)
 PATH7_DEPTH = 4       # layers of path 7's engine dir (build_offline)
 DECODE_STEPS = 16     # path 8's profiled decode steps over its e4m3 cache
-PROFILE_NEW = 16      # tokens of each profiled request (profile_generate)
+PROFILE_NEW = 8       # tokens of each profiled request (profile_generate;
+                      # 16 before the sampling and beam runs: the budget)
 # kernels whose launches decode_step_launches counts in the decode steps:
 # the split-K reduce (of the tensor-core GEMV and the GEMMs; no bs1 decode
 # step launches it) and the one-launch GEMVs that take every bs1 projection
@@ -288,10 +310,9 @@ BLOOM_7B1 = dict(vocab_size=250880, hidden_size=4096, intermediate_size=16384,
                  num_layers=30, num_heads=32, num_kv_heads=32, head_dim=128,
                  rms_norm_eps=1e-5, architecture="bloom", dtype="bfloat16",
                  max_position_embeddings=4096)
-BLOOM_LONG = 3072     # a long document summarized: row 12 runs past 2048 rows
-BLOOM_LONG_NEW = 32
+BLOOM_LONG = 3072     # a long document's prefill: row 12 runs past 2048 rows
 BLOOM_ENGINE = dict(max_batch_size=1, max_input_len=BLOOM_LONG,
-                    max_seq_len=BLOOM_LONG + BLOOM_LONG_NEW)
+                    max_seq_len=BLOOM_LONG + 1)
 # The other decoder families at their published widths, FAMILY_LAYERS deep:
 # (tag, ModelConfig fields, decode modes run).
 FAMILY_LAYERS = 2
@@ -2176,7 +2197,7 @@ def make_paths():
                     (pa, "prefill_attention_kernel")],
              modes={"split": READ_ONLY, "fused": FUSED},
              decode="dma_decode_attention",
-             fused=("woq_matmul_stacked", SWIGLU_INT8)),
+             fused=("woq_matmul_stacked", SWIGLU_INT8), sampling=True),
         dict(tag="path 2", title="SmoothQuant W8A8 (per-token activation, "
              f"per-channel weight scales), int8 KV (scale {KV_SCALE})",
              mode=(QuantMode.use_smooth_quant(per_token=True, per_channel=True)
@@ -2461,6 +2482,9 @@ def drive_path(path, sess, errors, results):
         run_decode_modes(path, sess, cfg, p1, out1, errors, results)
     if path.get("fused"):
         run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results)
+    if path.get("sampling"):
+        run_sampling(path, sess, p1, p4, out1, out4, errors, results)
+        run_beams(path, sess, p1, errors, results)
 
 
 def check_fp8kv_decode(path, sess, p1, errors, results):
@@ -2903,6 +2927,319 @@ def run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results):
     del fsess
 
 
+# ---------------------------------------------------------------------------
+# sampling and beam search on path 1's weights
+# ---------------------------------------------------------------------------
+
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95, repetition_penalty=1.1,
+               end_id=-1)
+SAMPLE_LP_TOL = 5e-2   # a run's logprobs against its replay's log_softmax
+EDGE = 1e-4            # a kept-set decision this close to its cut is an edge
+BEAM_WIDTH = 4
+BEAM_BLOCK = 64        # beam_paged_block of the paged beam run
+BEAM_ALPHA = 1.0       # the beams' length_penalty
+
+
+def _padded(prompt):
+    """(ids [B, n] int32, lens [B]) of a [B, n] array or B ragged lists."""
+    import numpy as np
+    if isinstance(prompt, (list, tuple)):
+        lens = np.array([len(p) for p in prompt], np.int32)
+        ids = np.zeros((len(prompt), int(lens.max())), np.int32)
+        for row, p in enumerate(prompt):
+            ids[row, :len(p)] = p
+        return ids, lens
+    ids = np.asarray(prompt, np.int32)
+    return ids, np.full((ids.shape[0],), ids.shape[1], np.int32)
+
+
+def near_tie(tag, logits, a, b, errors):
+    """Token a picked where b was expected, on one row's logits: a near tie
+    when b leads a by at most LOGITS_TOL x max |logits| (flip_check's
+    limit); anything else is an error."""
+    lead = float(logits[b] - logits[a])
+    limit = LOGITS_TOL * float(logits.abs().max())
+    tie = lead <= limit
+    print(f"  {tag}: {a} vs {b}, lead of {b} {lead:.5f} (limit {limit:.5f}):"
+          f" {'a near tie' if tie else 'NOT a near tie'}")
+    if not tie:
+        errors.append(f"{tag}: {a} vs {b} is not a near tie")
+
+
+def kept_set_check(tag, steps, prompt, out, scfg, errors):
+    """Each emitted token of `out` (a sampled run of scfg) must lie in the
+    kept set of the plain sampler's filter (sampling.py's functions on the
+    CPU in f32: penalties over the prompt's and earlier tokens' counts,
+    temperature, top-k, top-p) on the replayed logits `steps`. Tokens whose
+    top-k or top-p decision lies within EDGE of its cut are printed with
+    their margins (the card's exp and sums round otherwise); the run's
+    logprobs must be within SAMPLE_LP_TOL of the replay's log_softmax.
+    Returns (tokens checked, edge tokens, max logprob error)."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch.runtime import sampling as smp
+
+    ids, lens = _padded(prompt)
+    counts = smp.init_token_counts(torch.from_numpy(ids),
+                                   torch.from_numpy(lens),
+                                   steps[0].shape[-1])
+    toks = torch.from_numpy(np.asarray(out.output_ids, np.int64))
+    n_edge, lp_err, bad = 0, 0.0, []
+    for k, raw in enumerate(steps):
+        raw = raw.float().cpu()
+        z = smp._div(smp.apply_repetition_penalty(
+            raw, counts, scfg.repetition_penalty, scfg.presence_penalty,
+            scfg.frequency_penalty), scfg.temperature)
+        kept = smp.apply_top_p(smp.apply_top_k(z, scfg.top_k), scfg.top_p)
+        lsm = torch.log_softmax(raw, -1)
+        for r in range(raw.shape[0]):
+            t = int(toks[r, k])
+            lp_err = max(lp_err, abs(float(lsm[r, t])
+                                     - float(out.logprobs[r, k])))
+            zr = z[r].double()
+            kth = torch.topk(zr, scfg.top_k).values[-1]
+            zk = torch.where(zr < kth, -torch.inf, zr)
+            probs = torch.softmax(zk, -1)
+            before = float(probs[zk > zr[t]].sum())
+            m_k, m_p = float(zr[t] - kth), scfg.top_p - before
+            if min(abs(m_k), abs(m_p)) < EDGE:
+                n_edge += 1
+                print(f"  {tag} step {k} row {r}: token {t} at the edge: "
+                      f"z - kth {m_k:.3e}, top_p - mass before {m_p:.3e}, "
+                      f"kept {bool(kept[r, t] > smp.NEG_INF / 2)}")
+            elif not bool(kept[r, t] > smp.NEG_INF / 2):
+                bad.append((k, r, t, m_k, m_p))
+        smp.update_token_counts(counts, toks[:, k])
+    print(f"  {tag}: {toks.numel()} tokens, {len(bad)} outside the kept set "
+          f"({n_edge} at its edge); logprobs vs replay max abs err "
+          f"{lp_err:.3e} (tol {SAMPLE_LP_TOL})")
+    if bad:
+        errors.append(f"{tag}: tokens outside the kept set {bad[:4]}")
+    if lp_err > SAMPLE_LP_TOL:
+        errors.append(f"{tag}: logprobs off by {lp_err:.3e}")
+    return toks.numel(), n_edge, lp_err
+
+
+def card_vs_cpu_sampler(tag, logits, errors):
+    """The card's sample_step and sample_step_slots on real [B, V] logits
+    against the same functions on the CPU in f32, the same noise tensor on
+    both: the same tokens, or a near tie of logits + noise."""
+    from unittest import mock
+
+    import torch
+    from trtllm_llama_tpu_torch.runtime import sampling as smp
+
+    b, v = logits.shape
+    noise = smp.gumbel_noise((b, v), torch.Generator(
+        device="cuda").manual_seed(1)).cpu()
+    scfg = smp.SamplingConfig(**SAMPLED)
+    counts = torch.zeros((b, v), dtype=torch.int32)
+    counts[:, :64] = 1                           # some seen tokens
+    params = smp.SlotSamplingParams.neutral(b, 2, 2, "cpu")
+    for row, cfg in enumerate([
+            scfg, smp.SamplingConfig(top_p=0.9, min_length=4, end_id=7),
+            smp.SamplingConfig(temperature=1.3, top_k=5,
+                               bad_words=((int(logits[2].argmax()),),)),
+            smp.SamplingConfig()][:b]):
+        params = params.set_slot(row, cfg)
+    gen_lens = torch.arange(b, dtype=torch.int32)
+    picks = {}
+    with mock.patch.object(smp, "gumbel_noise",
+                           lambda shape, g: noise.to(g.device)):
+        for dev in ("cpu", "cuda"):
+            g = torch.Generator(device=dev)
+            x = logits.float().to(dev)
+            picks[dev] = (
+                smp.sample_step(x, scfg, g, counts.to(dev),
+                                gen_lens.to(dev)).cpu(),
+                smp.sample_step_slots(
+                    x, smp.SlotSamplingParams(*(
+                        None if t is None else t.to(dev) for t in params)),
+                    g, counts.to(dev), gen_lens.to(dev), 2).cpu())
+    for name, got, want in (("sample_step", picks["cuda"][0],
+                             picks["cpu"][0]),
+                            ("sample_step_slots", picks["cuda"][1],
+                             picks["cpu"][1])):
+        same = torch.equal(got, want)
+        print(f"  {tag} {name}: card {got.tolist()} cpu {want.tolist()}: "
+              f"{'identical' if same else 'DIFFER'}")
+        for r in (got != want).nonzero().flatten().tolist():
+            near_tie(f"{tag} {name} row {r}", (logits[r].float().cpu()
+                                               + noise[r]),
+                     int(got[r]), int(want[r]), errors)
+
+
+def run_sampling(path, sess, p1, p4, out1, out4, errors, results):
+    """Path 1's weights under sampling: bs1 and bs4 in8 out50 with SAMPLED
+    and return_logprobs, each twice with one seed (identical tokens and
+    logprobs), every token in the plain filter's kept set on the session's
+    own replay, logprobs against the replay; top_k=1 with top_p=0.9 against
+    the greedy runs; greedy with the third greedy token a bad word and with
+    greedy tokens 5-6 a stop word; the card's sampler against the CPU's on
+    the bs4 prefill logits; device ms per sampled decode token."""
+    import numpy as np
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+
+    tag, new = path["tag"], NEW_TOKENS
+    scfg = SamplingConfig(**SAMPLED)
+    wrappers = {name: getattr(mod, KERNELS[name][0])
+                for name, mod in path["kernels"].items()}
+    print(f"  {tag} sampling {SAMPLED}, return_logprobs:")
+    res = {}
+    for what, prompt in (("bs1", p1), ("bs4", p4)):
+        runs = []
+        zero_counts()
+        for _ in range(2):
+            t = time.perf_counter()
+            runs.append(sess.generate(prompt, sampling=scfg,
+                                      max_new_tokens=new, seed=0,
+                                      return_logprobs=True))
+            ms = (time.perf_counter() - t) * 1e3
+        a, b = runs
+        launches = {name: launches_of(name, fn)
+                    for name, fn in wrappers.items()}
+        for name, n in launches.items():
+            results[name]["launches"] = results[name].get("launches", 0) + n
+        same = (np.array_equal(a.output_ids, b.output_ids)
+                and np.array_equal(a.logprobs, b.logprobs))
+        print(f"  {tag} sampled {what}: {ms:.1f} ms, tokens "
+              f"{a.output_ids[0, :12].tolist()}..., the same seed twice "
+              f"identical: {same}; launches {launches}")
+        if not same:
+            errors.append(f"{tag} sampled {what}: one seed, two results")
+        if a.output_ids.shape != (len(prompt), new) or (a.lengths != new).any():
+            errors.append(f"{tag} sampled {what}: bad output")
+        steps = replay_steps(sess, prompt, a.output_ids[:, :new - 1], scfg,
+                             new)
+        n, edge, lp_err = kept_set_check(f"{tag} sampled {what}", steps,
+                                         prompt, a, scfg, errors)
+        res[what] = dict(ms=ms, tokens=n, edge=edge, logprob_err=lp_err)
+        if what == "bs4":
+            card_vs_cpu_sampler(f"{tag} bs4 prefill logits", steps[0], errors)
+    # top_k=1, top_p=0.9: the filter keeps the top token (and its ties)
+    for what, prompt, greedy in (("bs1", p1, out1), ("bs4", p4, out4)):
+        got = sess.generate(prompt, sampling=SamplingConfig(
+            top_k=1, top_p=0.9, end_id=-1), max_new_tokens=new)
+        rows = np.flatnonzero((got.output_ids != greedy.output_ids).any(1))
+        print(f"  {tag} top_k=1 top_p=0.9 {what}: tokens equal the greedy "
+              f"run's in {len(greedy.output_ids) - len(rows)} of "
+              f"{len(greedy.output_ids)} rows")
+        for r in rows:
+            k = int(np.flatnonzero(got.output_ids[r] != greedy.output_ids[r])[0])
+            logits = replay_logits(sess, prompt, got.output_ids[:, :k],
+                                   SamplingConfig(end_id=-1), new)[r].float()
+            near_tie(f"{tag} top_k=1 {what} row {r} step {k}", logits,
+                     int(got.output_ids[r, k]), int(greedy.output_ids[r, k]),
+                     errors)
+    g = [int(t) for t in out1.output_ids[0]]
+    ban = g[2]
+    got = sess.generate(p1, sampling=SamplingConfig(
+        end_id=-1, bad_words=((ban,),)), max_new_tokens=new).output_ids[0]
+    first = g.index(ban)          # the greedy tokens before it stay
+    ok = ban not in got.tolist() and got.tolist()[:first] == g[:first]
+    print(f"  {tag} greedy, bad word ({ban},): {len(got)} tokens, {ban} "
+          f"never among them: {ok} ({got[:6].tolist()}...)")
+    if not ok:
+        errors.append(f"{tag}: the bad word {ban} was emitted")
+    stop = (g[5], g[6])
+    seq = [int(t) for t in p1[0]] + g
+    n0 = len(p1[0])
+    want = next(k + 1 for k in range(len(g))
+                if tuple(seq[n0 + k - 1:n0 + k + 1]) == stop)
+    out = sess.generate(p1, sampling=SamplingConfig(
+        end_id=-1, stop_words=(stop,)), max_new_tokens=new)
+    ok = (int(out.lengths[0]) == want
+          and out.output_ids[0, :want].tolist() == g[:want])
+    print(f"  {tag} greedy, stop word {stop}: length {int(out.lengths[0])} "
+          f"(expected {want}, where the pair first completes): "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        errors.append(f"{tag}: stop word run length {out.lengths[0]} != {want}")
+    dev_tok, busy = profile_generate(sess, p1, scfg, row_limit=10)
+    greedy_tok = results["_e2e"][tag]["device_ms_per_decode_token"]
+    print(f"  {tag} sampled bs1: {dev_tok:.3f} device ms per decode token "
+          f"(greedy {greedy_tok:.3f}, {100 * (dev_tok / greedy_tok - 1):+.1f}%)")
+    results["_e2e"][f"{tag} sampled"] = dict(
+        layers=sess.cfg.num_layers, config=SAMPLED, runs=res,
+        device_ms_per_decode_token=dev_tok, device_busy_share=busy,
+        greedy_device_ms_per_decode_token=greedy_tok)
+
+
+def run_beams(path, sess, p1, errors, results):
+    """Beam search on path 1's weights: bs1, BEAM_WIDTH beams, in8 out50,
+    on the dense cache and with beam_paged_block=BEAM_BLOCK: launches held
+    exactly (the tiled 64-row prefill on the GEMM, 5 a layer; each decode
+    step's 4 rows on the tensor-core GEMV, 5 a layer; kernel 3 or row 14 a
+    layer a step; row 10 a layer), the two runs' beams identical (or scores
+    within SAMPLE_LP_TOL where they differ), the best beam's score against
+    its replayed log-probs over its length norm, device ms per decode
+    step."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    tag, new, n_l = path["tag"], NEW_TOKENS, sess.cfg.num_layers
+    scfg = SamplingConfig(beam_width=BEAM_WIDTH, end_id=-1,
+                          length_penalty=BEAM_ALPHA)
+    psess = GenerationSession(sess.cfg, sess.params, sess.engine_cfg,
+                              device="cuda", beam_paged_block=BEAM_BLOCK)
+    outs = {}
+    for what, s, decode in (("dense", sess, "dma_decode_attention"),
+                            (f"paged {BEAM_BLOCK}", psess,
+                             "paged_decode_attention")):
+        s.generate(p1, sampling=scfg, max_new_tokens=4)      # warm-up
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = s.generate(p1, sampling=scfg, max_new_tokens=new)
+        ms = (time.perf_counter() - t) * 1e3
+        counts = read_counts()
+        steps = new - 1
+        expect = {"woq_matmul_stacked": 5 * n_l * (1 + steps),
+                  "woq_matmul_stacked.gemm_launches": 5 * n_l,
+                  "woq_matmul_stacked.tc_launches": 5 * n_l * steps,
+                  "prefill_attention_kernel": n_l, decode: n_l * steps}
+        check_counts(f"{tag} beams {what}", counts,
+                     dict(launches=expect, alibi_decode=0), errors)
+        for name, n in ((GEMM_INT8, 5 * n_l), (TC_INT8, 5 * n_l * steps),
+                        ("prefill_attention_kernel", n_l), (decode,
+                                                            n_l * steps)):
+            results[name]["launches"] = results[name].get("launches", 0) + n
+        dev_step, busy = profile_generate(s, p1, scfg, row_limit=8)
+        print(f"  {tag} beams {what}: {ms:.1f} ms for {new} tokens x "
+              f"{BEAM_WIDTH} beams, {dev_step:.3f} device ms per decode step;"
+              f" best beam {out.output_ids[0, :10].tolist()}..., scores "
+              f"{np.round(out.beam_scores[0], 4).tolist()}")
+        outs[what] = out
+        results["_e2e"][f"{tag} beams {what}"] = dict(
+            layers=n_l, beam_width=BEAM_WIDTH, ms=ms,
+            device_ms_per_decode_step=dev_step, device_busy_share=busy,
+            scores=out.beam_scores[0].tolist())
+    dense, paged = outs.values()
+    same = np.array_equal(dense.beam_ids, paged.beam_ids)
+    gap = float(np.abs(dense.beam_scores - paged.beam_scores).max())
+    print(f"  {tag} beams dense vs paged: identical {same}; scores differ by "
+          f"at most {gap:.3e}")
+    if not same and gap > SAMPLE_LP_TOL:
+        errors.append(f"{tag} beams: dense and paged differ beyond a tie")
+    best = dense.output_ids                       # [1, new]
+    steps = replay_steps(sess, p1, best[:, :new - 1],
+                         SamplingConfig(end_id=-1), new)
+    n = int(dense.lengths[0])
+    total = sum(float(torch.log_softmax(l[0].float(), -1)[int(best[0, k])])
+                for k, l in enumerate(steps[:n]))
+    want = total / ((5.0 + n) / 6.0) ** BEAM_ALPHA
+    err = abs(want - float(dense.beam_scores[0, 0]))
+    print(f"  {tag} best beam: score {float(dense.beam_scores[0, 0]):.5f}, "
+          f"replayed log-probs {total:.5f} over the length norm {want:.5f}: "
+          f"err {err:.3e} (tol {SAMPLE_LP_TOL}) "
+          f"{'ok' if err <= SAMPLE_LP_TOL else 'FAIL'}")
+    if err > SAMPLE_LP_TOL:
+        errors.append(f"{tag}: best beam score off its replay by {err:.3e}")
+    del psess
+
+
 def replay_logits(sess, prompt, tokens, scfg, new):
     """f32 logits [B, V] that pick token k of `sess.generate(prompt,
     max_new_tokens=new)` in the current decode_attn_mode, with `tokens`
@@ -2911,6 +3248,12 @@ def replay_logits(sess, prompt, tokens, scfg, new):
     own calls (bucket, cache rows, prefill, one decode step per token), so
     it reproduces a run whose first k tokens were `tokens`. A row's logits
     do not depend on the other rows' tokens, only on the batch's shape."""
+    return replay_steps(sess, prompt, tokens, scfg, new)[-1]
+
+
+def replay_steps(sess, prompt, tokens, scfg, new):
+    """As replay_logits, the logits of every step: [k + 1] tensors [B, V],
+    those that picked tokens 0..k."""
     import numpy as np
     import torch
     from trtllm_llama_tpu_torch.models import llama
@@ -2935,13 +3278,15 @@ def replay_logits(sess, prompt, tokens, scfg, new):
         lens = torch.as_tensor(n, device="cuda")
         logits, caches = llama.forward_prefill(sess.params, cfg, ids, lens,
                                                caches, rope=sess.rope)
+        steps = [logits]
         pos = lens.clone()
         for t in np.asarray(tokens, np.int32).T:       # one step's [B] ids
             tok = torch.as_tensor(t, device="cuda")
             logits, caches = llama.forward_decode(sess.params, cfg, tok, pos,
                                                   caches, rope=sess.rope)
+            steps.append(logits)
             pos += 1
-    return logits
+    return steps
 
 
 def run_decode_modes(path, sess, cfg, prompt, out_auto, errors, results):
@@ -3572,13 +3917,112 @@ def gemv_8192_yardsticks(sess, results):
 
 # (name, engine options, KV cache kind: None for the compute dtype, "int8"
 # or "e4m3" at KV_SCALE)
+PER_REQUEST = "dense, per-request sampling"
 SERVE_CONFIGS = [
     ("dense", {}, None),
+    (PER_REQUEST, dict(per_request_sampling=True, return_logprobs=True,
+                       max_bad_words=4), None),
     ("paged", dict(paged=True, block_size=SERVE_BLOCK), None),
     ("packed", dict(packed_prefill=True), None),
     ("paged int8 KV", dict(paged=True, block_size=SERVE_BLOCK), "int8"),
     ("paged fp8 KV", dict(paged=True, block_size=SERVE_BLOCK), "e4m3"),
 ]
+
+
+def serving_sampling(dense):
+    """The per-request configs of the sampled serving run, one a request,
+    from the dense greedy run's tokens `dense`: 6 greedy (None), 6 with
+    temperature / top-k / top-p, 2 with penalties and a min_length, one
+    with a two-token bad word and one with a stop word (both taken from its
+    dense tokens), the stop request among the second wave's prompts so the
+    admission waves stay those of the other configurations."""
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+
+    def cfg(**kw):
+        return SamplingConfig(end_id=-1, **kw)
+    sampled = [cfg(temperature=0.8, top_k=40, top_p=0.95),
+               cfg(temperature=1.0, top_p=0.9), cfg(temperature=0.7, top_k=20),
+               cfg(temperature=1.2, top_k=50, top_p=0.8),
+               cfg(top_p=0.5), cfg(temperature=0.9, top_k=5)]
+    out = [None] * SERVE_REQUESTS
+    for i, c in zip((1, 4, 7, 10, 13, 14), sampled):
+        out[i] = c
+    out[2] = cfg(repetition_penalty=1.1, min_length=8)
+    out[5] = cfg(presence_penalty=0.5, frequency_penalty=0.3, min_length=4)
+    out[8] = cfg(bad_words=((dense[8][4], dense[8][5]),))
+    out[11] = cfg(stop_words=((dense[11][5], dense[11][6]),))
+    return out
+
+
+def serving_replay(eng, prompt, tokens):
+    """f32 logits [V] that follow `prompt` and then `tokens` on the
+    engine's weights, replayed at bs1 (the 128-token bucket, then one
+    decode step a token)."""
+    import torch
+    from trtllm_llama_tpu_torch.models import llama
+
+    cfg, dev = eng.cfg, eng.device
+    bucket = max(SERVE_ENGINE["prefill_buckets"])
+    with torch.inference_mode():
+        ids = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+        ids[0, :len(prompt)] = torch.as_tensor(prompt, device=dev)
+        pos = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+        caches = llama.init_caches(cfg, 1, SERVE_ENGINE["max_seq_len"], dev,
+                                   eng.kv_scales)
+        logits, caches = llama.forward_prefill(eng.params, cfg, ids, pos,
+                                               caches, rope=eng.rope)
+        pos = pos.clone()
+        for t in tokens:
+            logits, caches = llama.forward_decode(
+                eng.params, cfg, torch.tensor([t], dtype=torch.int32,
+                                              device=dev), pos, caches,
+                rope=eng.rope)
+            pos += 1
+    return logits[0].float()
+
+
+def check_serving_sampling(eng, prompts, done, rids, cfgs, dense, errors):
+    """The sampled serving run's requests: greedy ones equal the dense
+    run's tokens (a difference must be a near tie on a bs1 replay), the
+    bad word never completed, the stop request finished "stop_words" where
+    its pair first completes, the others SERVE_NEW tokens; one logprob a
+    token everywhere."""
+    outs = [list(done[r].output_ids) for r in rids]
+    greedy = [i for i, c in enumerate(cfgs) if c is None]
+    differ = [i for i in greedy if outs[i] != dense[i]]
+    print(f"  {PER_REQUEST}: greedy requests {greedy} equal the dense run's "
+          f"tokens but {differ}")
+    for i in differ:
+        k = next(j for j, (a, b) in enumerate(zip(outs[i], dense[i]))
+                 if a != b)
+        near_tie(f"{PER_REQUEST} greedy request {i} token {k}",
+                 serving_replay(eng, prompts[i], outs[i][:k]), outs[i][k],
+                 dense[i][k], errors)
+    (b1, b2), = cfgs[8].bad_words
+    bad = outs[8]
+    ok_bad = (b1, b2) not in zip(bad, bad[1:]) and len(bad) == SERVE_NEW
+    stop = cfgs[11].stop_words[0]
+    want = next(k + 1 for k in range(1, len(dense[11]))
+                if tuple(dense[11][k - 1:k + 1]) == stop)
+    ok_stop = (outs[11] == dense[11][:want]
+               and done[rids[11]].finished_reason == "stop_words")
+    ok_lp = all(len(done[r].logprobs) == len(done[r].output_ids)
+                for r in rids)
+    ok_len = all(len(outs[i]) == SERVE_NEW for i in range(SERVE_REQUESTS)
+                 if i != 11)
+    print(f"  {PER_REQUEST}: bad word ({b1}, {b2}) never completed: {ok_bad}"
+          f" (dense completed it at token 5); stop word {stop} ends request "
+          f"11 at {len(outs[11])} tokens, reason "
+          f"{done[rids[11]].finished_reason!r} (expected {want}): {ok_stop}; "
+          f"one logprob a token: {ok_lp}; the rest {SERVE_NEW} tokens: "
+          f"{ok_len}; sampled requests' first tokens "
+          f"{[outs[i][0] for i in (1, 4, 7, 10, 13, 14)]}")
+    for ok, what in ((ok_bad, "a bad word was completed"),
+                     (ok_stop, "the stop request did not stop at its pair"),
+                     (ok_lp, "a request lacks a logprob a token"),
+                     (ok_len, f"a request did not return {SERVE_NEW} tokens")):
+        if not ok:
+            errors.append(f"serving {PER_REQUEST}: {what}")
 
 
 def run_serving(args, errors, results):
@@ -3646,7 +4090,10 @@ def run_serving(args, errors, results):
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rids = [eng.submit(p, SERVE_NEW) for p in prompts]
+        cfgs = (serving_sampling(outs["dense"]) if eng.per_request
+                else [None] * SERVE_REQUESTS)
+        rids = [eng.submit(p, SERVE_NEW, sampling=c)
+                for p, c in zip(prompts, cfgs)]
         done = eng.run_to_completion()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3680,6 +4127,16 @@ def run_serving(args, errors, results):
         bad = [r for r in rids if r not in done
                or len(done[r].output_ids) != SERVE_NEW
                or done[r].finished_reason != "length"]
+        tok_s = n_tokens / wall
+        if eng.per_request:
+            n_gen = sum(len(done[r].output_ids) for r in rids if r in done)
+            tok_s = n_gen / wall
+            print(f"  serving {name}: {tok_s:.1f} generated tokens/s "
+                  f"({n_gen} tokens: the stop request ends early)")
+            bad = [r for r in rids if r not in done]
+            if not bad:
+                check_serving_sampling(eng, prompts, done, rids, cfgs,
+                                       outs["dense"], errors)
         if bad:
             errors.append(f"serving {name}: requests {bad} did not return "
                           f"{SERVE_NEW} tokens")
@@ -3692,7 +4149,7 @@ def run_serving(args, errors, results):
         busy = profile_serving_step(eng, prompts,
                                     gemv_side_by_side=name == "dense")
         results["_e2e"][f"serving {name}"] = dict(
-            layers=n_l, tokens_per_s=n_tokens / wall, wall_s=wall,
+            layers=n_l, tokens_per_s=tok_s, wall_s=wall,
             latency=stats, phases=phases, calls=calls, **busy)
         del eng
         gc.collect()
@@ -3814,9 +4271,9 @@ def check_gemm_vs_gemv_waves(eng, prompts, errors):
 
 
 def profile_serving_step(eng, prompts, gemv_side_by_side=False):
-    """Admits 8 requests under the profiler (the admission step: one batched
-    or packed prefill of the 8 prompts, then a decode chunk), times the next,
-    decode-only step (one chunk of decode_chunk steps) on the host clock and
+    """Admits 8 requests (the admission step: one batched or packed prefill
+    of the 8 prompts, then a decode chunk; unprofiled, for the smoke's
+    time budget), times the next, decode-only step (one chunk of decode_chunk steps) on the host clock and
     profiles the one after it: device time by kernel and the device's busy
     share of the unprofiled decode step; with gemv_side_by_side, profiles
     one more decode step with kernel 1 forced onto its one-row GEMV (its
@@ -3837,12 +4294,8 @@ def profile_serving_step(eng, prompts, gemv_side_by_side=False):
 
     for p in prompts[:SERVE_ENGINE["max_batch_size"]]:
         eng.submit(p, SERVE_NEW)
+    eng.step()
     torch.cuda.synchronize()
-    admit_ms, events = profiled_step()
-    print(f"  profile of the admission step (prefill of 8 prompts + one "
-          f"decode chunk): device busy {admit_ms:.2f} ms")
-    print(events.table(sort_by="self_device_time_total", row_limit=6,
-                       max_name_column_width=60))
     t0 = time.perf_counter()
     eng.step()
     torch.cuda.synchronize()
@@ -3862,7 +4315,7 @@ def profile_serving_step(eng, prompts, gemv_side_by_side=False):
           f"{100 - 100 * dev_ms / step_ms:.1f}% idle")
     print(events.table(sort_by="self_device_time_total", row_limit=12,
                        max_name_column_width=60))
-    return dict(admit_step_device_ms=admit_ms, step_ms=step_ms,
+    return dict(step_ms=step_ms,
                 step_device_ms=dev_ms, step_busy_share=dev_ms / step_ms,
                 **extra)
 
@@ -4457,7 +4910,7 @@ def run_bloom(args, errors, results):
     """Path 6: Bloom-7b1 at full width and depth through
     GenerationSession(model=decoder.BLOOM). 6a, bf16 weights: the 8-token
     prompt with 50 tokens (row 10 with slopes, once per layer), the
-    3072-token prompt with 32 tokens (row 12 with slopes); 6b, the same
+    3072-token prompt's prefill (row 12 with slopes); 6b, the same
     tree through quantize_params (int8 weight-only per channel): the
     8-token prompt (kernel 1 at Bloom's six projection shapes). Decode
     attention takes the JAX package's plain ALiBi branch (counted apart).
@@ -4504,24 +4957,19 @@ def run_bloom(args, errors, results):
         launches={"prefill_attention_kernel": n_l},
         alibi_decode=n_l * (NEW_TOKENS - 1)), errors, results, floors["bf16"])
     results[ALIBI_PREFILL]["launches"] = n_l
+    # the long request is its prefill alone (one token: a decode over the
+    # 3k cache is left out for the smoke's time budget)
+    timed_generate(sess, long, 1)                      # warm-up
     zero_counts()
-    out, ms = timed_generate(sess, long, BLOOM_LONG_NEW)
-    check_counts(f"path 6a bf16 in{BLOOM_LONG} out{BLOOM_LONG_NEW}",
-                 read_counts(), dict(
-                     launches={"streaming_prefill_attention_kernel": n_l},
-                     alibi_decode=n_l * (BLOOM_LONG_NEW - 1)),
-                 errors)
+    out, pre_ms = timed_generate(sess, long, 1)
+    check_counts(f"path 6a bf16 in{BLOOM_LONG} out1", read_counts(), dict(
+        launches={"streaming_prefill_attention_kernel": n_l},
+        alibi_decode=0), errors)
     results[ALIBI_STREAMING]["launches"] = n_l
-    check_tokens(f"path 6a in{BLOOM_LONG}", out, BLOOM_LONG_NEW,
-                 cfg.vocab_size, errors)
-    zero_counts()
-    _, pre_ms = timed_generate(sess, long, 1)
-    print(f"  bs1 in{BLOOM_LONG} out{BLOOM_LONG_NEW}: {ms:.1f} ms end to end; "
-          f"prefill {pre_ms:.1f} ms; decode {(ms - pre_ms) / (BLOOM_LONG_NEW - 1):.3f}"
-          " ms/token over the 3k cache")
+    check_tokens(f"path 6a in{BLOOM_LONG}", out, 1, cfg.vocab_size, errors)
+    print(f"  bs1 in{BLOOM_LONG} out1: prefill {pre_ms:.1f} ms")
     results["_e2e"][f"path 6a bf16 in{BLOOM_LONG}"] = dict(
-        layers=n_l, prefill_ms=pre_ms, e2e_ms=ms,
-        decode_ms_per_token=(ms - pre_ms) / (BLOOM_LONG_NEW - 1))
+        layers=n_l, prefill_ms=pre_ms)
     for what, ids in (("in8", short), (f"in{BLOOM_LONG}", long)):
         got, ref = first_logits(BLOOM, sess, ids, attn_pairs)
         compare(f"path 6a {what} first-step logits, kernels vs plain", got,

@@ -9,8 +9,10 @@ streaming prefill and the 'split' and 'fused' decode modes; the five
 decoder families of models/decoder.py, picked by models.by_architecture,
 Bloom's ALiBi included; the offline build from an HF-layout state dict
 through SmoothQuant, static W8A8 + int8 KV, the engine dir and the loader,
-generating under TLLM_FUSE_GU; the decode probes) and serves (a paged and
-a packed ServingEngine) with both made unimportable."""
+generating under TLLM_FUSE_GU; the decode probes; a sampled generate with
+penalties, bad and stop words and logprobs; beam search, dense and paged)
+and serves (a paged and a packed ServingEngine, and one with per-request
+sampling, logprobs and bad words) with both made unimportable."""
 
 import ast
 import subprocess
@@ -54,7 +56,9 @@ def test_no_module_imports_jax_or_the_jax_package():
             "trtllm_llama_tpu_torch/convert/convert.py",
             "trtllm_llama_tpu_torch/quantization/calibrate.py",
             "trtllm_llama_tpu_torch/quantization/smoothquant.py",
-            "trtllm_llama_tpu_torch/ops/kernels/probes.py"} <= names
+            "trtllm_llama_tpu_torch/ops/kernels/probes.py",
+            "trtllm_llama_tpu_torch/runtime/beam.py",
+            "trtllm_llama_tpu_torch/runtime/sampling.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert not bad, bad
@@ -79,6 +83,19 @@ sess = GenerationSession(cfg, init_random_quantized_params(cfg, device="cpu"),
 out = sess.generate([[5, 6, 7], [8, 9]], sampling=SamplingConfig(end_id=-1),
                     max_new_tokens=4)
 assert out.output_ids.shape == (2, 4), out.output_ids.shape
+out = sess.generate([[5, 6, 7], [8, 9]], max_new_tokens=4, seed=1,
+                    return_logprobs=True, sampling=SamplingConfig(
+                        temperature=0.8, top_k=40, top_p=0.95,
+                        repetition_penalty=1.1, bad_words=((3, 4),),
+                        stop_words=((7, 7),), end_id=-1))
+assert out.logprobs.shape == (2, 4), out.logprobs.shape
+for block in (0, 8):
+    beam = GenerationSession(cfg, sess.params, EngineConfig(
+        max_batch_size=4, max_input_len=16, max_seq_len=32), device="cpu",
+        beam_paged_block=block).generate(
+        [[5, 6, 7], [8, 9]], max_new_tokens=4,
+        sampling=SamplingConfig(beam_width=2, end_id=-1))
+    assert beam.beam_ids.shape == (2, 2, 4), beam.beam_ids.shape
 sq = ModelConfig.tiny(dtype="float32", quant_mode=QuantMode.use_smooth_quant(
     per_token=True, per_channel=True) | QuantMode.INT8_KV_CACHE)
 sess = GenerationSession(sq, init_random_quantized_params(sq, device="cpu"),
@@ -127,6 +144,16 @@ for opts in (dict(paged=True, block_size=8), dict(packed_prefill=True)):
     done = eng.run_to_completion()
     assert sorted(done) == rids and all(
         len(done[r].output_ids) == 5 for r in rids), done
+eng = ServingEngine(cfg, params, EngineConfig(max_batch_size=2,
+                    max_input_len=16, max_seq_len=32),
+                    sampling=SamplingConfig(end_id=-1), decode_chunk=4,
+                    device="cpu", per_request_sampling=True,
+                    return_logprobs=True, max_bad_words=2)
+rids = [eng.submit([5, 6, 7], 5, sampling=SamplingConfig(
+            temperature=0.7, top_p=0.9, end_id=-1, bad_words=((9,),))),
+        eng.submit([8, 9], 5)]
+done = eng.run_to_completion()
+assert all(len(done[r].logprobs) == len(done[r].output_ids) for r in rids)
 import os, shutil, tempfile, types
 import numpy as np
 from trtllm_llama_tpu_torch.convert.convert import cast_fp_leaves

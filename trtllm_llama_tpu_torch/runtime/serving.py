@@ -28,11 +28,23 @@ Three cache configurations, as in the JAX engine:
 - `packed_prefill=True` (dense cache): all admits of a step prefill as ONE
   packed token stream (kernel 13), pad tokens writing to the trash slot.
 
-Greedy engine-default sampling only, without `min_length` (the JAX engine
-passes no generated lengths to its sampler). Per-request sampling, bad and
-stop words, logprobs, chunked prefill, the mixed and pipelined steps,
-sharded or multi-host serving and the speculative engines are not ported
-yet and raise NotImplementedError.
+Sampling, as the JAX engine's: every admission and decode step samples
+through one helper (`_sample`). By default it runs the engine's
+SamplingConfig (`sampling.sample_step`, without token counts or generated
+lengths, as the JAX engine passes none) with the engine's device
+generator, seeded 0. `per_request_sampling=True`: per-slot parameters on
+the device (`SlotSamplingParams`, one row a slot, the trash row neutral),
+set at admission from `submit(sampling=)` or the engine default, and
+`sample_step_slots` over them with per-slot token counts (seeded from each
+prompt at admission, updated by active rows) and generated lengths (for
+`min_length`); `max_bad_words` / `max_bad_word_len` add per-slot bad words
+over a tail of each slot's generated tokens. Stop words are matched on the
+host at chunk boundaries, on the recorded ids ("stop_words"; the stop
+sequence stays in the output). `return_logprobs`: the model's logprob of
+each token, read back with the chunk's tokens in its one readback.
+Chunked prefill, the mixed and pipelined steps, `model=`, sharded or
+multi-host serving and the speculative engines are not ported yet and
+raise NotImplementedError.
 
 The port updates every cache in place (JAX returns new ones), so an
 admission writes into its slots or blocks while other slots hold live K/V:
@@ -59,7 +71,9 @@ from ..ops.attention import PackedMeta
 from ..ops.paged_attention import init_paged_caches
 from ..ops.rope import rope_tables_for
 from .kv_cache_manager import KVCacheManager
-from .sampling import SamplingConfig, sample_step
+from .sampling import (SamplingConfig, SlotSamplingParams,
+                       init_token_counts, sample_step, sample_step_slots,
+                       update_tail, update_token_counts)
 from .scheduler import Request, Scheduler
 from .session import _params_to
 
@@ -69,6 +83,7 @@ class FinishedRequest:
     request_id: int
     output_ids: List[int]
     finished_reason: str
+    logprobs: Optional[List[float]] = None   # set when return_logprobs
 
 
 def pack_prompts(prompts, slots, t_bucket: int, trash_slot: int,
@@ -129,21 +144,29 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  return_logprobs: bool = False,
                  max_bad_words: int = 0,
+                 max_bad_word_len: int = 4,
                  mixed_step: bool = False,
                  pipelined: bool = False,
                  mapping=None, mesh=None, device="cuda"):
-        unported = {"model": model,
-                    "per_request_sampling": per_request_sampling,
-                    "prefill_chunk": prefill_chunk,
-                    "return_logprobs": return_logprobs,
-                    "max_bad_words": max_bad_words, "mixed_step": mixed_step,
-                    "pipelined": pipelined, "mapping": mapping, "mesh": mesh}
+        unported = {"model": model, "prefill_chunk": prefill_chunk,
+                    "mixed_step": mixed_step, "pipelined": pipelined,
+                    "mapping": mapping, "mesh": mesh}
         named = [k for k, v in unported.items() if v]
         if named:
             raise NotImplementedError(
                 f"ServingEngine: not ported yet: {', '.join(named)}")
         self.scfg = sampling or SamplingConfig()
-        self.scfg.check_supported()        # greedy; no bad / stop words
+        self.per_request = per_request_sampling
+        self.return_logprobs = return_logprobs
+        self.max_bad_words = max_bad_words
+        self.max_bad_word_len = max_bad_word_len if max_bad_words else 0
+        if max_bad_words and not per_request_sampling:
+            raise ValueError("max_bad_words needs per_request_sampling=True")
+        if self.scfg.bad_words and not max_bad_words:
+            raise ValueError(
+                "engine-default bad_words need max_bad_words > 0 (and "
+                "per_request_sampling=True)")
+        self._check_bad_word_ids(self.scfg.bad_words, cfg.vocab_size)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine_cfg = engine_cfg
@@ -192,6 +215,23 @@ class ServingEngine:
         self.slot_active = self._dev(np.zeros((self.n_rows,), bool))
         self.slot_budget = self._dev(np.zeros((self.n_rows,), np.int32))
         self.slot_gen = self._dev(np.zeros((self.n_rows,), np.int32))
+        # the draws' generator, seeded 0 as the JAX engine's PRNGKey(0)
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed(0)
+        if self.per_request:
+            self.slot_params = SlotSamplingParams.neutral(
+                self.n_rows, max_bad_words, self.max_bad_word_len, dev)
+            self.slot_counts = torch.zeros((self.n_rows, cfg.vocab_size),
+                                           dtype=torch.int32, device=dev)
+        if max_bad_words:
+            # each slot's last L - 1 generated tokens; -2 before generation
+            # (never a token, so a word longer than the history cannot
+            # match)
+            self.slot_tail = torch.full(
+                (self.n_rows, max(self.max_bad_word_len - 1, 1)), -2,
+                dtype=torch.int32, device=dev)
+        self._req_sampling: Dict[int, SamplingConfig] = {}
+        self._req_logprobs: Dict[int, List[float]] = {}
         # wall time per phase: admission (prefill + its token readback),
         # decode dispatch (the host enqueueing the chunk's steps), readback
         # (waits for the device to finish the chunk, then copies its tokens)
@@ -269,10 +309,65 @@ class ServingEngine:
     def _dev(self, x):
         return torch.as_tensor(np.asarray(x), device=self.device)
 
-    def _register_prefilled(self, reqs: List[Request],
-                            tokens: np.ndarray) -> List[FinishedRequest]:
+    @staticmethod
+    def _check_bad_word_ids(bad_words, vocab_size: int):
+        if any(t < 0 or t >= vocab_size for w in bad_words for t in w):
+            raise ValueError(
+                f"bad_words token ids must be in [0, {vocab_size})")
+
+    def _sample(self, logits, rows=None, counts=None, gen_lens=None,
+                tail=None):
+        """The engine's sampler, for admissions and decode steps alike:
+        per-request, `sample_step_slots` over the slot parameters of `rows`
+        (a device index; all rows when None) with token counts, generated
+        lengths and the bad-word tail; else the engine's SamplingConfig."""
+        if not self.per_request:
+            return sample_step(logits, self.scfg, self._gen)
+        params = self.slot_params if rows is None else self.slot_params.rows(
+            rows)
+        return sample_step_slots(logits, params, self._gen, counts, gen_lens,
+                                 self.scfg.end_id, tail)
+
+    @staticmethod
+    def _chosen_logprobs(logits, tokens):
+        """The model's log-softmax of each row's token ([B] f32)."""
+        lsm = torch.log_softmax(logits.float(), dim=-1)
+        return lsm.gather(1, tokens.clamp_min(0).long()[:, None])[:, 0]
+
+    def _sample_admitted(self, logits, rows, counts):
+        """First tokens of an admission (device [n]) and their logprobs, or
+        None. Per-request: `counts` ([n, V], the prompts') take the token
+        and become the rows' slot counts; a first token sees no tail, so
+        only single-token bad words apply to it."""
+        zeros = torch.zeros(logits.shape[0], dtype=torch.int32,
+                            device=logits.device)
+        tokens = self._sample(logits, rows, counts, zeros)
+        if self.per_request:
+            self.slot_counts[rows] = update_token_counts(counts, tokens)
+        lps = (self._chosen_logprobs(logits, tokens) if self.return_logprobs
+               else None)
+        return tokens, lps
+
+    @staticmethod
+    def _read(tokens, lps):
+        """(tokens, logprobs or None) as numpy in one device-to-host copy:
+        the f32 logprobs travel as their int32 bit patterns."""
+        if lps is None:
+            return tokens.cpu().numpy(), None
+        both = torch.stack([tokens, lps.view(torch.int32)]).cpu().numpy()
+        return both[0], both[1].view(np.float32)
+
+    def _set_slot_params(self, reqs: List[Request]):
+        for req in reqs:
+            self.slot_params = self.slot_params.set_slot(
+                req.slot, self._req_sampling.get(req.request_id, self.scfg))
+
+    def _register_prefilled(self, reqs: List[Request], tokens: np.ndarray,
+                            lps: Optional[np.ndarray] = None
+                            ) -> List[FinishedRequest]:
         """Activate freshly prefilled slots (one upload for the group), then
-        record each request's first token."""
+        record each request's first token (and its logprob), finishing it on
+        EOS, its budget or a stop word."""
         slots = self._dev(np.array([r.slot for r in reqs], np.int64))
         vals = self._dev(np.stack([
             np.array([len(r.input_ids) for r in reqs], np.int32),
@@ -283,12 +378,50 @@ class ServingEngine:
         self.slot_budget[slots] = vals[2]
         self.slot_active[slots] = True
         self.slot_gen[slots] = 1
+        if self.max_bad_words:
+            # reseed tails: the -2 sentinel, then the first token (bad
+            # words match generated ids only)
+            rows = np.full((len(reqs), self.slot_tail.shape[1]), -2, np.int32)
+            rows[:, -1] = tokens[:len(reqs)]
+            self.slot_tail[slots] = self._dev(rows)
         finished = []
         for i, req in enumerate(reqs):
+            if lps is not None:
+                self._req_logprobs.setdefault(req.request_id, []).append(
+                    float(lps[i]))
             if self._record_token(req, int(tokens[i])):
                 self._release_slot(req.slot)
-                finished.append(self._finished(req))
+                finished.append(self._finish_recorded(req))
+            elif self._stop_matched(req):
+                finished.append(self._finish_stopped(req))
         return finished
+
+    def _stop_matched(self, req: Request) -> bool:
+        """Does the request's output end with one of its stop words (its
+        own SamplingConfig's, or the engine's)? Checked on the host on the
+        recorded ids; tokens the device decoded past the match are
+        dropped with the slot."""
+        out = req.output_ids
+        for w in self._req_sampling.get(req.request_id, self.scfg).stop_words:
+            if w and len(out) >= len(w) and tuple(out[-len(w):]) == tuple(w):
+                return True
+        return False
+
+    def _finish_stopped(self, req: Request) -> FinishedRequest:
+        t = self._req_times.get(req.request_id)
+        if t is not None and t[2] is None:
+            t[2] = time.perf_counter()
+        self.scheduler.finish(req.request_id, "stop_words")
+        self._release_slot(req.slot)
+        return self._finished(req)
+
+    def _finish_recorded(self, req: Request) -> FinishedRequest:
+        """A request record_token just closed: a stop word completed by the
+        token that exhausted its budget reports "stop_words", as the
+        reference's stop criterion runs on the final step too."""
+        if req.finished_reason == "length" and self._stop_matched(req):
+            req.finished_reason = "stop_words"
+        return self._finished(req)
 
     def _record_token(self, req: Request, token: int) -> bool:
         """scheduler.record_token + latency stamps (TTFT on the first
@@ -338,8 +471,11 @@ class ServingEngine:
         return out
 
     def _finished(self, req: Request) -> FinishedRequest:
-        return FinishedRequest(req.request_id, req.output_ids,
-                               req.finished_reason)
+        self._req_sampling.pop(req.request_id, None)
+        return FinishedRequest(
+            req.request_id, req.output_ids, req.finished_reason,
+            logprobs=self._req_logprobs.pop(req.request_id, None)
+            if self.return_logprobs else None)
 
     def _release_slot(self, slot: int):
         self.slot_active[slot] = False
@@ -355,13 +491,27 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def submit(self, input_ids: List[int], max_new_tokens: int,
                sampling: Optional[SamplingConfig] = None) -> int:
-        """Queue a request."""
-        if sampling is not None:
-            raise NotImplementedError(
-                "per-request sampling configs (per_request_sampling) are "
-                "not ported yet")
+        """Queue a request. `sampling` (per_request_sampling=True) replaces
+        the engine's default for this request."""
+        if sampling is not None and not self.per_request:
+            raise ValueError(
+                "per-request sampling configs need per_request_sampling=True")
+        if sampling is not None and sampling.bad_words:
+            if not self.max_bad_words:
+                raise ValueError("per-request bad_words need the engine "
+                                 "built with max_bad_words > 0")
+            if (len(sampling.bad_words) > self.max_bad_words or any(
+                    not w or len(w) > self.max_bad_word_len
+                    for w in sampling.bad_words)):
+                raise ValueError(
+                    f"bad_words exceed engine capacity (max "
+                    f"{self.max_bad_words} words of length <= "
+                    f"{self.max_bad_word_len}; empty words not allowed)")
+            self._check_bad_word_ids(sampling.bad_words, self.cfg.vocab_size)
         rid = self.scheduler.submit(input_ids, max_new_tokens)
         self._req_times[rid] = [time.perf_counter(), None, None, 0]
+        if sampling is not None:
+            self._req_sampling[rid] = sampling
         return rid
 
     def poll(self, request_id: int) -> List[int]:
@@ -372,6 +522,12 @@ class ServingEngine:
             raise KeyError(request_id)
         return list(req.output_ids)
 
+    def poll_logprobs(self, request_id: int) -> List[float]:
+        """Logprobs of the tokens poll() returns (return_logprobs=True)."""
+        if not self.return_logprobs:
+            raise ValueError("engine built without return_logprobs")
+        return list(self._req_logprobs.get(request_id, []))
+
     @torch.inference_mode()
     def cancel(self, request_id: int):
         """Cancel a queued or in-flight request, releasing its slot and
@@ -380,6 +536,8 @@ class ServingEngine:
         slot = getattr(req, "slot", None) if req is not None else None
         in_flight = req is not None and req.state.name in ("PREFILL", "DECODE")
         self.scheduler.cancel(request_id)
+        self._req_sampling.pop(request_id, None)
+        self._req_logprobs.pop(request_id, None)
         if in_flight and slot is not None:
             self._release_slot(slot)
 
@@ -406,12 +564,18 @@ class ServingEngine:
                 self._tables_np[slot_ids]))
         else:
             slots = self._dev(np.array(slot_ids, np.int64))
+        ids, lengths = self._dev(ids), self._dev(lengths)
         logits, _ = llama.forward_prefill(
-            self.params, self.cfg, self._dev(ids), self._dev(lengths), caches,
-            rope=self.rope, slots=slots)
+            self.params, self.cfg, ids, lengths, caches, rope=self.rope,
+            slots=slots)
         self.calls["prefills"] += 1
-        tokens = sample_step(logits, self.scfg).cpu().numpy()
-        return self._register_prefilled(group, tokens)
+        rows = counts = None
+        if self.per_request:
+            self._set_slot_params(group)
+            rows = self._dev(np.array(slot_ids, np.int64))
+            counts = init_token_counts(ids, lengths, self.cfg.vocab_size)
+        return self._register_prefilled(
+            group, *self._read(*self._sample_admitted(logits, rows, counts)))
 
     def _t_bucket(self, t: int) -> int:
         """Power-of-two ladder for the packed stream length."""
@@ -438,29 +602,62 @@ class ServingEngine:
         token_ids, meta, last_idx = pack_prompts(
             [r.input_ids for r in reqs], [r.slot for r in reqs], tb,
             self.trash_slot, self.max_slots)
-        meta = self._dev(meta)
+        meta, token_ids = self._dev(meta), self._dev(token_ids)
         logits, _ = llama.forward_prefill_packed(
-            self.params, self.cfg, self._dev(token_ids), PackedMeta(*meta),
+            self.params, self.cfg, token_ids, PackedMeta(*meta),
             self._dev(last_idx), self.caches, rope=self.rope)
         self.calls["packed_prefills"] += 1
-        tokens = sample_step(logits, self.scfg).cpu().numpy()
-        return self._register_prefilled(reqs, tokens)
+        rows = counts = None
+        if self.per_request:
+            # every stream row samples (the unused ones on the trash
+            # slot's neutral parameters); counts from the stream's tokens
+            self._set_slot_params(reqs)
+            ms = self.max_slots
+            rows = self._dev(np.array([r.slot for r in reqs]
+                                      + [self.trash_slot] * (ms - len(reqs)),
+                                      np.int64))
+            seg = meta[0].long()
+            v = self.cfg.vocab_size
+            counts = torch.zeros(((ms + 1) * v,), dtype=torch.int32,
+                                 device=self.device)
+            counts.scatter_add_(0, torch.where(seg >= 0, seg, ms) * v
+                                + token_ids.long(), torch.ones_like(token_ids))
+            counts = counts.view(ms + 1, v)[:ms]
+        return self._register_prefilled(
+            reqs, *self._read(*self._sample_admitted(logits, rows, counts)))
 
     def _decode_chunk(self, n_steps: int):
         """n_steps decode steps over every row, state kept on the device;
         returns the chunk's tokens [n_rows, n_steps] (pad_id where a row
-        was inactive), not yet read back."""
+        was inactive) and their logprobs (0.0 there; None without
+        return_logprobs), not yet read back."""
         pad, end = self.scfg.pad_id, self.scfg.end_id
         tokens, lens = self.slot_tokens, self.slot_lens
         active, gen, budget = self.slot_active, self.slot_gen, self.slot_budget
+        tail = self.slot_tail if self.max_bad_words else None
+        counts = self.slot_counts if self.per_request else None
         out = torch.empty((self.n_rows, n_steps), dtype=torch.int32,
                           device=self.device)
+        out_lp = (torch.zeros((self.n_rows, n_steps), dtype=torch.float32,
+                              device=self.device)
+                  if self.return_logprobs else None)
         for i in range(n_steps):
             logits, self.caches = llama.forward_decode(
                 self.params, self.cfg, tokens, lens, self.caches,
                 rope=self.rope)
-            nxt = sample_step(logits, self.scfg).masked_fill(~active, pad)
+            nxt = self._sample(logits, counts=counts, gen_lens=gen, tail=tail)
+            if counts is not None:      # active rows count their token
+                counts.scatter_add_(1, nxt.long()[:, None],
+                                    active.to(torch.int32)[:, None])
+            nxt = nxt.masked_fill(~active, pad)
             out[:, i] = nxt
+            if tail is not None:
+                # frozen slots roll pads in: they sample again only after
+                # their tail is reseeded at the next admission
+                tail = update_tail(tail, nxt)
+            if out_lp is not None:
+                out_lp[:, i] = torch.where(
+                    active, self._chosen_logprobs(logits, nxt), 0.0)
             live = active.to(torch.int32)
             gen = gen + live
             lens = lens + live
@@ -471,7 +668,9 @@ class ServingEngine:
         self.calls["decode_steps"] += n_steps
         self.slot_tokens, self.slot_lens = tokens, lens
         self.slot_active, self.slot_gen = active, gen
-        return out
+        if tail is not None:
+            self.slot_tail = tail
+        return out, out_lp
 
     @torch.inference_mode()
     def step(self) -> List[FinishedRequest]:
@@ -509,9 +708,10 @@ class ServingEngine:
 
     def _decode_dispatch(self):
         """Enqueue one decode chunk; returns (slot -> request, device
-        tokens) or None when there is nothing to decode. The chunk is long
-        enough for the request with the largest remaining budget (each slot
-        freezes at its own budget on the device)."""
+        tokens, device logprobs or None) or None when there is nothing to
+        decode. The chunk is long enough for the request with the largest
+        remaining budget (each slot freezes at its own budget on the
+        device)."""
         decoding = self.scheduler.active_requests()
         budgets = [r.max_new_tokens - len(r.output_ids) for r in decoding]
         chunk = min(self.decode_chunk, max(budgets)) if budgets else 0
@@ -528,22 +728,28 @@ class ServingEngine:
                 self._tables_np[slot] = self._host_table_row(slot)
             self.caches = self.caches._replace(
                 tables=self._dev(self._tables_np))
-        return slot_of, self._decode_chunk(chunk)
+        return (slot_of, *self._decode_chunk(chunk))
 
     def _decode_process(self, pending) -> List[FinishedRequest]:
-        """Read back one chunk (the only host sync of the chunk) and record
-        its tokens."""
-        slot_of, out = pending
+        """Read back one chunk (the only host sync of the chunk: tokens and
+        logprobs in one copy) and record its tokens."""
+        slot_of, out, out_lp = pending
         finished: List[FinishedRequest] = []
         t0 = time.perf_counter()
-        out = out.cpu().numpy()
+        out, out_lp = self._read(out, out_lp)
         t1 = time.perf_counter()
         self.phase_times["readback"] += t1 - t0
         for slot, req in slot_of.items():
-            for t in out[slot]:
+            for j, t in enumerate(out[slot]):
+                if out_lp is not None:
+                    self._req_logprobs.setdefault(req.request_id, []).append(
+                        float(out_lp[slot, j]))
                 if self._record_token(req, int(t)):
                     self._release_slot(slot)
-                    finished.append(self._finished(req))
+                    finished.append(self._finish_recorded(req))
+                    break
+                if self._stop_matched(req):
+                    finished.append(self._finish_stopped(req))
                     break
         self.phase_times["host"] += time.perf_counter() - t1
         return finished
