@@ -109,8 +109,9 @@
    prefill and none per decode step, first-token logits bit-identical
    and tokens identical between the routes, and a profile of the prefill
    (the GEMM's, kernel 2's and row 7's share; the plain quantize ops
-   timed alone). Paths 1, 2 and 8 then run the bs1 request again with
-   decode_attn_mode 'split' (row 8) and 'fused' (row 9): decode and device
+   timed alone). Paths 1 and 2 then run the bs1 request again with
+   decode_attn_mode 'split' (row 8) and 'fused' (row 9), path 8 with
+   'fused' (its row 8 is held in the kernel phase only): decode and device
    ms/token, launches (the mode's kernel only), first-decode-step logits
    against the default mode's, and whether the tokens match. Paths 1, 3
    and 4 then run their bs1 and bs4 requests under TLLM_FUSE_GU=1 (gate/up
@@ -164,7 +165,7 @@
 6. serves with ServingEngine (int8 weight-only LLaMA-7B, bench.py's
    serving settings: 8 slots, decode_chunk 16, block 64, max_seq_len 200,
    bucket 128) 16 requests of 64 new tokens with prompts of 8-128 tokens
-   (seed 0), in six configurations, each engine freed before the next:
+   (seed 0), in ten configurations, each engine freed before the next:
    dense, "dense, per-request sampling" (return_logprobs, max_bad_words
    4: 6 greedy requests, 6 sampled, 2 penalized with a min_length, one
    with a two-token bad word and one with a stop word, both from the
@@ -172,26 +173,38 @@
    ties aside, the bad word never completed, the stop request end
    "stop_words" where its pair first completes, a logprob a token),
    paged, packed prefill, paged with an int8 and with an e4m3 KV
-   cache (scale 0.05); prints
-   tokens/s, latency_stats, phase_stats, the device busy share of one
-   decode step (torch.profiler) and the launch counts, which must equal
-   the layers times the engine's own count of decode steps (the
-   tensor-core GEMV at 9 rows) and prefill calls (the GEMM); with the
-   dense engine's weights it prefills
-   each admission wave with the GEMM and with the GEMV and holds the
-   logits within LOGITS_TOL, first tokens differing only at near ties;
-   checks that every request returns its 64 tokens and that dense
-   and paged agree on every first token, and prints how many requests
-   match the dense run token for token. With the packed engine's weights
+   cache (scale 0.05), "dense, chunked prefill 32" (prompts of 33-128
+   tokens in 2-4 forward_extend chunks: the chunk calls' rows against
+   the long prompts' chunks, each long prompt's final-chunk logits, from
+   the engine's own call, against a monolithic prefill within
+   LOGITS_TOL, first tokens equal to dense's but at near ties), "dense,
+   mixed step", "dense, pipelined" and "paged, pipelined" (every token
+   equal to the dense run's, a difference only at a near tie on a bs1
+   replay; the paged one then serves one request of 72 + 128 =
+   max_seq_len tokens to its end, every block back); prints tokens/s,
+   latency_stats, phase_stats (and the readback ms per step of dense,
+   paged and the two pipelined runs side by side), the device busy share
+   of one decode step (torch.profiler; dense, paged, packed and dense
+   pipelined) and the launch counts, which must equal the layers times the
+   engine's own count of decode steps (the tensor-core GEMV at 9 rows,
+   kernel 3 or row 14), monolithic prefill calls (the GEMM, row 10 or 13)
+   and chunk calls (the GEMM); checks that every request returns its 64
+   tokens and that dense and paged agree on every first token, and prints
+   how many requests match the dense run token for token. With the dense
+   engine's weights (path 1's), forward_extend of 4 tokens after an
+   8-token prefill against 4 decode steps (logits and the written K/V
+   rows within LOGITS_TOL). With the packed engine's weights
    it prefills each admission wave both batched and packed and holds the
    logits and the K/V rows written within LOGITS_TOL, printing the top-2
    logit gap where a first token differs. Before the paths run, every
    kernel the serving phase launches is held against its plain version at
    the shapes it gives it (serve_waves: the int8 GEMV at 9, 256, 512 and
-   1024 rows, prefill at each 8 x 128 admission, decode over 9 rows of the
-   256-row dense cache, packed prefill at each wave's stream, and kernel
-   14 with bf16 and int8 pools, block sizes 8/16/64, a position past the
-   table, rows outside the write rows untouched);
+   1024 rows and the GEMM at each chunk call's 32-256 rows, prefill at
+   each 8 x 128 admission, decode over 9 rows of the 256-row dense cache,
+   inactive rows parked at max_seq_len among them, packed prefill at each
+   wave's stream, and kernel 14 with bf16 and int8 pools, block sizes
+   8/16/64, a position past the table, rows outside the write rows
+   untouched);
 7. path 6, Bloom-7b1 at full width and depth (ALiBi, random weights drawn
    on the card, seed 0) through GenerationSession(model=decoder.BLOOM):
    bf16 weights with an 8-token prompt and 50 tokens (row 10 with slopes,
@@ -208,6 +221,11 @@
    'fused' decode mode), launches (kernel 2 once per layer, kernel 3 or
    row 9 at every decode step, at every family's head dim), first-step
    logits against the plain path;
+8b. Bloom-7b1 and OPT-6.7b at their published widths, 2 layers, bf16,
+   served through ServingEngine(model=...) monolithic and with
+   prefill_chunk=16 (four requests of 16 tokens, prompts of 40, 10, 33
+   and 20): launches, the chunked tokens equal to the monolithic ones
+   but at near ties;
 9. prints each phase's wall time;
 10. prints a `kernels` JSON line, then as the last line
    {"ok": true, "device": {...}}.
@@ -283,6 +301,10 @@ SERVE_NEW = 64
 SERVE_CHUNK = 16
 SERVE_BLOCK = 64
 SERVE_WARMUP = 2      # prompts of the warm-up run before the counted one
+SERVE_PREFILL_CHUNK = 32  # "dense, chunked prefill 32": prompts of 33-128
+                          # tokens go in 2-4 chunks
+EDGE_PROMPT = 72      # "paged, pipelined": 72 + 128 new = max_seq_len 200
+EXTEND_T = 4          # forward_extend's slab at full width (vs decode steps)
 # Path 5: bench.py's long-context int8_int8kv rows (bench.py:128-150): one
 # 8192-token prompt, 64 new tokens, RoPE table past LLaMA-1's 2048.
 LONG_PROMPT = 8192
@@ -437,11 +459,14 @@ def packed_len(total):
 def serve_rows():
     """Rows the serving phase gives a projection: a decode step (the slots
     and the trash row), each batched prefill (its prompts at the 128-token
-    bucket) and each packed stream."""
+    bucket), each packed stream and each chunked-prefill call (32 rows a
+    partial prompt, 1-8 of them)."""
     bucket = max(SERVE_ENGINE["prefill_buckets"])
-    rows = {SERVE_ENGINE["max_batch_size"] + 1}
+    slots = SERVE_ENGINE["max_batch_size"]
+    rows = {slots + 1}
     for lens in serve_waves():
         rows |= {len(lens) * bucket, packed_len(sum(lens))}
+    rows |= {SERVE_PREFILL_CHUNK * n for n in range(1, slots + 1)}
     return tuple(sorted(rows))
 
 # JSON name -> (wrapper attribute, TPU kernel it replaces, source)
@@ -1416,6 +1441,12 @@ def check_decode(errors, results, kv=None):
         cases += [(len(w) + 1, 32, 32, s_serve, [n + t for n in w] + [0])
                   for w, t in ((waves[1], SERVE_NEW // 2),
                                (waves[-1], SERVE_NEW - 2))]
+        # chunked prefill: inactive rows (partial prompts, the trash row)
+        # parked at max_seq_len
+        park = SERVE_ENGINE["max_seq_len"]
+        cases += [(len(waves[1]) + 1, 32, 32, s_serve,
+                   [n + SERVE_NEW // 2 for n in waves[1][:4]]
+                   + [park] * (len(waves[1]) - 3))]
     edges = split_edges()
     cases += edges
     kv_scale = (torch.full((n_l,), KV_SCALE, device="cuda") if kv
@@ -2245,7 +2276,10 @@ def make_paths():
                       "prefill_attention_kernel": pa, E4M3_DECODE: da},
              plain=[(f8k, "fp8_matmul_stacked"), (f8k, "fp8_matmul"),
                     (pa, "prefill_attention_kernel")],
-             modes={"split": READ_ONLY_E4M3, "fused": FUSED_E4M3},
+             # 'split' (row 8 e4m3) is held in the kernel phase only (the
+             # smoke's time budget): its counter, zeroed with the others
+             # before the path's run, must read 0 at the path's end
+             modes={"fused": FUSED_E4M3}, unrun={READ_ONLY_E4M3: da},
              decode=E4M3_DECODE, fp8kv=True),
     ]
 
@@ -2480,6 +2514,13 @@ def drive_path(path, sess, errors, results):
         check_fp8kv_decode(path, sess, p1, errors, results)
     if path.get("modes"):
         run_decode_modes(path, sess, cfg, p1, out1, errors, results)
+    for key, mod in path.get("unrun", {}).items():
+        n = launches_of(key, getattr(mod, KERNELS[key][0]))
+        print(f"  {tag}: {key} launches {n} in the path's run (expected 0: "
+              f"no mode of this path runs it): {'ok' if n == 0 else 'FAIL'}")
+        if n:
+            errors.append(f"{tag}: {key} launched {n} times")
+        results[key]["launches"] = results[key].get("launches", 0) + n
     if path.get("fused"):
         run_fused_gate_up(path, sess, p1, p4, out1, out4, errors, results)
     if path.get("sampling"):
@@ -3918,6 +3959,10 @@ def gemv_8192_yardsticks(sess, results):
 # (name, engine options, KV cache kind: None for the compute dtype, "int8"
 # or "e4m3" at KV_SCALE)
 PER_REQUEST = "dense, per-request sampling"
+CHUNKED = "dense, chunked prefill 32"
+MIXED = "dense, mixed step"
+PIPELINED = "dense, pipelined"
+PAGED_PIPELINED = "paged, pipelined"
 SERVE_CONFIGS = [
     ("dense", {}, None),
     (PER_REQUEST, dict(per_request_sampling=True, return_logprobs=True,
@@ -3926,7 +3971,17 @@ SERVE_CONFIGS = [
     ("packed", dict(packed_prefill=True), None),
     ("paged int8 KV", dict(paged=True, block_size=SERVE_BLOCK), "int8"),
     ("paged fp8 KV", dict(paged=True, block_size=SERVE_BLOCK), "e4m3"),
+    (CHUNKED, dict(prefill_chunk=SERVE_PREFILL_CHUNK), None),
+    (MIXED, dict(mixed_step=True), None),
+    (PIPELINED, dict(pipelined=True), None),
+    (PAGED_PIPELINED, dict(paged=True, block_size=SERVE_BLOCK,
+                           pipelined=True), None),
 ]
+# the configurations whose decode step is profiled (profile_serving_step):
+# every one but the chunked, mixed and paged pipelined ones (the smoke's
+# time budget); the dense pipelined one's busy share stands beside dense's
+SERVE_PROFILED = tuple(name for name, _, _ in SERVE_CONFIGS
+                       if name not in (CHUNKED, MIXED, PAGED_PIPELINED))
 
 
 def serving_sampling(dense):
@@ -3956,24 +4011,23 @@ def serving_sampling(dense):
 
 def serving_replay(eng, prompt, tokens):
     """f32 logits [V] that follow `prompt` and then `tokens` on the
-    engine's weights, replayed at bs1 (the 128-token bucket, then one
-    decode step a token)."""
+    engine's model and weights, replayed at bs1 (the prompt's bucket, then
+    one decode step a token)."""
     import torch
-    from trtllm_llama_tpu_torch.models import llama
 
-    cfg, dev = eng.cfg, eng.device
-    bucket = max(SERVE_ENGINE["prefill_buckets"])
+    cfg, dev, model = eng.cfg, eng.device, eng.model
+    bucket = eng.engine_cfg.bucket_for(len(prompt))
     with torch.inference_mode():
         ids = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
         ids[0, :len(prompt)] = torch.as_tensor(prompt, device=dev)
         pos = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
-        caches = llama.init_caches(cfg, 1, SERVE_ENGINE["max_seq_len"], dev,
+        caches = model.init_caches(cfg, 1, eng.engine_cfg.max_seq_len, dev,
                                    eng.kv_scales)
-        logits, caches = llama.forward_prefill(eng.params, cfg, ids, pos,
+        logits, caches = model.forward_prefill(eng.params, cfg, ids, pos,
                                                caches, rope=eng.rope)
         pos = pos.clone()
         for t in tokens:
-            logits, caches = llama.forward_decode(
+            logits, caches = model.forward_decode(
                 eng.params, cfg, torch.tensor([t], dtype=torch.int32,
                                               device=dev), pos, caches,
                 rope=eng.rope)
@@ -4025,16 +4079,214 @@ def check_serving_sampling(eng, prompts, done, rids, cfgs, dense, errors):
             errors.append(f"serving {PER_REQUEST}: {what}")
 
 
+class ExtendRecorder:
+    """A model that forwards to `model` and keeps, for each forward_extend
+    call, its tokens and its last row's f32 logits (on the card, no sync):
+    the chunked serving run's final chunks, held against a monolithic
+    prefill after the run."""
+
+    def __init__(self, model):
+        self._model = model
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def forward_extend(self, params, cfg, tokens, start, caches, **kw):
+        logits, caches = self._model.forward_extend(params, cfg, tokens,
+                                                    start, caches, **kw)
+        self.calls.append((tokens.clone(), logits[:, -1].float().clone()))
+        return logits, caches
+
+
+def serving_expect(eng, n_l, decode, prefill):
+    """Exact launches of a serving run from the engine's own counts: the
+    tensor-core GEMV 5 x layers at each 9-row decode step; the GEMM 5 x
+    layers at each monolithic (batched, packed or mixed) prefill and each
+    chunked-prefill call (32 rows a partial prompt, always past 16);
+    row 10 or 13 once a layer and monolithic prefill (a chunk's attention
+    is stock torch); kernel 3 / row 14 once a layer and decode step."""
+    calls = eng.calls
+    prefills = calls["packed_prefills" if eng.packed else "prefills"]
+    steps = 5 * n_l * calls["decode_steps"]
+    dec_tc = tc_rows(SERVE_ENGINE["max_batch_size"] + 1)
+    return {"woq_matmul_stacked": 0 if dec_tc else steps,
+            TC_INT8: steps if dec_tc else 0,
+            GEMM_INT8: 5 * n_l * (prefills + len(eng.chunk_rows)),
+            decode: n_l * calls["decode_steps"],
+            prefill: n_l * prefills}
+
+
+def first_difference_at(out, ref):
+    return next((j for j, (a, b) in enumerate(zip(out, ref)) if a != b),
+                None)
+
+
+def check_same_tokens(name, eng, prompts, outs, dense, errors):
+    """Every request's tokens equal the dense run's; where one differs
+    first, at token k, the two picks must be a near tie on a bs1 replay of
+    the engine's weights over the common first k tokens."""
+    diffs = {i: first_difference_at(o, d)
+             for i, (o, d) in enumerate(zip(outs, dense))}
+    differ = {i: k for i, k in diffs.items() if k is not None}
+    print(f"  {name} vs dense: {SERVE_REQUESTS - len(differ)} of "
+          f"{SERVE_REQUESTS} requests token for token; first differing "
+          f"positions of the others: {differ}")
+    for i, k in differ.items():
+        near_tie(f"{name} request {i} token {k}",
+                 serving_replay(eng, prompts[i], outs[i][:k]), outs[i][k],
+                 dense[i][k], errors)
+
+
+def check_chunked(eng, prompts, outs, dense, errors, results):
+    """The chunked run: the Σ rows of its chunk calls are C x the chunks of
+    its long prompts; each long prompt's final chunk's last-row logits (the
+    engine's own call, ExtendRecorder) against a monolithic forward_prefill
+    of the prompt within LOGITS_TOL; first tokens equal the dense run's but
+    at near ties (on the monolithic logits)."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+
+    c = SERVE_PREFILL_CHUNK
+    long = [i for i, p in enumerate(prompts) if len(p) > c]
+    want_rows = c * sum(-(-len(prompts[i]) // c) for i in long)
+    print(f"  {CHUNKED}: {len(long)} prompts longer than {c} tokens, "
+          f"{eng.calls['chunk_prefills']} chunk calls of {eng.chunk_rows} "
+          f"rows ({sum(eng.chunk_rows)} in all, expected {want_rows})")
+    if sum(eng.chunk_rows) != want_rows:
+        errors.append(f"serving {CHUNKED}: chunk rows {sum(eng.chunk_rows)} "
+                      f"!= {want_rows}")
+    if any(r < woq.GEMM_MIN_ROWS for r in eng.chunk_rows):
+        errors.append(f"serving {CHUNKED}: a chunk call below the GEMM's "
+                      f"{woq.GEMM_MIN_ROWS} rows (serving_expect counts "
+                      "every chunk call on the GEMM)")
+    finals = {}
+    for tokens, last in eng.model.calls:
+        for row in range(tokens.shape[0]):
+            finals[tuple(tokens[row].tolist())] = last[row]
+    cfg, dev = eng.cfg, eng.device
+    bucket = max(SERVE_ENGINE["prefill_buckets"])
+    with torch.inference_mode():
+        ids = torch.full((len(long), bucket), eng.scfg.pad_id,
+                         dtype=torch.int32, device=dev)
+        for j, i in enumerate(long):
+            ids[j, :len(prompts[i])] = torch.as_tensor(prompts[i], device=dev)
+        lens = torch.as_tensor([len(prompts[i]) for i in long],
+                               dtype=torch.int32, device=dev)
+        caches = eng.model.init_caches(cfg, len(long), bucket, dev,
+                                       eng.kv_scales)
+        mono, _ = eng.model.forward_prefill(eng.params, cfg, ids, lens, caches,
+                                            rope=eng.rope)
+    missing = [i for i in long if tuple(prompts[i][-c:]) not in finals]
+    if missing:
+        errors.append(f"serving {CHUNKED}: no final chunk recorded for "
+                      f"requests {missing}")
+        return
+    got = torch.stack([finals[tuple(prompts[i][-c:])] for i in long])
+    err = compare(f"{CHUNKED}: final-chunk logits of the {len(long)} long "
+                  "prompts vs monolithic prefill", got, mono, errors,
+                  tol=LOGITS_TOL)
+    results["_e2e"][f"serving {CHUNKED}"]["final_chunk_logits_max_abs_err"] \
+        = err
+    for j, i in enumerate(long):
+        if outs[i] and outs[i][0] != dense[i][0]:
+            near_tie(f"{CHUNKED} request {i} first token", mono[j],
+                     outs[i][0], dense[i][0], errors)
+    firsts = sum(outs[i][:1] == dense[i][:1] for i in range(len(outs)))
+    diffs = [first_difference_at(o, d) for o, d in zip(outs, dense)]
+    print(f"  {CHUNKED}: first tokens equal the dense run's for {firsts} of "
+          f"{len(outs)} requests; {sum(d is None for d in diffs)} token for "
+          f"token; first differing positions of the others: "
+          f"{[d for d in diffs if d is not None]}")
+
+
+def serve_edge_request(eng, errors, results):
+    """Paged pipelined: one request with input_len + max_new_tokens ==
+    max_seq_len served alone to its end (the case where JAX's engine
+    raises): all its tokens, reason "length", every block back."""
+    import numpy as np
+    prompt = np.random.default_rng(2).integers(
+        3, eng.cfg.vocab_size, EDGE_PROMPT).tolist()
+    new = SERVE_ENGINE["max_seq_len"] - EDGE_PROMPT
+    rid = eng.submit(prompt, new)
+    done = eng.run_to_completion()
+    fr = done.get(rid)
+    ok = (fr is not None and len(fr.output_ids) == new
+          and fr.finished_reason == "length"
+          and eng.kv_mgr.blocks.free_blocks == eng.num_blocks)
+    print(f"  {PAGED_PIPELINED}: one request of {EDGE_PROMPT} + {new} = "
+          f"max_seq_len tokens: {len(fr.output_ids) if fr else None} tokens, "
+          f"reason {fr.finished_reason if fr else None!r}, "
+          f"{eng.kv_mgr.blocks.free_blocks} of {eng.num_blocks} blocks free "
+          f"after it: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        errors.append(f"serving {PAGED_PIPELINED}: the max_seq_len request "
+                      "was not served to its end")
+    results["_e2e"][f"serving {PAGED_PIPELINED}"]["max_seq_len_request_ok"] \
+        = ok
+
+
+def check_extend_vs_decode(eng, errors, results):
+    """forward_extend at full width on the serving weights (path 1's: int8
+    weight-only, seed 0): an 8-token prefill, then T = EXTEND_T tokens as
+    one slab against EXTEND_T forward_decode steps on another cache: the
+    logits within LOGITS_TOL, the T written K/V rows too."""
+    import numpy as np
+    import torch
+
+    cfg, dev, t = eng.cfg, eng.device, EXTEND_T
+    rng = np.random.default_rng(3)
+    ids = torch.as_tensor(rng.integers(3, cfg.vocab_size, (1, 8)),
+                          dtype=torch.int32, device=dev)
+    toks = torch.as_tensor(rng.integers(3, cfg.vocab_size, (1, t)),
+                           dtype=torch.int32, device=dev)
+    lens = torch.tensor([8], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        caches = []
+        for _ in range(2):
+            c = eng.model.init_caches(cfg, 1, 128, dev, eng.kv_scales)
+            eng.model.forward_prefill(eng.params, cfg, ids, lens, c,
+                                      rope=eng.rope)
+            caches.append(c)
+        slab, _ = eng.model.forward_extend(eng.params, cfg, toks, lens,
+                                           caches[0], rope=eng.rope)
+        steps, pos = [], lens.clone()
+        for i in range(t):
+            lg, _ = eng.model.forward_decode(eng.params, cfg, toks[:, i], pos,
+                                             caches[1], rope=eng.rope)
+            steps.append(lg)
+            pos += 1
+        steps = torch.stack(steps, 1)
+    print(f"  forward_extend of {t} tokens after an 8-token prefill vs {t} "
+          f"forward_decode steps ({cfg.num_layers} layers, the serving "
+          "weights):")
+    err = compare(f"extend logits [1, {t}, {cfg.vocab_size}]", slab, steps,
+                  errors, tol=LOGITS_TOL)
+    for kv in ("k", "v"):
+        compare(f"extend {kv.upper()} rows 8-{7 + t} written",
+                getattr(caches[0], kv)[:, :, :, 8:8 + t],
+                getattr(caches[1], kv)[:, :, :, 8:8 + t], errors,
+                tol=LOGITS_TOL)
+    same = bool((slab.argmax(-1) == steps.argmax(-1)).all())
+    print(f"  extend and decode pick the same {t} tokens: {same}")
+    results["_e2e"]["forward_extend vs decode"] = dict(
+        layers=cfg.num_layers, tokens=t, logits_max_abs_err=err,
+        same_argmax=same)
+
+
 def run_serving(args, errors, results):
     """Each configuration serves the same 16 requests (64 new tokens each,
     greedy, no end token) on int8 weight-only LLaMA-7B; prints tokens/s,
     latency percentiles, phase times, the device busy share of one decode
-    step, and checks the launch counts against the engine's own count of
-    device calls."""
+    step (the configurations of SERVE_PROFILED), and checks the launch
+    counts against the engine's own count of device calls; the chunked,
+    mixed and pipelined runs' tokens against the dense run's; forward_extend
+    at full width against decode steps."""
     import dataclasses
     import numpy as np
     import torch
     from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.models import llama
     from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
     from trtllm_llama_tpu_torch.ops.kernels import packed_prefill_attention as ppa
     from trtllm_llama_tpu_torch.ops.kernels import paged_decode_attention as pda
@@ -4059,17 +4311,18 @@ def run_serving(args, errors, results):
           f"tokens, prompts of {min(lens)}-{max(lens)} tokens (seed 0, "
           f"{sum(lens)} in all), greedy, end_id -1, decode_chunk "
           f"{SERVE_CHUNK}, {SERVE_ENGINE}")
-    outs, gaps = {}, {}
+    outs, gaps, phases_of = {}, {}, {}
     kv_flags = {"int8": QuantMode.INT8_KV_CACHE,
                 "e4m3": QuantMode.FP8_KV_CACHE}
     for name, opts, kv in SERVE_CONFIGS:
         c = (dataclasses.replace(cfg, quant_mode=mode | kv_flags[kv])
              if kv else cfg)
+        model = ExtendRecorder(llama) if name == CHUNKED else None
         eng = ServingEngine(
             c, params, EngineConfig(**SERVE_ENGINE),
             sampling=SamplingConfig(end_id=-1),
             kv_scales=[KV_SCALE] * n_l if kv else None,
-            decode_chunk=SERVE_CHUNK, device="cuda", **opts)
+            decode_chunk=SERVE_CHUNK, device="cuda", model=model, **opts)
         for p in prompts[:SERVE_WARMUP]:  # warm-up (cuBLAS, allocator)
             eng.submit(p, 4)
         eng.run_to_completion()
@@ -4086,7 +4339,10 @@ def run_serving(args, errors, results):
         eng.phase_times = dict.fromkeys(eng.phase_times, 0.0)
         eng.phase_times["steps"] = 0
         eng.calls = dict.fromkeys(eng.calls, 0)
+        eng.chunk_rows = []
         eng._req_times.clear()
+        if model is not None:
+            model.calls.clear()
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4098,39 +4354,36 @@ def run_serving(args, errors, results):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: launches_of(k, fn) for k, fn in wrappers.items()}
-        calls = dict(eng.calls)
+        calls = dict(eng.calls, chunk_rows=list(eng.chunk_rows))
         prefills = calls["packed_prefills" if eng.packed else "prefills"]
-        # the tensor-core GEMV at the 9-row decode steps (the slots and the
-        # trash row), the GEMM at each admission
-        steps = 5 * n_l * calls["decode_steps"]
-        dec_tc = tc_rows(SERVE_ENGINE["max_batch_size"] + 1)
-        expect = {"woq_matmul_stacked": 0 if dec_tc else steps,
-                  TC_INT8: steps if dec_tc else 0,
-                  GEMM_INT8: 5 * n_l * prefills,
-                  decode: n_l * calls["decode_steps"],
-                  prefill: n_l * prefills}
+        expect = serving_expect(eng, n_l, decode, prefill)
         print(f"  serving {name}: {n_tokens / wall:.1f} generated tokens/s "
               f"({n_tokens} tokens in {wall:.2f} s); device calls {calls}")
         print(f"  launches {launches}, expected {expect}: "
               f"{'ok' if launches == expect else 'FAIL'}")
         if launches != expect:
             errors.append(f"serving {name}: launches {launches} != {expect}")
-        if prefills != len(serve_waves()) - 1:
+        if name != CHUNKED and prefills != len(serve_waves()) - 1:
             errors.append(f"serving {name}: {prefills} prefill calls, not the "
                           "admission waves whose shapes the kernels were "
                           "checked at")
         for k, n in launches.items():
             results[k]["launches"] = results[k].get("launches", 0) + n
         stats, phases = eng.latency_stats(), eng.phase_stats()
+        phases_of[name] = phases
         print(f"  latency_stats {json.dumps(stats)}")
         print(f"  phase_stats (ms per engine step) {json.dumps(phases)}")
         bad = [r for r in rids if r not in done
                or len(done[r].output_ids) != SERVE_NEW
                or done[r].finished_reason != "length"]
         tok_s = n_tokens / wall
+        results["_e2e"][f"serving {name}"] = dict(
+            layers=n_l, tokens_per_s=tok_s, wall_s=wall,
+            latency=stats, phases=phases, calls=calls)
         if eng.per_request:
             n_gen = sum(len(done[r].output_ids) for r in rids if r in done)
             tok_s = n_gen / wall
+            results["_e2e"][f"serving {name}"]["tokens_per_s"] = tok_s
             print(f"  serving {name}: {tok_s:.1f} generated tokens/s "
                   f"({n_gen} tokens: the stop request ends early)")
             bad = [r for r in rids if r not in done]
@@ -4145,15 +4398,24 @@ def run_serving(args, errors, results):
         if eng.packed:
             gaps = check_packed_vs_batched(eng, prompts, errors)
         if name == "dense":
-            check_gemm_vs_gemv_waves(eng, prompts, errors)
-        busy = profile_serving_step(eng, prompts,
-                                    gemv_side_by_side=name == "dense")
-        results["_e2e"][f"serving {name}"] = dict(
-            layers=n_l, tokens_per_s=tok_s, wall_s=wall,
-            latency=stats, phases=phases, calls=calls, **busy)
+            check_extend_vs_decode(eng, errors, results)
+        if name == CHUNKED:
+            check_chunked(eng, prompts, outs[name], outs["dense"], errors,
+                          results)
+        if name in (MIXED, PIPELINED, PAGED_PIPELINED):
+            check_same_tokens(name, eng, prompts, outs[name], outs["dense"],
+                              errors)
+        if name == PAGED_PIPELINED:
+            serve_edge_request(eng, errors, results)
+        if name in SERVE_PROFILED:
+            results["_e2e"][f"serving {name}"].update(profile_serving_step(
+                eng, prompts, gemv_side_by_side=name == "dense"))
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    read = {n: phases_of[n]["readback"] for n in ("dense", "paged", PIPELINED,
+                                                  PAGED_PIPELINED)}
+    print(f"  readback ms per engine step (phase_stats): {json.dumps(read)}")
     firsts = {name: [o[0] if o else None for o in out]
               for name, out in outs.items()}
     same_first = firsts["dense"] == firsts["paged"]
@@ -4161,8 +4423,8 @@ def run_serving(args, errors, results):
     if not same_first:
         errors.append("serving: dense and paged first tokens differ")
     for name in ("paged", "packed", "paged int8 KV", "paged fp8 KV"):
-        diffs = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
-                      None) for x, y in zip(outs["dense"], outs[name])]
+        diffs = [first_difference_at(x, y)
+                 for x, y in zip(outs["dense"], outs[name])]
         n_same = sum(d is None for d in diffs)
         print(f"  {name} vs dense: {n_same} of {SERVE_REQUESTS} requests "
               f"token for token; first differing positions of the others: "
@@ -4233,41 +4495,6 @@ def check_packed_vs_batched(eng, prompts, errors):
         off += b
         del batched, packed
     return gaps
-
-
-def check_gemm_vs_gemv_waves(eng, prompts, errors):
-    """Each admission wave of the counted run prefilled batched at the
-    128-token bucket (as dense admission does, kernel 1 on its GEMM) and
-    again with kernel 1 on its GEMV at every row count: the logits within
-    LOGITS_TOL, and a first token that differs only at a near tie."""
-    import torch
-    from trtllm_llama_tpu_torch.models import llama
-
-    cfg, dev, scales = eng.cfg, eng.device, eng.kv_scales
-    bucket = max(SERVE_ENGINE["prefill_buckets"])
-    print("  GEMM vs GEMV prefill of each admission wave (the engine's "
-          "weights, on the card):")
-    off = 0
-    for w, lens in enumerate(serve_waves()[1:], 1):
-        wave, b = prompts[off:off + len(lens)], len(lens)
-        with torch.inference_mode():
-            ids = torch.full((b, bucket), eng.scfg.pad_id, dtype=torch.int32,
-                             device=dev)
-            for i, p in enumerate(wave):
-                ids[i, :len(p)] = torch.as_tensor(p, device=dev)
-            n = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-
-            def prefill():
-                caches = llama.init_caches(cfg, b, bucket, dev, scales)
-                return llama.forward_prefill(eng.params, cfg, ids, n, caches,
-                                             rope=eng.rope)[0]
-            got = prefill()
-            with route(gemm=False):
-                ref = prefill()
-        compare(f"wave {w} ({b} x {bucket} rows) logits, GEMM vs GEMV", got,
-                ref, errors, tol=LOGITS_TOL)
-        flip_check(f"wave {w} first tokens, GEMM vs GEMV", got, ref, errors)
-        off += b
 
 
 def profile_serving_step(eng, prompts, gemv_side_by_side=False):
@@ -5086,6 +5313,104 @@ def run_families(args, errors, results):
         torch.cuda.empty_cache()
 
 
+# Decoder families served through model= (published widths, FAMILY_LAYERS
+# deep): with and without chunked prefill; prompts of 40 / 10 / 33 / 20
+# tokens (the 40-, 33- and 20-token ones chunked)
+FAMILY_SERVE = ("Bloom-7b1", "OPT-6.7b")
+FAMILY_SERVE_ENGINE = dict(max_batch_size=4, max_input_len=64,
+                           max_seq_len=128)
+FAMILY_SERVE_CHUNK = 16
+FAMILY_SERVE_PROMPTS = (40, 10, 33, 20)
+
+
+def serve_families(args, errors, results):
+    """Bloom-7b1 (ALiBi: its chunks' slab attention carries the bias) and
+    OPT-6.7b (learned positions at +2 at per-row chunk starts) at their
+    published widths, FAMILY_LAYERS deep, bf16 random weights (seed 0),
+    served through ServingEngine(model=...) monolithic and with
+    prefill_chunk=16: four requests of FAMILY_NEW tokens; the launches
+    (row 10 once a layer and monolithic prefill, with slopes for Bloom;
+    kernel 3 for OPT, the plain ALiBi decode for Bloom, once a layer and
+    decode step); the chunked run's tokens equal the monolithic run's but
+    at near ties (on a bs1 replay)."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig
+    from trtllm_llama_tpu_torch.models import by_architecture
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.serving import ServingEngine
+
+    fields = {"Bloom-7b1": BLOOM_7B1,
+              **{tag: over for tag, over, _ in FAMILY_CONFIGS}}
+    for tag in FAMILY_SERVE:
+        cfg = ModelConfig(**{**fields[tag], "dtype": "bfloat16",
+                             "num_layers": min(args.layers, FAMILY_LAYERS)})
+        n_l, model = cfg.num_layers, by_architecture(cfg.architecture)
+        params = model.init_params(cfg, seed=0, device="cuda")
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+                   for n in FAMILY_SERVE_PROMPTS]
+        alibi = cfg.architecture == "bloom"
+        runs = {}
+        for chunk in (None, FAMILY_SERVE_CHUNK):
+            name = (f"serving {tag} ({n_l} layers, "
+                    f"{'prefill_chunk ' + str(chunk) if chunk else 'monolithic'})")
+            eng = ServingEngine(cfg, params,
+                                EngineConfig(**FAMILY_SERVE_ENGINE),
+                                sampling=SamplingConfig(end_id=-1),
+                                decode_chunk=8, model=model,
+                                prefill_chunk=chunk, device="cuda")
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, FAMILY_NEW) for p in prompts]
+            done = eng.run_to_completion()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps, prefills = eng.calls["decode_steps"], eng.calls["prefills"]
+            launches = {k: v for k, v in {
+                "prefill_attention_kernel": n_l * prefills,
+                "dma_decode_attention": 0 if alibi else n_l * steps}.items()
+                if v}
+            check_counts(name, read_counts(),
+                         dict(launches=launches,
+                              alibi_decode=n_l * steps if alibi else 0),
+                         errors)
+            print(f"  {name}: {wall:.2f} s, device calls {eng.calls}, chunk "
+                  f"rows {eng.chunk_rows}")
+            outs = [list(done[r].output_ids) if r in done else []
+                    for r in rids]
+            if any(len(o) != FAMILY_NEW for o in outs):
+                errors.append(f"{name}: a request did not return "
+                              f"{FAMILY_NEW} tokens")
+            pkey = ALIBI_PREFILL if alibi else "prefill_attention_kernel"
+            results[pkey]["launches"] = (results[pkey].get("launches", 0)
+                                         + n_l * prefills)
+            if not alibi:
+                results["dma_decode_attention"]["launches"] = (
+                    results["dma_decode_attention"].get("launches", 0)
+                    + n_l * steps)
+            results["_e2e"][name] = dict(layers=n_l, wall_s=wall,
+                                         calls=dict(eng.calls),
+                                         chunk_rows=list(eng.chunk_rows))
+            runs[chunk] = (eng, outs)
+        eng, chunked = runs[FAMILY_SERVE_CHUNK]
+        mono = runs[None][1]
+        diffs = {i: first_difference_at(o, m)
+                 for i, (o, m) in enumerate(zip(chunked, mono))}
+        differ = {i: k for i, k in diffs.items() if k is not None}
+        print(f"  {tag}: chunked vs monolithic: {len(prompts) - len(differ)} "
+              f"of {len(prompts)} requests token for token; first differing "
+              f"positions of the others: {differ}")
+        for i, k in differ.items():
+            near_tie(f"{tag} chunked request {i} token {k}",
+                     serving_replay(eng, prompts[i], chunked[i][:k]),
+                     chunked[i][k], mono[i][k], errors)
+        del runs, eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def check_kernels(errors, results):
     """Every kernel against its plain version at the shapes the paths and
     the serving phase give it."""
@@ -5158,7 +5483,9 @@ def main(argv=None) -> int:
                ("path 5", lambda: run_long_context(args, errors, results)),
                ("serving", lambda: run_serving(args, errors, results)),
                ("path 6", lambda: run_bloom(args, errors, results)),
-               ("families", lambda: run_families(args, errors, results))]
+               ("families", lambda: run_families(args, errors, results)),
+               ("serving families",
+                lambda: serve_families(args, errors, results))]
     for name, phase in phases:
         t = time.perf_counter()
         zero_counts()

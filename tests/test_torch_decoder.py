@@ -231,7 +231,11 @@ def test_by_architecture_and_unported_entries():
             by_architecture(tag)
     with pytest.raises(ValueError):
         by_architecture("t5")
+    # forward_extend is ported (tests/test_torch_extend.py holds it
+    # against JAX's): a 2-token slab at start 3 gives [1, 2, V] logits
     _, cfg = _cfgs("bloom")
-    with pytest.raises(NotImplementedError):
-        decoder.BLOOM.forward_extend({}, cfg, torch.zeros((1, 2)),
-                                     torch.zeros(1), None)
+    params = decoder.BLOOM.init_params(cfg, device="cpu")
+    caches = decoder.BLOOM.init_caches(cfg, 1, 16, "cpu")
+    logits, _ = decoder.BLOOM.forward_extend(
+        params, cfg, torch.tensor([[5, 6]]), torch.tensor([3]), caches)
+    assert logits.shape == (1, 2, cfg.vocab_size)

@@ -11,8 +11,10 @@ Bloom's ALiBi included; the offline build from an HF-layout state dict
 through SmoothQuant, static W8A8 + int8 KV, the engine dir and the loader,
 generating under TLLM_FUSE_GU; the decode probes; a sampled generate with
 penalties, bad and stop words and logprobs; beam search, dense and paged)
-and serves (a paged and a packed ServingEngine, and one with per-request
-sampling, logprobs and bad words) with both made unimportable."""
+and serves (a paged and a packed ServingEngine, one with per-request
+sampling, logprobs and bad words, chunked prefill, mixed and pipelined
+steps, dense and paged, and OPT through model= with chunking) with both
+made unimportable."""
 
 import ast
 import subprocess
@@ -154,6 +156,23 @@ rids = [eng.submit([5, 6, 7], 5, sampling=SamplingConfig(
         eng.submit([8, 9], 5)]
 done = eng.run_to_completion()
 assert all(len(done[r].logprobs) == len(done[r].output_ids) for r in rids)
+from trtllm_llama_tpu_torch.models import decoder
+ocfg = ModelConfig.tiny(dtype="float32", architecture="opt")
+for c, p, opts in ((cfg, params, dict(prefill_chunk=16)),
+                   (cfg, params, dict(mixed_step=True)),
+                   (cfg, params, dict(pipelined=True)),
+                   (cfg, params, dict(pipelined=True, paged=True,
+                                      block_size=8)),
+                   (ocfg, decoder.OPT.init_params(ocfg, device="cpu"),
+                    dict(model=decoder.OPT, prefill_chunk=16))):
+    eng = ServingEngine(c, p, EngineConfig(max_batch_size=2,
+                        max_input_len=40, max_seq_len=64),
+                        sampling=SamplingConfig(end_id=-1), decode_chunk=4,
+                        device="cpu", **opts)
+    rids = [eng.submit(list(range(3, 3 + n)), 5) for n in (3, 35, 20)]
+    done = eng.run_to_completion()
+    assert sorted(done) == rids and all(
+        len(done[r].output_ids) == 5 for r in rids), (opts, done)
 import os, shutil, tempfile, types
 import numpy as np
 from trtllm_llama_tpu_torch.convert.convert import cast_fp_leaves

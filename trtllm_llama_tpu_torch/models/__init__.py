@@ -1,9 +1,21 @@
 """Model families.
 
 `by_architecture` maps the ModelConfig.architecture tag to the object that
-implements the forward contract (init_caches / rope_tables /
-forward_prefill / forward_decode): the `llama` module, or one of the
-decoder families of `models/decoder.py`.
+implements the forward contract: the `llama` module, or one of the decoder
+families of `models/decoder.py`. Every model has
+
+- init_caches(cfg, batch, max_len, device, kv_scales) -> dense KVCache;
+- rope_tables(cfg, device) -> (cos, sin), or None without rotary;
+- forward_prefill(params, cfg, ids [B, S], lens [B], caches,
+  return_all_logits=False, rope=None, slots=None) -> (logits, caches);
+- forward_extend(params, cfg, tokens [B, T], start [B], caches, rope=None,
+  slots=None) -> (logits [B, T, V], caches), a slab at per-row offsets;
+- forward_decode(params, cfg, tokens [B], positions [B], caches,
+  rope=None) -> (logits [B, V], caches).
+
+`slots` [B] are the dense cache rows a call writes (default 0..B-1). Only
+llama has `forward_prefill_packed`, `fuse_qkv_params` and a paged KV pool
+(`PAGED_CACHE`); the serving engine checks for them.
 """
 
 

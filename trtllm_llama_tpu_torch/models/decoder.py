@@ -20,7 +20,9 @@ w_proj as it does llama's). The KV cache is llama's stacked `KVCache`;
 the layer loop is a Python loop over the stacked weights. Prefill
 attention goes to kernel 2 or row 12 (with the ALiBi slopes for Bloom);
 decode attention to `decode_attn_mode`'s kernel, or for Bloom the JAX
-package's own plain ALiBi branch (`ops.attention.fused_decode_attention_at`).
+package's own plain ALiBi branch (`ops.attention.fused_decode_attention_at`);
+`forward_extend`'s slab attention is stock torch (`extend_attention_at`),
+as the JAX package's is stock XLA.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ import torch
 
 from ..config import ModelConfig
 from ..device import resolve_device
-from ..ops.attention import (KVCache, alibi_slopes, fused_decode_attention_at,
-                             prefill_attention, write_kv_prefill_at)
+from ..ops.attention import (KVCache, alibi_slopes, extend_attention_at,
+                             fused_decode_attention_at, prefill_attention,
+                             write_kv_extend_at, write_kv_prefill_at)
 from ..ops.linear import dense, embedding_lookup
 from ..ops.norm import layer_norm
 from ..ops.rope import (apply_rope, apply_rope_interleaved, rope_table,
@@ -97,8 +100,10 @@ def _apply_rope(spec: ArchSpec, cfg: ModelConfig, x, cos, sin):
 
 class DecoderFamily:
     """Model-protocol object (init_params / init_caches / rope_tables /
-    forward_prefill / forward_decode) for one ArchSpec;
-    `runtime.session.GenerationSession` takes it as `model=`."""
+    forward_prefill / forward_extend / forward_decode) for one ArchSpec;
+    `runtime.session.GenerationSession` and `runtime.serving.ServingEngine`
+    take it as `model=` (dense caches only: no paged pool, no packed
+    prefill)."""
 
     def __init__(self, spec: ArchSpec):
         self.spec = spec
@@ -179,7 +184,7 @@ class DecoderFamily:
 
     # -- blocks --------------------------------------------------------
     def _block(self, cfg, lw, layer, x, cos, sin, alibi, caches, seq_lens,
-               decode):
+               decode, slots=None, extend=None):
         spec = self.spec
         eps = cfg.rms_norm_eps
 
@@ -197,11 +202,17 @@ class DecoderFamily:
             q = _apply_rope(spec, cfg, q, cos, sin)
             k = _apply_rope(spec, cfg, k, cos, sin)
         q, k = q.contiguous(), k.contiguous()
-        if decode:
+        if extend is not None:
+            # a slab at per-row offsets (chunked prefill, speculative
+            # verification): llama.forward_extend's semantics
+            attn = extend_attention_at(q, caches, layer, extend, k, v,
+                                       alibi=alibi, slots=slots)
+            caches = write_kv_extend_at(caches, layer, k, v, extend, slots)
+        elif decode:
             attn, caches = fused_decode_attention_at(q, k, v, caches, layer,
                                                      seq_lens, alibi=alibi)
         else:
-            caches = write_kv_prefill_at(caches, layer, k, v)
+            caches = write_kv_prefill_at(caches, layer, k, v, slots)
             attn = prefill_attention(q, k, v, seq_lens, alibi=alibi)
         attn = attn.reshape(*attn.shape[:-2], cfg.num_heads * cfg.head_dim)
         attn = dense(attn, lw["wo"], layer=layer)
@@ -222,14 +233,17 @@ class DecoderFamily:
         return x + mlp(h2), caches
 
     def _run(self, params, cfg, ids, positions, seq_lens, caches, decode,
-             rope):
-        """Embedding, the layers and the final LayerNorm: [..., D]."""
+             rope, slots=None, extend=None):
+        """Embedding, the layers and the final LayerNorm: [..., D]. A
+        learned position past the table reads its last row, as take_rope
+        does."""
         spec = self.spec
         x = embedding_lookup(params["embed"], ids, cfg.torch_dtype)
         if spec.learned_pos:
-            x = x + embedding_lookup(params["pos_embed"],
-                                     positions + spec.pos_offset,
-                                     cfg.torch_dtype)
+            table = params["pos_embed"]
+            x = x + embedding_lookup(
+                table, (positions + spec.pos_offset).clamp(
+                    max=table.shape[0] - 1), cfg.torch_dtype)
         if spec.embed_ln:
             x = layer_norm(x, params["emb_ln_w"], params["emb_ln_b"],
                            cfg.rms_norm_eps)
@@ -242,7 +256,8 @@ class DecoderFamily:
                  else None)
         for layer in range(cfg.num_layers):
             x, caches = self._block(cfg, params["layers"], layer, x, cos, sin,
-                                    alibi, caches, seq_lens, decode)
+                                    alibi, caches, seq_lens, decode, slots,
+                                    extend)
         x = layer_norm(x, params["final_ln_w"], params["final_ln_b"],
                        cfg.rms_norm_eps)
         return x, caches
@@ -256,24 +271,33 @@ class DecoderFamily:
     # -- forward -------------------------------------------------------
     def forward_prefill(self, params, cfg: ModelConfig, input_ids, seq_lens,
                         caches: KVCache, return_all_logits: bool = False,
-                        rope=None):
+                        rope=None, slots=None):
         """Context phase. input_ids: [B, S] left-aligned (padded right),
         seq_lens [B]. Returns (f32 logits [B, V] at each sequence's last
         position, or [B, S, V] with return_all_logits, caches). `rope`:
-        optional precomputed tables (`rope_tables`)."""
+        optional precomputed tables (`rope_tables`); `slots`: optional [B]
+        cache rows that take the K/V (the serving engine's), default
+        0..B-1."""
         b, s = input_ids.shape
         pos = torch.arange(s, device=input_ids.device)[None].expand(b, s)
         x, caches = self._run(params, cfg, input_ids, pos, seq_lens, caches,
-                              False, rope)
+                              False, rope, slots)
         if return_all_logits:
             return self._head(params, x), caches
         last = x[torch.arange(b, device=x.device), seq_lens.long() - 1]
         return self._head(params, last), caches
 
     def forward_extend(self, params, cfg: ModelConfig, tokens, start,
-                       caches: KVCache):
-        raise NotImplementedError(
-            "forward_extend (multi-token generation slabs) is not ported yet")
+                       caches: KVCache, rope=None, slots=None):
+        """Multi-token generation slab: tokens [B, T], row (b, i) at position
+        start[b] + i of cache row b (or slots[b]), llama.forward_extend's
+        contract. Returns (f32 logits [B, T, V], caches)."""
+        t = tokens.shape[1]
+        pos = (start.long()[:, None]
+               + torch.arange(t, device=tokens.device)[None])
+        x, caches = self._run(params, cfg, tokens, pos, None, caches, False,
+                              rope, slots, start)
+        return self._head(params, x), caches
 
     def forward_decode(self, params, cfg: ModelConfig, tokens, positions,
                        caches: KVCache, rope=None):

@@ -13,7 +13,8 @@ layer slice in place; `ops.linear.dense` dispatches on the container. The KV cac
 codes with per-layer scales) or the paged `PagedKVCache` (block pools [L, NB, H_kv, BS, D] with
 a block table), updated in place; `forward_prefill` and `forward_decode`
 dispatch on its type, and `forward_prefill_packed` prefills one packed
-token stream into the dense cache.
+token stream into the dense cache; `forward_extend` runs a T-token slab a
+sequence at per-row offsets (chunked prefill, speculative verification).
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ from __future__ import annotations
 import torch
 
 from ..config import ModelConfig, str_dtype_to_torch
-from ..ops.attention import (KVCache, PackedMeta, fused_decode_attention_at,
+from ..ops.attention import (KVCache, PackedMeta, extend_attention_at,
+                             fused_decode_attention_at,
                              packed_prefill_attention, prefill_attention,
-                             write_kv_packed_at, write_kv_prefill_at)
+                             write_kv_extend_at, write_kv_packed_at,
+                             write_kv_prefill_at)
 from ..ops.linear import dense, dense_fused, dense_prequant, embedding_lookup
 from ..ops.norm import rms_norm, rms_norm_quant
 from ..ops.paged_attention import (PagedKVCache,
@@ -31,6 +34,10 @@ from ..ops.paged_attention import (PagedKVCache,
                                    paged_write_prefill_at)
 from ..ops.rope import apply_rope, rope_tables_for, take_rope
 from ..quantization.tensors import SQWeight, concat_columns
+
+
+# serving may give this model a paged KV pool (runtime/serving.py)
+PAGED_CACHE = True
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device,
@@ -97,10 +104,11 @@ def _sq_per_token(w) -> bool:
 
 def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin, caches,
                 seq_lens, decode: bool, packed: PackedMeta = None,
-                slots=None):
-    """x: [B, S, D] (prefill), [B, D] (decode) or [T, D] (packed prefill).
-    `caches` is the dense `KVCache` or a `PagedKVCache`; `slots` [B] are
-    the dense cache rows a prefill writes (default 0..B-1)."""
+                slots=None, extend=None):
+    """x: [B, S, D] (prefill or extend), [B, D] (decode) or [T, D]
+    (packed prefill). `caches` is the dense `KVCache` or a `PagedKVCache`;
+    `slots` [B] are the dense cache rows a prefill or an extend writes
+    (default 0..B-1); `extend` [B] the slab's start positions."""
     nq_d = cfg.num_heads * cfg.head_dim
     nkv_d = cfg.num_kv_heads * cfg.head_dim
     fused = "wqkv" in lw
@@ -132,7 +140,12 @@ def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin, caches,
     k = apply_rope(_split_heads(k, cfg.num_kv_heads, cfg.head_dim), cos, sin)
     v = _split_heads(v, cfg.num_kv_heads, cfg.head_dim).contiguous()
     paged = isinstance(caches, PagedKVCache)
-    if packed is not None:
+    if extend is not None:
+        # the slab attends the cache as it was and itself, then is written
+        attn = extend_attention_at(q, caches, layer, extend, k, v,
+                                   slots=slots)
+        caches = write_kv_extend_at(caches, layer, k, v, extend, slots)
+    elif packed is not None:
         # packed prefill: q/k/v [T, H, D], one row per stream token
         caches = write_kv_packed_at(caches, layer, k, v, packed.slot_tok,
                                     packed.pos_tok)
@@ -179,11 +192,12 @@ def _mlp_block(cfg: ModelConfig, lw, layer: int, x):
 
 
 def _run_layers(cfg: ModelConfig, params, x, cos, sin, caches, seq_lens,
-                decode: bool, packed: PackedMeta = None, slots=None):
+                decode: bool, packed: PackedMeta = None, slots=None,
+                extend=None):
     lw = params["layers"]
     for layer in range(cfg.num_layers):
         x, caches = _attn_block(cfg, lw, layer, x, cos, sin, caches,
-                                seq_lens, decode, packed, slots)
+                                seq_lens, decode, packed, slots, extend)
         x = _mlp_block(cfg, lw, layer, x)
     return x, caches
 
@@ -230,6 +244,24 @@ def forward_prefill_packed(params, cfg: ModelConfig, token_ids,
                             packed)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return dense(x[last_idx.long()], params["lm_head"], torch.float32), caches
+
+
+def forward_extend(params, cfg: ModelConfig, tokens, start, caches: KVCache,
+                   rope=None, slots=None):
+    """Multi-token generation slab. tokens: [B, T]; token (b, i) sits at
+    position start[b] + i of cache row b (or slots[b]): its K/V is written
+    there and it attends causally to everything at or before itself.
+    Returns (f32 logits [B, T, V], caches); row i predicts position
+    start[b] + i + 1. Dense caches only, as in the JAX package."""
+    b, t = tokens.shape
+    x = embedding_lookup(params["embed"], tokens, cfg.torch_dtype)  # [B, T, D]
+    cos_t, sin_t = _rope(cfg, rope, x.device)
+    positions = start.long()[:, None] + torch.arange(t, device=x.device)[None]
+    cos, sin = take_rope(cos_t, sin_t, positions)                  # [B,T,1,d]
+    x, caches = _run_layers(cfg, params, x, cos, sin, caches, None, False,
+                            slots=slots, extend=start)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return dense(x, params["lm_head"], torch.float32), caches
 
 
 def forward_decode(params, cfg: ModelConfig, tokens, positions,

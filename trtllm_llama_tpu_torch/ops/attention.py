@@ -20,7 +20,10 @@ kernel 13; `fused_decode_attention_at` by `decode_attn_mode`: kernel 3 for
 to its DMA kernel at S_max >= 4096 is a TPU crossover the port does not
 copy, and its XLA path is not ported), the plain write and the read-only
 kernel (row 8) for 'split', the one-launch kernel (row 9) for 'fused';
-`decode_attention_at` to row 8 in every mode. Float, int8 and fp8 caches
+`decode_attention_at` to row 8 in every mode; `extend_attention_at` and
+`write_kv_extend_at` (a T-token slab a sequence at per-row offsets:
+chunked prefill, speculative verification) are stock torch, as the JAX
+package's are stock XLA. Float, int8 and fp8 caches
 alike: the JAX package sends an fp8 cache to its XLA path in every mode,
 the port to the same kernels. `decode_attention` is the
 plain read-only reference of one layer. The paged cache is in
@@ -93,6 +96,97 @@ def write_kv_decode_at(cache: KVCache, layer: int, k, v, positions) -> KVCache:
         _decode.write_rows(dst[layer], positions.long(),
                            _quant_kv(src, dst.dtype, cache.scale[layer]))
     return cache
+
+
+def write_kv_extend_at(cache: KVCache, layer: int, k, v, start,
+                       slots=None) -> KVCache:
+    """Write a T-token slab per sequence: k/v [B, T, H_kv, D], row (b, i)
+    at position start[b] + i of cache row b, or of cache row slots[b] when
+    given. A position >= S_max writes nothing (the JAX package's scatter
+    drops it); no host sync: a dropped row rewrites position start[b] - 1,
+    which the slab does not write, with its own value."""
+    b, t = k.shape[:2]
+    s = cache.k.shape[3]
+    if t > s:
+        raise ValueError(f"a slab of {t} tokens exceeds the cache's {s} rows")
+    pos = start.long()[:, None] + torch.arange(t, device=k.device)[None]
+    keep = pos < s                                            # [B, T]
+    at = torch.where(keep, pos, start.long()[:, None] - 1)
+    rows = (torch.arange(b, device=k.device) if slots is None
+            else slots.long())[:, None].expand(b, t)
+    for src, dst in ((k, cache.k), (v, cache.v)):
+        new = _quant_kv(src, dst.dtype, cache.scale[layer])    # [B, T, H, D]
+        dst[layer, rows, :, at] = torch.where(
+            keep[..., None, None], new, dst[layer, rows, :, at])
+    return cache
+
+
+def extend_attention_at(q, cache: KVCache, layer: int, start, k_new=None,
+                        v_new=None, scale: Optional[float] = None,
+                        alibi=None, slots=None):
+    """Causal attention of a T-token slab against layer `layer`: q
+    [B, T, H_q, D]; row (b, i) sits at position start[b] + i of cache row b
+    (or slots[b]) and attends positions <= start[b] + i. alibi: optional
+    [H_q] slopes (slope * key position added to the scaled scores).
+    Returns [B, T, H_q, D].
+
+    With k_new / v_new ([B, T, H_kv, D], rope applied) the cache is read
+    before the slab is written: rows strictly below start[b] come from the
+    cache, and the T in-flight rows attend each other causally after a
+    round trip through the cache codec (encode, then decode), so the
+    logits match a decode that later reads the same rows; the caller
+    writes the slab (write_kv_extend_at) after this call. Without them the
+    slab must already be written.
+
+    Stock ops, as the JAX package's XLA path (no Pallas kernel): K/V read
+    in q's dtype, scores, softmax and P V in f32. The JAX package rounds P
+    to q's dtype before P V; at f32 the two are the same."""
+    b, t, hq, d = q.shape
+    rows = slice(None) if slots is None else slots.long()
+    kc, vc = cache.k[layer, rows], cache.v[layer, rows]      # [B, Hkv, S, D]
+    hkv, s_max = kc.shape[1], kc.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    kv_scale = cache.scale[layer]
+
+    def deq(x):                                  # [B, Hkv, S, D] -> f32
+        return _dequant_kv(x, kv_scale, q.dtype).float()
+
+    qg = q.float().reshape(b, t, hkv, g, d)
+    logits = torch.einsum("btkgd,bksd->bkgts", qg, deq(kc)).reshape(
+        b, hq, t, s_max) * scale
+    rows_pos = start.long()[:, None] + torch.arange(t, device=q.device)[None]
+    cols = torch.arange(s_max, device=q.device)
+    if alibi is not None:
+        logits = logits + alibi.float().reshape(1, hq, 1, 1) * cols.float()
+    if k_new is None:
+        mask = cols[None, None] <= rows_pos[:, :, None]             # [B, T, S]
+        logits = torch.where(mask[:, None], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).reshape(b, hkv, g, t, s_max)
+        out = torch.einsum("bkgts,bksd->btkgd", probs, deq(vc))
+        return out.reshape(b, t, hq, d).to(q.dtype)
+    mask_old = cols[None, None, None] < start.long()[:, None, None, None]
+    logits = torch.where(mask_old, logits, NEG_INF)
+
+    def round_trip(x):                           # [B, T, Hkv, D] -> f32
+        x = x.transpose(1, 2)
+        return deq(_quant_kv(x, kc.dtype, kv_scale))
+
+    kn, vn = round_trip(k_new), round_trip(v_new)            # [B, Hkv, T, D]
+    logits_n = torch.einsum("btkgd,bkud->bkgtu", qg, kn).reshape(
+        b, hq, t, t) * scale
+    if alibi is not None:
+        # in-flight token u sits at key position start[b] + u
+        logits_n = logits_n + (alibi.float().reshape(1, hq, 1, 1)
+                               * rows_pos.float()[:, None, None, :])
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    logits_n = torch.where(causal, logits_n, NEG_INF)
+    probs = torch.softmax(torch.cat([logits, logits_n], dim=-1), dim=-1)
+    p_old = probs[..., :s_max].reshape(b, hkv, g, t, s_max)
+    p_new = probs[..., s_max:].reshape(b, hkv, g, t, t)
+    out = (torch.einsum("bkgts,bksd->btkgd", p_old, deq(vc))
+           + torch.einsum("bkgtu,bkud->btkgd", p_new, vn))
+    return out.reshape(b, t, hq, d).to(q.dtype)
 
 
 class PackedMeta(NamedTuple):

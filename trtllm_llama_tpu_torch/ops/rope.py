@@ -74,5 +74,8 @@ def apply_rope_interleaved(x, cos, sin, rotary_dim: int = 0):
 
 
 def take_rope(cos, sin, positions):
-    """Gather per-position cos/sin: positions [..., S] -> [..., S, 1, d]."""
+    """Gather per-position cos/sin: positions [..., S] -> [..., S, 1, d]. A
+    position past the table reads its last row (the serving engine parks
+    inactive rows at max_seq_len, which may equal the table's length)."""
+    positions = positions.clamp(max=cos.shape[0] - 1)
     return cos[positions][..., None, :], sin[positions][..., None, :]

@@ -8,12 +8,20 @@ a Python loop of `forward_decode` steps over all `max_slots + 1` rows whose
 per-slot state (tokens, lengths, active mask, generated counts, budgets)
 stays on the device: a slot that hits EOS or its own budget freezes by
 masking, the host does not sync inside the chunk, and it reads the chunk's
-tokens back once at its end.
+tokens back once at its end. Host values go to the card through pinned
+memory without a stream sync (`_dev`), and a chunk's tokens come back
+through pinned memory behind an event (`_stage` / `_collect`).
+
+`model=` serves any model of `models/` (default
+`by_architecture(cfg.architecture)`): the engine calls its init_caches,
+rope_tables, forward_prefill, forward_extend and forward_decode, and
+checks for what only llama has (a paged pool, packed prefill).
 
 Three cache configurations, as in the JAX engine:
-- dense (default): one cache [L, max_slots + 1, H_kv, S_max, D]; slot i owns
-  row i and row max_slots is the trash slot (never decoded as a request,
-  always inactive). A step's admissions are grouped by prompt bucket
+- dense (default): one cache [L, max_slots + 1, H_kv, S_max, D] (S_max:
+  max_seq_len + cache_headroom, rounded up to 128 rows); slot i owns row i
+  and row max_slots is the trash slot (never decoded as a request, always
+  inactive). A step's admissions are grouped by prompt bucket
   (`EngineConfig.prefill_buckets`, which bounds each prompt's padding) and
   each group prefills in one batched call that writes its K/V straight into
   its slots' rows. The JAX engine also splits a group into powers of two
@@ -28,6 +36,32 @@ Three cache configurations, as in the JAX engine:
 - `packed_prefill=True` (dense cache): all admits of a step prefill as ONE
   packed token stream (kernel 13), pad tokens writing to the trash slot.
 
+Steps, as the JAX engine's:
+- `prefill_chunk=C` (dense, not packed; ignored under paged or packed, as
+  in JAX): a prompt longer than C prefills C tokens an engine step through
+  the model's `forward_extend` at per-row starts, interleaved with the
+  decode chunks of the other slots; the final chunk overlaps backward so
+  that every call is exactly C tokens. All partial prompts advance in one
+  call a step. A partial request neither sizes the decode chunk nor
+  records tokens, and its slot stays inactive: the decode steps then write
+  inactive rows at position max_seq_len, which no request reaches (or past
+  the cache, which drops the write), instead of at their frozen lengths
+  inside the partial prompt.
+- `mixed_step=True` (dense, not packed, not chunked): a step's admission
+  prefill and its decode chunk run with no readback between them; the
+  fresh slots are activated on the device (the EOS / budget freeze too)
+  and the prefill's tokens come back with the chunk's. JAX folds only an
+  admission that is one same-bucket group of a power-of-two size (its
+  compiles); the port folds any one-bucket admission.
+- `pipelined=True` (not with mixed_step): each step dispatches chunk N,
+  then records chunk N-1 (waiting on its event only) and admits; requests
+  admitted in a step join the next chunk, and rows of requests that
+  finished while a chunk was in flight are skipped. The decode chunk's
+  length and a paged slot's block appends count the steps still in flight,
+  so the host lagging one chunk never dispatches past a request's budget
+  (JAX's engine over-appends blocks there, `runtime/serving.py:1397` of the
+  JAX package, and raises when input + max_new_tokens == max_seq_len).
+
 Sampling, as the JAX engine's: every admission and decode step samples
 through one helper (`_sample`). By default it runs the engine's
 SamplingConfig (`sampling.sample_step`, without token counts or generated
@@ -36,15 +70,14 @@ generator, seeded 0. `per_request_sampling=True`: per-slot parameters on
 the device (`SlotSamplingParams`, one row a slot, the trash row neutral),
 set at admission from `submit(sampling=)` or the engine default, and
 `sample_step_slots` over them with per-slot token counts (seeded from each
-prompt at admission, updated by active rows) and generated lengths (for
-`min_length`); `max_bad_words` / `max_bad_word_len` add per-slot bad words
-over a tail of each slot's generated tokens. Stop words are matched on the
-host at chunk boundaries, on the recorded ids ("stop_words"; the stop
-sequence stays in the output). `return_logprobs`: the model's logprob of
-each token, read back with the chunk's tokens in its one readback.
-Chunked prefill, the mixed and pipelined steps, `model=`, sharded or
-multi-host serving and the speculative engines are not ported yet and
-raise NotImplementedError.
+full prompt at admission or at a chunked prompt's final chunk, updated by
+active rows) and generated lengths (for `min_length`); `max_bad_words` /
+`max_bad_word_len` add per-slot bad words over a tail of each slot's
+generated tokens. Stop words are matched on the host at chunk boundaries,
+on the recorded ids ("stop_words"; the stop sequence stays in the output).
+`return_logprobs`: the model's logprob of each token, read back with the
+chunk's tokens in its one readback. Sharded or multi-host serving and the
+speculative engines are not ported yet and raise NotImplementedError.
 
 The port updates every cache in place (JAX returns new ones), so an
 admission writes into its slots or blocks while other slots hold live K/V:
@@ -66,10 +99,9 @@ import torch
 
 from ..config import EngineConfig, ModelConfig, str_dtype_to_torch
 from ..device import resolve_device
-from ..models import llama
+from ..models import by_architecture
 from ..ops.attention import PackedMeta
 from ..ops.paged_attention import init_paged_caches
-from ..ops.rope import rope_tables_for
 from .kv_cache_manager import KVCacheManager
 from .sampling import (SamplingConfig, SlotSamplingParams,
                        init_token_counts, sample_step, sample_step_slots,
@@ -143,18 +175,48 @@ class ServingEngine:
                  packed_prefill: bool = False,
                  prefill_chunk: Optional[int] = None,
                  return_logprobs: bool = False,
+                 cache_headroom: int = 0,
                  max_bad_words: int = 0,
                  max_bad_word_len: int = 4,
                  mixed_step: bool = False,
                  pipelined: bool = False,
                  mapping=None, mesh=None, device="cuda"):
-        unported = {"model": model, "prefill_chunk": prefill_chunk,
-                    "mixed_step": mixed_step, "pipelined": pipelined,
-                    "mapping": mapping, "mesh": mesh}
+        unported = {"mapping": mapping, "mesh": mesh}
         named = [k for k, v in unported.items() if v]
         if named:
             raise NotImplementedError(
                 f"ServingEngine: not ported yet: {', '.join(named)}")
+        self.model = (model if model is not None
+                      else by_architecture(cfg.architecture))
+        arch = cfg.architecture or "llama"
+        # capability checks against the resolved model, as the JAX engine
+        if paged and not getattr(self.model, "PAGED_CACHE", False):
+            raise ValueError(
+                f"model family {arch!r} has no paged KV cache path: serve "
+                "it with the dense cache (paged=False)")
+        self.packed = (packed_prefill and not paged
+                       and hasattr(self.model, "forward_prefill_packed"))
+        if packed_prefill and not self.packed and not paged:
+            raise ValueError(
+                f"model family {arch!r} has no packed-prefill path")
+        self.prefill_chunk = (int(prefill_chunk) if prefill_chunk
+                              and not paged and not self.packed else None)
+        if self.prefill_chunk is not None and self.prefill_chunk < 16:
+            raise ValueError("prefill_chunk must be >= 16")
+        if (self.prefill_chunk is not None
+                and not hasattr(self.model, "forward_extend")):
+            raise ValueError(
+                f"model family {arch!r} has no forward_extend: chunked "
+                "prefill unavailable")
+        self.mixed = (bool(mixed_step) and not paged and not self.packed
+                      and prefill_chunk is None)
+        if mixed_step and not self.mixed:
+            raise ValueError("mixed_step needs the dense non-packed, "
+                             "non-chunked-prefill configuration")
+        self.pipelined = bool(pipelined)
+        if self.pipelined and mixed_step:
+            raise ValueError("pipelined serving needs the non-mixed, "
+                             "single-host configuration")
         self.scfg = sampling or SamplingConfig()
         self.per_request = per_request_sampling
         self.return_logprobs = return_logprobs
@@ -171,19 +233,23 @@ class ServingEngine:
         self.cfg = cfg
         self.engine_cfg = engine_cfg
         self.decode_chunk = decode_chunk
+        self.cache_headroom = cache_headroom
         self.max_slots = engine_cfg.max_batch_size
         self.n_rows = self.max_slots + 1      # +1 = prefill-padding trash slot
         self.trash_slot = self.max_slots
         self.paged = paged
-        self.packed = packed_prefill and not paged
         dev = self.device
         self.kv_scales = (None if kv_scales is None else torch.as_tensor(
             np.asarray(kv_scales, np.float32), device=dev))
 
         self._capacity_precheck(params, block_size, num_blocks)
-        # one device: q/k/v fused into one matmul, as the JAX engine does
-        self.params = llama.fuse_qkv_params(_params_to(params, dev))
-        self.rope = rope_tables_for(cfg, device=dev)
+        self.params = _params_to(params, dev)
+        # one device: q/k/v fused into one matmul where the model has the
+        # rewrite, as the JAX engine does
+        fuse = getattr(self.model, "fuse_qkv_params", None)
+        if fuse is not None:
+            self.params = fuse(self.params)
+        self.rope = self.model.rope_tables(cfg, device=dev)
 
         if paged:
             self.block_size = block_size
@@ -207,8 +273,11 @@ class ServingEngine:
                                       self.trash_block, np.int32)
         else:
             self.scheduler = Scheduler(self.max_slots, engine_cfg.max_seq_len)
-            self.caches = llama.init_caches(
-                cfg, self.n_rows, engine_cfg.max_seq_len, dev, self.kv_scales)
+            # cache_headroom: positions past max_seq_len (a speculative
+            # verify slab writes up to gamma past the budget)
+            self.caches = self.model.init_caches(
+                cfg, self.n_rows, engine_cfg.max_seq_len + cache_headroom,
+                dev, self.kv_scales)
         # per-slot device state ([n_rows]; the trash row is never active)
         self.slot_lens = self._dev(np.zeros((self.n_rows,), np.int32))
         self.slot_tokens = self._dev(np.zeros((self.n_rows,), np.int32))
@@ -232,15 +301,24 @@ class ServingEngine:
                 dtype=torch.int32, device=dev)
         self._req_sampling: Dict[int, SamplingConfig] = {}
         self._req_logprobs: Dict[int, List[float]] = {}
-        # wall time per phase: admission (prefill + its token readback),
-        # decode dispatch (the host enqueueing the chunk's steps), readback
-        # (waits for the device to finish the chunk, then copies its tokens)
-        # and host bookkeeping
+        # chunked prefill: request id -> start of its next chunk
+        self._partial: Dict[int, int] = {}
+        # pipelined: the dispatched chunk whose tokens are not recorded yet
+        self._pending_chunk = None
+        # wall time per phase: admission (prefills and their token
+        # readback), decode dispatch (the host enqueueing the chunk's
+        # steps; a mixed step's prefill too), readback (waits for the
+        # device to finish the chunk, then copies its tokens) and host
+        # bookkeeping
         self.phase_times = {"admit": 0.0, "dispatch": 0.0,
                             "readback": 0.0, "host": 0.0, "steps": 0}
         # device calls made: forward_decode steps, batched prefills
-        # (forward_prefill) and packed prefills (forward_prefill_packed)
-        self.calls = {"decode_steps": 0, "prefills": 0, "packed_prefills": 0}
+        # (forward_prefill; a mixed step's included), packed prefills
+        # (forward_prefill_packed) and chunked-prefill calls
+        # (forward_extend, whose rows chunk_rows lists, one entry a call)
+        self.calls = {"decode_steps": 0, "prefills": 0, "packed_prefills": 0,
+                      "chunk_prefills": 0}
+        self.chunk_rows: List[int] = []
         # rid -> [t_submit, t_first_token, t_done, n_tokens_recorded]
         self._req_times: Dict[int, list] = {}
 
@@ -278,11 +356,13 @@ class ServingEngine:
                 "TLLM_SKIP_CAPACITY_CHECK=1.")
 
     def _capacity_estimate(self, params, block_size, num_blocks) -> dict:
-        """Byte estimate behind _capacity_precheck: weights + one KV pool +
-        admission transients (the JAX engine's model with its KV pool once
-        and without its scratch cache: a prefill writes into the slots)."""
+        """Byte estimate behind _capacity_precheck: weights + one KV pool
+        (dense: cache_headroom rows past max_seq_len, as the JAX engine
+        counts them) + admission transients (the JAX engine's model with
+        its KV pool once and without its scratch cache: a prefill writes
+        into the slots)."""
         cfg, engine_cfg = self.cfg, self.engine_cfg
-        smax = engine_cfg.max_seq_len
+        smax = engine_cfg.max_seq_len + self.cache_headroom
         if self.paged:
             nb = (num_blocks if num_blocks is not None
                   else self.max_slots * (-(-engine_cfg.max_seq_len
@@ -307,7 +387,59 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _dev(self, x):
-        return torch.as_tensor(np.asarray(x), device=self.device)
+        """A host value as a new device tensor. On the card the copy goes
+        through pinned memory, asynchronously: a copy from pageable memory
+        synchronizes the stream, so it would wait for a decode chunk in
+        flight. The pinned buffer belongs to PyTorch's caching host
+        allocator, which reuses it only once its copy has run (one staging
+        buffer a copy in flight)."""
+        t = torch.from_numpy(np.array(x))      # a copy: the caller keeps x
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _stage(self, *tensors):
+        """Start one device-to-host copy of `tensors` (int32 or f32 device
+        tensors, or None), packed as int32. On the card it lands in pinned
+        memory, asynchronously, and an event marks its end; `_collect`
+        waits on that event alone, not on work queued after it."""
+        parts = [t.reshape(-1).to(torch.int32) if t.dtype != torch.float32
+                 else t.reshape(-1).view(torch.int32)
+                 for t in tensors if t is not None]
+        flat = torch.cat(parts)
+        layout = [None if t is None else (tuple(t.shape),
+                                          t.dtype == torch.float32)
+                  for t in tensors]
+        if flat.device.type != "cuda":
+            return flat, None, layout
+        host = torch.empty(flat.shape, dtype=torch.int32, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event, layout
+
+    @staticmethod
+    def _collect(staged):
+        """The staged tensors as numpy arrays (None where None was
+        staged), after waiting for their copy's event."""
+        host, event, layout = staged
+        if event is not None:
+            event.synchronize()
+        flat, out, off = host.numpy(), [], 0
+        for item in layout:
+            if item is None:
+                out.append(None)
+                continue
+            shape, is_f32 = item
+            n = int(np.prod(shape))
+            a = flat[off:off + n].reshape(shape).copy()
+            out.append(a.view(np.float32) if is_f32 else a)
+            off += n
+        return out
+
+    def _read(self, *tensors):
+        """`tensors` (or None) as numpy in one device-to-host copy."""
+        return self._collect(self._stage(*tensors))
 
     @staticmethod
     def _check_bad_word_ids(bad_words, vocab_size: int):
@@ -348,42 +480,32 @@ class ServingEngine:
                else None)
         return tokens, lps
 
-    @staticmethod
-    def _read(tokens, lps):
-        """(tokens, logprobs or None) as numpy in one device-to-host copy:
-        the f32 logprobs travel as their int32 bit patterns."""
-        if lps is None:
-            return tokens.cpu().numpy(), None
-        both = torch.stack([tokens, lps.view(torch.int32)]).cpu().numpy()
-        return both[0], both[1].view(np.float32)
-
     def _set_slot_params(self, reqs: List[Request]):
         for req in reqs:
             self.slot_params = self.slot_params.set_slot(
                 req.slot, self._req_sampling.get(req.request_id, self.scfg))
 
     def _register_prefilled(self, reqs: List[Request], tokens: np.ndarray,
-                            lps: Optional[np.ndarray] = None
+                            lps: Optional[np.ndarray] = None,
+                            device_updated: bool = False
                             ) -> List[FinishedRequest]:
         """Activate freshly prefilled slots (one upload for the group), then
         record each request's first token (and its logprob), finishing it on
-        EOS, its budget or a stop word."""
-        slots = self._dev(np.array([r.slot for r in reqs], np.int64))
-        vals = self._dev(np.stack([
-            np.array([len(r.input_ids) for r in reqs], np.int32),
-            tokens[:len(reqs)].astype(np.int32),
-            np.array([r.max_new_tokens for r in reqs], np.int32)]))
-        self.slot_lens[slots] = vals[0]
-        self.slot_tokens[slots] = vals[1]
-        self.slot_budget[slots] = vals[2]
-        self.slot_active[slots] = True
-        self.slot_gen[slots] = 1
-        if self.max_bad_words:
-            # reseed tails: the -2 sentinel, then the first token (bad
-            # words match generated ids only)
-            rows = np.full((len(reqs), self.slot_tail.shape[1]), -2, np.int32)
-            rows[:, -1] = tokens[:len(reqs)]
-            self.slot_tail[slots] = self._dev(rows)
+        EOS, its budget or a stop word. device_updated=True (the mixed step)
+        skips the activation: the step made it on the device."""
+        if not device_updated:
+            slots = self._dev(np.array([r.slot for r in reqs], np.int64))
+            vals = self._dev(np.stack([
+                np.array([len(r.input_ids) for r in reqs], np.int32),
+                tokens[:len(reqs)].astype(np.int32),
+                np.array([r.max_new_tokens for r in reqs], np.int32)]))
+            self.slot_lens[slots] = vals[0]
+            self.slot_tokens[slots] = vals[1]
+            self.slot_budget[slots] = vals[2]
+            self.slot_active[slots] = True
+            self.slot_gen[slots] = 1
+            if self.max_bad_words:
+                self._reseed_tail(slots, vals[1])
         finished = []
         for i, req in enumerate(reqs):
             if lps is not None:
@@ -395,6 +517,14 @@ class ServingEngine:
             elif self._stop_matched(req):
                 finished.append(self._finish_stopped(req))
         return finished
+
+    def _reseed_tail(self, slots, first_tokens):
+        """Fresh slots' bad-word tails: the -2 sentinel, then the first
+        token (bad words match generated ids only)."""
+        rows = torch.full((len(slots), self.slot_tail.shape[1]), -2,
+                          dtype=torch.int32, device=self.device)
+        rows[:, -1] = first_tokens
+        self.slot_tail[slots] = rows
 
     def _stop_matched(self, req: Request) -> bool:
         """Does the request's output end with one of its stop words (its
@@ -538,21 +668,23 @@ class ServingEngine:
         self.scheduler.cancel(request_id)
         self._req_sampling.pop(request_id, None)
         self._req_logprobs.pop(request_id, None)
+        self._partial.pop(request_id, None)
         if in_flight and slot is not None:
             self._release_slot(slot)
 
     # ------------------------------------------------------------------
-    def _admit_group(self, group: List[Request], bucket: int
-                     ) -> List[FinishedRequest]:
+    def _prefill_group(self, group: List[Request], bucket: int):
         """Prefill a same-bucket group in one batched call, each request's
         K/V written straight into its slot's rows (dense) or its blocks
-        (paged)."""
+        (paged), and sample its first tokens. Returns the device slots,
+        prompt lengths, first tokens and their logprobs (or None)."""
         ids = np.full((len(group), bucket), self.scfg.pad_id, np.int32)
         for i, req in enumerate(group):
             ids[i, :len(req.input_ids)] = req.input_ids
         lengths = np.array([len(r.input_ids) for r in group], np.int32)
         slot_ids = [r.slot for r in group]
-        caches, slots = self.caches, None
+        slots = self._dev(np.array(slot_ids, np.int64))
+        caches, write_slots = self.caches, slots
         if self.paged:
             for req in group:
                 self.kv_mgr.add_sequence(req.slot, len(req.input_ids))
@@ -562,20 +694,25 @@ class ServingEngine:
             # them, the trash block
             caches = caches._replace(tables=self._dev(
                 self._tables_np[slot_ids]))
-        else:
-            slots = self._dev(np.array(slot_ids, np.int64))
+            write_slots = None
         ids, lengths = self._dev(ids), self._dev(lengths)
-        logits, _ = llama.forward_prefill(
-            self.params, self.cfg, ids, lengths, caches, rope=self.rope,
-            slots=slots)
+        kw = {} if write_slots is None else {"slots": write_slots}
+        logits, _ = self.model.forward_prefill(
+            self.params, self.cfg, ids, lengths, caches, rope=self.rope, **kw)
         self.calls["prefills"] += 1
-        rows = counts = None
+        counts = None
         if self.per_request:
             self._set_slot_params(group)
-            rows = self._dev(np.array(slot_ids, np.int64))
             counts = init_token_counts(ids, lengths, self.cfg.vocab_size)
-        return self._register_prefilled(
-            group, *self._read(*self._sample_admitted(logits, rows, counts)))
+        tokens, lps = self._sample_admitted(logits, slots, counts)
+        return slots, lengths, tokens, lps
+
+    def _admit_group(self, group: List[Request], bucket: int
+                     ) -> List[FinishedRequest]:
+        """Prefill a same-bucket group (_prefill_group), read its first
+        tokens back and activate its slots."""
+        _, _, tokens, lps = self._prefill_group(group, bucket)
+        return self._register_prefilled(group, *self._read(tokens, lps))
 
     def _t_bucket(self, t: int) -> int:
         """Power-of-two ladder for the packed stream length."""
@@ -603,7 +740,7 @@ class ServingEngine:
             [r.input_ids for r in reqs], [r.slot for r in reqs], tb,
             self.trash_slot, self.max_slots)
         meta, token_ids = self._dev(meta), self._dev(token_ids)
-        logits, _ = llama.forward_prefill_packed(
+        logits, _ = self.model.forward_prefill_packed(
             self.params, self.cfg, token_ids, PackedMeta(*meta),
             self._dev(last_idx), self.caches, rope=self.rope)
         self.calls["packed_prefills"] += 1
@@ -626,24 +763,78 @@ class ServingEngine:
         return self._register_prefilled(
             reqs, *self._read(*self._sample_admitted(logits, rows, counts)))
 
+    def _advance_partials(self) -> List[FinishedRequest]:
+        """Advance every partially prefilled request by one chunk, all in
+        one forward_extend call over [n, C] prompt slabs at per-row starts
+        into their slots' rows. A final chunk overlaps backward to stay
+        exactly C tokens (identical K/V is rewritten; no pad writes); its
+        last row's logits seed generation as a whole prefill's would, and
+        its token activates the slot (per-request: counts from the full
+        prompt). Calls with no final chunk read nothing back."""
+        c = self.prefill_chunk
+        parts = sorted(self._partial.items())
+        n = len(parts)
+        ids = np.full((n, c), self.scfg.pad_id, np.int32)
+        starts = np.zeros((n,), np.int32)
+        reqs, last = [], []
+        for i, (rid, st) in enumerate(parts):
+            req = self.scheduler.get(rid)
+            st = min(st, len(req.input_ids) - c)
+            ids[i] = req.input_ids[st:st + c]
+            starts[i] = st
+            reqs.append(req)
+            if st + c >= len(req.input_ids):
+                last.append(i)
+            else:
+                self._partial[rid] = st + c
+        slots = self._dev(np.array([r.slot for r in reqs], np.int64))
+        logits, _ = self.model.forward_extend(
+            self.params, self.cfg, self._dev(ids), self._dev(starts),
+            self.caches, rope=self.rope, slots=slots)
+        self.calls["chunk_prefills"] += 1
+        self.chunk_rows.append(n * c)
+        if not last:
+            return []
+        done = [reqs[i] for i in last]
+        for req in done:
+            del self._partial[req.request_id]
+        at = self._dev(np.array(last, np.int64))
+        counts = None
+        if self.per_request:
+            # penalty state: the full prompts' token counts
+            width = max(len(r.input_ids) for r in done)
+            prompts = np.zeros((len(done), width), np.int32)
+            for i, r in enumerate(done):
+                prompts[i, :len(r.input_ids)] = r.input_ids
+            counts = init_token_counts(
+                self._dev(prompts), self._dev(np.array(
+                    [len(r.input_ids) for r in done], np.int32)),
+                self.cfg.vocab_size)
+        tokens, lps = self._sample_admitted(logits[at, -1], slots[at], counts)
+        return self._register_prefilled(done, *self._read(tokens, lps))
+
     def _decode_chunk(self, n_steps: int):
         """n_steps decode steps over every row, state kept on the device;
         returns the chunk's tokens [n_rows, n_steps] (pad_id where a row
         was inactive) and their logprobs (0.0 there; None without
-        return_logprobs), not yet read back."""
+        return_logprobs), not yet read back. Under chunked prefill an
+        inactive row writes at max_seq_len, away from a partial prompt."""
         pad, end = self.scfg.pad_id, self.scfg.end_id
         tokens, lens = self.slot_tokens, self.slot_lens
         active, gen, budget = self.slot_active, self.slot_gen, self.slot_budget
         tail = self.slot_tail if self.max_bad_words else None
         counts = self.slot_counts if self.per_request else None
+        parked = self.engine_cfg.max_seq_len
         out = torch.empty((self.n_rows, n_steps), dtype=torch.int32,
                           device=self.device)
         out_lp = (torch.zeros((self.n_rows, n_steps), dtype=torch.float32,
                               device=self.device)
                   if self.return_logprobs else None)
         for i in range(n_steps):
-            logits, self.caches = llama.forward_decode(
-                self.params, self.cfg, tokens, lens, self.caches,
+            pos = (torch.where(active, lens, parked)
+                   if self.prefill_chunk is not None else lens)
+            logits, self.caches = self.model.forward_decode(
+                self.params, self.cfg, tokens, pos, self.caches,
                 rope=self.rope)
             nxt = self._sample(logits, counts=counts, gen_lens=gen, tail=tail)
             if counts is not None:      # active rows count their token
@@ -672,29 +863,125 @@ class ServingEngine:
             self.slot_tail = tail
         return out, out_lp
 
-    @torch.inference_mode()
-    def step(self) -> List[FinishedRequest]:
-        """One engine step: admit and prefill new requests (batched per
-        bucket, or one packed stream), then decode up to decode_chunk
-        tokens for every active slot."""
-        finished: List[FinishedRequest] = []
-        t0 = time.perf_counter()
+    def _admit_requests(self) -> List[Request]:
+        """The scheduler's admissions; under chunked prefill the prompts
+        longer than the chunk become partial requests (their first chunk
+        runs this step) and only the others are returned."""
         admitted = self.scheduler.admit()
+        if self.prefill_chunk is None:
+            return admitted
+        long = [r for r in admitted if len(r.input_ids) > self.prefill_chunk]
+        for req in long:
+            self._partial[req.request_id] = 0
+        if self.per_request:
+            self._set_slot_params(long)
+        return [r for r in admitted if len(r.input_ids) <= self.prefill_chunk]
+
+    def _by_bucket(self, reqs: List[Request]) -> Dict[int, List[Request]]:
+        groups: Dict[int, List[Request]] = {}
+        for req in reqs:
+            groups.setdefault(self.engine_cfg.bucket_for(len(req.input_ids)),
+                              []).append(req)
+        return dict(sorted(groups.items()))
+
+    def _admit(self, admitted: List[Request]) -> List[FinishedRequest]:
+        """Prefill this step's admissions (one packed stream, or a batched
+        call a bucket), then advance the partial prompts by a chunk."""
+        finished: List[FinishedRequest] = []
         if self.packed:
             if admitted:
                 finished.extend(self._admit_packed(admitted))
         else:
-            by_bucket: Dict[int, List[Request]] = {}
-            for req in admitted:
-                b = self.engine_cfg.bucket_for(len(req.input_ids))
-                by_bucket.setdefault(b, []).append(req)
-            for bucket, group in sorted(by_bucket.items()):
+            for bucket, group in self._by_bucket(admitted).items():
                 finished.extend(self._admit_group(group, bucket))
+        if self._partial:
+            finished.extend(self._advance_partials())
+        return finished
+
+    @torch.inference_mode()
+    def step(self) -> List[FinishedRequest]:
+        """One engine step: admit and prefill new requests (batched per
+        bucket, or one packed stream) and advance chunked prompts, then
+        decode up to decode_chunk tokens for every active slot. mixed_step
+        folds a one-bucket admission into the decode chunk; pipelined
+        reorders the phases (_step_pipelined)."""
+        if self.pipelined:
+            return self._step_pipelined()
+        t0 = time.perf_counter()
+        admitted = self._admit_requests()
+        if self.mixed and admitted:
+            groups = self._by_bucket(admitted)
+            if len(groups) == 1:
+                (bucket, group), = groups.items()
+                mixed = self._mixed_phase(group, bucket)
+                if mixed is not None:
+                    return mixed
+        finished = self._admit(admitted)
         self.phase_times["admit"] += time.perf_counter() - t0
         self.phase_times["steps"] += 1
         if not self.scheduler.active_requests():
             return finished
         finished.extend(self._decode_phase())
+        return finished
+
+    def _step_pipelined(self) -> List[FinishedRequest]:
+        """Dispatch chunk N first, then record chunk N-1 (its readback
+        waits for N-1's copy alone, so the host's bookkeeping overlaps
+        chunk N on the card), then admit: admissions prefill after chunk N
+        on the stream and join chunk N+1."""
+        finished: List[FinishedRequest] = []
+        t0 = time.perf_counter()
+        dispatched = self._decode_dispatch()
+        self.phase_times["dispatch"] += time.perf_counter() - t0
+        if self._pending_chunk is not None:
+            finished.extend(self._decode_process(self._pending_chunk))
+        self._pending_chunk = dispatched
+        t0 = time.perf_counter()
+        finished.extend(self._admit(self._admit_requests()))
+        self.phase_times["admit"] += time.perf_counter() - t0
+        self.phase_times["steps"] += 1
+        return finished
+
+    def _mixed_phase(self, reqs: List[Request], bucket: int
+                     ) -> Optional[List[FinishedRequest]]:
+        """One step with the admission's prefill and the decode chunk and
+        one readback, or None when the step has no decode budget (the
+        caller then runs them apart). The fresh slots are activated on the
+        device, with the EOS / budget freeze the host applies between the
+        separate calls; the prefill samples before the chunk's steps."""
+        t0 = time.perf_counter()
+        existing = [r for r in self.scheduler.active_requests()
+                    if r not in reqs]
+        budgets = ([r.max_new_tokens - len(r.output_ids) for r in existing]
+                   + [r.max_new_tokens - 1 for r in reqs])
+        chunk = min(self.decode_chunk, max(budgets)) if budgets else 0
+        if chunk <= 0:
+            return None
+        slots, lengths, ptoks, plps = self._prefill_group(reqs, bucket)
+        self.slot_tokens[slots] = ptoks
+        self.slot_lens[slots] = lengths
+        self.slot_budget[slots] = self._dev(np.array(
+            [r.max_new_tokens for r in reqs], np.int32))
+        self.slot_gen[slots] = 1
+        self.slot_active[slots] = True
+        if self.max_bad_words:
+            self._reseed_tail(slots, ptoks)
+        self.slot_active = (self.slot_active
+                            & (self.slot_tokens != self.scfg.end_id)
+                            & (self.slot_gen < self.slot_budget))
+        slot_of = {r.slot: r for r in self.scheduler.active_requests()}
+        out, out_lp = self._decode_chunk(chunk)
+        staged = self._stage(ptoks, plps, out, out_lp)
+        t1 = time.perf_counter()
+        self.phase_times["dispatch"] += t1 - t0
+        ptoks, plps, out, out_lp = self._collect(staged)
+        t2 = time.perf_counter()
+        self.phase_times["readback"] += t2 - t1
+        finished = self._register_prefilled(reqs, ptoks, plps,
+                                            device_updated=True)
+        finished.extend(self._record_chunk(slot_of, out, out_lp))
+        self.phase_times["host"] += time.perf_counter() - t2
+        self.phase_times["steps"] += 1
         return finished
 
     def _decode_phase(self) -> List[FinishedRequest]:
@@ -707,39 +994,65 @@ class ServingEngine:
         return self._decode_process(pending)
 
     def _decode_dispatch(self):
-        """Enqueue one decode chunk; returns (slot -> request, device
-        tokens, device logprobs or None) or None when there is nothing to
-        decode. The chunk is long enough for the request with the largest
-        remaining budget (each slot freezes at its own budget on the
-        device)."""
-        decoding = self.scheduler.active_requests()
-        budgets = [r.max_new_tokens - len(r.output_ids) for r in decoding]
-        chunk = min(self.decode_chunk, max(budgets)) if budgets else 0
+        """Enqueue one decode chunk and the copy of its tokens; returns
+        (slot -> request, steps a request was given, the staged copy) or
+        None when there is nothing to decode. The chunk is long enough for
+        the request with the most steps left (each slot freezes at its own
+        budget on the device); the steps of the chunk still unrecorded
+        (pipelined) count as taken, so a host that lags one chunk never
+        dispatches past a budget."""
+        decoding = [r for r in self.scheduler.active_requests()
+                    if r.request_id not in self._partial]
+        in_flight = {}
+        if self._pending_chunk is not None:
+            pending_of, pending_steps, _ = self._pending_chunk
+            in_flight = {r.request_id: pending_steps[slot]
+                         for slot, r in pending_of.items()}
+        left = {r.slot: r.max_new_tokens - len(r.output_ids)
+                - in_flight.get(r.request_id, 0) for r in decoding}
+        chunk = min(self.decode_chunk, max(left.values())) if left else 0
         if chunk <= 0:
             return None
         slot_of = {r.slot: r for r in decoding}
+        steps = {slot: max(0, min(chunk, n)) for slot, n in left.items()}
         if self.paged:
             # blocks for this chunk's writes, then the device tables from
-            # the host mirror
+            # the host mirror. The decode steps write positions len(prompt)
+            # .. len(prompt) + max_new_tokens - 2; the clamp is against the
+            # allocator's own length
             for slot, req in slot_of.items():
-                n_new = min(chunk, req.max_new_tokens - len(req.output_ids))
-                for _ in range(n_new):
+                room = (len(req.input_ids) + req.max_new_tokens - 1
+                        - self.kv_mgr.seq_length(slot))
+                for _ in range(max(0, min(steps[slot], room))):
                     self.kv_mgr.append_token(slot)
                 self._tables_np[slot] = self._host_table_row(slot)
             self.caches = self.caches._replace(
                 tables=self._dev(self._tables_np))
-        return (slot_of, *self._decode_chunk(chunk))
+        out, out_lp = self._decode_chunk(chunk)
+        return slot_of, steps, self._stage(out, out_lp)
 
     def _decode_process(self, pending) -> List[FinishedRequest]:
-        """Read back one chunk (the only host sync of the chunk: tokens and
-        logprobs in one copy) and record its tokens."""
-        slot_of, out, out_lp = pending
-        finished: List[FinishedRequest] = []
+        """Read back one chunk (its one copy, waited on alone) and record
+        its tokens."""
+        slot_of, _, staged = pending
         t0 = time.perf_counter()
-        out, out_lp = self._read(out, out_lp)
+        out, out_lp = self._collect(staged)
         t1 = time.perf_counter()
         self.phase_times["readback"] += t1 - t0
+        finished = self._record_chunk(slot_of, out, out_lp)
+        self.phase_times["host"] += time.perf_counter() - t1
+        return finished
+
+    def _record_chunk(self, slot_of, out, out_lp) -> List[FinishedRequest]:
+        """Record a chunk's tokens [n_rows, steps] for the requests it
+        decoded; a request that finished while the chunk was in flight
+        (pipelined: its slot may hold another request by now) is
+        skipped."""
+        finished: List[FinishedRequest] = []
+        live = {r.request_id for r in self.scheduler.active_requests()}
         for slot, req in slot_of.items():
+            if req.request_id not in live:
+                continue
             for j, t in enumerate(out[slot]):
                 if out_lp is not None:
                     self._req_logprobs.setdefault(req.request_id, []).append(
@@ -751,15 +1064,16 @@ class ServingEngine:
                 if self._stop_matched(req):
                     finished.append(self._finish_stopped(req))
                     break
-        self.phase_times["host"] += time.perf_counter() - t1
         return finished
 
     def run_to_completion(self, max_steps: int = 10_000
                           ) -> Dict[int, FinishedRequest]:
-        """Drive until the queue drains (batch-mode convenience)."""
+        """Drive until the queue drains and no chunk is left unrecorded
+        (batch-mode convenience)."""
         done: Dict[int, FinishedRequest] = {}
         steps = 0
-        while self.scheduler.has_work and steps < max_steps:
+        while ((self.scheduler.has_work or self._pending_chunk is not None)
+               and steps < max_steps):
             for fr in self.step():
                 done[fr.request_id] = fr
             steps += 1
