@@ -136,8 +136,24 @@
    (the tiled 64-row prefill on the GEMM, each 4-row decode step on the
    tensor-core GEMV, kernel 3 or row 14 a layer a step), the two runs'
    beams alike, the best beam's score against its replayed log-probs,
-   device ms per decode step. Each path's session is freed before the
-   next starts;
+   device ms per decode step. Then speculation (run_speculative), bs1
+   in8 out50, gamma 4, on path 1's session and weights: a random
+   LLaMA-160M-shaped bf16 draft (bench.py:416-418) and a self draft,
+   greedy tokens equal to path 1's up to the first difference, which must
+   be a near tie; the random draft sampling (temperature 0.8, top-k 8):
+   every committed token in the target's kept set on the logits of the
+   verify slab (or prefill) that committed it, one seed twice the same
+   tokens; the copy workload (make_copy_params on path 1's weights over
+   bench.py's 16-token cycle, a prompt repeating it twice) through
+   PromptLookupSession (n-gram 3) and a self draft: the cycle's
+   successors exactly, every iteration but the budget-capped last
+   committing gamma + 1 tokens. Each run: wall ms per committed token,
+   verify iterations, acceptance, launches held exactly (a verify: row
+   2's tensor-core GEMV 5 a layer; a draft step: kernel 3 a draft layer,
+   and the one-row GEMV 5 a layer for a self draft; a prefill: row 10 a
+   layer, its projections on the route of its rows), the device ms of one
+   iteration and, each profiled alone, of its draft steps and its verify.
+   Each path's session is freed before the next starts;
 4b. path 7, the hackathon's offline build at LLaMA-7B's full width,
    PATH7_DEPTH layers deep (the time budget; from_hf_config is checked at
    full depth): ModelConfig.from_hf_config of huggyllama/llama-7b's config.json
@@ -204,7 +220,18 @@
    inactive rows parked at max_seq_len among them, packed prefill at each
    wave's stream, and kernel 14 with bf16 and int8 pools, block sizes
    8/16/64, a position past the table, rows outside the write rows
-   untouched);
+   untouched). Then the speculative engines (run_serving_spec), the same
+   settings, gamma 4: "dense, speculative (random draft)" (the
+   LLaMA-160M-shaped draft, the 16 requests; tokens equal to dense's but
+   at near ties) and "dense, prompt lookup (copy workload)" (n-gram 3, on
+   make_copy_params of the weights, 16 prompts each a rotation of the
+   cycle twice: the cycle's successors exactly, more tokens committed
+   than verify iterations); tokens/s, verify iterations and committed
+   tokens, launches held exactly (row 2's GEMM at each admission prefill
+   and each 45-row verify, row 10 a layer a prefill, kernel 3 a draft
+   layer a draft step); the kernel phase holds the verify rows (5 on the
+   tensor-core GEMV, 45 on the GEMM, timed beside the other body) and the
+   draft's attention shapes (kernels 2 and 3 at 12 heads of 64);
 7. path 6, Bloom-7b1 at full width and depth (ALiBi, random weights drawn
    on the card, seed 0) through GenerationSession(model=decoder.BLOOM):
    bf16 weights with an 8-token prompt and 50 tokens (row 10 with slopes,
@@ -412,10 +439,11 @@ _WOQ_TC = "trtllm_llama_tpu_torch/csrc/woq_gemv_tc.cuh"
 # version and times them side by side (the crossover, TC_MIN_ROWS): decode
 # bs1 / bs4, the rows between, serving's 9-row decode steps, the 16-row
 # bucket.
-GEMV_ROWS = (1, 2, 4, 8, 9, 16)
+GEMV_ROWS = (1, 2, 4, 5, 8, 9, 16)     # 5: a bs1 speculative verify
 # Rows at which the kernel phase times the GEMM beside the GEMV (the
 # crossover; GEMM_MIN_ROWS is 17) at the qkv shape, every format.
-CROSSOVER_ROWS = (16, 17, 32, 64, 256, 1024, LONG_PROMPT)
+CROSSOVER_ROWS = (16, 17, 32, 45, 64, 256, 1024, LONG_PROMPT)  # 45: the
+# speculative serving verify (9 rows x 5)
 # Task A of the reference (BASELINE.md:6, bench.py:80-92): CNN/DailyMail
 # summarization at bs1, prompts of up to 923 tokens. Paths 2 and 7 prefill
 # one 923-token prompt (the 1024-row bucket) and decode TASK_A_DECODE
@@ -458,12 +486,13 @@ def packed_len(total):
 
 def serve_rows():
     """Rows the serving phase gives a projection: a decode step (the slots
-    and the trash row), each batched prefill (its prompts at the 128-token
-    bucket), each packed stream and each chunked-prefill call (32 rows a
-    partial prompt, 1-8 of them)."""
+    and the trash row), a speculative verify (those rows x SPEC_GAMMA + 1),
+    each batched prefill (its prompts at the 128-token bucket), each packed
+    stream and each chunked-prefill call (32 rows a partial prompt, 1-8 of
+    them)."""
     bucket = max(SERVE_ENGINE["prefill_buckets"])
     slots = SERVE_ENGINE["max_batch_size"]
-    rows = {slots + 1}
+    rows = {slots + 1, (slots + 1) * (SPEC_GAMMA + 1)}
     for lens in serve_waves():
         rows |= {len(lens) * bucket, packed_len(sum(lens))}
     rows |= {SERVE_PREFILL_CHUNK * n for n in range(1, slots + 1)}
@@ -2526,6 +2555,7 @@ def drive_path(path, sess, errors, results):
     if path.get("sampling"):
         run_sampling(path, sess, p1, p4, out1, out4, errors, results)
         run_beams(path, sess, p1, errors, results)
+        run_speculative(path, sess, p1, out1, errors, results)
 
 
 def check_fp8kv_decode(path, sess, p1, errors, results):
@@ -3012,10 +3042,11 @@ def kept_set_check(tag, steps, prompt, out, scfg, errors):
     kept set of the plain sampler's filter (sampling.py's functions on the
     CPU in f32: penalties over the prompt's and earlier tokens' counts,
     temperature, top-k, top-p) on the replayed logits `steps`. Tokens whose
-    top-k or top-p decision lies within EDGE of its cut are printed with
-    their margins (the card's exp and sums round otherwise); the run's
-    logprobs must be within SAMPLE_LP_TOL of the replay's log_softmax.
-    Returns (tokens checked, edge tokens, max logprob error)."""
+    top-k or top-p (when set) decision lies within EDGE of its cut are
+    printed with their margins (the card's exp and sums round otherwise);
+    the run's logprobs, when it has them, must be within SAMPLE_LP_TOL of
+    the replay's log_softmax. Returns (tokens checked, edge tokens, max
+    logprob error)."""
     import numpy as np
     import torch
     from trtllm_llama_tpu_torch.runtime import sampling as smp
@@ -3035,14 +3066,16 @@ def kept_set_check(tag, steps, prompt, out, scfg, errors):
         lsm = torch.log_softmax(raw, -1)
         for r in range(raw.shape[0]):
             t = int(toks[r, k])
-            lp_err = max(lp_err, abs(float(lsm[r, t])
-                                     - float(out.logprobs[r, k])))
+            if out.logprobs is not None:
+                lp_err = max(lp_err, abs(float(lsm[r, t])
+                                         - float(out.logprobs[r, k])))
             zr = z[r].double()
             kth = torch.topk(zr, scfg.top_k).values[-1]
             zk = torch.where(zr < kth, -torch.inf, zr)
             probs = torch.softmax(zk, -1)
             before = float(probs[zk > zr[t]].sum())
-            m_k, m_p = float(zr[t] - kth), scfg.top_p - before
+            m_k = float(zr[t] - kth)
+            m_p = scfg.top_p - before if scfg.top_p > 0 else torch.inf
             if min(abs(m_k), abs(m_p)) < EDGE:
                 n_edge += 1
                 print(f"  {tag} step {k} row {r}: token {t} at the edge: "
@@ -3328,6 +3361,417 @@ def replay_steps(sess, prompt, tokens, scfg, new):
             steps.append(logits)
             pos += 1
     return steps
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding (runtime/speculative.py, runtime/serving_spec.py):
+# path 1's weights at bs1, and two serving configurations
+# ---------------------------------------------------------------------------
+
+SPEC_GAMMA = 4
+# bench.py:416-418's random draft: LLaMA-160M's shape, bf16
+SPEC_DRAFT = dict(hidden_size=768, intermediate_size=2048, num_layers=12,
+                  num_heads=12, num_kv_heads=12, head_dim=64)
+SPEC_SAMPLED = dict(temperature=0.8, top_k=8, end_id=-1)
+# bench.py:204-209's copy workload: make_copy_params over a 16-token cycle
+# drawn from seed 42; prompts repeat it twice; prompt lookup's n-gram 3
+COPY_CYCLE = 16
+COPY_NGRAM = 3
+SPEC_SERVE = "dense, speculative (random draft)"
+LOOKUP_SERVE = "dense, prompt lookup (copy workload)"
+
+
+def copy_cycle(vocab):
+    import numpy as np
+    return np.random.default_rng(42).integers(3, vocab,
+                                              (COPY_CYCLE,)).tolist()
+
+
+def draft_model_params(vocab):
+    """The LLaMA-160M-shaped bf16 draft: (config, random params, seed 1)."""
+    from trtllm_llama_tpu_torch import ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.quantization.quantize import (
+        init_random_quantized_params,
+    )
+    dcfg = ModelConfig(vocab_size=vocab, dtype="bfloat16", **SPEC_DRAFT)
+    return dcfg, init_random_quantized_params(dcfg, seed=1,
+                                              quant_mode=QuantMode(0),
+                                              device="cuda")
+
+
+class CallProfiler:
+    """A model that forwards to `model` and runs each forward_decode and
+    forward_extend call alone under torch.profiler (the stream synchronized
+    before and after): their device ms and calls, by method."""
+
+    def __init__(self, model):
+        self._model = model
+        self.ms, self.n = {}, {}
+
+    def __getattr__(self, name):
+        attr = getattr(self._model, name)
+        if name not in ("forward_decode", "forward_extend"):
+            return attr
+
+        def call(*args, **kw):
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = attr(*args, **kw)
+                torch.cuda.synchronize()
+            self.ms[name] = self.ms.get(name, 0.0) + device_ms_of(prof)
+            self.n[name] = self.n.get(name, 0) + 1
+            return out
+        return call
+
+
+def device_ms_of(prof):
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def spec_counts(n_l, iters, prefill_rows, draft_layers, self_draft,
+                gamma=SPEC_GAMMA):
+    """Exact launches of a bs1 speculative request: the target's prefill
+    (5 projections a layer on the route of its rows: the GEMM from
+    GEMM_MIN_ROWS, else the tensor-core GEMV; row 10 a layer), a self
+    draft's prefill the same; each verify 5 a layer on the tensor-core
+    GEMV (gamma + 1 rows), each draft step kernel 3 a draft layer and, for
+    a self draft, 5 a layer on the one-row GEMV; a bf16 draft's
+    projections are stock torch."""
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    gemm = prefill_rows >= woq.GEMM_MIN_ROWS
+    prefills = 2 if self_draft else 1
+    tc = 5 * n_l * (iters + (0 if gemm else prefills))
+    gemm_n = 5 * n_l * prefills if gemm else 0
+    one_row = 5 * n_l * (gamma + 1) * iters if self_draft else 0
+    counts = {"woq_matmul_stacked": tc + gemm_n + one_row,
+              "woq_matmul_stacked.tc_launches": tc,
+              "woq_matmul_stacked.gemm_launches": gemm_n,
+              "prefill_attention_kernel": n_l + draft_layers,
+              "dma_decode_attention": draft_layers * (gamma + 1) * iters}
+    return {k: v for k, v in counts.items() if v}
+
+
+def spec_request(tag, sess, prompt, scfg, new, errors, results, draft_layers,
+                 self_draft, seed=0):
+    """One counted bs1 request on a speculative session (after a warm-up):
+    wall ms per committed token, target weight reads (the prefill and one
+    verify an iteration), acceptance (accepted proposals over proposals
+    made), the launches held exactly (spec_counts). Returns the output and
+    the ExtendRecorder of the request's verify slabs."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+
+    if not tc_rows(SPEC_GAMMA + 1):
+        errors.append(f"{tag}: a bs1 verify is not on the tensor-core GEMV")
+    sess.generate(prompt, sampling=scfg, max_new_tokens=4, seed=seed)
+    model, rec = sess.model, ExtendRecorder(sess.model)
+    sess.model = rec
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        out = sess.generate(prompt, sampling=scfg, max_new_tokens=new,
+                            seed=seed)
+    finally:
+        sess.model = model
+    ms = (time.perf_counter() - t) * 1e3
+    iters = sess.last_iters - 1
+    n = int(out.lengths.sum())
+    accepted = n - len(out.lengths) - iters        # past each verify's bonus
+    rows = sess.engine_cfg.bucket_for(np.asarray(prompt).shape[-1])
+    expect = spec_counts(sess.cfg.num_layers, iters, rows, draft_layers,
+                         self_draft)
+    counts = read_counts()
+    check_counts(f"{tag} launches", counts, dict(launches=expect,
+                                                 alibi_decode=0), errors)
+    for name, fn in (("woq_matmul_stacked", woq.woq_matmul_stacked),
+                     (TC_INT8, woq.woq_matmul_stacked),
+                     (GEMM_INT8, woq.woq_matmul_stacked),
+                     ("prefill_attention_kernel",
+                      _wrappers()["prefill_attention_kernel"]),
+                     ("dma_decode_attention",
+                      _wrappers()["dma_decode_attention"])):
+        results[name]["launches"] = (results[name].get("launches", 0)
+                                     + launches_of(name, fn))
+    acc = accepted / max(SPEC_GAMMA * iters, 1)
+    print(f"  {tag}: {ms:.1f} ms for {n} tokens, {ms / n:.2f} ms per "
+          f"committed token; {iters} verify iterations, "
+          f"{(n - len(out.lengths)) / max(iters, 1):.2f} tokens per "
+          f"iteration, acceptance {acc:.3f} ({accepted} of "
+          f"{SPEC_GAMMA * iters} proposals)")
+    results["_e2e"][tag] = dict(
+        layers=sess.cfg.num_layers, gamma=SPEC_GAMMA, ms=ms,
+        ms_per_committed_token=ms / n, verify_iterations=iters,
+        tokens=n, acceptance=acc, launches=counts[0])
+    return out, rec
+
+
+def spec_first_difference(tag, sess, prompt, got, want, errors):
+    """Speculative greedy tokens against the plain session's: equal up to
+    the first difference, which must be a near tie on the plain session's
+    replay over the common prefix."""
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    a, b = got.output_ids[0], want.output_ids[0]
+    k = first_difference_at(a.tolist(), b.tolist())
+    print(f"  {tag}: tokens equal path 1's greedy tokens "
+          f"{'all through' if k is None else f'up to token {k}'}")
+    if k is not None:
+        logits = replay_logits(sess, prompt, want.output_ids[:, :k],
+                               SamplingConfig(end_id=-1), len(b))[0].float()
+        near_tie(f"{tag} token {k}", logits, int(a[k]), int(b[k]), errors)
+
+
+def profile_spec_iteration(tag, spec, prompt, scfg, card, results):
+    """Device ms of one bs1 iteration: the profiled request of 2 tokens
+    (the prefill and one iteration) less the prefill's alone; and its
+    parts, each call profiled alone: the draft's gamma + 1 decode steps
+    and the verify."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    spec.generate(prompt, sampling=scfg, max_new_tokens=2)
+    times = {}
+    for new in (1, 2):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            spec.generate(prompt, sampling=scfg, max_new_tokens=new)
+            torch.cuda.synchronize()
+        times[new] = device_ms_of(prof)
+    it_ms = times[2] - times[1]
+    model, dmodel = spec.model, getattr(spec, "draft_model", None)
+    spec.model = CallProfiler(model)
+    if dmodel is not None:
+        spec.draft_model = CallProfiler(dmodel)
+    try:
+        spec.generate(prompt, sampling=scfg, max_new_tokens=2)
+    finally:
+        parts = {"verify": spec.model.ms.get("forward_extend", 0.0)}
+        if dmodel is not None:
+            parts["draft steps"] = spec.draft_model.ms.get("forward_decode",
+                                                           0.0)
+            spec.draft_model = dmodel
+        spec.model = model
+    print(f"  {tag}: one bs1 iteration {it_ms:.3f} device ms (profiled "
+          f"request of 2 tokens {times[2]:.3f} less its prefill "
+          f"{times[1]:.3f}); alone: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f"; {card}")
+    results["_e2e"][tag].update(device_ms_per_iteration=it_ms,
+                                device_ms_parts=parts)
+
+
+def run_speculative(path, sess, p1, out1, errors, results):
+    """Path 1's weights under speculation, bs1 in8 out50, gamma 4: a random
+    LLaMA-160M-shaped draft and a self draft (greedy tokens equal path 1's
+    up to a near tie), the random draft sampling (every committed token in
+    the target's kept set on its own verify logits, one seed twice the same
+    tokens); the copy workload (make_copy_params on path 1's weights, a
+    prompt repeating the cycle twice) through prompt lookup and a self
+    draft: the cycle's successors exactly, gamma + 1 tokens committed by
+    every iteration but the budget-capped last. Launches exact, device ms
+    of one iteration and its parts, beside the card."""
+    import numpy as np
+    from trtllm_llama_tpu_torch.quantization.evaluate import make_copy_params
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.speculative import (
+        PromptLookupSession, SpeculativeSession,
+    )
+
+    tag, new, cfg = path["tag"], NEW_TOKENS, sess.cfg
+    card = results["_card"]
+    greedy = SamplingConfig(end_id=-1)
+    dcfg, dparams = draft_model_params(cfg.vocab_size)
+    print(f"  {tag} speculative, gamma {SPEC_GAMMA}: the random draft "
+          f"LLaMA-160M-shaped ({SPEC_DRAFT}, bf16, seed 1); {card}")
+    runs = {"random draft": (dcfg, dparams, dcfg.num_layers, False),
+            "self draft": (cfg, sess.params, cfg.num_layers, True)}
+    for what, (dc, dp, d_l, self_draft) in runs.items():
+        name = f"{tag}, speculative, {what}"
+        spec = SpeculativeSession(cfg, sess.params, dc, dp, sess.engine_cfg,
+                                  gamma=SPEC_GAMMA, device="cuda")
+        got, _ = spec_request(name, spec, p1, greedy, new, errors, results,
+                              d_l, self_draft)
+        spec_first_difference(name, sess, p1, got, out1, errors)
+        profile_spec_iteration(name, spec, p1, greedy, card, results)
+        if not self_draft:
+            random_spec = spec
+    name = f"{tag}, speculative, stochastic"
+    scfg = SamplingConfig(**SPEC_SAMPLED)
+    got, rec = spec_request(name, random_spec, p1, scfg, new, errors, results,
+                            dcfg.num_layers, False)
+    again = random_spec.generate(p1, sampling=scfg, max_new_tokens=new,
+                                 seed=0)
+    same = np.array_equal(got.output_ids, again.output_ids)
+    print(f"  {name} {SPEC_SAMPLED}: tokens {got.output_ids[0, :12].tolist()}"
+          f"..., the same seed twice identical: {same}")
+    if not same:
+        errors.append(f"{name}: one seed, two results")
+    # each token's distribution: the prefill's logits for the first, then
+    # the row of the verify slab that committed it
+    steps = [replay_steps(sess, p1, np.zeros((1, 0), np.int32), greedy,
+                          new)[0]]
+    starts = [int(s[0]) + 1 - p1.shape[1] for _, s, _ in rec.calls]
+    for t in range(1, new):
+        i = max(j for j, lb in enumerate(starts) if lb <= t)
+        steps.append(rec.calls[i][2][:, t - starts[i]])
+    kept_set_check(name, steps, p1, got, scfg, errors)
+    profile_spec_iteration(name, random_spec, p1, scfg, card, results)
+    del random_spec, spec
+    cycle = copy_cycle(cfg.vocab_size)
+    copy = make_copy_params(cfg, sess.params, cycle)
+    prompt = np.array([cycle * 2], np.int32)
+    want = [cycle[i % COPY_CYCLE] for i in range(new)]
+    print(f"  {tag}, copy workload: make_copy_params over the cycle {cycle} "
+          f"(seed 42), prompt = the cycle twice")
+    for what, spec, d_l, self_draft in (
+            ("prompt lookup", PromptLookupSession(
+                cfg, copy, sess.engine_cfg, gamma=SPEC_GAMMA,
+                ngram=COPY_NGRAM, device="cuda"), 0, False),
+            ("self draft", SpeculativeSession(
+                cfg, copy, cfg, copy, sess.engine_cfg, gamma=SPEC_GAMMA,
+                device="cuda"), cfg.num_layers, True)):
+        name = f"{tag}, copy workload, {what}"
+        got, rec = spec_request(name, spec, prompt, greedy, new, errors,
+                                results, d_l, self_draft)
+        starts = [int(s[0]) for _, s, _ in rec.calls]
+        commits = np.diff(starts).tolist() + [
+            new - 1 - (starts[-1] - starts[0])]
+        full = SPEC_GAMMA + 1
+        last = (new - 1) - full * (len(commits) - 1)
+        ok_tok = got.output_ids[0].tolist() == want
+        ok_commit = commits == [full] * (len(commits) - 1) + [last]
+        print(f"  {name}: tokens are the cycle's successors: {ok_tok}; "
+              f"tokens committed by each iteration {commits} (gamma + 1 but "
+              f"the budget-capped last, {last}): "
+              f"{'ok' if ok_commit else 'FAIL'}")
+        if not ok_tok:
+            errors.append(f"{name}: tokens are not the cycle's successors")
+        if not ok_commit:
+            errors.append(f"{name}: iterations committed {commits}")
+        profile_spec_iteration(name, spec, prompt, greedy, card, results)
+        del spec
+    del copy, dparams
+
+
+def run_serving_spec(cfg, params, prompts, dense, errors, results):
+    """The speculative serving engines on serving's weights and engine
+    settings: SPEC_SERVE (the random LLaMA-160M-shaped draft, gamma 4, the
+    16 requests of the other configurations: tokens equal the dense run's
+    up to near ties) and LOOKUP_SERVE (prompt lookup, n-gram 3, on
+    make_copy_params of the weights, 16 prompts each a rotation of the
+    cycle twice: the cycle's successors exactly, more tokens committed
+    than verify iterations run). Launches exact from the engine's counts:
+    row 2's GEMM 5 a layer at each admission prefill and each verify (the
+    9 rows x gamma + 1 = 45-row slab), row 10 a target (and draft) layer
+    at each prefill, kernel 3 a draft layer at each draft step."""
+    import torch
+    from trtllm_llama_tpu_torch import EngineConfig
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    from trtllm_llama_tpu_torch.quantization.evaluate import make_copy_params
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.serving_spec import (
+        PromptLookupServingEngine, SpeculativeServingEngine,
+    )
+
+    n_l, greedy = cfg.num_layers, SamplingConfig(end_id=-1)
+    dcfg, dparams = draft_model_params(cfg.vocab_size)
+    cycle = copy_cycle(cfg.vocab_size)
+    copy_prompts = [(cycle[i:] + cycle[:i]) * 2
+                    for i in range(SERVE_REQUESTS)]
+    slab = (SERVE_ENGINE["max_batch_size"] + 1) * (SPEC_GAMMA + 1)
+    for name in (SPEC_SERVE, LOOKUP_SERVE):
+        if name == SPEC_SERVE:
+            eng = SpeculativeServingEngine(
+                cfg, params, dcfg, dparams, EngineConfig(**SERVE_ENGINE),
+                gamma=SPEC_GAMMA, sampling=greedy, decode_chunk=SERVE_CHUNK,
+                device="cuda")
+            reqs, d_l = prompts, dcfg.num_layers
+        else:
+            eng = PromptLookupServingEngine(
+                cfg, make_copy_params(cfg, params, cycle),
+                EngineConfig(**SERVE_ENGINE), gamma=SPEC_GAMMA,
+                ngram=COPY_NGRAM, sampling=greedy, decode_chunk=SERVE_CHUNK,
+                device="cuda")
+            reqs, d_l = copy_prompts, 0
+        for p in reqs[:SERVE_WARMUP]:
+            eng.submit(p, 4)
+        eng.run_to_completion()
+        eng.phase_times = dict.fromkeys(eng.phase_times, 0.0)
+        eng.phase_times["steps"] = 0
+        eng.calls = dict.fromkeys(eng.calls, 0)
+        eng.spec_iters = eng.spec_committed = 0
+        eng._req_times.clear()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, SERVE_NEW) for p in reqs]
+        done = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs = [list(done[r].output_ids) if r in done else [] for r in rids]
+        n_tok = sum(len(o) for o in outs)
+        prefills, iters = eng.calls["prefills"], eng.spec_iters
+        expect = {"woq_matmul_stacked": 5 * n_l * (prefills + iters),
+                  "woq_matmul_stacked.gemm_launches": 5 * n_l * (prefills
+                                                                 + iters),
+                  "prefill_attention_kernel": (n_l + d_l) * prefills,
+                  "dma_decode_attention": d_l * (SPEC_GAMMA + 1) * iters}
+        expect = {k: v for k, v in expect.items() if v}
+        print(f"  serving {name}: {n_tok / wall:.1f} generated tokens/s "
+              f"({n_tok} tokens in {wall:.2f} s); {prefills} prefills, "
+              f"{iters} verify iterations of {slab} rows, "
+              f"{eng.spec_committed} tokens committed by them "
+              f"({eng.spec_committed / max(iters, 1):.2f} an iteration over "
+              f"the pool); {results['_card']}")
+        check_counts(f"serving {name} launches", read_counts(),
+                     dict(launches=expect, alibi_decode=0), errors)
+        if woq.gemm_route(slab, torch.bfloat16) is not True:
+            errors.append(f"serving {name}: a {slab}-row verify is not on "
+                          "the GEMM")
+        for key, fn in ((GEMM_INT8, woq.woq_matmul_stacked),
+                        ("prefill_attention_kernel",
+                         _wrappers()["prefill_attention_kernel"]),
+                        ("dma_decode_attention",
+                         _wrappers()["dma_decode_attention"])):
+            results[key]["launches"] = (results[key].get("launches", 0)
+                                        + launches_of(key, fn))
+        bad = [r for r in rids if r not in done
+               or len(done[r].output_ids) != SERVE_NEW]
+        if bad:
+            errors.append(f"serving {name}: requests {bad} did not return "
+                          f"{SERVE_NEW} tokens")
+        if name == SPEC_SERVE:
+            check_same_tokens(name, eng, prompts, outs, dense, errors)
+        else:
+            want = [[cycle[(i + j) % COPY_CYCLE] for j in range(SERVE_NEW)]
+                    for i in range(SERVE_REQUESTS)]
+            exact = outs == want
+            multi = eng.spec_committed > eng.spec_iters
+            print(f"  serving {name}: every request the cycle's successors: "
+                  f"{exact}; committed {eng.spec_committed} > verify "
+                  f"iterations {iters}: {multi}")
+            if not (exact and multi):
+                errors.append(f"serving {name}: tokens exact {exact}, "
+                              f"multi-token commits {multi}")
+        results["_e2e"][f"serving {name}"] = dict(
+            layers=n_l, tokens_per_s=n_tok / wall, wall_s=wall,
+            verify_iterations=iters, committed=eng.spec_committed,
+            prefills=prefills, latency=eng.latency_stats(),
+            phases=eng.phase_stats())
+        print(f"  latency_stats {json.dumps(eng.latency_stats())}")
+        print(f"  phase_stats (ms per engine step) "
+              f"{json.dumps(eng.phase_stats())}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del dparams
 
 
 def run_decode_modes(path, sess, cfg, prompt, out_auto, errors, results):
@@ -3978,10 +4422,11 @@ SERVE_CONFIGS = [
                            pipelined=True), None),
 ]
 # the configurations whose decode step is profiled (profile_serving_step):
-# every one but the chunked, mixed and paged pipelined ones (the smoke's
-# time budget); the dense pipelined one's busy share stands beside dense's
-SERVE_PROFILED = tuple(name for name, _, _ in SERVE_CONFIGS
-                       if name not in (CHUNKED, MIXED, PAGED_PIPELINED))
+# dense, paged, packed and dense pipelined (the smoke's time budget: the
+# per-request, int8-KV and fp8-KV chunks took 110.0-115.5 device ms
+# against dense's 110.1); the dense pipelined one's busy share stands
+# beside dense's
+SERVE_PROFILED = ("dense", "paged", "packed", PIPELINED)
 
 
 def serving_sampling(dense):
@@ -4081,9 +4526,9 @@ def check_serving_sampling(eng, prompts, done, rids, cfgs, dense, errors):
 
 class ExtendRecorder:
     """A model that forwards to `model` and keeps, for each forward_extend
-    call, its tokens and its last row's f32 logits (on the card, no sync):
-    the chunked serving run's final chunks, held against a monolithic
-    prefill after the run."""
+    call, its tokens, its start and its f32 logits [B, T, V] (on the card,
+    no sync): the chunked serving run's final chunks, held against a
+    monolithic prefill after the run; the speculative runs' verify slabs."""
 
     def __init__(self, model):
         self._model = model
@@ -4095,7 +4540,8 @@ class ExtendRecorder:
     def forward_extend(self, params, cfg, tokens, start, caches, **kw):
         logits, caches = self._model.forward_extend(params, cfg, tokens,
                                                     start, caches, **kw)
-        self.calls.append((tokens.clone(), logits[:, -1].float().clone()))
+        self.calls.append((tokens.clone(), start.clone(),
+                           logits.float().clone()))
         return logits, caches
 
 
@@ -4161,9 +4607,9 @@ def check_chunked(eng, prompts, outs, dense, errors, results):
                       f"{woq.GEMM_MIN_ROWS} rows (serving_expect counts "
                       "every chunk call on the GEMM)")
     finals = {}
-    for tokens, last in eng.model.calls:
+    for tokens, _, logits in eng.model.calls:
         for row in range(tokens.shape[0]):
-            finals[tuple(tokens[row].tolist())] = last[row]
+            finals[tuple(tokens[row].tolist())] = logits[row, -1]
     cfg, dev = eng.cfg, eng.device
     bucket = max(SERVE_ENGINE["prefill_buckets"])
     with torch.inference_mode():
@@ -4276,7 +4722,8 @@ def check_extend_vs_decode(eng, errors, results):
 
 def run_serving(args, errors, results):
     """Each configuration serves the same 16 requests (64 new tokens each,
-    greedy, no end token) on int8 weight-only LLaMA-7B; prints tokens/s,
+    greedy, no end token) on int8 weight-only LLaMA-7B (then the
+    speculative engines, run_serving_spec); prints tokens/s,
     latency percentiles, phase times, the device busy share of one decode
     step (the configurations of SERVE_PROFILED), and checks the launch
     counts against the engine's own count of device calls; the chunked,
@@ -4413,6 +4860,7 @@ def run_serving(args, errors, results):
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    run_serving_spec(cfg, params, prompts, outs["dense"], errors, results)
     read = {n: phases_of[n]["readback"] for n in ("dense", "paged", PIPELINED,
                                                   PAGED_PIPELINED)}
     print(f"  readback ms per engine step (phase_stats): {json.dumps(read)}")
@@ -4883,6 +5331,60 @@ def check_family_attention(errors, results):
                 dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                      bound_by=b_by, shape=f"B=1 Hq=Hkv={hq} D={d} S_max=128 "
                      f"pos={p} bf16 ({tag})"))
+    fold_err(results, "prefill_attention_kernel", err_2)
+    fold_err(results, "dma_decode_attention", err_3)
+
+
+def check_draft_attention(errors, results):
+    """Kernels 2 and 3 at the speculative draft's head shape (LLaMA-160M:
+    12 heads of 64, bf16) and the calls its runs give them: the bs1
+    prefill (B=1 S=16 len 8) and serving's first admission wave (B=8
+    S=128 at the wave's lengths); kernel 3 at bs1 (S_max 128, positions 8
+    and 61, the first and last draft step of an 8-token prompt and 50 new
+    tokens) and over serving's 9 rows (S_max 256: max_seq_len + gamma + 1
+    rounded, ragged positions up to max_seq_len + gamma); against the
+    plain versions, kernel 3's caches against the plain write."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+
+    hq = hkv = SPEC_DRAFT["num_heads"]
+    d = SPEC_DRAFT["head_dim"]
+    print(f"kernels prefill_attention_kernel and dma_decode_attention at the "
+          f"speculative draft's head shape (Hq=Hkv={hq} D={d}, bf16):")
+    g = torch.Generator(device="cuda").manual_seed(30)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    err_2 = err_3 = 0.0
+    wave = serve_waves()[1]
+    for b, s, lens in ((1, 16, [8]), (len(wave), 128, wave)):
+        q, k, v = rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d)
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        err_2 = max(err_2, compare(
+            f"prefill B={b} S={s} lens {lens} draft",
+            pa.prefill_attention_kernel(q, k, v, sl),
+            pa.prefill_attention_kernel_plain(q, k, v, sl), errors))
+    smax_serve = -(-(SERVE_ENGINE["max_seq_len"] + SPEC_GAMMA + 1)
+                   // 128) * 128
+    last = SERVE_ENGINE["max_seq_len"] + SPEC_GAMMA
+    for b, smax, pos in ((1, 128, [8]), (1, 128, [8 + NEW_TOKENS + 3]),
+                         (SERVE_ENGINE["max_batch_size"] + 1, smax_serve,
+                          [0, 8, 60, 127, 128, 150, 199, last, 3])):
+        kc, vc = rnd(2, b, hkv, smax, d), rnd(2, b, hkv, smax, d)
+        qd, kn, vn = rnd(b, hq, d), rnd(b, hkv, d), rnd(b, hkv, d)
+        pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        kc2, vc2 = kc.clone(), vc.clone()
+        got = da.dma_decode_attention(qd, kn, vn, kc, vc, 1, pt)
+        ref = da.dma_decode_attention_plain(qd, kn, vn, kc2, vc2, 1, pt)
+        torch.cuda.synchronize()
+        err_3 = max(err_3, compare(f"decode B={b} S_max={smax} pos {pos} "
+                                   "draft", got, ref, errors))
+        if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+            errors.append(f"kernel 3 draft B={b} pos {pos}: cache differs "
+                          "from the plain write")
     fold_err(results, "prefill_attention_kernel", err_2)
     fold_err(results, "dma_decode_attention", err_3)
 
@@ -5434,6 +5936,7 @@ def check_kernels(errors, results):
     check_fused_groups(errors, results)
     check_decode_table(errors, results)
     check_family_attention(errors, results)
+    check_draft_attention(errors, results)
     check_float16(errors, results)
 
 
@@ -5474,7 +5977,7 @@ def main(argv=None) -> int:
     for name, log in reports.items():
         print(f"  {name}: {ptxas_summary(log)}")
 
-    errors, results = [], {"_e2e": {}}
+    errors, results = [], {"_e2e": {}, "_card": card}
     phases = [("kernels", lambda: check_kernels(errors, results))]
     phases += [(path["tag"], lambda path=path: run_path(path, args, errors,
                                                         results))

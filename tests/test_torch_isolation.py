@@ -13,8 +13,10 @@ generating under TLLM_FUSE_GU; the decode probes; a sampled generate with
 penalties, bad and stop words and logprobs; beam search, dense and paged)
 and serves (a paged and a packed ServingEngine, one with per-request
 sampling, logprobs and bad words, chunked prefill, mixed and pipelined
-steps, dense and paged, and OPT through model= with chunking) with both
-made unimportable."""
+steps, dense and paged, and OPT through model= with chunking; the
+speculative sessions and engines, random draft and prompt lookup on
+make_copy_params' weights, greedy and sampled) with both made
+unimportable."""
 
 import ast
 import subprocess
@@ -60,7 +62,10 @@ def test_no_module_imports_jax_or_the_jax_package():
             "trtllm_llama_tpu_torch/quantization/smoothquant.py",
             "trtllm_llama_tpu_torch/ops/kernels/probes.py",
             "trtllm_llama_tpu_torch/runtime/beam.py",
-            "trtllm_llama_tpu_torch/runtime/sampling.py"} <= names
+            "trtllm_llama_tpu_torch/runtime/sampling.py",
+            "trtllm_llama_tpu_torch/runtime/speculative.py",
+            "trtllm_llama_tpu_torch/runtime/serving_spec.py",
+            "trtllm_llama_tpu_torch/quantization/evaluate.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert not bad, bad
@@ -173,6 +178,38 @@ for c, p, opts in ((cfg, params, dict(prefill_chunk=16)),
     done = eng.run_to_completion()
     assert sorted(done) == rids and all(
         len(done[r].output_ids) == 5 for r in rids), (opts, done)
+from trtllm_llama_tpu_torch.quantization.evaluate import make_copy_params
+from trtllm_llama_tpu_torch.runtime.serving_spec import (
+    PromptLookupServingEngine, SpeculativeServingEngine)
+from trtllm_llama_tpu_torch.runtime.speculative import (
+    PromptLookupSession, SpeculativeSession)
+dcfg = ModelConfig.tiny(dtype="float32", num_layers=1)
+dparams = init_random_quantized_params(dcfg, seed=1, device="cpu")
+ecfg = EngineConfig(max_batch_size=2, max_input_len=16, max_seq_len=32)
+cparams = make_copy_params(cfg, params, [11, 23, 5, 42])
+for sess in (SpeculativeSession(cfg, params, dcfg, dparams, ecfg, gamma=2,
+                                device="cpu"),
+             PromptLookupSession(cfg, cparams, ecfg, gamma=2, ngram=2,
+                                 device="cpu")):
+    out = sess.generate([[11, 23, 5, 42] * 2, [8, 9]], max_new_tokens=6,
+                        sampling=SamplingConfig(end_id=-1))
+    assert out.output_ids.shape == (2, 6) and sess.last_iters <= 6
+out = SpeculativeSession(cfg, params, dcfg, dparams, ecfg, device="cpu").generate(
+    [[5, 6, 7]], max_new_tokens=4, seed=2, sampling=SamplingConfig(
+        temperature=0.8, top_k=8, end_id=-1))
+assert out.lengths.tolist() == [4], out.lengths
+for eng in (SpeculativeServingEngine(cfg, params, dcfg, dparams, ecfg,
+                                     sampling=SamplingConfig(end_id=-1),
+                                     decode_chunk=4, device="cpu",
+                                     per_request_sampling=True,
+                                     return_logprobs=True),
+            PromptLookupServingEngine(cfg, cparams, ecfg,
+                                      sampling=SamplingConfig(end_id=-1),
+                                      decode_chunk=4, device="cpu")):
+    rids = [eng.submit(list(range(3, 3 + n)), 5) for n in (3, 9, 6)]
+    done = eng.run_to_completion()
+    assert sorted(done) == rids and all(
+        len(done[r].output_ids) == 5 for r in rids), done
 import os, shutil, tempfile, types
 import numpy as np
 from trtllm_llama_tpu_torch.convert.convert import cast_fp_leaves

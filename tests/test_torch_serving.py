@@ -382,7 +382,8 @@ def test_unported_sampling_and_engines_raise(tiny):
     tokens; each request its tokens), and so do engine-default stop words
     (as JAX's); engine-default bad words without max_bad_words, and
     per-request configs without per_request_sampling, raise ValueError as
-    JAX's engine does; the speculative engines are not ported."""
+    JAX's engine does; the speculative engines are ServingEngines of
+    runtime/serving_spec.py, not names of runtime/serving.py."""
     cfg = ModelConfig.tiny(dtype="float32")
     prompts = _sampling_prompts()
 
@@ -415,7 +416,10 @@ def test_unported_sampling_and_engines_raise(tiny):
     with pytest.raises(ValueError, match="per_request_sampling"):
         engine.submit([5, 6], 2, sampling=SamplingConfig(end_id=-1))
     for name in ("SpeculativeServingEngine", "PromptLookupServingEngine"):
-        with pytest.raises(NotImplementedError, match="speculative"):
+        mod = __import__("trtllm_llama_tpu_torch.runtime.serving_spec",
+                         fromlist=[name])
+        assert issubclass(getattr(mod, name), ServingEngine)
+        with pytest.raises(ImportError):
             exec(f"from trtllm_llama_tpu_torch.runtime.serving import {name}")
 
 

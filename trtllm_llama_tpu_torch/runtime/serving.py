@@ -76,8 +76,9 @@ active rows) and generated lengths (for `min_length`); `max_bad_words` /
 generated tokens. Stop words are matched on the host at chunk boundaries,
 on the recorded ids ("stop_words"; the stop sequence stays in the output).
 `return_logprobs`: the model's logprob of each token, read back with the
-chunk's tokens in its one readback. Sharded or multi-host serving and the
-speculative engines are not ported yet and raise NotImplementedError.
+chunk's tokens in its one readback. Sharded or multi-host serving is not
+ported yet and raises NotImplementedError. The speculative engines
+subclass this one (`runtime/serving_spec.py`).
 
 The port updates every cache in place (JAX returns new ones), so an
 admission writes into its slots or blocks while other slots hold live K/V:
@@ -155,13 +156,6 @@ def _tree_bytes(tree, device_type=None) -> int:
         return sum(_tree_bytes(getattr(tree, f.name), device_type)
                    for f in dataclasses.fields(tree))
     return 0
-
-
-def __getattr__(name):
-    if name in ("SpeculativeServingEngine", "PromptLookupServingEngine"):
-        raise NotImplementedError(f"{name}: speculative serving is not "
-                                  "ported yet")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class ServingEngine:
@@ -334,13 +328,13 @@ class ServingEngine:
         if os.environ.get("TLLM_SKIP_CAPACITY_CHECK"):
             return
         budget = os.environ.get("TLLM_HBM_BYTES")
-        if budget is None:
-            if self.device.type != "cuda":
-                return
-            free, _ = torch.cuda.mem_get_info(self.device)
-            budget = free + _tree_bytes(params, "cuda")
-        budget = int(budget)
+        if budget is None and self.device.type != "cuda":
+            return
         est = self._capacity_estimate(params, block_size, num_blocks)
+        if budget is None:
+            free, _ = torch.cuda.mem_get_info(self.device)
+            budget = free + est["resident"]
+        budget = int(budget)
         if est["need"] > budget:
             gib = 1024 ** 3
             raise ValueError(
@@ -360,7 +354,8 @@ class ServingEngine:
         (dense: cache_headroom rows past max_seq_len, as the JAX engine
         counts them) + admission transients (the JAX engine's model with
         its KV pool once and without its scratch cache: a prefill writes
-        into the slots)."""
+        into the slots). "resident": the counted weights already on the
+        card, which the budget adds to its free memory."""
         cfg, engine_cfg = self.cfg, self.engine_cfg
         smax = engine_cfg.max_seq_len + self.cache_headroom
         if self.paged:
@@ -383,7 +378,8 @@ class ServingEngine:
         logits = self.n_rows * cfg.vocab_size * 4 * 2
         weights = _tree_bytes(params)
         return {"weights": weights, "kv": kv, "act": act, "logits": logits,
-                "need": weights + kv + act + logits}
+                "need": weights + kv + act + logits,
+                "resident": _tree_bytes(params, "cuda")}
 
     # ------------------------------------------------------------------
     def _dev(self, x):
@@ -699,6 +695,7 @@ class ServingEngine:
         kw = {} if write_slots is None else {"slots": write_slots}
         logits, _ = self.model.forward_prefill(
             self.params, self.cfg, ids, lengths, caches, rope=self.rope, **kw)
+        self._prefill_draft(ids, lengths, slots)
         self.calls["prefills"] += 1
         counts = None
         if self.per_request:
@@ -706,6 +703,10 @@ class ServingEngine:
             counts = init_token_counts(ids, lengths, self.cfg.vocab_size)
         tokens, lps = self._sample_admitted(logits, slots, counts)
         return slots, lengths, tokens, lps
+
+    def _prefill_draft(self, ids, lengths, slots):
+        """A speculative engine's draft prefill of the same group
+        (runtime/serving_spec.py); nothing here."""
 
     def _admit_group(self, group: List[Request], bucket: int
                      ) -> List[FinishedRequest]:
@@ -1043,17 +1044,20 @@ class ServingEngine:
         self.phase_times["host"] += time.perf_counter() - t1
         return finished
 
-    def _record_chunk(self, slot_of, out, out_lp) -> List[FinishedRequest]:
+    def _record_chunk(self, slot_of, out, out_lp, n_tokens=None
+                      ) -> List[FinishedRequest]:
         """Record a chunk's tokens [n_rows, steps] for the requests it
-        decoded; a request that finished while the chunk was in flight
-        (pipelined: its slot may hold another request by now) is
-        skipped."""
+        decoded (the first n_tokens[slot] of a row when given: a
+        speculative chunk's commits); a request that finished while the
+        chunk was in flight (pipelined: its slot may hold another request
+        by now) is skipped."""
         finished: List[FinishedRequest] = []
         live = {r.request_id for r in self.scheduler.active_requests()}
         for slot, req in slot_of.items():
             if req.request_id not in live:
                 continue
-            for j, t in enumerate(out[slot]):
+            row = out[slot] if n_tokens is None else out[slot, :n_tokens[slot]]
+            for j, t in enumerate(row):
                 if out_lp is not None:
                     self._req_logprobs.setdefault(req.request_id, []).append(
                         float(out_lp[slot, j]))
