@@ -253,6 +253,23 @@
    prefill_chunk=16 (four requests of 16 tokens, prompts of 40, 10, 33
    and 20): launches, the chunked tokens equal to the monolithic ones
    but at near ties;
+8c. path 9, tensor parallelism (run_tp): the single-device
+   references in this process (path 1's bs1 request and dense serving's
+   16 requests, path 2's W8A8, each at PATH9_LAYERS = 8), then two
+   ranks on the one card through parallel/launch.py over gloo (NCCL
+   refuses two ranks on one device; gloo stages CUDA tensors through the
+   host, so the times are no picture of TP speed; the ranks only load the
+   libraries built here), each holding half of LLaMA-7B: (a) int8 bs1 in8
+   out50, tokens = path 1's up to near ties, device ms and all-reduce ms a
+   decode token from a profile; (b) Task A's 923-token prompt under
+   overlap_chunks 4 and 0, tokens and first-token logits bit-identical,
+   the windowed launches counted (wo and w_down, 4 windows a layer); (c)
+   dense serving's 16 requests, tokens = the single device's up to near
+   ties; (d) W8A8 bs1 and Task A; (e) fp8 Task A. A failed rank fails the
+   phase. The kernel phase holds every route's n_window (rows 2, 4, 6)
+   against the full call bit for bit and the plain version, and times
+   one windowed 1024-row GEMM at w_down's local shape (K 5504, N 4096)
+   against the full call;
 9. prints each phase's wall time;
 10. prints a `kernels` JSON line, then as the last line
    {"ok": true, "device": {...}}.
@@ -2526,17 +2543,11 @@ def drive_path(path, sess, errors, results):
                                                         wrappers=dc)
     if not ok:
         errors.append(f"{tag}: bs1 decode steps launched {dl}")
-    if "tc" in path:     # bs4's decode steps (4 rows) on the tensor-core
-        # GEMV, then on the one-row GEMV, same session
+    if "tc" in path:     # bs4's decode steps (4 rows), tensor-core GEMV
         dev_step4, _ = profile_generate(sess, p4, scfg, row_limit=8)
-        with tc_route_forced(False):
-            dev_step4_cc, _ = profile_generate(sess, p4, scfg, row_limit=4)
         print(f"  {tag} bs4: {dev_step4:.3f} device ms per decode step on "
-              f"the tensor-core GEMV, {dev_step4_cc:.3f} on the one-row "
-              "GEMV")
-        results["_e2e"][tag].update(
-            device_ms_per_decode_step_bs4=dev_step4,
-            device_ms_per_decode_step_bs4_cuda_core_gemv=dev_step4_cc)
+              "the tensor-core GEMV")
+        results["_e2e"][tag].update(device_ms_per_decode_step_bs4=dev_step4)
     if path.get("task_a"):
         run_task_a(path, sess, errors, results)
     if path.get("fp8kv"):
@@ -4456,13 +4467,15 @@ def serving_sampling(dense):
 
 def serving_replay(eng, prompt, tokens):
     """f32 logits [V] that follow `prompt` and then `tokens` on the
-    engine's model and weights, replayed at bs1 (the prompt's bucket, then
-    one decode step a token)."""
+    engine's (or a GenerationSession's) model and weights, replayed at bs1
+    (the prompt's bucket, then one decode step a token); under tensor
+    parallelism on every rank of its group at once."""
     import torch
+    from trtllm_llama_tpu_torch.ops.linear import tp_scope
 
-    cfg, dev, model = eng.cfg, eng.device, eng.model
+    cfg, dev, model = eng.model_cfg, eng.device, eng.model
     bucket = eng.engine_cfg.bucket_for(len(prompt))
-    with torch.inference_mode():
+    with torch.inference_mode(), tp_scope(eng.group):
         ids = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
         ids[0, :len(prompt)] = torch.as_tensor(prompt, device=dev)
         pos = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
@@ -5512,7 +5525,8 @@ def zero_counts():
     from trtllm_llama_tpu_torch.ops import attention
     for fn in _wrappers().values():
         fn.launches = 0
-        for extra in ("gemm_launches", "tc_launches", "swiglu_launches"):
+        for extra in ("gemm_launches", "tc_launches", "swiglu_launches",
+                      "window_launches"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
     attention.fused_decode_attention_at.alibi_calls = 0
@@ -5528,7 +5542,8 @@ def read_counts():
     for k, f in _wrappers().items():
         for attr, name in (("launches", k),
                            ("gemm_launches", f"{k}.gemm_launches"),
-                           ("tc_launches", f"{k}.tc_launches")):
+                           ("tc_launches", f"{k}.tc_launches"),
+                           ("window_launches", f"{k}.window_launches")):
             if getattr(f, attr, 0):
                 counts[name] = getattr(f, attr)
     return counts, attention.fused_decode_attention_at.alibi_calls
@@ -5913,6 +5928,550 @@ def serve_families(args, errors, results):
         torch.cuda.empty_cache()
 
 
+# Path 9: tensor parallelism, two ranks on the one card (parallel/launch.py)
+PATH9 = "path 9 (tp=2)"
+# every run's depth: at 32 layers (int8; W8A8 and fp8 at 8) the phase took
+# 128.2 s on an H100 (PERF.md), past the ~90 s it may take
+PATH9_LAYERS = 8
+TP = 2
+TP_COLLECTIVE_S = 300  # a rank's collective timeout
+TP_JOIN_S = 900        # the launcher's join timeout for both ranks
+# the kernel phase's windows: w_down's local shape at tp = 2 (K 11008 / 2,
+# N 4096), the row-parallel overlap's 4 windows of 1024 columns and one
+# more of 768 at 256 (whole tensor-core GEMV tiles of 256 columns)
+WINDOW_K, WINDOW_N = 5504, 4096
+WINDOWS = tuple((c * 1024, 1024) for c in range(4)) + ((256, 768),)
+WINDOW_ROUTES = {"gemv": 1, "tc": 8, "gemm": 1024}
+
+
+def check_windows(errors, results):
+    """n_window on every route of rows 2, 4 and 6 at w_down's local
+    shape: each window bit for bit against the full call's columns and
+    within the tolerance of the plain version's window; the route and the
+    window launches held by the counters; one windowed 1024-row GEMM timed
+    against the full call, in int8, fp8 and W8A8."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
+    from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    k, n = WINDOW_K, WINDOW_N
+    print(f"n_window at K={k} N={n} (w_down at tp=2), windows {WINDOWS}:")
+    for fmt in ("int8", "int4 g128", "fp8"):
+        w = make_gemv_weight(fmt, 2, k, n, g)
+        fn, plain = ((f8k.fp8_matmul_stacked, f8k.fp8_matmul_stacked_plain)
+                     if fmt == "fp8" else
+                     (woq.woq_matmul_stacked, woq.woq_matmul_stacked_plain))
+        for rte, m in WINDOW_ROUTES.items():
+            x = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            full = fn(x, w, 1)
+            before = (fn.window_launches, fn.gemm_launches, fn.tc_launches,
+                      fn.launches)
+            same, err = True, 0.0
+            for s, ln in WINDOWS:
+                got = fn(x, w, 1, n_window=(s, ln))
+                same &= bool(torch.equal(got, full[:, s:s + ln]))
+                err = max(err, compare(
+                    f"{fmt} {rte} M={m} window ({s}, {ln}) vs plain", got,
+                    plain(x, w, 1, n_window=(s, ln)), errors))
+            nw = len(WINDOWS)
+            d = [a - b for a, b in zip((fn.window_launches, fn.gemm_launches,
+                                        fn.tc_launches, fn.launches), before)]
+            want = [nw, nw if rte == "gemm" else 0, nw if rte == "tc" else 0,
+                    nw]
+            ok = same and d == want
+            print(f"  {fmt} {rte} M={m}: {nw} windows bit-identical to the "
+                  f"full call's columns: {same}; window / GEMM / tensor-core "
+                  f"/ all launches {d} (expected {want}): "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                errors.append(f"n_window {fmt} {rte}: bit-identical {same}, "
+                              f"launches {d} != {want}")
+        if fmt in ("int8", "fp8"):
+            time_window(fmt, w, g, results)
+        del w
+    for m in (2, 1024):             # W8A8: dp4a, then the GEMM
+        x_q = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                            dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (2, k, n), generator=g, device="cuda",
+                            dtype=torch.int8)
+        s_x = torch.rand((m, 1), generator=g, device="cuda") * 1e-2 + 1e-3
+        s_w = torch.rand((2, n), generator=g, device="cuda") * 1e-3 + 1e-4
+        fn = w8a8.w8a8_matmul_stacked
+        full = fn(x_q, w_q, s_x, s_w, 1)
+        same = all(bool(torch.equal(fn(x_q, w_q, s_x, s_w, 1, n_window=wi),
+                                    full[:, wi[0]:sum(wi)]))
+                   and bool(torch.equal(
+                       fn(x_q, w_q, s_x, s_w, 1, n_window=wi),
+                       w8a8.w8a8_matmul_stacked_plain(
+                           x_q, w_q, s_x, s_w, 1, n_window=wi)))
+                   for wi in WINDOWS)
+        print(f"  w8a8 {'dp4a' if m < 5 else 'GEMM'} M={m}: windows equal "
+              f"the full call's columns and the plain version bit for bit: "
+              f"{same}")
+        if not same:
+            errors.append(f"n_window w8a8 M={m}: not bit-identical")
+    time_window("w8a8", w_q, g, results)
+
+
+def time_window(fmt, w, g, results):
+    """One windowed 1024-row GEMM (the overlap's first window) against the
+    full call, the plain version's window, the library call on the
+    window's dequantized columns and the bound. fmt: "int8" / "fp8" (w
+    the stacked weight) or "w8a8" (w the stacked int8 codes)."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.fp8 import fp8_decode
+    from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
+    from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+
+    m, win = 1024, WINDOWS[0]
+    cols = slice(win[0], sum(win))
+    if fmt == "w8a8":
+        k, n = w.shape[1:]
+        x = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                          dtype=torch.int8)
+        s_x = torch.rand((m, 1), generator=g, device="cuda") * 1e-2 + 1e-3
+        s_w = torch.rand((2, n), generator=g, device="cuda") * 1e-3 + 1e-4
+
+        def call(i, nw=None):
+            return w8a8.w8a8_matmul_stacked(x, w, s_x, s_w, i % 2,
+                                            n_window=nw)
+
+        def plain(i):
+            return w8a8.w8a8_matmul_stacked_plain(x, w, s_x, s_w, i % 2,
+                                                  n_window=win)
+        xl = x.to(torch.bfloat16)
+        deq = [w[layer][:, cols].to(torch.bfloat16) for layer in range(2)]
+        peak, w_item = INT8_OPS, 1
+        key = "w8a8_matmul_stacked"
+    else:
+        k, n = w.k_dim, w.qweight.shape[-1]
+        x = xl = torch.randn((m, k), generator=g, device="cuda").to(
+            torch.bfloat16)
+        fn, pl = ((f8k.fp8_matmul_stacked, f8k.fp8_matmul_stacked_plain)
+                  if fmt == "fp8" else
+                  (woq.woq_matmul_stacked, woq.woq_matmul_stacked_plain))
+
+        def call(i, nw=None):
+            return fn(x, w, i % 2, n_window=nw)
+
+        def plain(i):
+            return pl(x, w, i % 2, n_window=win)
+        codes = [(fp8_decode(w.codes(layer)) if fmt == "fp8"
+                  else w.codes(layer).float()) for layer in range(2)]
+        deq = [(codes[layer][:, cols] * w.scale[layer, cols]).to(
+            torch.bfloat16).contiguous() for layer in range(2)]
+        peak, w_item = BF16_FLOPS, 1
+        key = "fp8_matmul_stacked" if fmt == "fp8" else "woq_matmul_stacked"
+    t_win = time_ms(lambda i: call(i, win))
+    t_full = time_ms(call)
+    t_plain = time_ms(plain, iters=2, warmup=1, reps=1)
+    t_lib = time_ms(lambda i: torch.matmul(xl, deq[i % 2]))
+    n_bytes = (k * win[1] * w_item + win[1] * 4 + m * k * x.element_size()
+               + m * win[1] * 4)
+    b_ms, b_by = bound_ms(n_bytes, 2 * m * k * win[1], peak)
+    print(f"  time {fmt} GEMM M={m} K={k}: window {win} {t_win:.4f} ms, "
+          f"full N={n} {t_full:.4f} ms ({t_full / t_win:.2f}x), plain "
+          f"window {t_plain:.4f} ms, library (bf16 matmul of the window's "
+          f"dequantized columns) {t_lib:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}): the window at {100 * b_ms / t_win:.1f}% of it")
+    results[key].update(
+        window_ms=t_win, window_full_ms=t_full, window_plain_ms=t_plain,
+        window_library_ms=t_lib, window_bound_ms=b_ms, window_bound_by=b_by,
+        window_shape=f"M={m} K={k} N={n} {fmt}, window {win} (GEMM)")
+
+
+def tp_entries(counts, decode="dma_decode_attention"):
+    """A rank's wrapper counts as kernels-line entries: each stacked
+    wrapper's launches split by route, the attention kernels (the decode
+    under `decode`), rmsnorm_quant; only the non-zero ones."""
+    out = {}
+    for fn, gemm_key, tc_key in (
+            ("woq_matmul_stacked", GEMM_INT8, TC_INT8),
+            ("fp8_matmul_stacked", GEMM_FP8, TC_FP8),
+            ("w8a8_matmul_stacked", W8A8_GEMM, None)):
+        gemm = counts.get(f"{fn}.gemm_launches", 0)
+        tc = counts.get(f"{fn}.tc_launches", 0)
+        out[fn] = counts.get(fn, 0) - gemm - tc
+        out[gemm_key] = gemm
+        if tc_key:
+            out[tc_key] = tc
+    out["prefill_attention_kernel"] = counts.get("prefill_attention_kernel",
+                                                 0)
+    out[decode] = counts.get("dma_decode_attention", 0)
+    out["rmsnorm_quant"] = counts.get("rmsnorm_quant", 0)
+    return {k: v for k, v in out.items() if v}
+
+
+def run_tp(args, errors, results):
+    """Path 9: LLaMA-7B at full width under tensor parallelism, tp = 2, two
+    ranks on the one card (parallel/launch.py, backend gloo: NCCL refuses
+    two ranks on one device; gloo stages CUDA tensors through the host).
+    This process first runs the single-device references (the ranks hold
+    half each): path 1's bs1 request, dense serving's 16 requests, path
+    2's W8A8, all at PATH9_LAYERS. The ranks (tp_rank) then run (a) bs1
+    in 8 out 50, (b) Task A's 923-token prompt under overlap_chunks 4 and 0,
+    (c) dense serving, (d) W8A8, (e) fp8; the checks are theirs and this
+    phase's, every rank's failure the phase's."""
+    import tempfile
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.parallel import launch
+    from trtllm_llama_tpu_torch.quantization.quantize import (
+        init_random_quantized_params,
+    )
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.serving import ServingEngine
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    layers = min(args.layers, PATH9_LAYERS)
+    scfg = SamplingConfig(end_id=-1)
+    print(f"{PATH9}: LLaMA-7B widths, {layers} layers (int8 weight-only, "
+          f"W8A8, fp8); {TP} ranks on the one card over gloo (host-staged: "
+          "these times are no picture of TP speed)")
+    t0 = time.perf_counter()
+    cfg = ModelConfig.llama_7b(quant_mode=QuantMode.use_weight_only(),
+                               num_layers=layers)
+    params = init_random_quantized_params(cfg, seed=0, device="cuda")
+    p1 = np.random.default_rng(0).integers(3, cfg.vocab_size, (1, 8))
+    sess = GenerationSession(cfg, params, EngineConfig(**PATH_ENGINE),
+                             device="cuda")
+    ref_a = sess.generate(p1, sampling=scfg,
+                          max_new_tokens=NEW_TOKENS).output_ids[0].tolist()
+    del sess
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+               for n in serve_prompt_lens()]
+    eng = ServingEngine(cfg, params, EngineConfig(**SERVE_ENGINE),
+                        sampling=scfg, decode_chunk=SERVE_CHUNK, device="cuda")
+    rids = [eng.submit(p, SERVE_NEW) for p in prompts]
+    done = eng.run_to_completion()
+    ref_c = [list(done[r].output_ids) for r in rids]
+    del eng, params
+    sq_mode = (QuantMode.use_smooth_quant(per_token=True, per_channel=True)
+               | QuantMode.INT8_KV_CACHE)
+    sq = ModelConfig.llama_7b(quant_mode=sq_mode, num_layers=layers)
+    params = init_random_quantized_params(sq, seed=0, device="cuda")
+    sess = GenerationSession(sq, params, EngineConfig(**PATH_ENGINE),
+                             kv_scales=[KV_SCALE] * layers, device="cuda")
+    ref_d = sess.generate(p1, sampling=scfg,
+                          max_new_tokens=NEW_TOKENS).output_ids[0].tolist()
+    del sess, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    print(f"  single-device references (this process): {t_ref:.1f} s")
+
+    work = Path(tempfile.mkdtemp(prefix="tp_smoke_"))
+    spec = dict(layers=layers, p1=p1.tolist(), ref_a=ref_a,
+                prompts=prompts, ref_c=ref_c, ref_d=ref_d, out=str(work))
+    (work / "spec.json").write_text(json.dumps(spec))
+    t1 = time.perf_counter()
+    ranks = launch.launch("chip_smoke:tp_rank", TP,
+                          args=[str(work / "spec.json")], backend="gloo",
+                          collective_timeout=TP_COLLECTIVE_S,
+                          join_timeout=TP_JOIN_S,
+                          sys_path=[str(Path(__file__).resolve().parent)])
+    t_ranks = time.perf_counter() - t1
+    for r in ranks:
+        print(f"  --- rank {r.rank} (exit {r.returncode}) ---")
+        print("\n".join("    " + line for line in r.output.splitlines()
+                        if "socket.cpp" not in line))
+    bad = [r.rank for r in ranks if not r.ok]
+    if bad:
+        errors.append(f"{PATH9}: ranks {bad} failed")
+        return
+    outs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(TP)]
+    for r, o in enumerate(outs):
+        errors.extend(f"{PATH9} rank {r}: {e}" for e in o["errors"])
+    # launches: both ranks' kernels ran on the card in the path's run
+    total = {}
+    for o in outs:
+        for sub, counts in o["counts"].items():
+            for key, n in tp_entries(
+                    counts, INT8_DECODE if sub == "d" else
+                    "dma_decode_attention").items():
+                total[key] = total.get(key, 0) + n
+    windows = {fn: sum(c.get(f"{fn}.window_launches", 0)
+                       for o in outs for c in o["counts"].values())
+               for fn in ("woq_matmul_stacked", "fp8_matmul_stacked",
+                          "w8a8_matmul_stacked")}
+    need = ("woq_matmul_stacked", GEMM_INT8, TC_INT8,
+            "prefill_attention_kernel", "dma_decode_attention",
+            "w8a8_matmul_stacked", W8A8_GEMM, "rmsnorm_quant", INT8_DECODE,
+            GEMM_FP8)
+    print(f"  launches in {PATH9}'s run (both ranks): {total}; windowed: "
+          f"{windows}")
+    for key in need:
+        if total.get(key, 0) <= 0:
+            errors.append(f"{PATH9}: kernel {key} was never launched")
+    for fn, n in windows.items():
+        if n <= 0:
+            errors.append(f"{PATH9}: {fn} launched no window")
+    for key, n in total.items():
+        results[key]["launches"] = results[key].get("launches", 0) + n
+    for fn, n in windows.items():
+        results[fn]["window_launches"] = n
+    e2e = {"layers": layers, "backend": "gloo",
+           "ranks_on_one_card": TP, "references_s": t_ref,
+           "ranks_s": t_ranks, "card": results["_card"],
+           "ranks": [o["metrics"] for o in outs]}
+    results["_e2e"][PATH9] = e2e
+    for r, o in enumerate(outs):
+        m = o["metrics"]
+        print(f"  rank {r}: bs1 decode {m['device_ms_per_decode_token']:.3f} "
+              f"device ms a token ({m['wall_ms_per_decode_token']:.1f} wall), "
+              f"all-reduce {m['allreduce_ms_per_decode_token']:.3f} ms a "
+              f"token (the profile's c10d / gloo all-reduce events), on "
+              f"{results['_card']}; two ranks share the card through "
+              "host-staged gloo: no picture of TP speed")
+
+
+def _tp_profile(sess, ids, scfg, new=PROFILE_NEW):
+    """(device ms per decode token, all-reduce ms per decode token) of one
+    request under torch.profiler, the prefill alone subtracted: the
+    device time of every kernel and copy, and the profile's all-reduce
+    events (c10d's op and gloo's own)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def run(n):
+        with profile(activities=acts) as prof:
+            sess.generate(ids, sampling=scfg, max_new_tokens=n)
+        evs = prof.key_averages()
+        dev = sum(e.self_device_time_total for e in evs
+                  if e.device_type == DeviceType.CUDA) / 1e3
+        ar = {e.key: e.cpu_time_total / 1e3 for e in evs
+              if "allreduce" in e.key.lower() or "all_reduce" in e.key.lower()}
+        return dev, ar
+    dev, ar = run(new)
+    dev1, ar1 = run(1)
+    steps = new - 1
+    ar_tok = {k: (v - ar1.get(k, 0.0)) / steps for k, v in ar.items()}
+    return (dev - dev1) / steps, ar_tok
+
+
+def tp_rank(rank, world, spec_path):
+    """One rank of path 9 (started by run_tp through parallel/launch.py):
+    loads the libraries the main process built (it never runs nvcc), makes
+    the tp group over gloo, runs (a)-(e) and writes rank<r>.json (its
+    errors, launch counts by run, metrics). Raises on a failed check of
+    its own making, so the launcher sees the rank fail."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch import EngineConfig, ModelConfig, QuantMode
+    from trtllm_llama_tpu_torch.models import llama
+    from trtllm_llama_tpu_torch.ops.kernels import _build
+    from trtllm_llama_tpu_torch.ops.linear import tp_scope
+    from trtllm_llama_tpu_torch.ops.registry import KERNELS as knobs
+    from trtllm_llama_tpu_torch.parallel import Mapping, comm
+    from trtllm_llama_tpu_torch.quantization.quantize import (
+        init_random_quantized_params,
+    )
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.serving import ServingEngine
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    spec = json.loads(Path(spec_path).read_text())
+    missing = [n for n in _build.SOURCES if not _build._lib_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"libraries not built: {missing} (the main "
+                           "process builds them; a rank only loads)")
+    torch.cuda.set_device(0)
+    mapping = Mapping(tp=world)
+    group, rank = mapping.make_group(backend="gloo", device="cuda")
+    errors, counts, metrics = [], {}, {}
+    scfg = SamplingConfig(end_id=-1)
+    layers = spec["layers"]
+    p1 = np.asarray(spec["p1"])
+    tag = f"rank {rank}"
+    print(f"{tag}: tp group of {world} over gloo on "
+          f"{torch.cuda.get_device_name(0)}")
+
+    # gloo on CUDA tensors: SUM with async_op, and MAX
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    x, work = comm.all_reduce_sum(x, group, async_op=True)
+    work.wait()
+    mx = comm.all_reduce_max(torch.full((4,), float(rank), device="cuda"),
+                             group)
+    ok = (x.tolist() == [world * (world + 1) / 2] * 4
+          and mx.tolist() == [float(world - 1)] * 4)
+    print(f"{tag}: gloo all_reduce on CUDA tensors, SUM (async) "
+          f"{x.tolist()} and MAX {mx.tolist()}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        errors.append("gloo's CUDA all_reduce gave wrong sums")
+
+    def timed(s, ids, new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = s.generate(ids, sampling=scfg, max_new_tokens=new)
+        torch.cuda.synchronize()
+        return out.output_ids, (time.perf_counter() - t) * 1e3
+
+    def tokens_vs(name, s, prompt, got, want):
+        """got against the single-device tokens: equal, or the first
+        difference a near tie on this rank's replay."""
+        k = first_difference_at(got, want)
+        print(f"{tag} {name}: {len(got)} tokens, identical to the single "
+              f"device's: {k is None}" + ("" if k is None else
+                                          f" (first difference at {k})"))
+        if k is not None:
+            near_tie(f"{tag} {name} token {k}",
+                     serving_replay(s, prompt, got[:k]), got[k], want[k],
+                     errors)
+
+    def prefill_logits(s, prompt, rows):
+        with torch.inference_mode(), tp_scope(s.group):
+            ids = torch.zeros((1, rows), dtype=torch.int32, device="cuda")
+            ids[0, :prompt.shape[1]] = torch.as_tensor(prompt[0],
+                                                       device="cuda")
+            lens = torch.tensor([prompt.shape[1]], dtype=torch.int32,
+                                device="cuda")
+            caches = llama.init_caches(s.model_cfg, 1, rows, "cuda",
+                                       s.kv_scales)
+            return llama.forward_prefill(s.params, s.model_cfg, ids, lens,
+                                         caches, rope=s.rope)[0]
+
+    def task_a(s, name, fn_name, n_l, new):
+        """Task A's prompt under overlap_chunks 4 and 0: tokens and
+        first-token logits bit-identical, the windows counted (4 a
+        row-parallel projection in the 1024-row prefill, none at 0)."""
+        prompt = np.random.default_rng(0).integers(
+            3, s.cfg.vocab_size, (1, TASK_A_PROMPT))
+        rows = s.engine_cfg.bucket_for(TASK_A_PROMPT)
+        runs = {}
+        for chunks in (4, 0):
+            knobs["overlap_chunks"] = chunks
+            try:
+                zero_counts()
+                ids, ms = timed(s, prompt, new)
+                c = read_counts()[0]
+                logits = prefill_logits(s, prompt, rows)
+            finally:
+                knobs["overlap_chunks"] = 4
+            runs[chunks] = (ids, logits, c, ms)
+        same_ids = bool(np.array_equal(runs[4][0], runs[0][0]))
+        same_logits = bool(torch.equal(runs[4][1], runs[0][1]))
+        w4 = runs[4][2].get(f"{fn_name}.window_launches", 0)
+        w0 = runs[0][2].get(f"{fn_name}.window_launches", 0)
+        want = 2 * n_l * 4
+        ok = same_ids and same_logits and w4 == want and w0 == 0
+        print(f"{tag} {name}: {TASK_A_PROMPT}-token prompt ({rows} rows) + "
+              f"{new - 1} decode steps, {runs[4][3]:.1f} / {runs[0][3]:.1f} "
+              f"ms under overlap_chunks 4 / 0; tokens identical {same_ids}, "
+              f"first-token logits bit-identical {same_logits}; windowed "
+              f"launches {w4} / {w0} (expected {want}: wo and w_down, 4 "
+              f"windows of {s.cfg.hidden_size // 4} columns, a layer / 0): "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            errors.append(f"{name}: overlap_chunks 4 vs 0: tokens "
+                          f"{same_ids}, logits {same_logits}, windows "
+                          f"{w4} / {w0}")
+        return runs[4][2]
+
+    # (a) int8, bs1 in 8 out 50
+    cfg = ModelConfig.llama_7b(quant_mode=QuantMode.use_weight_only(),
+                               num_layers=layers)
+    params = init_random_quantized_params(cfg, seed=0, device="cuda")
+    sess = GenerationSession(cfg, params, EngineConfig(**PATH_ENGINE),
+                             device="cuda", mapping=mapping, group=group)
+    torch.cuda.synchronize()
+    print(f"{tag}: int8 shards of {layers} layers, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card "
+          "(the full params too, kept for the engine of (c))")
+    timed(sess, p1, 4)                                      # warm-up
+    zero_counts()
+    _, pre_ms = timed(sess, p1, 1)
+    ids, ms = timed(sess, p1, NEW_TOKENS)
+    counts["a"] = read_counts()[0]
+    tokens_vs("(a) bs1 in8 out50", sess, spec["p1"][0], ids[0].tolist(),
+              spec["ref_a"])
+    dev_tok, ar_tok = _tp_profile(sess, p1, scfg)
+    metrics.update(wall_ms_per_decode_token=(ms - pre_ms) / (NEW_TOKENS - 1),
+                   prefill_ms=pre_ms, device_ms_per_decode_token=dev_tok,
+                   allreduce_ms_per_decode_token=sum(ar_tok.values()),
+                   allreduce_events_ms_per_decode_token=ar_tok)
+    print(f"{tag} (a): prefill {pre_ms:.1f} ms, decode "
+          f"{metrics['wall_ms_per_decode_token']:.1f} wall ms a token, "
+          f"{dev_tok:.3f} device ms a token (profile), all-reduce events "
+          f"a token {ar_tok}")
+
+    # (b) Task A under overlap_chunks 4 and 0
+    counts["b"] = task_a(sess, "(b) Task A int8", "woq_matmul_stacked",
+                         layers, 1 + TASK_A_DECODE)
+    del sess
+
+    # (c) dense serving, serving's 16 requests
+    eng = ServingEngine(cfg, params, EngineConfig(**SERVE_ENGINE),
+                        sampling=scfg, decode_chunk=SERVE_CHUNK,
+                        device="cuda", mapping=mapping, group=group)
+    del params
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rids = [eng.submit(p, SERVE_NEW) for p in spec["prompts"]]
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts["c"] = read_counts()[0]
+    got = [list(done[r].output_ids) for r in rids]
+    same = sum(g == w for g, w in zip(got, spec["ref_c"]))
+    print(f"{tag} (c) dense serving: {len(rids)} requests x {SERVE_NEW} "
+          f"tokens in {wall:.2f} s ({eng.calls}); {same} of {len(rids)} "
+          "token for token with the single device")
+    metrics["serving_wall_s"] = wall
+    for i, (g_, w_) in enumerate(zip(got, spec["ref_c"])):
+        if g_ != w_:
+            tokens_vs(f"(c) request {i}", eng, spec["prompts"][i], g_, w_)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) W8A8 (path 2's configuration), bs1, Task A
+    sq_mode = (QuantMode.use_smooth_quant(per_token=True, per_channel=True)
+               | QuantMode.INT8_KV_CACHE)
+    sq = ModelConfig.llama_7b(quant_mode=sq_mode, num_layers=layers)
+    params = init_random_quantized_params(sq, seed=0, device="cuda")
+    sess = GenerationSession(sq, params, EngineConfig(**PATH_ENGINE),
+                             kv_scales=[KV_SCALE] * layers, device="cuda",
+                             mapping=mapping, group=group)
+    del params
+    timed(sess, p1, 2)
+    zero_counts()
+    ids, _ = timed(sess, p1, NEW_TOKENS)
+    counts["d"] = read_counts()[0]
+    tokens_vs("(d) W8A8 bs1 in8 out50", sess, spec["p1"][0],
+              ids[0].tolist(), spec["ref_d"])
+    dc = task_a(sess, "(d) Task A W8A8", "w8a8_matmul_stacked", layers, 2)
+    for k_, v in dc.items():
+        counts["d"][k_] = counts["d"].get(k_, 0) + v
+    del sess
+
+    # (e) fp8: Task A's prefill and a decode step
+    f8 = ModelConfig.llama_7b(quant_mode=QuantMode.FP8_QDQ, num_layers=layers)
+    params = init_random_quantized_params(f8, seed=0, device="cuda")
+    sess = GenerationSession(f8, params, EngineConfig(**PATH_ENGINE),
+                             device="cuda", mapping=mapping, group=group)
+    del params
+    timed(sess, p1, 2)
+    counts["e"] = task_a(sess, "(e) Task A fp8", "fp8_matmul_stacked",
+                         layers, 2)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(
+        dict(errors=errors, counts=counts, metrics=metrics)))
+    print(f"{tag}: {len(errors)} errors")
+
+
 def check_kernels(errors, results):
     """Every kernel against its plain version at the shapes the paths and
     the serving phase give it."""
@@ -5938,6 +6497,7 @@ def check_kernels(errors, results):
     check_family_attention(errors, results)
     check_draft_attention(errors, results)
     check_float16(errors, results)
+    check_windows(errors, results)
 
 
 def main(argv=None) -> int:
@@ -5988,7 +6548,8 @@ def main(argv=None) -> int:
                ("path 6", lambda: run_bloom(args, errors, results)),
                ("families", lambda: run_families(args, errors, results)),
                ("serving families",
-                lambda: serve_families(args, errors, results))]
+                lambda: serve_families(args, errors, results)),
+               (PATH9, lambda: run_tp(args, errors, results))]
     for name, phase in phases:
         t = time.perf_counter()
         zero_counts()

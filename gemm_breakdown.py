@@ -105,7 +105,7 @@ def main() -> int:
                 err = lib.tllm_woq_gemm(
                     x.data_ptr(), q.data_ptr(), scale.data_ptr(),
                     tile_map.data_ptr(), y.data_ptr(), None,
-                    _build.DTYPE_CODES[torch.bfloat16], m, K, N, 1,
+                    _build.DTYPE_CODES[torch.bfloat16], m, K, N, N, 1,
                     K // woq.GEMM_TILE_K, 8, 0, 0, stream)
                 if err:
                     raise RuntimeError(f"{name}: launch failed ({err})")

@@ -16,7 +16,9 @@ sampling, logprobs and bad words, chunked prefill, mixed and pipelined
 steps, dense and paged, and OPT through model= with chunking; the
 speculative sessions and engines, random draft and prompt lookup on
 make_copy_params' weights, greedy and sampled) with both made
-unimportable."""
+unimportable. The tensor-parallel modules (parallel/mapping, sharding,
+comm, launch) and the ranks' worker of tests/test_torch_tp.py import
+neither; that test runs its ranks with both unimportable."""
 
 import ast
 import subprocess
@@ -50,7 +52,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     files += [ROOT / "chip_smoke.py", ROOT / "gemm_breakdown.py",
               ROOT / "gemv_breakdown.py",
               ROOT / "attention_precision.py", ROOT / "decode_breakdown.py",
-              ROOT / "streaming_breakdown.py"]
+              ROOT / "streaming_breakdown.py",
+              ROOT / "tests" / "torch_tp_worker.py"]
     assert len(files) > 15
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"trtllm_llama_tpu_torch/models/decoder.py",
@@ -65,7 +68,12 @@ def test_no_module_imports_jax_or_the_jax_package():
             "trtllm_llama_tpu_torch/runtime/sampling.py",
             "trtllm_llama_tpu_torch/runtime/speculative.py",
             "trtllm_llama_tpu_torch/runtime/serving_spec.py",
-            "trtllm_llama_tpu_torch/quantization/evaluate.py"} <= names
+            "trtllm_llama_tpu_torch/quantization/evaluate.py",
+            "trtllm_llama_tpu_torch/parallel/mapping.py",
+            "trtllm_llama_tpu_torch/parallel/sharding.py",
+            "trtllm_llama_tpu_torch/parallel/comm.py",
+            "trtllm_llama_tpu_torch/parallel/launch.py",
+            "tests/torch_tp_worker.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert not bad, bad
@@ -257,6 +265,14 @@ assert "w_gate_up" in sess.params["layers"]
 out = sess.generate([[5, 6, 7], [8, 9]], sampling=SamplingConfig(end_id=-1),
                     max_new_tokens=4)
 assert out.output_ids.shape == (2, 4), out.output_ids.shape
+from trtllm_llama_tpu_torch.parallel import Mapping, comm, launch
+from trtllm_llama_tpu_torch.parallel.sharding import shard_params
+sys.path.insert(0, "tests")
+import torch_tp_worker
+x = torch.ones(3)
+assert comm.all_reduce_sum(x, None) is x and comm.gather_columns(x, None) is x
+assert shard_params(loaded, Mapping(), 0) is loaded
+assert launch.free_port() > 0 and torch_tp_worker.serve_prompts()
 from trtllm_llama_tpu_torch.ops.kernels import probes
 assert probes.probe_u32_bf16_construct(probes.construct_inputs()).float()[
     0:2, 89].tolist() == [200.0, 168.0]

@@ -17,8 +17,8 @@ penalties, min length, bad and stop words, slot reuse) as JAX's engine
 does: identical ids and finish reasons, logprobs within 1e-5, also under
 chunked prefill (prompts of up to 40 tokens) and mixed steps. The decoder
 families OPT and Bloom serve through model= with and without chunking as
-JAX's engine does. The options still unported (mapping, mesh) raise
-NotImplementedError; the capacity check counts one KV pool, and
+JAX's engine does. The options still unported (a mapping's sp / ep axes,
+mesh) raise NotImplementedError; the capacity check counts one KV pool, and
 cache_headroom's rows as JAX's engine does.
 
 JAX's pipelined paged engine over-appends KV blocks (its host budgets lag
@@ -44,6 +44,7 @@ from trtllm_llama_tpu.runtime.serving import ServingEngine as JaxEngine
 from trtllm_llama_tpu_torch.config import EngineConfig, ModelConfig
 from trtllm_llama_tpu_torch.convert.bridge import params_from_numpy
 from trtllm_llama_tpu_torch.models import decoder, llama
+from trtllm_llama_tpu_torch.parallel.mapping import Mapping
 from trtllm_llama_tpu_torch.quantization.mode import QuantMode
 from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
 from trtllm_llama_tpu_torch.runtime.serving import ServingEngine
@@ -320,12 +321,12 @@ def test_per_request_sampling_matches_jax(tiny, name, options):
 @pytest.mark.parametrize("option,value", [
     ("per_request_sampling", True), ("prefill_chunk", 16),
     ("return_logprobs", True), ("max_bad_words", 2), ("mixed_step", True),
-    ("pipelined", True), ("mapping", object()), ("mesh", object()),
+    ("pipelined", True), ("mapping", Mapping(sp=2)), ("mesh", object()),
     pytest.param("model", llama, id="model-value8"),
     ("cache_headroom", 8)])
 def test_unported_options_raise(tiny, option, value):
-    """The options still unported (mapping, mesh) raise, naming
-    themselves; the ones this port runs serve the drawless script as the
+    """The options still unported (a mapping's sp / ep axes, mesh)
+    raise, naming themselves; the ones this port runs serve the drawless script as the
     JAX engine does: per_request_sampling, return_logprobs and
     max_bad_words (the last with per-request sampling, as the JAX engine
     requires), and with both and max_bad_words, prefill_chunk, mixed_step,

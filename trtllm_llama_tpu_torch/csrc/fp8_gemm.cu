@@ -11,15 +11,18 @@
 
 using namespace tllm;
 
-// x [M, K] (bf16 / fp16), q uint8 e4m3 codes [K, N] of ONE layer (rows
+// x [M, K] (bf16 / fp16), q uint8 e4m3 codes [K, ldw] of ONE layer (rows
 // interleaved within 128-row blocks, or in logical order), scale f32 [N],
+// from the first of the N columns computed (as tllm_woq_gemm),
 // map: the 128-byte tile_rows of the layout, out f32 [M, N], part f32
 // [ksplit, M, N] scratch (unused when ksplit == 1), kt_per: K tiles of 128
 // rows per split.
 extern "C" int tllm_fp8_gemm(const void* x, const void* q, const void* scale,
                              const void* map, void* out, void* part,
-                             int dtype, int M, int K, int N, int ksplit,
-                             int kt_per, int device, void* stream) {
-  const gemm::Args a{x, q, scale, map, out, part, M, K, N, ksplit, kt_per};
+                             int dtype, int M, int K, int N, int ldw,
+                             int ksplit, int kt_per, int device,
+                             void* stream) {
+  const gemm::Args a{x, q, scale, map, out, part, M, K, N, ldw, ksplit,
+                     kt_per};
   return gemm::dispatch<gemv::kFp8, false>(dtype, a, device, stream);
 }

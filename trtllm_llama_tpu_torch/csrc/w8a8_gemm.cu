@@ -150,7 +150,8 @@ __device__ __forceinline__ void transpose_tile(const uint8_t* w, uint8_t* b,
   }
 }
 
-// x [M, K] int8; q [K, N] int8 of ONE layer; sx / sw with their steps (0:
+// x [M, K] int8; q [K, ldw] int8 of ONE layer, from the first of the N
+// columns computed; sx / sw with their steps (0:
 // one value). Block (., s) sums K tiles [s * kt_per, (s + 1) * kt_per):
 // into part + s * M * N (int32, unscaled) when part is set, else dequantized
 // into out.
@@ -161,7 +162,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ sx, int sx_step,
                      const float* __restrict__ sw, int sw_step,
                      float* __restrict__ out, int* __restrict__ part, int M,
-                     int K, int N, int kt_per) {
+                     int K, int N, int ldw, int kt_per) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
@@ -201,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int c = i & 7;
       const bool ok = n0 + c * 16 < N;
       const int8_t* src =
-          q + static_cast<size_t>(k0 + s) * N + (ok ? n0 + c * 16 : 0);
+          q + static_cast<size_t>(k0 + s) * ldw + (ok ? n0 + c * 16 : 0);
       cp_async16(ws + s * kBN + c * 16, src, ok);
     }
   };
@@ -295,7 +296,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int MF>
 cudaError_t launch(const void* x, const void* q, const void* sx, int sx_step,
                    const void* sw, int sw_step, void* out, void* part, int M,
-                   int K, int N, int ksplit, int kt_per, cudaStream_t s) {
+                   int K, int N, int ldw, int ksplit, int kt_per,
+                   cudaStream_t s) {
   constexpr int kBM = Cfg<MF>::kBM;
   cudaError_t err = allow_smem(w8a8_gemm_kernel<MF>, Cfg<MF>::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -304,7 +306,7 @@ cudaError_t launch(const void* x, const void* q, const void* sx, int sx_step,
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(sx), sx_step, static_cast<const float*>(sw),
       sw_step, static_cast<float*>(out), static_cast<int*>(part), M, K, N,
-      kt_per);
+      ldw, kt_per);
   err = cudaGetLastError();
   if (err != cudaSuccess || ksplit == 1) return err;
   return w8a8::launch_reduce(part, sx, sx_step, sw, sw_step, out, M, N,
@@ -313,8 +315,10 @@ cudaError_t launch(const void* x, const void* q, const void* sx, int sx_step,
 
 }  // namespace
 
-// x [M, K] int8 (16-byte aligned), q [K, N] int8 of ONE layer and sw its
-// scales (the wrapper offsets the stacked arrays); sx [M] (sx_step 1) or
+// x [M, K] int8 (16-byte aligned), q [K, ldw] int8 of ONE layer and sw its
+// scales (the wrapper offsets the stacked arrays, and for a window [start,
+// start + N) of the ldw columns q and a per-channel sw by start, a multiple
+// of 128; ldw == N for the whole); sx [M] (sx_step 1) or
 // [1] (sx_step 0), sw [N] (sw_step 1) or [1] (sw_step 0); out [M, N] f32;
 // part [ksplit, M, N] int32 scratch (null when ksplit == 1); kt_per: K
 // tiles of 128 per split; rows_tile: rows per block tile, 128 or 256
@@ -322,11 +326,12 @@ cudaError_t launch(const void* x, const void* q, const void* sx, int sx_step,
 extern "C" int tllm_w8a8_gemm(const void* x, const void* q, const void* sx,
                               int sx_step, const void* sw, int sw_step,
                               void* out, void* part, int M, int K, int N,
-                              int ksplit, int kt_per, int rows_tile,
+                              int ldw, int ksplit, int kt_per, int rows_tile,
                               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (M <= 0 || K <= 0 || K % kBK || N <= 0 || N % 16 || ksplit < 1 ||
+  if (M <= 0 || K <= 0 || K % kBK || N <= 0 || N % 16 || ldw < N ||
+      ksplit < 1 ||
       kt_per < 1 || (ksplit - 1) * kt_per >= K / kBK ||
       (ksplit > 1) != (part != nullptr) ||
       (rows_tile != 128 && (rows_tile != 256 || ksplit != 1)))
@@ -334,7 +339,7 @@ extern "C" int tllm_w8a8_gemm(const void* x, const void* q, const void* sx,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return rows_tile == 256
              ? launch<2>(x, q, sx, sx_step, sw, sw_step, out, part, M, K, N,
-                         ksplit, kt_per, s)
+                         ldw, ksplit, kt_per, s)
              : launch<1>(x, q, sx, sx_step, sw, sw_step, out, part, M, K, N,
-                         ksplit, kt_per, s);
+                         ldw, ksplit, kt_per, s);
 }

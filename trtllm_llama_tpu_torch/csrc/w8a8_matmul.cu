@@ -48,7 +48,7 @@ using stream::kVec;
 
 struct Params {
   const int8_t* x;     // [M, K]
-  const int8_t* q;     // [K, N] of one layer
+  const int8_t* q;     // [K, ldw] of one layer, from column 0 of N
   const float* sx;     // [M] (sx_step 1) or [1] (sx_step 0)
   int sx_step;
   const float* sw;     // [N] (sw_step 1) or [1] (sw_step 0)
@@ -56,7 +56,8 @@ struct Params {
   float* out;          // [M, N]
   int* part;           // [ksplit, M, N] workspace (ksplit > 1)
   int* counters;       // [column tiles] workspace, 0 between launches
-  int M, K, N;
+  int M, K, N;         // N: the columns computed (a window of ldw)
+  int ldw;             // row stride of q
   int kc;              // K rows of a split (a multiple of 16)
   int ksplit;
   int lanes;           // threads along N (gemv_stream.cuh Tile)
@@ -109,8 +110,8 @@ __global__ void __launch_bounds__(kThreads, 2) dp4a_kernel(const Params p) {
   const int mine = n0 < p.N && nq > t.slot
                        ? (nq - t.slot + t.rows - 1) / t.rows : 0;
   const int8_t* wp =
-      p.q + (static_cast<size_t>(k_begin) + 4 * t.slot) * p.N + n0;
-  const size_t step = static_cast<size_t>(4 * t.rows) * p.N;
+      p.q + (static_cast<size_t>(k_begin) + 4 * t.slot) * p.ldw + n0;
+  const size_t step = static_cast<size_t>(4 * t.rows) * p.ldw;
 
   int* xs = smem_i;                               // [MR][kc / 4]
   int* red = xs + MR * (p.kc / 4);                // block sum
@@ -126,7 +127,7 @@ __global__ void __launch_bounds__(kThreads, 2) dp4a_kernel(const Params p) {
       if (i < mine) {
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          ring[i][u] = stream::load16(wp + i * step + static_cast<size_t>(u) * p.N);
+          ring[i][u] = stream::load16(wp + i * step + static_cast<size_t>(u) * p.ldw);
       }
 #pragma unroll
     for (int r = 0; r < MR; ++r) {
@@ -153,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 2) dp4a_kernel(const Params p) {
 #pragma unroll
         for (int u = 0; u < 4; ++u)
           rows[u] = stream::swap_load(ring[i][u],
-                                      next + static_cast<size_t>(u) * p.N,
+                                      next + static_cast<size_t>(u) * p.ldw,
                                       j + kDQ < mine);
         if (j >= mine) continue;
         // the step's 4x4 byte blocks transposed into K-quads per column
@@ -192,8 +193,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// x [M, K] int8, q [K, N] int8 of ONE layer and sw its scales (the wrapper
-// offsets the stacked arrays); sx [M] (sx_step 1) or [1] (sx_step 0), sw [N]
+// x [M, K] int8, q [K, ldw] int8 of ONE layer and sw its scales (the
+// wrapper offsets the stacked arrays, and for a window [start, start + N)
+// of the ldw columns q and a per-channel sw by start; ldw == N for the
+// whole); sx [M] (sx_step 1) or [1] (sx_step 0), sw [N]
 // (sw_step 1) or [1] (sw_step 0); out [M, N] f32; part [ksplit, M, N] int32
 // and counters [column tiles] of the stream's workspace (null at ksplit 1).
 // K % 4 == 0, kc % 16 == 0, N % 16 == 0; mr in {1, 2, 4}: rows per
@@ -202,8 +205,8 @@ extern "C" int tllm_w8a8_matmul_stacked(const void* x, const void* q,
                                         const void* sx, int sx_step,
                                         const void* sw, int sw_step, void* out,
                                         void* part, void* counters, int M,
-                                        int K, int N, int ksplit, int kc,
-                                        int mr, int lanes, int device,
+                                        int K, int N, int ldw, int ksplit,
+                                        int kc, int mr, int lanes, int device,
                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -211,7 +214,8 @@ extern "C" int tllm_w8a8_matmul_stacked(const void* x, const void* q,
                  static_cast<const float*>(sx), sx_step,
                  static_cast<const float*>(sw), sw_step,
                  static_cast<float*>(out), static_cast<int*>(part),
-                 static_cast<int*>(counters), M, K, N, kc, ksplit, lanes};
+                 static_cast<int*>(counters), M, K, N, ldw, kc, ksplit,
+                 lanes};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mr) {
     case 1: return launch<1>(p, s);

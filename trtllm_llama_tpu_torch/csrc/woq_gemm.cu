@@ -10,17 +10,20 @@
 
 using namespace tllm;
 
-// x [M, K] (bf16 / fp16), q of ONE layer: int8 [K, N] (w_bits 8) or packed
-// int4 [K/2, N] (w_bits 4), scale f32 [N] (grouped 0) or [K/128, N]
-// (grouped 1), map: the 128-byte tile_rows of the layout, out f32 [M, N],
+// x [M, K] (bf16 / fp16), q of ONE layer: int8 [K, ldw] (w_bits 8) or
+// packed int4 [K/2, ldw] (w_bits 4), scale f32 [N] (grouped 0) or
+// [K/128, ldw] (grouped 1), from the first of the N columns computed (a
+// window [start, start + N) of the ldw: the wrapper offsets q and scale by
+// start, a multiple of 128; ldw == N for the whole), map: the 128-byte tile_rows of the layout, out f32 [M, N],
 // part f32 [ksplit, M, N] scratch (unused when ksplit == 1), kt_per: K
 // tiles of 128 rows per split.
 extern "C" int tllm_woq_gemm(const void* x, const void* q, const void* scale,
                              const void* map, void* out, void* part,
-                             int dtype, int M, int K, int N, int ksplit,
-                             int kt_per, int w_bits, int grouped, int device,
-                             void* stream) {
-  const gemm::Args a{x, q, scale, map, out, part, M, K, N, ksplit, kt_per};
+                             int dtype, int M, int K, int N, int ldw,
+                             int ksplit, int kt_per, int w_bits, int grouped,
+                             int device, void* stream) {
+  const gemm::Args a{x, q, scale, map, out, part, M, K, N, ldw, ksplit,
+                     kt_per};
   if (w_bits == 8)
     return grouped ? gemm::dispatch<gemv::kInt8, true>(dtype, a, device, stream)
                    : gemm::dispatch<gemv::kInt8, false>(dtype, a, device, stream);

@@ -170,8 +170,10 @@ __device__ __forceinline__ void decode_tile(const uint8_t* codes, uint8_t* b,
   }
 }
 
-// q: stored codes of ONE layer (int8 / e4m3 [K, N], int4 [K/2, N]); scale
-// f32 [N] or, GROUPED, [K/128, N]; map: 128 bytes (tile_rows). Block
+// q: stored codes of ONE layer (int8 / e4m3 [K, ldw], int4 [K/2, ldw]);
+// scale f32 [N] or, GROUPED, [K/128, ldw]; both from the first of the N
+// columns computed (a window of the ldw: the wrapper offsets them); map: 128
+// bytes (tile_rows). Block
 // (., s) sums K tiles [s * kt_per, (s + 1) * kt_per) into out + s * M * N,
 // times col_scale[n] (null: grouped, or the split-K reduce scales).
 // K % 128 == 0, N % 16 == 0, x 16-byte aligned (wrapper).
@@ -181,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 const float* __restrict__ scale,
                 const float* __restrict__ col_scale,
                 const uint8_t* __restrict__ map_g, float* __restrict__ out,
-                int M, int K, int N, int kt_per) {
+                int M, int K, int N, int ldw, int kt_per) {
   constexpr int kR = FMT == gemv::kInt4 ? 2 : 1;   // logical rows a stored row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -224,14 +226,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int c = i & 7;
       const bool ok = n0 + c * 16 < N;
       const uint8_t* src =
-          q + static_cast<size_t>(k0 / kR + s) * N + (ok ? n0 + c * 16 : 0);
+          q + static_cast<size_t>(k0 / kR + s) * ldw + (ok ? n0 + c * 16 : 0);
       cp_async16(cd + s * kBN + c * 16, src, ok);
     }
     if constexpr (GROUPED) {
       if (tid < kBN / 4) {
         const bool ok = n0 + tid * 4 < N;
         const float* src =
-            scale + static_cast<size_t>(kt0 + kt) * N +
+            scale + static_cast<size_t>(kt0 + kt) * ldw +
             (ok ? n0 + tid * 4 : 0);
         cp_async16(sbase + kOffScale + slot * kScaleTile + tid * 16, src, ok);
       }
@@ -334,11 +336,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 struct Args {
   const void* x;      // [M, K] bf16 / fp16
   const void* q;      // stored codes of the layer
-  const void* scale;  // f32 [N] or [K/128, N]
+  const void* scale;  // f32 [N] or [K/128, ldw]
   const void* map;    // 128 bytes: logical row of each stored slot of a tile
   void* out;          // f32 [M, N]
   void* part;         // f32 [ksplit, M, N] scratch (unused when ksplit == 1)
-  int M, K, N, ksplit, kt_per;
+  int M, K, N;        // N: the columns computed (a window of ldw)
+  int ldw;            // row stride of q and of grouped scales
+  int ksplit, kt_per;
 };
 
 // ksplit == 1: one launch writes out (scaled). Otherwise (few output
@@ -357,7 +361,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(a.x), static_cast<const uint8_t*>(a.q), scale,
       GROUPED || split ? nullptr : scale, static_cast<const uint8_t*>(a.map),
-      static_cast<float*>(split ? a.part : a.out), a.M, a.K, a.N, a.kt_per);
+      static_cast<float*>(split ? a.part : a.out), a.M, a.K, a.N, a.ldw,
+      a.kt_per);
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
   const size_t total = static_cast<size_t>(a.M) * a.N;
@@ -374,7 +379,7 @@ template <int FMT, bool GROUPED>
 cudaError_t dispatch(int dtype, const Args& a, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (a.M <= 0 || a.K % kBK || a.N % 16 || a.ksplit < 1 ||
+  if (a.M <= 0 || a.K % kBK || a.N % 16 || a.ldw < a.N || a.ksplit < 1 ||
       (a.ksplit - 1) * a.kt_per >= a.K / kBK)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -240,14 +240,15 @@ __device__ __forceinline__ void fma_row(const int4 wv, const float* xs_row,
 // the stacked arrays).
 struct Params {
   const void* x;       // [M, K] activation (T), [M, 2K] with swiglu
-  const uint8_t* q;    // stored codes [K or K/2, N]
-  const float* scale;  // [N] per-channel or [K/group, N] grouped
+  const uint8_t* q;    // stored codes [K or K/2, ldw], from column 0 of N
+  const float* scale;  // [N] per-channel or [K/group, ldw] grouped
   const void* norm_w;  // [K] (T) or null
   const void* resid;   // [M, N] (T) or null
   float* out;          // [M, N]
   float* part;         // [ksplit, M, N] workspace (ksplit > 1)
   int* counters;       // [column tiles] workspace, 0 between launches
-  int M, K, N;
+  int M, K, N;         // N: the columns computed (a window of ldw)
+  int ldw;             // row stride of q and of grouped scales
   int kc;              // logical K rows of a split (whole blk and group)
   int ksplit;          // splits of a column tile (gridDim.y)
   int lanes;           // threads along N (gemv_stream.cuh Tile)
@@ -312,8 +313,8 @@ __global__ void __launch_bounds__(kThreads, 2) gemv_kernel(const Params p) {
   // this thread's stored rows: t.slot + j * t.rows, j < mine
   const int mine = n0 < p.N && rows > t.slot
                        ? (rows - t.slot + t.rows - 1) / t.rows : 0;
-  const uint8_t* wp = p.q + (static_cast<size_t>(k_begin / kR) + t.slot) * p.N + n0;
-  const size_t step = static_cast<size_t>(t.rows) * p.N;
+  const uint8_t* wp = p.q + (static_cast<size_t>(k_begin / kR) + t.slot) * p.ldw + n0;
+  const size_t step = static_cast<size_t>(t.rows) * p.ldw;
   const T* x = static_cast<const T*>(p.x);
   const T* norm_w = static_cast<const T*>(p.norm_w);
 
@@ -426,7 +427,7 @@ __global__ void __launch_bounds__(kThreads, 2) gemv_kernel(const Params p) {
           if (n_tile + c < p.N)
             *reinterpret_cast<float4*>(ss + g * t.bn + c) = __ldg(
                 reinterpret_cast<const float4*>(
-                    p.scale + static_cast<size_t>(g0 + g) * p.N + n_tile + c));
+                    p.scale + static_cast<size_t>(g0 + g) * p.ldw + n_tile + c));
         }
       }
     }

@@ -14,8 +14,11 @@
 using namespace tllm;
 
 // x [M, K] (bf16 / fp16; [M, 2K] = [gate | up] with swiglu), q of ONE
-// layer: int8 [K, N] (w_bits 8) or packed int4 [K/2, N] (w_bits 4, pack
-// block blk), scale f32 [N] (group 0) or [K/group, N], norm_w [K] or null,
+// layer: int8 [K, ldw] (w_bits 8) or packed int4 [K/2, ldw] (w_bits 4,
+// pack block blk), scale f32 [N] (group 0) or [K/group, ldw], from the
+// first column computed (a window [start, start + N) of the ldw columns:
+// the wrapper offsets q and scale by start; ldw == N for the whole; a
+// window starts on a column tile of 16 nt), norm_w [K] or null,
 // resid [M, N] or null, out [M, N] f32; part [ksplit, M, N] f32 when
 // ksplit > 1 (the per-stream workspace; a launch after the body sums the
 // splits into out); ksplit splits of sps 16-slot steps, mt 8 (M <= 8) or
@@ -23,11 +26,11 @@ using namespace tllm;
 extern "C" int tllm_woq_gemv_tc(const void* x, const void* q, const void* scale,
                                 const void* norm_w, const void* resid,
                                 void* out, void* part, int dtype, int M,
-                                int K, int N, int ksplit, int sps, int mt,
-                                int nt, int w_bits, int blk, int group,
-                                float eps, int swiglu, int device,
+                                int K, int N, int ldw, int ksplit, int sps,
+                                int mt, int nt, int w_bits, int blk,
+                                int group, float eps, int swiglu, int device,
                                 void* stream) {
-  const gemv_tc::Args a{x, q, scale, norm_w, resid, out, part, M, K, N,
+  const gemv_tc::Args a{x, q, scale, norm_w, resid, out, part, M, K, N, ldw,
                         ksplit, sps, mt, nt, blk, group, eps, swiglu};
   if (w_bits == 8)
     return group ? gemv_tc::dispatch<gemv::kInt8, true>(dtype, a, device, stream)

@@ -239,11 +239,13 @@ __device__ __forceinline__ void load_codes(uint32_t* w, const uint8_t* p) {
 struct Params {
   const void* x;        // [M, K] (T), [M, 2K] with swiglu
   const uint8_t* q;     // stored codes of the layer
-  const float* scale;   // [N] or [K/group, N]
+  const float* scale;   // [N] or [K/group, ldw]
   const void* resid;    // [M, N] (T) or null
   float* out;           // [M, N] (ksplit == 1) or the split sums
                         // [ksplit, M, N] (ksplit > 1)
-  int M, K, N, ksplit, sps, blk, group;
+  int M, K, N;          // N: the columns computed (a window of ldw)
+  int ldw;              // row stride of q and of grouped scales
+  int ksplit, sps, blk, group;
   const void* norm_w;   // [K] (T) or null
   float eps;
   int swiglu;   // x is [M, 2K] = [gate | up]: stage T(T(silu(g)) * u)
@@ -308,7 +310,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < kRows; ++r) {
       const int row = FMT == kInt4 ? 8 * st + t + 4 * r
                                    : kStep * st + 2 * t + (r & 1) + 8 * (r >> 1);
-      const uint8_t* base = p.q + static_cast<size_t>(row) * N;
+      const uint8_t* base = p.q + static_cast<size_t>(row) * p.ldw;
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         uint32_t* dst = &w[(r * 2 + c) * kW];
@@ -423,7 +425,7 @@ __global__ void __launch_bounds__(kThreads)
   auto compute = [&](const uint32_t(&w)[kStage], int st) {
     if constexpr (GROUPED) {
       if (st % wu == 0) {     // a group starts: its scales
-        const float* s = p.scale + static_cast<size_t>(st * kStep / p.group) * N;
+        const float* s = p.scale + static_cast<size_t>(st * kStep / p.group) * p.ldw;
 #pragma unroll
         for (int c = 0; c < 2; ++c)
 #pragma unroll
@@ -550,7 +552,7 @@ struct Args {
   const void* resid;
   void* out;    // f32 [M, N]
   void* part;   // f32 [ksplit, M, N] workspace (ksplit > 1)
-  int M, K, N, ksplit, sps, mt, nt, blk, group;
+  int M, K, N, ldw, ksplit, sps, mt, nt, blk, group;
   float eps;
   int swiglu;
 };
@@ -564,7 +566,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const Params p{a.x, static_cast<const uint8_t*>(a.q),
                  static_cast<const float*>(a.scale), a.resid,
                  static_cast<float*>(split ? a.part : a.out), a.M, a.K, a.N,
-                 a.ksplit, a.sps, a.blk, a.group, a.norm_w, a.eps, a.swiglu};
+                 a.ldw, a.ksplit, a.sps, a.blk, a.group, a.norm_w, a.eps,
+                 a.swiglu};
   auto kernel = gemv_tc_kernel<T, FMT, GROUPED, MT>;
   const int smem = smem_bytes<T, MT, NT>(a.M, a.sps);
   cudaError_t err = allow_smem(kernel, smem);
@@ -589,7 +592,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 template <int FMT, bool GROUPED>
 cudaError_t dispatch(int dtype, const Args& a, int device, void* stream) {
   const int steps = a.K / kStep;
-  if (a.M < 1 || a.M > a.mt || a.K % kStep || a.N % 16 || a.sps < 1 ||
+  if (a.M < 1 || a.M > a.mt || a.K % kStep || a.N % 16 || a.ldw < a.N ||
+      a.sps < 1 ||
       a.ksplit < 1 || a.ksplit * a.sps < steps ||
       (a.ksplit - 1) * a.sps >= steps ||
       (GROUPED && (a.group % kStep || a.sps % (a.group / kStep))) ||

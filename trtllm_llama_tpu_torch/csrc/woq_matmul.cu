@@ -16,8 +16,11 @@
 using namespace tllm;
 
 // x [M, K] (dtype; [M, 2K] = [gate | up] with swiglu), q of ONE layer:
-// int8 [K, N] (w_bits 8) or packed int4 [K/2, N] (w_bits 4, pack block
-// blk), scale f32 [N] (group 0) or [K/group, N], norm_w [K] or null, resid
+// int8 [K, ldw] (w_bits 8) or packed int4 [K/2, ldw] (w_bits 4, pack
+// block blk), scale f32 [N] (group 0) or [K/group, ldw], from the first
+// column computed (a window [start, start + N) of the ldw columns: the
+// wrapper offsets q and scale by start; ldw == N for the whole), norm_w
+// [K] or null, resid
 // [M, N] or null, out [M, N] f32; part [ksplit, M, N] f32 and counters
 // [column tiles] int32 of the stream's workspace (null at ksplit 1). K is
 // split into ksplit ranges of kc logical rows; lanes threads along N;
@@ -28,15 +31,15 @@ extern "C" int tllm_woq_matmul_stacked(const void* x, const void* q,
                                        const void* scale, const void* norm_w,
                                        const void* resid, void* out, void* part,
                                        void* counters, int dtype, int M, int K,
-                                       int N, int ksplit, int kc, int mr,
-                                       int lanes, int w_bits, int blk,
+                                       int N, int ldw, int ksplit, int kc,
+                                       int mr, int lanes, int w_bits, int blk,
                                        int group, float eps, int swiglu,
                                        int device, void* stream) {
   const gemv::Params p{x, static_cast<const uint8_t*>(q),
                        static_cast<const float*>(scale), norm_w, resid,
                        static_cast<float*>(out), static_cast<float*>(part),
-                       static_cast<int*>(counters), M, K, N, kc, ksplit,
-                       lanes, blk, group, eps, swiglu};
+                       static_cast<int*>(counters), M, K, N, ldw, kc,
+                       ksplit, lanes, blk, group, eps, swiglu};
   if (w_bits == 8)
     return group ? gemv::dispatch<gemv::kInt8, true>(dtype, mr, p, device, stream)
                  : gemv::dispatch<gemv::kInt8, false>(dtype, mr, p, device, stream);

@@ -15,6 +15,13 @@ a block table), updated in place; `forward_prefill` and `forward_decode`
 dispatch on its type, and `forward_prefill_packed` prefills one packed
 token stream into the dense cache; `forward_extend` runs a T-token slab a
 sequence at per-row offsets (chunked prefill, speculative verification).
+
+Under tensor parallelism (a tp group published in `ops.registry.KERNELS`
+by the session) params are this rank's shards (`parallel/sharding.py`)
+and cfg its `local_config` (its heads): every projection names its role
+(`part=`: q/k/v and gate/up "col", wo and w_down "row", as the JAX
+package's), the KV cache holds the local heads, and each forward gathers
+the lm_head's vocabulary shards into the full f32 logits on every rank.
 """
 
 from __future__ import annotations
@@ -27,12 +34,14 @@ from ..ops.attention import (KVCache, PackedMeta, extend_attention_at,
                              packed_prefill_attention, prefill_attention,
                              write_kv_extend_at, write_kv_packed_at,
                              write_kv_prefill_at)
-from ..ops.linear import dense, dense_fused, dense_prequant, embedding_lookup
+from ..ops.linear import (dense, dense_fused, dense_prequant,
+                          embedding_lookup, tp_group)
 from ..ops.norm import rms_norm, rms_norm_quant
 from ..ops.paged_attention import (PagedKVCache,
                                    paged_fused_decode_attention_at,
                                    paged_write_prefill_at)
 from ..ops.rope import apply_rope, rope_tables_for, take_rope
+from ..parallel.comm import gather_columns
 from ..quantization.tensors import SQWeight, concat_columns
 
 
@@ -118,17 +127,18 @@ def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin, caches,
         h_q, h_s = rms_norm_quant(x, lw["attn_norm"][layer], cfg.rms_norm_eps)
 
         def proj(w):
-            return dense_prequant(h_q, h_s, w, cfg.torch_dtype, layer)
+            return dense_prequant(h_q, h_s, w, cfg.torch_dtype, layer,
+                                  part="col")
     elif fused:
         # the norm runs inside kernel 1 at decode shapes (dense_fused)
         def proj(w):
             return dense_fused(x, w, layer=layer, norm_w=lw["attn_norm"],
-                               eps=cfg.rms_norm_eps)
+                               eps=cfg.rms_norm_eps, part="col")
     else:
         h = rms_norm(x, lw["attn_norm"][layer], cfg.rms_norm_eps)
 
         def proj(w):
-            return dense(h, w, layer=layer)
+            return dense(h, w, layer=layer, part="col")
     if fused:
         qkv = proj(lw["wqkv"])
         q = qkv[..., :nq_d]
@@ -159,7 +169,8 @@ def _attn_block(cfg: ModelConfig, lw, layer: int, x, cos, sin, caches,
                   else write_kv_prefill_at(caches, layer, k, v, slots))
         attn = prefill_attention(q, k, v, seq_lens)
     attn = attn.reshape(*attn.shape[:-2], nq_d)
-    out = dense_fused(attn, lw["wo"], layer=layer, resid=x, out_dtype=x.dtype)
+    out = dense_fused(attn, lw["wo"], layer=layer, resid=x, out_dtype=x.dtype,
+                      part="row")
     return out, caches
 
 
@@ -170,25 +181,28 @@ def _mlp_block(cfg: ModelConfig, lw, layer: int, x):
         h_q, h_s = rms_norm_quant(x, lw["mlp_norm"][layer], cfg.rms_norm_eps)
         if fused:
             gu = dense_prequant(h_q, h_s, lw["w_gate_up"], cfg.torch_dtype,
-                                layer)
+                                layer, part="col")
             g, u = gu[..., :f], gu[..., f:]
         else:
-            g = dense_prequant(h_q, h_s, lw["w_gate"], cfg.torch_dtype, layer)
-            u = dense_prequant(h_q, h_s, lw["w_up"], cfg.torch_dtype, layer)
+            g = dense_prequant(h_q, h_s, lw["w_gate"], cfg.torch_dtype, layer,
+                               part="col")
+            u = dense_prequant(h_q, h_s, lw["w_up"], cfg.torch_dtype, layer,
+                               part="col")
     elif fused:
         # the norm runs inside the gate/up kernel, silu(g) * u inside the
         # down kernel, at decode shapes (dense_fused; composed otherwise)
         gu = dense_fused(x, lw["w_gate_up"], layer=layer,
-                         norm_w=lw["mlp_norm"], eps=cfg.rms_norm_eps)
+                         norm_w=lw["mlp_norm"], eps=cfg.rms_norm_eps,
+                         part="col")
         return dense_fused(gu, lw["w_down"], layer=layer, swiglu=True,
-                           resid=x, out_dtype=x.dtype)
+                           resid=x, out_dtype=x.dtype, part="row")
     else:
         h = rms_norm(x, lw["mlp_norm"][layer], cfg.rms_norm_eps)
-        g = dense(h, lw["w_gate"], layer=layer)
-        u = dense(h, lw["w_up"], layer=layer)
+        g = dense(h, lw["w_gate"], layer=layer, part="col")
+        u = dense(h, lw["w_up"], layer=layer, part="col")
     act = torch.nn.functional.silu(g.float()).to(u.dtype) * u
     return dense_fused(act, lw["w_down"], layer=layer, resid=x,
-                       out_dtype=x.dtype)
+                       out_dtype=x.dtype, part="row")
 
 
 def _run_layers(cfg: ModelConfig, params, x, cos, sin, caches, seq_lens,
@@ -200,6 +214,13 @@ def _run_layers(cfg: ModelConfig, params, x, cos, sin, caches, seq_lens,
                                 seq_lens, decode, packed, slots, extend)
         x = _mlp_block(cfg, lw, layer, x)
     return x, caches
+
+
+def _logits(x, params):
+    """f32 logits of the final hidden states: the lm_head (this rank's
+    vocabulary shard under tensor parallelism, gathered to the full V)."""
+    return gather_columns(dense(x, params["lm_head"], torch.float32),
+                          tp_group())
 
 
 def _rope(cfg, rope, device):
@@ -224,9 +245,9 @@ def forward_prefill(params, cfg: ModelConfig, input_ids, seq_lens,
                             slots=slots)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if return_all_logits:
-        return dense(x, params["lm_head"], torch.float32), caches
+        return _logits(x, params), caches
     last = x[torch.arange(b, device=x.device), seq_lens.long() - 1]
-    return dense(last, params["lm_head"], torch.float32), caches
+    return _logits(last, params), caches
 
 
 def forward_prefill_packed(params, cfg: ModelConfig, token_ids,
@@ -243,7 +264,7 @@ def forward_prefill_packed(params, cfg: ModelConfig, token_ids,
     x, caches = _run_layers(cfg, params, x, cos, sin, caches, None, False,
                             packed)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return dense(x[last_idx.long()], params["lm_head"], torch.float32), caches
+    return _logits(x[last_idx.long()], params), caches
 
 
 def forward_extend(params, cfg: ModelConfig, tokens, start, caches: KVCache,
@@ -261,7 +282,7 @@ def forward_extend(params, cfg: ModelConfig, tokens, start, caches: KVCache,
     x, caches = _run_layers(cfg, params, x, cos, sin, caches, None, False,
                             slots=slots, extend=start)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return dense(x, params["lm_head"], torch.float32), caches
+    return _logits(x, params), caches
 
 
 def forward_decode(params, cfg: ModelConfig, tokens, positions,
@@ -274,4 +295,4 @@ def forward_decode(params, cfg: ModelConfig, tokens, positions,
     cos, sin = take_rope(cos_t, sin_t, positions.long())             # [B,1,d]
     x, caches = _run_layers(cfg, params, x, cos, sin, caches, positions, True)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return dense(x, params["lm_head"], torch.float32), caches
+    return _logits(x, params), caches

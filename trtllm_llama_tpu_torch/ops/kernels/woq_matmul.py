@@ -29,7 +29,18 @@ operations.
 tensors and launch a kernel for CUDA tensors; each counts its launches
 in `.launches`, the GEMM's share of them in `.gemm_launches` and the
 tensor-core GEMV's in `.tc_launches` (`woq_matmul_stacked.swiglu_launches`
-counts the GEMV launches with the SwiGLU prologue). `launch_gemv`,
+counts the GEMV launches with the SwiGLU prologue).
+
+`n_window=(start, length)` (the stacked entries; tensor parallelism's
+row-parallel overlap, `ops/linear.py::_row_overlap`) computes only the
+output columns [start, start + length), as the JAX kernel's `n_window`
+does: every body takes the weight (and grouped scales) from column
+`start` with the full N as its row stride (`ldw`), so nothing of the
+weight is copied, and plans its grid from the full N (`gemv_plan`,
+`tc_plan`, `_gemm_split`), so that a window equals the full call's
+columns bit for bit. Windows are whole WINDOW_ALIGN columns (the tensor-
+core GEMV's: whole column tiles of 16 nt), exclude the prologues and the
+residual, and are counted in `.window_launches`. `launch_gemv`,
 `launch_tc` and `launch_gemm` are shared with the fp8 wrapper, `gemv_plan`
 with the W8A8 dp4a GEMV.
 """
@@ -48,11 +59,15 @@ from . import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_woq_matmul_stacked":
-               [_P] * 8 + [_I] * 11 + [_F, _I, _I, _P]}
-_TC_SIGNATURES = {"tllm_woq_gemv_tc": [_P] * 7 + [_I] * 11 + [_F, _I, _I, _P]}
-_GEMM_SIGNATURES = {"tllm_woq_gemm": [_P] * 6 + [_I] * 9 + [_P]}
+               [_P] * 8 + [_I] * 12 + [_F, _I, _I, _P]}
+_TC_SIGNATURES = {"tllm_woq_gemv_tc": [_P] * 7 + [_I] * 12 + [_F, _I, _I, _P]}
+_GEMM_SIGNATURES = {"tllm_woq_gemm": [_P] * 6 + [_I] * 10 + [_P]}
 
 _PART_BYTES = 32 << 20   # cap on the GEMM's split-K partial buffer
+
+# A column window starts and ends on whole 128 columns (the GEMM's column
+# tile; JAX's caller makes only such windows, ops/linear.py:214-215).
+WINDOW_ALIGN = 128
 
 # The one-row GEMV (csrc/woq_gemv.cuh) and the W8A8 dp4a GEMV
 # (csrc/w8a8_matmul.cu) stream the weight in one launch
@@ -236,14 +251,46 @@ def resid_epilogue(acc, x, resid):
     return acc.reshape(*x.shape[:-1], acc.shape[-1])
 
 
+def check_window(what, n_window, n: int, prologue: bool = False,
+                 resid: bool = False):
+    """(start, length) of an n_window over N columns, or None. Raises for
+    a window with a prologue or a residual, one outside [0, N), or one not
+    of whole WINDOW_ALIGN columns."""
+    if n_window is None:
+        return None
+    start, length = (int(v) for v in n_window)
+    if prologue or resid:
+        raise ValueError(f"{what}: n_window excludes the norm / SwiGLU "
+                         "prologue and the residual")
+    if start < 0 or length <= 0 or start + length > n:
+        raise ValueError(f"{what}: window ({start}, {length}) outside N={n}")
+    if start % WINDOW_ALIGN or length % WINDOW_ALIGN:
+        raise ValueError(f"{what}: window ({start}, {length}) must be whole "
+                         f"{WINDOW_ALIGN} columns")
+    return start, length
+
+
+def window_cols(acc, window):
+    """The window's columns of a full [M, N] result (the plain versions
+    compute the full product and keep the window's columns, so a window is
+    the full call's columns bit for bit on every backend), contiguous as a
+    kernel's output."""
+    if window is None:
+        return acc
+    return acc[:, window[0]:sum(window)].contiguous()
+
+
 def woq_matmul_stacked_plain(x, w: WOQWeight, layer: int, norm_w=None,
                              eps: float = 1e-6, resid=None,
-                             swiglu: bool = False):
+                             swiglu: bool = False, n_window=None):
     """Plain PyTorch version. x [..., K] ([..., 2K] with swiglu) -> f32
-    [..., N]: f32 products of the compute-dtype input and the int8 (or
-    unpacked int4) codes, f32 sum, then the per-channel scale; grouped:
-    each group's sum times its scale, summed over the groups."""
+    [..., N] (the window's [..., length] with n_window): f32 products of
+    the compute-dtype input and the int8 (or unpacked int4) codes, f32 sum,
+    then the per-channel scale; grouped: each group's sum times its scale,
+    summed over the groups."""
     w.check_supported()
+    window = check_window("woq_matmul_stacked", n_window, w.qweight.shape[-1],
+                          norm_w is not None or swiglu, resid is not None)
     k = w.k_dim
     h = prologue(x, norm_w, layer, eps, swiglu).float()
     q = w.codes(layer).float()
@@ -254,7 +301,7 @@ def woq_matmul_stacked_plain(x, w: WOQWeight, layer: int, norm_w=None,
         acc = (yg * w.scale[layer]).sum(dim=1)
     else:
         acc = torch.matmul(h, q) * w.scale[layer]
-    return resid_epilogue(acc, x, resid)
+    return resid_epilogue(window_cols(acc, window), x, resid)
 
 
 # ---------------------------------------------------------------------------
@@ -430,19 +477,31 @@ def _check_options(what, x, q, scale, layer, k, norm_w, resid, swiglu):
     return m
 
 
+def _columns(q, scale, layer, window):
+    """(codes, scale pointers of `layer` from the window's first column,
+    the columns computed N, the row stride ldw): a window moves both
+    pointers by its start (the scale's row stride is N too) and keeps the
+    full N as the stride."""
+    ldw = q.shape[-1]
+    start, n = window if window is not None else (0, ldw)
+    return (_P(q.data_ptr() + layer * q.stride(0) + start),
+            _P(scale.data_ptr() + (layer * scale.stride(0) + start) * 4),
+            n, ldw)
+
+
 def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
                 fmt_args, unit, kr=1, group=0, norm_w=None, eps=1e-6,
-                resid=None, swiglu=False):
+                resid=None, swiglu=False, window=None):
     """Check the operands of one stacked one-row GEMV and launch it.
 
     q: stacked stored codes [L, K or K/2, N] (1 byte per element); scale:
     f32 [L, N] or grouped [L, K/g, N]; fmt_args: the entry's format ints
     (after lanes); unit, kr, group: the layout, for gemv_plan (what K
     splits are whole of, logical rows a stored row, a scale group's rows);
-    swiglu: x is [..., 2K] = [gate | up]. One launch; its splits meet in
-    the stream's workspace (made at the stream's first call). Returns f32
-    [..., N]."""
-    n = q.shape[-1]
+    swiglu: x is [..., 2K] = [gate | up]; window: (start, length) of the
+    columns computed (check_window), planned as the full N. One launch;
+    its splits meet in the stream's workspace (made at the stream's first
+    call). Returns f32 [..., N or length]."""
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what}: unsupported dtype {x.dtype}")
     m = _check_options(what, x, q, scale, layer, k, norm_w, resid, swiglu)
@@ -451,7 +510,8 @@ def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
         raise ValueError(f"{what}: K={k} must be whole blocks of {unit}")
 
     lib = _build.load(lib_name, signatures)
-    plan = gemv_plan(m, k, n, _sm_count(x.device), unit, group, kr)
+    q_ptr, s_ptr, n, ldw = _columns(q, scale, layer, window)
+    plan = gemv_plan(m, k, ldw, _sm_count(x.device), unit, group, kr)
     part, counters = _build.workspace(
         x.device, plan.ksplit * m * n if plan.ksplit > 1 else 0,
         -(-n // (16 * plan.lanes)))
@@ -459,10 +519,9 @@ def launch_gemv(what, lib_name, entry, signatures, x, q, scale, layer, k,
     nw_ptr = (_P(norm_w.data_ptr() + layer * k * x.element_size())
               if norm_w is not None else _P(None))
     err = getattr(lib, entry)(
-        _build.ptr(x), _P(q.data_ptr() + layer * q.stride(0)),
-        _P(scale.data_ptr() + layer * scale.stride(0) * 4), nw_ptr,
+        _build.ptr(x), q_ptr, s_ptr, nw_ptr,
         _build.ptr(resid), _build.ptr(out), _build.ptr(part),
-        _build.ptr(counters), _build.DTYPE_CODES[x.dtype], m, k, n,
+        _build.ptr(counters), _build.DTYPE_CODES[x.dtype], m, k, n, ldw,
         plan.ksplit, plan.kc, plan.mr, plan.lanes, *fmt_args, eps,
         int(swiglu), x.device.index or 0, _build.stream_of(x))
     _build.check(err, what)
@@ -477,16 +536,17 @@ def _aligned(t):
 
 def launch_tc(what, lib_name, entry, signatures, x, q, scale, layer, k,
               fmt_args, w_bits, block, group, norm_w=None, eps=1e-6,
-              resid=None, swiglu=False):
+              resid=None, swiglu=False, window=None):
     """Check the operands of one stacked tensor-core GEMV and launch it.
 
     q: stacked stored codes [L, K or K/2, N]; scale: f32 [L, N] or grouped
     [L, K/g, N]; fmt_args: the entry's format ints (after nt); w_bits,
     block (pack or interleave block, 0: none) and group: the layout, for
-    tc_plan; swiglu: x is [..., 2K] = [gate | up]. Raises before launch
-    (and before any build) for a dtype, row count or layout the body does
-    not take. Returns f32 [..., N]."""
-    n = q.shape[-1]
+    tc_plan; swiglu: x is [..., 2K] = [gate | up]; window: (start, length)
+    of the columns computed, whole column tiles of 16 nt, planned as the
+    full N. Raises before launch (and before any build) for a dtype, row
+    count, layout or window the body does not take. Returns f32 [...,
+    N or length]."""
     if x.dtype not in GEMM_DTYPES:
         raise TypeError(f"{what}: the tensor-core GEMV takes bf16 or fp16, "
                         f"not {x.dtype}")
@@ -501,32 +561,39 @@ def launch_tc(what, lib_name, entry, signatures, x, q, scale, layer, k,
     x2 = _aligned(x.reshape(m, x.shape[-1]))
     norm_w = _aligned(norm_w)
 
-    lib = _build.load(lib_name, signatures)
-    ksplit, sps, mt, nt = tc_plan(m, k, n, _sm_count(x.device), w_bits,
+    q_ptr, s_ptr, n, ldw = _columns(q, scale, layer, window)
+    ksplit, sps, mt, nt = tc_plan(m, k, ldw, _sm_count(x.device), w_bits,
                                   block, group)
+    if window is not None and (window[0] % (16 * nt)
+                               or (n % (16 * nt) and sum(window) != ldw)):
+        raise ValueError(f"{what}: the tensor-core GEMV's windows are whole "
+                         f"column tiles of {16 * nt}; got {window}")
+    lib = _build.load(lib_name, signatures)
     part = (_build.workspace(x.device, ksplit * m * n)[0] if ksplit > 1
             else None)
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
     nw_ptr = (_P(norm_w.data_ptr() + layer * k * x.element_size())
               if norm_w is not None else _P(None))
     err = getattr(lib, entry)(
-        _build.ptr(x2), _P(q.data_ptr() + layer * q.stride(0)),
-        _P(scale.data_ptr() + layer * scale.stride(0) * 4), nw_ptr,
+        _build.ptr(x2), q_ptr, s_ptr, nw_ptr,
         _build.ptr(resid), _build.ptr(out), _build.ptr(part),
-        _build.DTYPE_CODES[x.dtype], m, k, n, ksplit, sps, mt, nt, *fmt_args,
-        eps, int(swiglu), x.device.index or 0, _build.stream_of(x))
+        _build.DTYPE_CODES[x.dtype], m, k, n, ldw, ksplit, sps, mt, nt,
+        *fmt_args, eps, int(swiglu), x.device.index or 0,
+        _build.stream_of(x))
     _build.check(err, what)
     return out.reshape(*x.shape[:-1], n)
 
 
 def launch_gemm(what, lib_name, entry, signatures, x, q, scale, layer, k,
-                fmt, block, group, fmt_args=()):
+                fmt, block, group, fmt_args=(), window=None):
     """Check the operands of one stacked GEMM kernel and launch it.
 
     q: stacked stored codes [L, K or K/2, N]; scale: f32 [L, N] or grouped
     [L, K/128, N]; fmt / block: the layout's tile_rows; group: 0 or 128;
-    fmt_args: the entry's format ints (after N). Raises before launch for
-    a dtype or layout the GEMM does not take. Returns f32 [..., N]."""
+    fmt_args: the entry's format ints (after kt_per); window: (start,
+    length) of the columns computed, planned as the full N. Raises before
+    launch for a dtype or layout the GEMM does not take. Returns f32 [...,
+    N or length]."""
     if x.dtype not in GEMM_DTYPES:
         raise TypeError(f"{what}: the GEMM takes bf16 or fp16, not {x.dtype}")
     if not gemm_takes(k, block, group):
@@ -535,29 +602,29 @@ def launch_gemm(what, lib_name, entry, signatures, x, q, scale, layer, k,
                          f"groups of {GEMM_TILE_K}; got K={k}, block "
                          f"{block}, group {group}")
     _check_operands(what, x, q, scale, layer, k, k)
-    n = q.shape[-1]
     m = x.numel() // k
     x2 = x.reshape(m, k)
     if x2.data_ptr() % 16:        # cp.async reads x in 16-byte chunks
         x2 = x2.clone()
     lib = _build.load(lib_name, signatures)
-    ksplit, kt_per = _gemm_split(m, k, n, _sm_count(x.device))
+    q_ptr, s_ptr, n, ldw = _columns(q, scale, layer, window)
+    ksplit, kt_per = _gemm_split(m, k, ldw, _sm_count(x.device))
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
     part = None if ksplit == 1 else torch.empty(
         (ksplit, m, n), device=x.device, dtype=torch.float32)
     err = getattr(lib, entry)(
-        _build.ptr(x2), _P(q.data_ptr() + layer * q.stride(0)),
-        _P(scale.data_ptr() + layer * scale.stride(0) * 4),
+        _build.ptr(x2), q_ptr, s_ptr,
         _build.ptr(_tile_map(fmt, block, x.device)), _build.ptr(out),
-        _build.ptr(part), _build.DTYPE_CODES[x.dtype], m, k, n, ksplit,
+        _build.ptr(part), _build.DTYPE_CODES[x.dtype], m, k, n, ldw, ksplit,
         kt_per, *fmt_args, x.device.index or 0, _build.stream_of(x))
     _build.check(err, what)
     return out.reshape(*x.shape[:-1], n)
 
 
-def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid, swiglu=False):
-    """(f32 [..., N], the route: "gemm", "tc" or "gemv") for one CUDA
-    call."""
+def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid, swiglu=False,
+            window=None):
+    """(f32 [..., N or the window's length], the route: "gemm", "tc" or
+    "gemv") for one CUDA call."""
     w.check_supported()
     n_layers, n = w.qweight.shape[0], w.qweight.shape[-1]
     grouped = bool(w.group_size)
@@ -573,7 +640,7 @@ def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid, swiglu=False):
                            _GEMM_SIGNATURES, x, w.qweight, w.scale, layer,
                            w.k_dim, "int4" if w.w_bits == 4 else "int8",
                            w.pack_block, w.group_size,
-                           (w.w_bits, int(grouped))), "gemm"
+                           (w.w_bits, int(grouped)), window), "gemm"
     fmt_args = (w.w_bits, w.pack_block, w.group_size)
     if tc_route(x.numel() // x.shape[-1], x.dtype, w.k_dim, w.pack_block,
                 w.group_size):
@@ -581,12 +648,12 @@ def _launch(what, x, w: WOQWeight, layer, norm_w, eps, resid, swiglu=False):
                          _TC_SIGNATURES,
                          x, w.qweight, w.scale, layer, w.k_dim, fmt_args,
                          w.w_bits, w.pack_block, w.group_size, norm_w, eps,
-                         resid, swiglu), "tc"
+                         resid, swiglu, window), "tc"
     return launch_gemv(what, "woq_matmul", "tllm_woq_matmul_stacked",
                        _SIGNATURES, x, w.qweight, w.scale, layer, w.k_dim,
                        fmt_args, w.pack_block or w.group_size or 8,
                        2 if w.w_bits == 4 else 1, w.group_size, norm_w, eps,
-                       resid, swiglu), "gemv"
+                       resid, swiglu, window), "gemv"
 
 
 def _device_kind(x, what):
@@ -596,14 +663,17 @@ def _device_kind(x, what):
 
 
 def woq_matmul_stacked(x, w: WOQWeight, layer: int, norm_w=None,
-                       eps: float = 1e-6, resid=None, swiglu: bool = False):
+                       eps: float = 1e-6, resid=None, swiglu: bool = False,
+                       n_window=None):
     """y = [resid +] (norm(x) | silu(g) * u | x) @ dequant(w.qweight[layer]).
 
     x: [..., K] f32, bf16 or fp16 ([..., 2K] = [g | u] with swiglu); w:
     stacked WOQWeight, int8 [L, K, N] or packed int4 [L, K/2, N], scale
     [L, N] or grouped [L, K/g, N]; norm_w: optional stacked [L, K] RMSNorm
     weight (prologue; not with swiglu); resid: optional [..., N] in x's
-    dtype (epilogue). Returns f32 [..., N].
+    dtype (epilogue); n_window: (start, length), only the output columns
+    [start, start + length) (check_window; not with a prologue or resid).
+    Returns f32 [..., N] ([..., length] with n_window).
 
     On the card: bf16 / fp16 calls of at least GEMM_MIN_ROWS rows with no
     prologue and no residual run the GEMM (gemm_route); bf16 / fp16 calls
@@ -612,13 +682,16 @@ def woq_matmul_stacked(x, w: WOQWeight, layer: int, norm_w=None,
     count (correct, and no path makes such a call above 16 rows)."""
     if _device_kind(x, "woq_matmul_stacked") == "cpu":
         return woq_matmul_stacked_plain(x, w, layer, norm_w, eps, resid,
-                                        swiglu)
+                                        swiglu, n_window)
+    window = check_window("woq_matmul_stacked", n_window, w.qweight.shape[-1],
+                          norm_w is not None or swiglu, resid is not None)
     out, route = _launch("woq_matmul_stacked", x, w, layer, norm_w, eps,
-                         resid, swiglu)
+                         resid, swiglu, window)
     woq_matmul_stacked.launches += 1
     woq_matmul_stacked.gemm_launches += int(route == "gemm")
     woq_matmul_stacked.tc_launches += int(route == "tc")
     woq_matmul_stacked.swiglu_launches += int(swiglu)
+    woq_matmul_stacked.window_launches += int(window is not None)
     return out
 
 
@@ -626,6 +699,7 @@ woq_matmul_stacked.launches = 0
 woq_matmul_stacked.gemm_launches = 0
 woq_matmul_stacked.tc_launches = 0
 woq_matmul_stacked.swiglu_launches = 0
+woq_matmul_stacked.window_launches = 0
 
 
 def unit_layer(w):

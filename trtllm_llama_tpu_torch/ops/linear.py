@@ -20,30 +20,74 @@ SwiGLU prologue and the residual epilogue inside rows 2 and 4 at decode
 shapes. Each kernel wrapper takes its plain version for CPU tensors and
 raises on the card for a weight its kernel does not tile (N not a
 multiple of 16; for W8A8 also K % 4).
+
+Tensor parallelism (`part=`, the JAX package's ColumnLinear / RowLinear
+roles, `ops/linear.py:68-100` there) acts on the tp group that the
+running session publishes in `registry.KERNELS["tp_group"]`, where the
+JAX package publishes its mesh. With no group (or one rank) `part` is
+ignored. Each rank holds its shard (`parallel/sharding.py`):
+- "col": the local kernel on the rank's output columns; no collective;
+- "row": the local kernel on the rank's K shard, then a sum over the
+  ranks (`parallel/comm.py`). `_row_overlap` splits it as the JAX one
+  does: at least `overlap_min_rows` rows and an N of `overlap_chunks`
+  windows of whole 128 columns take one windowed launch (`n_window`) per
+  window, each followed by its asynchronous all-reduce, waited on in
+  order; otherwise one launch and one all-reduce. A per-token SmoothQuant
+  input is quantized with the all-ranks maximum of each row's absmax, as
+  the JAX package quantizes the full row before sharding it; a static one
+  quantizes locally with its static scale (row 5, one all-reduce).
+- `dense_fused` runs no prologue or residual inside a kernel while a tp
+  group is active (the JAX package's `_kern` is None under a mesh): it
+  composes the plain ops, and adds the residual once, after the sum.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from ..parallel import comm
 from ..quantization.tensors import (FP8Weight, SQWeight, WOQWeight,
-                                    quantize_per_token, quantize_static)
+                                    quantize_int8, quantize_per_token,
+                                    quantize_static)
 from .kernels import fp8_matmul as _fp8
 from .kernels import w8a8_matmul as _w8a8
 from .kernels import woq_matmul as _woq
 from .norm import rms_norm
+from .registry import KERNELS
 
 # Row count up to which dense_fused runs the norm prologue / residual
 # epilogue inside kernel 1 or 6 (the JAX registry's fuse_decode_max_rows).
 FUSE_MAX_ROWS = 16
 
 
-def dense(x, w, out_dtype=None, layer=None):
+def tp_group():
+    """The published tp group, or None for one rank."""
+    group = KERNELS["tp_group"]
+    return group if comm.group_size(group) > 1 else None
+
+
+@contextlib.contextmanager
+def tp_scope(group):
+    """Publish `group` (None: one device) as the tp group of the calls
+    inside, and restore the one before on the way out."""
+    prev, KERNELS["tp_group"] = KERNELS["tp_group"], group
+    try:
+        yield
+    finally:
+        KERNELS["tp_group"] = prev
+
+
+def dense(x, w, out_dtype=None, layer=None, part=None):
     """y = x @ w. x: [..., K]; w: [K, N] tensor, WOQWeight or FP8Weight, or
     stacked [L, ...] with `layer` selecting the slice (the kernel reads the
     stacked weight in place). Returns [..., N] in out_dtype (default x's
-    dtype)."""
+    dtype). part: "col" / "row" under tensor parallelism (module note)."""
     out_dtype = out_dtype or x.dtype
+    group = tp_group() if part == "row" else None
+    if group is not None:
+        return _dense_row(x, w, out_dtype, layer, group)
     if isinstance(w, WOQWeight):
         y = (_woq.woq_matmul(x, w) if layer is None
              else _woq.woq_matmul_stacked(x, w, layer))
@@ -99,18 +143,75 @@ def _dense_sq(x, w: SQWeight, out_dtype=None, layer=None):
 
 
 def dense_prequant(x_q, s_x, w: SQWeight, out_dtype=torch.bfloat16,
-                   layer=None):
+                   layer=None, part=None):
     """y = dequant(x_q) @ w for an activation already quantized per token
     (the rms_norm_quant -> W8A8 path: quantize once, fan out to the q/k/v
     or gate/up projections). Only for per-token SQWeights: with `layer`
-    the stacked kernel (row 6), without it the 2-D one (row 5)."""
+    the stacked kernel (row 6), without it the 2-D one (row 5). part="row"
+    under a tp group: x_q is this rank's K shard, quantized with the
+    all-ranks scales s_x, and the outputs are summed over the ranks."""
     if not (isinstance(w, SQWeight) and w.per_token):
         raise ValueError("dense_prequant needs a per-token SQWeight")
-    return _sq_matmul(x_q, s_x, w, out_dtype, layer)
+    group = tp_group() if part == "row" else None
+    if group is None:
+        return _sq_matmul(x_q, s_x, w, out_dtype, layer)
+    if layer is None:
+        y = _sq_matmul(x_q, s_x, w, torch.float32, layer)
+        return comm.all_reduce_sum(y, group).to(out_dtype)
+    return _row_overlap(
+        lambda win: _w8a8.w8a8_matmul_stacked(
+            x_q, w.qweight, s_x, w.scale_w, layer, n_window=win),
+        x_q, w.qweight.shape[-1], out_dtype, group)
+
+
+def _row_overlap(mm, x, n: int, out_dtype, group):
+    """The row-parallel matmul mm(n_window) summed over the ranks, split
+    into overlap_chunks column windows where the rows and N allow it (the
+    JAX package's `_row_overlap`): each window's launch is followed by its
+    asynchronous all-reduce, so the next window's matmul runs while it is
+    in flight; the windows are waited on in order. Column windows
+    reassociate no K sum: bit-identical to one launch and one all-reduce."""
+    chunks = int(KERNELS.get("overlap_chunks") or 0)
+    min_rows = int(KERNELS.get("overlap_min_rows", 64))
+    rows = x.numel() // x.shape[-1]
+    if (chunks > 1 and rows >= min_rows and n % chunks == 0
+            and (n // chunks) % 128 == 0):
+        nc = n // chunks
+        pending = [comm.all_reduce_sum(mm((c * nc, nc)), group,
+                                       async_op=True)
+                   for c in range(chunks)]
+        for _, work in pending:
+            work.wait()
+        return torch.cat([y for y, _ in pending], dim=-1).to(out_dtype)
+    return comm.all_reduce_sum(mm(None), group).to(out_dtype)
+
+
+def _dense_row(x, w, out_dtype, layer, group):
+    """Row-parallel dense on this rank's K shard x, summed over the ranks
+    (module note)."""
+    n = w.qweight.shape[-1] if hasattr(w, "qweight") else w.shape[-1]
+    if layer is not None and isinstance(w, WOQWeight):
+        return _row_overlap(lambda win: _woq.woq_matmul_stacked(
+            x, w, layer, n_window=win), x, n, out_dtype, group)
+    if layer is not None and isinstance(w, FP8Weight):
+        return _row_overlap(lambda win: _fp8.fp8_matmul_stacked(
+            x, w, layer, n_window=win), x, n, out_dtype, group)
+    if isinstance(w, SQWeight) and w.per_token:
+        # the full row's per-token absmax: each rank holds a K shard of it
+        amax = comm.all_reduce_max(x.float().abs().amax(dim=-1, keepdim=True),
+                                   group)
+        s_x = amax.clamp_min(1e-8) / 127.0
+        return dense_prequant(quantize_int8(x, s_x), s_x, w, out_dtype, layer,
+                              part="row")
+    # static SmoothQuant (row 5), the 2-D containers and plain weights: the
+    # local product, one all-reduce
+    y = dense(x, w, torch.float32, layer)
+    return comm.all_reduce_sum(y, group).to(out_dtype)
 
 
 def dense_fused(x, w, layer=None, out_dtype=None, *, norm_w=None,
-                eps: float = 1e-6, swiglu: bool = False, resid=None):
+                eps: float = 1e-6, swiglu: bool = False, resid=None,
+                part=None):
     """out = [resid +] dense(h, w) with h = rms_norm(x, norm_w[layer]), or
     silu(g) * u of x [..., 2K] = [g | u] (swiglu), or x.
 
@@ -119,9 +220,12 @@ def dense_fused(x, w, layer=None, out_dtype=None, *, norm_w=None,
     2 and 4); otherwise (and for every SQWeight) the plain ops are composed
     in the same rounding order (the norm, or silu in f32, cast to x's dtype
     before the matmul; the matmul cast before the residual add). norm_w
-    with swiglu raises (one input prologue per matmul)."""
+    with swiglu raises (one input prologue per matmul). part: as dense's;
+    under a tp group nothing is fused and the residual is added once,
+    after the ranks' sum."""
     rows = x.numel() // x.shape[-1]
     fusible = (layer is not None and rows <= FUSE_MAX_ROWS
+               and (part is None or tp_group() is None)
                and (norm_w is not None or swiglu or resid is not None))
     kernel = (_woq.woq_matmul_stacked if isinstance(w, WOQWeight)
               else _fp8.fp8_matmul_stacked if isinstance(w, FP8Weight)
@@ -138,7 +242,7 @@ def dense_fused(x, w, layer=None, out_dtype=None, *, norm_w=None,
         h = rms_norm(x, nw, eps)
     else:
         h = x
-    y = dense(h, w, out_dtype, layer)
+    y = dense(h, w, out_dtype, layer, part)
     return (resid + y).to(y.dtype) if resid is not None else y
 
 

@@ -1,5 +1,6 @@
-"""Attention dispatch knobs (the port's copy of the JAX package's
-`ops/registry.py`, its attention entries only).
+"""Dispatch knobs (the port's copy of the JAX package's `ops/registry.py`:
+its attention entries, the tensor-parallel overlap knobs and the active
+tp group).
 
 The JAX registry also switches each Pallas kernel on or off and holds the
 registered kernels; the port has no such switch: every kernel wrapper
@@ -27,6 +28,21 @@ attention kernels:
   a prompt of more rows than this goes to the streaming prefill kernel
   (`kernels.streaming_prefill_attention`), a shorter one to kernel 2;
   None means 2048 and 0 sends every prompt to the streaming kernel.
+- `overlap_chunks` (default 4) and `overlap_min_rows` (default 64), read
+  by `ops.linear`'s row-parallel path (`_row_overlap`), with the JAX
+  package's meaning: a row-parallel matmul of at least `overlap_min_rows`
+  rows whose N splits into `overlap_chunks` windows of whole 128 columns
+  runs one windowed kernel launch (`n_window`) per window, each followed
+  by its asynchronous all-reduce, so that one window's all-reduce overlaps
+  the next window's matmul; the outputs are bit-identical to one launch
+  and one all-reduce (no K sum is reassociated). Fewer rows (decode,
+  whose all-reduce is latency-bound) or 0 / 1 chunks take one launch and
+  one all-reduce.
+- `tp_group`: the tensor-parallel process group of the session or engine
+  whose call is running (None: one device). Each session and serving
+  engine publishes its own before every call, as the JAX package's
+  publish `KERNELS["mesh"]`; `ops.linear`'s `part=` paths and the
+  models' logits read it.
 """
 
 from __future__ import annotations
@@ -34,4 +50,7 @@ from __future__ import annotations
 KERNELS = {
     "decode_attn_mode": "auto",
     "prefill_streaming_min_s": 2048,
+    "overlap_chunks": 4,
+    "overlap_min_rows": 64,
+    "tp_group": None,
 }

@@ -102,13 +102,14 @@ from ..config import EngineConfig, ModelConfig, str_dtype_to_torch
 from ..device import resolve_device
 from ..models import by_architecture
 from ..ops.attention import PackedMeta
+from ..ops.linear import tp_scope
 from ..ops.paged_attention import init_paged_caches
 from .kv_cache_manager import KVCacheManager
 from .sampling import (SamplingConfig, SlotSamplingParams,
                        init_token_counts, sample_step, sample_step_slots,
                        update_tail, update_token_counts)
 from .scheduler import Request, Scheduler
-from .session import _params_to
+from .session import _params_to, tp_setup
 
 
 @dataclasses.dataclass
@@ -174,12 +175,26 @@ class ServingEngine:
                  max_bad_word_len: int = 4,
                  mixed_step: bool = False,
                  pipelined: bool = False,
-                 mapping=None, mesh=None, device="cuda"):
-        unported = {"mapping": mapping, "mesh": mesh}
-        named = [k for k, v in unported.items() if v]
-        if named:
+                 mapping=None, mesh=None, device="cuda", group=None):
+        if mesh is not None:
             raise NotImplementedError(
-                f"ServingEngine: not ported yet: {', '.join(named)}")
+                "ServingEngine: the port has no JAX mesh; tensor "
+                "parallelism takes mapping=Mapping(tp=N) (and group=)")
+        if mapping is not None and (mapping.dp * mapping.pp != 1
+                                    or mapping.shard_kv_seq):
+            raise ValueError(
+                "sharded serving supports tp (and ep) axes, plus sp for "
+                "prefill compute — the slot pool is the batch, so dp/pp "
+                "(and sp-sharded KV) are rejected")
+        tp_options = [k for k, v in (
+            ("packed_prefill", packed_prefill),
+            ("prefill_chunk", prefill_chunk), ("mixed_step", mixed_step),
+            ("pipelined", pipelined)) if v]
+        if mapping is not None and mapping.tp > 1 and tp_options:
+            raise NotImplementedError(
+                "ServingEngine under tensor parallelism serves the dense "
+                f"and paged caches; {', '.join(tp_options)} under TP are "
+                "ROADMAP A 5")
         self.model = (model if model is not None
                       else by_architecture(cfg.architecture))
         arch = cfg.architecture or "llama"
@@ -236,12 +251,16 @@ class ServingEngine:
         self.kv_scales = (None if kv_scales is None else torch.as_tensor(
             np.asarray(kv_scales, np.float32), device=dev))
 
+        # tensor parallelism: this rank's shards, heads and group (every
+        # rank runs the same host bookkeeping on the same requests)
+        params, self.model_cfg, self.group = tp_setup(
+            cfg, params, self.model, mapping, group, dev, "ServingEngine")
         self._capacity_precheck(params, block_size, num_blocks)
         self.params = _params_to(params, dev)
         # one device: q/k/v fused into one matmul where the model has the
-        # rewrite, as the JAX engine does
+        # rewrite, as the JAX engine does (not under tp, as there)
         fuse = getattr(self.model, "fuse_qkv_params", None)
-        if fuse is not None:
+        if fuse is not None and self.group is None:
             self.params = fuse(self.params)
         self.rope = self.model.rope_tables(cfg, device=dev)
 
@@ -259,7 +278,7 @@ class ServingEngine:
             # writes land there instead of in live blocks
             self.trash_block = self.num_blocks
             self.caches = init_paged_caches(
-                cfg, self.num_blocks + 1, block_size, self.n_rows,
+                self.model_cfg, self.num_blocks + 1, block_size, self.n_rows,
                 self.max_blocks, dev, self.kv_scales)
             # host mirror of the block tables, uploaded before every decode
             # chunk (allocation is host-side; the device only reads tables)
@@ -270,7 +289,7 @@ class ServingEngine:
             # cache_headroom: positions past max_seq_len (a speculative
             # verify slab writes up to gamma past the budget)
             self.caches = self.model.init_caches(
-                cfg, self.n_rows, engine_cfg.max_seq_len + cache_headroom,
+                self.model_cfg, self.n_rows, engine_cfg.max_seq_len + cache_headroom,
                 dev, self.kv_scales)
         # per-slot device state ([n_rows]; the trash row is never active)
         self.slot_lens = self._dev(np.zeros((self.n_rows,), np.int32))
@@ -356,7 +375,7 @@ class ServingEngine:
         its KV pool once and without its scratch cache: a prefill writes
         into the slots). "resident": the counted weights already on the
         card, which the budget adds to its free memory."""
-        cfg, engine_cfg = self.cfg, self.engine_cfg
+        cfg, engine_cfg = self.model_cfg, self.engine_cfg
         smax = engine_cfg.max_seq_len + self.cache_headroom
         if self.paged:
             nb = (num_blocks if num_blocks is not None
@@ -694,7 +713,8 @@ class ServingEngine:
         ids, lengths = self._dev(ids), self._dev(lengths)
         kw = {} if write_slots is None else {"slots": write_slots}
         logits, _ = self.model.forward_prefill(
-            self.params, self.cfg, ids, lengths, caches, rope=self.rope, **kw)
+            self.params, self.model_cfg, ids, lengths, caches, rope=self.rope,
+            **kw)
         self._prefill_draft(ids, lengths, slots)
         self.calls["prefills"] += 1
         counts = None
@@ -742,7 +762,7 @@ class ServingEngine:
             self.trash_slot, self.max_slots)
         meta, token_ids = self._dev(meta), self._dev(token_ids)
         logits, _ = self.model.forward_prefill_packed(
-            self.params, self.cfg, token_ids, PackedMeta(*meta),
+            self.params, self.model_cfg, token_ids, PackedMeta(*meta),
             self._dev(last_idx), self.caches, rope=self.rope)
         self.calls["packed_prefills"] += 1
         rows = counts = None
@@ -790,7 +810,7 @@ class ServingEngine:
                 self._partial[rid] = st + c
         slots = self._dev(np.array([r.slot for r in reqs], np.int64))
         logits, _ = self.model.forward_extend(
-            self.params, self.cfg, self._dev(ids), self._dev(starts),
+            self.params, self.model_cfg, self._dev(ids), self._dev(starts),
             self.caches, rope=self.rope, slots=slots)
         self.calls["chunk_prefills"] += 1
         self.chunk_rows.append(n * c)
@@ -835,7 +855,7 @@ class ServingEngine:
             pos = (torch.where(active, lens, parked)
                    if self.prefill_chunk is not None else lens)
             logits, self.caches = self.model.forward_decode(
-                self.params, self.cfg, tokens, pos, self.caches,
+                self.params, self.model_cfg, tokens, pos, self.caches,
                 rope=self.rope)
             nxt = self._sample(logits, counts=counts, gen_lens=gen, tail=tail)
             if counts is not None:      # active rows count their token
@@ -905,7 +925,12 @@ class ServingEngine:
         bucket, or one packed stream) and advance chunked prompts, then
         decode up to decode_chunk tokens for every active slot. mixed_step
         folds a one-bucket admission into the decode chunk; pipelined
-        reorders the phases (_step_pipelined)."""
+        reorders the phases (_step_pipelined). The engine's tp group is
+        published for the step."""
+        with tp_scope(self.group):
+            return self._step()
+
+    def _step(self) -> List[FinishedRequest]:
         if self.pipelined:
             return self._step_pipelined()
         t0 = time.perf_counter()

@@ -15,6 +15,16 @@ any container the port runs (int8 / int4 weight-only, fp8, SmoothQuant,
 a quantized lm_head): the model code dispatches on them. The model is
 `model=` (llama, or a decoder family such as `models.decoder.BLOOM`) or
 the one `models.by_architecture(cfg.architecture)` names.
+
+Tensor parallelism (`mapping=Mapping(tp=N)`, LLaMA only): each of the N
+ranks builds the session from the same full params and keeps its shards
+(`parallel/sharding.py`: column / row projections, the lm_head over the
+vocabulary, the KV cache over the heads), unfused as the JAX session
+under a mesh; every rank runs `generate` on the same inputs and returns
+the same tokens, the logits being gathered whole on every rank before
+sampling. The tp group is the caller's (`group=`) or
+`mapping.make_group()`'s, and is published in `ops.registry.KERNELS`
+before every call, as the JAX session publishes its mesh.
 """
 
 from __future__ import annotations
@@ -29,6 +39,10 @@ import torch
 from ..config import EngineConfig, ModelConfig
 from ..device import resolve_device
 from ..models import by_architecture
+from ..ops.linear import tp_scope
+from ..parallel import comm
+from ..parallel.mapping import Mapping
+from ..parallel.sharding import local_config, shard_params
 from .sampling import (SamplingConfig, apply_bad_words, init_token_counts,
                        sample_step, stop_words_matched, update_tail,
                        update_token_counts)
@@ -56,6 +70,32 @@ class GenerationOutput:
         return None if self.logprobs is None else self.logprobs.sum(axis=-1)
 
 
+def tp_setup(cfg, params, model, mapping, group, device, what: str):
+    """(params, the model's cfg, the tp group) of this rank: the full
+    params and cfg unchanged for one rank; under tp > 1 (LLaMA only) its
+    shards, its local_config and its group (the given one, or
+    mapping.make_group()'s)."""
+    mapping = mapping or Mapping()
+    mapping.check_ported()
+    if mapping.tp == 1:
+        return params, cfg, None
+    from ..models import llama
+    if model is not llama:
+        raise NotImplementedError(
+            f"{what}: tensor parallelism runs LLaMA only; the decoder "
+            "families under TP are ROADMAP A 5")
+    if group is None:
+        group, rank = mapping.make_group(device=device.type)
+    else:
+        rank = comm.group_rank(group)
+    if comm.group_size(group) != mapping.tp:
+        raise ValueError(f"{what}: the tp group has "
+                         f"{comm.group_size(group)} ranks, Mapping.tp is "
+                         f"{mapping.tp}")
+    return (shard_params(params, mapping, rank),
+            local_config(cfg, mapping.tp), group)
+
+
 def _params_to(tree, device):
     if isinstance(tree, dict):
         return {k: _params_to(v, device) for k, v in tree.items()}
@@ -65,14 +105,17 @@ def _params_to(tree, device):
 class GenerationSession:
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig,
                  kv_scales=None, device="cuda", model=None,
-                 beam_paged_block: int = 0):
+                 beam_paged_block: int = 0, mapping: Optional[Mapping] = None,
+                 group=None):
         """kv_scales: optional [L] int8-KV dequant scales (calibrated by the
         converter; 1.0 when omitted, as in the JAX package). model: the
         model object (default `by_architecture(cfg.architecture)`).
         beam_paged_block > 0: beam search keeps its cache in a paged pool
         of blocks of that many rows and reorders beams through the block
         tables (`runtime/beam.py::_reorder_paged`) instead of copying the
-        generated window of the dense cache each step."""
+        generated window of the dense cache each step. mapping / group:
+        tensor parallelism (module note); group defaults to
+        mapping.make_group()'s."""
         self.device = resolve_device(device)
         self.beam_paged_block = int(beam_paged_block)
         self.cfg = cfg
@@ -80,15 +123,20 @@ class GenerationSession:
         self.model = model or by_architecture(cfg.architecture)
         self.kv_scales = (None if kv_scales is None else torch.as_tensor(
             np.asarray(kv_scales, np.float32), device=self.device))
+        params, self.model_cfg, self.group = tp_setup(
+            cfg, params, self.model, mapping, group, self.device,
+            "GenerationSession")
         self.params = _params_to(params, self.device)
         # one device: fuse q/k/v into one matmul where the model has the
         # rewrite, as the JAX session does; gate/up fusion is opt-in there,
-        # by the environment variable TLLM_FUSE_GU, and here the same
+        # by the environment variable TLLM_FUSE_GU, and here the same.
+        # Under tp the column shards stay separate, as in the JAX session.
         fuse = getattr(self.model, "fuse_qkv_params", None)
-        if fuse is not None:
+        if fuse is not None and self.group is None:
             self.params = fuse(self.params)
         fuse_gu = getattr(self.model, "fuse_gate_up_params", None)
-        if fuse_gu is not None and os.environ.get("TLLM_FUSE_GU"):
+        if (fuse_gu is not None and self.group is None
+                and os.environ.get("TLLM_FUSE_GU")):
             self.params = fuse_gu(self.params)
         self.rope = self.model.rope_tables(cfg, device=self.device)
 
@@ -100,6 +148,13 @@ class GenerationSession:
         token lists. seed: the draws' generator (one a call, on the
         session's device, drawn once for the prefill's token and once a
         decode step). return_logprobs: GenerationOutput.logprobs."""
+        with tp_scope(self.group):
+            return self._generate(input_ids, seq_lens, sampling,
+                                  max_new_tokens, seed, prompt,
+                                  return_logprobs)
+
+    def _generate(self, input_ids, seq_lens, sampling, max_new_tokens, seed,
+                  prompt, return_logprobs) -> GenerationOutput:
         scfg = sampling or SamplingConfig()
         if prompt is not None:
             raise NotImplementedError(
@@ -127,6 +182,9 @@ class GenerationSession:
         padded[:, :s] = input_ids
         max_len = min(self.engine_cfg.max_seq_len, bucket + max_new_tokens)
         if scfg.beam_width > 1:
+            if self.group is not None:
+                raise NotImplementedError(
+                    "beam search under tensor parallelism is ROADMAP A 5")
             if return_logprobs:
                 raise NotImplementedError(
                     "beam search does not support prompt tuning or "
@@ -134,18 +192,19 @@ class GenerationSession:
             return self._generate_beam(padded, seq_lens, scfg,
                                        max_new_tokens, max_len)
 
-        dev, cfg = self.device, self.cfg
+        dev, cfg, mcfg = self.device, self.cfg, self.model_cfg
         pad, end = scfg.pad_id, scfg.end_id
         tail_len = scfg.tail_len
         with torch.inference_mode():
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed)
             model = self.model
-            caches = model.init_caches(cfg, b, max_len, dev, self.kv_scales)
+            caches = model.init_caches(mcfg, b, max_len, dev, self.kv_scales)
             ids = torch.as_tensor(padded, device=dev)
             lens = torch.as_tensor(np.asarray(seq_lens, np.int32), device=dev)
-            logits, caches = model.forward_prefill(self.params, cfg, ids, lens,
-                                                   caches, rope=self.rope)
+            logits, caches = model.forward_prefill(self.params, mcfg, ids,
+                                                   lens, caches,
+                                                   rope=self.rope)
             counts = (init_token_counts(ids, lens, cfg.vocab_size)
                       if scfg.has_penalties else None)
             tail = _init_tail(ids, lens, tail_len, pad) if tail_len else None
@@ -189,7 +248,7 @@ class GenerationSession:
             step = 1
             while step < max_new_tokens and not bool(done.all()):
                 logits, caches = model.forward_decode(
-                    self.params, cfg, tokens, positions, caches,
+                    self.params, mcfg, tokens, positions, caches,
                     rope=self.rope)
                 nxt = sample(logits, done, step)
                 out[:, step] = nxt
