@@ -94,9 +94,8 @@
    the path was launched in the path's run (counts zeroed just before it;
    kernel 1 / 6's GEMM exactly 5 times a layer, in bs4's 64-row prefill,
    the tensor-core GEMV 5 times a layer in the 16-row bs1 prefills and
-   bs4's decode steps, and the GEMM's bs4 tokens against a run with the
-   GEMVs at every row count,
-   differing only at near ties),
+   bs4's decode steps, and, but on path 1, the GEMM's bs4 tokens against
+   a run with the GEMVs at every row count, differing only at near ties),
    checks the 7B prefill logits against the plain-version path on the
    card, and profiles one bs1 request (device time by kernel, the device's
    busy share; device ms per decode token with a profile of the prefill
@@ -159,7 +158,7 @@
    full depth): ModelConfig.from_hf_config of huggyllama/llama-7b's config.json
    fields, an HF-layout bf16 state dict drawn on the card (seed 0),
    synthetic calibration ranges (seed 0: |N(0, 1)| per channel with 1%
-   outlier channels x20; the card has no transformers and no corpus),
+   outlier channels x20; no calibration corpus is at hand),
    smooth_hf_state_dict -> params_from_hf_state_dict (f32) ->
    quantize_params (static per-tensor SmoothQuant + int8 KV) ->
    save_engine -> load_engine(device="cuda") with every leaf byte-equal,
@@ -232,8 +231,13 @@
    layer a draft step); the kernel phase holds the verify rows (5 on the
    tensor-core GEMV, 45 on the GEMM, timed beside the other body) and the
    draft's attention shapes (kernels 2 and 3 at 12 heads of 64);
-7. path 6, Bloom-7b1 at full width and depth (ALiBi, random weights drawn
-   on the card, seed 0) through GenerationSession(model=decoder.BLOOM):
+7. path 6, Bloom-7b1: first an HF BloomForCausalLM of its published
+   fields at BLOOM_HF_LAYERS layers built on the card (seed 0) and loaded
+   through convert/hf_families.py (hf_family_params: the loader's config
+   against the published fields, f32 first-step logits against HF's own
+   forward within HF_TOL), 16 bf16 tokens with the launches held; then
+   at full width and depth (ALiBi, random weights drawn
+   on the card, seed 0; the budget) through GenerationSession(model=decoder.BLOOM):
    bf16 weights with an 8-token prompt and 50 tokens (row 10 with slopes,
    once per layer) and a 3072-token prompt's prefill (row 12 with
    slopes), then the same tree int8 weight-only (quantize_params; kernel
@@ -244,7 +248,9 @@
    per-token weight-byte floor, the launch counts, and holds the first-step logits
    against the plain path on the card;
 8. GPT-J-6B, GPT-NeoX-20B, OPT-6.7b and Falcon-7B at their published
-   widths, 2 layers, bf16: 16 greedy tokens each (Falcon also in the
+   widths, 2 layers, from HF models built on the card (seed 0) and loaded
+   through convert/hf_families.py (hf_family_params, as path 6's), then
+   bf16: 16 greedy tokens each (Falcon also in the
    'fused' decode mode), launches (kernel 2 once per layer, kernel 3 or
    row 9 at every decode step, at every family's head dim), first-step
    logits against the plain path;
@@ -270,6 +276,39 @@
    against the full call bit for bit and the plain version, and times
    one windowed 1024-row GEMM at w_down's local shape (K 5504, N 4096)
    against the full call;
+8d. path 10, the quantization accuracy harness (run_accuracy,
+   quantization/evaluate.py): (a) build_golden_setup at its defaults
+   (hidden 256, 4 layers, 8 heads of 32, f32; an HF LlamaForCausalLM
+   built and calibrated on the card; the JAX gates' own config has head
+   dim 16, below the attention kernels' 32) with prompts [2, 16] and 10
+   teacher-forced steps: the ten gated modes (int4-wo-g at g64) on the
+   card and through the plain versions on the CPU on the same params,
+   ranges and continuation, each card row against its CPU row (KL within
+   ACC_KL_REL of the larger + ACC_KL_ABS, ppl ratio within ACC_PPL_ABS,
+   top-1 at most one position apart), the gates' orderings; (b)
+   LLaMA-7B width, ACC_7B_LAYERS layers, an f32 golden HF model built on
+   the card, prompts [4, 48], 24 steps: the ten modes (int4 at g128; the
+   int4 and fp8 weight formats, with int8 weight-only beside them, on
+   structure_weights params), every metric finite, the orderings, the
+   table of rows; every mode's launches held exactly (accuracy_expect);
+8e. path 11, GPT-2 XL at gpt2-xl's published widths and depth (48
+   layers; run_gpt2): a GPT2LMHeadModel built on the card (seed 0) and
+   converted by convert/hf_gpt.py; f32 (TF32 off) first-token logits
+   against HF's forward within HF_TOL and 16 greedy tokens against HF's
+   (near ties aside); bf16 tokens and first-token logits against the
+   plain path, device ms a bs1 decode token beside the byte floor; prompt
+   tuning (2 tasks x 8 virtual tokens over real embeddings: tokens
+   bit-identical to the real-token run; another table moves the logits;
+   a repetition penalty keeps every token in the vocabulary); int8
+   weight-only, row 2 on its three routes at K 1600 / 6400 (the GEMM's
+   ragged last K tile at bs4's 64-row prefill), tokens against the plain
+   path at bs1 and bs4; launches held exactly (row 10 48 a prefill,
+   kernel 3 48 a decode step, row 2 288 an int8 forward). The kernel
+   phase holds every kernel at paths 10 and 11's shapes (f32 GEMVs, W8A8
+   and row 7 at their rows, row 10 at head dims 32, 64 and 128, kernel 3
+   on f32 / bf16, int8 and e4m3 caches; check_accuracy_shapes), and row
+   2 at GPT-2 XL's projections on every route, the ragged-K GEMM bit for
+   bit against the zero-padded whole-tile call (check_gpt2_shapes);
 9. prints each phase's wall time;
 10. prints a `kernels` JSON line, then as the last line
    {"ok": true, "device": {...}}.
@@ -360,8 +399,9 @@ DECODE_MODES = ("split", "fused")   # run again on paths 1 and 2
 SHORT_DEPTH = 8       # layers of paths 3 and 4 (make_paths)
 PATH7_DEPTH = 4       # layers of path 7's engine dir (build_offline)
 DECODE_STEPS = 16     # path 8's profiled decode steps over its e4m3 cache
-PROFILE_NEW = 8       # tokens of each profiled request (profile_generate;
-                      # 16 before the sampling and beam runs: the budget)
+PROFILE_NEW = 4       # tokens of each profiled request (profile_generate;
+                      # 16 before the sampling and beam runs, 8 before the
+                      # accuracy and GPT-2 paths: the budget)
 # kernels whose launches decode_step_launches counts in the decode steps:
 # the split-K reduce (of the tensor-core GEMV and the GEMMs; no bs1 decode
 # step launches it) and the one-launch GEMVs that take every bs1 projection
@@ -413,6 +453,40 @@ FAMILY_CONFIGS = [
                        rms_norm_eps=1e-5, max_position_embeddings=2048),
      ("auto", "fused")),
 ]
+# The same published fields as transformers configs (the families and
+# path 6 build these HF models on the card and load them through
+# convert/hf_families.py): tag -> (config class, model class, loader
+# suffix, fields; the layer count is the run's)
+HF_FAMILIES = {
+    "GPT-J-6B": ("GPTJConfig", "GPTJForCausalLM", "gptj", dict(
+        vocab_size=50400, n_embd=4096, n_head=16, rotary_dim=64,
+        n_inner=None, n_positions=2048, layer_norm_epsilon=1e-5)),
+    "GPT-NeoX-20B": ("GPTNeoXConfig", "GPTNeoXForCausalLM", "gptneox", dict(
+        vocab_size=50432, hidden_size=6144, num_attention_heads=64,
+        intermediate_size=24576, rotary_pct=0.25, rotary_emb_base=10000,
+        max_position_embeddings=2048, layer_norm_eps=1e-5,
+        use_parallel_residual=True)),
+    "OPT-6.7b": ("OPTConfig", "OPTForCausalLM", "opt", dict(
+        vocab_size=50272, hidden_size=4096, num_attention_heads=32,
+        ffn_dim=16384, max_position_embeddings=2048, word_embed_proj_dim=4096,
+        do_layer_norm_before=True, activation_function="relu")),
+    "Falcon-7B": ("FalconConfig", "FalconForCausalLM", "falcon", dict(
+        vocab_size=65024, hidden_size=4544, num_attention_heads=71,
+        multi_query=True, parallel_attn=True, bias=False, alibi=False,
+        new_decoder_architecture=False, max_position_embeddings=2048,
+        layer_norm_epsilon=1e-5)),
+    "Bloom-7b1": ("BloomConfig", "BloomForCausalLM", "bloom", dict(
+        vocab_size=250880, hidden_size=4096, n_head=32,
+        layer_norm_epsilon=1e-5)),
+}
+# the layer-count field of each config class
+HF_LAYER_FIELD = {"GPTJConfig": "n_layer", "GPTNeoXConfig":
+                  "num_hidden_layers", "OPTConfig": "num_hidden_layers",
+                  "FalconConfig": "num_hidden_layers", "BloomConfig": "n_layer"}
+BLOOM_HF_LAYERS = 2    # path 6's HF-weight check (its full depth stays random)
+ROTARY_FAMILIES = ("gptj", "gptneox", "falcon")
+
+
 # Path 7: the hackathon's offline build. The published huggyllama/llama-7b
 # config.json fields that ModelConfig.from_hf_config reads.
 HF_LLAMA_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
@@ -441,6 +515,9 @@ GEMM_FP8 = "fp8_matmul_stacked (GEMM)"
 # rows 5 and 6 at prefill rows: the int8 tensor-core GEMM (csrc/w8a8_gemm.cu)
 W8A8_GEMM = "w8a8_matmul_stacked (GEMM)"
 W8A8_GEMM_2D = "w8a8_matmul (GEMM)"
+# kernel 1's GEMM on a K that is not whole 128-row tiles (GPT-2 XL's 1600:
+# a last tile zero-filled past K); `.ragged_launches` counts its share
+GEMM_RAGGED = "woq_matmul_stacked (GEMM, ragged K)"
 GEMM_KEYS = (GEMM_INT8, GEMM_INT4, GEMM_INT4_PC, GEMM_FP8, W8A8_GEMM,
              W8A8_GEMM_2D)
 # kernels 1 and 6 at TC_MIN_ROWS-16 rows: the tensor-core GEMV
@@ -640,6 +717,9 @@ KERNELS = {
     # codec of ops/fp8.py)
     "probe_kv_codec": (
         "probe_kv_codec", "trtllm_llama_tpu/ops/fp8.py:45", _PROBES_CU),
+    GEMM_RAGGED: (
+        "woq_matmul_stacked", f"{_WOQ_PY}:461",
+        "trtllm_llama_tpu_torch/csrc/woq_gemm.cu"),
     TC_INT8: ("woq_matmul_stacked", f"{_WOQ_PY}:617", _WOQ_TC),
     TC_INT4: ("woq_matmul_stacked", f"{_WOQ_PY}:617", _WOQ_TC),
     TC_INT4_2D: ("woq_matmul", f"{_WOQ_PY}:416", _WOQ_TC),
@@ -860,6 +940,8 @@ def launches_of(name, fn):
     for the wrapper's other entries."""
     gemm = getattr(fn, "gemm_launches", 0)
     tc = getattr(fn, "tc_launches", 0)
+    if name == GEMM_RAGGED:
+        return fn.ragged_launches
     if name in GEMM_KEYS:
         return gemm
     return tc if name in TC_KEYS else fn.launches - gemm - tc
@@ -2274,7 +2356,8 @@ def make_paths():
                     (pa, "prefill_attention_kernel")],
              modes={"split": READ_ONLY, "fused": FUSED},
              decode="dma_decode_attention",
-             fused=("woq_matmul_stacked", SWIGLU_INT8), sampling=True),
+             fused=("woq_matmul_stacked", SWIGLU_INT8), sampling=True,
+             rerun=False),
         dict(tag="path 2", title="SmoothQuant W8A8 (per-token activation, "
              f"per-channel weight scales), int8 KV (scale {KV_SCALE})",
              mode=(QuantMode.use_smooth_quant(per_token=True, per_channel=True)
@@ -2491,10 +2574,11 @@ def drive_path(path, sess, errors, results):
     print(f"  bs1 repeat gives identical tokens: {same}")
     if not same:
         errors.append(f"{tag}: the same bs1 request gave different tokens")
-    if "gemm" in path:
+    if "gemm" in path and path.get("rerun", True):
         # bs4 with the other kernel at every row count: W8A8 is exact on
         # both, so its tokens must match; kernels 1 and 6 sum in another
-        # order, so theirs may differ at near ties
+        # order, so theirs may differ at near ties (path 1 no longer
+        # re-runs: the smoke's budget)
         with path["route"](gemm=False):
             out4v, _ = generate(p4, new)
         same = np.array_equal(out4.output_ids, out4v.output_ids)
@@ -3341,9 +3425,8 @@ def replay_steps(sess, prompt, tokens, scfg, new):
     those that picked tokens 0..k."""
     import numpy as np
     import torch
-    from trtllm_llama_tpu_torch.models import llama
 
-    cfg, ecfg = sess.cfg, sess.engine_cfg
+    cfg, ecfg, model = sess.cfg, sess.engine_cfg, sess.model
     if isinstance(prompt, (list, tuple)):
         n = np.array([len(p) for p in prompt], np.int32)
         arr = np.full((len(prompt), int(n.max())), scfg.pad_id, np.int32)
@@ -3357,17 +3440,17 @@ def replay_steps(sess, prompt, tokens, scfg, new):
     padded = np.full((b, bucket), scfg.pad_id, np.int32)
     padded[:, :s] = arr
     with torch.inference_mode():
-        caches = llama.init_caches(cfg, b, min(ecfg.max_seq_len, bucket + new),
+        caches = model.init_caches(cfg, b, min(ecfg.max_seq_len, bucket + new),
                                    "cuda", sess.kv_scales)
         ids = torch.as_tensor(padded, device="cuda")
         lens = torch.as_tensor(n, device="cuda")
-        logits, caches = llama.forward_prefill(sess.params, cfg, ids, lens,
+        logits, caches = model.forward_prefill(sess.params, cfg, ids, lens,
                                                caches, rope=sess.rope)
         steps = [logits]
         pos = lens.clone()
         for t in np.asarray(tokens, np.int32).T:       # one step's [B] ids
             tok = torch.as_tensor(t, device="cuda")
-            logits, caches = llama.forward_decode(sess.params, cfg, tok, pos,
+            logits, caches = model.forward_decode(sess.params, cfg, tok, pos,
                                                   caches, rope=sess.rope)
             steps.append(logits)
             pos += 1
@@ -4010,8 +4093,8 @@ def hf_llama_state_dict(cfg, seed=0):
 
 
 def synthetic_ranges(sd, n_l, d, f, seed=0):
-    """Calibration ranges made from a seed (the card has no transformers
-    and no corpus): x_absmax per layer and input channel |N(0, 1)| with
+    """Calibration ranges made from a seed (no calibration corpus is at
+    hand): x_absmax per layer and input channel |N(0, 1)| with
     OUTLIER_SHARE of the channels times OUTLIER_GAIN, shared by q/k/v and
     by gate/up; w_absmax from the weights, as capture_activation_ranges
     computes it; kv_absmax 127 x KV_SCALE in every layer."""
@@ -5526,7 +5609,7 @@ def zero_counts():
     for fn in _wrappers().values():
         fn.launches = 0
         for extra in ("gemm_launches", "tc_launches", "swiglu_launches",
-                      "window_launches"):
+                      "window_launches", "ragged_launches"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
     attention.fused_decode_attention_at.alibi_calls = 0
@@ -5543,7 +5626,8 @@ def read_counts():
         for attr, name in (("launches", k),
                            ("gemm_launches", f"{k}.gemm_launches"),
                            ("tc_launches", f"{k}.tc_launches"),
-                           ("window_launches", f"{k}.window_launches")):
+                           ("window_launches", f"{k}.window_launches"),
+                           ("ragged_launches", f"{k}.ragged_launches")):
             if getattr(f, attr, 0):
                 counts[name] = getattr(f, attr)
     return counts, attention.fused_decode_attention_at.alibi_calls
@@ -5650,6 +5734,69 @@ def bloom_request(tag, sess, ids, new, expect, errors, results, floor):
     return out
 
 
+def hf_family_params(tag, cfg, errors, results):
+    """Family `tag` as an HF model built on the card in f32 (seed 0) with
+    its published fields at cfg.num_layers, loaded through
+    convert/hf_families.py: the loader's config against the smoke's
+    (widths, heads, rotary, eps) and the f32 first-step logits of an
+    8-token prompt against HF's own forward within HF_TOL (TF32 off).
+    Returns the params in cfg.dtype."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import transformers
+    from trtllm_llama_tpu_torch import EngineConfig
+    from trtllm_llama_tpu_torch.convert import hf_families
+    from trtllm_llama_tpu_torch.models import by_architecture
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    cfg_cls, model_cls, suffix, fields = HF_FAMILIES[tag]
+    hf_cfg = getattr(transformers, cfg_cls)(
+        **fields, **{HF_LAYER_FIELD[cfg_cls]: cfg.num_layers})
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        hf = getattr(transformers, model_cls)(hf_cfg).eval()
+    conv_cfg = getattr(hf_families, f"config_from_hf_{suffix}")(
+        hf_cfg, dtype="float32")
+    keys = ("vocab_size", "hidden_size", "intermediate_size", "num_layers",
+            "num_heads", "num_kv_heads", "head_dim", "rotary_dim",
+            "rms_norm_eps")
+    def field(c, k):    # a rotary_dim of 0 rotates the whole head
+        return (c.rotary_dim or c.head_dim if k == "rotary_dim"
+                and (c.rotary_dim or cfg.architecture in ROTARY_FAMILIES)
+                else getattr(c, k))
+    differ = {k: (field(conv_cfg, k), field(cfg, k)) for k in keys
+              if field(conv_cfg, k) != field(cfg, k)}
+    if differ:
+        errors.append(f"{tag}: the loader's config differs {differ}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = getattr(hf_families, f"params_from_hf_{suffix}")(hf, cfg32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = np.random.default_rng(0).integers(3, cfg.vocab_size, (1, 8))
+    model = by_architecture(cfg.architecture)
+    sess = GenerationSession(cfg32, p32, EngineConfig(
+        max_batch_size=1, max_input_len=16, max_seq_len=64), device="cuda",
+        model=model)
+    got, _ = first_logits(model, sess, ids, [])
+    with torch.inference_mode():
+        ref = hf(torch.as_tensor(ids, device="cuda")).logits[0, -1].float()
+    err = compare(f"{tag} ({cfg.num_layers} layers) f32 first-step logits vs "
+                  f"HF's forward", got[0], ref, errors, tol=HF_TOL)
+    print(f"  {tag}: HF model built on the card and loaded in {build_s:.1f} "
+          f"s; the loader's config matches the published fields: "
+          f"{not differ}")
+    results["_e2e"][f"{tag} HF weights"] = dict(
+        layers=cfg.num_layers, build_s=build_s, max_abs_err_vs_hf=err)
+    params = getattr(hf_families, f"params_from_hf_{suffix}")(hf, cfg)
+    del sess, hf, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params
+
+
 def run_bloom(args, errors, results):
     """Path 6: Bloom-7b1 at full width and depth through
     GenerationSession(model=decoder.BLOOM). 6a, bf16 weights: the 8-token
@@ -5670,6 +5817,31 @@ def run_bloom(args, errors, results):
     from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
     from trtllm_llama_tpu_torch.quantization.quantize import quantize_params
     from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    hf_cfg = ModelConfig(**{**BLOOM_7B1, "num_layers": min(
+        args.layers, BLOOM_HF_LAYERS)})
+    print(f"path 6: Bloom-7b1 from an HF model at {hf_cfg.num_layers} "
+          "layers (convert/hf_families.py), then at full depth with random "
+          "weights (the budget)")
+    hf_params = hf_family_params("Bloom-7b1", hf_cfg, errors, results)
+    sess = GenerationSession(hf_cfg, hf_params, EngineConfig(
+        max_batch_size=1, max_input_len=16, max_seq_len=64), device="cuda",
+        model=BLOOM)
+    ids = np.random.default_rng(0).integers(3, hf_cfg.vocab_size, (1, 8))
+    timed_generate(sess, ids, 2)
+    zero_counts()
+    out, _ = timed_generate(sess, ids, FAMILY_NEW)
+    check_counts(f"path 6 HF weights ({hf_cfg.num_layers} layers)",
+                 read_counts(), dict(
+                     launches={"prefill_attention_kernel": hf_cfg.num_layers},
+                     alibi_decode=hf_cfg.num_layers * (FAMILY_NEW - 1)),
+                 errors)
+    credit(results, ALIBI_PREFILL, hf_cfg.num_layers)
+    check_tokens("path 6 HF weights", out, FAMILY_NEW, hf_cfg.vocab_size,
+                 errors)
+    del sess, hf_params
+    gc.collect()
+    torch.cuda.empty_cache()
 
     cfg = ModelConfig(**{**BLOOM_7B1, "num_layers": min(
         args.layers, BLOOM_7B1["num_layers"])})
@@ -5700,7 +5872,7 @@ def run_bloom(args, errors, results):
     bloom_request("path 6a bf16 in8 out50", sess, short, NEW_TOKENS, dict(
         launches={"prefill_attention_kernel": n_l},
         alibi_decode=n_l * (NEW_TOKENS - 1)), errors, results, floors["bf16"])
-    results[ALIBI_PREFILL]["launches"] = n_l
+    credit(results, ALIBI_PREFILL, n_l)
     # the long request is its prefill alone (one token: a decode over the
     # 3k cache is left out for the smoke's time budget)
     timed_generate(sess, long, 1)                      # warm-up
@@ -5764,7 +5936,9 @@ def run_bloom(args, errors, results):
 
 def run_families(args, errors, results):
     """GPT-J-6B, GPT-NeoX-20B, OPT-6.7b and Falcon-7B at their published
-    widths, FAMILY_LAYERS layers, bf16 random weights (seed 0): one 8-token
+    widths, FAMILY_LAYERS layers, from HF models built on the card (seed 0)
+    and loaded through convert/hf_families.py (hf_family_params: f32
+    first-step logits against HF's forward), then in bf16: one 8-token
     prompt, FAMILY_NEW greedy tokens per decode mode (Falcon also 'fused',
     row 9 at its group of 71, its tokens identical to 'auto''s: the same
     body); the launches (kernel 2 once per layer, kernel 3 or row 9 once
@@ -5783,7 +5957,7 @@ def run_families(args, errors, results):
         cfg = ModelConfig(**over, num_layers=min(args.layers, FAMILY_LAYERS),
                           dtype="bfloat16")
         n_l, model = cfg.num_layers, by_architecture(cfg.architecture)
-        params = model.init_params(cfg, seed=0, device="cuda")
+        params = hf_family_params(tag, cfg, errors, results)
         ids = np.random.default_rng(0).integers(3, cfg.vocab_size, (1, 8))
         tokens = {}
         for mode in modes:
@@ -5926,6 +6100,795 @@ def serve_families(args, errors, results):
         del runs, eng, params
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Path 10: the quantization accuracy harness (quantization/evaluate.py)
+# ---------------------------------------------------------------------------
+
+# (a) golden scale: build_golden_setup's defaults (hidden 256, 4 layers, 8
+# heads of 32, intermediate 512, vocab 512, f32). The JAX gates' own config
+# (hidden 128, 8 heads) has head dim 16, below the 32-256 the attention
+# kernels take, so on the card it raises.
+ACC_PROMPTS = (2, 16)
+ACC_CONT = 10
+# card rows against CPU rows of the same mode: KL within 5% of the larger
+# + 1e-6 nats, the ppl ratio within 2e-3, top-1 shares at most one position
+# apart (both f32; quantized activations may round a code apart)
+ACC_KL_REL, ACC_KL_ABS, ACC_PPL_ABS = 5e-2, 1e-6, 2e-3
+# (b) LLaMA-7B width at ACC_7B_LAYERS layers (the smoke's budget):
+# tests/test_accuracy_midscale.py's batch, prompt and continuation
+ACC_7B = dict(hidden=4096, heads=32, intermediate=11008, vocab=32000)
+ACC_7B_LAYERS = 4
+ACC_7B_PROMPTS = (4, 48)
+ACC_7B_CONT = 24
+# (b)'s modes on structure_weights params (the midscale tier's, which runs
+# them without calibrated ranges: KV scale 1): the int4 and fp8 weight
+# formats, and int8 weight-only beside them for the int8-beats-int4 order
+ACC_STRUCTURED = ("s-int8-wo", "int4-wo", "int4-wo-g", "fp8", "fp8+kv")
+
+
+def accuracy_modes(group):
+    """tests/test_accuracy_gates.py:34-52's ten modes: (name, QuantMode,
+    group size; `group` for int4-wo-g)."""
+    from trtllm_llama_tpu_torch import QuantMode
+    return [
+        ("int8-wo", QuantMode.use_weight_only(False), 0),
+        ("int4-wo", QuantMode.use_weight_only(True), 0),
+        ("int4-wo-g", QuantMode.use_weight_only(True, per_group=True), group),
+        ("sq-static", QuantMode.use_smooth_quant(), 0),
+        ("sq-ptpc", QuantMode.use_smooth_quant(per_token=True,
+                                               per_channel=True), 0),
+        ("int8-kv", QuantMode.INT8_KV_CACHE, 0),
+        ("int8-wo+kv",
+         QuantMode.use_weight_only(False) | QuantMode.INT8_KV_CACHE, 0),
+        ("fp8", QuantMode.FP8_QDQ, 0),
+        ("fp8-kv", QuantMode.FP8_KV_CACHE, 0),
+        ("fp8+kv", QuantMode.FP8_QDQ | QuantMode.FP8_KV_CACHE, 0),
+    ]
+
+
+def accuracy_expect(mode, n_l, batch, prompt, cont, hidden):
+    """Every wrapper's launches in one evaluate_quant_mode run (f32
+    activations): one prefill of batch x prompt rows and `cont` decode
+    steps of `batch` rows, 7 projections a layer and forward (q, k, v, o,
+    gate, up, down; the lm_head stays f32). Weight-only and fp8 run the
+    one-row GEMV at every row count (f32); W8A8 its GEMM from
+    W8A8_GEMM_MIN_ROWS rows on; per-token SmoothQuant row 7 twice a layer
+    and forward; row 10 once a layer, kernel 3 once a layer and step."""
+    from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
+    forwards = 1 + cont
+    proj = 7 * n_l * forwards
+    gemm = 7 * n_l * sum(n for rows, n in ((batch * prompt, 1),
+                                           (batch, cont))
+                         if w8a8.w8a8_gemm_route(rows, hidden, hidden))
+    want = {"prefill_attention_kernel": n_l,
+            "dma_decode_attention": n_l * cont}
+    if mode.has_fp8_qdq():
+        want["fp8_matmul_stacked"] = proj
+    elif mode.is_weight_only():
+        want["woq_matmul_stacked"] = proj
+    elif mode.has_act_and_weight_quant():
+        name = ("w8a8_matmul_stacked" if mode.has_per_token_dynamic_scaling()
+                else "w8a8_matmul")
+        want[name] = proj
+        if gemm:
+            want[f"{name}.gemm_launches"] = gemm
+        if mode.has_per_token_dynamic_scaling():
+            want["rmsnorm_quant"] = 2 * n_l * forwards
+    return want
+
+
+def credit(results, key, n):
+    """Add n launches to the kernels line's entry `key`."""
+    results[key]["launches"] = results[key].get("launches", 0) + n
+
+
+def credit_launches(results, mode, launches):
+    """Add one mode's launches to the kernels line's entries (by format and
+    cache kind)."""
+    def add(key, n):
+        if n:
+            credit(results, key, n)
+    woq_key = (INT4_STACKED if mode.has_int4_weights()
+               else "woq_matmul_stacked")
+    add(woq_key, launches.get("woq_matmul_stacked", 0))
+    add("fp8_matmul_stacked", launches.get("fp8_matmul_stacked", 0))
+    for name, gemm_key in (("w8a8_matmul_stacked", W8A8_GEMM),
+                           ("w8a8_matmul", W8A8_GEMM_2D)):
+        n_gemm = launches.get(f"{name}.gemm_launches", 0)
+        add(name, launches.get(name, 0) - n_gemm)
+        add(gemm_key, n_gemm)
+    add("rmsnorm_quant", launches.get("rmsnorm_quant", 0))
+    add("prefill_attention_kernel", launches.get("prefill_attention_kernel", 0))
+    decode_key = (INT8_DECODE if mode.has_int8_kv_cache() else E4M3_DECODE
+                  if mode.has_fp8_kv_cache() else "dma_decode_attention")
+    add(decode_key, launches.get("dma_decode_attention", 0))
+
+
+def accuracy_row(tag, cfg, params, name, mode, gs, prompts, ref, cont,
+                 act_ranges, kv_scales, device, errors):
+    """One evaluate_quant_mode row on `device`; on the card with its
+    launches held exactly. Returns (row, launches or None, seconds)."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch.quantization.evaluate import (
+        evaluate_quant_mode,
+    )
+    card = device == "cuda"
+    if card:
+        torch.cuda.synchronize()
+        zero_counts()
+    t = time.perf_counter()
+    row = evaluate_quant_mode(cfg, params, name, mode, prompts,
+                              act_ranges=act_ranges, kv_scales=kv_scales,
+                              group_size=gs, cont_len=cont, ref_run=ref,
+                              device=device)
+    secs = time.perf_counter() - t
+    bad = [k for k, v in row.items() if k != "mode" and not np.isfinite(v)]
+    if bad:
+        errors.append(f"{tag} {name}: non-finite {bad}")
+    if not card:
+        return row, None, secs
+    launches, alibi = read_counts()
+    want = accuracy_expect(mode, cfg.num_layers, *prompts.shape, cont,
+                           cfg.hidden_size)
+    if launches != want or alibi:
+        errors.append(f"{tag} {name}: launches {launches}, expected {want}")
+        print(f"  {tag} {name}: launches {launches}, expected {want}: FAIL")
+    return row, launches, secs
+
+
+def print_rows(tag, rows, launches=None):
+    print(f"  {tag}: mode | prefill top-1 | prefill KL | decode top-1 | "
+          f"decode KL | ppl ratio | max |err| | launches")
+    for name, row in rows.items():
+        print(f"    {name:10s} | {row['prefill_top1']:.4f} | "
+              f"{row['prefill_kl']:.4e} | {row['decode_top1']:.4f} | "
+              f"{row['decode_kl']:.4e} | {row['ppl_ratio']:.5f} | "
+              f"{row['max_abs_err']:.4e} | "
+              f"{(launches or {}).get(name, '')}")
+
+
+def accuracy_orderings(tag, rows, errors, int8="int8-wo"):
+    """The JAX gates' ordering checks (tests/test_accuracy_gates.py:78-98):
+    int8 beats int4, per-token SmoothQuant beats static, the int8-KV
+    prefill KL exactly 0 and its decode KL above 0."""
+    checks = [
+        ("int8 decode KL < int4's",
+         rows[int8]["decode_kl"] < rows["int4-wo"]["decode_kl"]),
+        ("int8 ppl ratio < int4's",
+         rows[int8]["ppl_ratio"] < rows["int4-wo"]["ppl_ratio"]),
+        ("sq-ptpc decode KL < sq-static's",
+         rows["sq-ptpc"]["decode_kl"] < rows["sq-static"]["decode_kl"]),
+        ("int8-kv prefill KL == 0", rows["int8-kv"]["prefill_kl"] == 0.0),
+        ("int8-kv decode KL > 0", rows["int8-kv"]["decode_kl"] > 0.0),
+    ]
+    for what, ok in checks:
+        print(f"  {tag}: {what}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            errors.append(f"{tag}: ordering check failed: {what}")
+
+
+def run_accuracy(args, errors, results):
+    """Path 10: quantization/evaluate.py on the card. (a) build_golden_setup
+    at its defaults (an HF LlamaForCausalLM built on the card, seed 0, its
+    calibration there): the ten gated modes on the card and through the
+    plain versions on the CPU, in this process, on the same params, ranges
+    and continuation; each card row against its CPU row, the launches of
+    every mode held exactly, the gates' orderings. (b) LLaMA-7B width,
+    ACC_7B_LAYERS layers, an f32 golden HF model built on the card: the ten
+    modes (int4 at g128) on 4 x 48-token prompts and 24 teacher-forced
+    decode steps, the int4 and fp8 weight formats on structure_weights
+    params; every metric finite, the orderings, the table of rows and the
+    launches per kernel per mode."""
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch.quantization import evaluate
+
+    # (a) golden scale, card against CPU
+    t0 = time.perf_counter()
+    cfg, params, act_ranges, kv_scales, hf = evaluate.build_golden_setup(
+        device="cuda")
+    del hf
+    prompts = np.random.default_rng(0).integers(3, cfg.vocab_size,
+                                                ACC_PROMPTS)
+    print(f"path 10 (a): golden model (build_golden_setup defaults: hidden "
+          f"{cfg.hidden_size}, {cfg.num_layers} layers, {cfg.num_heads} heads "
+          f"of {cfg.head_dim}, intermediate {cfg.intermediate_size}, vocab "
+          f"{cfg.vocab_size}, f32), prompts {ACC_PROMPTS}, {ACC_CONT} "
+          f"teacher-forced steps; built and calibrated on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ref = evaluate.reference_run(cfg, params, prompts, ACC_CONT)
+    cont = ref[0]
+    params_cpu = _tree_map(lambda t: t.cpu(), params)
+    cont_cpu = evaluate.greedy_continuation(cfg, params_cpu, prompts,
+                                            ACC_CONT, device="cpu")
+    print(f"  the CPU's own greedy continuation equals the card's: "
+          f"{np.array_equal(cont_cpu, cont)} (both sides score the card's)")
+    ref_cpu = (cont, *evaluate.teacher_forced_logits(cfg, params_cpu, prompts,
+                                                     cont, device="cpu"))
+    err = float(np.abs(ref[1] - ref_cpu[1]).max() / np.abs(ref_cpu[1]).max())
+    print(f"  f32 reference prefill logits, card vs CPU: max rel err "
+          f"{err:.3e}")
+    card_rows, cpu_rows, counts = {}, {}, {}
+    for name, mode, gs in accuracy_modes(64):
+        row, launches, secs = accuracy_row(
+            "path 10 (a)", cfg, params, name, mode, gs, prompts, ref,
+            ACC_CONT, act_ranges, kv_scales, "cuda", errors)
+        card_rows[name], counts[name] = row, launches
+        credit_launches(results, mode, launches)
+        cpu_rows[name], _, secs_cpu = accuracy_row(
+            "path 10 (a) CPU", cfg, params_cpu, name, mode, gs, prompts,
+            ref_cpu, ACC_CONT, act_ranges, kv_scales, "cpu", errors)
+        got, want = row, cpu_rows[name]
+        diffs = {
+            "prefill_top1": abs(got["prefill_top1"] - want["prefill_top1"])
+            * ACC_PROMPTS[0] * ACC_PROMPTS[1],
+            "decode_top1": abs(got["decode_top1"] - want["decode_top1"])
+            * ACC_PROMPTS[0] * ACC_CONT,
+        }
+        ok = all(d <= 1 + 1e-9 for d in diffs.values())
+        for k in ("prefill_kl", "decode_kl"):
+            lim = ACC_KL_REL * max(got[k], want[k]) + ACC_KL_ABS
+            ok = ok and abs(got[k] - want[k]) <= lim
+        ok = ok and abs(got["ppl_ratio"] - want["ppl_ratio"]) <= ACC_PPL_ABS
+        print(f"  {name}: card {secs:.2f} s, CPU {secs_cpu:.2f} s; decode KL "
+              f"{got['decode_kl']:.4e} / {want['decode_kl']:.4e}, ppl "
+              f"{got['ppl_ratio']:.5f} / {want['ppl_ratio']:.5f}, top-1 "
+              f"positions apart {diffs}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            errors.append(f"path 10 (a) {name}: card row {got} vs CPU row "
+                          f"{want}")
+    print_rows("path 10 (a) card", card_rows)
+    print_rows("path 10 (a) CPU", cpu_rows)
+    accuracy_orderings("path 10 (a) card", card_rows, errors)
+    results["_e2e"]["path 10 (a)"] = dict(card=card_rows, cpu=cpu_rows,
+                                          launches=counts)
+    del params, params_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) LLaMA-7B width
+    n_l = min(args.layers, ACC_7B_LAYERS)
+    t0 = time.perf_counter()
+    cfg, params, act_ranges, kv_scales, hf = evaluate.build_golden_setup(
+        layers=n_l, **ACC_7B, device="cuda")
+    del hf
+    torch.cuda.synchronize()
+    print(f"path 10 (b): LLaMA-7B width (hidden 4096, 32 heads, intermediate "
+          f"11008, vocab 32000), {n_l} layers, f32 golden HF model built and "
+          f"calibrated on the card in {time.perf_counter() - t0:.1f} s; "
+          f"prompts {ACC_7B_PROMPTS}, {ACC_7B_CONT} teacher-forced steps")
+    prompts = np.random.default_rng(0).integers(3, cfg.vocab_size,
+                                                ACC_7B_PROMPTS)
+    t0 = time.perf_counter()
+    ref = evaluate.reference_run(cfg, params, prompts, ACC_7B_CONT)
+    print(f"  reference run: {time.perf_counter() - t0:.1f} s")
+    structured = evaluate.structure_weights(params)
+    t0 = time.perf_counter()
+    ref_s = evaluate.reference_run(cfg, structured, prompts, ACC_7B_CONT)
+    print(f"  structure_weights + its reference run: "
+          f"{time.perf_counter() - t0:.1f} s")
+    modes = accuracy_modes(128)
+    modes.insert(0, ("s-int8-wo",) + modes[0][1:])
+    rows, counts, times = {}, {}, {}
+    for name, mode, gs in modes:
+        s = name in ACC_STRUCTURED
+        rows[name], launches, times[name] = accuracy_row(
+            "path 10 (b)", cfg, structured if s else params, name, mode, gs,
+            prompts, ref_s if s else ref, ACC_7B_CONT,
+            None if s else act_ranges, None if s else kv_scales, "cuda",
+            errors)
+        counts[name] = launches
+        credit_launches(results, mode, launches)
+    print_rows(f"path 10 (b) ({', '.join(ACC_STRUCTURED)} on structured "
+               "weights)", rows, {k: sum(v.values()) for k, v in
+                                  counts.items()})
+    for name, launches in counts.items():
+        print(f"  {name}: {times[name]:.2f} s, launches {launches}")
+    accuracy_orderings("path 10 (b)", rows, errors, int8="s-int8-wo")
+    results["_e2e"]["path 10 (b)"] = dict(layers=n_l, rows=rows,
+                                          launches=counts, seconds=times)
+
+
+# ---------------------------------------------------------------------------
+# Path 11: GPT-2 XL (models/gpt.py, convert/hf_gpt.py, prompt tuning)
+# ---------------------------------------------------------------------------
+
+# openai-community/gpt2-xl config.json: n_embd 1600, n_layer 48, n_head 25
+# (head dim 64), n_inner null (4 x 1600), vocab_size 50257, n_positions
+# 1024, activation_function gelu_new, layer_norm_epsilon 1e-5
+GPT2_XL = dict(vocab_size=50257, n_embd=1600, n_layer=48, n_head=25,
+               n_inner=None, n_positions=1024, activation_function="gelu_new",
+               layer_norm_epsilon=1e-5)
+GPT2_NEW = 16
+GPT2_ENGINE = dict(max_batch_size=4, max_input_len=16, max_seq_len=64)
+HF_TOL = 1e-3        # f32 logits against HF's own forward, x max |logit|
+PT_TASKS, PT_TOKENS = 2, 8   # prompt tuning: tasks x virtual tokens each
+
+
+def hf_greedy(hf, ids, new):
+    """HF's own greedy tokens (a full forward a step, no cache) and the
+    logits of each step: ([new] ints, [new] f32 [V] tensors)."""
+    import torch
+    seq = torch.as_tensor(ids, device="cuda")
+    toks, steps = [], []
+    with torch.inference_mode():
+        for _ in range(new):
+            lg = hf(seq).logits[0, -1].float()
+            tok = int(lg.argmax())
+            toks.append(tok)
+            steps.append(lg)
+            seq = torch.cat([seq, torch.tensor([[tok]], device="cuda")], 1)
+    return toks, steps
+
+
+def tokens_vs_plain(tag, sess, prompt, out, pairs, new, errors):
+    """`out` (the kernels' tokens of `prompt`) against the same request
+    with `pairs` on their plain versions: equal, or their first difference
+    a near tie (both replays pick their own token, and the two logits
+    moved against each other by at most LOGITS_TOL x max |logit|)."""
+    import numpy as np
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    scfg = SamplingConfig(end_id=-1)
+    with plain_path(pairs):
+        ref = sess.generate(prompt, sampling=scfg, max_new_tokens=new)
+    a_ids, b_ids = out.output_ids, ref.output_ids
+    rows = np.flatnonzero((a_ids != b_ids).any(1))
+    print(f"  {tag}: tokens identical to the plain path's in "
+          f"{a_ids.shape[0] - len(rows)} of {a_ids.shape[0]} rows")
+    for row in rows:
+        k = int(np.flatnonzero(a_ids[row] != b_ids[row])[0])
+        a, b = int(a_ids[row, k]), int(b_ids[row, k])
+        la = replay_logits(sess, prompt, a_ids[:, :k], scfg, new)[row].float()
+        with plain_path(pairs):
+            lb = replay_logits(sess, prompt, a_ids[:, :k], scfg,
+                               new)[row].float()
+        picks = int(la.argmax()) == a and int(lb.argmax()) == b
+        shift = float(la[a] - la[b] + lb[b] - lb[a])
+        limit = LOGITS_TOL * float(la.abs().max())
+        tie = picks and shift <= limit
+        print(f"  {tag} row {row}: first differ at {k} ({a} vs {b}), shift "
+              f"{shift:.5f} (limit {limit:.5f}): "
+              f"{'a near tie' if tie else 'NOT a near tie'}")
+        if not tie:
+            errors.append(f"{tag} row {row}: tokens differ from the plain "
+                          f"path's at {k}, not a near tie")
+
+
+def gpt2_expect(n_l, prefills, steps, proj=0, gemm=0, tc=0, ragged=0):
+    """Launches of a GPT-2 run: row 10 a layer a prefill, kernel 3 a layer
+    a decode step; with int8 weights row 2 six times a layer and forward
+    (its GEMM / tensor-core GEMV / ragged-K GEMM shares given as forwards)."""
+    want = {"prefill_attention_kernel": n_l * prefills,
+            "dma_decode_attention": n_l * steps}
+    if proj:
+        want["woq_matmul_stacked"] = 6 * n_l * proj
+        for key, n in (("gemm", gemm), ("tc", tc)):
+            if n:
+                want[f"woq_matmul_stacked.{key}_launches"] = 6 * n_l * n
+        if ragged:   # q, k, v, o and fc have K = 1600 (12.5 GEMM tiles)
+            want["woq_matmul_stacked.ragged_launches"] = 5 * n_l * ragged
+    return want
+
+
+def run_gpt2(args, errors, results):
+    """Path 11: GPT-2 XL at its published widths and depth (GPT2_XL),
+    GPT2LMHeadModel built on the card from seed 0, converted by
+    convert/hf_gpt.py, run through GenerationSession(model=gpt): f32 (TF32
+    off) first-token logits against HF's forward within HF_TOL and 16
+    greedy tokens against HF's (near ties aside); bf16 tokens against the
+    plain path, device ms a bs1 decode token against the byte floor; int8
+    weight-only (row 2 on the six projections a layer: the one-row GEMV at
+    bs1 decode, the tensor-core GEMV at the 16-row prefill and bs4 decode,
+    the GEMM with its ragged K tile at bs4's 64-row prefill) against the
+    plain path; prompt tuning (2 tasks x 8 virtual tokens whose table
+    rows are real embeddings: tokens bit-identical to the real-token run;
+    another table moves the logits; with a repetition penalty on, every
+    token in the vocabulary). Launches held exactly in every run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from transformers import GPT2Config, GPT2LMHeadModel
+    from trtllm_llama_tpu_torch import EngineConfig, QuantMode
+    from trtllm_llama_tpu_torch.convert.hf_gpt import (config_from_hf_gpt2,
+                                                       params_from_hf_gpt2)
+    from trtllm_llama_tpu_torch.models import gpt
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    from trtllm_llama_tpu_torch.quantization.quantize import quantize_params
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    # the published depth, or --layers where it cuts the paths below 32
+    n_l = GPT2_XL["n_layer"] if args.layers >= 32 else args.layers
+    hf_cfg = GPT2Config(**{**GPT2_XL, "n_layer": n_l})
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        hf = GPT2LMHeadModel(hf_cfg).eval()
+    cfg = config_from_hf_gpt2(hf_cfg, dtype="float32")
+    p32 = params_from_hf_gpt2(hf, cfg)
+    torch.cuda.synchronize()
+    print(f"path 11: GPT-2 XL (gpt2-xl config.json), {n_l} layers, 25 heads "
+          f"of 64, vocab {cfg.vocab_size}; HF model built on the card (seed "
+          f"0) and converted in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    ecfg = EngineConfig(**GPT2_ENGINE)
+    scfg = SamplingConfig(end_id=-1)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, cfg.vocab_size, (1, 8))
+    p4 = [rng.integers(3, cfg.vocab_size, n).tolist() for n in (8, 5, 12, 3)]
+    e2e = results["_e2e"].setdefault("path 11", dict(layers=n_l))
+
+    # f32 against HF's own forward
+    t0 = time.perf_counter()
+    hf_toks, hf_steps = hf_greedy(hf, ids, GPT2_NEW)
+    print(f"  HF greedy ({GPT2_NEW} tokens, full forwards): "
+          f"{time.perf_counter() - t0:.1f} s, {hf_toks}")
+    sess = GenerationSession(cfg, p32, ecfg, device="cuda", model=gpt)
+    got, _ = first_logits(gpt, sess, ids, [])
+    compare("path 11 f32 first-token logits vs HF's forward", got[0],
+            hf_steps[0], errors, tol=HF_TOL)
+    timed_generate(sess, ids, 2)
+    zero_counts()
+    out, ms = timed_generate(sess, ids, GPT2_NEW)
+    check_counts("path 11 f32", read_counts(),
+                 dict(launches=gpt2_expect(n_l, 1, GPT2_NEW - 1),
+                      alibi_decode=0), errors)
+    credit(results, "prefill_attention_kernel", n_l)
+    credit(results, "dma_decode_attention", n_l * (GPT2_NEW - 1))
+    mine = out.output_ids[0].tolist()
+    print(f"  f32 tokens {mine} ({ms:.1f} ms); identical to HF's: "
+          f"{mine == hf_toks}")
+    if mine != hf_toks:
+        k = next(i for i, (a, b) in enumerate(zip(mine, hf_toks)) if a != b)
+        near_tie(f"path 11 f32 token {k} vs HF", hf_steps[k], mine[k],
+                 hf_toks[k], errors)
+    e2e.update(f32_ms=ms, f32_same_as_hf=mine == hf_toks)
+    del sess, hf, hf_steps
+    gc.collect()
+
+    # bf16 against the plain path
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    p16 = _tree_map(lambda t: t.to(torch.bfloat16), p32)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    w_bytes = sum(t.numel() * 2 for k, t in p16["layers"].items()) + (
+        p16["lm_head"].numel() * 2)
+    floor = w_bytes / HBM_BYTES_PER_S * 1e3
+    sess = GenerationSession(cfg16, p16, ecfg, device="cuda", model=gpt)
+    timed_generate(sess, ids, 2)
+    _, pre_ms = timed_generate(sess, ids, 1)
+    zero_counts()
+    out16, ms = timed_generate(sess, ids, GPT2_NEW)
+    check_counts("path 11 bf16", read_counts(),
+                 dict(launches=gpt2_expect(n_l, 1, GPT2_NEW - 1),
+                      alibi_decode=0), errors)
+    credit(results, "prefill_attention_kernel", n_l)
+    credit(results, "dma_decode_attention", n_l * (GPT2_NEW - 1))
+    check_tokens("path 11 bf16", out16, GPT2_NEW, cfg.vocab_size, errors)
+    tokens_vs_plain("path 11 bf16", sess, ids, out16, attention_pairs(),
+                    GPT2_NEW, errors)
+    got, ref = first_logits(gpt, sess, ids, attention_pairs())
+    compare("path 11 bf16 first-token logits, kernels vs plain", got, ref,
+            errors, tol=LOGITS_TOL)
+    dev_tok, busy = profile_generate(sess, ids, scfg, row_limit=10)
+    dec_ms = (ms - pre_ms) / (GPT2_NEW - 1)
+    print(f"  bf16 bs1: prefill {pre_ms:.2f} ms, decode {dec_ms:.3f} ms/token "
+          f"(wall), device {dev_tok:.3f} ms per decode token against the "
+          f"byte floor {floor:.3f} ms ({w_bytes / 1e9:.2f} GB of bf16 "
+          f"weights at 3.35 TB/s)")
+    e2e.update(bf16_prefill_ms=pre_ms, bf16_decode_ms_per_token=dec_ms,
+               bf16_device_ms_per_decode_token=dev_tok,
+               bf16_device_busy_share=busy, bf16_byte_floor_ms=floor)
+
+    # prompt tuning (bf16): virtual ids over real embeddings
+    real = rng.integers(3, cfg.vocab_size, (PT_TASKS, 16)).astype(np.int32)
+    table = torch.cat([p16["embed"][torch.as_tensor(real[t, :PT_TOKENS],
+                                                    device="cuda").long()]
+                       for t in range(PT_TASKS)])
+    virt = real.copy()
+    virt[:, :PT_TOKENS] = cfg.vocab_size + np.arange(PT_TOKENS)
+    tasks = torch.arange(PT_TASKS, dtype=torch.int32, device="cuda")
+    pt = gpt.PromptTuning(table, tasks, PT_TOKENS)
+    zero_counts()
+    out_r = sess.generate(real, sampling=scfg, max_new_tokens=GPT2_NEW)
+    out_v = sess.generate(virt, sampling=scfg, max_new_tokens=GPT2_NEW,
+                          prompt=pt)
+    check_counts("path 11 prompt tuning", read_counts(),
+                 dict(launches=gpt2_expect(n_l, 2, 2 * (GPT2_NEW - 1)),
+                      alibi_decode=0), errors)
+    same = np.array_equal(out_r.output_ids, out_v.output_ids)
+    print(f"  prompt tuning ({PT_TASKS} tasks x {PT_TOKENS} virtual tokens "
+          f"over real embeddings): tokens bit-identical to the real-token "
+          f"run: {same}")
+    if not same:
+        errors.append("path 11: prompt-tuning tokens differ from the "
+                      "real-token run")
+    with torch.inference_mode():
+        lens = torch.full((PT_TASKS,), 16, dtype=torch.int32, device="cuda")
+        vt = torch.as_tensor(virt, device="cuda")
+
+        def prefill(ids, prompt):
+            caches = gpt.init_caches(cfg16, PT_TASKS, 32, "cuda")
+            return gpt.forward_prefill(sess.params, cfg16, ids, lens, caches,
+                                       prompt=prompt)[0]
+        other = gpt.PromptTuning(
+            torch.randn(table.shape, device="cuda").to(torch.bfloat16) * 0.05,
+            tasks, PT_TOKENS)
+        tuned = prefill(vt, pt)
+        same_logits = torch.equal(
+            tuned, prefill(torch.as_tensor(real, device="cuda"), None))
+        moved = float((tuned - prefill(vt, other)).abs().max())
+    print(f"  prompt tuning: first-token logits bit-identical to the "
+          f"real-token prefill's: {same_logits}; another prompt table moves "
+          f"them by {moved:.4f} (> 1e-3 required)")
+    if not same_logits:
+        errors.append("path 11: prompt-tuning logits differ from the "
+                      "real-token prefill's")
+    if not moved > 1e-3:
+        errors.append("path 11: another prompt table leaves the logits")
+    pen = sess.generate(virt, max_new_tokens=8, prompt=pt,
+                        sampling=SamplingConfig(repetition_penalty=1.2,
+                                                end_id=-1))
+    ok = bool((pen.output_ids >= 0).all() and (pen.output_ids
+                                                 < cfg.vocab_size).all())
+    print(f"  virtual prompt with repetition penalty 1.2: tokens in the "
+          f"vocabulary: {ok}")
+    if not ok:
+        errors.append("path 11: penalized prompt-tuning run left the "
+                      "vocabulary")
+    credit(results, "prefill_attention_kernel", 2 * n_l)
+    credit(results, "dma_decode_attention", 2 * n_l * (GPT2_NEW - 1))
+    e2e.update(prompt_tuning_same=same, prompt_table_moves=moved)
+    del sess
+    gc.collect()
+
+    # int8 weight-only: row 2 on every route at K 1600 / 6400
+    cfg8 = dataclasses.replace(cfg16, quant_mode=QuantMode.use_weight_only())
+    q8 = quantize_params(p16, QuantMode.use_weight_only())
+    del p16
+    gc.collect()
+    torch.cuda.empty_cache()
+    sess = GenerationSession(cfg8, q8, ecfg, device="cuda", model=gpt)
+    del q8
+    bucket = ecfg.bucket_for(8)
+    rows4 = 4 * ecfg.bucket_for(max(len(p) for p in p4))
+    routes = {"bs1 prefill": (bucket, 1), "bs1 decode": (1, GPT2_NEW - 1),
+              "bs4 prefill": (rows4, 1), "bs4 decode": (4, GPT2_NEW - 1)}
+    tc = sum(n for r, n in routes.values()
+             if not woq.gemm_route(r, torch.bfloat16, k=1600)
+             and woq.tc_route(r, torch.bfloat16, 1600))
+    gemm = sum(n for r, n in routes.values()
+               if woq.gemm_route(r, torch.bfloat16, k=1600))
+    print(f"  int8 routes (rows, forwards): {routes}; GEMM forwards {gemm}, "
+          f"tensor-core GEMV forwards {tc}")
+    timed_generate(sess, ids, 2)
+    zero_counts()
+    out8, ms8 = timed_generate(sess, ids, GPT2_NEW)
+    out84 = sess.generate(p4, sampling=scfg, max_new_tokens=GPT2_NEW)
+    want = gpt2_expect(n_l, 2, 2 * (GPT2_NEW - 1), proj=2 * GPT2_NEW,
+                       gemm=gemm, tc=tc, ragged=gemm)
+    counts = read_counts()
+    check_counts("path 11 int8", counts, dict(launches=want, alibi_decode=0),
+                 errors)
+    launches = counts[0]
+    n_gemm = launches.get("woq_matmul_stacked.gemm_launches", 0)
+    n_tc = launches.get("woq_matmul_stacked.tc_launches", 0)
+    for key, n in (("woq_matmul_stacked",
+                    launches.get("woq_matmul_stacked", 0) - n_gemm - n_tc),
+                   (GEMM_INT8, n_gemm), (TC_INT8, n_tc),
+                   (GEMM_RAGGED,
+                    launches.get("woq_matmul_stacked.ragged_launches", 0)),
+                   ("prefill_attention_kernel", 2 * n_l),
+                   ("dma_decode_attention", 2 * n_l * (GPT2_NEW - 1))):
+        credit(results, key, n)
+    check_tokens("path 11 int8", out8, GPT2_NEW, cfg.vocab_size, errors)
+    pairs = attention_pairs() + [(woq, "woq_matmul_stacked")]
+    tokens_vs_plain("path 11 int8 bs1", sess, ids, out8, pairs, GPT2_NEW,
+                    errors)
+    tokens_vs_plain("path 11 int8 bs4", sess, p4, out84, pairs, GPT2_NEW,
+                    errors)
+    got, ref = first_logits(gpt, sess, ids, pairs)
+    compare("path 11 int8 first-token logits, kernels vs plain", got, ref,
+            errors, tol=LOGITS_TOL)
+    print(f"  int8 bs1: {ms8:.1f} ms for {GPT2_NEW} tokens")
+    e2e.update(int8_ms=ms8, int8_launches=launches)
+    del sess
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# the kernel phase at paths 10 and 11's shapes
+# ---------------------------------------------------------------------------
+
+def check_accuracy_shapes(errors, results):
+    """The kernels at path 10's shapes (f32 activations: (a) hidden 256, 8
+    heads of 32, B=2 S=16, decode rows 2; (b) hidden 4096, 32 heads of 128,
+    B=4 S=48, decode rows 4) and path 11's (bf16 and f32, 25 heads of 64):
+    rows 2 and 4 (int8, int4 per-channel and grouped, fp8) on the one-row
+    GEMV, rows 5 and 6 (exact) and row 7 at the prefill and decode rows,
+    row 10 at the prefills, kernel 3 on f32 / bf16, int8 and e4m3 caches at
+    the decode steps, each against its plain version."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import decode_attention as da
+    from trtllm_llama_tpu_torch.ops.kernels import fp8_matmul as f8k
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import rmsnorm_quant as rnq
+    from trtllm_llama_tpu_torch.ops.kernels import w8a8_matmul as w8a8
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    from trtllm_llama_tpu_torch.quantization.tensors import (
+        quantize_fp8_weight, quantize_per_token, quantize_weight_only,
+    )
+
+    print("kernels at path 10's shapes (f32) and path 11's (GPT-2 XL):")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    f32 = torch.float32
+    # (tag, [(K, N)], rows, int4 group)
+    sizes = [("(a)", [(256, 256), (256, 512), (512, 256)], (2, 32), 64),
+             ("(b)", [(4096, 4096), (4096, 11008), (11008, 4096)], (4, 192),
+              128)]
+    for tag, shapes, rows, group in sizes:
+        for k, n in shapes:
+            w = torch.randn((2, k, n), generator=g, device="cuda") * k ** -0.5
+            weights = {"int8": quantize_weight_only(w, 8),
+                       "int4": quantize_weight_only(w, 4),
+                       f"int4 g{group}": quantize_weight_only(w, 4, group),
+                       "fp8": quantize_fp8_weight(w)}
+            for m in rows:
+                x = torch.randn((m, k), generator=g, device="cuda")
+                for fmt, wq in weights.items():
+                    fn, plain = ((f8k.fp8_matmul_stacked,
+                                  f8k.fp8_matmul_stacked_plain)
+                                 if fmt == "fp8" else
+                                 (woq.woq_matmul_stacked,
+                                  woq.woq_matmul_stacked_plain))
+                    compare(f"{tag} {fmt} f32 M={m} K={k} N={n}",
+                            fn(x, wq, 1), plain(x, wq, 1), errors,
+                            tol=F32_TOL)
+                x_q, s_x = quantize_per_token(x)
+                wsq = torch.randint(-127, 128, (2, k, n), generator=g,
+                                    device="cuda", dtype=torch.int8)
+                s_w = torch.rand((2, n), generator=g, device="cuda") * 1e-3
+                exact(f"{tag} w8a8 per-token M={m} K={k} N={n}",
+                      w8a8.w8a8_matmul_stacked(x_q, wsq, s_x, s_w, 1),
+                      w8a8.w8a8_matmul_stacked_plain(x_q, wsq, s_x, s_w, 1),
+                      errors)
+                s_t = torch.tensor(0.02, device="cuda")
+                exact(f"{tag} w8a8 static M={m} K={k} N={n}",
+                      w8a8.w8a8_matmul(x_q, wsq[1], s_t, s_w[1]),
+                      w8a8.w8a8_matmul_plain(x_q, wsq[1], s_t, s_w[1]),
+                      errors)
+                if (k, n) == shapes[0]:
+                    nw = 1 + 0.1 * torch.randn((k,), generator=g,
+                                               device="cuda")
+                    qa, sa = rnq.rmsnorm_quant(x, nw)
+                    qb, sb = rnq.rmsnorm_quant_plain(x, nw)
+                    ok = bool((qa.int() - qb.int()).abs().max() <= 1)
+                    compare(f"{tag} rmsnorm_quant f32 M={m} D={k} scale", sa,
+                            sb, errors, tol=F32_TOL)
+                    if not ok:
+                        errors.append(f"{tag} rmsnorm_quant M={m}: codes "
+                                      "more than one apart")
+    # attention: (tag, dtype, B, S, H, D, lens)
+    prefills = [("(a)", f32, 2, 16, 8, 32, [16, 16]),
+                ("(b)", f32, 4, 48, 32, 128, [48] * 4),
+                ("GPT-2 XL", f32, 1, 16, 25, 64, [8]),
+                ("GPT-2 XL", torch.bfloat16, 1, 16, 25, 64, [8]),
+                ("GPT-2 XL", torch.bfloat16, 4, 16, 25, 64, [8, 5, 12, 3]),
+                ("GPT-2 XL prompt tuning", torch.bfloat16, 2, 16, 25, 64,
+                 [16, 16])]
+    for tag, dt, b, s, h, d, lens in prefills:
+        q, k_, v = (torch.randn((b, s, h, d), generator=g, device="cuda")
+                    .to(dt) for _ in range(3))
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        compare(f"{tag} row 10 {dt} B={b} S={s} H={h} D={d}",
+                pa.prefill_attention_kernel(q, k_, v, sl),
+                pa.prefill_attention_kernel_plain(q, k_, v, sl), errors,
+                tol=F32_TOL if dt == f32 else BF16_TOL)
+    # decode: (tag, q dtype, B, H, D, positions)
+    decodes = [("(a)", f32, 2, 8, 32, [16, 25]),
+               ("(b)", f32, 4, 32, 128, [48, 60, 71, 48]),
+               ("GPT-2 XL", f32, 1, 25, 64, [8]),
+               ("GPT-2 XL", torch.bfloat16, 1, 25, 64, [22]),
+               ("GPT-2 XL", torch.bfloat16, 4, 25, 64, [8, 5, 26, 17])]
+    for tag, dt, b, h, d, pos in decodes:
+        for kv in ((None, "int8", "e4m3") if dt == f32 else (None,)):
+            shape = (2, b, h, 128, d)
+            kc = (kv_cache(shape, kv, g) if kv else
+                  torch.randn(shape, generator=g, device="cuda").to(dt))
+            vc = (kv_cache(shape, kv, g) if kv else
+                  torch.randn(shape, generator=g, device="cuda").to(dt))
+            q, kn, vn = (torch.randn((b, h, d), generator=g, device="cuda")
+                         .to(dt) for _ in range(3))
+            pt = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            scale = (torch.full((2,), KV_SCALE, device="cuda") if kv
+                     else None)
+            kc2, vc2 = kc.clone(), vc.clone()
+            got = da.dma_decode_attention(q, kn, vn, kc, vc, 1, pt,
+                                          kv_scale=scale)
+            ref = da.dma_decode_attention_plain(q, kn, vn, kc2, vc2, 1, pt,
+                                                kv_scale=scale)
+            name = (f"{tag} kernel 3 {dt} q, {kv or dt} cache B={b} H={h} "
+                    f"D={d} pos={pos}")
+            compare(name, got, ref, errors,
+                    tol=F32_TOL if dt == f32 else BF16_TOL)
+            if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+                errors.append(f"{name}: cache differs from the plain write")
+
+
+def check_gpt2_shapes(errors, results):
+    """Row 2 (int8, bf16) at GPT-2 XL's projections (K 1600 -> 1600, 1600
+    -> 6400, 6400 -> 1600) at 1, 4, 16 and 64 rows, each on its route (the
+    one-row GEMV, the tensor-core GEMV, the GEMM; counted) against its
+    plain version; the GEMM at K = 1600 (12.5 tiles, the last one ragged)
+    also bit for bit against the same call on operands zero-padded to 13
+    whole tiles, and timed at 64 rows beside the plain version, the
+    library and the bound (GEMM_RAGGED)."""
+    import torch
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    from trtllm_llama_tpu_torch.quantization.tensors import WOQWeight
+
+    print("kernel woq_matmul_stacked at GPT-2 XL's shapes (int8, bf16):")
+    g = torch.Generator(device="cuda").manual_seed(32)
+    fn, plain = woq.woq_matmul_stacked, woq.woq_matmul_stacked_plain
+    max_err = 0.0
+    for k, n in ((1600, 1600), (1600, 6400), (6400, 1600)):
+        w = make_gemv_weight("int8", 2, k, n, g)
+        pad = -k % woq.GEMM_TILE_K
+        w_pad = WOQWeight(torch.cat([w.qweight, w.qweight.new_zeros(
+            (2, pad, n))], 1).contiguous(), w.scale, 8, 0, 0)
+        for m in (1, 4, 16, 64):
+            x = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            before = (fn.launches, fn.gemm_launches, fn.tc_launches,
+                      fn.ragged_launches)
+            got = fn(x, w, 1)
+            torch.cuda.synchronize()
+            after = (fn.launches, fn.gemm_launches, fn.tc_launches,
+                     fn.ragged_launches)
+            delta = tuple(a - b for a, b in zip(after, before))
+            want = ((1, 1, 0, int(pad > 0)) if m > 16 else (1, 0, 1, 0)
+                    if m > 1 else (1, 0, 0, 0))
+            route_name = ("GEMM" if m > 16 else "tensor-core GEMV" if m > 1
+                          else "one-row GEMV")
+            err = compare(f"K={k} N={n} M={m} ({route_name})", got,
+                          plain(x, w, 1), errors)
+            max_err = max(max_err, err) if m > 16 and pad else max_err
+            if delta != want:
+                errors.append(f"GPT-2 XL K={k} N={n} M={m}: launches "
+                              f"(all, GEMM, TC, ragged) {delta}, expected "
+                              f"{want}")
+            if m > 16 and pad:
+                x_pad = torch.cat([x, x.new_zeros((m, pad))], 1)
+                exact(f"K={k} N={n} M={m} ragged GEMM vs zero-padded K="
+                      f"{k + pad}", got, fn(x_pad, w_pad, 1), errors)
+                if n == 6400:
+                    deq = torch.stack([(w.qweight[i].float() * w.scale[i])
+                                       .to(torch.bfloat16) for i in range(2)])
+                    t_k = time_ms(lambda i: fn(x, w, i % 2))
+                    t_p = time_ms(lambda i: plain(x, w, i % 2), iters=8,
+                                  warmup=1, reps=1)
+                    t_l = time_ms(lambda i: torch.matmul(x, deq[i % 2]))
+                    n_bytes = k * n + n * 4 + m * k * 2 + m * n * 4
+                    b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n)
+                    print(f"  time K={k} N={n} M={m} (ragged GEMM): kernel "
+                          f"{t_k:.4f} ms, plain {t_p:.4f} ms, "
+                          f"library(matmul bf16 dequantized) {t_l:.4f} ms, "
+                          f"bound {b_ms:.4f} ms ({b_by})")
+                    results[GEMM_RAGGED] = dict(
+                        ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                        bound_by=b_by, shape=f"M={m} K={k} N={n} int8 bf16, "
+                        "GPT-2 XL c_fc (12.5 K tiles)", launches=0)
+    results[GEMM_RAGGED]["max_abs_err"] = max_err
 
 
 # Path 9: tensor parallelism, two ranks on the one card (parallel/launch.py)
@@ -6498,6 +7461,8 @@ def check_kernels(errors, results):
     check_draft_attention(errors, results)
     check_float16(errors, results)
     check_windows(errors, results)
+    check_accuracy_shapes(errors, results)
+    check_gpt2_shapes(errors, results)
 
 
 def main(argv=None) -> int:
@@ -6549,7 +7514,9 @@ def main(argv=None) -> int:
                ("families", lambda: run_families(args, errors, results)),
                ("serving families",
                 lambda: serve_families(args, errors, results)),
-               (PATH9, lambda: run_tp(args, errors, results))]
+               (PATH9, lambda: run_tp(args, errors, results)),
+               ("path 10", lambda: run_accuracy(args, errors, results)),
+               ("path 11", lambda: run_gpt2(args, errors, results))]
     for name, phase in phases:
         t = time.perf_counter()
         zero_counts()

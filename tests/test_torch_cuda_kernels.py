@@ -1289,7 +1289,7 @@ def test_gemm_refuses_a_k_it_cannot_take_before_launch(dev):
     q = torch.zeros((1, 1000, 128), dtype=torch.int8, device=dev)
     s = torch.ones((1, 128), device=dev)
     x = torch.ones((64, 1000), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="whole 128-row tiles"):
+    with pytest.raises(ValueError, match="whole 16-row steps"):
         woq.launch_gemm("woq_matmul_stacked", "woq_gemm", "tllm_woq_gemm",
                         woq._GEMM_SIGNATURES, x, q, s, 0, 1000, "int8", 0, 0,
                         (8, 0))

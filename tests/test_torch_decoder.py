@@ -225,8 +225,9 @@ def test_by_architecture_and_unported_entries():
                      ("BLOOM", decoder.BLOOM), ("opt", decoder.OPT),
                      ("falcon", decoder.FALCON)):
         assert by_architecture(tag) is fam
-    for tag, module in (("gpt", "gpt.py"), ("gpt2", "gpt.py"),
-                        ("chatglm", "chatglm.py"), ("mixtral", "moe.py")):
+    from trtllm_llama_tpu_torch.models import gpt
+    assert by_architecture("gpt") is gpt and by_architecture("gpt2") is gpt
+    for tag, module in (("chatglm", "chatglm.py"), ("mixtral", "moe.py")):
         with pytest.raises(NotImplementedError, match=module):
             by_architecture(tag)
     with pytest.raises(ValueError):

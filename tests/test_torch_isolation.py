@@ -10,7 +10,9 @@ decoder families of models/decoder.py, picked by models.by_architecture,
 Bloom's ALiBi included; the offline build from an HF-layout state dict
 through SmoothQuant, static W8A8 + int8 KV, the engine dir and the loader,
 generating under TLLM_FUSE_GU; the decode probes; a sampled generate with
-penalties, bad and stop words and logprobs; beam search, dense and paged)
+penalties, bad and stop words and logprobs; beam search, dense and paged;
+GPT-2 with a prompt-tuning table under a repetition penalty; the accuracy
+harness on an in-process HF golden model with structured weights)
 and serves (a paged and a packed ServingEngine, one with per-request
 sampling, logprobs and bad words, chunked prefill, mixed and pipelined
 steps, dense and paged, and OPT through model= with chunking; the
@@ -73,6 +75,10 @@ def test_no_module_imports_jax_or_the_jax_package():
             "trtllm_llama_tpu_torch/parallel/sharding.py",
             "trtllm_llama_tpu_torch/parallel/comm.py",
             "trtllm_llama_tpu_torch/parallel/launch.py",
+            "trtllm_llama_tpu_torch/utils/accuracy.py",
+            "trtllm_llama_tpu_torch/models/gpt.py",
+            "trtllm_llama_tpu_torch/convert/hf_gpt.py",
+            "trtllm_llama_tpu_torch/convert/hf_families.py",
             "tests/torch_tp_worker.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
@@ -273,6 +279,24 @@ x = torch.ones(3)
 assert comm.all_reduce_sum(x, None) is x and comm.gather_columns(x, None) is x
 assert shard_params(loaded, Mapping(), 0) is loaded
 assert launch.free_port() > 0 and torch_tp_worker.serve_prompts()
+from trtllm_llama_tpu_torch.models import gpt
+from trtllm_llama_tpu_torch.quantization import evaluate
+gcfg = ModelConfig.tiny(dtype="float32", architecture="gpt2")
+gparams = gpt.init_params(gcfg, device="cpu")
+pt = gpt.PromptTuning(gparams["embed"][[5, 6, 7, 8]], torch.tensor([0]), 4)
+out = GenerationSession(gcfg, gparams, EngineConfig(max_input_len=16,
+                        max_seq_len=32), device="cpu").generate(
+    [[256, 257, 9, 10]], max_new_tokens=4, prompt=pt,
+    sampling=SamplingConfig(repetition_penalty=1.2, end_id=-1))
+assert out.output_ids.shape == (1, 4), out.output_ids.shape
+ecfg_, eparams, ranges, kv, _ = evaluate.build_golden_setup(
+    hidden=64, layers=1, heads=2, intermediate=128, vocab=128, device="cpu")
+prompts = np.random.default_rng(0).integers(3, 128, (1, 8))
+row = evaluate.evaluate_quant_mode(
+    ecfg_, evaluate.structure_weights(eparams), "int8-wo+kv",
+    QuantMode.use_weight_only() | QuantMode.INT8_KV_CACHE, prompts,
+    kv_scales=kv, cont_len=4, device="cpu")
+assert np.isfinite(row["ppl_ratio"]), row
 from trtllm_llama_tpu_torch.ops.kernels import probes
 assert probes.probe_u32_bf16_construct(probes.construct_inputs()).float()[
     0:2, 89].tolist() == [200.0, 168.0]

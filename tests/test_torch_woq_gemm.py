@@ -68,7 +68,10 @@ def test_gemm_route_rows_dtype_options(rows, dtype, prologue, residual, want):
     ("int8", 11008, 0, 0, True),           # LLaMA-7B down: 86 tiles
     ("int8", 4096, 0, 128, True),          # int8 g128
     ("int8", 1216, 0, 64, False),          # K ragged, group 64
-    ("int8", 1000, 0, 0, False),
+    ("int8", 1000, 0, 0, False),           # not whole 16-row steps
+    ("int8", 1600, 0, 0, True),            # GPT-2 XL: 12.5 tiles, ragged last
+    ("int4 per-channel", 1600, 64, 0, True),
+    ("int8", 1600, 0, 128, False),         # groups need whole tiles
     ("int4 per-channel", 4096, 128, 0, True),
     ("int4 per-channel", 4096, 64, 0, True),
     ("int4 g128", 4096, 128, 128, True),
@@ -76,7 +79,7 @@ def test_gemm_route_rows_dtype_options(rows, dtype, prologue, residual, want):
     ("int4 g256", 4096, 256, 256, False),  # a block wider than a tile
     ("fp8", 4096, 128, 0, True),
     ("fp8 logical order", 4096, 0, 0, True),
-    ("fp8", 4544, 0, 0, False),            # Falcon-7B's width: 35.5 tiles
+    ("fp8", 4544, 0, 0, True),             # Falcon-7B's width: 35.5 tiles
 ])
 def test_gemm_route_layouts(fmt, k, block, group, want):
     assert woq.gemm_takes(k, block, group) is want
@@ -89,7 +92,7 @@ def test_launch_gemm_refuses_before_launch():
     w = WOQWeight(torch.zeros((1, 1000, 32), dtype=torch.int8),
                   torch.ones((1, 32)))
     x = torch.ones((32, 1000), dtype=BF16)
-    with pytest.raises(ValueError, match="whole 128-row tiles"):
+    with pytest.raises(ValueError, match="whole 16-row steps"):
         woq.launch_gemm("t", "woq_gemm", "tllm_woq_gemm", {}, x, w.qweight,
                         w.scale, 0, 1000, "int8", 0, 0, (8, 0))
     with pytest.raises(TypeError):
@@ -168,7 +171,12 @@ def gemm_model(x, stored, scale, fmt, block, group):
     n = stored.shape[-1]
     rows = woq.tile_rows(fmt, block)
     acc = np.zeros((m, n), np.float32)
-    for t in range(k // T):
+    if k % T:            # a ragged last tile: zero-filled past K on load
+        pad = T - k % T
+        x = np.pad(x, ((0, 0), (0, pad)))
+        stored = np.pad(stored, ((0, pad // 2 if fmt == "int4" else pad),
+                                 (0, 0)))
+    for t in range(x.shape[1] // T):
         if fmt == "int4":
             tile = stored[t * T // 2:(t + 1) * T // 2].view(np.uint8)
             slots = np.empty((T, n), np.float32)
@@ -219,6 +227,31 @@ def test_gemm_model_matches_jax_woq_kernel(fmt, m):
                    jw.pack_block)
     _assert_rel(woq.woq_matmul_stacked_plain(torch.from_numpy(x), tw,
                                              layer).numpy(), want)
+
+
+@pytest.mark.parametrize("fmt,bits", [("int8", 8), ("int4", 4)])
+def test_gemm_model_ragged_k_matches_plain(fmt, bits):
+    """K = 1.5 tiles (GPT-2 XL's 1600 is 12.5): the last tile zero-filled
+    past K gives the plain version's product, and the same sums as on
+    operands zero-padded to whole tiles."""
+    from trtllm_llama_tpu_torch.quantization.tensors import (
+        quantize_weight_only,
+    )
+    rng = np.random.default_rng(bits)
+    k, n, m = T + T // 2, 64, 24
+    assert woq.gemm_takes(k) and not woq.gemm_takes(k + 8)
+    tw = quantize_weight_only(torch.from_numpy(
+        (rng.standard_normal((1, k, n)) * 0.05).astype(np.float32)), bits)
+    x = _bf16_x(rng, m, k)
+    q, sc = tw.qweight[0].numpy(), tw.scale[0].numpy()
+    got = gemm_model(x, q, sc, fmt, tw.pack_block, 0)
+    _assert_rel(got, woq.woq_matmul_stacked_plain(torch.from_numpy(x), tw,
+                                                  0).numpy())
+    pad = T // 2
+    padded = gemm_model(np.pad(x, ((0, 0), (0, pad))),
+                        np.pad(q, ((0, pad // (2 if bits == 4 else 1)),
+                                   (0, 0))), sc, fmt, tw.pack_block, 0)
+    np.testing.assert_array_equal(got, padded)
 
 
 @pytest.mark.parametrize("m", [17, 40])

@@ -51,8 +51,13 @@
 //     whole tiles, reduced in a fixed order by a second launch. The tiles
 //     are ordered in groups of 8 M tiles so that the blocks resident at
 //     once share weight columns (read from HBM about once) and x rows.
-// Ragged M is zero-filled on load and masked on store; N % 16 == 0, K whole
-// 128-row tiles (the wrapper refuses other shapes before launch).
+// Ragged M is zero-filled on load and masked on store; N % 16 == 0. K is
+// whole 16-row mma steps: a K that is not whole tiles (GPT-2 XL's 1600, 12.5
+// tiles) runs a last tile whose x columns and code rows past K are
+// zero-filled on load, so their products add exact zeros and the call
+// equals the same call on operands zero-padded to whole tiles bit for bit;
+// grouped scales need whole tiles (the wrapper refuses other shapes before
+// launch).
 // Measured (PERF.md, gemm_breakdown.py): 34-38% of the operations bound at
 // 1024-8192 rows. The loads into shared memory (x is re-read for every
 // 128 output columns) and the decode's shared-memory traffic bound it,
@@ -176,7 +181,8 @@ __device__ __forceinline__ void decode_tile(const uint8_t* codes, uint8_t* b,
 // bytes (tile_rows). Block
 // (., s) sums K tiles [s * kt_per, (s + 1) * kt_per) into out + s * M * N,
 // times col_scale[n] (null: grouped, or the split-K reduce scales).
-// K % 128 == 0, N % 16 == 0, x 16-byte aligned (wrapper).
+// K % 16 == 0 (whole tiles when GROUPED), N % 16 == 0, x 16-byte aligned
+// (wrapper).
 template <typename T, int FMT, bool GROUPED>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
@@ -198,7 +204,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   int m0, n0;
   raster(blockIdx.x, M, N, kBM, kBN, m0, n0);
   const int kt0 = blockIdx.y * kt_per;
-  const int nk = min(K / kBK - kt0, kt_per);   // this block's K tiles
+  // this block's K tiles (the last one of the call may be ragged)
+  const int nk = min((K + kBK - 1) / kBK - kt0, kt_per);
 
   uint8_t* map = smem + kOffMap;
   if (tid < kBK) map[tid] = map_g[tid];
@@ -211,8 +218,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int i = tid + it * kThreads;
       const int r = i >> 4;
       const int c = i & 15;
-      const bool ok = m0 + r < M;
-      const T* src = x + static_cast<size_t>(ok ? m0 + r : 0) * K + k0 + c * 8;
+      const bool in_m = m0 + r < M;
+      const bool ok = in_m && k0 + c * 8 < K;     // K % 8 == 0: whole chunks
+      const T* src = x + static_cast<size_t>(in_m ? m0 + r : 0) * K +
+                     (ok ? k0 + c * 8 : 0);
       cp_async16(a + (c >> 3) * (kBM * 128) + r * 128 +
                      (((c & 7) ^ (r & 7)) << 4),
                  src, ok);
@@ -224,9 +233,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int i = tid + it * kThreads;
       const int s = i >> 3;
       const int c = i & 7;
-      const bool ok = n0 + c * 16 < N;
+      const int srow = k0 / kR + s;                // stored row
+      const bool ok = n0 + c * 16 < N && srow < K / kR;
       const uint8_t* src =
-          q + static_cast<size_t>(k0 / kR + s) * ldw + (ok ? n0 + c * 16 : 0);
+          q + static_cast<size_t>(ok ? srow : 0) * ldw + (ok ? n0 + c * 16 : 0);
       cp_async16(cd + s * kBN + c * 16, src, ok);
     }
     if constexpr (GROUPED) {
@@ -379,8 +389,10 @@ template <int FMT, bool GROUPED>
 cudaError_t dispatch(int dtype, const Args& a, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (a.M <= 0 || a.K % kBK || a.N % 16 || a.ldw < a.N || a.ksplit < 1 ||
-      (a.ksplit - 1) * a.kt_per >= a.K / kBK)
+  const int k_tiles = (a.K + kBK - 1) / kBK;
+  if (a.M <= 0 || a.K <= 0 || a.K % 16 || (GROUPED && a.K % kBK) ||
+      a.N % 16 || a.ldw < a.N || a.ksplit < 1 ||
+      (a.ksplit - 1) * a.kt_per >= k_tiles)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return launch<__nv_bfloat16, FMT, GROUPED>(a, s);

@@ -1,13 +1,16 @@
 """Model families.
 
 `by_architecture` maps the ModelConfig.architecture tag to the object that
-implements the forward contract: the `llama` module, or one of the decoder
-families of `models/decoder.py`. Every model has
+implements the forward contract: the `llama` module, the `gpt` module
+(GPT-2, with prompt tuning), or one of the decoder families of
+`models/decoder.py`. Every model has
 
 - init_caches(cfg, batch, max_len, device, kv_scales) -> dense KVCache;
 - rope_tables(cfg, device) -> (cos, sin), or None without rotary;
 - forward_prefill(params, cfg, ids [B, S], lens [B], caches,
-  return_all_logits=False, rope=None, slots=None) -> (logits, caches);
+  return_all_logits=False, rope=None, slots=None) -> (logits, caches)
+  (gpt and the decoder families also take prompt=, a
+  `models.gpt.PromptTuning`);
 - forward_extend(params, cfg, tokens [B, T], start [B], caches, rope=None,
   slots=None) -> (logits [B, T, V], caches), a slab at per-row offsets;
 - forward_decode(params, cfg, tokens [B], positions [B], caches,
@@ -25,6 +28,9 @@ def by_architecture(name: str):
     if name == "llama":
         from . import llama
         return llama
+    if name in ("gpt", "gpt2"):
+        from . import gpt
+        return gpt
     from . import decoder
     families = {"gptj": decoder.GPTJ, "gpt-j": decoder.GPTJ,
                 "gptneox": decoder.GPTNEOX, "gpt-neox": decoder.GPTNEOX,
@@ -32,8 +38,7 @@ def by_architecture(name: str):
                 "falcon": decoder.FALCON}
     if name in families:
         return families[name]
-    unported = {"gpt": "models/gpt.py", "gpt2": "models/gpt.py",
-                "chatglm": "models/chatglm.py", "mixtral": "models/moe.py"}
+    unported = {"chatglm": "models/chatglm.py", "mixtral": "models/moe.py"}
     if name in unported:
         raise NotImplementedError(
             f"architecture {name!r} ({unported[name]} of the JAX package) is "

@@ -1,12 +1,14 @@
 """Decoder-only model families: GPT-J, GPT-NeoX, Bloom, OPT and Falcon
-(the port's `models/decoder.py`).
+(the port's `models/decoder.py`); `models/gpt.py` runs GPT-2 on the same
+block.
 
 One block, wired by a static `ArchSpec`, covers the five families, as in
 the JAX package: the spec picks the rotary convention (none, GPT-J's
 interleaved pairs or NeoX's half-split, on `cfg.rotary_dim` dims), ALiBi
 (Bloom), a learned position table (OPT, rows offset by 2), one LayerNorm
 feeding both branches (GPT-J, Falcon), a parallel residual, an embedding
-LayerNorm (Bloom), the MLP activation and which biases exist. Falcon's
+LayerNorm (Bloom), the MLP activation, which biases exist and a fixed
+LayerNorm eps (GPT-2's 1e-5; else cfg.rms_norm_eps). Falcon's
 multi-query attention is `cfg.num_kv_heads = 1` through the shared GQA
 attention ops.
 
@@ -36,7 +38,7 @@ from ..device import resolve_device
 from ..ops.attention import (KVCache, alibi_slopes, extend_attention_at,
                              fused_decode_attention_at, prefill_attention,
                              write_kv_extend_at, write_kv_prefill_at)
-from ..ops.linear import dense, embedding_lookup
+from ..ops.linear import dense, embedding_lookup, prompt_tuning_lookup
 from ..ops.norm import layer_norm
 from ..ops.rope import (apply_rope, apply_rope_interleaved, rope_table,
                         rope_table_interleaved, take_rope)
@@ -59,6 +61,7 @@ class ArchSpec:
     qkv_bias: bool = True
     attn_out_bias: bool = True
     lm_head_bias: bool = False
+    ln_eps: float = 0.0            # LayerNorm eps; 0: cfg.rms_norm_eps
 
 
 GPTJ_SPEC = ArchSpec("gptj", rope="interleaved", parallel_residual=True,
@@ -186,7 +189,7 @@ class DecoderFamily:
     def _block(self, cfg, lw, layer, x, cos, sin, alibi, caches, seq_lens,
                decode, slots=None, extend=None):
         spec = self.spec
-        eps = cfg.rms_norm_eps
+        eps = spec.ln_eps or cfg.rms_norm_eps
 
         def proj(h, wname, bname, n_heads):
             y = dense(h, lw[wname], layer=layer)
@@ -233,20 +236,25 @@ class DecoderFamily:
         return x + mlp(h2), caches
 
     def _run(self, params, cfg, ids, positions, seq_lens, caches, decode,
-             rope, slots=None, extend=None):
-        """Embedding, the layers and the final LayerNorm: [..., D]. A
-        learned position past the table reads its last row, as take_rope
-        does."""
+             rope, slots=None, extend=None, prompt=None):
+        """Embedding (through the prompt table for a prompt-tuning
+        `prompt`), the layers and the final LayerNorm: [..., D]. A learned
+        position past the table reads its last row, as take_rope does."""
         spec = self.spec
-        x = embedding_lookup(params["embed"], ids, cfg.torch_dtype)
+        eps = spec.ln_eps or cfg.rms_norm_eps
+        if prompt is None:
+            x = embedding_lookup(params["embed"], ids, cfg.torch_dtype)
+        else:
+            x = prompt_tuning_lookup(params["embed"], prompt.table, ids,
+                                     prompt.tasks, prompt.task_vocab_size,
+                                     cfg.vocab_size, cfg.torch_dtype)
         if spec.learned_pos:
             table = params["pos_embed"]
             x = x + embedding_lookup(
                 table, (positions + spec.pos_offset).clamp(
                     max=table.shape[0] - 1), cfg.torch_dtype)
         if spec.embed_ln:
-            x = layer_norm(x, params["emb_ln_w"], params["emb_ln_b"],
-                           cfg.rms_norm_eps)
+            x = layer_norm(x, params["emb_ln_w"], params["emb_ln_b"], eps)
         cos = sin = None
         if spec.rope != "none":
             tables = rope if rope is not None else self.rope_tables(
@@ -258,8 +266,7 @@ class DecoderFamily:
             x, caches = self._block(cfg, params["layers"], layer, x, cos, sin,
                                     alibi, caches, seq_lens, decode, slots,
                                     extend)
-        x = layer_norm(x, params["final_ln_w"], params["final_ln_b"],
-                       cfg.rms_norm_eps)
+        x = layer_norm(x, params["final_ln_w"], params["final_ln_b"], eps)
         return x, caches
 
     def _head(self, params, x):
@@ -271,17 +278,18 @@ class DecoderFamily:
     # -- forward -------------------------------------------------------
     def forward_prefill(self, params, cfg: ModelConfig, input_ids, seq_lens,
                         caches: KVCache, return_all_logits: bool = False,
-                        rope=None, slots=None):
+                        rope=None, slots=None, prompt=None):
         """Context phase. input_ids: [B, S] left-aligned (padded right),
         seq_lens [B]. Returns (f32 logits [B, V] at each sequence's last
         position, or [B, S, V] with return_all_logits, caches). `rope`:
         optional precomputed tables (`rope_tables`); `slots`: optional [B]
         cache rows that take the K/V (the serving engine's), default
-        0..B-1."""
+        0..B-1; `prompt`: a `models.gpt.PromptTuning` for virtual ids
+        (>= vocab_size) in input_ids (the reference gives it to GPT)."""
         b, s = input_ids.shape
         pos = torch.arange(s, device=input_ids.device)[None].expand(b, s)
         x, caches = self._run(params, cfg, input_ids, pos, seq_lens, caches,
-                              False, rope, slots)
+                              False, rope, slots, prompt=prompt)
         if return_all_logits:
             return self._head(params, x), caches
         last = x[torch.arange(b, device=x.device), seq_lens.long() - 1]

@@ -29,7 +29,8 @@ operations.
 tensors and launch a kernel for CUDA tensors; each counts its launches
 in `.launches`, the GEMM's share of them in `.gemm_launches` and the
 tensor-core GEMV's in `.tc_launches` (`woq_matmul_stacked.swiglu_launches`
-counts the GEMV launches with the SwiGLU prologue).
+counts the GEMV launches with the SwiGLU prologue, `.ragged_launches` the
+GEMM launches on a K that is not whole 128-row tiles).
 
 `n_window=(start, length)` (the stacked entries; tensor parallelism's
 row-parallel overlap, `ops/linear.py::_row_overlap`) computes only the
@@ -130,12 +131,12 @@ def _sm_count(device) -> int:
 
 
 def _gemm_split(m: int, k: int, n: int, n_sm: int):
-    """(ksplit, kt_per) of the GEMM: split K over whole 128-row tiles only
-    while the grid has fewer output tiles than SMs (decode-sized M on a
-    narrow N), each split >= _GEMM_SPLIT_TILES tiles, the f32 partials
-    within _PART_BYTES."""
+    """(ksplit, kt_per) of the GEMM: split K over whole 128-row tiles (the
+    last one ragged where K is not whole tiles) only while the grid has
+    fewer output tiles than SMs (decode-sized M on a narrow N), each split
+    >= _GEMM_SPLIT_TILES tiles, the f32 partials within _PART_BYTES."""
     tiles = -(-m // _GEMM_BM) * -(-n // _GEMM_BN)
-    nk = k // GEMM_TILE_K
+    nk = -(-k // GEMM_TILE_K)
     ksplit = max(1, min(n_sm // tiles, nk // _GEMM_SPLIT_TILES,
                         _PART_BYTES // (m * n * 4)))
     kt_per = -(-nk // ksplit)
@@ -309,12 +310,15 @@ def woq_matmul_stacked_plain(x, w: WOQWeight, layer: int, norm_w=None,
 # ---------------------------------------------------------------------------
 
 def gemm_takes(k: int, block: int = 0, group: int = 0) -> bool:
-    """Whether the GEMM tiles this layout: K in whole 128-row tiles, an int4
-    pack block or fp8 interleave block (0: none) that divides the tile, and
-    per-channel scales or groups of one tile."""
-    return (k > 0 and k % GEMM_TILE_K == 0
+    """Whether the GEMM tiles this layout: K in whole 16-row mma steps (a K
+    that is not whole 128-row tiles, such as GPT-2 XL's 1600, runs a last
+    tile zero-filled past K), an int4 pack block or fp8 interleave block
+    (0: none) that divides the tile, and per-channel scales or groups of
+    one tile (then K in whole tiles)."""
+    return (k > 0 and k % TC_STEP == 0
             and (block == 0 or GEMM_TILE_K % block == 0)
-            and group in (0, GEMM_TILE_K))
+            and (group == 0 or (group == GEMM_TILE_K
+                                and k % GEMM_TILE_K == 0)))
 
 
 def gemm_route(rows: int, dtype, prologue: bool = False,
@@ -597,10 +601,10 @@ def launch_gemm(what, lib_name, entry, signatures, x, q, scale, layer, k,
     if x.dtype not in GEMM_DTYPES:
         raise TypeError(f"{what}: the GEMM takes bf16 or fp16, not {x.dtype}")
     if not gemm_takes(k, block, group):
-        raise ValueError(f"{what}: the GEMM takes K in whole {GEMM_TILE_K}-"
-                         f"row tiles, blocks dividing {GEMM_TILE_K} and "
-                         f"groups of {GEMM_TILE_K}; got K={k}, block "
-                         f"{block}, group {group}")
+        raise ValueError(f"{what}: the GEMM takes K in whole {TC_STEP}-row "
+                         f"steps, blocks dividing its {GEMM_TILE_K}-row "
+                         f"tiles and groups of {GEMM_TILE_K}; got K={k}, "
+                         f"block {block}, group {group}")
     _check_operands(what, x, q, scale, layer, k, k)
     m = x.numel() // k
     x2 = x.reshape(m, k)
@@ -692,6 +696,8 @@ def woq_matmul_stacked(x, w: WOQWeight, layer: int, norm_w=None,
     woq_matmul_stacked.tc_launches += int(route == "tc")
     woq_matmul_stacked.swiglu_launches += int(swiglu)
     woq_matmul_stacked.window_launches += int(window is not None)
+    woq_matmul_stacked.ragged_launches += int(
+        route == "gemm" and w.k_dim % GEMM_TILE_K != 0)
     return out
 
 
@@ -700,6 +706,7 @@ woq_matmul_stacked.gemm_launches = 0
 woq_matmul_stacked.tc_launches = 0
 woq_matmul_stacked.swiglu_launches = 0
 woq_matmul_stacked.window_launches = 0
+woq_matmul_stacked.ragged_launches = 0
 
 
 def unit_layer(w):

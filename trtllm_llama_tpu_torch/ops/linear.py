@@ -250,3 +250,28 @@ def embedding_lookup(table, ids, out_dtype=None):
     """Embedding gather."""
     out = table[ids.long()]
     return out.to(out_dtype) if out_dtype else out
+
+
+def prompt_tuning_lookup(table, prompt_table, ids, tasks, task_vocab_size,
+                         vocab_size, out_dtype=None):
+    """Prompt-tuning embedding (the JAX package's, after the reference's
+    PromptTuningEmbedding.forward, layers/embedding.py:38-81): ids below
+    vocab_size gather from the normal table; ids >= vocab_size are virtual
+    tokens that index the task's block of the concatenated prompt table.
+
+    table: [V, D]; prompt_table: [num_tasks * task_vocab_size, D]; ids:
+    [B, S], virtual ids in [V, V + task_vocab_size); tasks: [B] task index
+    of each sequence. Each gather reads an index in its table's range (a
+    virtual position reads normal row 0 and a real one the task's first
+    prompt row, as JAX's jnp.where does; a virtual index past the table is
+    clamped to its last row), since an out-of-range gather on the card is
+    a device-side assert where JAX fills."""
+    is_prompt = ids >= vocab_size
+    normal = embedding_lookup(table, torch.where(is_prompt, 0, ids),
+                              out_dtype)
+    vids = (torch.where(is_prompt, ids - vocab_size, 0)
+            + (tasks.long() * task_vocab_size)[:, None])
+    virtual = embedding_lookup(prompt_table,
+                               vids.clamp(0, prompt_table.shape[0] - 1),
+                               out_dtype)
+    return torch.where(is_prompt[..., None], virtual, normal)

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..quantization.tensors import quantize_per_token
 from .kernels import rmsnorm_quant as _rnq
 
 
@@ -29,12 +30,18 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
-def rms_norm_quant(x, weight, eps: float = 1e-6):
-    """RMSNorm fused with dynamic per-token int8 quantization (kernel 4,
-    which takes its plain version for CPU tensors): returns (x_q int8
-    [..., K], scale f32 [..., 1]) for the W8A8 projections that follow.
-    It only forwards to the kernel wrapper; it stays so that the model
-    calls norms by the JAX package's names. The JAX package's optional
-    SmoothQuant `smoother` divisor is not ported (the converter folds it
-    into the norm weight)."""
-    return _rnq.rmsnorm_quant(x, weight, eps)
+def rms_norm_quant(x, weight, eps: float = 1e-6, smoother=None):
+    """RMSNorm fused with dynamic per-token int8 quantization: returns
+    (x_q int8 [..., K], scale f32 [..., 1]) for the W8A8 projections that
+    follow. Without `smoother` it is row 7 (`rmsnorm_quant`, which takes
+    its plain version for CPU tensors). `smoother` [K] is SmoothQuant's
+    per-channel activation divisor, applied to the f32 normed row before
+    its absmax, as the JAX package does on XLA for that case
+    (`ops/norm.py:47-56` there: no kernel has it); the converter
+    usually folds it into the norm weight instead."""
+    if smoother is None:
+        return _rnq.rmsnorm_quant(x, weight, eps)
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * weight.float() / smoother.float()
+    return quantize_per_token(y)

@@ -362,10 +362,15 @@ def update_token_counts(token_counts, tokens):
 
 
 def init_token_counts(input_ids, seq_lens, vocab_size: int):
-    """Counts [B, V] int32 of each row's prompt tokens, padding excluded."""
+    """Counts [B, V] int32 of each row's prompt tokens, padding excluded.
+    Ids >= vocab_size (prompt tuning's virtual tokens) count nowhere, as
+    JAX's scatter drops them; they are sent to column 0 with a zero count,
+    since a scatter past the row on the card is a device-side assert."""
     b, s = input_ids.shape
-    valid = (torch.arange(s, device=input_ids.device)[None, :]
-             < seq_lens[:, None]).to(torch.int32)
+    real = input_ids < vocab_size
+    valid = ((torch.arange(s, device=input_ids.device)[None, :]
+              < seq_lens[:, None]) & real).to(torch.int32)
     counts = torch.zeros((b, vocab_size), dtype=torch.int32,
                          device=input_ids.device)
-    return counts.scatter_add_(1, input_ids.long(), valid)
+    return counts.scatter_add_(1, torch.where(real, input_ids, 0).long(),
+                               valid)

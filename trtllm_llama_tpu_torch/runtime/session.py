@@ -10,9 +10,13 @@ token counts, min length, bad words over a tail of the history,
 temperature / top-k / top-p and a draw from one device generator seeded
 by `seed`), and optionally records the model's logprob of each token;
 `beam_width > 1` runs beam search (`runtime/beam.py`, a dense or, with
-`beam_paged_block`, a paged cache). The parameters may hold
-any container the port runs (int8 / int4 weight-only, fp8, SmoothQuant,
-a quantized lm_head): the model code dispatches on them. The model is
+`beam_paged_block`, a paged cache). Prompt tuning (`prompt=`, a
+`models.gpt.PromptTuning`, for a model whose forward_prefill takes it)
+rides into the prefill only: sampled tokens are real vocabulary, and the
+virtual ids of the prompt count in no penalty (`init_token_counts`). The
+parameters may hold any container the port runs (int8 / int4
+weight-only, fp8, SmoothQuant, a quantized lm_head): the model code
+dispatches on them. The model is
 `model=` (llama, or a decoder family such as `models.decoder.BLOOM`) or
 the one `models.by_architecture(cfg.architecture)` names.
 
@@ -30,6 +34,7 @@ before every call, as the JAX session publishes its mesh.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 from typing import Optional
 
@@ -147,7 +152,9 @@ class GenerationSession:
         """input_ids: [B, S] numpy (right-padded with pad_id) or a list of
         token lists. seed: the draws' generator (one a call, on the
         session's device, drawn once for the prefill's token and once a
-        decode step). return_logprobs: GenerationOutput.logprobs."""
+        decode step). prompt: a models.gpt.PromptTuning whose table the
+        virtual ids (>= vocab_size) of input_ids read (not with beams).
+        return_logprobs: GenerationOutput.logprobs."""
         with tp_scope(self.group):
             return self._generate(input_ids, seq_lens, sampling,
                                   max_new_tokens, seed, prompt,
@@ -156,10 +163,6 @@ class GenerationSession:
     def _generate(self, input_ids, seq_lens, sampling, max_new_tokens, seed,
                   prompt, return_logprobs) -> GenerationOutput:
         scfg = sampling or SamplingConfig()
-        if prompt is not None:
-            raise NotImplementedError(
-                "prompt tuning (prompt=) belongs to the GPT family "
-                "(models/gpt.py), which is not ported yet")
         if isinstance(input_ids, (list, tuple)):
             if seq_lens is None:
                 seq_lens = np.array([len(x) for x in input_ids], np.int32)
@@ -181,11 +184,13 @@ class GenerationSession:
         padded = np.full((b, bucket), scfg.pad_id, np.int32)
         padded[:, :s] = input_ids
         max_len = min(self.engine_cfg.max_seq_len, bucket + max_new_tokens)
+        if prompt is not None:
+            prompt = self._prompt(prompt)
         if scfg.beam_width > 1:
             if self.group is not None:
                 raise NotImplementedError(
                     "beam search under tensor parallelism is ROADMAP A 5")
-            if return_logprobs:
+            if prompt is not None or return_logprobs:
                 raise NotImplementedError(
                     "beam search does not support prompt tuning or "
                     "return_logprobs (beam scores are returned instead)")
@@ -202,9 +207,9 @@ class GenerationSession:
             caches = model.init_caches(mcfg, b, max_len, dev, self.kv_scales)
             ids = torch.as_tensor(padded, device=dev)
             lens = torch.as_tensor(np.asarray(seq_lens, np.int32), device=dev)
-            logits, caches = model.forward_prefill(self.params, mcfg, ids,
-                                                   lens, caches,
-                                                   rope=self.rope)
+            logits, caches = model.forward_prefill(
+                self.params, mcfg, ids, lens, caches, rope=self.rope,
+                **({} if prompt is None else {"prompt": prompt}))
             counts = (init_token_counts(ids, lens, cfg.vocab_size)
                       if scfg.has_penalties else None)
             tail = _init_tail(ids, lens, tail_len, pad) if tail_len else None
@@ -265,6 +270,21 @@ class GenerationSession:
         return GenerationOutput(
             out.cpu().numpy(), lengths.cpu().numpy(),
             logprobs=None if lp is None else lp.cpu().numpy())
+
+    def _prompt(self, prompt):
+        """The prompt-tuning inputs on the session's device (numpy or
+        tensors; bf16 numpy through the bridge), for a model whose
+        forward_prefill takes them."""
+        if "prompt" not in inspect.signature(
+                self.model.forward_prefill).parameters:
+            raise NotImplementedError(
+                "prompt tuning (prompt=) needs a model whose forward_prefill "
+                "takes prompt= (models/gpt.py)")
+        from ..convert.bridge import tensor_from_numpy
+        return type(prompt)(*(
+            f.to(self.device) if isinstance(f, torch.Tensor)
+            else tensor_from_numpy(np.asarray(f), self.device)
+            for f in prompt))
 
     def _generate_beam(self, padded, seq_lens, scfg: SamplingConfig,
                        max_new: int, max_len: int) -> GenerationOutput:
