@@ -236,8 +236,9 @@
    through convert/hf_families.py (hf_family_params: the loader's config
    against the published fields, f32 first-step logits against HF's own
    forward within HF_TOL), 16 bf16 tokens with the launches held; then
-   at full width and depth (ALiBi, random weights drawn
-   on the card, seed 0; the budget) through GenerationSession(model=decoder.BLOOM):
+   at full width, PATH6_DEPTH (8) of its 30 layers (ALiBi, random weights
+   drawn on the card, seed 0; the budget) through
+   GenerationSession(model=decoder.BLOOM):
    bf16 weights with an 8-token prompt and 50 tokens (row 10 with slopes,
    once per layer) and a 3072-token prompt's prefill (row 12 with
    slopes), then the same tree int8 weight-only (quantize_params; kernel
@@ -291,8 +292,9 @@
    int4 and fp8 weight formats, with int8 weight-only beside them, on
    structure_weights params), every metric finite, the orderings, the
    table of rows; every mode's launches held exactly (accuracy_expect);
-8e. path 11, GPT-2 XL at gpt2-xl's published widths and depth (48
-   layers; run_gpt2): a GPT2LMHeadModel built on the card (seed 0) and
+8e. path 11, GPT-2 XL at gpt2-xl's published widths, PATH11_DEPTH (16)
+   of its 48 layers (the budget; run_gpt2): a GPT2LMHeadModel built on
+   the card (seed 0) and
    converted by convert/hf_gpt.py; f32 (TF32 off) first-token logits
    against HF's forward within HF_TOL and 16 greedy tokens against HF's
    (near ties aside); bf16 tokens and first-token logits against the
@@ -302,13 +304,38 @@
    a repetition penalty keeps every token in the vocabulary); int8
    weight-only, row 2 on its three routes at K 1600 / 6400 (the GEMM's
    ragged last K tile at bs4's 64-row prefill), tokens against the plain
-   path at bs1 and bs4; launches held exactly (row 10 48 a prefill,
-   kernel 3 48 a decode step, row 2 288 an int8 forward). The kernel
+   path at bs1 and bs4; launches held exactly (row 10 a layer a prefill,
+   kernel 3 a layer a decode step, row 2 six a layer an int8 forward).
+   The kernel
    phase holds every kernel at paths 10 and 11's shapes (f32 GEMVs, W8A8
    and row 7 at their rows, row 10 at head dims 32, 64 and 128, kernel 3
    on f32 / bf16, int8 and e4m3 caches; check_accuracy_shapes), and row
    2 at GPT-2 XL's projections on every route, the ragged-K GEMM bit for
    bit against the zero-padded whole-tile call (check_gpt2_shapes);
+8f. path 12, ChatGLM-6B at its full width and depth (run_chatglm;
+   config_from_chatglm's defaults: 28 layers, 32 heads of 128, FFN 16384,
+   vocab 130528): a bf16 state dict under THUDM's key names drawn on the
+   card (seed 0), converted by convert/hf_chatglm.py; f32 (TF32 off): the
+   session's prefill of a 1024-token context and 4 decode steps, logits
+   at each against glm_oracle's one-shot prefix-LM forward (written here)
+   within HF_TOL; bf16 and int8 weight-only: a bs1 8-token prompt and the
+   1024-token context, 8 greedy tokens against the plain path (near ties
+   aside), the context's prefill logits against the plain path, device ms
+   a bs1 decode token beside the byte floor; launches held exactly (row
+   10's non-causal branch 28 a prefill, kernel 3 28 a decode step, row 2
+   six a layer and forward on its route);
+8g. path 13, BERT-large (run_bert; bert-large-uncased's fields: 24
+   layers, 16 heads of 64): an HF BertForQuestionAnswering built on the
+   card (seed 0), converted by convert/hf_bert.py, through InferenceSession
+   (buckets 128 / 256 / 512) at B=8 with ragged lengths up to 512 and
+   token types: f32 hidden states and span logits against HF's forward
+   within HF_TOL; bf16 against the plain path, sequences/s and device ms a
+   forward; the same forward with prefill_streaming_min_s 0 on row 12's
+   non-causal branch. The kernel phase holds rows 10 and 12 with
+   causal=False against their plain versions (f32, bf16, fp16; head dims
+   32-256; GQA groups 1 and 4; lengths S, ragged and 0; S off the tile)
+   and times them at BERT-large's and ChatGLM-6B's shapes and row 12's
+   8192 rows beside the bound and SDPA (check_noncausal);
 9. prints each phase's wall time;
 10. prints a `kernels` JSON line, then as the last line
    {"ok": true, "device": {...}}.
@@ -417,6 +444,8 @@ BLOOM_7B1 = dict(vocab_size=250880, hidden_size=4096, intermediate_size=16384,
                  rms_norm_eps=1e-5, architecture="bloom", dtype="bfloat16",
                  max_position_embeddings=4096)
 BLOOM_LONG = 3072     # a long document's prefill: row 12 runs past 2048 rows
+PATH6_DEPTH = 8       # Bloom-7b1's random-weight layers (30 published; the
+                      # budget, since paths 12 and 13 came in)
 BLOOM_ENGINE = dict(max_batch_size=1, max_input_len=BLOOM_LONG,
                     max_seq_len=BLOOM_LONG + 1)
 # The other decoder families at their published widths, FAMILY_LAYERS deep:
@@ -506,6 +535,8 @@ _FLASH_DECODE = "trtllm_llama_tpu_torch/csrc/flash_decode.cuh"
 _FLASH_WS = "trtllm_llama_tpu_torch/csrc/flash_attention_ws.cuh"
 ALIBI_PREFILL = "prefill_attention_kernel (ALiBi)"
 ALIBI_STREAMING = "streaming_prefill_attention_kernel (ALiBi)"
+NONCAUSAL_PREFILL = "prefill_attention_kernel (non-causal)"
+NONCAUSAL_STREAMING = "streaming_prefill_attention_kernel (non-causal)"
 FUSED_G71 = "fused_decode_attention (group 71)"
 # kernels 1 and 6 at prefill rows: the tensor-core GEMM (csrc/woq_gemm.cuh)
 GEMM_INT8 = "woq_matmul_stacked (GEMM)"
@@ -666,6 +697,11 @@ KERNELS = {
         "trtllm_llama_tpu_torch/csrc/prefill_attention.cu"),
     ALIBI_STREAMING: (
         "streaming_prefill_attention_kernel", f"{_ATTN_PY}:433", _FLASH_WS),
+    NONCAUSAL_PREFILL: (
+        "prefill_attention_kernel", f"{_ATTN_PY}:504",
+        "trtllm_llama_tpu_torch/csrc/flash_attention.cuh"),
+    NONCAUSAL_STREAMING: (
+        "streaming_prefill_attention_kernel", f"{_ATTN_PY}:433", _FLASH_WS),
     FUSED_G71: (
         "fused_decode_attention", f"{_ATTN_PY}:185", _FLASH_DECODE),
     GEMM_INT8: (
@@ -824,20 +860,24 @@ def split_edges():
             + [(4, 32, 32, LONG_S_MAX, [0, edge4 - 1, edge4, 8200])])
 
 
-def prefill_attention_work(lens, s, hq, hkv, d, itemsize=2, alibi=False):
+def prefill_attention_work(lens, s, hq, hkv, d, itemsize=2, alibi=False,
+                           causal=True):
     """(bytes, operations) that row 10's contract needs on [B, S] inputs
     with valid lengths `lens`: a sequence of length n > 0 reads its S rows
     of q and min(n, S) rows of K and V and does 4 * D operations per
-    unmasked (row, col) pair for each q head; one of length 0 averages V
-    over all S rows (one add a value), reading no q and no K. Every row's
-    output is written; lens (and slopes) are read once."""
+    unmasked (row, col) pair for each q head (causal: the triangle and
+    the rows past n; not causal: every row against the n columns); one of
+    length 0 averages V over all S rows (one add a value), reading no q
+    and no K. Every row's output is written; lens (and slopes) are read
+    once."""
     n_bytes, ops = len(lens) * 4 + (hq * 4 if alibi else 0), 0
     for n in lens:
         n_bytes += s * hq * d * itemsize                       # out
         if n > 0:
             m = min(n, s)
             n_bytes += (s * hq + 2 * m * hkv) * d * itemsize   # q, K, V
-            ops += 4 * hq * d * (m * (m + 1) // 2 + (s - m) * m)
+            ops += 4 * hq * d * (m * (m + 1) // 2 + (s - m) * m if causal
+                                 else s * m)
         else:
             n_bytes += s * hkv * d * itemsize                  # V
             ops += s * hkv * d
@@ -5609,7 +5649,8 @@ def zero_counts():
     for fn in _wrappers().values():
         fn.launches = 0
         for extra in ("gemm_launches", "tc_launches", "swiglu_launches",
-                      "window_launches", "ragged_launches"):
+                      "window_launches", "ragged_launches",
+                      "noncausal_launches"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
     attention.fused_decode_attention_at.alibi_calls = 0
@@ -5627,7 +5668,9 @@ def read_counts():
                            ("gemm_launches", f"{k}.gemm_launches"),
                            ("tc_launches", f"{k}.tc_launches"),
                            ("window_launches", f"{k}.window_launches"),
-                           ("ragged_launches", f"{k}.ragged_launches")):
+                           ("ragged_launches", f"{k}.ragged_launches"),
+                           ("noncausal_launches",
+                            f"{k}.noncausal_launches")):
             if getattr(f, attr, 0):
                 counts[name] = getattr(f, attr)
     return counts, attention.fused_decode_attention_at.alibi_calls
@@ -5798,7 +5841,7 @@ def hf_family_params(tag, cfg, errors, results):
 
 
 def run_bloom(args, errors, results):
-    """Path 6: Bloom-7b1 at full width and depth through
+    """Path 6: Bloom-7b1 at full width, PATH6_DEPTH layers, through
     GenerationSession(model=decoder.BLOOM). 6a, bf16 weights: the 8-token
     prompt with 50 tokens (row 10 with slopes, once per layer), the
     3072-token prompt's prefill (row 12 with slopes); 6b, the same
@@ -5821,8 +5864,8 @@ def run_bloom(args, errors, results):
     hf_cfg = ModelConfig(**{**BLOOM_7B1, "num_layers": min(
         args.layers, BLOOM_HF_LAYERS)})
     print(f"path 6: Bloom-7b1 from an HF model at {hf_cfg.num_layers} "
-          "layers (convert/hf_families.py), then at full depth with random "
-          "weights (the budget)")
+          f"layers (convert/hf_families.py), then at {PATH6_DEPTH} layers "
+          "with random weights (the budget)")
     hf_params = hf_family_params("Bloom-7b1", hf_cfg, errors, results)
     sess = GenerationSession(hf_cfg, hf_params, EngineConfig(
         max_batch_size=1, max_input_len=16, max_seq_len=64), device="cuda",
@@ -5844,7 +5887,7 @@ def run_bloom(args, errors, results):
     torch.cuda.empty_cache()
 
     cfg = ModelConfig(**{**BLOOM_7B1, "num_layers": min(
-        args.layers, BLOOM_7B1["num_layers"])})
+        args.layers, PATH6_DEPTH)})
     n_l = cfg.num_layers
     print(f"path 6: Bloom-7b1 (bigscience/bloom-7b1 config.json), "
           f"{n_l} layers, ALiBi, bf16, random weights (seed 0), "
@@ -6119,7 +6162,7 @@ ACC_KL_REL, ACC_KL_ABS, ACC_PPL_ABS = 5e-2, 1e-6, 2e-3
 # (b) LLaMA-7B width at ACC_7B_LAYERS layers (the smoke's budget):
 # tests/test_accuracy_midscale.py's batch, prompt and continuation
 ACC_7B = dict(hidden=4096, heads=32, intermediate=11008, vocab=32000)
-ACC_7B_LAYERS = 4
+ACC_7B_LAYERS = 2
 ACC_7B_PROMPTS = (4, 48)
 ACC_7B_CONT = 24
 # (b)'s modes on structure_weights params (the midscale tier's, which runs
@@ -6403,6 +6446,7 @@ GPT2_XL = dict(vocab_size=50257, n_embd=1600, n_layer=48, n_head=25,
                n_inner=None, n_positions=1024, activation_function="gelu_new",
                layer_norm_epsilon=1e-5)
 GPT2_NEW = 16
+PATH11_DEPTH = 16     # GPT-2 XL's layers here (48 published; the budget)
 GPT2_ENGINE = dict(max_batch_size=4, max_input_len=16, max_seq_len=64)
 HF_TOL = 1e-3        # f32 logits against HF's own forward, x max |logit|
 PT_TASKS, PT_TOKENS = 2, 8   # prompt tuning: tasks x virtual tokens each
@@ -6474,7 +6518,8 @@ def gpt2_expect(n_l, prefills, steps, proj=0, gemm=0, tc=0, ragged=0):
 
 
 def run_gpt2(args, errors, results):
-    """Path 11: GPT-2 XL at its published widths and depth (GPT2_XL),
+    """Path 11: GPT-2 XL at its published widths (GPT2_XL), PATH11_DEPTH
+    of its 48 layers,
     GPT2LMHeadModel built on the card from seed 0, converted by
     convert/hf_gpt.py, run through GenerationSession(model=gpt): f32 (TF32
     off) first-token logits against HF's forward within HF_TOL and 16
@@ -6501,8 +6546,8 @@ def run_gpt2(args, errors, results):
     from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
     from trtllm_llama_tpu_torch.runtime.session import GenerationSession
 
-    # the published depth, or --layers where it cuts the paths below 32
-    n_l = GPT2_XL["n_layer"] if args.layers >= 32 else args.layers
+    # PATH11_DEPTH of the published 48, or --layers where it is fewer
+    n_l = min(args.layers, PATH11_DEPTH)
     hf_cfg = GPT2Config(**{**GPT2_XL, "n_layer": n_l})
     t0 = time.perf_counter()
     torch.manual_seed(0)
@@ -7435,6 +7480,521 @@ def tp_rank(rank, world, spec_path):
     print(f"{tag}: {len(errors)} errors")
 
 
+# ---------------------------------------------------------------------------
+# bidirectional attention: the non-causal branch of rows 10 and 12, path 12
+# (ChatGLM-6B's prefix-LM context) and path 13 (the BERT-large encoder)
+# ---------------------------------------------------------------------------
+
+F16_TOL = 2.0 ** -10  # fp16 kernels against their plain versions
+BERT_LENS = (512, 384, 300, 256, 128, 77, 16, 1)   # path 13's batch
+NONCAUSAL_CHECKS = [  # (B, S, Hq, Hkv, D, lens): every dtype, both rows
+    (3, 200, 8, 8, 64, [200, 77, 0]),     # S off the tile, ragged and 0
+    (3, 200, 32, 8, 128, [200, 77, 0]),   # GQA group 4
+    (2, 130, 4, 1, 32, [130, 1]),         # D 32 (row 12: row 10's tile)
+    (2, 130, 8, 2, 256, [130, 0]),        # D 256
+]
+NONCAUSAL_TIMED = [  # (row, B, S, Hq, D, lens): bf16, timed
+    (10, 8, 512, 16, 64, [512] * 8),      # BERT-large, full length
+    (10, 8, 512, 16, 64, list(BERT_LENS)),  # path 13's ragged batch
+    (10, 1, 1024, 32, 128, [1024]),       # ChatGLM-6B, path 12's context
+    (10, 1, 2048, 32, 128, [2048]),       # ChatGLM-6B's longest context
+    (12, 8, 512, 16, 64, list(BERT_LENS)),  # path 13 at min_s 0
+    (12, 1, 8192, 32, 128, [8192]),       # row 12's long shape
+]
+
+
+def check_noncausal(errors, results):
+    """Rows 10 and 12 with causal=False against their plain versions on the
+    same card tensors: f32, bf16 and fp16 at NONCAUSAL_CHECKS (head dims
+    32, 64, 128, 256; GQA groups 1 and 4; B > 1 with lengths S, ragged and
+    0; S off the 64-row tile), one launch a call counted in
+    `.noncausal_launches`; then bf16 at NONCAUSAL_TIMED, timed beside the
+    bound (the full rectangle's 4 * Hq * S * len * D operations, or the
+    bytes) and SDPA (no mask at full length, a boolean length mask where
+    lengths are ragged)."""
+    import torch
+    import torch.nn.functional as F
+    from trtllm_llama_tpu_torch.ops.kernels import prefill_attention as pa
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+
+    print("kernels prefill_attention_kernel and "
+          "streaming_prefill_attention_kernel, causal=False:")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rows = {10: (NONCAUSAL_PREFILL, pa, "prefill_attention_kernel"),
+            12: (NONCAUSAL_STREAMING, spa,
+                 "streaming_prefill_attention_kernel")}
+    tols = {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
+            torch.float16: F16_TOL}
+    errs = {}
+    for row, (key, mod, attr) in rows.items():
+        fn, plain = getattr(mod, attr), getattr(mod, attr + "_plain")
+        for dtype, tol in tols.items():
+            for b, s, hq, hkv, d, lens in NONCAUSAL_CHECKS:
+                q = torch.randn((b, s, hq, d), generator=g, device="cuda")
+                k, v = (torch.randn((b, s, hkv, d), generator=g,
+                                    device="cuda") for _ in range(2))
+                q, k, v = (t.to(dtype) for t in (q, k, v))
+                sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                n0 = (fn.launches, fn.noncausal_launches)
+                got = fn(q, k, v, sl, causal=False)
+                ref = plain(q, k, v, sl, causal=False)
+                torch.cuda.synchronize()
+                one = (fn.launches - n0[0], fn.noncausal_launches - n0[1])
+                if one != (1, 1):
+                    errors.append(f"row {row} non-causal: launches {one}")
+                name = (f"row {row} {str(dtype)[6:]} B={b} S={s} Hq={hq} "
+                        f"Hkv={hkv} D={d} lens={lens}")
+                errs[key] = max(errs.get(key, 0.0),
+                                compare(name, got, ref, errors, tol=tol))
+    for row, b, s, hq, d, lens in NONCAUSAL_TIMED:
+        key, mod, attr = rows[row]
+        fn, plain = getattr(mod, attr), getattr(mod, attr + "_plain")
+        q, k, v = (torch.randn((b, s, hq, d), generator=g, device="cuda"
+                               ).to(torch.bfloat16) for _ in range(3))
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        name = f"row {row} bf16 B={b} S={s} Hq=Hkv={hq} D={d}"
+        got = fn(q, k, v, sl, causal=False)
+        ref = plain(q, k, v, sl, causal=False)
+        errs[key] = max(errs[key], compare(f"{name} lens={lens}", got, ref,
+                                           errors))
+        del got, ref
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        full = all(n == s for n in lens)
+        mask = None if full else (
+            torch.arange(s, device="cuda")[None, None, None, :]
+            < sl[:, None, None, None])
+        long = s * s * b * hq > 2 ** 30
+        t_k = time_ms(lambda i: fn(q, k, v, sl, causal=False))
+        t_p = time_ms(lambda i: plain(q, k, v, sl, causal=False),
+                      **(dict(iters=2, warmup=1, reps=1) if long else {}))
+        t_l = time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        b_ms, b_by = bound_ms(*prefill_attention_work(lens, s, hq, hq, d,
+                                                      causal=False))
+        print(f"  time {name} {'full length' if full else f'lens={lens}'}: "
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library(sdpa, "
+              f"{'no mask' if full else 'length mask'}) {t_l:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}), {100 * b_ms / t_k:.1f}% of it")
+        entry = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                     bound_by=b_by, shape=f"B={b} S={s} lens={lens} "
+                     f"Hq=Hkv={hq} D={d} bf16, causal=False")
+        if key not in results:
+            results[key] = entry
+        else:
+            results[key].setdefault("more", []).append(entry)
+        del q, k, v, qt, kt, vt, mask
+    for key, err in errs.items():
+        results[key]["max_abs_err"] = err
+
+
+# ChatGLM-6B (THUDM/chatglm-6b's config.json, config_from_chatglm's
+# defaults): 28 layers, 4096 wide, 32 heads of 128, FFN 16384, vocab
+# 130528, 2048 positions
+GLM_CONTEXT = 1024    # path 12's long prompt (its bucket is 1024 rows)
+GLM_NEW = 8
+GLM_STEPS = 4         # f32 decode steps held against the one-shot oracle
+GLM_ENGINE = dict(max_batch_size=1, max_input_len=GLM_CONTEXT,
+                  max_seq_len=GLM_CONTEXT + 2 * GLM_NEW)
+
+
+def chatglm_state_dict(cfg, seed=0):
+    """A bf16 state dict with THUDM's key names drawn on the card
+    (torch.Generator seeded with `seed`): projections normal * fan_in**-0.5,
+    biases normal * 0.02, unit LayerNorm weights, zero LayerNorm biases;
+    the fused query_key_value [3 * H * D, hidden] in THUDM's head-interleaved
+    [head, (q, k, v), head_dim] order."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+
+    def w(*shape, fan_in=None, scale=None):
+        t = torch.randn(shape, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        return t.mul_(scale if scale is not None else fan_in ** -0.5)
+
+    sd = {"transformer.word_embeddings.weight": w(v, d, fan_in=d),
+          "transformer.final_layernorm.weight": torch.ones(
+              d, device="cuda", dtype=torch.bfloat16),
+          "transformer.final_layernorm.bias": torch.zeros(
+              d, device="cuda", dtype=torch.bfloat16),
+          "lm_head.weight": w(v, d, fan_in=d)}
+    for i in range(cfg.num_layers):
+        p = f"transformer.layers.{i}."
+        for name, n_out, n_in in (("attention.query_key_value", 3 * d, d),
+                                  ("attention.dense", d, d),
+                                  ("mlp.dense_h_to_4h", f, d),
+                                  ("mlp.dense_4h_to_h", d, f)):
+            sd[p + name + ".weight"] = w(n_out, n_in, fan_in=n_in)
+            sd[p + name + ".bias"] = w(n_out, scale=0.02)
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            sd[p + name + ".weight"] = torch.ones(d, device="cuda",
+                                                  dtype=torch.bfloat16)
+            sd[p + name + ".bias"] = torch.zeros(d, device="cuda",
+                                                 dtype=torch.bfloat16)
+    return sd
+
+
+def glm_oracle(params, cfg, ids, ctx_len, mask_pos):
+    """One-shot GLM forward over ids [B, T] in plain torch (written here
+    from the reference's vendored modeling_chatglm.py semantics, not from
+    the port's code): the first ctx_len tokens are context, seen both ways,
+    the rest causal; 2D rotary with channel 0 the position in the context
+    (frozen at mask_pos past it) and channel 1 0 in the context, then 1, 2,
+    ...; post-LN residuals scaled by sqrt(2 L); exact GELU. Returns f32
+    logits [B, T, V]."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    lw = params["layers"]
+    b, t = ids.shape
+    d, h, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    half = hd // 2
+    alpha = math.sqrt(2.0 * cfg.num_layers)
+    i = torch.arange(t, device="cuda")
+    pos0 = torch.where(i < ctx_len, i, torch.full_like(i, mask_pos))
+    pos1 = torch.where(i < ctx_len, torch.zeros_like(i), i - ctx_len + 1)
+    allowed = (i[None, :] < ctx_len) | (i[None, :] <= i[:, None])
+    inv = 1.0 / (10000.0 ** (torch.arange(0, half, 2, device="cuda").float()
+                             / half))
+
+    def rope_half(x, pos):                       # x [B, T, H, half]
+        ang = pos[:, None].float() * inv[None]
+        ang = torch.cat([ang, ang], -1)[None, :, None, :]
+        x1, x2 = x[..., :half // 2], x[..., half // 2:]
+        return x * torch.cos(ang) + torch.cat([-x2, x1], -1) * torch.sin(ang)
+
+    def ln(x, w, bias):
+        return F.layer_norm(x, (d,), w, bias, cfg.rms_norm_eps)
+
+    with torch.inference_mode():
+        x = params["embedding"][ids.long()].float()
+        for layer in range(cfg.num_layers):
+            a_in = ln(x, lw["ln1_w"][layer], lw["ln1_b"][layer])
+            q, k, v = ((a_in @ lw[w_][layer] + lw[b_][layer]).view(b, t, h,
+                                                                   hd)
+                       for w_, b_ in (("wq", "bq"), ("wk", "bk"),
+                                      ("wv", "bv")))
+            q, k = (torch.cat([rope_half(y[..., :half], pos0),
+                               rope_half(y[..., half:], pos1)], -1)
+                    for y in (q, k))
+            scores = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(hd)
+            probs = torch.softmax(scores.masked_fill(~allowed, -1e9), -1)
+            attn = torch.einsum("bhij,bjhd->bihd", probs, v).reshape(b, t, d)
+            x = a_in * alpha + attn @ lw["wo"][layer] + lw["bo"][layer]
+            m_in = ln(x, lw["ln2_w"][layer], lw["ln2_b"][layer])
+            mid = F.gelu(m_in @ lw["w_fc"][layer] + lw["b_fc"][layer])
+            x = m_in * alpha + mid @ lw["w_proj"][layer] + lw["b_proj"][layer]
+        x = ln(x, params["final_norm_w"], params["final_norm_b"])
+        return x @ params["lm_head"]
+
+
+def glm_expect(n_l, prefills, steps, proj=0, gemm=0, tc=0):
+    """Launches of a ChatGLM run: row 10's non-causal branch a layer a
+    prefill, kernel 3 a layer a decode step; with int8 weights row 2 six
+    times a layer and forward (wq, wk, wv, wo, w_fc, w_proj; its GEMM /
+    tensor-core GEMV shares given as forwards)."""
+    want = {"prefill_attention_kernel": n_l * prefills,
+            "prefill_attention_kernel.noncausal_launches": n_l * prefills}
+    if steps:
+        want["dma_decode_attention"] = n_l * steps
+    if proj:
+        want["woq_matmul_stacked"] = 6 * n_l * proj
+        for key, n in (("gemm", gemm), ("tc", tc)):
+            if n:
+                want[f"woq_matmul_stacked.{key}_launches"] = 6 * n_l * n
+    return want
+
+
+def run_chatglm(args, errors, results):
+    """Path 12: ChatGLM-6B at its full width and depth (config_from_chatglm's
+    defaults; --layers below 28 cuts the depth), random weights drawn on the
+    card from seed 0 under THUDM's key names and converted by
+    convert/hf_chatglm.py, through GenerationSession(model=chatglm):
+    f32 (TF32 off): the session's own prefill of a 1024-token context and
+    GLM_STEPS decode steps (replay_steps), logits at each step against
+    glm_oracle's one-shot forward within HF_TOL; bf16 and int8 weight-only:
+    a bs1 8-token prompt and the 1024-token context, GLM_NEW greedy tokens
+    against the plain path (near ties aside), the context's prefill logits
+    against the plain path, device ms a bs1 decode token against the byte
+    floor. Launches held exactly in every run (row 10's non-causal branch
+    28 a prefill, kernel 3 28 a decode step, row 2 six a layer and forward
+    on its route)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from trtllm_llama_tpu_torch import EngineConfig, QuantMode
+    from trtllm_llama_tpu_torch.convert.hf_chatglm import (
+        config_from_chatglm, params_from_chatglm_state_dict)
+    from trtllm_llama_tpu_torch.models import chatglm
+    from trtllm_llama_tpu_torch.ops.kernels import woq_matmul as woq
+    from trtllm_llama_tpu_torch.quantization.quantize import quantize_params
+    from trtllm_llama_tpu_torch.runtime.sampling import SamplingConfig
+    from trtllm_llama_tpu_torch.runtime.session import GenerationSession
+
+    n_l = min(28, args.layers)
+    cfg = config_from_chatglm(num_layers=n_l, dtype="float32")
+    t0 = time.perf_counter()
+    sd = chatglm_state_dict(cfg)
+    p32 = params_from_chatglm_state_dict(sd, cfg)
+    torch.cuda.synchronize()
+    print(f"path 12: ChatGLM-6B (config_from_chatglm), {n_l} layers, "
+          f"{cfg.hidden_size} wide, 32 heads of 128, FFN "
+          f"{cfg.intermediate_size}, vocab {cfg.vocab_size}; THUDM-layout "
+          f"state dict drawn on the card (seed 0) and converted in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    ecfg = EngineConfig(**GLM_ENGINE)
+    scfg = SamplingConfig(end_id=-1)
+    rng = np.random.default_rng(12)
+    ctx = rng.integers(3, cfg.vocab_size, (1, GLM_CONTEXT))
+    short = rng.integers(3, cfg.vocab_size, (1, 8))
+    forced = rng.integers(3, cfg.vocab_size, (1, GLM_STEPS))
+    e2e = results["_e2e"].setdefault("path 12", dict(layers=n_l))
+
+    # f32: the session's prefill and decode steps against the oracle
+    sess = GenerationSession(cfg, p32, ecfg, device="cuda", model=chatglm)
+    zero_counts()
+    t0 = time.perf_counter()
+    steps = replay_steps(sess, ctx, forced, scfg, GLM_NEW)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check_counts("path 12 f32", read_counts(),
+                 dict(launches=glm_expect(n_l, 1, GLM_STEPS),
+                      alibi_decode=0), errors)
+    credit(results, NONCAUSAL_PREFILL, n_l)
+    credit(results, "dma_decode_attention", n_l * GLM_STEPS)
+    full = torch.as_tensor(np.concatenate([ctx, forced], 1), device="cuda")
+    ref = glm_oracle(sess.params, cfg, full, GLM_CONTEXT, GLM_CONTEXT - 2)
+    err = 0.0
+    for t, got in enumerate(steps):
+        err = max(err, compare(f"path 12 f32 logits of position "
+                               f"{GLM_CONTEXT - 1 + t} (prefill + {t} decode "
+                               f"steps) vs the one-shot oracle", got[0],
+                               ref[0, GLM_CONTEXT - 1 + t], errors,
+                               tol=HF_TOL))
+    print(f"  f32 prefill of {GLM_CONTEXT} + {GLM_STEPS} decode steps: "
+          f"{ms:.1f} ms")
+    e2e.update(f32_max_abs_err_vs_oracle=err, f32_ms=ms)
+    del sess, steps, ref, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 and int8 weight-only against the plain path
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    p16 = params_from_chatglm_state_dict(sd, cfg16)
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg8 = dataclasses.replace(cfg16, quant_mode=QuantMode.use_weight_only())
+    q8 = quantize_params(p16, QuantMode.use_weight_only())
+    for tag, c, p in (("bf16", cfg16, p16), ("int8", cfg8, q8)):
+        proj = tag == "int8"
+        w_bytes = sum(t.qweight.numel() + 4 * t.scale.numel()
+                      if hasattr(t, "qweight") else t.numel() * 2
+                      for k, t in p["layers"].items() if k.startswith("w"))
+        w_bytes += p["lm_head"].numel() * 2
+        floor = w_bytes / HBM_BYTES_PER_S * 1e3
+        sess = GenerationSession(c, p, ecfg, device="cuda", model=chatglm)
+        timed_generate(sess, short, 2)
+        _, pre_ms = timed_generate(sess, short, 1)
+        zero_counts()
+        out, ms = timed_generate(sess, short, GLM_NEW)
+        t0 = time.perf_counter()
+        out_ctx = sess.generate(ctx, sampling=scfg, max_new_tokens=GLM_NEW)
+        torch.cuda.synchronize()
+        ctx_ms = (time.perf_counter() - t0) * 1e3
+        routes = {"bs1 prefill": (ecfg.bucket_for(8), 1),
+                  "context prefill": (GLM_CONTEXT, 1),
+                  "decode": (1, 2 * (GLM_NEW - 1))}
+        gemm = sum(n for r, n in routes.values()
+                   if woq.gemm_route(r, torch.bfloat16, k=cfg.hidden_size))
+        tc = sum(n for r, n in routes.values()
+                 if not woq.gemm_route(r, torch.bfloat16, k=cfg.hidden_size)
+                 and woq.tc_route(r, torch.bfloat16, cfg.hidden_size))
+        want = glm_expect(n_l, 2, 2 * (GLM_NEW - 1),
+                          proj=2 * GLM_NEW if proj else 0, gemm=gemm, tc=tc)
+        counts = read_counts()
+        check_counts(f"path 12 {tag}", counts,
+                     dict(launches=want, alibi_decode=0), errors)
+        launches = counts[0]
+        credit(results, NONCAUSAL_PREFILL, 2 * n_l)
+        credit(results, "dma_decode_attention", 2 * n_l * (GLM_NEW - 1))
+        if proj:
+            n_gemm = launches.get("woq_matmul_stacked.gemm_launches", 0)
+            n_tc = launches.get("woq_matmul_stacked.tc_launches", 0)
+            for key, n in (("woq_matmul_stacked",
+                            launches.get("woq_matmul_stacked", 0) - n_gemm
+                            - n_tc), (GEMM_INT8, n_gemm), (TC_INT8, n_tc)):
+                credit(results, key, n)
+            print(f"  int8 routes (rows, forwards): {routes}; GEMM forwards "
+                  f"{gemm}, tensor-core GEMV forwards {tc}")
+        check_tokens(f"path 12 {tag}", out, GLM_NEW, cfg.vocab_size, errors)
+        pairs = attention_pairs() + ([(woq, "woq_matmul_stacked")] if proj
+                                     else [])
+        tokens_vs_plain(f"path 12 {tag} bs1 in8", sess, short, out, pairs,
+                        GLM_NEW, errors)
+        tokens_vs_plain(f"path 12 {tag} bs1 in{GLM_CONTEXT}", sess, ctx,
+                        out_ctx, pairs, GLM_NEW, errors)
+        got, ref = first_logits(chatglm, sess, ctx, pairs)
+        compare(f"path 12 {tag} {GLM_CONTEXT}-token prefill logits, kernels "
+                "vs plain", got, ref, errors, tol=LOGITS_TOL)
+        dev_tok, busy = profile_generate(sess, short, scfg, row_limit=10)
+        dec_ms = (ms - pre_ms) / (GLM_NEW - 1)
+        print(f"  {tag} bs1: prefill {pre_ms:.2f} ms, decode {dec_ms:.3f} "
+              f"ms/token (wall), device {dev_tok:.3f} ms per decode token "
+              f"against the byte floor {floor:.3f} ms ({w_bytes / 1e9:.2f} "
+              f"GB of weights at 3.35 TB/s); the {GLM_CONTEXT}-token "
+              f"request: {ctx_ms:.1f} ms for {GLM_NEW} tokens")
+        e2e.update({f"{tag}_prefill_ms": pre_ms,
+                    f"{tag}_decode_ms_per_token": dec_ms,
+                    f"{tag}_device_ms_per_decode_token": dev_tok,
+                    f"{tag}_device_busy_share": busy,
+                    f"{tag}_byte_floor_ms": floor,
+                    f"{tag}_context_request_ms": ctx_ms})
+        del sess
+        gc.collect()
+    del p16, q8
+
+
+# bert-large-uncased's config.json
+BERT_LARGE = dict(vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
+                  num_attention_heads=16, intermediate_size=4096,
+                  max_position_embeddings=512, type_vocab_size=2,
+                  layer_norm_eps=1e-12)
+BERT_BUCKETS = (128, 256, 512)
+BERT_RUNS = 10        # bf16 forwards timed for sequences/s
+
+
+def run_bert(args, errors, results):
+    """Path 13: BERT-large (BERT_LARGE, --layers below 24 cuts the depth),
+    an HF BertForQuestionAnswering built on the card from seed 0 and
+    converted by convert/hf_bert.py, through InferenceSession (bucket
+    ladder BERT_BUCKETS): B=8 with ragged lengths BERT_LENS and random
+    token types; f32 (TF32 off) hidden states (bert.forward) and span
+    logits (bert.forward_qa) against HF's own forward with the padding
+    mask within HF_TOL; bf16 against the plain path, sequences/s and
+    device ms a forward; the same forward with prefill_streaming_min_s 0
+    on row 12's non-causal branch. Launches: row 10's non-causal branch
+    once a layer a forward, row 12's in the streamed one."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from transformers import BertConfig as HFBertConfig
+    from transformers import BertForQuestionAnswering
+    from trtllm_llama_tpu_torch.convert.hf_bert import params_from_hf_bert
+    from trtllm_llama_tpu_torch.models import bert
+    from trtllm_llama_tpu_torch.ops.kernels import (
+        streaming_prefill_attention as spa,
+    )
+    from trtllm_llama_tpu_torch.ops.registry import KERNELS as ROUTES
+    from trtllm_llama_tpu_torch.runtime.single_shot import InferenceSession
+
+    n_l = min(BERT_LARGE["num_hidden_layers"], args.layers)
+    hf_cfg = HFBertConfig(**{**BERT_LARGE, "num_hidden_layers": n_l})
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        hf = BertForQuestionAnswering(hf_cfg).eval()
+    cfg = bert.BertConfig.from_hf_config(hf_cfg)
+    p32 = params_from_hf_bert(hf, cfg)
+    torch.cuda.synchronize()
+    print(f"path 13: BERT-large (bert-large-uncased config.json), {n_l} "
+          f"layers, 16 heads of 64; HF BertForQuestionAnswering built on the "
+          f"card (seed 0) and converted in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(13)
+    b, s = len(BERT_LENS), max(BERT_LENS)
+    ids = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    types = rng.integers(0, 2, (b, s)).astype(np.int32)
+    lens = np.asarray(BERT_LENS, np.int32)
+    e2e = results["_e2e"].setdefault("path 13", dict(layers=n_l))
+    dev = lambda a: torch.as_tensor(a, device="cuda")
+    mask = dev((np.arange(s)[None] < lens[:, None]).astype(np.int64))
+
+    # f32 against HF's own forward
+    with torch.inference_mode():
+        kw = dict(attention_mask=mask, token_type_ids=dev(types).long())
+        ref_hidden = hf.bert(dev(ids).long(), **kw).last_hidden_state
+        ref = hf(dev(ids).long(), **kw)
+    zero_counts()
+    enc = InferenceSession(bert.forward, cfg, p32, pad_axis=1,
+                           buckets=BERT_BUCKETS, device="cuda")
+    qa = InferenceSession(bert.forward_qa, cfg, p32, pad_axis=1,
+                          buckets=BERT_BUCKETS, device="cuda")
+    hidden = enc.warmup(ids, lens, types)
+    start, end = qa.warmup(ids, lens, types)
+    want = {"prefill_attention_kernel": 2 * n_l,
+            "prefill_attention_kernel.noncausal_launches": 2 * n_l}
+    check_counts("path 13 f32", read_counts(),
+                 dict(launches=want, alibi_decode=0), errors)
+    credit(results, NONCAUSAL_PREFILL, 2 * n_l)
+    err = max(compare("path 13 f32 hidden states vs HF's forward", hidden,
+                      ref_hidden, errors, tol=HF_TOL),
+              compare("path 13 f32 start logits vs HF's", start,
+                      ref.start_logits, errors, tol=HF_TOL),
+              compare("path 13 f32 end logits vs HF's", end,
+                      ref.end_logits, errors, tol=HF_TOL))
+    e2e.update(f32_max_abs_err_vs_hf=err)
+    del hf, ref, ref_hidden, enc, qa
+    gc.collect()
+
+    # bf16: the plain path, sequences/s, device ms a forward, row 12
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    p16 = _tree_map(lambda t: t.to(torch.bfloat16), p32)
+    del p32
+    sess = InferenceSession(bert.forward, cfg16, p16, pad_axis=1,
+                            buckets=BERT_BUCKETS, device="cuda")
+    sess.warmup(ids, lens, types)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BERT_RUNS):
+        out16 = sess.run(ids, lens, types)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_counts("path 13 bf16", read_counts(), dict(launches={
+        "prefill_attention_kernel": BERT_RUNS * n_l,
+        "prefill_attention_kernel.noncausal_launches": BERT_RUNS * n_l},
+        alibi_decode=0), errors)
+    credit(results, NONCAUSAL_PREFILL, BERT_RUNS * n_l)
+    with plain_path(attention_pairs()):
+        plain16 = sess.run(ids, lens, types)
+    compare("path 13 bf16 hidden states, kernels vs plain", out16, plain16,
+            errors, tol=LOGITS_TOL)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sess.run(ids, lens, types)
+        torch.cuda.synchronize()
+    dev_ms = device_ms_of(prof)
+    seq_s = b * BERT_RUNS / wall
+    print(f"  bf16 B={b} S={s}: {seq_s:.1f} sequences/s ({wall * 1e3 / BERT_RUNS:.2f} "
+          f"wall ms a forward), device {dev_ms:.3f} ms a forward")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=8, max_name_column_width=60))
+    n0 = spa.streaming_prefill_attention_kernel.noncausal_launches
+    with mock.patch.dict(ROUTES, prefill_streaming_min_s=0):
+        streamed = sess.run(ids, lens, types)
+    n = spa.streaming_prefill_attention_kernel.noncausal_launches - n0
+    compare("path 13 bf16 hidden states on row 12 vs row 10", streamed,
+            out16, errors, tol=LOGITS_TOL)
+    print(f"  row 12 non-causal launches in the streamed forward: {n} "
+          f"(expected {n_l}) {'ok' if n == n_l else 'FAIL'}")
+    if n != n_l:
+        errors.append(f"path 13: row 12 launched {n} times, not {n_l}")
+    credit(results, NONCAUSAL_STREAMING, n)
+    e2e.update(bf16_sequences_per_s=seq_s,
+               bf16_wall_ms_per_forward=wall * 1e3 / BERT_RUNS,
+               bf16_device_ms_per_forward=dev_ms)
+    del sess, p16
+
+
 def check_kernels(errors, results):
     """Every kernel against its plain version at the shapes the paths and
     the serving phase give it."""
@@ -7463,6 +8023,7 @@ def check_kernels(errors, results):
     check_windows(errors, results)
     check_accuracy_shapes(errors, results)
     check_gpt2_shapes(errors, results)
+    check_noncausal(errors, results)
 
 
 def main(argv=None) -> int:
@@ -7516,7 +8077,9 @@ def main(argv=None) -> int:
                 lambda: serve_families(args, errors, results)),
                (PATH9, lambda: run_tp(args, errors, results)),
                ("path 10", lambda: run_accuracy(args, errors, results)),
-               ("path 11", lambda: run_gpt2(args, errors, results))]
+               ("path 11", lambda: run_gpt2(args, errors, results)),
+               ("path 12", lambda: run_chatglm(args, errors, results)),
+               ("path 13", lambda: run_bert(args, errors, results))]
     for name, phase in phases:
         t = time.perf_counter()
         zero_counts()

@@ -123,7 +123,7 @@ def main() -> int:
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      lens.data_ptr(), None, o.data_ptr(),
                      _build.DTYPE_CODES[torch.bfloat16], 1, s, 32, 32, 128,
-                     128 ** -0.5, 0, _build.stream_of(q))
+                     1, 128 ** -0.5, 0, _build.stream_of(q))
             if err:
                 raise RuntimeError(f"launch failed ({err})")
         o.zero_()

@@ -12,7 +12,10 @@ through SmoothQuant, static W8A8 + int8 KV, the engine dir and the loader,
 generating under TLLM_FUSE_GU; the decode probes; a sampled generate with
 penalties, bad and stop words and logprobs; beam search, dense and paged;
 GPT-2 with a prompt-tuning table under a repetition penalty; the accuracy
-harness on an in-process HF golden model with structured weights)
+harness on an in-process HF golden model with structured weights;
+ChatGLM through the non-causal prefill, its converter and a self-draft
+speculative run; BERT's QA head through InferenceSession with bucket
+padding)
 and serves (a paged and a packed ServingEngine, one with per-request
 sampling, logprobs and bad words, chunked prefill, mixed and pipelined
 steps, dense and paged, and OPT through model= with chunking; the
@@ -79,6 +82,11 @@ def test_no_module_imports_jax_or_the_jax_package():
             "trtllm_llama_tpu_torch/models/gpt.py",
             "trtllm_llama_tpu_torch/convert/hf_gpt.py",
             "trtllm_llama_tpu_torch/convert/hf_families.py",
+            "trtllm_llama_tpu_torch/models/chatglm.py",
+            "trtllm_llama_tpu_torch/convert/hf_chatglm.py",
+            "trtllm_llama_tpu_torch/models/bert.py",
+            "trtllm_llama_tpu_torch/convert/hf_bert.py",
+            "trtllm_llama_tpu_torch/runtime/single_shot.py",
             "tests/torch_tp_worker.py"} <= names
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
@@ -297,6 +305,45 @@ row = evaluate.evaluate_quant_mode(
     QuantMode.use_weight_only() | QuantMode.INT8_KV_CACHE, prompts,
     kv_scales=kv, cont_len=4, device="cpu")
 assert np.isfinite(row["ppl_ratio"]), row
+from trtllm_llama_tpu_torch.convert.hf_chatglm import (
+    config_from_chatglm, params_from_chatglm_state_dict)
+from trtllm_llama_tpu_torch.models import bert, chatglm
+from trtllm_llama_tpu_torch.runtime.single_shot import InferenceSession
+ccfg = config_from_chatglm(num_layers=1, hidden_size=64, num_heads=2,
+                           vocab_size=128, max_positions=64, dtype="float32")
+cp = chatglm.init_params(ccfg, device="cpu")
+assert set(params_from_chatglm_state_dict({
+    "transformer.word_embeddings.weight": cp["embedding"],
+    "transformer.final_layernorm.weight": cp["final_norm_w"],
+    "transformer.final_layernorm.bias": cp["final_norm_b"],
+    "lm_head.weight": cp["lm_head"].t(),
+    **{f"transformer.layers.0.{n}": t for n, t in (
+        ("attention.query_key_value.weight", torch.zeros(192, 64)),
+        ("attention.query_key_value.bias", torch.zeros(192)),
+        ("attention.dense.weight", torch.zeros(64, 64)),
+        ("attention.dense.bias", torch.zeros(64)),
+        ("input_layernorm.weight", torch.ones(64)),
+        ("input_layernorm.bias", torch.zeros(64)),
+        ("post_attention_layernorm.weight", torch.ones(64)),
+        ("post_attention_layernorm.bias", torch.zeros(64)),
+        ("mlp.dense_h_to_4h.weight", torch.zeros(256, 64)),
+        ("mlp.dense_h_to_4h.bias", torch.zeros(256)),
+        ("mlp.dense_4h_to_h.weight", torch.zeros(64, 256)),
+        ("mlp.dense_4h_to_h.bias", torch.zeros(64)))}}, ccfg)["layers"]) == set(
+    cp["layers"])
+ecfg = EngineConfig(max_batch_size=2, max_input_len=16, max_seq_len=32)
+plain = GenerationSession(ccfg, cp, ecfg, device="cpu", model=chatglm).generate(
+    [[5, 6, 7, 8], [9, 10]], max_new_tokens=4, sampling=SamplingConfig(end_id=-1))
+spec = SpeculativeSession(ccfg, cp, ccfg, cp, ecfg, gamma=2, model=chatglm,
+                          draft_model=chatglm, device="cpu").generate(
+    [[5, 6, 7, 8], [9, 10]], max_new_tokens=4, sampling=SamplingConfig(end_id=-1))
+assert (plain.output_ids == spec.output_ids).all(), (plain, spec)
+bcfg = bert.BertConfig(vocab_size=64, hidden_size=64, num_layers=1, num_heads=2,
+                       intermediate_size=128, max_position_embeddings=32)
+start, end = InferenceSession(bert.forward_qa, bcfg, bert.init_params(
+    bcfg, device="cpu", qa_head=True), pad_axis=1, buckets=(8, 16),
+    device="cpu").run(np.array([[5, 6, 7]], np.int32), np.array([3], np.int32))
+assert start.shape == end.shape == (1, 8), start.shape
 from trtllm_llama_tpu_torch.ops.kernels import probes
 assert probes.probe_u32_bf16_construct(probes.construct_inputs()).float()[
     0:2, 89].tolist() == [200.0, 168.0]

@@ -1,15 +1,17 @@
 // The bf16 / fp16 body of rows 10 and 13 (prefill_attention.cu,
-// packed_prefill_attention.cu): a causal GQA flash-attention tile on the
-// Hopper tensor cores (wgmma, sm_90a).
+// packed_prefill_attention.cu): a GQA flash-attention tile on the Hopper
+// tensor cores (wgmma, sm_90a), causal, or bidirectional for row 10's
+// non-causal branch (the encoder and prefix-LM prefill).
 //
 // Contract (both rows), per (b, h, row): scores = (q . k) * sm_scale
 // [+ slopes[h] * col] in f32, each product and the sum rounded on their own
 // (__fmul_rn / __fadd_rn, as the JAX package rounds them); masked to
-// col <= row and col < len (row 10) or seg[col] == seg[row] (row 13) with
-// the reference's finite NEG_INF, never NEG_INF + bias; columns at or past
-// S score -inf (a length of 0 averages V over exactly S columns); an f32
-// online softmax; out = (sum_j p_j v_j) / (sum_j p_j) in q's dtype. The
-// K/V head is h / (Hq / Hkv). P keeps f32's precision through P V (the
+// col <= row and col < len (row 10; col < len alone when `causal` is 0)
+// or seg[col] == seg[row] (row 13) with the reference's finite NEG_INF,
+// never NEG_INF + bias; columns at or past S score -inf (a length of 0
+// averages V over exactly S columns); an f32 online softmax;
+// out = (sum_j p_j v_j) / (sum_j p_j) in q's dtype. The K/V head is
+// h / (Hq / Hkv). P keeps f32's precision through P V (the
 // plain version's): the products take it as the sum of p_terms<T>() terms
 // of q's dtype (three for bf16, two for fp16), so the tile differs from
 // the plain version in the order of the f32 sums only. One bf16 term (P
@@ -33,8 +35,10 @@
 //     stored [keys, D] being K-major already;
 //   - the scale, bias and mask are applied where each accumulator element's
 //     (row, col) is known, so the running max sees the biased, masked
-//     score; the mask only on tiles that cross the diagonal, a length or a
-//     segment edge (c_begin / c_end and clean below);
+//     score; the mask only on tiles that cross the diagonal (causal), a
+//     length or a segment edge (c_begin / c_end and clean below); without
+//     the causal mask every query tile streams the same key tiles, through
+//     the last valid column;
 //   - each thread keeps its two rows' running max and (partial) sum in
 //     registers; P's terms are packed from the S accumulator into wgmma's
 //     register A fragments (the accumulator's (row, 8 j + 2 tig) pairs are
@@ -151,13 +155,14 @@ __host__ __device__ constexpr int p_terms() {
 
 // q [B, S, Hq, D], k/v [B, S, Hkv, D], out like q (row 13: B = 1, S = T).
 // lens: [B] valid lengths (row 10) or seg: [S] segment ids (row 13, PACKED);
-// slopes [Hq] when ALIBI. Grid (Hq, B, ceil(S / kBQ)).
+// slopes [Hq] when ALIBI; causal 0 drops col <= row (row 10 only: row 13
+// passes 1). Grid (Hq, B, ceil(S / kBQ)).
 template <typename T, int D, bool PACKED, bool ALIBI>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ lens_or_seg,
                  const float* __restrict__ slopes, T* __restrict__ out, int S,
-                 int Hq, int Hkv, float sm_scale) {
+                 int Hq, int Hkv, float sm_scale, int causal) {
   using C = Tile<D>;
   constexpr int kBK = C::kBK;
   extern __shared__ uint8_t flash_smem[];
@@ -177,9 +182,9 @@ __global__ void __launch_bounds__(kThreads)
 
   // The columns to stream, [c_begin, c_end), and the clean-tile rule: a
   // tile of columns [c0, c0 + kBK) needs no mask iff c0 + kBK - 1 <= row0
-  // (below the diagonal for every row), c0 + kBK <= lim (inside the
-  // length) and c0 >= lo (inside the run of the block's last row, hence of
-  // every row of the block).
+  // (below the diagonal for every row; any tile when not causal),
+  // c0 + kBK <= lim (inside the length) and c0 >= lo (inside the run of
+  // the block's last row, hence of every row of the block).
   int c_begin, c_end, lim, lo, len = S;
   if constexpr (PACKED) {
     __shared__ int red[kThreads / 32];
@@ -191,8 +196,9 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     len = lens_or_seg[b];
     c_begin = 0;
-    // a length of 0 masks every column: the row averages V over all S
-    c_end = (len > 0 ? min(last_row, len - 1) : S - 1) + 1;
+    // a length of 0 masks every column: the row averages V over all S;
+    // without the causal mask every row sees the columns below the length
+    c_end = (len > 0 ? min(causal ? last_row : S - 1, len - 1) : S - 1) + 1;
     lim = len;
     lo = 0;
   }
@@ -268,7 +274,8 @@ __global__ void __launch_bounds__(kThreads)
     // scale, bias, mask; s[4 j + e] is (ra + 8 (e / 2), c0 + 8 j + 2 tig +
     // e % 2)
     const int c0 = c_begin + t * kBK;
-    const bool clean = c0 + kBK - 1 <= row0 && c0 + kBK <= lim && c0 >= lo;
+    const bool clean = (!causal || c0 + kBK - 1 <= row0) && c0 + kBK <= lim &&
+                       c0 >= lo;
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
@@ -279,7 +286,7 @@ __global__ void __launch_bounds__(kThreads)
           x = __fadd_rn(x, __fmul_rn(slope, static_cast<float>(col)));
         if (!clean) {
           const int row = ra + 8 * (e >> 1);
-          bool keep = col <= row;
+          bool keep = !causal || col <= row;
           if constexpr (PACKED) {
             keep = keep && col < S && __ldg(lens_or_seg + col) ==
                                           (e >> 1 ? seg_b : seg_a);
@@ -403,11 +410,12 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-// Launch the tile for q's dtype T (bf16 or fp16) at head dim D.
+// Launch the tile for q's dtype T (bf16 or fp16) at head dim D; causal 0
+// (row 10 only) drops the causal mask.
 template <typename T, int D, bool PACKED>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lens_or_seg, const void* slopes, void* out,
-                   int B, int S, int Hq, int Hkv, float sm_scale,
+                   int B, int S, int Hq, int Hkv, float sm_scale, int causal,
                    cudaStream_t stream) {
   auto kernel = flash_kernel<T, D, PACKED, false>;
   if constexpr (!PACKED) {   // row 13 has no ALiBi branch
@@ -421,7 +429,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lens_or_seg),
       static_cast<const float*>(slopes), static_cast<T*>(out), S, Hq, Hkv,
-      sm_scale);
+      sm_scale, PACKED ? 1 : causal);
   return cudaGetLastError();
 }
 

@@ -1,11 +1,13 @@
 // The bf16 / fp16 body of row 12 (streaming_prefill_attention.cu) at head
-// dims 64, 96 and 128: a causal GQA flash-attention tile for long prompts,
-// warp-specialized for Hopper (TMA, mbarriers, wgmma, setmaxnreg; sm_90a).
+// dims 64, 96 and 128: a GQA flash-attention tile for long prompts, causal or
+// (`causal` 0) bidirectional, warp-specialized for Hopper (TMA, mbarriers,
+// wgmma, setmaxnreg; sm_90a).
 //
 // Contract, per (b, h, row): scores = (q . k) * sm_scale [+ slopes[h] * col]
 // in f32, the product and the sum rounded on their own (__fmul_rn /
-// __fadd_rn, as the JAX package rounds them); masked to col <= row and
-// col < lens[b] with the reference's finite NEG_INF, never NEG_INF + bias;
+// __fadd_rn, as the JAX package rounds them); masked to col <= row (when
+// causal) and col < lens[b] with the reference's finite NEG_INF, never
+// NEG_INF + bias;
 // columns at or past S score -inf (a length of 0 averages V over exactly S
 // columns); an f32 online softmax; out = (sum_j p_j v_j) / (sum_j p_j) in
 // q's dtype. The K/V head is h / (Hq / Hkv). P keeps f32's precision
@@ -53,9 +55,11 @@
 // Every wgmma operand is settled before a turn's wgmma.fence, and no wgmma
 // sits in a branch or after a spin loop the compiler sees: ptxas serializes
 // the wgmmas otherwise (its C7513 / C7520 notes).
-// Both warpgroups stream the block's key tiles, through its last row: the
-// first warpgroup's last tile lies above its diagonal and scores NEG_INF
-// there (p = 0), which keeps the two in step on the ring and the barriers.
+// Both warpgroups stream the block's key tiles, through its last row (causal)
+// or through the last valid column (not causal: every block streams the
+// same tiles): the first warpgroup's last causal tile lies above its
+// diagonal and scores NEG_INF there (p = 0), which keeps the two in step on
+// the ring and the barriers.
 // Head dims 32 and 256 stay on row 10's tile (flash_attention.cuh; the
 // entry dispatches by shape before launch).
 #pragma once
@@ -143,7 +147,8 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
 }
 
 // q [B, S, Hq, D]; k/v [B, S, Hkv, D] through the tensor maps; lens [B];
-// slopes [Hq] when ALIBI; out like q. Grid (Hq, B, ceil(S / kRows)).
+// slopes [Hq] when ALIBI; out like q; causal 0 drops col <= row. Grid
+// (Hq, B, ceil(S / kRows)).
 template <typename T, int D, bool ALIBI>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_ws_kernel(const T* __restrict__ q,
@@ -151,7 +156,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const __grid_constant__ CUtensorMap tm_v,
                     const int* __restrict__ lens,
                     const float* __restrict__ slopes, T* __restrict__ out,
-                    int S, int Hq, int Hkv, float sm_scale) {
+                    int S, int Hq, int Hkv, float sm_scale, int causal) {
   using C = Tile<D>;
   extern __shared__ uint8_t ws_smem[];
   __shared__ __align__(8) uint64_t bars[2 * kStages];  // full[s], empty[s]
@@ -164,11 +169,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.y;
   const int row0 = (gridDim.z - 1 - blockIdx.z) * kRows;
   const int len = lens[b];
-  // the columns to stream: through the block's last causal row and the last
-  // valid column; all S when the length is 0 (every column then scores
-  // NEG_INF and the row averages V)
-  const int c_end = (len > 0 ? min(min(row0 + kRows, S) - 1, len - 1)
-                             : S - 1) + 1;
+  // the columns to stream: through the block's last causal row (all S when
+  // not causal) and the last valid column; all S when the length is 0
+  // (every column then scores NEG_INF and the row averages V)
+  const int last = causal ? min(row0 + kRows, S) - 1 : S - 1;
+  const int c_end = (len > 0 ? min(last, len - 1) : S - 1) + 1;
   const int n_tiles = (c_end + kBK - 1) / kBK;
   // the warpgroup's role, warp-uniform as the compiler sees it
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -302,7 +307,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     gemm::fence_fragment(sf);
     // sf[4 j + e] is (ra + 8 (e / 2), c0 + 8 j + 2 tig + e % 2); a tile
     // needs the mask unless it lies below the diagonal of every row of this
-    // warpgroup and inside the length
+    // warpgroup (or the call is not causal) and inside the length
     const int c0 = t * kBK;
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j) {
@@ -315,14 +320,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         sf[4 * j + e] = x;
       }
     }
-    if (!(c0 + kBK - 1 <= rw0 && c0 + kBK <= len)) {
+    if (!((!causal || c0 + kBK - 1 <= rw0) && c0 + kBK <= len)) {
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = c0 + 8 * j + 2 * tig + (e & 1);
           const int row = ra + 8 * (e >> 1);
-          const bool keep = col <= row && col < len;
+          const bool keep = (!causal || col <= row) && col < len;
           sf[4 * j + e] = col >= S ? neg_infinity() : keep ? sf[4 * j + e]
                                                            : kNegInf;
         }
@@ -521,11 +526,11 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int H,
 }
 
 // Launch the tile for q's dtype T (bf16 or fp16) at head dim D (64, 96,
-// 128); slopes null for no ALiBi.
+// 128); slopes null for no ALiBi; causal 0 drops the causal mask.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lens, const void* slopes, void* out, int B,
-                   int S, int Hq, int Hkv, float sm_scale,
+                   int S, int Hq, int Hkv, float sm_scale, int causal,
                    cudaStream_t stream) {
   CUtensorMap mk, mv;
   cudaError_t err = make_map<T>(&mk, k, B, S, Hkv, D);
@@ -540,7 +545,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), mk, mv, static_cast<const int*>(lens),
       static_cast<const float*>(slopes), static_cast<T*>(out), S, Hq, Hkv,
-      sm_scale);
+      sm_scale, causal);
   return cudaGetLastError();
 }
 

@@ -160,7 +160,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float sm_scale, cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     return flash::launch<T, D, true>(q, k, v, seg, nullptr, out, 1, Tn, Hq,
-                                     Hkv, sm_scale, stream);
+                                     Hkv, sm_scale, 1, stream);
   } else {
     const dim3 grid((Tn + kBQ - 1) / kBQ, Hq);
     constexpr int smem = (kBQ * D + kBK * (D + 1) + kBK * D) * 4;

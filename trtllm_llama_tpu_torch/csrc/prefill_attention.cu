@@ -1,4 +1,6 @@
-// Row 10: causal GQA prefill (context-phase) attention.
+// Row 10: GQA prefill (context-phase) attention, causal, or bidirectional
+// (`causal` 0: the encoder's and the prefix-LM context's mask, col < len
+// alone, as the JAX package's prefill_attention(causal=False)).
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/attention.py::prefill_attention_kernel
 // (its ALiBi branch included), for prompts of up to prefill_streaming_min_s
@@ -6,7 +8,8 @@
 //
 // Computes, per (b, h, row): scores = (q . k) * sm_scale + slopes[h] * col in
 // f32 (ALiBi's key-position form, as the JAX package adds it; no bias when
-// slopes is null), masked to cols <= row and cols < seq_lens[b] with the
+// slopes is null), masked to cols <= row (when causal) and cols <
+// seq_lens[b] with the
 // finite NEG_INF of the reference (never NEG_INF + bias; a length of 0 masks
 // every column, and the row averages V over exactly the S columns: columns
 // at or past S score -inf), an f32 softmax, and (p @ v) / sum(p) cast to
@@ -27,11 +30,12 @@
 //     0.0490 ms (0.72x SDPA with the same mask, 19% of the byte bound),
 //     where the CUDA-core loop below took 1.2989 ms in bf16 (chip_smoke.py;
 //     PERF.md).
-//   - f32: no path feeds f32 to the card; it keeps the exact CUDA-core body
+//   - f32 (the smoke's f32 reference runs): the exact CUDA-core body
 //     below: one block per (b, h, 16-row q tile), four warps of four rows;
 //     32-key K/V tiles staged in shared memory as f32 (K padded to D+1
 //     columns so the lane-per-key dot product is free of bank conflicts),
-//     tiles past the block's last causal or valid column skipped, each
+//     tiles past the block's last causal (when causal) or valid column
+//     skipped, each
 //     row's running max, denominator and D/32 accumulators per lane in
 //     registers.
 #include <type_traits>
@@ -56,7 +60,7 @@ __global__ void __launch_bounds__(kWarps * 32)
                           const int* __restrict__ seq_lens,
                           const float* __restrict__ slopes,
                           T* __restrict__ out, int S, int Hq, int Hkv,
-                          float sm_scale) {
+                          float sm_scale, int causal) {
   constexpr int DL = D / 32;  // head dims per lane
   extern __shared__ float prefill_smem[];
   auto qs = reinterpret_cast<float (*)[D]>(prefill_smem);
@@ -88,10 +92,10 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int i = 0; i < DL; ++i) acc[rr][i] = 0.f;
   }
 
-  // Columns that can be unmasked for some row of this block. A sequence of
-  // length 0 masks everything; the reference then averages over all S
-  // columns, so stream them all.
-  const int last_row = min(row0 + kBQ, S) - 1;
+  // Columns that can be unmasked for some row of this block (every valid
+  // one when not causal). A sequence of length 0 masks everything; the
+  // reference then averages over all S columns, so stream them all.
+  const int last_row = causal ? min(row0 + kBQ, S) - 1 : S - 1;
   const int n_cols = (len > 0 ? min(last_row, len - 1) : S - 1) + 1;
 
   for (int c0 = 0; c0 < n_cols; c0 += kBK) {
@@ -120,7 +124,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       s = __fadd_rn(__fmul_rn(s, sm_scale), __fmul_rn(slope, static_cast<float>(col)));
       if (col >= S) {
         s = neg_infinity();  // padding of the last tile: never counted
-      } else if (!(col <= row && col < len)) {
+      } else if (!((!causal || col <= row) && col < len)) {
         s = kNegInf;
       }
       const float m_new = fmaxf(m[rr], warp_max(s));
@@ -152,10 +156,11 @@ __global__ void __launch_bounds__(kWarps * 32)
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* seq_lens, const void* slopes, void* out, int B,
-                   int S, int Hq, int Hkv, float sm_scale, cudaStream_t stream) {
+                   int S, int Hq, int Hkv, float sm_scale, int causal,
+                   cudaStream_t stream) {
   if constexpr (!std::is_same<T, float>::value) {
     return flash::launch<T, D, false>(q, k, v, seq_lens, slopes, out, B, S,
-                                      Hq, Hkv, sm_scale, stream);
+                                      Hq, Hkv, sm_scale, causal, stream);
   } else {
     const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
     constexpr int smem = (kBQ * D + kBK * (D + 1) + kBK * D) * 4;
@@ -165,7 +170,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const int*>(seq_lens),
         static_cast<const float*>(slopes), static_cast<T*>(out), S, Hq, Hkv,
-        sm_scale);
+        sm_scale, causal);
     return cudaGetLastError();
   }
 }
@@ -173,14 +178,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      const void* seq_lens, const void* slopes, void* out, int B,
-                     int S, int Hq, int Hkv, float sm_scale,
+                     int S, int Hq, int Hkv, float sm_scale, int causal,
                      cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, stream);
-    case 96: return launch<T, 96>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, stream);
-    case 256: return launch<T, 256>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, stream);
+    case 32: return launch<T, 32>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, causal, stream);
+    case 96: return launch<T, 96>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, causal, stream);
+    case 256: return launch<T, 256>(q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -189,21 +194,21 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 
 // q [B, S, Hq, D], k/v [B, S, Hkv, D] (dtype), seq_lens [B] int32, slopes
 // [Hq] f32 ALiBi slopes or null, out [B, S, Hq, D] (dtype). D in
-// {32, 64, 96, 128, 256}; Hq % Hkv == 0.
+// {32, 64, 96, 128, 256}; Hq % Hkv == 0; causal 0 drops col <= row.
 extern "C" int tllm_prefill_attention(const void* q, const void* k,
                                       const void* v, const void* seq_lens,
                                       const void* slopes, void* out, int dtype,
                                       int B, int S, int Hq, int Hkv, int D,
-                                      float sm_scale, int device,
+                                      int causal, float sm_scale, int device,
                                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, s);
+    return launch_d<__nv_bfloat16>(D, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, causal, s);
   if (dtype == kF16)
-    return launch_d<__half>(D, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, s);
+    return launch_d<__half>(D, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, causal, s);
   if (dtype == kF32)
-    return launch_d<float>(D, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, s);
+    return launch_d<float>(D, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv, sm_scale, causal, s);
   return cudaErrorInvalidValue;
 }

@@ -1,13 +1,14 @@
-// Row 12: causal GQA prefill attention for long prompts (every prompt longer
-// than KERNELS['prefill_streaming_min_s'], 2048 rows).
+// Row 12: GQA prefill attention for long prompts (every prompt longer than
+// KERNELS['prefill_streaming_min_s'], 2048 rows), causal, or bidirectional
+// (`causal` 0: col < len alone, the JAX package's causal=False).
 //
 // Replaces: trtllm_llama_tpu/ops/pallas/attention.py::
 // streaming_prefill_attention_kernel, its ALiBi branch included.
 //
 // Computes, per (b, h, row): scores = (q . k) * sm_scale + slopes[h] * col in
 // f32 (ALiBi's key-position form, as the JAX package adds it; the bias term
-// is absent when slopes is null), masked to cols <= row and cols <
-// seq_lens[b] with the finite NEG_INF of the reference (a length of 0 masks
+// is absent when slopes is null), masked to cols <= row (when causal) and
+// cols < seq_lens[b] with the finite NEG_INF of the reference (a length of 0 masks
 // every column, and the row then averages V over all S columns, as the
 // reference's softmax does; columns at or past S score -inf and never
 // count), an f32 online softmax, and out = (sum_j p_j v_j) / (sum_j p_j) in
@@ -30,8 +31,8 @@
 //     warps of 16 query rows, 32-key tiles staged in shared memory, one key
 //     per lane, f32 FMAs, so f32 stays exact; the last tiles, which see the
 //     most keys, launch first, and key tiles past the block's last causal
-//     row or the length are skipped (all S columns are streamed when the
-//     length is 0).
+//     row (when causal) or the length are skipped (all S columns are
+//     streamed when the length is 0).
 #include "flash_attention.cuh"
 #include "flash_attention_ws.cuh"
 
@@ -46,26 +47,29 @@ constexpr int kRowsPerWarp = kBQ / kWarps;
 constexpr int kBKF = 32;             // keys per staged tile (one per lane)
 
 // The mask of the reference: -inf past S (never counted), NEG_INF outside
-// the causal / length mask, the scaled score inside it.
+// the causal (when causal) / length mask, the scaled score inside it.
 __device__ __forceinline__ float masked(float s, int row, int col, int len,
-                                       int S) {
+                                       int S, int causal) {
   if (col >= S) return neg_infinity();
-  return (col > row || col >= len) ? kNegInf : s;
+  return ((causal && col > row) || col >= len) ? kNegInf : s;
 }
 
 // The scaled, biased and masked score of (row, col).
 __device__ __forceinline__ float biased(float s, float sm_scale, float slope,
-                                        int row, int col, int len, int S) {
+                                        int row, int col, int len, int S,
+                                        int causal) {
   // no contraction into an fma: the JAX package rounds the product first
   const float v = __fadd_rn(__fmul_rn(s, sm_scale),
                             __fmul_rn(slope, static_cast<float>(col)));
-  return masked(v, row, col, len, S);
+  return masked(v, row, col, len, S, causal);
 }
 
 // Columns a block with rows [row0, row0 + kBQ) streams: through its last
-// causal row and the last valid column, or all S when the length is 0.
-__device__ __forceinline__ int block_cols(int row0, int len, int S) {
-  const int last_row = min(row0 + kBQ, S) - 1;
+// causal row (all S when not causal) and the last valid column, or all S
+// when the length is 0.
+__device__ __forceinline__ int block_cols(int row0, int len, int S,
+                                          int causal) {
+  const int last_row = causal ? min(row0 + kBQ, S) - 1 : S - 1;
   return (len > 0 ? min(last_row, len - 1) : S - 1) + 1;
 }
 
@@ -84,7 +88,7 @@ __global__ void __launch_bounds__(kThreads)
                                  const int* __restrict__ seq_lens,
                                  const float* __restrict__ slopes,
                                  float* __restrict__ out, int S, int Hq,
-                                 int Hkv, float sm_scale) {
+                                 int Hkv, float sm_scale, int causal) {
   constexpr int DL = D / 32;  // head dims per lane
   extern __shared__ float smem[];
   float* qs = smem;                  // [kBQ][D]
@@ -117,7 +121,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < DL; ++i) acc[rr][i] = 0.f;
   }
 
-  const int n_cols = block_cols(row0, len, S);
+  const int n_cols = block_cols(row0, len, S, causal);
   for (int c0 = 0; c0 < n_cols; c0 += kBKF) {
     __syncthreads();  // previous tile consumed (first pass: qs written)
     for (int i = threadIdx.x; i < kBKF * D; i += kThreads) {
@@ -140,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
       float s = 0.f;
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], ks[lane * (D + 1) + d], s);
-      s = biased(s, sm_scale, slope, row0 + r, c0 + lane, len, S);
+      s = biased(s, sm_scale, slope, row0 + r, c0 + lane, len, S, causal);
       const float m_new = fmaxf(m[rr], warp_max(s));
       const float p = expf(s - m_new);
       const float alpha = expf(m[rr] - m_new);
@@ -175,26 +179,26 @@ template <typename T, int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* seq_lens, const void* slopes, void* out,
                       int B, int S, int Hq, int Hkv, float sm_scale,
-                      cudaStream_t stream) {
+                      int causal, cudaStream_t stream) {
   if constexpr (D == 32 || D == 256)
     return flash::launch<T, D, false>(q, k, v, seq_lens, slopes, out, B, S,
-                                      Hq, Hkv, sm_scale, stream);
+                                      Hq, Hkv, sm_scale, causal, stream);
   else
     return flash_ws::launch<T, D>(q, k, v, seq_lens, slopes, out, B, S, Hq,
-                                  Hkv, sm_scale, stream);
+                                  Hkv, sm_scale, causal, stream);
 }
 
 template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    const void* seq_lens, const void* slopes, void* out, int B,
-                   int S, int Hq, int Hkv, float sm_scale,
+                   int S, int Hq, int Hkv, float sm_scale, int causal,
                    cudaStream_t stream) {
   if (dtype == kBF16)
     return launch_tc<__nv_bfloat16, D>(q, k, v, seq_lens, slopes, out, B, S,
-                                       Hq, Hkv, sm_scale, stream);
+                                       Hq, Hkv, sm_scale, causal, stream);
   if (dtype == kF16)
     return launch_tc<__half, D>(q, k, v, seq_lens, slopes, out, B, S, Hq,
-                                Hkv, sm_scale, stream);
+                                Hkv, sm_scale, causal, stream);
   if (dtype != kF32) return cudaErrorInvalidValue;
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
   constexpr int smem = f32_smem_bytes<D>();
@@ -204,7 +208,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(seq_lens),
       static_cast<const float*>(slopes), static_cast<float*>(out), S, Hq, Hkv,
-      sm_scale);
+      sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -212,30 +216,30 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 
 // q [B, S, Hq, D], k/v [B, S, Hkv, D] (dtype; 16-byte aligned), seq_lens [B]
 // int32, slopes [Hq] f32 ALiBi slopes or null, out [B, S, Hq, D] (dtype).
-// D in {32, 64, 96, 128, 256}; Hq % Hkv == 0.
+// D in {32, 64, 96, 128, 256}; Hq % Hkv == 0; causal 0 drops col <= row.
 extern "C" int tllm_streaming_prefill_attention(
     const void* q, const void* k, const void* v, const void* seq_lens,
     const void* slopes, void* out, int dtype, int B, int S, int Hq, int Hkv,
-    int D, float sm_scale, int device, void* stream) {
+    int D, int causal, float sm_scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
       return launch<32>(dtype, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv,
-                        sm_scale, s);
+                        sm_scale, causal, s);
     case 64:
       return launch<64>(dtype, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv,
-                        sm_scale, s);
+                        sm_scale, causal, s);
     case 96:
       return launch<96>(dtype, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv,
-                        sm_scale, s);
+                        sm_scale, causal, s);
     case 128:
       return launch<128>(dtype, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv,
-                         sm_scale, s);
+                         sm_scale, causal, s);
     case 256:
       return launch<256>(dtype, q, k, v, seq_lens, slopes, out, B, S, Hq, Hkv,
-                         sm_scale, s);
+                         sm_scale, causal, s);
     default:
       return cudaErrorInvalidValue;
   }

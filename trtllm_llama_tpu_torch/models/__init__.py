@@ -2,10 +2,12 @@
 
 `by_architecture` maps the ModelConfig.architecture tag to the object that
 implements the forward contract: the `llama` module, the `gpt` module
-(GPT-2, with prompt tuning), or one of the decoder families of
-`models/decoder.py`. Every model has
+(GPT-2, with prompt tuning), the `chatglm` module (ChatGLM-6B), or one of
+the decoder families of `models/decoder.py`. Every model has
 
-- init_caches(cfg, batch, max_len, device, kv_scales) -> dense KVCache;
+- init_caches(cfg, batch, max_len, device, kv_scales) -> its cache (the
+  dense KVCache; chatglm's wraps one in a `ChatGLMCache` with the context
+  lengths and mask positions its 2D rotary reads);
 - rope_tables(cfg, device) -> (cos, sin), or None without rotary;
 - forward_prefill(params, cfg, ids [B, S], lens [B], caches,
   return_all_logits=False, rope=None, slots=None) -> (logits, caches)
@@ -16,9 +18,13 @@ implements the forward contract: the `llama` module, the `gpt` module
 - forward_decode(params, cfg, tokens [B], positions [B], caches,
   rope=None) -> (logits [B, V], caches).
 
-`slots` [B] are the dense cache rows a call writes (default 0..B-1). Only
-llama has `forward_prefill_packed`, `fuse_qkv_params` and a paged KV pool
-(`PAGED_CACHE`); the serving engine checks for them.
+`slots` [B] are the dense cache rows a call writes (default 0..B-1);
+chatglm's forward_prefill takes none (nor `forward_extend`), as the JAX
+package's, so the serving engine cannot serve it. Only llama has
+`forward_prefill_packed`, `fuse_qkv_params` and a paged KV pool
+(`PAGED_CACHE`); the serving engine checks for them. The BERT encoder
+(`models/bert.py`) has no cache and no architecture tag: it runs through
+`runtime.single_shot.InferenceSession`.
 """
 
 
@@ -31,6 +37,9 @@ def by_architecture(name: str):
     if name in ("gpt", "gpt2"):
         from . import gpt
         return gpt
+    if name == "chatglm":
+        from . import chatglm
+        return chatglm
     from . import decoder
     families = {"gptj": decoder.GPTJ, "gpt-j": decoder.GPTJ,
                 "gptneox": decoder.GPTNEOX, "gpt-neox": decoder.GPTNEOX,
@@ -38,7 +47,7 @@ def by_architecture(name: str):
                 "falcon": decoder.FALCON}
     if name in families:
         return families[name]
-    unported = {"chatglm": "models/chatglm.py", "mixtral": "models/moe.py"}
+    unported = {"mixtral": "models/moe.py"}
     if name in unported:
         raise NotImplementedError(
             f"architecture {name!r} ({unported[name]} of the JAX package) is "

@@ -14,7 +14,9 @@ Which kernel runs is chosen by the knobs of `ops/registry.KERNELS`, as in
 the JAX package; whether it is the CUDA kernel or its plain version, by the
 tensor's device inside the kernel wrapper. `prefill_attention` goes to the
 streaming kernel (row 12) for prompts longer than
-`prefill_streaming_min_s`, else to kernel 2; `packed_prefill_attention` to
+`prefill_streaming_min_s`, else to kernel 2, causal or not (`causal=False`:
+each kernel's non-causal branch, where the JAX package sends every
+non-causal call to XLA); `packed_prefill_attention` to
 kernel 13; `fused_decode_attention_at` by `decode_attn_mode`: kernel 3 for
 'auto', 'dma' and 'xla' at every cache length (the JAX package's switch
 to its DMA kernel at S_max >= 4096 is a TPU crossover the port does not
@@ -228,19 +230,24 @@ def alibi_slopes(n_heads: int, device="cpu") -> torch.Tensor:
 
 
 def prefill_attention(q, k, v, seq_lens=None, scale: Optional[float] = None,
-                      alibi=None):
-    """Causal self-attention over a prompt. q: [B, S, H_q, D]; k, v:
-    [B, S, H_kv, D]; seq_lens: optional [B] valid lengths (keys at
-    positions >= len are masked); alibi: optional [H_q] slopes (slope *
-    key position added to the scaled scores). Prompts of more rows than
-    KERNELS['prefill_streaming_min_s'] (None: 2048; 0 sends every prompt)
-    go to the streaming kernel, shorter ones to kernel 2. Returns
-    [B, S, H_q, D]."""
+                      alibi=None, causal: bool = True):
+    """Self-attention over a prompt, causal, or with `causal=False`
+    bidirectional (the encoder's and ChatGLM's prefix-LM context: the
+    length mask alone, every row computed, pad rows included; a length of
+    0 averages V over all S, as the JAX package's XLA path). q: [B, S,
+    H_q, D]; k, v: [B, S, H_kv, D]; seq_lens: optional [B] valid lengths
+    (keys at positions >= len are masked); alibi: optional [H_q] slopes
+    (slope * key position added to the scaled scores). Prompts of more rows
+    than KERNELS['prefill_streaming_min_s'] (None: 2048; 0 sends every
+    prompt) go to the streaming kernel, shorter ones to kernel 2, whatever
+    `causal`. Returns [B, S, H_q, D]."""
     min_s = KERNELS["prefill_streaming_min_s"]
     kernel = (_streaming.streaming_prefill_attention_kernel
               if q.shape[1] > (2048 if min_s is None else min_s)
               else _prefill.prefill_attention_kernel)
     kw = {} if alibi is None else {"alibi": alibi}
+    if not causal:
+        kw["causal"] = False
     return kernel(q, k, v, seq_lens, scale, **kw)
 
 

@@ -1,4 +1,5 @@
-"""Kernel 2 (row 10): causal GQA prefill attention (csrc/prefill_attention.cu).
+"""Kernel 2 (row 10): GQA prefill attention, causal or bidirectional
+(csrc/prefill_attention.cu).
 
 Replaces
 `trtllm_llama_tpu/ops/pallas/attention.py::prefill_attention_kernel`, its
@@ -18,9 +19,18 @@ heads of 128 (Task A's prefill) takes 0.0490 ms (19% of its 0.0095 ms byte
 bound), against 0.0680 for SDPA with the same mask and 1.2989 for the
 CUDA-core loop that f32 keeps (chip_smoke.py; PERF.md).
 
+`causal=False` (the encoder's and ChatGLM's prefix-LM context) drops the
+col <= row mask and keeps the length mask: every row, pad rows included,
+attends the columns below its sequence's length, and a length of 0
+averages V over all S columns, as the JAX package's XLA path does. The
+tile streams each query tile's key tiles through the last valid column
+and tests the length edge only; its bound doubles to the 4*Hq*D*S*len
+flops of the full rectangle.
+
 `prefill_attention_kernel` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors (head dims 32, 64, 96, 128 and 256;
-any other raises); `.launches` counts launches.
+any other raises); `.launches` counts launches, `.noncausal_launches`
+the non-causal ones among them.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ from . import _build
 NEG_INF = -1e9
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"tllm_prefill_attention": [_P] * 6 + [_I] * 6 + [_F, _I, _P]}
+_SIGNATURES = {"tllm_prefill_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _P]}
 
 
 def alibi_bias(alibi, cols):
@@ -59,9 +69,10 @@ def split_p(p, dtype, n):
 
 
 def prefill_attention_kernel_plain(q, k, v, seq_lens=None, sm_scale=None,
-                                   alibi=None, p_terms=None):
+                                   alibi=None, p_terms=None, causal=True):
     """Plain PyTorch version: f32 scores * sm_scale [+ alibi[h] * col],
-    mask cols <= rows and cols < seq_lens[b] with NEG_INF, f32 softmax,
+    mask cols <= rows (when causal) and cols < seq_lens[b] with NEG_INF
+    (a length of 0 averages V over all S columns), f32 softmax,
     f32 p @ v, cast to q's dtype. p_terms = n carries the unnormalised P
     through P V as split_p(P, q's dtype, n) (the sum of P stays f32): a
     measure of how precisely P must be carried, not the contract."""
@@ -74,7 +85,8 @@ def prefill_attention_kernel_plain(q, k, v, seq_lens=None, sm_scale=None,
     cols = torch.arange(s, device=q.device)
     scores = (torch.matmul(qf, kf.transpose(-1, -2)) * scale     # [B,Hq,S,S]
               + alibi_bias(alibi, cols))
-    mask = cols[None, :] <= cols[:, None]
+    mask = (cols[None, :] <= cols[:, None] if causal
+            else torch.ones((s, s), dtype=torch.bool, device=q.device))
     if seq_lens is not None:
         mask = mask & (cols[None, None, :] < seq_lens[:, None, None])
         mask = mask[:, None]
@@ -89,13 +101,13 @@ def prefill_attention_kernel_plain(q, k, v, seq_lens=None, sm_scale=None,
 
 
 def prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None,
-                             alibi=None):
+                             alibi=None, causal=True):
     """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D]; seq_lens: optional [B] int32
-    valid lengths; alibi: optional [Hq] slopes. Returns [B, S, Hq, D] in
-    q's dtype."""
+    valid lengths; alibi: optional [Hq] slopes; causal=False: the length
+    mask alone. Returns [B, S, Hq, D] in q's dtype."""
     if q.device.type == "cpu":
         return prefill_attention_kernel_plain(q, k, v, seq_lens, sm_scale,
-                                              alibi)
+                                              alibi, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"prefill_attention_kernel: unsupported device {q.device}")
     b, s, hq, d = q.shape
@@ -128,11 +140,14 @@ def prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None,
     err = lib.tllm_prefill_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(seq_lens),
         _build.ptr(alibi), _build.ptr(out), _build.DTYPE_CODES[q.dtype], b,
-        s, hq, hkv, d,
+        s, hq, hkv, d, int(bool(causal)),
         float(scale), q.device.index or 0, _build.stream_of(q))
     _build.check(err, "prefill_attention_kernel")
     prefill_attention_kernel.launches += 1
+    if not causal:
+        prefill_attention_kernel.noncausal_launches += 1
     return out
 
 
 prefill_attention_kernel.launches = 0
+prefill_attention_kernel.noncausal_launches = 0

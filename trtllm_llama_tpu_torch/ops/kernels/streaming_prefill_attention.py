@@ -1,4 +1,4 @@
-"""Row 12: causal GQA prefill attention for long prompts
+"""Row 12: GQA prefill attention for long prompts, causal or bidirectional
 (csrc/streaming_prefill_attention.cu).
 
 Replaces `trtllm_llama_tpu/ops/pallas/attention.py::
@@ -17,9 +17,16 @@ contract), chosen by shape before launch; f32 inputs take a CUDA-core
 loop. Key tiles past the block's rows or the sequence length are skipped
 (see the sources' notes).
 
+`causal=False` drops the col <= row mask (the length mask stays, as in
+row 10's non-causal branch): every row block streams the key tiles
+through the last valid column, and the warp-specialized tile's two
+consumers see the same tiles with no diagonal; the bound doubles to the
+full rectangle's flops.
+
 `streaming_prefill_attention_kernel` takes the plain version for CPU tensors
 and launches the kernel for CUDA tensors (head dims 32, 64, 96, 128 and
-256; any other raises); `.launches` counts launches.
+256; any other raises); `.launches` counts launches, `.noncausal_launches`
+the non-causal ones among them.
 """
 
 from __future__ import annotations
@@ -36,15 +43,16 @@ Q_BLOCK = 512   # query rows per step of the plain version
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"tllm_streaming_prefill_attention":
-               [_P] * 6 + [_I] * 6 + [_F, _I, _P]}
+               [_P] * 6 + [_I] * 7 + [_F, _I, _P]}
 
 
 def streaming_prefill_attention_kernel_plain(q, k, v, seq_lens=None,
-                                             sm_scale=None, alibi=None):
+                                             sm_scale=None, alibi=None,
+                                             causal=True):
     """Plain PyTorch version, Q_BLOCK query rows at a time (f32 scores
     [B, Hq, Q_BLOCK, S], so memory grows with S, not S^2): f32 scores *
-    sm_scale [+ alibi[h] * col], mask cols <= rows and cols < seq_lens[b]
-    with NEG_INF (a
+    sm_scale [+ alibi[h] * col], mask cols <= rows (when causal) and cols
+    < seq_lens[b] with NEG_INF (a
     length of 0 averages V over all S columns), f32 softmax, f32 p @ v,
     cast to q's dtype."""
     b, s, hq, d = q.shape
@@ -62,8 +70,9 @@ def streaming_prefill_attention_kernel_plain(q, k, v, seq_lens=None,
         qf = q[:, r0:r0 + Q_BLOCK].float().transpose(1, 2)       # [B,Hq,R,D]
         scores = (torch.matmul(qf, kf.transpose(-1, -2)) * scale
                   + bias)                                        # [B,Hq,R,S]
-        mask = ((cols[None, :] <= rows[:, None])[None]
-                & (cols[None, None, :] < lens[:, None, None]))   # [B,R,S]
+        mask = cols[None, None, :] < lens[:, None, None]         # [B,1,S]
+        if causal:
+            mask = mask & (cols[None, :] <= rows[:, None])[None]  # [B,R,S]
         scores = torch.where(mask[:, None], scores,
                              torch.full_like(scores, NEG_INF))
         probs = torch.softmax(scores, dim=-1)
@@ -73,13 +82,13 @@ def streaming_prefill_attention_kernel_plain(q, k, v, seq_lens=None,
 
 
 def streaming_prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None,
-                                       alibi=None):
+                                       alibi=None, causal=True):
     """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D]; seq_lens: optional [B] int32
-    valid lengths; alibi: optional [Hq] slopes. Returns [B, S, Hq, D] in
-    q's dtype."""
+    valid lengths; alibi: optional [Hq] slopes; causal=False: the length
+    mask alone. Returns [B, S, Hq, D] in q's dtype."""
     if q.device.type == "cpu":
-        return streaming_prefill_attention_kernel_plain(q, k, v, seq_lens,
-                                                        sm_scale, alibi)
+        return streaming_prefill_attention_kernel_plain(
+            q, k, v, seq_lens, sm_scale, alibi, causal=causal)
     if q.device.type != "cuda":
         raise ValueError("streaming_prefill_attention_kernel: unsupported "
                          f"device {q.device}")
@@ -112,11 +121,14 @@ def streaming_prefill_attention_kernel(q, k, v, seq_lens=None, sm_scale=None,
     err = lib.tllm_streaming_prefill_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(seq_lens),
         _build.ptr(alibi), _build.ptr(out), _build.DTYPE_CODES[q.dtype], b,
-        s, hq, hkv, d,
+        s, hq, hkv, d, int(bool(causal)),
         float(scale), q.device.index or 0, _build.stream_of(q))
     _build.check(err, "streaming_prefill_attention_kernel")
     streaming_prefill_attention_kernel.launches += 1
+    if not causal:
+        streaming_prefill_attention_kernel.noncausal_launches += 1
     return out
 
 
 streaming_prefill_attention_kernel.launches = 0
+streaming_prefill_attention_kernel.noncausal_launches = 0

@@ -15,6 +15,11 @@ parent, in one of two ways with identical outputs:
   the parent's partial block in its own block, so no row ever writes a
   shared block; per-step traffic is one block a row.
 
+A model whose cache wraps the dense one (chatglm's `ChatGLMCache`, in its
+`kv`) moves that cache's window; its per-row context lengths and mask
+positions are the same for every beam of a batch row and stay. The paged
+pool is llama's (`PAGED_CACHE`): another model raises.
+
 Token histories move with their parents, so the history is the path (no
 final backtrack). Scores are cumulative log-probs; finished beams stay as
 frozen pad continuations at their score; the final ranking divides by
@@ -110,6 +115,11 @@ def beam_search_decode(params, cfg, input_ids, seq_lens, caches, *,
     w, dev = beam_width, input_ids.device
     bw = b * w
     nbr = 0
+    if paged_block and not getattr(model, "PAGED_CACHE", False):
+        raise NotImplementedError(
+            f"paged beam search needs a model with a paged KV cache path "
+            f"(PAGED_CACHE, llama's); {getattr(model, '__name__', model)} "
+            "has none, as in the JAX package: use beam_paged_block=0")
     if paged_block:
         caches, nbr = _init_beam_paged(cfg, bw, s + max_new_tokens,
                                        paged_block, dev, kv_scales)
@@ -147,7 +157,8 @@ def beam_search_decode(params, cfg, input_ids, seq_lens, caches, *,
             caches = _reorder_paged(caches, gidx, positions, paged_block,
                                     nbr)
         else:
-            for a in (caches.k, caches.v):
+            kv = getattr(caches, "kv", caches)
+            for a in (kv.k, kv.v):
                 _gather_cache_window(a, gidx, lens_t, max_new_tokens)
         out = torch.gather(out, 1, parent[:, :, None].expand_as(out))
         out_lens = torch.gather(out_lens, 1, parent)

@@ -91,6 +91,7 @@ their own frozen row (dense) or the trash block (paged).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 import time
 from typing import Dict, List, Optional
@@ -199,6 +200,13 @@ class ServingEngine:
                       else by_architecture(cfg.architecture))
         arch = cfg.architecture or "llama"
         # capability checks against the resolved model, as the JAX engine
+        if "slots" not in inspect.signature(
+                self.model.forward_prefill).parameters:
+            raise NotImplementedError(
+                f"model {getattr(self.model, '__name__', arch)!r}: its "
+                "forward_prefill takes no slots= (it writes cache rows "
+                "0..B-1, as the JAX package's, whose engine fails on it), so "
+                "the slot pool cannot serve it; use GenerationSession")
         if paged and not getattr(self.model, "PAGED_CACHE", False):
             raise ValueError(
                 f"model family {arch!r} has no paged KV cache path: serve "
